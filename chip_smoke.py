@@ -19,7 +19,19 @@ Phases (any failure raises and the script exits non-zero):
    checked record by record against the DSL interpreter on the host;
 4. json-regex-filter chain: ``key="name", regex="^(fluvio|kafka|pulsar)-
    [0-3]$"`` over 1,048,576 records; survivors checked against ``re`` over
-   ``json_get_bytes`` on the host; all three kernels must have launched.
+   ``json_get_bytes`` on the host; all three kernels must have launched;
+5. striped kernels: the DFA composition kernel against its plain version
+   at the fat bench shape (1,024 records of 71,709 bytes, 10,240 stripe
+   rows of 8,192 bytes) for the 22-state in-span classes and the
+   ``flu[vV]io`` record-level classes, and on an adversarial set (the
+   257-state table, identity runs, ragged row and column counts); the
+   striped JSON span kernel against its plain version at a reduced
+   geometry (stated in the output) and against the host's
+   ``json_get_bytes`` at the fat bench shape;
+6. striped chains over 4 batches of 1,024 ``gen_fat_70k`` records each
+   (bench configs ``7_fat70k``, ``10_regex_json_fat`` and
+   ``regex-filter("flu[vV]io")`` -> ``json-map(field="name")``), one whole
+   batch of each checked against ``re`` / ``json_get_bytes`` on the host.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -41,8 +53,9 @@ import torch
 from fluvio_tpu_torch.models import lookup
 from fluvio_tpu_torch.ops.regex_dfa import compile_regex
 from fluvio_tpu_torch.smartengine import SmartEngine, SmartModuleConfig
-from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, kernels
+from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, kernels, stripes
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+from fluvio_tpu_torch.smartengine.gpu.executor import _bucket_rows
 from fluvio_tpu_torch.smartengine.gpu.native import KERNELS
 from fluvio_tpu_torch.smartmodule import dsl
 
@@ -51,6 +64,12 @@ HEADLINE_BATCHES = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
 JSON_REGEX = "^(fluvio|kafka|pulsar)-[0-3]$"
+FAT_RECORDS = 1 << 10  # bench.py's fat configs: 1,048,576 records / divisor 1024
+FAT_BATCHES = 4
+FAT_PARAMS = stripes.StripeParams()  # the JAX package's default stripe geometry
+# the striped JSON span check's geometry: the plain version walks kmax x s
+# byte columns one torch step each, so it runs on shorter stripes
+SPAN_CHECK = stripes.StripeParams(threshold=1024, width=256, overlap=64)
 # the JAX package's JSON corner cases (tests/test_tpu_kernels.py JSON_DOCS)
 JSON_DOCS = [
     b'{"name":"fluvio"}', b'{"a":1,"name":"x"}', b'{"name": "spaced" }', b'{"name":42}',
@@ -95,6 +114,12 @@ def adversarial(width: int):
     return docs
 
 
+def gen_fat_70k(n: int):
+    """The bench's fat corpus (`bench.gen_fat_70k`): 71,709-byte records."""
+    body = "x" * (70 * 1024)
+    return [f'{{"name":"fluvio-{i & 7}","body":"{body}"}}'.encode() for i in range(n)]
+
+
 def stage(docs, width: int, device):
     values = np.zeros((len(docs), width), dtype=np.uint8)
     lengths = np.zeros(len(docs), dtype=np.int32)
@@ -104,9 +129,10 @@ def stage(docs, width: int, device):
     return torch.from_numpy(values).to(device), torch.from_numpy(lengths).to(device)
 
 
-def time_ms(fn, reps: int = 15) -> float:
+def time_ms(fn, reps: int = 15, warm: bool = True) -> float:
     """Median device time of one call (CUDA events), after a warm-up."""
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -223,8 +249,211 @@ def phase_kernels(dev):
     return rows
 
 
-def build_chain(specs):
-    b = SmartEngine(device="cuda").builder()
+def stage_striped(docs, params: stripes.StripeParams, dev):
+    """The executor's striped staging of one batch: (buffer, plan, stripe
+    bytes, record lengths on the card, kmax)."""
+    buf = RecordBuffer.from_values(docs)
+    flat, _ = buf.ragged_values()
+    flat_t = torch.from_numpy(np.ascontiguousarray(flat).view(np.int32)).to(dev)
+    lengths = torch.from_numpy(buf.lengths).to(dev)
+    srows = _bucket_rows(max(stripes.plan_rows(buf.lengths, buf.count, params.width,
+                                               params.overlap), 8))
+    plan, sv, kmax = stripes.stage_rows(flat_t, lengths, buf.lengths, buf.count, params, srows)
+    return buf, plan, sv, lengths, kmax
+
+
+def compose_row(name, cls, dfa, reps_plain: int = 2):
+    """dfa_compose kernel vs plain on one class matrix: (err, ms, plain_ms,
+    bound_ms, bound_by). The bound counts the class matrix read once, the
+    table and the output, and one lookup per state per non-identity
+    column."""
+    table_t = stripes._dfa_device(dfa, cls.device)[1]
+    got = cuda_kernels.dfa_compose_columns(cls, table_t)
+    err = require_equal(f"dfa_compose {name}", got, kernels.dfa_compose_columns(cls, table_t))
+    ms = time_ms(lambda: cuda_kernels.dfa_compose_columns(cls, table_t))
+    plain_ms = time_ms(lambda: kernels.dfa_compose_columns(cls, table_t), reps=reps_plain,
+                       warm=False)
+    live = float((cls >= 0).sum().item())
+    bytes_moved = cls.numel() * 4.0 + table_t.numel() * 4.0 + got.numel() * 4.0
+    b_ms, b_by = bound(bytes_moved, live * dfa.n_states)
+    log(f"kernel dfa_compose {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
+        f"by {b_by}) at rows={cls.shape[0]} T={cls.shape[1]} S={dfa.n_states} "
+        f"C={dfa.n_classes}, {live:.0f} non-identity columns, exact")
+    return err, ms, plain_ms, b_ms, b_by
+
+
+def span_docs(rng):
+    """JSON records of 1-3 KB for the reduced-geometry span check: the
+    field early, late, straddling stripe joints, missing (a walk of the
+    whole record), unterminated and raw to the record's end."""
+    docs = []
+    for i in range(384):
+        pad = b"p" * int(rng.integers(900, 3000))
+        where = i % 4
+        if where == 0:
+            docs.append(b'{"name":"fluvio-%d","pad":"%s"}' % (i & 7, pad))
+        elif where == 1:
+            docs.append(b'{"pad":"%s","name":"kafka-%d","n":%d}' % (pad, i & 3, i))
+        elif where == 2:
+            docs.append(b'{"pad":"%s","n":%d}' % (pad, i))
+        else:
+            docs.append(b'{"pad":"%s","name":%s' % (pad, b"7" * int(rng.integers(1, 400))))
+    for m in range(0, 1200, 7):  # key, colon and value across the 192-byte step
+        doc = JSON_DOCS[m % len(JSON_DOCS)]
+        body = doc[1:] if doc.startswith(b"{") else b'"x":"' + doc + b'"}'
+        docs.append(b'{"pad":"' + b"q" * (m + 900) + b'",' + body)
+    return docs
+
+
+def phase_striped_kernels(dev):
+    """The two striped kernels against their plain versions."""
+    rows = []
+    # the fat bench corpus, staged as the executor stages it
+    fat = gen_fat_70k(FAT_RECORDS)
+    buf, plan, sv, lengths, kmax = stage_striped(fat, FAT_PARAMS, dev)
+    log(f"fat corpus: {FAT_RECORDS} records of {len(fat[0])} B, width bucket {buf.width}, "
+        f"{tuple(sv.shape)} stripe rows, {kmax} stripes per record")
+
+    # striped JSON span: reduced geometry vs the plain version, then the
+    # main-path shape vs the host's json_get_bytes
+    docs = span_docs(np.random.default_rng(5))
+    _, p2, sv2, ln2, kmax2 = stage_striped(docs, SPAN_CHECK, dev)
+    args2 = (sv2, stripes.owned_lengths(p2), p2["first_row"], p2["k"], ln2)
+    plain = {}
+
+    def run_plain(key):
+        plain[key] = kernels.striped_json_span(*args2, key, kmax2, SPAN_CHECK.step)
+
+    plain_ms = time_ms(lambda: run_plain("name"), reps=1, warm=False)  # one call: seconds
+    run_plain("n")
+    for key in ("name", "n"):
+        got = torch.stack(cuda_kernels.striped_json_span(*args2, key, kmax2, SPAN_CHECK.step))
+        err = require_equal(f"json_span_striped key={key}", got, torch.stack(plain[key]))
+    check_ms = time_ms(lambda: cuda_kernels.striped_json_span(*args2, "name", kmax2,
+                                                             SPAN_CHECK.step))
+    sizes = [len(d) for d in docs]
+    geometry = (f"{len(docs)} records of {min(sizes)}-{max(sizes)} bytes, stripes of "
+                f"{SPAN_CHECK.width} bytes overlapping by {SPAN_CHECK.overlap}, kmax {kmax2}")
+    log(f"kernel json_span_striped: exact against its plain version on {geometry} "
+        f"(kernel {check_ms:.4f} ms, plain {plain_ms:.1f} ms)")
+    args = (sv, stripes.owned_lengths(plan), plan["first_row"], plan["k"], lengths)
+    vst, vln = cuda_kernels.striped_json_span(*args, "name", kmax, plan["step"])
+    fields = [d[int(a): int(a) + int(b)] for d, a, b in zip(fat, vst.tolist(), vln.tolist())]
+    if fields != [dsl.json_get_bytes(d, "name") for d in fat]:
+        raise AssertionError("json_span_striped differs from json_get_bytes on the fat corpus")
+    ms = time_ms(lambda: cuda_kernels.striped_json_span(*args, "name", kmax, plan["step"]))
+    # the machine stops at the field's end: bytes it must read per record
+    scanned = float((vst + vln + 1).clamp(max=lengths[: len(fat)].max()).sum().item())
+    b_ms, b_by = bound(scanned + 4 * 4 * FAT_RECORDS + 8 * FAT_RECORDS, scanned)
+    rows.append(dict(name="json_span_striped", route="cuda",
+                     source="fluvio_tpu_torch/smartengine/gpu/csrc/json_span.cu",
+                     replaces="fluvio_tpu/smartengine/tpu/stripes.py:263",
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, check_geometry=geometry, check_ms=check_ms))
+    log(f"kernel json_span_striped: {ms:.4f} ms at the fat bench shape ({FAT_RECORDS} records, "
+        f"{sv.shape[0]} rows of {sv.shape[1]} bytes), equal to json_get_bytes")
+
+    # DFA composition at the fat bench shape: in-span (22 states) and
+    # record-level (flu[vV]io) classes, as the striped chains build them
+    dfa22 = compile_regex(JSON_REGEX)
+    cls_span = stripes.stripe_classes(sv, plan, dfa22, (vst, vln))
+    span_row = compose_row("in-span 22-state", cls_span, dfa22)
+    del cls_span
+    dfa_rec = compile_regex("flu[vV]io")
+    cls_rec = stripes.stripe_classes(sv, plan, dfa_rec)
+    err, ms, plain_ms, b_ms, b_by = compose_row("record-level flu[vV]io", cls_rec, dfa_rec)
+    del cls_rec
+    # adversarial: the 257-state table (two-byte entries, 132 KB unpacked),
+    # identity runs, ragged row and column counts
+    rng = np.random.default_rng(257)
+    big = "(a|b)*a(a|b){6}c|x" + "d" * 125
+    for pattern, packed in ((big, True), (big, False), ("flu[vV]io", False), (JSON_REGEX, True)):
+        d = compile_regex(pattern, packed=packed)
+        n_rows, t_len = 1003, 333
+        c = rng.integers(0, d.n_classes, size=(n_rows, t_len)).astype(np.int32)
+        for i in range(n_rows):
+            a = int(rng.integers(0, t_len))
+            c[i, a: a + int(rng.integers(0, t_len))] = -1
+        c[:7] = -1
+        table_t = stripes._dfa_device(d, dev)[1]
+        c_t = torch.from_numpy(c).to(dev)
+        require_equal(f"dfa_compose adversarial {pattern[:20]} packed={packed}",
+                      cuda_kernels.dfa_compose_columns(c_t, table_t),
+                      kernels.dfa_compose_columns(c_t, table_t))
+    torch.cuda.synchronize()
+    log("kernel dfa_compose: adversarial set equal (257 states packed and unpacked, 258 "
+        "classes, identity runs, 1003 x 333)")
+    rows.append(dict(name="dfa_compose", route="cuda",
+                     source="fluvio_tpu_torch/smartengine/gpu/csrc/dfa_compose.cu",
+                     replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:850",
+                     max_abs_err=max(err, span_row[0]), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=None,
+                     in_span={"ms": span_row[1], "plain_ms": span_row[2],
+                              "bound_ms": span_row[3], "bound_by": span_row[4]}))
+    return rows
+
+
+STRIPED_CHAINS = {
+    "7_fat70k": [("regex-filter", {"regex": "fluvio"})],
+    "10_regex_json_fat": [("json-regex-filter", {"key": "name", "regex": JSON_REGEX})],
+    "fluvio_dfa_json_map_fat": [("regex-filter", {"regex": "flu[vV]io"}),
+                                ("json-map", {"field": "name"})],
+}
+
+
+def striped_truth(name: str, corpus):
+    """Host truth of a striped chain over one batch: (offsets, values)."""
+    if name == "7_fat70k":
+        keep = [i for i, rec in enumerate(corpus) if b"fluvio" in rec]
+        return keep, [corpus[i] for i in keep]
+    if name == "10_regex_json_fat":
+        rx = re.compile(JSON_REGEX.encode())
+        keep = [i for i, rec in enumerate(corpus) if rx.search(dsl.json_get_bytes(rec, "name"))]
+        return keep, [corpus[i] for i in keep]
+    rx = re.compile(rb"flu[vV]io")
+    keep = [i for i, rec in enumerate(corpus) if rx.search(rec)]
+    return keep, [dsl.ascii_upper(dsl.json_get_bytes(corpus[i], "name")) for i in keep]
+
+
+def phase_striped_chains():
+    """Each striped chain over FAT_BATCHES batches through the user's entry
+    point; one whole batch against host truth. Returns the summed launches
+    and each chain's rates."""
+    corpus = gen_fat_70k(FAT_RECORDS)
+    total = {k: 0 for k in cuda_kernels.LAUNCHES}
+    rates = {}
+    for name, specs in STRIPED_CHAINS.items():
+        chain = build_chain(specs, FAT_PARAMS)
+        chain.process_buffer(RecordBuffer.from_values(corpus[:8]))  # warm-up, small
+        bufs = [RecordBuffer.from_values(corpus) for _ in range(FAT_BATCHES)]
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        outs = list(chain.process_stream(bufs))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = dict(cuda_kernels.LAUNCHES)
+        for k, c in launches.items():
+            total[k] += c
+        keep, want = striped_truth(name, corpus)
+        out = outs[0]
+        if out.offset_deltas[: out.count].tolist() != keep or out.value_list() != want:
+            raise AssertionError(f"striped chain {name}: batch 0 differs from host truth "
+                                 f"({out.count} vs {len(keep)} survivors)")
+        if not keep or any(o.count != len(keep) for o in outs):
+            raise AssertionError(f"striped chain {name}: implausible survivor counts "
+                                 f"{[o.count for o in outs]}")
+        recs = FAT_BATCHES * FAT_RECORDS / elapsed
+        nbytes = FAT_BATCHES * sum(len(r) for r in corpus) / elapsed
+        rates[name] = {"records_per_s": recs, "bytes_per_s": nbytes}
+        log(f"striped chain {name}: {FAT_BATCHES} x {FAT_RECORDS} records of {len(corpus[0])} B "
+            f"in {elapsed:.3f} s = {recs:.1f} records/s, {nbytes / 1e9:.3f} GB/s; batch 0 equal "
+            f"to host truth ({len(keep)} survivors); launches {launches}")
+    return total, rates
+
+
+def build_chain(specs, stripe_params=None):
+    b = SmartEngine(device="cuda", stripes=stripe_params or stripes.StripeParams()).builder()
     for name, params in specs:
         b.add_smart_module(SmartModuleConfig(params=params), lookup(name))
     return b.initialize()
@@ -287,7 +516,7 @@ def phase_json_regex():
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(cuda_kernels.LAUNCHES)
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in ("json_span", "extract", "dfa_scan")) <= 0:
         raise AssertionError(f"json-regex-filter chain missed a kernel: {launches}")
 
     rx = re.compile(JSON_REGEX.encode())
@@ -325,19 +554,24 @@ def main() -> int:
                 print(f"[nvcc {src}] {line.strip()}", file=sys.stderr)
 
     rows = phase_kernels(dev)
+    rows += phase_striped_kernels(dev)
     head_launches, head_rate = phase_headline()
     jr_launches, jr_rate = phase_json_regex()
+    st_launches, st_rates = phase_striped_chains()
     for r in rows:
-        r["launches"] = head_launches[r["name"]] + jr_launches[r["name"]]
+        r["launches"] = head_launches[r["name"]] + jr_launches[r["name"]] + st_launches[r["name"]]
         if r["launches"] <= 0:
             raise AssertionError(f"kernel {r['name']} never launched on the main path")
     log(json.dumps({"headline_records_per_s": head_rate,
                     "json_regex_filter_records_per_s": jr_rate,
+                    "striped": st_rates,
                     "build_seconds": KERNELS.build_seconds}))
     print(smi)
     key_order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in key_order} for r in rows]}))
+    print(json.dumps({"kernels": [{**{k: r[k] for k in key_order},
+                                   **{k: v for k, v in r.items() if k not in key_order}}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -8,6 +8,7 @@ from fluvio_tpu_torch.smartengine.engine import (
     SmartModuleChainBuilder,
 )
 from fluvio_tpu_torch.smartengine.gpu.executor import GpuSpill
+from fluvio_tpu_torch.smartengine.gpu.stripes import StripeParams
 
 __all__ = [
     "EngineError",
@@ -15,4 +16,5 @@ __all__ = [
     "SmartEngine",
     "SmartModuleChainBuilder",
     "SmartModuleConfig",
+    "StripeParams",
 ]

@@ -8,6 +8,10 @@ entry point users call (``bench.py:43-50`` has the same shape)::
              .initialize())
     out = chain.process_buffer(buf)            # or chain.process_stream(bufs)
 
+``SmartEngine(device=..., stripes=StripeParams(...))`` sets the striped
+wide-record geometry (default: threshold 65536, stripes of 8192 bytes
+overlapping by 128, the JAX package's defaults).
+
 The engine runs on the card; ``device="cpu"`` runs the plain torch
 versions of the kernels instead, which is what the tests do. With no
 device given and no CUDA, construction raises: the engine never drifts to
@@ -23,6 +27,7 @@ import torch
 
 from fluvio_tpu_torch.smartengine.config import SmartModuleConfig
 from fluvio_tpu_torch.smartengine.gpu.executor import GpuChainExecutor
+from fluvio_tpu_torch.smartengine.gpu.stripes import StripeParams
 from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
 
 
@@ -35,6 +40,7 @@ class SmartEngine:
     """Engine factory bound to one torch device (default: the CUDA card)."""
 
     device: Optional[str] = None
+    stripes: StripeParams = field(default_factory=StripeParams)
 
     def __post_init__(self) -> None:
         if self.device is None:
@@ -73,7 +79,7 @@ class SmartModuleChainBuilder:
         :class:`~fluvio_tpu_torch.smartengine.gpu.executor.GpuSpill` for
         transform kinds the port does not run yet."""
         device = torch.device(self.engine.device)
-        executor = GpuChainExecutor.try_build(self.entries, device)
+        executor = GpuChainExecutor.try_build(self.entries, device, self.engine.stripes)
         if executor is None:
             raise EngineError(
                 "every module in the chain must carry a DSL program the GPU "

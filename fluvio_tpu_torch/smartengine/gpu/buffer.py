@@ -17,10 +17,11 @@ import numpy as np
 NO_TIMESTAMP = -1
 MIN_ROWS = 8
 MIN_WIDTH = 32
-# widest record the narrow (one row per record) layout stages; the
-# reference stages wider records as striped segments, which this port
-# does not cover yet
+# widest record the narrow (one row per record) layout stages; wider
+# records stage as striped segments (`gpu/stripes.py`) up to the hard
+# staging ceiling below
 MAX_WIDTH = 1 << 16
+MAX_RECORD_WIDTH = 1 << 20
 # int32 addressing ceiling for one staged batch: every flat byte offset on
 # the card (the cumsum of aligned lengths in `ragged_repad_words`) is i32
 FLAT_ADDRESS_MAX = 2**31 - 1
@@ -211,7 +212,10 @@ class RecordBuffer:
         n = len(values)
         rows = _next_pow2(max(n, 1), MIN_ROWS)
         lens = np.fromiter((len(v) for v in values), dtype=np.int64, count=n)
-        width = bucket_width(int(lens.max()) if n else 0)
+        max_v = int(lens.max()) if n else 0
+        width = bucket_width(max_v)
+        if width > MAX_RECORD_WIDTH:
+            raise ValueError(f"record value of {max_v} bytes exceeds {MAX_RECORD_WIDTH}")
         _check_matrix_addressing(rows, width)
         arr = np.zeros((rows, width), dtype=np.uint8)
         flat = np.frombuffer(b"".join(values), dtype=np.uint8)

@@ -19,6 +19,19 @@
 // (neighbouring threads read rows W bytes apart), so the likely next step is
 // warp-cooperative 16-byte loads staged through shared memory, one tile of
 // rows per warp, with each thread then scanning its row from shared memory.
+//
+// Second entry point, `fluvio_json_span_striped`: the same machine over the
+// striped wide-record layout, one thread per segment (record). It replaces
+// no Pallas kernel: the JAX package runs it as an XLA lax.scan
+// (`stripes.striped_json_span`, fluvio_tpu/smartengine/tpu/stripes.py:263),
+// kmax x s byte columns in turn, which in eager torch would be ~90k steps of
+// some 60 launches each. The thread walks the OWNED bytes of its segment's
+// stripe rows first_row .. first_row+k-1 in order (the overlap tail of a
+// non-last row belongs to the next row), at record-absolute positions
+// kk*step + j, so the carry crosses stripe joints exactly, and stops at
+// P_DONE. The start clips to the record length. Plain torch version:
+// `kernels.striped_json_span`. Bound: bytes, as above; with one thread per
+// record the card is mostly idle unless the field sits late in the record.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -157,6 +170,50 @@ __global__ void json_span_kernel(const uint8_t* __restrict__ values,
   start_out[i] = m.start < 0 ? 0 : (m.start > width ? width : m.start);
 }
 
+__global__ void json_span_striped_kernel(const uint8_t* __restrict__ sv,
+                                         const int32_t* __restrict__ owned,
+                                         const int32_t* __restrict__ first_row,
+                                         const int32_t* __restrict__ kcount,
+                                         const int32_t* __restrict__ lengths,
+                                         const uint8_t* __restrict__ needle_g, int klen,
+                                         long long n, int s, int step, int vec,
+                                         int32_t* __restrict__ start_out,
+                                         int32_t* __restrict__ vlen_out) {
+  extern __shared__ uint8_t needle[];
+  for (int k = threadIdx.x; k < klen; k += blockDim.x) needle[k] = needle_g[k];
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+
+  const int len = lengths[i];
+  const int kseg = kcount[i];
+  JsonMachine m;
+  for (int kk = 0; kk < kseg && m.phase != P_DONE; ++kk) {
+    const long long r = (long long)first_row[i] + kk;
+    const int lim = owned[r];
+    const uint8_t* row = sv + r * (long long)s;
+    const int base = kk * step;
+    if (vec) {
+      for (int j0 = 0; j0 < lim && m.phase != P_DONE; j0 += 16) {
+        const uint4 chunk = *reinterpret_cast<const uint4*>(row + j0);
+        const uint8_t* b = reinterpret_cast<const uint8_t*>(&chunk);
+        const int stop = lim - j0 < 16 ? lim - j0 : 16;
+        for (int k = 0; k < stop && m.phase != P_DONE; ++k)
+          m.step(b[k], base + j0 + k, needle, klen);
+      }
+    } else {
+      for (int j = 0; j < lim && m.phase != P_DONE; ++j) m.step(row[j], base + j, needle, klen);
+    }
+  }
+  int end = m.end;
+  if (m.phase == P_STR) end = len;
+  if (m.phase == P_RAW) end = m.lastnw + 1;
+  const bool found = (m.phase == P_DONE) | (m.phase == P_STR) | (m.phase == P_RAW);
+  const int span = end - m.start;
+  vlen_out[i] = found ? (span > 0 ? span : 0) : 0;
+  start_out[i] = m.start < 0 ? 0 : (m.start > len ? len : m.start);
+}
+
 }  // namespace
 
 extern "C" int fluvio_json_span(const void* values, const void* lengths, const void* needle,
@@ -170,6 +227,25 @@ extern "C" int fluvio_json_span(const void* values, const void* lengths, const v
         static_cast<const uint8_t*>(values), static_cast<const int32_t*>(lengths),
         static_cast<const uint8_t*>(needle), klen, n, width, vec,
         static_cast<int32_t*>(start), static_cast<int32_t*>(vlen));
+  }
+  return (int)cudaGetLastError();
+}
+
+// sv u8[r, s]; owned i32[r]; first_row, k, lengths i32[n] -> start, vlen i32[n].
+extern "C" int fluvio_json_span_striped(const void* sv, const void* owned, const void* first_row,
+                                        const void* k, const void* lengths, const void* needle,
+                                        int klen, long long n, int s, int step, void* start,
+                                        void* vlen, void* stream) {
+  if (n > 0) {
+    const int threads = 128;
+    const long long blocks = (n + threads - 1) / threads;
+    const int vec = (s % 16 == 0) && (reinterpret_cast<uintptr_t>(sv) % 16 == 0);
+    json_span_striped_kernel<<<(unsigned)blocks, threads, klen,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(sv), static_cast<const int32_t*>(owned),
+        static_cast<const int32_t*>(first_row), static_cast<const int32_t*>(k),
+        static_cast<const int32_t*>(lengths), static_cast<const uint8_t*>(needle), klen, n, s,
+        step, vec, static_cast<int32_t*>(start), static_cast<int32_t*>(vlen));
   }
   return (int)cudaGetLastError();
 }

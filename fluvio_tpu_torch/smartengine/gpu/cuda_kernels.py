@@ -1,14 +1,19 @@
 """Wrappers of the hand-written CUDA kernels on the chain's path.
 
 The port's counterpart of ``fluvio_tpu/smartengine/tpu/pallas_kernels.py``
-for the three Pallas kernels the slice runs:
+for the Pallas kernels the port runs, and one kernel of its own:
 
 - `json_get_span` replaces `_json_scan_kernel` / `json_get_span_pallas`
   (``csrc/json_span.cu``);
 - `extract_span` replaces `_extract_kernel` / `extract_pallas`
   (``csrc/extract.cu``);
 - `dfa_match` replaces `_dfa_scan_kernel` / `dfa_match_pallas`
-  (``csrc/dfa_scan.cu``).
+  (``csrc/dfa_scan.cu``);
+- `dfa_compose_columns` replaces `_dfa_compose_kernel` /
+  `dfa_compose_columns_pallas` (``csrc/dfa_compose.cu``);
+- `striped_json_span` replaces the XLA scan of the JAX package's
+  ``stripes.striped_json_span``, which has no Pallas kernel
+  (``csrc/json_span.cu``, second entry point).
 
 Each wrapper runs the plain torch version (``kernels.py``) for a tensor on
 the CPU — that is what the tests exercise — and for a CUDA tensor launches
@@ -32,7 +37,9 @@ from fluvio_tpu_torch.smartengine.gpu import kernels
 from fluvio_tpu_torch.smartengine.gpu.native import KERNELS, check
 
 # kernel launches since the last `reset_launches()`
-LAUNCHES: Dict[str, int] = {"json_span": 0, "extract": 0, "dfa_scan": 0}
+LAUNCHES: Dict[str, int] = {
+    "json_span": 0, "extract": 0, "dfa_scan": 0, "dfa_compose": 0, "json_span_striped": 0,
+}
 
 _MAX_NEEDLE = 48 * 1024  # the needle sits in (static-limit) shared memory
 
@@ -170,3 +177,59 @@ def dfa_match(values: torch.Tensor, lengths: torch.Tensor, dfa: CompiledDfa) -> 
     check(rc, "dfa_scan")
     LAUNCHES["dfa_scan"] += 1
     return out
+
+
+def dfa_compose_columns(cls: torch.Tensor, table_t: torch.Tensor) -> torch.Tensor:
+    """Per-row total transition function: cls i32[rows, T] (-1 =
+    identity), table_t i32[C, S] -> i32[rows, S]."""
+    if not _on_cuda("dfa_compose_columns", cls, table_t):
+        return kernels.dfa_compose_columns(cls, table_t)
+    rows, t_len = cls.shape
+    n_classes, n_states = table_t.shape
+    _expect("dfa_compose_columns cls", cls, torch.int32, (rows, t_len))
+    _expect("dfa_compose_columns table_t", table_t, torch.int32, (n_classes, n_states))
+    if n_states > 257 or n_classes > 258 or n_states < 1 or n_classes < 1:
+        raise ValueError(
+            f"dfa_compose_columns: table {n_classes}x{n_states} is not one the compiler emits"
+        )
+    out = torch.empty((rows, n_states), dtype=torch.int32, device=cls.device)
+    fn = KERNELS.function("fluvio_dfa_compose")
+    with torch.cuda.device(cls.device):
+        rc = fn(cls.data_ptr(), table_t.data_ptr(), n_states, n_classes, rows, t_len,
+                out.data_ptr(), _stream(cls.device))
+    check(rc, "dfa_compose")
+    LAUNCHES["dfa_compose"] += 1
+    return out
+
+
+def striped_json_span(
+    sv: torch.Tensor, owned: torch.Tensor, first_row: torch.Tensor, k: torch.Tensor,
+    lengths: torch.Tensor, key: str, kmax: int, step: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-segment JSON field span over stripe rows: sv u8[r, s], owned
+    i32[r], first_row / k / lengths i32[n] -> record-absolute start
+    i32[n], vlen i32[n]. ``kmax`` (>= every k) bounds only the plain
+    version's loop; the kernel walks each segment's own k rows."""
+    if not _on_cuda("striped_json_span", sv, owned, first_row, k, lengths):
+        return kernels.striped_json_span(sv, owned, first_row, k, lengths, key, kmax, step)
+    r, s = sv.shape
+    n = lengths.shape[0]
+    _expect("striped_json_span sv", sv, torch.uint8, (r, s))
+    _expect("striped_json_span owned", owned, torch.int32, (r,))
+    for name, t in (("first_row", first_row), ("k", k), ("lengths", lengths)):
+        _expect(f"striped_json_span {name}", t, torch.int32, (n,))
+    needle = _needle(key, sv.device)
+    if needle.numel() > _MAX_NEEDLE:
+        raise ValueError(f"striped_json_span: key of {len(key)} bytes is too long")
+    start = torch.empty((n,), dtype=torch.int32, device=sv.device)
+    vlen = torch.empty((n,), dtype=torch.int32, device=sv.device)
+    fn = KERNELS.function("fluvio_json_span_striped")
+    with torch.cuda.device(sv.device):
+        rc = fn(
+            sv.data_ptr(), owned.data_ptr(), first_row.data_ptr(), k.data_ptr(),
+            lengths.data_ptr(), needle.data_ptr(), needle.numel(), n, s, step,
+            start.data_ptr(), vlen.data_ptr(), _stream(sv.device),
+        )
+    check(rc, "json_span_striped")
+    LAUNCHES["json_span_striped"] += 1
+    return start, vlen

@@ -19,9 +19,15 @@ that fit the narrow layout (one row per record):
 5. the host rebuilds the output buffer (`_materialize_view_flat`,
    `_assemble`).
 
-What the slice does not cover raises :class:`GpuSpill` instead of running
-anywhere else: records wider than the narrow layout, and aggregate,
-array_map and windowed stages.
+Batches wider than the narrow layout (`StripeParams.threshold`) take the
+striped path (`_dispatch_striped`, the reference's `_chain_fn_striped`):
+the same ragged upload re-padded into stripe rows (`gpu/stripes.py`),
+segment-level verdicts, and the segment survivor mask or (start, length)
+descriptors down, rebuilt by the same host code.
+
+What the port does not cover raises :class:`GpuSpill` instead of running
+anywhere else: wide batches of a chain with no striped lowering, and
+aggregate, array_map and windowed stages.
 """
 
 from __future__ import annotations
@@ -33,9 +39,8 @@ import numpy as np
 import torch
 
 from fluvio_tpu_torch.smartengine.config import SmartModuleConfig
-from fluvio_tpu_torch.smartengine.gpu import kernels
+from fluvio_tpu_torch.smartengine.gpu import kernels, stripes
 from fluvio_tpu_torch.smartengine.gpu.buffer import (
-    MAX_WIDTH,
     RecordBuffer,
     apply_postops_host,
     ragged_range_select,
@@ -209,6 +214,8 @@ class _Fetch:
         self.cuda = device.type == "cuda"
         self.host: Dict[str, torch.Tensor] = {}
         self.event = None
+        # survivors are whole input records: the mask is the whole download
+        self.whole_records = False
         # byte mode: compacted (values, lengths, keys, key_lengths) left on
         # the card until the header says how much of them to download
         self.byte_cols: Optional[Tuple[torch.Tensor, ...]] = None
@@ -251,9 +258,16 @@ def _pad_slice(n: int, floor: int = 8) -> int:
 class GpuChainExecutor:
     """A compiled filter/map chain over one torch device."""
 
-    def __init__(self, stages: List, device: torch.device):
+    def __init__(
+        self, stages: List, device: torch.device, programs: Tuple = (),
+        stripe_params: Optional[stripes.StripeParams] = None,
+    ):
         self.stages = stages
         self.device = device
+        self._programs = tuple(programs)  # resolved DSL programs, for the striped build
+        self.stripe_params = stripe_params or stripes.StripeParams()
+        self._striped: Optional[stripes.StripedChain] = None
+        self._striped_tried = False
         self._writes_keys = any(isinstance(s, _MapStage) and s.key_fn is not None for s in stages)
         # late materialization: every value-writing stage is a view of the
         # record's own bytes, so the card ships descriptors and the host
@@ -277,7 +291,8 @@ class GpuChainExecutor:
 
     @classmethod
     def try_build(
-        cls, entries: List[Tuple[SmartModuleDef, SmartModuleConfig]], device: torch.device
+        cls, entries: List[Tuple[SmartModuleDef, SmartModuleConfig]], device: torch.device,
+        stripe_params: Optional[stripes.StripeParams] = None,
     ) -> Optional["GpuChainExecutor"]:
         """Lower a chain of DSL modules; None when a program is missing or
         outside the lowerable subset, :class:`GpuSpill` for the transform
@@ -285,12 +300,14 @@ class GpuChainExecutor:
         if not entries:
             return None
         stages: List = []
+        programs: List = []
         try:
             for module, config in entries:
                 prog = module.dsl_program(module.transform_kind())
                 if prog is None:
                     return None
                 prog = dsl.resolve_params(prog, config.params)
+                programs.append(prog)
                 if isinstance(prog, dsl.FilterProgram):
                     if infer_type(prog.predicate) != "bool":
                         raise Unlowerable("filter predicate must be bool")
@@ -319,7 +336,24 @@ class GpuChainExecutor:
                     return None
         except (Unlowerable, KeyError):
             return None
-        return cls(stages, device)
+        return cls(stages, device, programs, stripe_params)
+
+    def _striped_chain(self) -> Optional[stripes.StripedChain]:
+        """The chain's striped lowering, built on first need; None when a
+        stage is outside the stripeable subset or the outputs are no views
+        of the records (byte mode)."""
+        if not self._striped_tried:
+            self._striped_tried = True
+            sc = None
+            if self._viewable:
+                p = self.stripe_params
+                sc = stripes.try_build_striped(self._programs, p.width, p.overlap)
+            if sc is not None and tuple(sc.postops) != self._view_postops:
+                raise AssertionError(  # both derive from the same programs
+                    f"striped postops {sc.postops} differ from the view's {self._view_postops}"
+                )
+            self._striped = sc
+        return self._striped
 
     # -- on the card -----------------------------------------------------------
 
@@ -334,19 +368,14 @@ class GpuChainExecutor:
             state = stage.apply(state)
         valid = state["valid"]
         lengths = state["lengths"]
-        zero = torch.zeros((), dtype=torch.int64, device=self.device)
-        fetch.start("mask", kernels.pack_mask(valid))
         if self._identity_view:
-            mx = torch.where(valid, lengths, 0).max().to(torch.int64)
-            fetch.start("header", torch.stack([valid.sum(), mx, zero]))
+            self._ship_views(fetch, valid, lengths)
             return
         if self._viewable:
-            width = arrays["values"].shape[1]
-            out_count, (st, ln) = kernels.compact_rows(valid, state["view_start"], lengths)
-            fetch.start("span_start", st.to(_narrow_dtype(width)))
-            fetch.start("span_len", ln.to(_narrow_dtype(width)))
-            fetch.start("header", torch.stack([out_count.to(torch.int64), ln.max().to(torch.int64), zero]))
+            desc = _narrow_dtype(arrays["values"].shape[1])
+            self._ship_views(fetch, valid, lengths, state["view_start"], desc)
             return
+        fetch.start("mask", kernels.pack_mask(valid))
         out_count, (vals, lens, keys, klens) = kernels.compact_rows(
             valid, state["values"], lengths, state["keys"], state["key_lengths"]
         )
@@ -356,6 +385,23 @@ class GpuChainExecutor:
                          klens.max().to(torch.int64)]),
         )
         fetch.byte_cols = (vals, lens, keys, klens)
+
+    def _ship_views(self, fetch: _Fetch, valid, lengths, view_start=None,
+                    desc_dtype: torch.dtype = torch.int32) -> None:
+        """Start the downloads of a view-mode result: the survivor mask and,
+        when the outputs are sub-record views (``view_start`` given), the
+        compacted (start, length) descriptors in ``desc_dtype``."""
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        fetch.start("mask", kernels.pack_mask(valid))
+        if view_start is None:
+            fetch.whole_records = True
+            mx = torch.where(valid, lengths, 0).max().to(torch.int64)
+            fetch.start("header", torch.stack([valid.sum(), mx, zero]))
+            return
+        out_count, (st, ln) = kernels.compact_rows(valid, view_start, lengths)
+        fetch.start("span_start", st.to(desc_dtype))
+        fetch.start("span_len", ln.to(desc_dtype))
+        fetch.start("header", torch.stack([out_count.to(torch.int64), ln.max().to(torch.int64), zero]))
 
     # -- staging ---------------------------------------------------------------
 
@@ -372,18 +418,8 @@ class GpuChainExecutor:
             flat = np.zeros(4, dtype=np.uint8)  # all-empty values
         return self._upload(flat.view(np.int32))
 
-    def dispatch_buffer(self, buf: RecordBuffer) -> _Fetch:
-        """Phase 1: stage, run the chain and start the result copies
-        without blocking on the card; the handle feeds `finish_buffer`."""
-        if buf.width > MAX_WIDTH:
-            raise GpuSpill(
-                f"record width {buf.width} exceeds the narrow layout ({MAX_WIDTH})",
-                reason="record-too-wide",
-            )
-        flat_up = self._stage_flat(buf)
-        lengths_up, has_keys, has_offsets, ts_mode, ts_np = stage_link_columns(buf)
-        values, lengths = ragged_repad_words(flat_up, self._upload(lengths_up), buf.width)
-        n = lengths.shape[0]
+    def _meta_arrays(self, buf: RecordBuffer, n: int, has_keys: bool, has_offsets: bool,
+                     ts_mode: str, ts_np) -> Dict[str, torch.Tensor]:
         keys, key_lengths, offset_deltas, timestamp_deltas = derived_meta_columns(
             n, buf.keys.shape[1], has_keys,
             self._upload(buf.keys) if has_keys else None,
@@ -394,16 +430,59 @@ class GpuChainExecutor:
             self._upload(ts_np) if ts_np is not None else None,
             self.device,
         )
-        arrays = {
-            "values": values,
-            "lengths": lengths,
+        return {
             "keys": keys,
             "key_lengths": key_lengths,
             "offset_deltas": offset_deltas,
             "timestamp_deltas": timestamp_deltas,
         }
+
+    def dispatch_buffer(self, buf: RecordBuffer) -> _Fetch:
+        """Phase 1: stage, run the chain and start the result copies
+        without blocking on the card; the handle feeds `finish_buffer`."""
+        if buf.width > self.stripe_params.threshold:
+            if self._striped_chain() is None:
+                raise GpuSpill(
+                    f"record width {buf.width} exceeds the narrow layout "
+                    f"({self.stripe_params.threshold}) and the chain is not stripeable",
+                    reason="record-too-wide-unstripeable",
+                )
+            return self._dispatch_striped(buf)
+        flat_up = self._stage_flat(buf)
+        lengths_up, has_keys, has_offsets, ts_mode, ts_np = stage_link_columns(buf)
+        values, lengths = ragged_repad_words(flat_up, self._upload(lengths_up), buf.width)
+        arrays = self._meta_arrays(buf, lengths.shape[0], has_keys, has_offsets, ts_mode, ts_np)
+        arrays["values"], arrays["lengths"] = values, lengths
         fetch = _Fetch(self.device)
         self._run(arrays, buf.count, fetch)
+        fetch.seal()
+        return fetch
+
+    def _dispatch_striped(self, buf: RecordBuffer) -> _Fetch:
+        """Striped phase 1: the narrow path's ragged upload, re-padded on
+        the card into stripe rows with the segment sidecar derived from the
+        lengths; filters reduce per segment. Filter and fold chains ship
+        the segment survivor mask, span chains compacted int32 (start,
+        length) descriptors (striped spans index records wider than int16)
+        beside it."""
+        p = self.stripe_params
+        flat_up = self._stage_flat(buf)
+        lengths_up, has_keys, has_offsets, ts_mode, ts_np = stage_link_columns(buf)
+        lengths = self._upload(lengths_up).to(torch.int32)
+        n = lengths.shape[0]
+        srows = _bucket_rows(max(stripes.plan_rows(buf.lengths, buf.count, p.width, p.overlap), 8))
+        plan, sv, kmax = stripes.stage_rows(flat_up, lengths, buf.lengths, buf.count, p, srows)
+        arrays = self._meta_arrays(buf, n, has_keys, has_offsets, ts_mode, ts_np)
+        ctx = {
+            "sv": sv, "plan": plan, "n": n, "kmax": kmax,
+            "seg_state": stripes.seg_state_of(plan, sv, lengths, arrays),
+        }
+        valid, vspan = self._striped.run(ctx, plan["k"] > 0)  # k > 0: the live records
+        fetch = _Fetch(self.device)
+        if vspan is None:
+            self._ship_views(fetch, valid, lengths)
+        else:
+            self._ship_views(fetch, valid, vspan[1], vspan[0])
         fetch.seal()
         return fetch
 
@@ -416,7 +495,7 @@ class GpuChainExecutor:
         src = np.flatnonzero(np.unpackbits(host["mask"], bitorder="little")[: buf.rows])[:count]
         rows = _bucket_rows(max(count, 1))
         if self._viewable:
-            if self._identity_view:
+            if handle.whole_records:
                 st = np.zeros(count, dtype=np.int64)
                 ln = buf.lengths[src].astype(np.int32)
             else:

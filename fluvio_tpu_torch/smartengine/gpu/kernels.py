@@ -3,11 +3,12 @@
 The port's counterparts of the XLA kernels in
 ``fluvio_tpu/smartengine/tpu/kernels.py``: pure functions over padded
 tensors, vectorized across the record axis, with any per-byte iteration a
-Python loop over the columns. Three of them — `json_get_span`,
-`extract_span` and `dfa_match` — are the plain versions of the CUDA kernels
-in ``cuda_kernels.py``: the wrappers there run them for CPU tensors (the
-tests), and ``chip_smoke.py`` holds each kernel against them on the card.
-Nothing on the CUDA path calls them. The rest are the chain's torch code
+Python loop over the columns. Five of them — `json_get_span`,
+`striped_json_span`, `extract_span`, `dfa_match` and `dfa_compose_columns`
+— are the plain versions of the CUDA kernels in ``cuda_kernels.py``: the
+wrappers there run them for CPU tensors (the tests), and ``chip_smoke.py``
+holds each kernel against them on the card. Nothing on the CUDA path calls
+them. The rest are the chain's torch code
 on every device.
 """
 
@@ -54,131 +55,218 @@ def dfa_match(values: torch.Tensor, lengths: torch.Tensor, dfa: CompiledDfa) -> 
 
 
 # ---------------------------------------------------------------------------
+# DFA transition composition (plain version of csrc/dfa_compose.cu)
+# ---------------------------------------------------------------------------
+
+
+def dfa_compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Compose transition vectors along the trailing state axis:
+    ``(b . a)[s] = b[a[s]]``, ``a`` applied first. Associative."""
+    return torch.gather(b, -1, a.to(torch.int64))
+
+
+def dfa_compose_columns(cls: torch.Tensor, table_t: torch.Tensor) -> torch.Tensor:
+    """Total transition function of each row's class stream.
+
+    ``cls`` int32[rows, T] (class per column; -1 = identity, for padding
+    and un-owned stripe bytes), ``table_t`` int32[C, S] (the transposed
+    transition table). Returns int32[rows, S]: ``out[i, s]`` is the state
+    after row i's columns starting from state s.
+
+    The algorithm of the Pallas kernel ``_dfa_compose_kernel``: start
+    from ``f = arange(S)`` and fold each column in with one table gather,
+    ``f = where(c >= 0, table_t[c, f], f)``; bit-equal to the JAX
+    package's blocked associative scan by associativity. Classes at or
+    past C read row C-1, as the XLA path clips them (no caller produces
+    them)."""
+    rows, t_len = cls.shape
+    n_classes, n_states = table_t.shape
+    flat = table_t.reshape(-1).to(torch.int64)
+    f = torch.arange(n_states, dtype=torch.int64, device=cls.device).expand(rows, n_states)
+    for t in range(t_len):
+        c = cls[:, t : t + 1].to(torch.int64)
+        nxt = flat[c.clamp(0, n_classes - 1) * n_states + f]
+        f = torch.where(c >= 0, nxt, f)
+    return f.to(torch.int32).contiguous()
+
+
+# ---------------------------------------------------------------------------
 # JSON top-level field span (plain version of csrc/json_span.cu)
 # ---------------------------------------------------------------------------
 
 _P_SCAN, _P_COLON, _P_WS, _P_STR, _P_RAW, _P_DONE = range(6)
 
 
-def json_get_span(
-    values: torch.Tensor, lengths: torch.Tensor, key: str
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Field span (start, length) within each record's value bytes.
+def json_needle(key: str, device) -> Tuple[torch.Tensor, int]:
+    """The quoted key byte needle the structural machine matches."""
+    needle = b'"' + key.encode("utf-8") + b'"'
+    return torch.tensor(list(needle), dtype=torch.int32, device=device), len(needle)
 
-    The sequential structural machine of the JAX package's
-    ``kernels.json_get_span`` / ``json_step``: (phase, progressive needle
-    match, in-string, escape, brace depth, value depth, value escape,
-    start, end, last non-whitespace) per record, one byte column a step.
-    Missing or malformed fields give length 0. Raw values are trimmed of
-    space, tab, CR and LF only (see `dsl.json_get_bytes` for the one
-    corner where that differs from the host reference)."""
-    dev = values.device
-    needle = torch.tensor(list(b'"' + key.encode("utf-8") + b'"'), dtype=torch.int32, device=dev)
-    klen = int(needle.numel())
-    n, width = values.shape
-    lengths = lengths.to(torch.int32)
-    zi = torch.zeros((n,), dtype=torch.int32, device=dev)
-    zb = torch.zeros((n,), dtype=torch.bool, device=dev)
-    phase = torch.full((n,), _P_SCAN, dtype=torch.int32, device=dev)
-    kmatch, in_str, esc, depth, d2, vesc = zi, zb, zb, zi, zi, zb
-    start, end = zi, zi
-    lastnw = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    for t in range(width):
-        c = values[:, t].to(torch.int32)
-        active = t < lengths
-        is_ws = (c == 32) | (c == 9) | (c == 13) | (c == 10)
-        is_quote = c == 0x22
-        is_bslash = c == 0x5C
 
-        # phase COLON: ws -> stay; ':' -> WS phase; else abort + reprocess
-        colon_here = (phase == _P_COLON) & (c == 0x3A)
-        colon_abort = (phase == _P_COLON) & ~is_ws & (c != 0x3A)
-        g = (phase == _P_SCAN) | colon_abort
+def json_span_carry0(n: int, device):
+    """Initial machine state, one lane per record (see `json_step`)."""
+    zi = torch.zeros((n,), dtype=torch.int32, device=device)
+    zb = torch.zeros((n,), dtype=torch.bool, device=device)
+    return (
+        torch.full((n,), _P_SCAN, dtype=torch.int32, device=device),  # phase
+        zi,  # kmatch
+        zb,  # in_str
+        zb,  # esc
+        zi,  # depth
+        zi,  # d2
+        zb,  # vesc
+        zi,  # start
+        zi,  # end
+        torch.full((n,), -1, dtype=torch.int32, device=device),  # lastnw
+    )
 
-        # general scan, inside a string
-        gs = g & in_str
-        s_esc_consume = gs & esc
-        s_set_esc = gs & ~esc & is_bslash
-        s_close = gs & ~esc & is_quote
-        s_key_done = s_close & (kmatch == klen - 1)
-        s_ordinary = gs & ~esc & ~is_bslash & ~is_quote
-        expected = needle[kmatch.clamp(0, klen - 1).to(torch.int64)]
-        k_next = torch.where(
-            (kmatch > 0) & (kmatch < klen - 1) & (c == expected), kmatch + 1, 0
-        )
-        # general scan, outside a string
-        go = g & ~in_str
-        o_open = go & is_quote
-        o_depth_up = go & (c == 0x7B)
-        o_depth_dn = go & (c == 0x7D)
 
-        new_in_str = torch.where(
-            active & s_close, False, torch.where(active & o_open, True, in_str)
-        )
-        new_esc = torch.where(active & gs, s_set_esc, esc)
-        new_depth = depth + (active & o_depth_up).to(torch.int32) - (
-            active & o_depth_dn
-        ).to(torch.int32)
-        new_kmatch = torch.where(active & s_ordinary, k_next, kmatch)
-        new_kmatch = torch.where(
-            active & (s_set_esc | s_esc_consume | s_close), 0, new_kmatch
-        )
-        new_kmatch = torch.where(
-            active & o_open, (depth == 1).to(torch.int32), new_kmatch
-        )
+def json_step(carry, c: torch.Tensor, t, active: torch.Tensor, needle: torch.Tensor, klen: int):
+    """One byte column through the structural machine (the JAX package's
+    ``kernels.json_step``): (phase, progressive needle match, in-string,
+    escape, brace depth, value depth, value escape, start, end, last
+    non-whitespace) per lane.
 
-        # phase WS (after the colon): skip ws, classify the value start
-        w = (phase == _P_WS) & active
-        w_go = w & ~is_ws
-        w_str = w_go & is_quote
-        is_closer = (c == 0x5D) | (c == 0x7D) | (c == 0x2C)
-        w_empty = w_go & ~is_quote & is_closer
-        w_raw = w_go & ~is_quote & ~is_closer
-        w_raw_open = w_raw & ((c == 0x5B) | (c == 0x7B))
+    ``c`` int32 byte values, ``t`` the column's position within the
+    record (the striped runner feeds absolute positions), ``active``
+    which lanes this column belongs to. Returns the updated carry."""
+    phase, kmatch, in_str, esc, depth, d2, vesc, start, end, lastnw = carry
+    is_ws = (c == 32) | (c == 9) | (c == 13) | (c == 10)
+    is_quote = c == 0x22
+    is_bslash = c == 0x5C
 
-        # phase STR (string value)
-        s3 = (phase == _P_STR) & active
-        s3_set_esc = s3 & ~vesc & is_bslash
-        s3_close = s3 & ~vesc & is_quote
+    # phase COLON: ws -> stay; ':' -> WS phase; else abort + reprocess
+    colon_here = (phase == _P_COLON) & (c == 0x3A)
+    colon_abort = (phase == _P_COLON) & ~is_ws & (c != 0x3A)
+    g = (phase == _P_SCAN) | colon_abort
 
-        # phase RAW (scalar / nested value)
-        s4 = (phase == _P_RAW) & active
-        r_open = s4 & ((c == 0x5B) | (c == 0x7B))
-        r_close = s4 & ((c == 0x5D) | (c == 0x7D))
-        r_comma = s4 & (c == 0x2C)
-        r_end = (r_close | r_comma) & (d2 == 0)
-        r_dec = r_close & (d2 > 0)
+    # general scan, inside a string
+    gs = g & in_str
+    s_esc_consume = gs & esc
+    s_set_esc = gs & ~esc & is_bslash
+    s_close = gs & ~esc & is_quote
+    s_key_done = s_close & (kmatch == klen - 1)
+    s_ordinary = gs & ~esc & ~is_bslash & ~is_quote
+    expected = needle[kmatch.clamp(0, klen - 1).to(torch.int64)]
+    k_next = torch.where((kmatch > 0) & (kmatch < klen - 1) & (c == expected), kmatch + 1, 0)
+    # general scan, outside a string
+    go = g & ~in_str
+    o_open = go & is_quote
+    o_depth_up = go & (c == 0x7B)
+    o_depth_dn = go & (c == 0x7D)
 
-        new_phase = torch.where(active & s_key_done, _P_COLON, phase)
-        new_phase = torch.where(active & colon_here, _P_WS, new_phase)
-        new_phase = torch.where(active & colon_abort, _P_SCAN, new_phase)
-        new_phase = torch.where(w_str, _P_STR, new_phase)
-        new_phase = torch.where(w_empty, _P_DONE, new_phase)
-        new_phase = torch.where(w_raw, _P_RAW, new_phase)
-        new_phase = torch.where(s3_close, _P_DONE, new_phase)
-        new_phase = torch.where(r_end, _P_DONE, new_phase)
+    new_in_str = torch.where(active & s_close, False, torch.where(active & o_open, True, in_str))
+    new_esc = torch.where(active & gs, s_set_esc, esc)
+    new_depth = (
+        depth + (active & o_depth_up).to(torch.int32) - (active & o_depth_dn).to(torch.int32)
+    )
+    new_kmatch = torch.where(active & s_ordinary, k_next, kmatch)
+    new_kmatch = torch.where(active & (s_set_esc | s_esc_consume | s_close), 0, new_kmatch)
+    new_kmatch = torch.where(active & o_open, (depth == 1).to(torch.int32), new_kmatch)
 
-        vesc = torch.where(s3, s3_set_esc, vesc)
-        d2 = (
-            d2
-            + w_raw_open.to(torch.int32)
-            + r_open.to(torch.int32)
-            - r_dec.to(torch.int32)
-        )
-        start = torch.where(w_str, t + 1, torch.where(w_raw | w_empty, t, start))
-        end = torch.where(
-            s3_close, t, torch.where(r_end, lastnw + 1, torch.where(w_empty, t, end))
-        )
-        lastnw = torch.where((w_raw & ~is_ws) | (s4 & ~r_end & ~is_ws), t, lastnw)
-        phase, kmatch, in_str, esc, depth = (
-            new_phase, new_kmatch, new_in_str, new_esc, new_depth,
-        )
-    # end of record: unterminated values run to the end
+    # phase WS (after the colon): skip ws, classify the value start
+    w = (phase == _P_WS) & active
+    w_go = w & ~is_ws
+    w_str = w_go & is_quote
+    is_closer = (c == 0x5D) | (c == 0x7D) | (c == 0x2C)
+    w_empty = w_go & ~is_quote & is_closer
+    w_raw = w_go & ~is_quote & ~is_closer
+    w_raw_open = w_raw & ((c == 0x5B) | (c == 0x7B))
+
+    # phase STR (string value)
+    s3 = (phase == _P_STR) & active
+    s3_set_esc = s3 & ~vesc & is_bslash
+    s3_close = s3 & ~vesc & is_quote
+
+    # phase RAW (scalar / nested value)
+    s4 = (phase == _P_RAW) & active
+    r_open = s4 & ((c == 0x5B) | (c == 0x7B))
+    r_close = s4 & ((c == 0x5D) | (c == 0x7D))
+    r_comma = s4 & (c == 0x2C)
+    r_end = (r_close | r_comma) & (d2 == 0)
+    r_dec = r_close & (d2 > 0)
+
+    new_phase = torch.where(active & s_key_done, _P_COLON, phase)
+    new_phase = torch.where(active & colon_here, _P_WS, new_phase)
+    new_phase = torch.where(active & colon_abort, _P_SCAN, new_phase)
+    new_phase = torch.where(w_str, _P_STR, new_phase)
+    new_phase = torch.where(w_empty, _P_DONE, new_phase)
+    new_phase = torch.where(w_raw, _P_RAW, new_phase)
+    new_phase = torch.where(s3_close, _P_DONE, new_phase)
+    new_phase = torch.where(r_end, _P_DONE, new_phase)
+
+    new_vesc = torch.where(s3, s3_set_esc, vesc)
+    new_d2 = d2 + w_raw_open.to(torch.int32) + r_open.to(torch.int32) - r_dec.to(torch.int32)
+    new_start = torch.where(w_str, t + 1, torch.where(w_raw | w_empty, t, start))
+    new_end = torch.where(
+        s3_close, t, torch.where(r_end, lastnw + 1, torch.where(w_empty, t, end))
+    )
+    new_lastnw = torch.where((w_raw & ~is_ws) | (s4 & ~r_end & ~is_ws), t, lastnw)
+    return (new_phase, new_kmatch, new_in_str, new_esc, new_depth, new_d2, new_vesc,
+            new_start, new_end, new_lastnw)
+
+
+def json_span_finalize(final, lengths: torch.Tensor, start_cap):
+    """End-of-record fixups (unterminated values run to the end) and the
+    (start, length) of the machine's final state; ``start`` clips to
+    ``[0, start_cap]`` (the width on the narrow path, each record's length
+    on the striped one)."""
+    phase, _, _, _, _, _, _, start, end, lastnw = final
     end = torch.where(phase == _P_STR, lengths, end)
     end = torch.where(phase == _P_RAW, lastnw + 1, end)
     found = (phase == _P_DONE) | (phase == _P_STR) | (phase == _P_RAW)
     vlen = torch.where(found, (end - start).clamp(min=0), 0).to(torch.int32)
-    return start.clamp(0, width).to(torch.int32), vlen
+    start = torch.minimum(start.clamp(min=0), torch.as_tensor(start_cap, device=start.device))
+    return start.to(torch.int32), vlen
+
+
+def json_get_span(
+    values: torch.Tensor, lengths: torch.Tensor, key: str
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Field span (start, length) within each record's value bytes: the
+    machine of `json_step` over the byte columns in turn. Missing or
+    malformed fields give length 0. Raw values are trimmed of space, tab,
+    CR and LF only (see `dsl.json_get_bytes` for the one corner where
+    that differs from the host reference)."""
+    dev = values.device
+    needle, klen = json_needle(key, dev)
+    n, width = values.shape
+    lengths = lengths.to(torch.int32)
+    carry = json_span_carry0(n, dev)
+    for t in range(width):
+        carry = json_step(carry, values[:, t].to(torch.int32), t, t < lengths, needle, klen)
+    return json_span_finalize(carry, lengths, width)
+
+
+def striped_json_span(
+    sv: torch.Tensor, owned: torch.Tensor, first_row: torch.Tensor, k: torch.Tensor,
+    lengths: torch.Tensor, key: str, kmax: int, step: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-segment field span over striped record bytes (plain version of
+    ``fluvio_json_span_striped`` in csrc/json_span.cu; the JAX package's
+    ``stripes.striped_json_span``).
+
+    ``sv`` u8[r, s] stripe rows, ``owned`` i32[r] bytes each row owns,
+    ``first_row``/``k`` i32[n] each segment's first row and stripe count,
+    ``lengths`` i32[n] record lengths, ``kmax`` >= every ``k``. Stripe
+    position ``kk`` feeds every segment's kk-th row through the machine,
+    owned columns only, at absolute positions ``kk * step + j``, so the
+    carry flows across stripe joints. Returns record-absolute (start,
+    length), start clipped to the record length."""
+    dev = sv.device
+    r, s = sv.shape
+    needle, klen = json_needle(key, dev)
+    lengths = lengths.to(torch.int32)
+    carry = json_span_carry0(lengths.shape[0], dev)
+    for kk in range(max(kmax, 1)):
+        rows = (first_row.to(torch.int64) + kk).clamp(0, r - 1)
+        sm = sv[rows]
+        ol = owned[rows]
+        seg_active = kk < k
+        for j in range(s):
+            carry = json_step(carry, sm[:, j].to(torch.int32), kk * step + j,
+                              seg_active & (j < ol), needle, klen)
+    return json_span_finalize(carry, lengths, lengths)
 
 
 # ---------------------------------------------------------------------------

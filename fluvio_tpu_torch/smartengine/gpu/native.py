@@ -38,11 +38,15 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # source file -> {C entry point: argtypes}
 SIGNATURES: Dict[str, Dict[str, list]] = {
-    "json_span.cu": {"fluvio_json_span": [_P, _P, _P, _I, _LL, _I, _P, _P, _P]},
+    "json_span.cu": {
+        "fluvio_json_span": [_P, _P, _P, _I, _LL, _I, _P, _P, _P],
+        "fluvio_json_span_striped": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P, _P, _P],
+    },
     "extract.cu": {"fluvio_extract": [_P, _P, _P, _LL, _I, _P, _P]},
     "dfa_scan.cu": {
         "fluvio_dfa_scan": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _LL, _I, _P, _P]
     },
+    "dfa_compose.cu": {"fluvio_dfa_compose": [_P, _P, _I, _I, _LL, _I, _P, _P]},
 }
 
 

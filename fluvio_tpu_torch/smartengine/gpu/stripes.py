@@ -1,0 +1,662 @@
+"""Striped wide-record layout on the card.
+
+The port's counterpart of ``fluvio_tpu/smartengine/tpu/stripes.py`` for
+filter, map and filter_map chains. A record wider than the narrow layout
+(`StripeParams.threshold`) becomes K consecutive device rows ("stripes")
+of ``width`` bytes sharing a segment id; consecutive stripes overlap by
+``overlap`` bytes. The row sidecar (segment, stripe index, byte offset,
+stripe length) is derived on the card from the record lengths, so the
+upload stays the narrow path's one ragged flat.
+
+- Literals up to the overlap (start-anchored: the stripe width) are whole
+  in some stripe: a windowed compare per stripe, OR-reduced per segment.
+- Non-literal regexes, and literals past the overlap, chain DFA state
+  across stripes: each row's OWNED bytes reduce to one transition
+  function (`cuda_kernels.dfa_compose_columns`), the rows of a segment
+  compose in order, and EOS applies once per segment.
+- A single-level ``JsonGet`` carries the structural machine across the
+  stripes (`cuda_kernels.striped_json_span`) and gives record-absolute
+  (start, length) views; predicates over the field window-compare or
+  chain an in-span DFA inside that span.
+- Maps are the position-wise case folds (upper/lower), which commute with
+  striping, or one JsonGet view; outputs ship as the segment survivor mask
+  or (start, length) descriptors, and the host rebuilds the bytes.
+
+Aggregate and array_map stages are not lowered here yet (their chains are
+unstripeable and wide batches spill). The stripe geometry is an explicit
+`StripeParams`, never read from the environment.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from fluvio_tpu_torch.ops.regex_dfa import UnsupportedRegex, compile_regex_cached, literal_of
+from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, kernels
+from fluvio_tpu_torch.smartengine.gpu.buffer import MAX_WIDTH
+from fluvio_tpu_torch.smartengine.gpu.lower import Unlowerable, apply_postops, lower_expr
+from fluvio_tpu_torch.smartmodule import dsl
+
+# state-count gate of the cross-stripe DFA chain (the JAX package's
+# default ``FLUVIO_DFA_ASSOC_MAX_STATES``), and the legacy limit that
+# applies when a packed table has more classes than the gate is sized for
+DFA_STRIPE_MAX_STATES = 64
+DFA_STRIPE_MAX_STATES_WIDE = 16
+DFA_MAX_CLASSES = 32
+
+
+@dataclass(frozen=True)
+class StripeParams:
+    """Stripe geometry: batches wider than ``threshold`` bytes stage as
+    rows of ``width`` bytes overlapping by ``overlap`` bytes. The step
+    (width - overlap) stays 4-aligned so stripe starts land on i32 words of
+    the ragged upload."""
+
+    threshold: int = MAX_WIDTH
+    width: int = 8192
+    overlap: int = 128
+
+    def __post_init__(self) -> None:
+        s, v = self.width, self.overlap
+        if s % 4 or v % 4 or v >= s:
+            raise ValueError(f"bad stripe params width={s} overlap={v}")
+        if not 0 < self.threshold <= MAX_WIDTH:
+            raise ValueError(
+                f"stripe threshold {self.threshold} outside the narrow layout (1..{MAX_WIDTH})"
+            )
+
+    @property
+    def step(self) -> int:
+        return self.width - self.overlap
+
+
+def stripe_counts(lengths: np.ndarray, s: int, v: int) -> np.ndarray:
+    """Host mirror of the card's stripe-count formula (must agree)."""
+    step = s - v
+    lengths = np.asarray(lengths, dtype=np.int64)
+    return np.maximum(1, (np.maximum(lengths - v, 0) + step - 1) // step)
+
+
+def plan_rows(lengths: np.ndarray, count: int, s: int, v: int) -> int:
+    """Exact live stripe-row total for a batch (host side)."""
+    if count == 0:
+        return 1
+    return int(stripe_counts(lengths[:count], s, v).sum())
+
+
+def plan_device(lengths: torch.Tensor, live: torch.Tensor, r: int, s: int, v: int) -> dict:
+    """Derive the stripe sidecar on the card from the record lengths.
+
+    ``lengths`` i32[n] (zero past the live count), ``live`` bool[n], ``r``
+    the stripe-row count. Returns per stripe-row tensors ``seg`` (record
+    row), ``stripe_idx``, ``abs_start`` (byte offset of the stripe within
+    its record), ``stripe_len``, ``row_live``, ``is_last``, the per-record
+    ``first_row`` and stripe count ``k``, and the ints ``step``, ``s``,
+    ``v``."""
+    step = s - v
+    n = lengths.shape[0]
+    dev = lengths.device
+    lengths = lengths.to(torch.int32)
+    k = torch.where(
+        live, torch.clamp((torch.clamp(lengths - v, min=0) + step - 1) // step, min=1), 0
+    ).to(torch.int32)
+    cum = torch.cumsum(k, 0).to(torch.int32)
+    rr = torch.arange(r, dtype=torch.int32, device=dev)
+    seg = torch.searchsorted(cum, rr, right=True).to(torch.int32).clamp(0, n - 1)
+    seg_l = seg.to(torch.int64)
+    first_row = cum - k
+    stripe_idx = rr - first_row[seg_l]
+    row_live = rr < cum[-1]
+    abs_start = stripe_idx * step
+    stripe_len = torch.where(row_live, (lengths[seg_l] - abs_start).clamp(0, s), 0).to(torch.int32)
+    is_last = row_live & (stripe_idx == k[seg_l] - 1)
+    return {
+        "seg": seg,
+        "stripe_idx": stripe_idx,
+        "abs_start": abs_start,
+        "stripe_len": stripe_len,
+        "row_live": row_live,
+        "is_last": is_last,
+        "first_row": first_row,
+        "k": k,
+        "step": step,
+        "s": s,
+        "v": v,
+    }
+
+
+def striped_repad_words(flat: torch.Tensor, lengths: torch.Tensor, plan: dict, s: int):
+    """Build the striped byte matrix u8[r, s] from the 4-aligned ragged
+    upload (i32 words), as the narrow ``ragged_repad_words`` does for one
+    row per record; stripe starts are word-aligned because the step is.
+    Overlap bytes are gathered twice from the same flat (device memory
+    only, never link bytes)."""
+    lengths4 = (lengths.to(torch.int64) + 3) & ~3
+    word_starts = (torch.cumsum(lengths4, 0) - lengths4) >> 2
+    ws = word_starts[plan["seg"].to(torch.int64)] + (plan["abs_start"].to(torch.int64) >> 2)
+    jw = torch.arange(s // 4, dtype=torch.int64, device=flat.device)[None, :]
+    words = flat[(ws[:, None] + jw).clamp(0, flat.shape[0] - 1)]
+    shifts = torch.arange(4, dtype=torch.int32, device=flat.device) * 8
+    gathered = ((words[:, :, None] >> shifts) & 0xFF).reshape(words.shape[0], s)
+    keep = torch.arange(s, dtype=torch.int32, device=flat.device)[None, :] < plan["stripe_len"][:, None]
+    return torch.where(keep, gathered, 0).to(torch.uint8)
+
+
+def stage_rows(flat: torch.Tensor, lengths: torch.Tensor, host_lengths: np.ndarray,
+               count: int, params: StripeParams, srows: int):
+    """Re-pad one uploaded batch into stripe rows: (plan, sv u8[srows, s],
+    kmax). ``flat`` is the ragged upload as i32 words, ``lengths`` i32[n]
+    its record lengths on the card, ``host_lengths`` the same lengths on
+    the host, which give ``kmax`` (the most stripes of any live record)
+    without waiting on the card."""
+    s, v = params.width, params.overlap
+    live = torch.arange(lengths.shape[0], device=lengths.device) < count
+    plan = plan_device(lengths, live, srows, s, v)
+    sv = striped_repad_words(flat, lengths, plan, s)
+    kmax = int(stripe_counts(host_lengths[:count], s, v).max()) if count else 1
+    return plan, sv, kmax
+
+
+def owned_lengths(plan: dict) -> torch.Tensor:
+    """Bytes of each stripe row OWNED by it: the overlap tail belongs to
+    the next stripe, the last stripe owns through the record's end. Every
+    record byte is owned by exactly one row, in (segment, stripe) order."""
+    return torch.where(
+        plan["is_last"], plan["stripe_len"], plan["stripe_len"].clamp(max=plan["step"])
+    ).to(torch.int32)
+
+
+def seg_any(verdict: torch.Tensor, plan: dict, n: int) -> torch.Tensor:
+    """Per-segment OR of per-stripe verdicts (a max over the sorted
+    segment ids)."""
+    x = (verdict & plan["row_live"]).to(torch.int32)
+    out = torch.zeros((n,), dtype=torch.int32, device=x.device)
+    return out.scatter_reduce(0, plan["seg"].to(torch.int64), x, "amax") > 0
+
+
+def _dfa_device(dfa, device):
+    """(byte_class i32[256], table_t i32[C, S], flat table i64[S*C],
+    accept bool[S]) on ``device``, uploaded once per device."""
+    key = f"striped:{device}"
+    tables = dfa.device_tables.get(key)
+    if tables is None:
+        tables = (
+            torch.from_numpy(dfa.byte_class.astype(np.int32)).to(device),
+            torch.from_numpy(np.ascontiguousarray(dfa.table.T, dtype=np.int32)).to(device),
+            torch.from_numpy(dfa.table.reshape(-1).astype(np.int64)).to(device),
+            torch.from_numpy(dfa.accept.astype(bool)).to(device),
+        )
+        dfa.device_tables[key] = tables
+    return tables
+
+
+def stripe_classes(sv: torch.Tensor, plan: dict, dfa, span=None) -> torch.Tensor:
+    """Class symbols i32[r, s] of every row's OWNED bytes, -1 (identity)
+    elsewhere: the input of the record-level DFA chain. With ``span`` =
+    (vst, vln), only the owned bytes inside each segment's field span
+    [vst, vst+vln) keep their class: the input of the in-span chain."""
+    byte_class = _dfa_device(dfa, sv.device)[0]
+    jidx = torch.arange(sv.shape[1], dtype=torch.int32, device=sv.device)[None, :]
+    keep = jidx < owned_lengths(plan)[:, None]
+    if span is not None:
+        lo, hi = _span_bounds(plan, *span)
+        abs_pos = plan["abs_start"][:, None] + jidx
+        keep &= (abs_pos >= lo[:, None]) & (abs_pos < hi[:, None])
+    # an int32 index keeps the lookup free of an int64 temporary of the
+    # matrix's size
+    return torch.where(keep, byte_class[sv.to(torch.int32)], -1)
+
+
+def striped_dfa_verdict(sv: torch.Tensor, plan: dict, dfa, kmax: int) -> torch.Tensor:
+    """Regex match per segment by chaining DFA state across stripes: each
+    row's OWNED bytes reduce to one transition function, rows compose in
+    segment order, EOS applies once (`seg_dfa_accept`). Un-owned columns
+    compose as identity, so no overlap containment is needed."""
+    return seg_dfa_accept(stripe_classes(sv, plan, dfa), plan, dfa, kmax)
+
+
+def seg_dfa_accept(cls: torch.Tensor, plan: dict, dfa, kmax: int) -> torch.Tensor:
+    """Segment verdicts from per-position classes i32[r, s] (-1 =
+    identity): per-row composition (the kernel), then each segment's rows
+    folded in order — row j of the segment composes where ``j < k``, which
+    equals the JAX package's segmented associative scan by associativity —
+    one EOS step per segment and the accept check. ``kmax`` (>= every
+    segment's stripe count) comes from the host, so nothing waits on the
+    card."""
+    r = cls.shape[0]
+    _, table_t, table_flat, accept = _dfa_device(dfa, cls.device)
+    rowf = cuda_kernels.dfa_compose_columns(cls.contiguous(), table_t)  # [r, S]
+    first = plan["first_row"].to(torch.int64)
+    k = plan["k"]
+    f = rowf[first.clamp(0, r - 1)]
+    for j in range(1, max(kmax, 1)):
+        nxt = rowf[(first + j).clamp(0, r - 1)]
+        f = torch.where((j < k)[:, None], kernels.dfa_compose(f, nxt), f)
+    state = f[:, dfa.start].to(torch.int64)
+    state = table_flat[state * dfa.n_classes + dfa.eos_class]
+    return accept[state] & (k > 0)
+
+
+def _span_bounds(plan: dict, vst: torch.Tensor, vln: torch.Tensor):
+    """Each stripe row's segment field span [lo, hi) (record-absolute)."""
+    seg = plan["seg"].to(torch.int64)
+    lo = vst.to(torch.int32)[seg]
+    return lo, lo + vln.to(torch.int32)[seg]
+
+
+def striped_dfa_in_span(sv, plan: dict, dfa, vst, vln, kmax: int) -> torch.Tensor:
+    """Regex match per segment INSIDE a JsonGet field span [vst, vst+vln):
+    the same cross-stripe chain with the classes outside the span (or
+    un-owned) as identity, so the composition covers exactly the field
+    bytes. A missing or empty field composes pure identity and EOS tests
+    the empty string, as the narrow extract's ``b""`` does."""
+    return seg_dfa_accept(stripe_classes(sv, plan, dfa, (vst, vln)), plan, dfa, kmax)
+
+
+def striped_json_span(sv, plan: dict, lengths, key: str, kmax: int):
+    """Per-SEGMENT JsonGet field span over the stripe rows: record-absolute
+    (start, length) view descriptors, the machine's state carried from
+    each stripe into the next (`cuda_kernels.striped_json_span`)."""
+    return cuda_kernels.striped_json_span(
+        sv.contiguous(), owned_lengths(plan).contiguous(),
+        plan["first_row"].contiguous(), plan["k"].contiguous(),
+        lengths.to(torch.int32).contiguous(), key, kmax, plan["step"],
+    )
+
+
+def striped_literal_in_span(sv, plan: dict, lit: bytes, vst, vln, kind: str, n: int):
+    """Literal predicate INSIDE a per-segment field span [vst, vst+vln).
+
+    Per stripe row the windowed compare runs at OWNED byte positions; a
+    window of <= overlap bytes starting at an owned byte lies wholly in its
+    row, so the per-row verdict OR per segment is exact. ``kind``:
+    contains | startswith | endswith | equals (pinned to the span's
+    bounds)."""
+    r, s = sv.shape
+    k = len(lit)
+    dev = sv.device
+    if k == 0:
+        # an empty literal matches every field, except that "equals" (an
+        # anchored-empty regex) still needs the field to be empty
+        if kind == "equals":
+            return vln.to(torch.int32) == 0
+        return torch.ones((n,), dtype=torch.bool, device=dev)
+    if k > s:
+        return torch.zeros((n,), dtype=torch.bool, device=dev)
+    lo, hi = _span_bounds(plan, vst, vln)
+    span = s - k + 1
+    acc = torch.ones((r, span), dtype=torch.bool, device=dev)
+    for i, b in enumerate(lit):
+        acc &= sv[:, i : i + span] == b
+    jidx = torch.arange(span, dtype=torch.int32, device=dev)[None, :]
+    abs_pos = plan["abs_start"][:, None] + jidx
+    owned = jidx < owned_lengths(plan)[:, None]
+    fits = jidx + k <= plan["stripe_len"][:, None]
+    in_span = (abs_pos >= lo[:, None]) & (abs_pos + k <= hi[:, None])
+    if kind in ("startswith", "equals"):
+        in_span &= abs_pos == lo[:, None]
+    elif kind == "endswith":
+        in_span &= abs_pos + k == hi[:, None]
+    hit = seg_any((acc & owned & fits & in_span).any(dim=1), plan, n)
+    if kind == "equals":
+        hit &= vln.to(torch.int32) == k
+    return hit
+
+
+def seg_state_of(plan: dict, sv: torch.Tensor, lengths: torch.Tensor, arrays: dict) -> dict:
+    """Segment-level state: full record lengths and the first stripe's
+    bytes, beside the un-striped meta columns. Narrow lowerings over it
+    are exact for length, key and const expressions."""
+    r = sv.shape[0]
+    live = plan["k"] > 0
+    seg_values = sv[plan["first_row"].to(torch.int64).clamp(0, r - 1)]
+    return {
+        "values": torch.where(live[:, None], seg_values, 0),
+        "lengths": lengths.to(torch.int32),
+        "keys": arrays["keys"],
+        "key_lengths": arrays["key_lengths"],
+        "offset_deltas": arrays["offset_deltas"],
+        "timestamp_deltas": arrays["timestamp_deltas"],
+    }
+
+
+# ---------------------------------------------------------------------------
+# Build-time lowering
+# ---------------------------------------------------------------------------
+
+_SEG_EXACT_NODES = (
+    dsl.Cmp, dsl.Len, dsl.ParseInt, dsl.Value, dsl.Key, dsl.Const,
+    dsl.Upper, dsl.Lower, dsl.And, dsl.Or, dsl.Not, dsl.Contains,
+    dsl.StartsWith, dsl.EndsWith,
+)
+_KINDS = {dsl.Contains: "contains", dsl.StartsWith: "startswith", dsl.EndsWith: "endswith"}
+
+
+def _check_seg_exact(expr) -> None:
+    """Whitelist for expressions evaluated on the segment-level state:
+    length, key and const reads; anything that reads the record bytes
+    structurally (JsonGet, Concat, regex, value searches) is refused."""
+    if not isinstance(expr, _SEG_EXACT_NODES):
+        raise Unlowerable(f"{type(expr).__name__} not stripeable")
+    for f in ("arg", "left", "right"):
+        sub = getattr(expr, f, None)
+        if isinstance(sub, dsl.Expr):
+            _check_seg_exact(sub)
+    for sub in getattr(expr, "args", []) or []:
+        _check_seg_exact(sub)
+    if isinstance(expr, (dsl.Contains, dsl.StartsWith, dsl.EndsWith)):
+        if _value_postops(expr.arg) is not None:
+            raise Unlowerable("value search must lower striped")
+
+
+def _value_postops(arg) -> Optional[Tuple[str, ...]]:
+    """``arg`` as a fold chain over the record value (``Upper(Lower(
+    Value()))`` -> ("lower", "upper")); None for key/const sources (exact
+    on the segment state); raises for any other source."""
+    if isinstance(arg, dsl.Value):
+        return ()
+    if isinstance(arg, (dsl.Upper, dsl.Lower)):
+        inner = _value_postops(arg.arg)
+        if inner is None:
+            return None
+        return inner + ("upper" if isinstance(arg, dsl.Upper) else "lower",)
+    if isinstance(arg, (dsl.Key, dsl.Const)):
+        return None
+    raise Unlowerable(f"{type(arg).__name__} not stripeable as a byte source")
+
+
+def _jsonget_source(arg):
+    """``arg`` as a fold-wrapped single-level JsonGet over the record
+    value: ``(key, pre, outer)`` — ``pre`` the folds inside the JsonGet
+    (the machine must see them), ``outer`` those applied to the field.
+    None when the source is no JsonGet; raises for a nested one."""
+    outer: List[str] = []
+    expr = arg
+    while isinstance(expr, (dsl.Upper, dsl.Lower)):
+        outer.append("upper" if isinstance(expr, dsl.Upper) else "lower")
+        expr = expr.arg
+    if not isinstance(expr, dsl.JsonGet):
+        return None
+    pre = _value_postops(expr.arg)
+    if pre is None:
+        raise Unlowerable("striped JsonGet must read the record value")
+    outer.reverse()
+    return expr.key, pre, tuple(outer)
+
+
+def _cached_json_span(ctx: dict, key: str, pre):
+    """Run the span machine once per batch for each (key, folds) source,
+    however many predicates and maps read it. An entry holds the stripe
+    bytes it was computed from and is valid only while ``ctx["sv"]`` is
+    that very tensor (a fold stage in between rebinds it)."""
+    cache = ctx.setdefault("_span_cache", {})
+    ck = (key, tuple(pre))
+    hit = cache.get(ck)
+    if hit is None or hit[0] is not ctx["sv"]:
+        sv_pre = apply_postops(ctx["sv"], pre)
+        span = striped_json_span(sv_pre, ctx["plan"], ctx["seg_state"]["lengths"], key, ctx["kmax"])
+        hit = cache[ck] = (ctx["sv"], sv_pre, span)
+    return hit[1], hit[2]
+
+
+def _literal_kind(info) -> Tuple[bytes, str]:
+    lit, a_start, a_end = info
+    if a_start and a_end:
+        return lit, "equals"
+    if a_start:
+        return lit, "startswith"
+    if a_end:
+        return lit, "endswith"
+    return lit, "contains"
+
+
+def _lower_striped_json_literal(kind: str, lit: bytes, key: str, pre, outer, v: int):
+    """A literal predicate over a JsonGet field: the span machine gives
+    the field's record-absolute span, the literal windows inside it. The
+    field can start anywhere, so every kind needs the overlap."""
+    if len(lit) > v:
+        raise Unlowerable(f"JsonGet-sourced literal of {len(lit)} bytes exceeds the overlap ({v})")
+
+    def fn(ctx):
+        sv_pre, (vst, vln) = _cached_json_span(ctx, key, pre)
+        # outer folds keep lengths, so the span positions stay valid
+        sv_m = apply_postops(sv_pre, outer)
+        return striped_literal_in_span(sv_m, ctx["plan"], lit, vst, vln, kind, ctx["n"])
+
+    return fn
+
+
+def _lower_striped_literal(kind: str, lit: bytes, postops, s: int, v: int):
+    """A literal predicate over the stripe bytes: windows up to the overlap
+    are whole in some stripe, so the per-stripe OR is exact; anchored
+    forms also pin the first (last) stripe and, for equals, the length."""
+    limit = s if kind in ("startswith", "equals") else v
+    if len(lit) > limit:
+        raise Unlowerable(f"literal of {len(lit)} bytes exceeds the stripe limit ({limit})")
+
+    def fn(ctx):
+        sv = apply_postops(ctx["sv"], postops)
+        plan, n = ctx["plan"], ctx["n"]
+        slen = plan["stripe_len"]
+        if kind == "contains":
+            return seg_any(kernels.literal_search(sv, slen, lit), plan, n)
+        if kind == "endswith":
+            return seg_any(kernels.literal_endswith(sv, slen, lit) & plan["is_last"], plan, n)
+        row = kernels.literal_startswith(sv, slen, lit) & (plan["stripe_idx"] == 0)
+        hit = seg_any(row, plan, n)
+        if kind == "equals":
+            hit &= ctx["seg_state"]["lengths"] == len(lit)
+        return hit
+
+    return fn
+
+
+def _literal_regex(lit: bytes, kind: str) -> str:
+    """A literal predicate as an equivalent regex (every byte \\xhh-escaped)
+    for the DFA chain that takes literals past the overlap."""
+    body = "".join(f"\\x{b:02x}" for b in lit)
+    pre = "^" if kind in ("startswith", "equals") else ""
+    post = "$" if kind in ("endswith", "equals") else ""
+    return pre + body + post
+
+
+def _striped_dfa_gate(pattern: str):
+    """Compile and gate a DFA for the cross-stripe chain: at most 64
+    states, 16 when the packed table has more than 32 classes (the
+    composition's work grows with S x C). Past the gate the chain is
+    unstripeable."""
+    try:
+        dfa = compile_regex_cached(pattern)
+    except UnsupportedRegex as e:
+        raise Unlowerable(str(e)) from e
+    limit = DFA_STRIPE_MAX_STATES
+    if dfa.n_classes > DFA_MAX_CLASSES:
+        limit = DFA_STRIPE_MAX_STATES_WIDE
+    if dfa.n_states > limit:
+        raise Unlowerable(f"DFA of {dfa.n_states} states exceeds the striped gate ({limit})")
+    return dfa
+
+
+def _lower_striped_dfa(pattern: str, postops):
+    dfa = _striped_dfa_gate(pattern)
+
+    def fn(ctx):
+        sv = apply_postops(ctx["sv"], postops)
+        return striped_dfa_verdict(sv, ctx["plan"], dfa, ctx["kmax"])
+
+    return fn
+
+
+def _lower_striped_dfa_in_span(pattern: str, key: str, pre, outer):
+    dfa = _striped_dfa_gate(pattern)
+
+    def fn(ctx):
+        sv_pre, (vst, vln) = _cached_json_span(ctx, key, pre)
+        sv_m = apply_postops(sv_pre, outer)
+        return striped_dfa_in_span(sv_m, ctx["plan"], dfa, vst, vln, ctx["kmax"])
+
+    return fn
+
+
+def _lower_byte_predicate(kind: str, lit: bytes, pattern: Optional[str], arg, s: int, v: int):
+    """A literal (``pattern`` None) or regex predicate over ``arg``: the
+    windowed compare where the literal fits, the DFA chain otherwise,
+    inside a JsonGet field span when ``arg`` is one."""
+    json_src = _jsonget_source(arg)
+    if json_src is not None:
+        key, pre, outer = json_src
+        if lit is not None:
+            try:
+                return _lower_striped_json_literal(kind, lit, key, pre, outer, v)
+            except Unlowerable:
+                pass  # past the overlap: in-span DFA below
+        return _lower_striped_dfa_in_span(pattern or _literal_regex(lit, kind), key, pre, outer)
+    postops = _value_postops(arg)
+    if postops is None:
+        raise Unlowerable("striped regex must read the record value")
+    if lit is not None:
+        try:
+            return _lower_striped_literal(kind, lit, postops, s, v)
+        except Unlowerable:
+            pass  # past the limit: chain it as a DFA instead
+    return _lower_striped_dfa(pattern or _literal_regex(lit, kind), postops)
+
+
+def lower_striped_predicate(expr, s: int, v: int) -> Callable:
+    """Lower a filter predicate to fn(ctx) -> bool[n] (segment level).
+    ``ctx`` carries ``sv`` (stripe bytes, upstream folds applied),
+    ``plan``, ``seg_state``, ``n`` and ``kmax``."""
+    if isinstance(expr, (dsl.And, dsl.Or)):
+        fns = [lower_striped_predicate(a, s, v) for a in expr.args]
+        is_and = isinstance(expr, dsl.And)
+
+        def bool_fn(ctx):
+            out = fns[0](ctx)
+            for f in fns[1:]:
+                out = (out & f(ctx)) if is_and else (out | f(ctx))
+            return out
+
+        return bool_fn
+    if isinstance(expr, dsl.Not):
+        inner = lower_striped_predicate(expr.arg, s, v)
+        return lambda ctx: ~inner(ctx)
+    if isinstance(expr, dsl.Cmp):
+        _check_seg_exact(expr)
+        fn = lower_expr(expr)
+        return lambda ctx: fn(ctx["seg_state"])
+    if isinstance(expr, (dsl.Contains, dsl.StartsWith, dsl.EndsWith)):
+        kind = _KINDS[type(expr)]
+        if _jsonget_source(expr.arg) is None and _value_postops(expr.arg) is None:
+            _check_seg_exact(expr)  # key/const source: exact on the segment state
+            fn = lower_expr(expr)
+            return lambda ctx: fn(ctx["seg_state"])
+        return _lower_byte_predicate(kind, expr.literal, None, expr.arg, s, v)
+    if isinstance(expr, dsl.RegexMatch):
+        info = literal_of(expr.pattern)
+        lit, kind = _literal_kind(info) if info is not None else (None, "contains")
+        return _lower_byte_predicate(kind, lit, expr.pattern, expr.arg, s, v)
+    raise Unlowerable(f"{type(expr).__name__} not stripeable as a predicate")
+
+
+def _striped_view(value):
+    """Classify a striped map value: ``("postops", ops)`` for a fold chain
+    over the record value, ``("span", key, pre, total)`` for a single-level
+    JsonGet view (``pre`` the folds the machine sees, ``total`` all the
+    folds the host applies). Anything else raises Unlowerable."""
+    outer: List[str] = []
+    expr = value
+    while isinstance(expr, (dsl.Upper, dsl.Lower)):
+        outer.append("upper" if isinstance(expr, dsl.Upper) else "lower")
+        expr = expr.arg
+    outer.reverse()  # application order is innermost-first
+    if isinstance(expr, dsl.JsonGet):
+        pre = _value_postops(expr.arg)
+        if pre is None:
+            raise Unlowerable("striped JsonGet must read the record value")
+        return ("span", expr.key, pre, pre + tuple(outer))
+    post = _value_postops(value)
+    if post is None:
+        raise Unlowerable("striped map must transform the record value")
+    return ("postops", post)
+
+
+def _make_span_fn(key: str, pre: Tuple[str, ...]):
+    def fn(ctx):
+        return _cached_json_span(ctx, key, pre)[1]
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Chain build + run
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class StripedChain:
+    """Stripe-capable lowering of a filter/map chain.
+
+    ``ops`` entries: ("filter", fn) | ("postops", folds) | ("span", fn).
+    ``postops`` accumulates every fold the host applies when it rebuilds
+    the output (it must equal the narrow build's view postops). A span op
+    (JsonGet map) makes the outputs sub-record views: the executor ships
+    its (start, length) descriptors instead of whole records."""
+
+    ops: List = field(default_factory=list)
+    postops: Tuple[str, ...] = ()
+    has_span: bool = False
+
+    def run(self, ctx: dict, valid: torch.Tensor):
+        """Returns (valid bool[n], vspan): ``vspan`` the per-segment
+        (start, length) of a span chain, else None."""
+        vspan = None
+        for kind, arg in self.ops:
+            if kind == "filter":
+                valid = valid & arg(ctx)
+            elif kind == "postops":
+                ctx["sv"] = apply_postops(ctx["sv"], arg)
+                ctx["seg_state"]["values"] = apply_postops(ctx["seg_state"]["values"], arg)
+            else:  # span
+                vspan = arg(ctx)
+        return valid, vspan
+
+
+def try_build_striped(programs, s: int, v: int) -> Optional[StripedChain]:
+    """Striped lowering of the chain's resolved programs; None when a stage
+    is outside the stripeable subset (wide batches then spill)."""
+    chain = StripedChain()
+    try:
+        for prog in programs:
+            if isinstance(prog, (dsl.FilterProgram, dsl.FilterMapProgram)):
+                if chain.has_span:
+                    # a later filter would read the extracted view, not the
+                    # stripe bytes the striped predicates scan
+                    raise Unlowerable("filter after a striped span map")
+                chain.ops.append(("filter", lower_striped_predicate(prog.predicate, s, v)))
+            if isinstance(prog, (dsl.MapProgram, dsl.FilterMapProgram)):
+                if prog.key is not None:
+                    raise Unlowerable("striped map cannot rewrite keys")
+                view = _striped_view(prog.value)
+                if view[0] == "postops":
+                    if view[1] and not chain.has_span:
+                        # after a span map the stripe bytes are dead; the
+                        # fold applies on the host through `postops`
+                        chain.ops.append(("postops", view[1]))
+                    chain.postops += view[1]
+                else:
+                    _, key, pre, total = view
+                    if chain.has_span:
+                        raise Unlowerable("one striped span map per chain")
+                    chain.ops.append(("span", _make_span_fn(key, pre)))
+                    chain.has_span = True
+                    chain.postops += total
+            elif not isinstance(prog, dsl.FilterProgram):
+                # aggregate and array_map stages come with their own slice
+                raise Unlowerable(f"{type(prog).__name__} not stripeable yet")
+    except Unlowerable:
+        return None
+    return chain

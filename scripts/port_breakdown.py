@@ -1,12 +1,15 @@
-"""Where the GPU port's headline chain spends its time, on one CUDA card.
+"""Where the GPU port's chains spend their time, on one CUDA card.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 scripts/port_breakdown.py
+    python3 scripts/port_breakdown.py [--chain NAME ...]
 
-It drives ``regex-filter(regex="fluvio")`` -> ``json-map(field="name")``
-over batches of 1,048,576 bench JSON records (the ``chip_smoke.py``
-corpus) through ``fluvio_tpu_torch`` three ways and prints one JSON line:
+``--chain headline`` (the default) drives ``regex-filter(regex="fluvio")``
+-> ``json-map(field="name")`` over batches of 1,048,576 bench JSON records
+(the ``chip_smoke.py`` corpus); ``7_fat70k``, ``10_regex_json_fat`` and
+``fluvio_dfa_json_map_fat`` drive the striped chains of ``chip_smoke.py``
+over batches of 1,024 ``gen_fat_70k`` records (71,709 B each). Each chain
+runs through ``fluvio_tpu_torch`` three ways, and each prints one JSON line:
 
 - ``serial``: per batch, each phase alone, with the card drained between
   phases — host staging of the ragged values, dispatch (pinned uploads
@@ -22,6 +25,7 @@ corpus) through ``fluvio_tpu_torch`` three ways and prints one JSON line:
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -33,11 +37,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-from chip_smoke import N, build_chain, gen_json  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    FAT_PARAMS, FAT_RECORDS, N, STRIPED_CHAINS, build_chain, gen_fat_70k, gen_json,
+)
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer  # noqa: E402
 
 BATCHES = 4
 SPECS = [("regex-filter", {"regex": "fluvio"}), ("json-map", {"field": "name"})]
+CHAINS = {"headline": SPECS, **STRIPED_CHAINS}
 
 
 def fresh(corpora):
@@ -110,7 +117,32 @@ def profile(chain, corpora):
     }
 
 
+def breakdown(name: str, smi: str) -> dict:
+    if name == "headline":
+        chain = build_chain(SPECS)
+        corpora = [gen_json(N, seed=100 + k) for k in range(BATCHES)]
+        warm = corpora[0][:4096]
+    else:
+        chain = build_chain(CHAINS[name], FAT_PARAMS)
+        corpora = [gen_fat_70k(FAT_RECORDS)] * BATCHES
+        warm = corpora[0][:8]
+    chain.process_buffer(RecordBuffer.from_values(warm))  # build + warm-up
+    n = len(corpora[0])
+    out = {"chain": name, "device": smi, "records_per_batch": n, "batches": BATCHES,
+           "bytes_per_batch": sum(len(r) for r in corpora[0])}
+    out["serial"] = serial(chain, corpora)
+    wall = pipelined(chain, corpora)
+    out["pipelined"] = {"wall_s": wall, "records_per_s": BATCHES * n / wall,
+                        "bytes_per_s": BATCHES * out["bytes_per_batch"] / wall}
+    out["profile"] = profile(chain, corpora)
+    return out
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--chain", action="append", choices=sorted(CHAINS),
+                        help="chain to break down (repeatable; default: headline)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("port_breakdown: no CUDA device", file=sys.stderr)
         return 1
@@ -118,15 +150,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    chain = build_chain(SPECS)
-    corpora = [gen_json(N, seed=100 + k) for k in range(BATCHES)]
-    chain.process_buffer(RecordBuffer.from_values(corpora[0][:4096]))  # build + warm-up
-    out = {"device": smi, "records_per_batch": N, "batches": BATCHES}
-    out["serial"] = serial(chain, corpora)
-    wall = pipelined(chain, corpora)
-    out["pipelined"] = {"wall_s": wall, "records_per_s": BATCHES * N / wall}
-    out["profile"] = profile(chain, corpora)
-    print(json.dumps(out))
+    for name in args.chain or ["headline"]:
+        print(json.dumps(breakdown(name, smi)), flush=True)
     return 0
 
 

@@ -96,3 +96,38 @@ def test_cuda_kernels_equal_plain_versions():
         dfa = compile_regex(pattern, packed=packed)
         assert torch.equal(cuda_kernels.dfa_match(v, ln, dfa), kernels.dfa_match(v, ln, dfa))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_striped_cuda_kernels_equal_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.ops.regex_dfa import compile_regex
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, kernels, stripes
+    from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+
+    rng = np.random.default_rng(4)
+    for pattern, packed in (("^(fluvio|kafka|pulsar)-[0-3]$", True), ("flu[vV]io", False),
+                            ("(a|b)*a(a|b){6}c|x" + "d" * 125, False)):
+        dfa = compile_regex(pattern, packed=packed)
+        cls = rng.integers(-1, dfa.n_classes, size=(301, 77)).astype(np.int32)
+        cls[:, 10:50] = -1
+        c = torch.from_numpy(cls).cuda()
+        table_t = torch.from_numpy(np.ascontiguousarray(dfa.table.T, dtype=np.int32)).cuda()
+        assert torch.equal(cuda_kernels.dfa_compose_columns(c, table_t),
+                           kernels.dfa_compose_columns(c, table_t))
+    docs = [b'{"pad":"' + b"p" * int(rng.integers(0, 600)) + b'","name":"fluvio-%d"}' % i
+            for i in range(200)] + [b'{"name":' + b"7" * 500, b'{"pad":"' + b"q" * 700 + b'"}']
+    buf = RecordBuffer.from_values(docs)
+    flat, _ = buf.ragged_values()
+    params = stripes.StripeParams(threshold=64, width=64, overlap=16)
+    lengths = torch.from_numpy(buf.lengths).cuda()
+    plan, sv, kmax = stripes.stage_rows(
+        torch.from_numpy(np.ascontiguousarray(flat).view(np.int32)).cuda(), lengths,
+        buf.lengths, buf.count, params, stripes.plan_rows(buf.lengths, buf.count, 64, 16) + 8,
+    )
+    args = (sv, stripes.owned_lengths(plan), plan["first_row"], plan["k"], lengths)
+    got = cuda_kernels.striped_json_span(*args, "name", kmax, params.step)
+    want = kernels.striped_json_span(*args, "name", kmax, params.step)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
