@@ -31,7 +31,22 @@ Phases (any failure raises and the script exits non-zero):
 6. striped chains over 4 batches of 1,024 ``gen_fat_70k`` records each
    (bench configs ``7_fat70k``, ``10_regex_json_fat`` and
    ``regex-filter("flu[vV]io")`` -> ``json-map(field="name")``), one whole
-   batch of each checked against ``re`` / ``json_get_bytes`` on the host.
+   batch of each checked against ``re`` / ``json_get_bytes`` on the host;
+7. glz kernels: the decode resolve against its plain version on the
+   compressed flat of the headline batch (256 KiB chunks) and on an
+   adversarial set (zeros, a period-28 corpus, a mixed corpus with a random
+   run, a depth-6 stream, bare and padded token arrays, ragged last chunks,
+   16 and 64 KiB chunks); the encode window match against its plain
+   version on the headline chain's descriptor stream and on seven corpora
+   at chunks of 4, 16, 256 and 512 KiB, with every encoded stream decoded
+   back on the host; all exact;
+8. glz chains: the headline chain with ``LinkParams(compress=True,
+   result_compress=True)`` over the same 4 batches as phase 3 (batch 0
+   checked against the interpreter; records/s beside phase 3's, link
+   bytes, down-link forms and the host compress time), and the
+   ``regex-filter("flu[vV]io")`` -> ``json-map`` striped chain with the
+   link on over 4 x 1,024 fat records, whose constant descriptors must
+   come back as tokens.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -52,10 +67,10 @@ import torch
 
 from fluvio_tpu_torch.models import lookup
 from fluvio_tpu_torch.ops.regex_dfa import compile_regex
-from fluvio_tpu_torch.smartengine import SmartEngine, SmartModuleConfig
-from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, kernels, stripes
+from fluvio_tpu_torch.smartengine import LinkParams, SmartEngine, SmartModuleConfig
+from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, glz, kernels, stripes
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
-from fluvio_tpu_torch.smartengine.gpu.executor import _bucket_rows
+from fluvio_tpu_torch.smartengine.gpu.executor import _bucket_rows, desc_stream, pad_glz_tokens
 from fluvio_tpu_torch.smartengine.gpu.native import KERNELS
 from fluvio_tpu_torch.smartmodule import dsl
 
@@ -70,6 +85,8 @@ FAT_PARAMS = stripes.StripeParams()  # the JAX package's default stripe geometry
 # the striped JSON span check's geometry: the plain version walks kmax x s
 # byte columns one torch step each, so it runs on shorter stripes
 SPAN_CHECK = stripes.StripeParams(threshold=1024, width=256, overlap=64)
+GLZ_LINK = LinkParams(compress=True, result_compress=True)  # 256 KiB chunks
+HEADLINE = [("regex-filter", {"regex": "fluvio"}), ("json-map", {"field": "name"})]
 # the JAX package's JSON corner cases (tests/test_tpu_kernels.py JSON_DOCS)
 JSON_DOCS = [
     b'{"name":"fluvio"}', b'{"a":1,"name":"x"}', b'{"name": "spaced" }', b'{"name":42}',
@@ -393,6 +410,260 @@ def phase_striped_kernels(dev):
     return rows
 
 
+def json_corpus_bytes(n: int, seed: int) -> np.ndarray:
+    """`tests/test_glz_pallas.py`'s JSON corpus, concatenated."""
+    rng = np.random.default_rng(seed)
+    names = ["fluvio", "kafka", "pulsar", "fluvio-tpu", "redpanda", "flink"]
+    vals = [f'{{"name":"{names[rng.integers(0, 6)]}-{i & 255}","n":{rng.integers(0, 100000)}}}'
+            .encode() for i in range(n)]
+    return np.frombuffer(b"".join(vals), dtype=np.uint8).copy()
+
+
+def glz_plan(raw: np.ndarray, chunk: int, dev, max_ratio: float = glz.MAX_RATIO, padded=True):
+    """Compress on the host and build the byte plan on the card, as the
+    up link does: (stream, base, midx)."""
+    comp, reason = glz.compress_link(raw, max_ratio=max_ratio, chunk=chunk)
+    if comp is None:
+        raise AssertionError(f"compress_link declined a smoke corpus: {reason}")
+    tokens = pad_glz_tokens(comp) if padded else comp[:4]
+    ll, ml, srcs, lits = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in tokens)
+    base, midx = glz.byte_plan_device(ll, ml, srcs, lits, comp.out_len)
+    return comp, base, midx
+
+
+def check_resolve(name: str, raw: np.ndarray, chunk: int, dev, **kw) -> int:
+    comp, base, midx = glz_plan(raw, chunk, dev, **kw)
+    got = cuda_kernels.glz_resolve(base, midx, chunk)
+    err = require_equal(f"glz_resolve {name}", got, kernels.glz_resolve(base, midx, chunk))
+    if not np.array_equal(got.cpu().numpy(), raw):
+        raise AssertionError(f"glz_resolve {name}: the decoded bytes differ from the raw bytes")
+    return err
+
+
+def pad8(data: bytes) -> np.ndarray:
+    out = np.zeros((len(data) + 7) & ~7, np.uint8)
+    out[: len(data)] = np.frombuffer(data, np.uint8)
+    return out
+
+
+def encode_corpora():
+    """`tests/test_glz_encode.py`'s corpora."""
+    rng = np.random.default_rng(0)
+    return {
+        "json": pad8(b'{"name":"fluvio-7","n":123,"pad":"xyz"}' * 700),
+        "periodic5": pad8(bytes(range(5)) * 4000),
+        "const": pad8(b"x" * 30000),
+        "zeros_tail": np.concatenate([rng.integers(0, 256, 1024).astype(np.uint8),
+                                      np.zeros(31744, np.uint8)]),
+        "random": rng.integers(0, 256, 16384).astype(np.uint8),
+        "tiny": pad8(b"abcdefgh"),
+        "vocab": pad8(np.tile(np.array([1, 0, 7, 0, 6, 0, 250, 199], np.uint8), 3000).tobytes()),
+    }
+
+
+def match_inputs(stream: torch.Tensor, chunk_groups: int):
+    w0, w1 = glz.enc_group_words(stream)
+    const_m, _ = glz.enc_const_runs(w0, w1, chunk_groups)
+    return w0, w1, const_m
+
+
+def check_match(name: str, stream: torch.Tensor, chunk_groups: int) -> int:
+    w0, w1, const_m = match_inputs(stream, chunk_groups)
+    return require_equal(f"glz_enc_match {name}",
+                         cuda_kernels.glz_encode_match(w0, w1, const_m, chunk_groups),
+                         kernels.glz_encode_match(w0, w1, const_m, chunk_groups))
+
+
+def match_ops(w0, w1, const_m, chunk_groups: int) -> float:
+    """Probes this data needs (each group until its first hit) plus the
+    pointer jumps."""
+    g_count = w0.shape[0]
+    g = torch.arange(g_count, device=w0.device)
+    local = g % chunk_groups
+    open_ = ~const_m
+    probes = 0
+    for d in kernels.GLZ_ENC_DISTANCES:
+        if d >= chunk_groups:
+            break
+        active = open_ & (local >= d)
+        probes += int(active.sum().item())
+        s = (g - d).clamp(min=0)
+        open_ = open_ & ~(active & ~const_m[s] & (w0[s] == w0) & (w1[s] == w1))
+    return float(probes + g_count * kernels.glz_square_rounds(chunk_groups))
+
+
+def headline_desc_stream(corpus: RecordBuffer, dev) -> torch.Tensor:
+    """The headline chain's down-link stream for one batch: the survivors'
+    (start, length) of the name field, compacted and interleaved."""
+    v = torch.from_numpy(corpus.values).to(dev)
+    ln = torch.from_numpy(corpus.lengths).to(dev)
+    valid = kernels.literal_search(v, ln, b"fluvio") & (torch.arange(v.shape[0], device=dev)
+                                                       < corpus.count)
+    st, vl = cuda_kernels.json_get_span(v, ln, "name")
+    _, (cst, cln) = kernels.compact_rows(valid, st, vl)
+    return desc_stream(cst, cln, corpus.width)
+
+
+def phase_glz_kernels(dev, corpus: RecordBuffer):
+    """Both glz kernels against their plain versions: the main path's
+    shapes, then the adversarial sets."""
+    rows = []
+    # decode resolve at the headline shape: the compressed flat of one batch
+    flat = np.ascontiguousarray(corpus.ragged_values()[0])
+    t0 = time.perf_counter()
+    comp, base, midx = glz_plan(flat, glz.GLZ_CHUNK, dev)
+    compress_s = time.perf_counter() - t0
+    got = cuda_kernels.glz_resolve(base, midx, glz.GLZ_CHUNK)
+    err = require_equal("glz_resolve headline", got,
+                        kernels.glz_resolve(base, midx, glz.GLZ_CHUNK))
+    if not np.array_equal(got.cpu().numpy(), flat):
+        raise AssertionError("glz_resolve headline: the decoded flat differs from the raw flat")
+    ms = time_ms(lambda: cuda_kernels.glz_resolve(base, midx, glz.GLZ_CHUNK))
+    plain_ms = time_ms(lambda: kernels.glz_resolve(base, midx, glz.GLZ_CHUNK), reps=3)
+    plan_ms = time_ms(lambda: glz.byte_plan_device(
+        *(torch.from_numpy(a).to(dev) for a in pad_glz_tokens(comp)), comp.out_len), reps=3)
+    n = flat.size
+    p, hops = torch.arange(n, device=dev), 0
+    m64 = midx.to(torch.int64)
+    for _ in range(1 << kernels.GLZ_SQUARE_ROUNDS):
+        q = m64[p]
+        hops += int((q != p).sum().item())
+        p = q
+    b_ms, b_by = bound(6.0 * n, float(hops + n))
+    rows.append(dict(name="glz_resolve", route="cuda",
+                     source="fluvio_tpu_torch/smartengine/gpu/csrc/glz_decode.cu",
+                     replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:434",
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, out_bytes=n, token_bytes=comp.nbytes, depth=comp.depth,
+                     byte_plan_ms=plan_ms))
+    log(f"kernel glz_resolve: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+        f"{b_by}, library: none (no single PyTorch call); byte plan {plan_ms:.3f} ms) on the "
+        f"headline flat of {n} B -> {comp.nbytes} B of tokens (ratio {comp.nbytes / n:.3f}, "
+        f"depth {comp.depth}, {len(comp.lit_lens)} sequences, host compress "
+        f"{compress_s * 1e3:.1f} ms), exact")
+    del base, midx, m64, p, got
+
+    # adversarial decode set
+    period28 = np.frombuffer(b'{"name":"fluvio-1","n":123}\n' * 5000, np.uint8).copy()
+    mixed = np.concatenate([json_corpus_bytes(2000, 2024),
+                            np.random.default_rng(3).integers(0, 256, 8192).astype(np.uint8),
+                            json_corpus_bytes(2000, 5)])
+    deep = json_corpus_bytes(9000, 2024)
+    deep_comp, _ = glz.compress_link(deep, max_ratio=1.0, chunk=64 * 1024)
+    if deep_comp.depth != glz.MAX_DEPTH:
+        raise AssertionError(f"depth corpus compressed to depth {deep_comp.depth}, expected 6")
+    cases = [("zeros", np.zeros(96 * 1024, np.uint8), 16384, {}),
+             ("period28", period28, 16384, {}),
+             ("mixed", mixed, 16384, {"max_ratio": 1.0}),
+             ("mixed 64k", mixed, 65536, {"max_ratio": 1.0}),
+             ("depth-6", deep, 65536, {"max_ratio": 1.0}),
+             ("depth-6 bare tokens", deep, 65536, {"max_ratio": 1.0, "padded": False}),
+             ("headline slice 16k", flat[: 3 * 16384 + 4100], 16384, {})]
+    for name, raw, chunk, kw in cases:
+        check_resolve(name, raw, chunk, dev, **kw)
+    ragged = sum(1 for _, raw, chunk, _ in cases if raw.size % chunk)
+    torch.cuda.synchronize()
+    log(f"kernel glz_resolve: adversarial set equal ({', '.join(c[0] for c in cases)}; "
+        f"{ragged} of {len(cases)} with a ragged last chunk)")
+
+    # encode window match at the headline chain's descriptor stream
+    stream = headline_desc_stream(corpus, dev)
+    g_count = stream.numel() // glz.ENC_GROUP
+    cg = glz.GLZ_CHUNK // glz.ENC_GROUP
+    if g_count <= cg:  # encode_result's single-window clamp
+        cg = max(128, ((g_count + 127) // 128) * 128)
+    w0, w1, const_m = match_inputs(stream, cg)
+    err = check_match("headline", stream, cg)
+    ms = time_ms(lambda: cuda_kernels.glz_encode_match(w0, w1, const_m, cg))
+    plain_ms = time_ms(lambda: kernels.glz_encode_match(w0, w1, const_m, cg), reps=3)
+    b_ms, b_by = bound(13.0 * g_count, match_ops(w0, w1, const_m, cg))
+    live = int((~const_m).sum().item())
+    rows.append(dict(name="glz_enc_match", route="cuda",
+                     source="fluvio_tpu_torch/smartengine/gpu/csrc/glz_encode.cu",
+                     replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:541",
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, groups=g_count, chunk_groups=cg,
+                     launches_per_call=1 + kernels.glz_square_rounds(cg)))
+    log(f"kernel glz_enc_match: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by "
+        f"{b_by}, library: none (no single PyTorch call)) on the headline descriptor stream of "
+        f"{stream.numel()} B = {g_count} groups ({live} outside constant runs), {cg} groups a "
+        f"chunk, {1 + kernels.glz_square_rounds(cg)} launches a call, exact")
+
+    # adversarial encode set: seven corpora at four chunk sizes
+    for name, raw in encode_corpora().items():
+        t = torch.from_numpy(raw).to(dev)
+        for chunk in (4096, 16384, 262144, 524288):
+            check_match(f"{name} chunk {chunk}", t, chunk // glz.ENC_GROUP)
+            ll, ml, srcs, lits, n_seq, n_lit, depth = glz.encode_result(t, chunk)
+            back = glz.decode_result_host(ll.cpu().numpy(), ml.cpu().numpy(), srcs.cpu().numpy(),
+                                          lits.cpu().numpy(), int(n_seq), int(n_lit), raw.size,
+                                          int(depth))
+            if not np.array_equal(back, raw):
+                raise AssertionError(f"encode_result {name} chunk {chunk}: does not decode back")
+    torch.cuda.synchronize()
+    log("kernel glz_enc_match: adversarial set equal (json, periodic5, const, zeros_tail, random, "
+        "tiny, vocab at chunks 4096, 16384, 262144, 524288; every encoded stream decodes back)")
+    return rows
+
+
+def phase_glz_chains(corpora, off_rate: float, off_h2d: int):
+    """The headline chain with the glz link on (records/s beside the link-
+    off run), then the striped span chain with the link on."""
+    launches, rate, chain = phase_headline(corpora, GLZ_LINK)
+    counts = dict(chain.link_counts)
+    if counts["glz"] != HEADLINE_BATCHES or counts["raw"]:
+        raise AssertionError(f"headline chain with the link: the up link did not ship glz: {counts}")
+    if min(launches["glz_resolve"], launches["glz_enc_match"]) <= 1:
+        raise AssertionError(f"headline chain with the link: glz kernels launched {launches}")
+    if counts["h2d_bytes"] >= off_h2d:
+        raise AssertionError(f"link-on H2D {counts['h2d_bytes']} B not below link-off {off_h2d} B")
+    flat_bytes = sum(RecordBuffer.from_values(c).ragged_values()[0].nbytes for c in corpora[:1])
+    compress_ms = []
+    for c in corpora:
+        flat = RecordBuffer.from_values(c).ragged_values()[0]
+        t0 = time.perf_counter()
+        glz.compress_link(flat)
+        compress_ms.append((time.perf_counter() - t0) * 1e3)
+    head = {"records_per_s_link_on": rate, "records_per_s_link_off": off_rate,
+            "h2d_bytes_link_on": counts["h2d_bytes"], "h2d_bytes_link_off": off_h2d,
+            "d2h_bytes_link_on": counts["d2h_bytes"], "flat_bytes_batch0": flat_bytes,
+            "compress_ms_median": statistics.median(compress_ms), "link_counts": counts}
+    log(f"glz headline: {rate:.0f} records/s with the link on, {off_rate:.0f} off (same run); "
+        f"H2D {counts['h2d_bytes']} B on vs {off_h2d} B off; D2H {counts['d2h_bytes']} B; "
+        f"down link {counts['down-glz']} down-glz / {counts['down-packed']} down-packed, "
+        f"declines enc-ratio {counts[glz.DECLINE_ENC_RATIO]}; host compress median "
+        f"{statistics.median(compress_ms):.1f} ms a batch")
+
+    name = "fluvio_dfa_json_map_fat"
+    corpus = gen_fat_70k(FAT_RECORDS)
+    chain = build_chain(STRIPED_CHAINS[name], FAT_PARAMS, GLZ_LINK)
+    chain.process_buffer(RecordBuffer.from_values(corpus[:8]))  # warm-up, small
+    bufs = [RecordBuffer.from_values(corpus) for _ in range(FAT_BATCHES)]
+    torch.cuda.synchronize()
+    for k in chain.link_counts:
+        chain.link_counts[k] = 0
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = list(chain.process_stream(bufs))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    fat_launches = dict(cuda_kernels.LAUNCHES)
+    keep, want = striped_truth(name, corpus)
+    if outs[0].offset_deltas[: outs[0].count].tolist() != keep or outs[0].value_list() != want:
+        raise AssertionError("striped chain with the link: batch 0 differs from host truth")
+    fat = dict(chain.link_counts)
+    if fat["glz"] != FAT_BATCHES or fat["down-glz"] != FAT_BATCHES:
+        raise AssertionError(f"striped chain with the link: not every batch shipped tokens: {fat}")
+    raw_bytes = FAT_BATCHES * sum(len(r) for r in corpus)
+    fat_rate = {"records_per_s": FAT_BATCHES * FAT_RECORDS / elapsed,
+                "bytes_per_s": raw_bytes / elapsed, "link_counts": fat}
+    log(f"glz striped chain {name}: {FAT_BATCHES} x {FAT_RECORDS} records in {elapsed:.3f} s = "
+        f"{fat_rate['records_per_s']:.1f} records/s; batch 0 equal to host truth; H2D "
+        f"{fat['h2d_bytes']} B for {raw_bytes} B of records; link {fat}; launches {fat_launches}")
+    total = {k: launches[k] + fat_launches[k] for k in launches}
+    return total, {"headline": head, name: fat_rate}
+
+
 STRIPED_CHAINS = {
     "7_fat70k": [("regex-filter", {"regex": "fluvio"})],
     "10_regex_json_fat": [("json-regex-filter", {"key": "name", "regex": JSON_REGEX})],
@@ -452,20 +723,25 @@ def phase_striped_chains():
     return total, rates
 
 
-def build_chain(specs, stripe_params=None):
-    b = SmartEngine(device="cuda", stripes=stripe_params or stripes.StripeParams()).builder()
+def build_chain(specs, stripe_params=None, link=None):
+    b = SmartEngine(device="cuda", stripes=stripe_params or stripes.StripeParams(),
+                    link=link or LinkParams()).builder()
     for name, params in specs:
         b.add_smart_module(SmartModuleConfig(params=params), lookup(name))
     return b.initialize()
 
 
-def phase_headline():
-    specs = [("regex-filter", {"regex": "fluvio"}), ("json-map", {"field": "name"})]
-    chain = build_chain(specs)
-    corpora = [gen_json(N, seed=100 + k) for k in range(HEADLINE_BATCHES)]
+def phase_headline(corpora, link=None):
+    """The headline chain over the corpora, one batch each, through
+    ``process_stream``; batch 0 against the interpreter. Returns (launches,
+    records/s, the chain)."""
+    specs = HEADLINE
+    chain = build_chain(specs, link=link)
     bufs = [RecordBuffer.from_values(c) for c in corpora]
     chain.process_buffer(RecordBuffer.from_values(corpora[0][:4096]))  # warm-up, small
     torch.cuda.synchronize()
+    for k in chain.link_counts:
+        chain.link_counts[k] = 0
 
     cuda_kernels.reset_launches()
     t0 = time.perf_counter()
@@ -496,10 +772,10 @@ def phase_headline():
         if o.count <= 0 or o.count >= N:
             raise AssertionError(f"headline batch {k}: implausible survivor count {o.count}")
     rate = HEADLINE_BATCHES * N / elapsed
-    log(f"headline chain: {HEADLINE_BATCHES} x {N} records in {elapsed:.3f} s = {rate:.0f} "
-        f"records/s end to end; batch 0 equal to the interpreter ({len(want)} survivors); "
-        f"launches {launches}")
-    return launches, rate
+    log(f"headline chain{' (glz link on)' if link else ''}: {HEADLINE_BATCHES} x {N} records in "
+        f"{elapsed:.3f} s = {rate:.0f} records/s end to end; batch 0 equal to the interpreter "
+        f"({len(want)} survivors); launches {launches}; link {chain.link_counts}")
+    return launches, rate, chain
 
 
 def phase_json_regex():
@@ -555,16 +831,22 @@ def main() -> int:
 
     rows = phase_kernels(dev)
     rows += phase_striped_kernels(dev)
-    head_launches, head_rate = phase_headline()
+    rows += phase_glz_kernels(dev, RecordBuffer.from_values(gen_json(N, seed=2024)))
+    corpora = [gen_json(N, seed=100 + k) for k in range(HEADLINE_BATCHES)]
+    head_launches, head_rate, head_chain = phase_headline(corpora)
     jr_launches, jr_rate = phase_json_regex()
     st_launches, st_rates = phase_striped_chains()
+    glz_launches, glz_rates = phase_glz_chains(corpora, head_rate,
+                                               head_chain.link_counts["h2d_bytes"])
+    paths = (head_launches, jr_launches, st_launches, glz_launches)
     for r in rows:
-        r["launches"] = head_launches[r["name"]] + jr_launches[r["name"]] + st_launches[r["name"]]
+        r["launches"] = sum(p[r["name"]] for p in paths)
         if r["launches"] <= 0:
             raise AssertionError(f"kernel {r['name']} never launched on the main path")
     log(json.dumps({"headline_records_per_s": head_rate,
                     "json_regex_filter_records_per_s": jr_rate,
                     "striped": st_rates,
+                    "glz": glz_rates,
                     "build_seconds": KERNELS.build_seconds}))
     print(smi)
     key_order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

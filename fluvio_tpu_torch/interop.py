@@ -1,11 +1,12 @@
 """Carry state across from the JAX package to the port.
 
 This system has no weights: what a run depends on is the compiled chain
-state (DFA tables) and the staged record columns. These two functions take
-them as plain numpy arrays — as the JAX package's `CompiledDfa` and
-`RecordBuffer` hold them — and build the port's objects, so a test can run
-the port on exactly the reference's tables and columns and tell a kernel
-fault from a fault in the port's copy of the compiler.
+state (DFA tables), the staged record columns and, with the glz link on,
+the compressed token streams. These functions take them as plain numpy
+arrays — as the JAX package's `CompiledDfa`, `RecordBuffer` and glz
+`Compressed` hold them — and build the port's objects, so a test can run
+the port on exactly the reference's tables, columns and streams and tell
+a kernel fault from a fault in the port's copy of the compiler.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 
 from fluvio_tpu_torch.ops.regex_dfa import CompiledDfa
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+from fluvio_tpu_torch.smartengine.gpu.glz import Compressed
 
 
 def dfa_from_reference(table, byte_class, accept, start, eos_class, pad_class) -> CompiledDfa:
@@ -43,4 +45,19 @@ def buffer_from_reference(
         count=int(count),
         base_offset=int(base_offset),
         base_timestamp=int(base_timestamp),
+    )
+
+
+def glz_from_reference(comp) -> Compressed:
+    """A glz stream with numpy fields (the JAX package's `Compressed`)
+    -> the port's `Compressed` (copies)."""
+    return Compressed(
+        lit_lens=np.array(comp.lit_lens, dtype=np.uint8),
+        match_lens=np.array(comp.match_lens, dtype=np.uint8),
+        srcs=np.array(comp.srcs, dtype=np.int32),
+        lits=np.array(comp.lits, dtype=np.uint8),
+        depth=int(comp.depth),
+        out_len=int(comp.out_len),
+        chunk_bytes=int(comp.chunk_bytes),
+        chunk_seqs=None if comp.chunk_seqs is None else np.array(comp.chunk_seqs, dtype=np.int32),
     )

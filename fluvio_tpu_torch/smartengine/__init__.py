@@ -8,11 +8,13 @@ from fluvio_tpu_torch.smartengine.engine import (
     SmartModuleChainBuilder,
 )
 from fluvio_tpu_torch.smartengine.gpu.executor import GpuSpill
+from fluvio_tpu_torch.smartengine.gpu.glz import LinkParams
 from fluvio_tpu_torch.smartengine.gpu.stripes import StripeParams
 
 __all__ = [
     "EngineError",
     "GpuSpill",
+    "LinkParams",
     "SmartEngine",
     "SmartModuleChainBuilder",
     "SmartModuleConfig",

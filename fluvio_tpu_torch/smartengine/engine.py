@@ -11,6 +11,10 @@ entry point users call (``bench.py:43-50`` has the same shape)::
 ``SmartEngine(device=..., stripes=StripeParams(...))`` sets the striped
 wide-record geometry (default: threshold 65536, stripes of 8192 bytes
 overlapping by 128, the JAX package's defaults).
+``SmartEngine(device=..., link=LinkParams(compress=True,
+result_compress=True))`` turns on the glz link: record bytes cross to the
+card compressed, and view descriptors come back compressed when that is
+smaller. Both halves are off by default.
 
 The engine runs on the card; ``device="cpu"`` runs the plain torch
 versions of the kernels instead, which is what the tests do. With no
@@ -26,7 +30,9 @@ from typing import List, Optional
 import torch
 
 from fluvio_tpu_torch.smartengine.config import SmartModuleConfig
+from fluvio_tpu_torch.smartengine.gpu import glz
 from fluvio_tpu_torch.smartengine.gpu.executor import GpuChainExecutor
+from fluvio_tpu_torch.smartengine.gpu.glz import LinkParams
 from fluvio_tpu_torch.smartengine.gpu.stripes import StripeParams
 from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
 
@@ -41,6 +47,7 @@ class SmartEngine:
 
     device: Optional[str] = None
     stripes: StripeParams = field(default_factory=StripeParams)
+    link: LinkParams = field(default_factory=LinkParams)
 
     def __post_init__(self) -> None:
         if self.device is None:
@@ -77,9 +84,18 @@ class SmartModuleChainBuilder:
         :class:`EngineError` when a module has no lowerable DSL program
         (there is no interpreter to fall back to) and
         :class:`~fluvio_tpu_torch.smartengine.gpu.executor.GpuSpill` for
-        transform kinds the port does not run yet."""
+        transform kinds the port does not run yet. With the glz link on,
+        the host compressor library must build, or this raises
+        :class:`EngineError` (no batch ships raw in its place)."""
         device = torch.device(self.engine.device)
-        executor = GpuChainExecutor.try_build(self.entries, device, self.engine.stripes)
+        if self.engine.link.any:
+            try:
+                glz.load()
+            except glz.GlzUnavailable as e:
+                raise EngineError(f"the glz link is on but the {e}") from e
+        executor = GpuChainExecutor.try_build(
+            self.entries, device, self.engine.stripes, self.engine.link
+        )
         if executor is None:
             raise EngineError(
                 "every module in the chain must carry a DSL program the GPU "

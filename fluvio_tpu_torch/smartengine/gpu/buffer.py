@@ -130,6 +130,9 @@ class RecordBuffer:
     _starts: Optional[np.ndarray] = None
     _width: int = 0
     _rows: int = 0
+    # the flat's glz link form, (chunk, stream or None, decline reason),
+    # cached by the executor's up link
+    _glz: Optional[tuple] = None
 
     @property
     def width(self) -> int:

@@ -11,6 +11,10 @@ for the Pallas kernels the port runs, and one kernel of its own:
   (``csrc/dfa_scan.cu``);
 - `dfa_compose_columns` replaces `_dfa_compose_kernel` /
   `dfa_compose_columns_pallas` (``csrc/dfa_compose.cu``);
+- `glz_resolve` replaces `_glz_resolve_kernel` / `glz_decode_pallas`
+  (``csrc/glz_decode.cu``);
+- `glz_encode_match` replaces `_glz_enc_match_kernel` /
+  `glz_encode_match` (``csrc/glz_encode.cu``);
 - `striped_json_span` replaces the XLA scan of the JAX package's
   ``stripes.striped_json_span``, which has no Pallas kernel
   (``csrc/json_span.cu``, second entry point).
@@ -39,6 +43,7 @@ from fluvio_tpu_torch.smartengine.gpu.native import KERNELS, check
 # kernel launches since the last `reset_launches()`
 LAUNCHES: Dict[str, int] = {
     "json_span": 0, "extract": 0, "dfa_scan": 0, "dfa_compose": 0, "json_span_striped": 0,
+    "glz_resolve": 0, "glz_enc_match": 0,
 }
 
 _MAX_NEEDLE = 48 * 1024  # the needle sits in (static-limit) shared memory
@@ -233,3 +238,50 @@ def striped_json_span(
     check(rc, "json_span_striped")
     LAUNCHES["json_span_striped"] += 1
     return start, vlen
+
+
+def glz_resolve(base: torch.Tensor, midx: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Inflate a chunk-local glz byte plan: base u8[n], midx i32[n] (from
+    ``glz.byte_plan_device``), the stream's chunk (a multiple of 128) ->
+    u8[n]."""
+    if not _on_cuda("glz_resolve", base, midx):
+        return kernels.glz_resolve(base, midx, chunk)
+    n = base.shape[0]
+    _expect("glz_resolve base", base, torch.uint8, (n,))
+    _expect("glz_resolve midx", midx, torch.int32, (n,))
+    if chunk <= 0 or chunk % 128:
+        raise ValueError(f"glz_resolve: chunk {chunk} is not a positive multiple of 128")
+    out = torch.empty((n,), dtype=torch.uint8, device=base.device)
+    fn = KERNELS.function("fluvio_glz_resolve")
+    with torch.cuda.device(base.device):
+        rc = fn(base.data_ptr(), midx.data_ptr(), n, chunk, out.data_ptr(), _stream(base.device))
+    check(rc, "glz_resolve")
+    LAUNCHES["glz_resolve"] += 1
+    return out
+
+
+def glz_encode_match(w0: torch.Tensor, w1: torch.Tensor, const_m: torch.Tensor,
+                     chunk_groups: int) -> torch.Tensor:
+    """Literal-root source of every 8-byte group: w0, w1 i32[G], const_m
+    bool[G], groups per chunk (a multiple of 128) -> global roots i32[G]
+    (root == g: a literal)."""
+    if not _on_cuda("glz_encode_match", w0, w1, const_m):
+        return kernels.glz_encode_match(w0, w1, const_m, chunk_groups)
+    g_count = w0.shape[0]
+    _expect("glz_encode_match w0", w0, torch.int32, (g_count,))
+    _expect("glz_encode_match w1", w1, torch.int32, (g_count,))
+    _expect("glz_encode_match const_m", const_m, torch.bool, (g_count,))
+    if chunk_groups <= 0 or chunk_groups % 128:
+        raise ValueError(
+            f"glz_encode_match: chunk groups {chunk_groups} is not a positive multiple of 128"
+        )
+    out = torch.empty((g_count,), dtype=torch.int32, device=w0.device)
+    scratch = torch.empty_like(out)
+    fn = KERNELS.function("fluvio_glz_enc_match")
+    with torch.cuda.device(w0.device):
+        rc = fn(w0.data_ptr(), w1.data_ptr(), const_m.data_ptr(), g_count, chunk_groups,
+                kernels.glz_square_rounds(chunk_groups), scratch.data_ptr(), out.data_ptr(),
+                _stream(w0.device))
+    check(rc, "glz_enc_match")
+    LAUNCHES["glz_enc_match"] += 1
+    return out

@@ -25,6 +25,14 @@ the same ragged upload re-padded into stripe rows (`gpu/stripes.py`),
 segment-level verdicts, and the segment survivor mask or (start, length)
 descriptors down, rebuilt by the same host code.
 
+The glz link (`gpu/glz.py`), on only when a `LinkParams` asks for it:
+the up link ships the flat as glz tokens, compressed on the host (a
+worker thread compresses batch k+1 ahead in `process_stream`) and decoded
+on the card before the re-pad; the down link encodes the (start, length)
+descriptors of view chains on the card and downloads the tokens when they
+are smaller than the raw columns. `link_counts` counts which form each
+batch took, the declines by reason and the bytes each way.
+
 What the port does not cover raises :class:`GpuSpill` instead of running
 anywhere else: wide batches of a chain with no striped lowering, and
 aggregate, array_map and windowed stages.
@@ -32,6 +40,7 @@ aggregate, array_map and windowed stages.
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -39,8 +48,9 @@ import numpy as np
 import torch
 
 from fluvio_tpu_torch.smartengine.config import SmartModuleConfig
-from fluvio_tpu_torch.smartengine.gpu import kernels, stripes
+from fluvio_tpu_torch.smartengine.gpu import glz, kernels, stripes
 from fluvio_tpu_torch.smartengine.gpu.buffer import (
+    MAX_RECORD_WIDTH,
     RecordBuffer,
     apply_postops_host,
     ragged_range_select,
@@ -219,6 +229,9 @@ class _Fetch:
         # byte mode: compacted (values, lengths, keys, key_lengths) left on
         # the card until the header says how much of them to download
         self.byte_cols: Optional[Tuple[torch.Tensor, ...]] = None
+        # down link: the raw descriptor columns and the glz tokens of their
+        # stream, left on the card until "down_meta" says which is smaller
+        self.down: Optional[Tuple] = None
 
     def start(self, name: str, t: torch.Tensor) -> None:
         if self.cuda:
@@ -255,17 +268,92 @@ def _pad_slice(n: int, floor: int = 8) -> int:
     return v
 
 
+def pad_glz_tokens(comp: glz.Compressed):
+    """A stream's token arrays zero-padded to pow2/8 buckets (floor 256),
+    as the JAX executor stages them; pad sequences have length 0 and drop
+    out of the byte plan. Returns (lit_lens, match_lens, srcs, lits)."""
+    n_seq = len(comp.lit_lens)
+    seq_pad = _bucket_rows(max(n_seq, 8), floor=256)
+    lit_pad = _bucket_rows(max(comp.lits.size, 8), floor=256)
+    ll = np.zeros(seq_pad, np.uint8)
+    ll[:n_seq] = comp.lit_lens
+    ml = np.zeros(seq_pad, np.uint8)
+    ml[:n_seq] = comp.match_lens
+    srcs = np.zeros(seq_pad, np.int32)
+    srcs[:n_seq] = comp.srcs
+    lits = np.zeros(lit_pad, np.uint8)
+    lits[: comp.lits.size] = comp.lits
+    return ll, ml, srcs, lits
+
+
+def _itm(bound: int) -> int:
+    """Byte width of a descriptor field whose values are <= ``bound``."""
+    if bound <= (1 << 8):
+        return 1
+    if bound <= (1 << 16):
+        return 2
+    return 4
+
+
+def desc_fields(width: int) -> Tuple[int, int]:
+    """Little-endian byte widths of one interleaved (start, length)
+    descriptor record for records of ``width`` bytes (the JAX executor's
+    `_desc_fields`). Interleaving keeps each survivor's record contiguous,
+    so corpus periodicity shows up as group periodicity for the encoder."""
+    return _itm(width), _itm(width + 1)
+
+
+def desc_stream(st: torch.Tensor, ln: torch.Tensor, width: int) -> torch.Tensor:
+    """Interleave compacted (start, length) columns into one little-endian
+    byte stream, zero-padded to a multiple of 8 for the encoder's groups
+    (`desc_split` is its host inverse)."""
+    f_st, f_ln = desc_fields(width)
+    cols = []
+    for col, f in ((st.to(torch.int32), f_st), (ln.to(torch.int32), f_ln)):
+        for b in range(f):
+            cols.append((col >> (8 * b)) & 0xFF)
+    desc = torch.stack(cols, dim=1).to(torch.uint8).reshape(-1)
+    pad = (-desc.shape[0]) % 8
+    if pad:
+        desc = torch.cat([desc, desc.new_zeros(pad)])
+    return desc
+
+
+def desc_split(desc: np.ndarray, count: int, width: int):
+    """Host inverse of `desc_stream` over the decoded bytes: (start i64,
+    length i32) columns of ``count`` survivors."""
+    f_st, f_ln = desc_fields(width)
+    stride = f_st + f_ln
+    rec = np.ascontiguousarray(desc[: count * stride]).reshape(count, stride).astype(np.int64)
+    st = rec[:, 0:f_st] @ (1 << (8 * np.arange(f_st, dtype=np.int64)))
+    ln = rec[:, f_st:stride] @ (1 << (8 * np.arange(f_ln, dtype=np.int64)))
+    return st, ln.astype(np.int32)
+
+
+def _link_counts() -> Dict[str, int]:
+    return {
+        "raw": 0, "glz": 0, "down-glz": 0, "down-packed": 0,
+        glz.DECLINE_BELOW_MIN: 0, glz.DECLINE_RATIO: 0, glz.DECLINE_ENC_RATIO: 0,
+        "h2d_bytes": 0, "d2h_bytes": 0,
+    }
+
+
 class GpuChainExecutor:
     """A compiled filter/map chain over one torch device."""
 
     def __init__(
         self, stages: List, device: torch.device, programs: Tuple = (),
         stripe_params: Optional[stripes.StripeParams] = None,
+        link_params: Optional[glz.LinkParams] = None,
     ):
         self.stages = stages
         self.device = device
         self._programs = tuple(programs)  # resolved DSL programs, for the striped build
         self.stripe_params = stripe_params or stripes.StripeParams()
+        self.link = link_params or glz.LinkParams()
+        # the link's per-batch record: up-link form (raw / glz), down-link
+        # form (down-glz / down-packed), declines by reason, bytes each way
+        self.link_counts = _link_counts()
         self._striped: Optional[stripes.StripedChain] = None
         self._striped_tried = False
         self._writes_keys = any(isinstance(s, _MapStage) and s.key_fn is not None for s in stages)
@@ -293,6 +381,7 @@ class GpuChainExecutor:
     def try_build(
         cls, entries: List[Tuple[SmartModuleDef, SmartModuleConfig]], device: torch.device,
         stripe_params: Optional[stripes.StripeParams] = None,
+        link_params: Optional[glz.LinkParams] = None,
     ) -> Optional["GpuChainExecutor"]:
         """Lower a chain of DSL modules; None when a program is missing or
         outside the lowerable subset, :class:`GpuSpill` for the transform
@@ -336,7 +425,7 @@ class GpuChainExecutor:
                     return None
         except (Unlowerable, KeyError):
             return None
-        return cls(stages, device, programs, stripe_params)
+        return cls(stages, device, programs, stripe_params, link_params)
 
     def _striped_chain(self) -> Optional[stripes.StripedChain]:
         """The chain's striped lowering, built on first need; None when a
@@ -372,8 +461,8 @@ class GpuChainExecutor:
             self._ship_views(fetch, valid, lengths)
             return
         if self._viewable:
-            desc = _narrow_dtype(arrays["values"].shape[1])
-            self._ship_views(fetch, valid, lengths, state["view_start"], desc)
+            width = arrays["values"].shape[1]
+            self._ship_views(fetch, valid, lengths, state["view_start"], _narrow_dtype(width), width)
             return
         fetch.start("mask", kernels.pack_mask(valid))
         out_count, (vals, lens, keys, klens) = kernels.compact_rows(
@@ -387,10 +476,14 @@ class GpuChainExecutor:
         fetch.byte_cols = (vals, lens, keys, klens)
 
     def _ship_views(self, fetch: _Fetch, valid, lengths, view_start=None,
-                    desc_dtype: torch.dtype = torch.int32) -> None:
+                    desc_dtype: torch.dtype = torch.int32,
+                    desc_width: int = MAX_RECORD_WIDTH) -> None:
         """Start the downloads of a view-mode result: the survivor mask and,
         when the outputs are sub-record views (``view_start`` given), the
-        compacted (start, length) descriptors in ``desc_dtype``."""
+        compacted (start, length) descriptors in ``desc_dtype``. With the
+        down link on, the descriptors instead stay on the card beside the
+        glz tokens of their stream (field widths from ``desc_width``) until
+        the fetch picks the smaller download."""
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         fetch.start("mask", kernels.pack_mask(valid))
         if view_start is None:
@@ -399,21 +492,52 @@ class GpuChainExecutor:
             fetch.start("header", torch.stack([valid.sum(), mx, zero]))
             return
         out_count, (st, ln) = kernels.compact_rows(valid, view_start, lengths)
-        fetch.start("span_start", st.to(desc_dtype))
-        fetch.start("span_len", ln.to(desc_dtype))
         fetch.start("header", torch.stack([out_count.to(torch.int64), ln.max().to(torch.int64), zero]))
+        if not self.link.result_compress:
+            fetch.start("span_start", st.to(desc_dtype))
+            fetch.start("span_len", ln.to(desc_dtype))
+            return
+        ll, ml, srcs, lits, n_seq, n_lit, depth = glz.encode_result(
+            desc_stream(st, ln, desc_width), self.link.chunk
+        )
+        fetch.start("down_meta", torch.stack([n_seq, n_lit, depth]).to(torch.int32))
+        fetch.down = (st.to(desc_dtype), ln.to(desc_dtype), ll, ml, srcs, lits, desc_width)
 
     # -- staging ---------------------------------------------------------------
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(arr))
+        self.link_counts["h2d_bytes"] += t.nbytes
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
+    def _compressed(self, buf: RecordBuffer):
+        """(stream, decline reason) of the buffer's flat at the link chunk,
+        compressed once and cached on the buffer (the compress-ahead worker
+        fills the same cache)."""
+        cached = buf._glz
+        if cached is None or cached[0] != self.link.chunk:
+            flat, _starts = buf.ragged_values()
+            comp, reason = glz.compress_link(flat, chunk=self.link.chunk)
+            cached = buf._glz = (self.link.chunk, comp, reason)
+        return cached[1], cached[2]
+
     def _stage_flat(self, buf: RecordBuffer) -> torch.Tensor:
-        """The flat's link form: the 4-aligned ragged bytes as i32 words."""
+        """The flat on the card as i32 words: the 4-aligned ragged bytes,
+        uploaded as they are or, with the up link on, as glz tokens decoded
+        on the card. A batch the compressor declines ships raw and counts
+        its reason."""
         flat, _starts = buf.ragged_values()
+        if self.link.compress:
+            comp, reason = self._compressed(buf)
+            if comp is not None:
+                ll, ml, srcs, lits = (self._upload(a) for a in pad_glz_tokens(comp))
+                self.link_counts["glz"] += 1
+                raw = glz.decode_link_flat((ll, ml, srcs), lits, comp.out_len, comp.chunk_bytes)
+                return raw.view(torch.int32)
+            self.link_counts[reason] += 1
+        self.link_counts["raw"] += 1
         if not len(flat):
             flat = np.zeros(4, dtype=np.uint8)  # all-empty values
         return self._upload(flat.view(np.int32))
@@ -482,6 +606,8 @@ class GpuChainExecutor:
         if vspan is None:
             self._ship_views(fetch, valid, lengths)
         else:
+            # int32 descriptors at the widest field tier: striped spans index
+            # records wider than the u16 tier
             self._ship_views(fetch, valid, vspan[1], vspan[0])
         fetch.seal()
         return fetch
@@ -491,19 +617,56 @@ class GpuChainExecutor:
     def finish_buffer(self, buf: RecordBuffer, handle: _Fetch) -> RecordBuffer:
         """Phase 2: wait for this batch's copies and rebuild the output."""
         host = handle.wait()
+        self.link_counts["d2h_bytes"] += sum(a.nbytes for a in host.values())
         count, max_v, max_k = (int(x) for x in host["header"])
         src = np.flatnonzero(np.unpackbits(host["mask"], bitorder="little")[: buf.rows])[:count]
         rows = _bucket_rows(max(count, 1))
+        variant = "down-packed"
         if self._viewable:
             if handle.whole_records:
                 st = np.zeros(count, dtype=np.int64)
                 ln = buf.lengths[src].astype(np.int32)
+            elif handle.down is not None:
+                st, ln, variant = self._down_fetch(handle.down, host["down_meta"], count, rows)
             else:
                 st = host["span_start"][:count].astype(np.int64)
                 ln = host["span_len"][:count].astype(np.int32)
+            self.link_counts[variant] += 1
             vw = min(_pad_slice(max(max_v, 1)), buf.width)
             return self._materialize_view_flat(buf, count, rows, vw, st, ln, src)
+        self.link_counts[variant] += 1
         return self._fetch_bytes(buf, handle, count, rows, max_v, max_k, src)
+
+    def _download(self, t: torch.Tensor) -> np.ndarray:
+        """One synchronous device -> host copy, counted on the link."""
+        out = t.cpu().numpy()
+        self.link_counts["d2h_bytes"] += out.nbytes
+        return out
+
+    def _down_fetch(self, down, meta, count: int, rows: int):
+        """The down link's fetch half: download the glz tokens of the
+        descriptor stream when their bucketed slices (6 bytes a sequence
+        plus the literals) cost less than the raw descriptor rows, decode
+        them on the host and split the stream; else decline
+        (`glz-enc-ratio`) and download the raw rows. Returns (start i64,
+        length i32, down-link variant)."""
+        st_d, ln_d, ll, ml, srcs, lits, desc_width = down
+        n_seq, n_lit, depth = (int(x) for x in meta)
+        rows = min(rows, st_d.shape[0])
+        raw_cost = rows * (st_d.element_size() + ln_d.element_size())
+        bs = min(_bucket_rows(max(n_seq, 8), floor=256), ll.shape[0])
+        bl = min(_bucket_rows(max(n_lit, 8), floor=256), lits.shape[0])
+        if bs * 6 + bl >= raw_cost:
+            self.link_counts[glz.DECLINE_ENC_RATIO] += 1
+            st = self._download(st_d[:rows])[:count].astype(np.int64)
+            ln = self._download(ln_d[:rows])[:count].astype(np.int32)
+            return st, ln, "down-packed"
+        stream = glz.decode_result_host(
+            self._download(ll[:bs]), self._download(ml[:bs]), self._download(srcs[:bs]),
+            self._download(lits[:bl]), n_seq, n_lit, lits.shape[0], depth,
+        )
+        st, ln = desc_split(stream, count, desc_width)
+        return st, ln, "down-glz"
 
     def _fetch_bytes(self, buf, handle, count, rows, max_v, max_k, src) -> RecordBuffer:
         """Byte mode: download the compacted value (and key) columns sliced
@@ -511,13 +674,13 @@ class GpuChainExecutor:
         vals, lens, keys, klens = handle.byte_cols
         rows = min(rows, vals.shape[0])
         vw = min(_pad_slice(max(max_v, 1)), vals.shape[1])
-        out_values = vals[:rows, :vw].cpu().numpy()
-        out_lengths = lens[:rows].cpu().numpy().astype(np.int32)
+        out_values = self._download(vals[:rows, :vw])
+        out_lengths = self._download(lens[:rows]).astype(np.int32)
         if buf.has_keys() or self._writes_keys:
-            out_klens = klens[:rows].cpu().numpy().astype(np.int32)
+            out_klens = self._download(klens[:rows]).astype(np.int32)
             if max_k > 0:
                 kw = min(_pad_slice(max_k), keys.shape[1])
-                out_keys = keys[:rows, :kw].cpu().numpy()
+                out_keys = self._download(keys[:rows, :kw])
             else:
                 out_keys = np.zeros((rows, 1), dtype=np.uint8)
         else:
@@ -624,17 +787,39 @@ class GpuChainExecutor:
         """Pipelined generator: batch k+1 is staged and queued on the card
         before batch k's results are waited for, so the card works on k+1
         while the host rebuilds k. A batch already dispatched is still
-        delivered when the next one fails to dispatch."""
+        delivered when the next one fails to dispatch.
+
+        Batch k+1 is taken from ``bufs`` once batch k has dispatched, before
+        batch k-1 is finished: with the up link on, one worker thread
+        compresses it meanwhile (the compressor releases the GIL), and its
+        job is settled before that buffer dispatches. The cost of that
+        lookahead: batch k-1's results yield once batch k+1 has arrived."""
+        if not self.link.compress:
+            yield from self._pipeline(iter(bufs), None)
+            return
+        with ThreadPoolExecutor(max_workers=1, thread_name_prefix="glz-compress") as pool:
+            yield from self._pipeline(iter(bufs), pool)
+
+    def _pipeline(self, it, pool: Optional[ThreadPoolExecutor]):
         pending = None
-        for buf in bufs:
+        job = None
+        cur = next(it, None)
+        while cur is not None:
             try:
-                handle = self.dispatch_buffer(buf)
+                if job is not None:
+                    job.result()  # the worker never races a dispatch on its buffer
+                    job = None
+                handle = self.dispatch_buffer(cur)
             except BaseException:
                 if pending is not None:
                     yield self.finish_buffer(*pending)
                 raise
+            nxt = next(it, None)
+            if nxt is not None and pool is not None:
+                job = pool.submit(self._compressed, nxt)
             if pending is not None:
                 yield self.finish_buffer(*pending)
-            pending = (buf, handle)
+            pending = (cur, handle)
+            cur = nxt
         if pending is not None:
             yield self.finish_buffer(*pending)

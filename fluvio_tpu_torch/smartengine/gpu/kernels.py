@@ -3,9 +3,10 @@
 The port's counterparts of the XLA kernels in
 ``fluvio_tpu/smartengine/tpu/kernels.py``: pure functions over padded
 tensors, vectorized across the record axis, with any per-byte iteration a
-Python loop over the columns. Five of them — `json_get_span`,
-`striped_json_span`, `extract_span`, `dfa_match` and `dfa_compose_columns`
-— are the plain versions of the CUDA kernels in ``cuda_kernels.py``: the
+Python loop over the columns. Seven of them — `json_get_span`,
+`striped_json_span`, `extract_span`, `dfa_match`, `dfa_compose_columns`,
+`glz_resolve` and `glz_encode_match` — are the plain versions of the CUDA
+kernels in ``cuda_kernels.py``: the
 wrappers there run them for CPU tensors (the tests), and ``chip_smoke.py``
 holds each kernel against them on the card. Nothing on the CUDA path calls
 them. The rest are the chain's torch code
@@ -286,6 +287,91 @@ def extract_span(
     gathered = torch.gather(values, 1, idx)
     keep = j < out_lengths.to(torch.int64)[:, None]
     return torch.where(keep, gathered, torch.zeros_like(gathered))
+
+
+# ---------------------------------------------------------------------------
+# glz decode resolve (plain version of csrc/glz_decode.cu)
+# ---------------------------------------------------------------------------
+
+# pointer-squaring rounds: 2**3 = 8 applications of midx >= MAX_DEPTH = 6,
+# so every match chain reaches its literal root
+GLZ_SQUARE_ROUNDS = 3
+# candidate distances (in 8-byte groups) of the encode window match
+GLZ_ENC_DISTANCES = tuple(range(1, 33)) + (40, 48, 56, 64, 80, 96, 128)
+
+
+def glz_resolve(base: torch.Tensor, midx: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Inflate a chunk-local glz byte plan (``glz.byte_plan_device``):
+    base u8[n], midx i32[n] -> u8[n].
+
+    The Pallas kernel's algorithm, chunk by chunk: sources rebased into
+    their chunk (clipped into it: `compress_link` streams never leave
+    it), the ragged last chunk padded with self-referencing bytes,
+    `GLZ_SQUARE_ROUNDS` squarings ``idx = idx[idx]``, then one gather of
+    ``base``."""
+    if chunk <= 0 or chunk % 128:
+        raise ValueError(f"glz chunk {chunk} is not a positive multiple of 128")
+    dev = base.device
+    n = base.shape[0]
+    n_chunks = max(1, (n + chunk - 1) // chunk)
+    padded = n_chunks * chunk
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    local = (midx.to(torch.int64) - (idx // chunk) * chunk).clamp(0, chunk - 1)
+    base_p = torch.zeros((padded,), dtype=torch.uint8, device=dev)
+    base_p[:n] = base
+    tail = torch.arange(n - (n_chunks - 1) * chunk, chunk, dtype=torch.int64, device=dev)
+    local = torch.cat([local, tail]).view(n_chunks, chunk)
+    for _ in range(GLZ_SQUARE_ROUNDS):
+        local = torch.gather(local, 1, local)
+    return torch.gather(base_p.view(n_chunks, chunk), 1, local).reshape(-1)[:n]
+
+
+# ---------------------------------------------------------------------------
+# glz encode window match (plain version of csrc/glz_encode.cu)
+# ---------------------------------------------------------------------------
+
+
+def glz_square_rounds(chunk_groups: int) -> int:
+    """ceil(log2(chunk_groups)), at least 1: enough pointer jumps to carry
+    a chain across a whole chunk."""
+    return max(1, (max(chunk_groups, 2) - 1).bit_length())
+
+
+def glz_encode_match(w0: torch.Tensor, w1: torch.Tensor, const_m: torch.Tensor,
+                     chunk_groups: int) -> torch.Tensor:
+    """Literal-root source of every 8-byte group: w0, w1 i32[G], const_m
+    bool[G] -> global roots i32[G] (root == g: a literal).
+
+    The Pallas kernel's algorithm, chunk by chunk: a group's candidate is
+    the group at the smallest of `GLZ_ENC_DISTANCES` (below the chunk
+    size, within the chunk) with equal words, both groups outside
+    constant runs; then `glz_square_rounds` squarings ``cand =
+    cand[cand]`` carry every chain to its root. Pad groups of the last
+    chunk are ineligible roots of their own."""
+    if chunk_groups <= 0 or chunk_groups % 128:
+        raise ValueError(f"glz chunk groups {chunk_groups} is not a positive multiple of 128")
+    dev = w0.device
+    g_count = w0.shape[0]
+    n_chunks = max(1, (g_count + chunk_groups - 1) // chunk_groups)
+    padded = n_chunks * chunk_groups
+
+    def blocks(x: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros((padded,), dtype=torch.int32, device=dev)
+        out[:g_count] = x
+        return out.view(n_chunks, chunk_groups)
+
+    a, b, nc = blocks(w0), blocks(w1), blocks((~const_m).to(torch.int32))
+    idx = torch.arange(chunk_groups, dtype=torch.int64, device=dev)
+    cand = idx.expand(n_chunks, chunk_groups).clone()
+    for d in reversed(GLZ_ENC_DISTANCES):  # the last write, the smallest d, wins
+        if d >= chunk_groups:
+            continue
+        eq = (a[:, d:] == a[:, :-d]) & (b[:, d:] == b[:, :-d]) & (nc[:, d:] != 0) & (nc[:, :-d] != 0)
+        cand[:, d:] = torch.where(eq, idx[None, d:] - d, cand[:, d:])
+    for _ in range(glz_square_rounds(chunk_groups)):
+        cand = torch.gather(cand, 1, cand)
+    base = torch.arange(n_chunks, dtype=torch.int64, device=dev)[:, None] * chunk_groups
+    return (cand + base).reshape(-1)[:g_count].to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

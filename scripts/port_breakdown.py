@@ -2,7 +2,7 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 scripts/port_breakdown.py [--chain NAME ...]
+    python3 scripts/port_breakdown.py [--link] [--chain NAME ...]
 
 ``--chain headline`` (the default) drives ``regex-filter(regex="fluvio")``
 -> ``json-map(field="name")`` over batches of 1,048,576 bench JSON records
@@ -12,11 +12,12 @@ over batches of 1,024 ``gen_fat_70k`` records (71,709 B each). Each chain
 runs through ``fluvio_tpu_torch`` three ways, and each prints one JSON line:
 
 - ``serial``: per batch, each phase alone, with the card drained between
-  phases — host staging of the ragged values, dispatch (pinned uploads
-  and kernel enqueue, host clock), the card's span for the batch (CUDA
-  events from before the first enqueue to the drain, so it includes
-  waits for the host's enqueues), and the host rebuild of the output
-  (finish, host clock after the copies landed);
+  phases — host staging of the ragged values, with ``--link`` (the glz
+  link on both ways, 256 KiB chunks) the host compressor, dispatch
+  (pinned uploads and kernel enqueue, host clock), the card's span for
+  the batch (CUDA events from before the first enqueue to the drain, so
+  it includes waits for the host's enqueues), and the host rebuild of
+  the output (finish, host clock after the copies landed);
 - ``pipelined``: records/s of ``process_stream`` (what users get);
 - ``profile``: device busy time and share of the pipelined run's wall
   time from ``torch.profiler`` (device-side kernel and copy events only,
@@ -38,7 +39,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
-    FAT_PARAMS, FAT_RECORDS, N, STRIPED_CHAINS, build_chain, gen_fat_70k, gen_json,
+    FAT_PARAMS, FAT_RECORDS, GLZ_LINK, N, STRIPED_CHAINS, build_chain, gen_fat_70k, gen_json,
 )
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer  # noqa: E402
 
@@ -53,11 +54,15 @@ def fresh(corpora):
 
 
 def serial(chain, corpora):
-    phases = {"stage_ms": [], "dispatch_ms": [], "device_ms": [], "finish_ms": []}
+    phases = {"stage_ms": [], "compress_ms": [], "dispatch_ms": [], "device_ms": [],
+              "finish_ms": []}
     for buf in fresh(corpora):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         buf.ragged_values()
+        tc = time.perf_counter()
+        if chain.link.compress:
+            chain._compressed(buf)  # cached on the buffer: dispatch reuses it
         t1 = time.perf_counter()
         ev0 = torch.cuda.Event(enable_timing=True)
         ev0.record()
@@ -69,7 +74,8 @@ def serial(chain, corpora):
         t3 = time.perf_counter()
         chain.finish_buffer(buf, handle)
         t4 = time.perf_counter()
-        phases["stage_ms"].append((t1 - t0) * 1e3)
+        phases["stage_ms"].append((tc - t0) * 1e3)
+        phases["compress_ms"].append((t1 - tc) * 1e3)
         phases["dispatch_ms"].append((t2 - t1) * 1e3)
         phases["device_ms"].append(ev0.elapsed_time(ev1))
         phases["finish_ms"].append((t4 - t3) * 1e3)
@@ -117,24 +123,25 @@ def profile(chain, corpora):
     }
 
 
-def breakdown(name: str, smi: str) -> dict:
+def breakdown(name: str, smi: str, link) -> dict:
     if name == "headline":
-        chain = build_chain(SPECS)
+        chain = build_chain(SPECS, link=link)
         corpora = [gen_json(N, seed=100 + k) for k in range(BATCHES)]
         warm = corpora[0][:4096]
     else:
-        chain = build_chain(CHAINS[name], FAT_PARAMS)
+        chain = build_chain(CHAINS[name], FAT_PARAMS, link)
         corpora = [gen_fat_70k(FAT_RECORDS)] * BATCHES
         warm = corpora[0][:8]
     chain.process_buffer(RecordBuffer.from_values(warm))  # build + warm-up
     n = len(corpora[0])
-    out = {"chain": name, "device": smi, "records_per_batch": n, "batches": BATCHES,
-           "bytes_per_batch": sum(len(r) for r in corpora[0])}
+    out = {"chain": name, "device": smi, "link": chain.link.any, "records_per_batch": n,
+           "batches": BATCHES, "bytes_per_batch": sum(len(r) for r in corpora[0])}
     out["serial"] = serial(chain, corpora)
     wall = pipelined(chain, corpora)
     out["pipelined"] = {"wall_s": wall, "records_per_s": BATCHES * n / wall,
                         "bytes_per_s": BATCHES * out["bytes_per_batch"] / wall}
     out["profile"] = profile(chain, corpora)
+    out["link_counts"] = chain.link_counts
     return out
 
 
@@ -142,6 +149,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--chain", action="append", choices=sorted(CHAINS),
                         help="chain to break down (repeatable; default: headline)")
+    parser.add_argument("--link", action="store_true",
+                        help="turn the glz link on, both ways")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("port_breakdown: no CUDA device", file=sys.stderr)
@@ -151,7 +160,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     for name in args.chain or ["headline"]:
-        print(json.dumps(breakdown(name, smi)), flush=True)
+        print(json.dumps(breakdown(name, smi, GLZ_LINK if args.link else None)), flush=True)
     return 0
 
 

@@ -1,7 +1,9 @@
 """Isolation of the GPU port from the JAX package, and its device rules.
 
 - No file of ``fluvio_tpu_torch/`` and not ``chip_smoke.py`` imports jax or
-  anything of ``fluvio_tpu`` (an AST scan of every import).
+  anything of ``fluvio_tpu`` (an AST scan of every import), and no module
+  of the port names a path under ``fluvio_tpu/`` in its code (the port
+  builds its own copy of the glz compressor, never the JAX package's).
 - With no device given and no CUDA, `SmartEngine()` raises instead of
   drifting to the CPU.
 - On a machine with a card (marker ``cuda``; skipped elsewhere), each CUDA
@@ -11,6 +13,7 @@
 from __future__ import annotations
 
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -53,6 +56,35 @@ def test_port_imports_no_jax_and_nothing_of_fluvio_tpu():
         if _forbidden(module)
     ]
     assert not bad, bad
+
+
+def _code_strings(path: Path):
+    """(line, text) of every string literal in a module except docstrings."""
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docstrings.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docstrings:
+            yield node.lineno, node.value
+
+
+def test_port_names_no_path_under_fluvio_tpu():
+    files = sorted((REPO / "fluvio_tpu_torch").rglob("*.py"))
+    under = re.compile(r"(^|[/\\])fluvio_tpu([/\\]|$)")
+    bad = [
+        f"{path.relative_to(REPO)}:{line}: {text!r}"
+        for path in files
+        for line, text in _code_strings(path)
+        if under.search(text)
+    ]
+    assert not bad, bad
+    from fluvio_tpu_torch.smartengine.gpu import glz
+
+    assert glz._SOURCE == REPO / "fluvio_tpu_torch" / "native" / "glz.cpp"
 
 
 def test_engine_without_cuda_raises(monkeypatch):
@@ -130,4 +162,32 @@ def test_striped_cuda_kernels_equal_plain_versions():
     got = cuda_kernels.striped_json_span(*args, "name", kmax, params.step)
     want = kernels.striped_json_span(*args, "name", kmax, params.step)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_glz_cuda_kernels_equal_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, glz, kernels
+    from fluvio_tpu_torch.smartengine.gpu.executor import pad_glz_tokens
+
+    rng = np.random.default_rng(6)
+    docs = b"".join(b'{"name":"fluvio-%d","n":%d}' % (i & 63, rng.integers(0, 9999))
+                    for i in range(20000))
+    raw = np.frombuffer(docs, np.uint8)
+    for chunk in (4096, 16384, 262144):
+        comp, reason = glz.compress_link(raw, max_ratio=1.0, chunk=chunk)
+        assert comp is not None, reason
+        ll, ml, srcs, lits = (torch.from_numpy(a).cuda() for a in pad_glz_tokens(comp))
+        base, midx = glz.byte_plan_device(ll, ml, srcs, lits, comp.out_len)
+        got = cuda_kernels.glz_resolve(base, midx, chunk)
+        assert torch.equal(got, kernels.glz_resolve(base, midx, chunk))
+        assert torch.equal(got.cpu(), torch.from_numpy(raw.copy()))
+    stream = torch.from_numpy(raw[: len(raw) // 8 * 8].copy()).cuda()
+    w0, w1 = glz.enc_group_words(stream)
+    for chunk_groups in (128, 512, 32768, 65536):
+        const_m, _ = glz.enc_const_runs(w0, w1, chunk_groups)
+        assert torch.equal(cuda_kernels.glz_encode_match(w0, w1, const_m, chunk_groups),
+                           kernels.glz_encode_match(w0, w1, const_m, chunk_groups))
     torch.cuda.synchronize()
