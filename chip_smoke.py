@@ -20,30 +20,39 @@ Phases (any failure raises and the script exits non-zero):
 4. json-regex-filter chain: ``key="name", regex="^(fluvio|kafka|pulsar)-
    [0-3]$"`` over 1,048,576 records; survivors checked against ``re`` over
    ``json_get_bytes`` on the host; all three kernels must have launched;
-5. striped kernels: the DFA composition kernel against its plain version
-   at the fat bench shape (1,024 records of 71,709 bytes, 10,240 stripe
-   rows of 8,192 bytes) for the 22-state in-span classes and the
-   ``flu[vV]io`` record-level classes, and on an adversarial set (the
-   257-state table, identity runs, ragged row and column counts); the
-   striped JSON span kernel against its plain version at a reduced
-   geometry (stated in the output) and against the host's
-   ``json_get_bytes`` at the fat bench shape;
+5. striped kernels: the column-split DFA composition kernel against its
+   plain version at the fat bench shape (1,024 records of 71,709 bytes,
+   10,240 stripe rows of 8,192 bytes) for the 22-state in-span classes and
+   the ``flu[vV]io`` record-level classes (with the time of the torch class
+   pass, ``stripes.stripe_classes``, that builds them), and on an
+   adversarial set (the 257-state table, identity runs, ragged row and
+   column counts, rows shorter than a segment, column counts that are no
+   multiple of the segment, 8 states with a lane a segment, segment
+   lengths of 32, 64 and past the row); the striped JSON span kernel
+   against its plain version at a reduced geometry (stated in the output)
+   and against the host's ``json_get_bytes`` at the fat bench shape;
 6. striped chains over 4 batches of 1,024 ``gen_fat_70k`` records each
    (bench configs ``7_fat70k``, ``10_regex_json_fat`` and
    ``regex-filter("flu[vV]io")`` -> ``json-map(field="name")``), one whole
    batch of each checked against ``re`` / ``json_get_bytes`` on the host;
-7. glz kernels: the decode resolve against its plain version on the
-   compressed flat of the headline batch (256 KiB chunks) and on an
-   adversarial set (zeros, a period-28 corpus, a mixed corpus with a random
-   run, a depth-6 stream, bare and padded token arrays, ragged last chunks,
-   16 and 64 KiB chunks); the encode window match against its plain
+7. glz kernels: the fused token-to-byte decode (the up link's kernel)
+   against its plain version, the byte plan plus the resolve, and against
+   the raw bytes, on the compressed flat of the headline batch (256 KiB
+   chunks), on the striped fat batch's flat and on an adversarial set
+   (zeros, a period-28 corpus, a mixed corpus with a random run, a depth-6
+   stream, bare and padded token arrays, ragged last chunks, 16 and 64 KiB
+   chunks), timed beside the old path (the torch byte plan and the resolve
+   kernel); the resolve kernel, which keeps the Pallas kernel's (base,
+   midx) contract but is off the main path, against its plain version on
+   the same streams; the encode window match against its plain
    version on the headline chain's descriptor stream and on seven corpora
    at chunks of 4, 16, 256 and 512 KiB, with every encoded stream decoded
    back on the host; all exact;
 8. glz chains: the headline chain with ``LinkParams(compress=True,
    result_compress=True)`` over the same 4 batches as phase 3 (batch 0
    checked against the interpreter; records/s beside phase 3's, link
-   bytes, down-link forms and the host compress time), and the
+   bytes, down-link forms and the host compress time; the fused decode
+   launched and the resolve not), and the
    ``regex-filter("flu[vV]io")`` -> ``json-map`` striped chain with the
    link on over 4 x 1,024 fat records, whose constant descriptors must
    come back as tokens.
@@ -372,42 +381,68 @@ def phase_striped_kernels(dev):
 
     # DFA composition at the fat bench shape: in-span (22 states) and
     # record-level (flu[vV]io) classes, as the striped chains build them
+    # (with the time of the torch class pass that builds each)
     dfa22 = compile_regex(JSON_REGEX)
+    span_cls_ms = time_ms(lambda: stripes.stripe_classes(sv, plan, dfa22, (vst, vln)), reps=5)
     cls_span = stripes.stripe_classes(sv, plan, dfa22, (vst, vln))
     span_row = compose_row("in-span 22-state", cls_span, dfa22)
     del cls_span
     dfa_rec = compile_regex("flu[vV]io")
+    rec_cls_ms = time_ms(lambda: stripes.stripe_classes(sv, plan, dfa_rec), reps=5)
     cls_rec = stripes.stripe_classes(sv, plan, dfa_rec)
     err, ms, plain_ms, b_ms, b_by = compose_row("record-level flu[vV]io", cls_rec, dfa_rec)
     del cls_rec
-    # adversarial: the 257-state table (two-byte entries, 132 KB unpacked),
-    # identity runs, ragged row and column counts
-    rng = np.random.default_rng(257)
-    big = "(a|b)*a(a|b){6}c|x" + "d" * 125
-    for pattern, packed in ((big, True), (big, False), ("flu[vV]io", False), (JSON_REGEX, True)):
-        d = compile_regex(pattern, packed=packed)
-        n_rows, t_len = 1003, 333
-        c = rng.integers(0, d.n_classes, size=(n_rows, t_len)).astype(np.int32)
-        for i in range(n_rows):
-            a = int(rng.integers(0, t_len))
-            c[i, a: a + int(rng.integers(0, t_len))] = -1
-        c[:7] = -1
-        table_t = stripes._dfa_device(d, dev)[1]
-        c_t = torch.from_numpy(c).to(dev)
-        require_equal(f"dfa_compose adversarial {pattern[:20]} packed={packed}",
-                      cuda_kernels.dfa_compose_columns(c_t, table_t),
-                      kernels.dfa_compose_columns(c_t, table_t))
-    torch.cuda.synchronize()
-    log("kernel dfa_compose: adversarial set equal (257 states packed and unpacked, 258 "
-        "classes, identity runs, 1003 x 333)")
+    log(f"stripe_classes (torch class pass before dfa_compose) at the fat shape: record-level "
+        f"{rec_cls_ms:.4f} ms, in-span {span_cls_ms:.4f} ms")
+    compose_adversarial(dev)
     rows.append(dict(name="dfa_compose", route="cuda",
                      source="fluvio_tpu_torch/smartengine/gpu/csrc/dfa_compose.cu",
                      replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:850",
                      max_abs_err=max(err, span_row[0]), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=None,
+                     bound_by=b_by, library_ms=None, stripe_classes_ms=rec_cls_ms,
                      in_span={"ms": span_row[1], "plain_ms": span_row[2],
-                              "bound_ms": span_row[3], "bound_by": span_row[4]}))
+                              "bound_ms": span_row[3], "bound_by": span_row[4],
+                              "stripe_classes_ms": span_cls_ms}))
     return rows
+
+
+def compose_adversarial(dev):
+    """dfa_compose against its plain version on the adversarial set: the
+    257-state table (two-byte entries, 132 KB unpacked), 258 classes,
+    identity runs, ragged row and column counts. The kernel picks the
+    segment length from S and T, so the shapes and tables reach its
+    geometries: rows shorter than a segment (T = 20), column counts that
+    are no multiple of the segment (333, 1000, 4097), 8 states with a
+    lane a segment and several warps a row (8192, 4097), 11 states with
+    two segments a warp, 43 and 67 states with a segment over two and
+    three warps and several segments a row."""
+    rng = np.random.default_rng(257)
+    big = "(a|b)*a(a|b){6}c|x" + "d" * 125
+    shapes = ((1003, 333), (517, 20), (129, 1000), (64, 8192), (1, 4097))
+    checked = 0
+    for pattern, packed in ((big, True), (big, False), ("flu[vV]io", False),
+                            ("flu[vV]io", True), (JSON_REGEX, True), ("(a|b)*a(a|b){2}c", True),
+                            ("x" + "d" * 40, True), ("(a|b)*a(a|b){5}c", False)):
+        d = compile_regex(pattern, packed=packed)
+        table_t = stripes._dfa_device(d, dev)[1]
+        for n_rows, t_len in shapes:
+            c = rng.integers(0, d.n_classes, size=(n_rows, t_len)).astype(np.int32)
+            for i in range(n_rows):
+                a = int(rng.integers(0, t_len))
+                c[i, a: a + int(rng.integers(0, t_len))] = -1
+            c[: min(7, n_rows - 1)] = -1
+            if t_len >= 96:
+                c[min(7, n_rows - 1):, 32:96] = -1  # identity segments in a live row
+            c_t = torch.from_numpy(c).to(dev)
+            require_equal(f"dfa_compose adversarial {pattern[:20]} S={d.n_states} "
+                          f"packed={packed} {n_rows}x{t_len}",
+                          cuda_kernels.dfa_compose_columns(c_t, table_t),
+                          kernels.dfa_compose_columns(c_t, table_t))
+            checked += 1
+    torch.cuda.synchronize()
+    log(f"kernel dfa_compose: adversarial set equal ({checked} cases: 257 states packed and "
+        f"unpacked, 258 classes, flu[vV]io packed and unpacked (8 states, a lane a segment, "
+        f"32 segments a warp), 11, 22, 43 and 67 states; shapes {shapes})")
 
 
 def json_corpus_bytes(n: int, seed: int) -> np.ndarray:
@@ -419,24 +454,29 @@ def json_corpus_bytes(n: int, seed: int) -> np.ndarray:
     return np.frombuffer(b"".join(vals), dtype=np.uint8).copy()
 
 
-def glz_plan(raw: np.ndarray, chunk: int, dev, max_ratio: float = glz.MAX_RATIO, padded=True):
-    """Compress on the host and build the byte plan on the card, as the
-    up link does: (stream, base, midx)."""
+def glz_tokens(raw: np.ndarray, chunk: int, dev, max_ratio: float = glz.MAX_RATIO, padded=True):
+    """Compress on the host and upload the token arrays as the up link
+    does: (stream, (lit_lens, match_lens, srcs, lits) on the card)."""
     comp, reason = glz.compress_link(raw, max_ratio=max_ratio, chunk=chunk)
     if comp is None:
         raise AssertionError(f"compress_link declined a smoke corpus: {reason}")
     tokens = pad_glz_tokens(comp) if padded else comp[:4]
-    ll, ml, srcs, lits = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in tokens)
-    base, midx = glz.byte_plan_device(ll, ml, srcs, lits, comp.out_len)
-    return comp, base, midx
+    return comp, tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in tokens)
 
 
-def check_resolve(name: str, raw: np.ndarray, chunk: int, dev, **kw) -> int:
-    comp, base, midx = glz_plan(raw, chunk, dev, **kw)
-    got = cuda_kernels.glz_resolve(base, midx, chunk)
-    err = require_equal(f"glz_resolve {name}", got, kernels.glz_resolve(base, midx, chunk))
+def check_decode(name: str, raw: np.ndarray, chunk: int, dev, **kw) -> int:
+    """The fused decode against its plain version (byte plan + plain
+    resolve) and the raw bytes; the resolve kernel against its plain
+    version on the same plan."""
+    comp, tok = glz_tokens(raw, chunk, dev, **kw)
+    got = cuda_kernels.glz_decode(*tok, comp.out_len, chunk, comp.depth)
+    err = require_equal(f"glz_decode {name}", got,
+                        glz.decode_plain(*tok, comp.out_len, chunk))
     if not np.array_equal(got.cpu().numpy(), raw):
-        raise AssertionError(f"glz_resolve {name}: the decoded bytes differ from the raw bytes")
+        raise AssertionError(f"glz_decode {name}: the decoded bytes differ from the raw bytes")
+    base, midx = glz.byte_plan_device(*tok, comp.out_len)
+    require_equal(f"glz_resolve {name}", cuda_kernels.glz_resolve(base, midx, chunk),
+                  kernels.glz_resolve(base, midx, chunk))
     return err
 
 
@@ -508,40 +548,85 @@ def phase_glz_kernels(dev, corpus: RecordBuffer):
     """Both glz kernels against their plain versions: the main path's
     shapes, then the adversarial sets."""
     rows = []
-    # decode resolve at the headline shape: the compressed flat of one batch
+    # the fused decode at the headline shape: the compressed flat of one batch
     flat = np.ascontiguousarray(corpus.ragged_values()[0])
+    chunk = glz.GLZ_CHUNK
     t0 = time.perf_counter()
-    comp, base, midx = glz_plan(flat, glz.GLZ_CHUNK, dev)
+    comp, tok = glz_tokens(flat, chunk, dev)
     compress_s = time.perf_counter() - t0
-    got = cuda_kernels.glz_resolve(base, midx, glz.GLZ_CHUNK)
-    err = require_equal("glz_resolve headline", got,
-                        kernels.glz_resolve(base, midx, glz.GLZ_CHUNK))
+    n = flat.size
+    got = cuda_kernels.glz_decode(*tok, n, chunk, comp.depth)
+    err = require_equal("glz_decode headline", got, glz.decode_plain(*tok, n, chunk))
+    if not np.array_equal(got.cpu().numpy(), flat):
+        raise AssertionError("glz_decode headline: the decoded flat differs from the raw flat")
+    ms = time_ms(lambda: cuda_kernels.glz_decode(*tok, n, chunk, comp.depth))
+    plain_ms = time_ms(lambda: glz.decode_plain(*tok, n, chunk), reps=3)
+    # the old up-link path: the torch byte plan, then the resolve kernel
+    old_ms = time_ms(lambda: cuda_kernels.glz_resolve(*glz.byte_plan_device(*tok, n), chunk),
+                     reps=5)
+    plan_ms = time_ms(lambda: glz.byte_plan_device(*tok, n), reps=5)
+    # the tokens the kernel reads: the stream's own (6 B a sequence plus
+    # the literals) and the lengths of the pad sequences, which the offset
+    # scans read; it never reads a pad's source or the literals' padding
+    token_bytes = comp.nbytes + 2 * (tok[0].numel() - len(comp.lit_lens))
+    b_ms, b_by = bound(float(token_bytes + n), float(n))
+    decode_row = dict(name="glz_decode", route="cuda",
+                      source="fluvio_tpu_torch/smartengine/gpu/csrc/glz_decode.cu",
+                      replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:434",
+                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                      library_ms=None, out_bytes=n, token_bytes=token_bytes, depth=comp.depth,
+                      sequences=len(comp.lit_lens), launches_per_call=3 + comp.depth,
+                      old_path_ms=old_ms, byte_plan_ms=plan_ms)
+    rows.append(decode_row)
+    log(f"kernel glz_decode: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+        f"{b_by}, library: none (no single PyTorch call); old path byte plan + resolve "
+        f"{old_ms:.3f} ms, of it the plan {plan_ms:.3f} ms) on the headline flat of {n} B from "
+        f"{token_bytes} B of tokens read (ratio {comp.nbytes / n:.3f}, depth {comp.depth}, "
+        f"{len(comp.lit_lens)} sequences, {3 + comp.depth} launches a call, host compress "
+        f"{compress_s * 1e3:.1f} ms), exact")
+
+    # the resolve kernel (the Pallas contract, off the main path) on the same plan
+    base, midx = glz.byte_plan_device(*tok, n)
+    got = cuda_kernels.glz_resolve(base, midx, chunk)
+    r_err = require_equal("glz_resolve headline", got, kernels.glz_resolve(base, midx, chunk))
     if not np.array_equal(got.cpu().numpy(), flat):
         raise AssertionError("glz_resolve headline: the decoded flat differs from the raw flat")
-    ms = time_ms(lambda: cuda_kernels.glz_resolve(base, midx, glz.GLZ_CHUNK))
-    plain_ms = time_ms(lambda: kernels.glz_resolve(base, midx, glz.GLZ_CHUNK), reps=3)
-    plan_ms = time_ms(lambda: glz.byte_plan_device(
-        *(torch.from_numpy(a).to(dev) for a in pad_glz_tokens(comp)), comp.out_len), reps=3)
-    n = flat.size
+    r_ms = time_ms(lambda: cuda_kernels.glz_resolve(base, midx, chunk))
+    r_plain_ms = time_ms(lambda: kernels.glz_resolve(base, midx, chunk), reps=3)
     p, hops = torch.arange(n, device=dev), 0
     m64 = midx.to(torch.int64)
     for _ in range(1 << kernels.GLZ_SQUARE_ROUNDS):
         q = m64[p]
         hops += int((q != p).sum().item())
         p = q
-    b_ms, b_by = bound(6.0 * n, float(hops + n))
+    r_b_ms, r_b_by = bound(6.0 * n, float(hops + n))
     rows.append(dict(name="glz_resolve", route="cuda",
                      source="fluvio_tpu_torch/smartengine/gpu/csrc/glz_decode.cu",
                      replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:434",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, out_bytes=n, token_bytes=comp.nbytes, depth=comp.depth,
-                     byte_plan_ms=plan_ms))
-    log(f"kernel glz_resolve: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
-        f"{b_by}, library: none (no single PyTorch call); byte plan {plan_ms:.3f} ms) on the "
-        f"headline flat of {n} B -> {comp.nbytes} B of tokens (ratio {comp.nbytes / n:.3f}, "
-        f"depth {comp.depth}, {len(comp.lit_lens)} sequences, host compress "
-        f"{compress_s * 1e3:.1f} ms), exact")
-    del base, midx, m64, p, got
+                     max_abs_err=r_err, ms=r_ms, plain_ms=r_plain_ms, bound_ms=r_b_ms,
+                     bound_by=r_b_by, library_ms=None, out_bytes=n, main_path=False))
+    log(f"kernel glz_resolve: {r_ms:.4f} ms (plain {r_plain_ms:.3f} ms, bound {r_b_ms:.4f} ms "
+        f"by {r_b_by}) on the headline flat's byte plan, exact; off the main path")
+    del base, midx, m64, p, got, tok
+
+    # the fused decode on the striped fat batch's flat (the striped link cell)
+    fat_flat = np.ascontiguousarray(
+        RecordBuffer.from_values(gen_fat_70k(FAT_RECORDS)).ragged_values()[0])
+    fat_comp, fat_tok = glz_tokens(fat_flat, chunk, dev)
+    got = cuda_kernels.glz_decode(*fat_tok, fat_flat.size, chunk, fat_comp.depth)
+    require_equal("glz_decode fat", got, glz.decode_plain(*fat_tok, fat_flat.size, chunk))
+    if not np.array_equal(got.cpu().numpy(), fat_flat):
+        raise AssertionError("glz_decode fat: the decoded flat differs from the raw flat")
+    fat_ms = time_ms(lambda: cuda_kernels.glz_decode(*fat_tok, fat_flat.size, chunk,
+                                                     fat_comp.depth))
+    fat_old_ms = time_ms(lambda: cuda_kernels.glz_resolve(
+        *glz.byte_plan_device(*fat_tok, fat_flat.size), chunk), reps=5)
+    decode_row["fat_flat"] = {"out_bytes": fat_flat.size, "depth": fat_comp.depth, "ms": fat_ms,
+                            "old_path_ms": fat_old_ms}
+    log(f"kernel glz_decode: {fat_ms:.4f} ms (old path {fat_old_ms:.3f} ms) on the striped fat "
+        f"flat of {fat_flat.size} B ({fat_comp.nbytes} B of tokens, depth {fat_comp.depth}), "
+        f"exact and equal to the raw flat")
+    del got, fat_tok
 
     # adversarial decode set
     period28 = np.frombuffer(b'{"name":"fluvio-1","n":123}\n' * 5000, np.uint8).copy()
@@ -559,11 +644,11 @@ def phase_glz_kernels(dev, corpus: RecordBuffer):
              ("depth-6", deep, 65536, {"max_ratio": 1.0}),
              ("depth-6 bare tokens", deep, 65536, {"max_ratio": 1.0, "padded": False}),
              ("headline slice 16k", flat[: 3 * 16384 + 4100], 16384, {})]
-    for name, raw, chunk, kw in cases:
-        check_resolve(name, raw, chunk, dev, **kw)
-    ragged = sum(1 for _, raw, chunk, _ in cases if raw.size % chunk)
+    for name, raw, case_chunk, kw in cases:
+        check_decode(name, raw, case_chunk, dev, **kw)
+    ragged = sum(1 for _, raw, case_chunk, _ in cases if raw.size % case_chunk)
     torch.cuda.synchronize()
-    log(f"kernel glz_resolve: adversarial set equal ({', '.join(c[0] for c in cases)}; "
+    log(f"kernels glz_decode and glz_resolve: adversarial set equal ({', '.join(c[0] for c in cases)}; "
         f"{ragged} of {len(cases)} with a ragged last chunk)")
 
     # encode window match at the headline chain's descriptor stream
@@ -613,7 +698,7 @@ def phase_glz_chains(corpora, off_rate: float, off_h2d: int):
     counts = dict(chain.link_counts)
     if counts["glz"] != HEADLINE_BATCHES or counts["raw"]:
         raise AssertionError(f"headline chain with the link: the up link did not ship glz: {counts}")
-    if min(launches["glz_resolve"], launches["glz_enc_match"]) <= 1:
+    if min(launches["glz_decode"], launches["glz_enc_match"]) <= 1 or launches["glz_resolve"]:
         raise AssertionError(f"headline chain with the link: glz kernels launched {launches}")
     if counts["h2d_bytes"] >= off_h2d:
         raise AssertionError(f"link-on H2D {counts['h2d_bytes']} B not below link-off {off_h2d} B")
@@ -652,6 +737,8 @@ def phase_glz_chains(corpora, off_rate: float, off_h2d: int):
     if outs[0].offset_deltas[: outs[0].count].tolist() != keep or outs[0].value_list() != want:
         raise AssertionError("striped chain with the link: batch 0 differs from host truth")
     fat = dict(chain.link_counts)
+    if fat_launches["glz_decode"] <= 0 or fat_launches["glz_resolve"]:
+        raise AssertionError(f"striped chain with the link: glz kernels launched {fat_launches}")
     if fat["glz"] != FAT_BATCHES or fat["down-glz"] != FAT_BATCHES:
         raise AssertionError(f"striped chain with the link: not every batch shipped tokens: {fat}")
     raw_bytes = FAT_BATCHES * sum(len(r) for r in corpus)
@@ -841,8 +928,10 @@ def main() -> int:
     paths = (head_launches, jr_launches, st_launches, glz_launches)
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
-        if r["launches"] <= 0:
+        if r.get("main_path", True) and r["launches"] <= 0:
             raise AssertionError(f"kernel {r['name']} never launched on the main path")
+        if not r.get("main_path", True) and r["launches"]:
+            raise AssertionError(f"kernel {r['name']} launched on the main path, which it left")
     log(json.dumps({"headline_records_per_s": head_rate,
                     "json_regex_filter_records_per_s": jr_rate,
                     "striped": st_rates,

@@ -11,8 +11,9 @@ for the Pallas kernels the port runs, and one kernel of its own:
   (``csrc/dfa_scan.cu``);
 - `dfa_compose_columns` replaces `_dfa_compose_kernel` /
   `dfa_compose_columns_pallas` (``csrc/dfa_compose.cu``);
-- `glz_resolve` replaces `_glz_resolve_kernel` / `glz_decode_pallas`
-  (``csrc/glz_decode.cu``);
+- `glz_decode` (the up link's decode, tokens straight to bytes) and
+  `glz_resolve` (the Pallas kernel's own ``(base, midx)`` contract) replace
+  `_glz_resolve_kernel` / `glz_decode_pallas` (``csrc/glz_decode.cu``);
 - `glz_encode_match` replaces `_glz_enc_match_kernel` /
   `glz_encode_match` (``csrc/glz_encode.cu``);
 - `striped_json_span` replaces the XLA scan of the JAX package's
@@ -37,13 +38,13 @@ import numpy as np
 import torch
 
 from fluvio_tpu_torch.ops.regex_dfa import CompiledDfa
-from fluvio_tpu_torch.smartengine.gpu import kernels
+from fluvio_tpu_torch.smartengine.gpu import glz, kernels
 from fluvio_tpu_torch.smartengine.gpu.native import KERNELS, check
 
 # kernel launches since the last `reset_launches()`
 LAUNCHES: Dict[str, int] = {
     "json_span": 0, "extract": 0, "dfa_scan": 0, "dfa_compose": 0, "json_span_striped": 0,
-    "glz_resolve": 0, "glz_enc_match": 0,
+    "glz_resolve": 0, "glz_enc_match": 0, "glz_decode": 0,
 }
 
 _MAX_NEEDLE = 48 * 1024  # the needle sits in (static-limit) shared memory
@@ -186,7 +187,9 @@ def dfa_match(values: torch.Tensor, lengths: torch.Tensor, dfa: CompiledDfa) -> 
 
 def dfa_compose_columns(cls: torch.Tensor, table_t: torch.Tensor) -> torch.Tensor:
     """Per-row total transition function: cls i32[rows, T] (-1 =
-    identity), table_t i32[C, S] -> i32[rows, S]."""
+    identity), table_t i32[C, S] -> i32[rows, S]. The kernel composes
+    column segments of a length it picks from S and T and folds them in
+    column order."""
     if not _on_cuda("dfa_compose_columns", cls, table_t):
         return kernels.dfa_compose_columns(cls, table_t)
     rows, t_len = cls.shape
@@ -257,6 +260,46 @@ def glz_resolve(base: torch.Tensor, midx: torch.Tensor, chunk: int) -> torch.Ten
         rc = fn(base.data_ptr(), midx.data_ptr(), n, chunk, out.data_ptr(), _stream(base.device))
     check(rc, "glz_resolve")
     LAUNCHES["glz_resolve"] += 1
+    return out
+
+
+_GLZ_TILE = 2048  # sequences a scan tile of the fused decode (csrc/glz_decode.cu)
+
+
+def glz_decode(lit_lens: torch.Tensor, match_lens: torch.Tensor, srcs: torch.Tensor,
+               lits: torch.Tensor, out_len: int, chunk: int, depth: int) -> torch.Tensor:
+    """Decode a `compress_link` stream's token arrays straight to bytes:
+    lit_lens u8[ns], match_lens u8[ns], srcs i32[ns] (zero-padded past the
+    real sequences, as ``pad_glz_tokens`` stages them), lits u8[nl], the
+    decoded size, the link chunk (a multiple of 128) and the stream's
+    depth (1..8) -> u8[out_len]. The plain version is the byte plan plus
+    the resolve (`glz.decode_plain`); what the kernel assumes of the
+    stream is in the note atop its source."""
+    if chunk <= 0 or chunk % 128:
+        raise ValueError(f"glz_decode: chunk {chunk} is not a positive multiple of 128")
+    if not 1 <= depth <= 1 << kernels.GLZ_SQUARE_ROUNDS:
+        raise ValueError(f"glz_decode: depth {depth} outside 1..{1 << kernels.GLZ_SQUARE_ROUNDS}")
+    if not _on_cuda("glz_decode", lit_lens, match_lens, srcs, lits):
+        return glz.decode_plain(lit_lens, match_lens, srcs, lits, out_len, chunk)
+    ns = lit_lens.shape[0]
+    nl = lits.shape[0]
+    _expect("glz_decode lit_lens", lit_lens, torch.uint8, (ns,))
+    _expect("glz_decode match_lens", match_lens, torch.uint8, (ns,))
+    _expect("glz_decode srcs", srcs, torch.int32, (ns,))
+    _expect("glz_decode lits", lits, torch.uint8, (nl,))
+    if not 0 <= out_len < 1 << 31 or (out_len and (ns == 0 or nl == 0)):
+        raise ValueError(f"glz_decode: {ns} sequences and {nl} literals cannot make {out_len} B")
+    dev = lit_lens.device
+    out = torch.empty((out_len,), dtype=torch.uint8, device=dev)
+    tile_sums = torch.empty((2 * max(1, -(-ns // _GLZ_TILE)),), dtype=torch.int32, device=dev)
+    mdst = torch.empty((max(ns, 1),), dtype=torch.int32, device=dev)
+    fn = KERNELS.function("fluvio_glz_decode")
+    with torch.cuda.device(dev):
+        rc = fn(lit_lens.data_ptr(), match_lens.data_ptr(), srcs.data_ptr(), lits.data_ptr(),
+                ns, nl, out_len, chunk, depth, tile_sums.data_ptr(), mdst.data_ptr(),
+                out.data_ptr(), _stream(dev))
+    check(rc, "glz_decode")
+    LAUNCHES["glz_decode"] += 1
     return out
 
 

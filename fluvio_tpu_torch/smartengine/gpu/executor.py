@@ -271,7 +271,7 @@ def _pad_slice(n: int, floor: int = 8) -> int:
 def pad_glz_tokens(comp: glz.Compressed):
     """A stream's token arrays zero-padded to pow2/8 buckets (floor 256),
     as the JAX executor stages them; pad sequences have length 0 and drop
-    out of the byte plan. Returns (lit_lens, match_lens, srcs, lits)."""
+    out of the decode. Returns (lit_lens, match_lens, srcs, lits)."""
     n_seq = len(comp.lit_lens)
     seq_pad = _bucket_rows(max(n_seq, 8), floor=256)
     lit_pad = _bucket_rows(max(comp.lits.size, 8), floor=256)
@@ -534,7 +534,8 @@ class GpuChainExecutor:
             if comp is not None:
                 ll, ml, srcs, lits = (self._upload(a) for a in pad_glz_tokens(comp))
                 self.link_counts["glz"] += 1
-                raw = glz.decode_link_flat((ll, ml, srcs), lits, comp.out_len, comp.chunk_bytes)
+                raw = glz.decode_link_flat((ll, ml, srcs), lits, comp.out_len, comp.chunk_bytes,
+                                           comp.depth)
                 return raw.view(torch.int32)
             self.link_counts[reason] += 1
         self.link_counts["raw"] += 1

@@ -33,6 +33,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from fluvio_tpu_torch.smartengine.gpu import kernels
+
 _SOURCE = Path(__file__).resolve().parents[2] / "native" / "glz.cpp"
 _BUILD_DIR = _SOURCE.parent / "_build"
 _lock = threading.Lock()
@@ -359,15 +361,63 @@ def decompress_device(lit_lens, match_lens, srcs, lits, depth: int, out_len: int
     return out
 
 
-def decode_link_flat(glz_seqs, glz_lits, out_len: int, chunk: int) -> torch.Tensor:
+def decode_plain(lit_lens, match_lens, srcs, lits, out_len: int, chunk: int) -> torch.Tensor:
+    """Plain version of the fused token-to-byte decode
+    (``csrc/glz_decode.cu``'s ``fluvio_glz_decode``): the per-byte plan
+    (`byte_plan_device`), then ``kernels.glz_resolve``. Needs no depth:
+    the resolve's 8 steps cover every chain a stream may hold."""
+    base, midx = byte_plan_device(lit_lens, match_lens, srcs, lits, out_len)
+    return kernels.glz_resolve(base, midx, chunk)
+
+
+def decode_link_flat(glz_seqs, glz_lits, out_len: int, chunk: int,
+                     depth: int = MAX_DEPTH) -> torch.Tensor:
     """The up link's card half: token arrays (``glz_seqs`` = lit_lens u8,
-    match_lens u8, srcs i32) of a `compress_link` stream -> u8[out_len],
-    through the byte plan and the ``glz_resolve`` kernel."""
+    match_lens u8, srcs i32) of a `compress_link` stream and its depth ->
+    u8[out_len], through the fused ``glz_decode`` kernel."""
     from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
 
     lit_lens, match_lens, srcs = glz_seqs
-    base, midx = byte_plan_device(lit_lens, match_lens, srcs, glz_lits, out_len)
-    return cuda_kernels.glz_resolve(base, midx, chunk)
+    return cuda_kernels.glz_decode(lit_lens, match_lens, srcs, glz_lits, out_len, chunk, depth)
+
+
+def decompress_rounds_numpy(comp: Compressed, order_seed: int) -> np.ndarray:
+    """numpy mirror of the ``glz_decode`` kernel, an executable spec for
+    the tests: sequence offsets by exclusive cumsums, the literal pass,
+    then ``comp.depth`` in-place rounds in which every sequence copies its
+    match bytes in order (sources clipped into [0, out_len - 1], then
+    into the byte's chunk; a byte sourcing itself reads 0), the sequences
+    taken in an order shuffled anew each round from ``order_seed``: the
+    card's threads run in no order, and on a `compress_link` stream every
+    order gives the same bytes. ``comp.chunk_bytes`` 0 means one chunk."""
+    out_len = comp.out_len
+    chunk = comp.chunk_bytes or max(out_len, 1)
+    ll = comp.lit_lens.astype(np.int64)
+    ml = comp.match_lens.astype(np.int64)
+    srcs = comp.srcs.astype(np.int64)
+    lits = comp.lits
+    dst = np.cumsum(ll + ml) - (ll + ml)
+    lit0 = np.cumsum(ll) - ll
+    out = np.zeros(out_len, np.uint8)  # the kernel's match bytes start unset
+    for k in range(len(ll)):
+        n = int(min(ll[k], max(out_len - dst[k], 0)))
+        idx = np.clip(lit0[k] + np.arange(n), 0, max(lits.size - 1, 0))
+        out[dst[k]: dst[k] + n] = lits[idx] if lits.size else 0
+    rng = np.random.default_rng(order_seed)
+    for _ in range(comp.depth):
+        for k in rng.permutation(len(ll)):
+            i = dst[k] + ll[k] + np.arange(ml[k])
+            i = i[i < out_len]
+            lo = i // chunk * chunk
+            q = np.clip(np.clip(srcs[k] + np.arange(i.size), 0, out_len - 1), lo, lo + chunk - 1)
+            if not i.size:
+                continue
+            if not ((q >= i[0]) & (q <= i[-1])).any():
+                out[i] = out[q]  # no source inside the run: one copy is the byte loop
+                continue
+            for a, b in zip(i.tolist(), q.tolist()):
+                out[a] = 0 if a == b else out[b]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,9 @@ The port's counterparts of the XLA kernels in
 tensors, vectorized across the record axis, with any per-byte iteration a
 Python loop over the columns. Seven of them — `json_get_span`,
 `striped_json_span`, `extract_span`, `dfa_match`, `dfa_compose_columns`,
-`glz_resolve` and `glz_encode_match` — are the plain versions of the CUDA
-kernels in ``cuda_kernels.py``: the
+`glz_resolve` and `glz_encode_match` — are the plain versions of the
+CUDA kernels in ``cuda_kernels.py`` (the fused glz decode's is
+``glz.decode_plain``, a byte plan plus `glz_resolve`): the
 wrappers there run them for CPU tensors (the tests), and ``chip_smoke.py``
 holds each kernel against them on the card. Nothing on the CUDA path calls
 them. The rest are the chain's torch code
@@ -89,6 +90,27 @@ def dfa_compose_columns(cls: torch.Tensor, table_t: torch.Tensor) -> torch.Tenso
         nxt = flat[c.clamp(0, n_classes - 1) * n_states + f]
         f = torch.where(c >= 0, nxt, f)
     return f.to(torch.int32).contiguous()
+
+
+def dfa_compose_columns_split(cls: torch.Tensor, table_t: torch.Tensor,
+                              seg_len: int) -> torch.Tensor:
+    """Torch mirror of the CUDA kernel's column split, for the tests: each
+    row's columns cut into segments of ``seg_len`` (the last one short,
+    padded with identity), each segment's total function composed from
+    the identity, then the segment functions folded in column order,
+    ``out[s] = g_{P-1}[... g_0[s] ...]``. Equal to `dfa_compose_columns`
+    by associativity."""
+    rows, t_len = cls.shape
+    n_states = table_t.shape[1]
+    n_segs = max(1, -(-t_len // seg_len))
+    padded = torch.full((rows, n_segs * seg_len), -1, dtype=torch.int32, device=cls.device)
+    padded[:, :t_len] = cls
+    seg = dfa_compose_columns(padded.view(rows * n_segs, seg_len), table_t)
+    seg = seg.view(rows, n_segs, n_states)
+    f = torch.arange(n_states, dtype=torch.int32, device=cls.device).expand(rows, n_states)
+    for p in range(n_segs):
+        f = dfa_compose(f, seg[:, p])
+    return f.contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -47,7 +47,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "fluvio_dfa_scan": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _LL, _I, _P, _P]
     },
     "dfa_compose.cu": {"fluvio_dfa_compose": [_P, _P, _I, _I, _LL, _I, _P, _P]},
-    "glz_decode.cu": {"fluvio_glz_resolve": [_P, _P, _LL, _LL, _P, _P]},
+    "glz_decode.cu": {
+        "fluvio_glz_resolve": [_P, _P, _LL, _LL, _P, _P],
+        "fluvio_glz_decode": [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _P, _P, _P],
+    },
     "glz_encode.cu": {"fluvio_glz_enc_match": [_P, _P, _P, _I, _I, _I, _P, _P, _P]},
 }
 

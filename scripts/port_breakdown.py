@@ -18,7 +18,9 @@ runs through ``fluvio_tpu_torch`` three ways, and each prints one JSON line:
   the batch (CUDA events from before the first enqueue to the drain, so
   it includes waits for the host's enqueues), and the host rebuild of
   the output (finish, host clock after the copies landed);
-- ``pipelined``: records/s of ``process_stream`` (what users get);
+- ``pipelined``: records/s of ``process_stream`` (what users get), and
+  the CUDA kernels it launched (with ``--link`` the up link decodes
+  through ``glz_decode``, one launch a batch);
 - ``profile``: device busy time and share of the pipelined run's wall
   time from ``torch.profiler`` (device-side kernel and copy events only,
   top 8 by time).
@@ -41,6 +43,7 @@ import torch  # noqa: E402
 from chip_smoke import (  # noqa: E402
     FAT_PARAMS, FAT_RECORDS, GLZ_LINK, N, STRIPED_CHAINS, build_chain, gen_fat_70k, gen_json,
 )
+from fluvio_tpu_torch.smartengine.gpu import cuda_kernels  # noqa: E402
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer  # noqa: E402
 
 BATCHES = 4
@@ -85,11 +88,12 @@ def serial(chain, corpora):
 def pipelined(chain, corpora):
     bufs = fresh(corpora)
     torch.cuda.synchronize()
+    cuda_kernels.reset_launches()
     t0 = time.perf_counter()
     for _ in chain.process_stream(bufs):
         pass
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, dict(cuda_kernels.LAUNCHES)
 
 
 def profile(chain, corpora):
@@ -137,9 +141,10 @@ def breakdown(name: str, smi: str, link) -> dict:
     out = {"chain": name, "device": smi, "link": chain.link.any, "records_per_batch": n,
            "batches": BATCHES, "bytes_per_batch": sum(len(r) for r in corpora[0])}
     out["serial"] = serial(chain, corpora)
-    wall = pipelined(chain, corpora)
+    wall, launches = pipelined(chain, corpora)
     out["pipelined"] = {"wall_s": wall, "records_per_s": BATCHES * n / wall,
-                        "bytes_per_s": BATCHES * out["bytes_per_batch"] / wall}
+                        "bytes_per_s": BATCHES * out["bytes_per_batch"] / wall,
+                        "launches": launches}
     out["profile"] = profile(chain, corpora)
     out["link_counts"] = chain.link_counts
     return out

@@ -191,3 +191,42 @@ def test_glz_cuda_kernels_equal_plain_versions():
         assert torch.equal(cuda_kernels.glz_encode_match(w0, w1, const_m, chunk_groups),
                            kernels.glz_encode_match(w0, w1, const_m, chunk_groups))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_on_the_card():
+    """The column-split composition at the geometries its segment length
+    gives (T < L, T not a multiple of L, several segments a warp, a
+    segment over several warps, several segments a row), and the fused
+    token-to-byte decode on padded and bare tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.ops.regex_dfa import compile_regex
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, glz, kernels
+    from fluvio_tpu_torch.smartengine.gpu.executor import pad_glz_tokens
+
+    rng = np.random.default_rng(44)
+    for pattern, packed in (("^(fluvio|kafka|pulsar)-[0-3]$", True), ("flu[vV]io", True),
+                            ("(a|b)*a(a|b){2}c", True), ("x" + "d" * 40, True),
+                            ("(a|b)*a(a|b){5}c", False),
+                            ("(a|b)*a(a|b){6}c|x" + "d" * 125, False)):
+        dfa = compile_regex(pattern, packed=packed)
+        table_t = torch.from_numpy(np.ascontiguousarray(dfa.table.T, dtype=np.int32)).cuda()
+        for rows, t_len in ((301, 77), (40, 20), (17, 1000), (64, 8192)):
+            cls = rng.integers(0, dfa.n_classes, size=(rows, t_len)).astype(np.int32)
+            cls[::3, t_len // 4: t_len // 2] = -1
+            cls[0] = -1
+            c = torch.from_numpy(cls).cuda()
+            assert torch.equal(cuda_kernels.dfa_compose_columns(c, table_t),
+                               kernels.dfa_compose_columns(c, table_t))
+    docs = b"".join(b'{"name":"fluvio-%d","n":%d}' % (i & 63, rng.integers(0, 9999))
+                    for i in range(20000))
+    raw = np.frombuffer(docs, np.uint8)
+    for chunk in (4096, 65536, 262144):
+        comp, _ = glz.compress_link(raw, max_ratio=1.0, chunk=chunk)
+        for arrays in (pad_glz_tokens(comp), comp[:4]):
+            ll, ml, srcs, lits = (torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays)
+            got = cuda_kernels.glz_decode(ll, ml, srcs, lits, comp.out_len, chunk, comp.depth)
+            assert torch.equal(got, glz.decode_plain(ll, ml, srcs, lits, comp.out_len, chunk))
+            assert torch.equal(got.cpu(), torch.from_numpy(raw.copy()))
+    torch.cuda.synchronize()
