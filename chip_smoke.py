@@ -12,7 +12,20 @@ Phases (any failure raises and the script exits non-zero):
 2. kernels: each CUDA kernel against its plain torch version on the card,
    at the main path's shapes (1,048,576 records of the bench JSON corpus,
    width 64) and on an adversarial set, with exact equality (all outputs
-   are integers or bytes); kernel, plain and library times;
+   are integers or bytes); kernel, plain and library times. The two JSON
+   span kernels first, every design their launchers pick: the adversarial
+   sets at widths 64 and 100 (a thread a record, with and without 16-byte
+   loads) and 1024 and 1000 (a warp a record), with the keys ``name``,
+   ``n``, the empty key, a UTF-8 key and one holding a backslash, and at
+   64-byte stripes; the main path's shapes; two late-key narrow batches
+   (131,072 records of ~1 KB and of ~0.5 KB with ``name`` after a pad,
+   one in eight without it); the striped check geometry (stated in the
+   output) against the plain version; the fat bench shape and a late-key
+   fat batch (``name`` after the 70 KiB body) against ``json_get_bytes``.
+   Their times are per call (CUDA events around one call, as for every
+   kernel), the device time (torch.profiler) and per call in a run of
+   back-to-back calls. ``--json-only`` builds the kernels and runs only
+   these checks and times;
 3. headline chain: ``regex-filter(regex="fluvio")`` -> ``json-map(field=
    "name")`` over 4 batches of 1,048,576 records through
    ``SmartEngine(device="cuda")`` and ``process_stream``; one whole batch
@@ -28,9 +41,7 @@ Phases (any failure raises and the script exits non-zero):
    adversarial set (the 257-state table, identity runs, ragged row and
    column counts, rows shorter than a segment, column counts that are no
    multiple of the segment, 8 states with a lane a segment, segment
-   lengths of 32, 64 and past the row); the striped JSON span kernel
-   against its plain version at a reduced geometry (stated in the output)
-   and against the host's ``json_get_bytes`` at the fat bench shape;
+   lengths of 32, 64 and past the row);
 6. striped chains over 4 batches of 1,024 ``gen_fat_70k`` records each
    (bench configs ``7_fat70k``, ``10_regex_json_fat`` and
    ``regex-filter("flu[vV]io")`` -> ``json-map(field="name")``), one whole
@@ -64,6 +75,7 @@ the result line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import statistics
@@ -191,10 +203,9 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, corpus: RecordBuffer):
     """Every kernel against its plain version on the card; times at the
-    main path's shapes."""
-    corpus = RecordBuffer.from_values(gen_json(N, seed=2024))
+    main path's shapes (``corpus``: the bench corpus, 1,048,576 x 64)."""
     width = corpus.width
     if width != 64:
         raise AssertionError(f"bench corpus bucketed to width {width}, expected 64")
@@ -204,11 +215,10 @@ def phase_kernels(dev):
     if dfa.n_states != 22:
         raise AssertionError(f"bench regex compiled to {dfa.n_states} states, expected 22")
 
-    # adversarial set first: corner cases exactly equal, all three kernels
+    # adversarial set first: corner cases exactly equal (the span kernel's
+    # own adversarial checks are in phase_json_span)
     av, al = stage(adversarial(width), width, dev)
     st_a, vl_a = cuda_kernels.json_get_span(av, al, "name")
-    require_equal("json_span adversarial", torch.stack([st_a, vl_a]),
-                  torch.stack(kernels.json_get_span(av, al, "name")))
     require_equal("extract adversarial", cuda_kernels.extract_span(av, st_a, vl_a),
                   kernels.extract_span(av, st_a, vl_a))
     big = "(a|b)*a(a|b){6}c|x" + "d" * 125  # 257 states: the two-byte table
@@ -218,25 +228,13 @@ def phase_kernels(dev):
         require_equal(f"dfa_scan adversarial {pattern[:24]} packed={packed}",
                       cuda_kernels.dfa_match(av, al, d), kernels.dfa_match(av, al, d))
     torch.cuda.synchronize()
-    log("kernels: adversarial set equal (json_span, extract, dfa_scan incl. 257-state "
-        "and unpacked 132 KB tables)")
+    log("kernels: adversarial set equal (extract, dfa_scan incl. 257-state and unpacked 132 KB "
+        "tables)")
 
     rows = []
-    # 1. JSON span over the raw records (both chains' first kernel)
+    # the JSON span of the name field (both chains' first kernel; its row
+    # is phase_json_span's)
     st, vl = cuda_kernels.json_get_span(v, ln, "name")
-    err = require_equal("json_span", torch.stack([st, vl]),
-                        torch.stack(kernels.json_get_span(v, ln, "name")))
-    ms = time_ms(lambda: cuda_kernels.json_get_span(v, ln, "name"))
-    plain_ms = time_ms(lambda: kernels.json_get_span(v, ln, "name"), reps=3)
-    lens64 = ln.to(torch.int64)
-    scanned = torch.where(st > 0, torch.minimum(lens64, (st + vl + 1).to(torch.int64)), lens64)
-    bytes_moved = float(scanned.sum().item()) + 4 * N + 8 * N
-    b_ms, b_by = bound(bytes_moved, float(scanned.sum().item()))
-    rows.append(dict(name="json_span", route="cuda",
-                     source="fluvio_tpu_torch/smartengine/gpu/csrc/json_span.cu",
-                     replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:100",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None))
 
     # 2. extract of the name field (json-regex-filter's byte-mode JsonGet)
     ex = cuda_kernels.extract_span(v, st, vl)
@@ -331,17 +329,191 @@ def span_docs(rng):
     return docs
 
 
-def phase_striped_kernels(dev):
-    """The two striped kernels against their plain versions."""
-    rows = []
-    # the fat bench corpus, staged as the executor stages it
-    fat = gen_fat_70k(FAT_RECORDS)
-    buf, plan, sv, lengths, kmax = stage_striped(fat, FAT_PARAMS, dev)
-    log(f"fat corpus: {FAT_RECORDS} records of {len(fat[0])} B, width bucket {buf.width}, "
-        f"{tuple(sv.shape)} stripe rows, {kmax} stripes per record")
+WIDE_RECORDS = 1 << 17  # the late-key wide narrow batches
+# adversarial keys: the bench key, a short one, the empty key, a UTF-8 one
+# and one holding a backslash (which the machine never matches)
+SPAN_KEYS = ("name", "n", "", "n\u00e4m\u00e9", "na\\me")
+SMALL_STRIPES = stripes.StripeParams(threshold=64, width=64, overlap=16)
 
-    # striped JSON span: reduced geometry vs the plain version, then the
-    # main-path shape vs the host's json_get_bytes
+
+def device_ms(fn, reps: int = 20):
+    """Mean device time of the JSON span kernel of one ``fn()`` call, from
+    torch.profiler's kernel records (the wrapper's host time excluded);
+    None where the profiler records no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then records no device events at all
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum((getattr(ev, "self_device_time_total", None)
+                        or getattr(ev, "self_cuda_time_total", 0))
+                       for ev in prof.key_averages()
+                       if ev.device_type == DeviceType.CUDA and "json_span" in ev.key)
+        if total_us > 0:
+            return total_us / 1e3 / reps
+    log("device_ms: three profiles recorded no json_span kernel")
+    return None
+
+
+def run_ms(fn, reps: int = 50) -> float:
+    """CUDA events around ``reps`` back-to-back calls, per call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def span_bound(st: torch.Tensor, vl: torch.Tensor, lengths: torch.Tensor, side_bytes: float):
+    """The bytes a span kernel must read: each record up to one byte past
+    its field's end, the whole record where the field is missing (start 0),
+    plus ``side_bytes`` of other inputs and outputs."""
+    lens = lengths[: st.shape[0]].to(torch.int64)
+    scanned = torch.where(st > 0, torch.minimum(lens, (st + vl + 1).to(torch.int64)), lens)
+    total = float(scanned.sum().item())
+    return bound(total + side_bytes, total)
+
+
+def late_key_docs(n: int, pad: int):
+    """Narrow records with "name" after a ``pad``-byte string (give or take
+    15 bytes); one in eight has no name field, a walk of the whole record."""
+    docs = []
+    for i in range(n):
+        p = b"p" * (pad + (i * 7) % 16)
+        if i % 8 == 7:
+            docs.append(b'{"pad":"%s","n":%d}' % (p, i))
+        else:
+            docs.append(b'{"pad":"%s","name":"fluvio-%d","n":%d}' % (p, i & 1023, i))
+    return docs
+
+
+def gen_fat_late(n: int):
+    """The fat corpus with the name field after the 70 KiB body."""
+    body = "x" * (70 * 1024)
+    return [f'{{"body":"{body}","name":"fluvio-{i & 7}"}}'.encode() for i in range(n)]
+
+
+def striped_adversarial(rng):
+    """Records for the small-stripe check: JSON_DOCS behind pads of every
+    length around the 48-byte step, odd keys, JSON-alphabet garbage and raw
+    bytes (quotes and backslashes outside strings) of 40-400 bytes."""
+    docs = []
+    for m in range(0, 100, 3):
+        doc = JSON_DOCS[m % len(JSON_DOCS)]
+        body = doc[1:] if doc.startswith(b"{") else b'"x":"' + doc + b'"}'
+        docs.append(b'{"pad":"' + b"p" * m + b'",' + (body if body != b"}" else b'"z":1}'))
+        docs.append(b'{"pad":"' + b"p" * m + '","n\u00e4m\u00e9":"u","na\\me":1,"":2}'.encode())
+    alphabet = np.frombuffer(b'{}[]":,\\ \tabndx1', dtype=np.uint8)
+    for _ in range(64):
+        docs.append(alphabet[rng.integers(0, len(alphabet), size=int(rng.integers(40, 401)))]
+                    .tobytes())
+        docs.append(rng.integers(0, 256, size=int(rng.integers(40, 401))).astype(np.uint8).tobytes())
+    return docs
+
+
+def narrow_span_case(name: str, docs, width: int, keys, dev) -> int:
+    """The narrow span kernel against its plain version on ``docs`` staged
+    at ``width`` (the launcher picks the design from the width)."""
+    v, ln = stage(docs, width, dev)
+    err = 0
+    for key in keys:
+        got = torch.stack(cuda_kernels.json_get_span(v, ln, key))
+        err = max(err, require_equal(f"json_span {name} W={width} key={key!r}", got,
+                                     torch.stack(kernels.json_get_span(v, ln, key))))
+    return err
+
+
+def striped_span_case(name: str, docs, params: stripes.StripeParams, keys, dev) -> int:
+    _, plan, sv, ln, kmax = stage_striped(docs, params, dev)
+    args = (sv, stripes.owned_lengths(plan), plan["first_row"], plan["k"], ln)
+    err = 0
+    for key in keys:
+        got = torch.stack(cuda_kernels.striped_json_span(*args, key, kmax, params.step))
+        want = torch.stack(kernels.striped_json_span(*args, key, kmax, params.step))
+        err = max(err, require_equal(f"json_span_striped {name} key={key!r}", got, want))
+    return err
+
+
+def phase_json_span(dev, corpus: RecordBuffer):
+    """Both JSON span kernels against their plain versions (or the host's
+    ``json_get_bytes``), every design the launchers pick: the adversarial
+    sets at widths of both narrow designs (16-byte aligned and not) and at
+    small stripes; the main path's shapes; the late-key shapes. Each time
+    is given per call (CUDA events around one call, as earlier rows) and as
+    the kernel's device time (torch.profiler). Returns the two rows."""
+    rng = np.random.default_rng(29)
+    err = 0
+    # narrow adversarial: thread-a-record widths 64 and 100 (no 16-byte
+    # loads), warp-a-record widths 1024 and 1000, late and missing keys
+    for width in (64, 100, 1024, 1000):
+        docs = adversarial(width)
+        if width > 512:
+            docs += late_key_docs(96, width - 60)
+        err = max(err, narrow_span_case("adversarial", docs, width, SPAN_KEYS, dev))
+    striped_err = striped_span_case("adversarial", striped_adversarial(rng), SMALL_STRIPES,
+                                    SPAN_KEYS, dev)
+    torch.cuda.synchronize()
+    log(f"json_span: adversarial sets equal at widths 64, 100 (a thread a record) and 1024, 1000 "
+        f"(a warp a record); json_span_striped at {SMALL_STRIPES.width}/{SMALL_STRIPES.overlap} "
+        f"stripes; keys {SPAN_KEYS}")
+
+    # narrow, main path: the bench corpus, 1,048,576 x 64
+    v = torch.from_numpy(corpus.values).to(dev)
+    ln = torch.from_numpy(corpus.lengths).to(dev)
+    st, vl = cuda_kernels.json_get_span(v, ln, "name")
+    err = max(err, require_equal("json_span", torch.stack([st, vl]),
+                                 torch.stack(kernels.json_get_span(v, ln, "name"))))
+    call = lambda: cuda_kernels.json_get_span(v, ln, "name")  # noqa: E731
+    ms, dev_ms, r_ms = time_ms(call), device_ms(call), run_ms(call)
+    plain_ms = time_ms(lambda: kernels.json_get_span(v, ln, "name"), reps=3)
+    b_ms, b_by = span_bound(st, vl, ln, 12.0 * N)
+    narrow = dict(name="json_span", route="cuda",
+                  source="fluvio_tpu_torch/smartengine/gpu/csrc/json_span.cu",
+                  replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:100",
+                  max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                  library_ms=None, device_ms=dev_ms, run_ms=r_ms,
+                  shape=f"{N} x {corpus.width}, a thread a record")
+    log(f"kernel json_span: {ms:.4f} ms a call, device {dev_ms} ms, back to back {r_ms:.4f} ms "
+        f"(plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}) at N={N} W={corpus.width}, "
+        f"exact")
+    del v, ln, st, vl
+
+    # narrow, late key: many rows of ~1 KB and of ~0.5 KB (against the plain
+    # version), and few rows of ~60 KB (against json_get_bytes)
+    for label, count, pad in (("late_key_1k", WIDE_RECORDS, 940),
+                              ("late_key_512", WIDE_RECORDS, 420),
+                              ("late_key_60k", FAT_RECORDS, 60000)):
+        docs = late_key_docs(count, pad)
+        buf = RecordBuffer.from_values(docs)
+        v = torch.from_numpy(buf.values).to(dev)
+        ln = torch.from_numpy(buf.lengths).to(dev)
+        st, vl = cuda_kernels.json_get_span(v, ln, "name")
+        if count == FAT_RECORDS:
+            fields = [d[a: a + b] for d, a, b in zip(docs, st.tolist(), vl.tolist())]
+            if fields != [dsl.json_get_bytes(d, "name") for d in docs]:
+                raise AssertionError(f"json_span differs from json_get_bytes on {label}")
+        else:
+            err = max(err, require_equal(f"json_span {label}", torch.stack([st, vl]),
+                                         torch.stack(kernels.json_get_span(v, ln, "name"))))
+        call = lambda: cuda_kernels.json_get_span(v, ln, "name")  # noqa: E731
+        b_ms, b_by = span_bound(st, vl, ln, 12.0 * count)
+        narrow[label] = {"records": count, "width": buf.width, "ms": time_ms(call),
+                         "device_ms": device_ms(call), "run_ms": run_ms(call),
+                         "bound_ms": b_ms, "bound_by": b_by}
+        log(f"kernel json_span {label}: {narrow[label]}, exact")
+        del v, ln, st, vl
+    narrow["max_abs_err"] = err
+
+    # striped: the check geometry against the plain version (keys name, n)
     docs = span_docs(np.random.default_rng(5))
     _, p2, sv2, ln2, kmax2 = stage_striped(docs, SPAN_CHECK, dev)
     args2 = (sv2, stripes.owned_lengths(p2), p2["first_row"], p2["k"], ln2)
@@ -354,30 +526,59 @@ def phase_striped_kernels(dev):
     run_plain("n")
     for key in ("name", "n"):
         got = torch.stack(cuda_kernels.striped_json_span(*args2, key, kmax2, SPAN_CHECK.step))
-        err = require_equal(f"json_span_striped key={key}", got, torch.stack(plain[key]))
-    check_ms = time_ms(lambda: cuda_kernels.striped_json_span(*args2, "name", kmax2,
-                                                             SPAN_CHECK.step))
+        striped_err = max(striped_err, require_equal(f"json_span_striped key={key}", got,
+                                                     torch.stack(plain[key])))
+    call = lambda: cuda_kernels.striped_json_span(*args2, "name", kmax2, SPAN_CHECK.step)  # noqa: E731
+    check = {"ms": time_ms(call), "device_ms": device_ms(call), "run_ms": run_ms(call)}
     sizes = [len(d) for d in docs]
     geometry = (f"{len(docs)} records of {min(sizes)}-{max(sizes)} bytes, stripes of "
                 f"{SPAN_CHECK.width} bytes overlapping by {SPAN_CHECK.overlap}, kmax {kmax2}")
-    log(f"kernel json_span_striped: exact against its plain version on {geometry} "
-        f"(kernel {check_ms:.4f} ms, plain {plain_ms:.1f} ms)")
+    log(f"kernel json_span_striped: exact against its plain version on {geometry} ({check}, "
+        f"plain {plain_ms:.1f} ms)")
+
+    # striped, the fat bench shape (name first) and the late-key fat batch,
+    # each against json_get_bytes
+    fat_rows = {}
+    for label, fat in (("fat", gen_fat_70k(FAT_RECORDS)), ("late_key_fat", gen_fat_late(FAT_RECORDS))):
+        buf, plan, sv, lengths, kmax = stage_striped(fat, FAT_PARAMS, dev)
+        args = (sv, stripes.owned_lengths(plan), plan["first_row"], plan["k"], lengths)
+        vst, vln = cuda_kernels.striped_json_span(*args, "name", kmax, plan["step"])
+        fields = [d[int(a): int(a) + int(b)] for d, a, b in zip(fat, vst.tolist(), vln.tolist())]
+        if fields != [dsl.json_get_bytes(d, "name") for d in fat]:
+            raise AssertionError(f"json_span_striped differs from json_get_bytes on {label}")
+        call = lambda: cuda_kernels.striped_json_span(*args, "name", kmax, plan["step"])  # noqa: E731
+        b_ms, b_by = span_bound(vst, vln, lengths, 4 * 4 * FAT_RECORDS + 8 * FAT_RECORDS)
+        fat_rows[label] = {"records": FAT_RECORDS, "record_bytes": len(fat[0]),
+                           "stripe_rows": sv.shape[0], "ms": time_ms(call),
+                           "device_ms": device_ms(call), "run_ms": run_ms(call),
+                           "bound_ms": b_ms, "bound_by": b_by}
+        log(f"kernel json_span_striped {label}: {fat_rows[label]}, equal to json_get_bytes")
+        del sv, vst, vln
+    fat = fat_rows.pop("fat")
+    striped = dict(name="json_span_striped", route="cuda",
+                   source="fluvio_tpu_torch/smartengine/gpu/csrc/json_span.cu",
+                   replaces="fluvio_tpu/smartengine/tpu/stripes.py:263",
+                   max_abs_err=striped_err, ms=fat["ms"], plain_ms=plain_ms,
+                   bound_ms=fat["bound_ms"], bound_by=fat["bound_by"], library_ms=None,
+                   device_ms=fat["device_ms"], run_ms=fat["run_ms"], check_geometry=geometry,
+                   check_ms=check["ms"], check_device_ms=check["device_ms"],
+                   check_run_ms=check["run_ms"], **fat_rows)
+    return narrow, striped
+
+
+def phase_striped_kernels(dev):
+    """The two striped kernels against their plain versions."""
+    rows = []
+    # the fat bench corpus, staged as the executor stages it
+    fat = gen_fat_70k(FAT_RECORDS)
+    buf, plan, sv, lengths, kmax = stage_striped(fat, FAT_PARAMS, dev)
+    log(f"fat corpus: {FAT_RECORDS} records of {len(fat[0])} B, width bucket {buf.width}, "
+        f"{tuple(sv.shape)} stripe rows, {kmax} stripes per record")
+
+    # the span of the name field, for the in-span classes (the striped span
+    # kernel's row is phase_json_span's)
     args = (sv, stripes.owned_lengths(plan), plan["first_row"], plan["k"], lengths)
     vst, vln = cuda_kernels.striped_json_span(*args, "name", kmax, plan["step"])
-    fields = [d[int(a): int(a) + int(b)] for d, a, b in zip(fat, vst.tolist(), vln.tolist())]
-    if fields != [dsl.json_get_bytes(d, "name") for d in fat]:
-        raise AssertionError("json_span_striped differs from json_get_bytes on the fat corpus")
-    ms = time_ms(lambda: cuda_kernels.striped_json_span(*args, "name", kmax, plan["step"]))
-    # the machine stops at the field's end: bytes it must read per record
-    scanned = float((vst + vln + 1).clamp(max=lengths[: len(fat)].max()).sum().item())
-    b_ms, b_by = bound(scanned + 4 * 4 * FAT_RECORDS + 8 * FAT_RECORDS, scanned)
-    rows.append(dict(name="json_span_striped", route="cuda",
-                     source="fluvio_tpu_torch/smartengine/gpu/csrc/json_span.cu",
-                     replaces="fluvio_tpu/smartengine/tpu/stripes.py:263",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, check_geometry=geometry, check_ms=check_ms))
-    log(f"kernel json_span_striped: {ms:.4f} ms at the fat bench shape ({FAT_RECORDS} records, "
-        f"{sv.shape[0]} rows of {sv.shape[1]} bytes), equal to json_get_bytes")
 
     # DFA composition at the fat bench shape: in-span (22 states) and
     # record-level (flu[vV]io) classes, as the striped chains build them
@@ -896,7 +1097,12 @@ def phase_json_regex():
     return launches, rate
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--json-only", action="store_true",
+                        help="build the kernels and run only phase 2's JSON span checks and "
+                             "times (no chains, no ok line)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -913,12 +1119,19 @@ def main() -> int:
     log(f"kernels built in {KERNELS.build_seconds:.2f} s")
     for src, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if ("registers" in line or "spill" in line or "Function properties" in line
+                    or "error" in line.lower()):
                 print(f"[nvcc {src}] {line.strip()}", file=sys.stderr)
 
-    rows = phase_kernels(dev)
-    rows += phase_striped_kernels(dev)
-    rows += phase_glz_kernels(dev, RecordBuffer.from_values(gen_json(N, seed=2024)))
+    corpus = RecordBuffer.from_values(gen_json(N, seed=2024))
+    narrow, striped = phase_json_span(dev, corpus)
+    if args.json_only:
+        print(smi)
+        print(json.dumps({"json_span_rows": [narrow, striped]}))
+        return 0
+    rows = [narrow] + phase_kernels(dev, corpus)
+    rows += [striped] + phase_striped_kernels(dev)
+    rows += phase_glz_kernels(dev, corpus)
     corpora = [gen_json(N, seed=100 + k) for k in range(HEADLINE_BATCHES)]
     head_launches, head_rate, head_chain = phase_headline(corpora)
     jr_launches, jr_rate = phase_json_regex()

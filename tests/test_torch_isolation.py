@@ -123,6 +123,41 @@ def test_cuda_kernels_equal_plain_versions():
     st_k, vl_k = cuda_kernels.json_get_span(v, ln, "name")
     st_p, vl_p = kernels.json_get_span(v, ln, "name")
     assert torch.equal(st_k, st_p) and torch.equal(vl_k, vl_p)
+    # both designs of the span kernel: a thread a record up to 512-byte rows,
+    # a warp a record past them; widths off the 16-byte grid take byte loads
+    alphabet = np.frombuffer(b'{}[]":,\\ \tabndx1', dtype=np.uint8)
+    for span_width in (64, 100, 512, 544, 1000, 1024):
+        span_docs = [
+            b'{"pad":"%s","name":"kafka-%d","n":%d}' % (b"p" * int(rng.integers(0, span_width - 40)),
+                                                        i, i) if i % 3 == 0 else
+            b'{"pad":"%s","n":%d}' % (b"q" * int(rng.integers(0, span_width - 20)), i) if i % 3 == 1
+            else alphabet[rng.integers(0, len(alphabet), size=int(rng.integers(0, span_width + 1)))]
+            .tobytes()
+            for i in range(300)
+        ] + [(b'{"name":"' + b"y" * span_width)[:span_width], (b'{"name":' + b"7" * span_width)[:span_width]]
+        sv_, sl_ = np.zeros((len(span_docs), span_width), np.uint8), np.zeros(len(span_docs), np.int32)
+        for i, d in enumerate(span_docs):
+            sv_[i, : len(d)] = np.frombuffer(d, dtype=np.uint8)
+            sl_[i] = len(d)
+        sv_t, sl_t = torch.from_numpy(sv_).cuda(), torch.from_numpy(sl_).cuda()
+        for key in ("name", "n", ""):
+            got = cuda_kernels.json_get_span(sv_t, sl_t, key)
+            want = kernels.json_get_span(sv_t, sl_t, key)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (span_width, key)
+    # a 45,000-byte key: the needle takes the kernels past 48 KB of shared memory
+    from fluvio_tpu_torch.smartmodule import dsl
+
+    long_key = "k" * 45000
+    long_docs = [b'{"' + long_key.encode() + b'":"v"}', b'{"a":1}', b'{"' + long_key.encode() + b'x":2}']
+    for span_width in (64, 45016):
+        lv = np.zeros((len(long_docs), span_width), np.uint8)
+        ll = np.array([min(len(d), span_width) for d in long_docs], np.int32)
+        for i, d in enumerate(long_docs):
+            lv[i, : ll[i]] = np.frombuffer(d[: ll[i]], dtype=np.uint8)
+        st_l, vl_l = cuda_kernels.json_get_span(torch.from_numpy(lv).cuda(),
+                                                torch.from_numpy(ll).cuda(), long_key)
+        got = [bytes(lv[i, a: a + b]) for i, (a, b) in enumerate(zip(st_l.tolist(), vl_l.tolist()))]
+        assert got == [dsl.json_get_bytes(bytes(lv[i, : ll[i]]), long_key) for i in range(3)]
     assert torch.equal(cuda_kernels.extract_span(v, st_k, vl_k), kernels.extract_span(v, st_k, vl_k))
     for pattern, packed in (("^(fluvio|kafka|pulsar)-[0-3]$", True), ("flu[vV]io", False)):
         dfa = compile_regex(pattern, packed=packed)
@@ -150,18 +185,29 @@ def test_striped_cuda_kernels_equal_plain_versions():
                            kernels.dfa_compose_columns(c, table_t))
     docs = [b'{"pad":"' + b"p" * int(rng.integers(0, 600)) + b'","name":"fluvio-%d"}' % i
             for i in range(200)] + [b'{"name":' + b"7" * 500, b'{"pad":"' + b"q" * 700 + b'"}']
+    # late keys over many stripes, missing keys, garbage
+    docs += [b'{"pad":"' + b"p" * int(rng.integers(500, 1500)) + b'","name":"late-%d"}' % i
+             for i in range(40)]
+    docs += [b'{"pad":"' + b"p" * int(rng.integers(500, 1500)) + b'","n":%d}' % i for i in range(20)]
+    alphabet = np.frombuffer(b'{}[]":,\\ \tabndx1', dtype=np.uint8)
+    docs += [alphabet[rng.integers(0, len(alphabet), size=int(rng.integers(40, 800)))].tobytes()
+             for _ in range(40)]
     buf = RecordBuffer.from_values(docs)
     flat, _ = buf.ragged_values()
-    params = stripes.StripeParams(threshold=64, width=64, overlap=16)
-    lengths = torch.from_numpy(buf.lengths).cuda()
-    plan, sv, kmax = stripes.stage_rows(
-        torch.from_numpy(np.ascontiguousarray(flat).view(np.int32)).cuda(), lengths,
-        buf.lengths, buf.count, params, stripes.plan_rows(buf.lengths, buf.count, 64, 16) + 8,
-    )
-    args = (sv, stripes.owned_lengths(plan), plan["first_row"], plan["k"], lengths)
-    got = cuda_kernels.striped_json_span(*args, "name", kmax, params.step)
-    want = kernels.striped_json_span(*args, "name", kmax, params.step)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # 64-byte stripes (16-byte loads) and 68-byte ones (byte loads)
+    for width, overlap in ((64, 16), (68, 20)):
+        params = stripes.StripeParams(threshold=64, width=width, overlap=overlap)
+        lengths = torch.from_numpy(buf.lengths).cuda()
+        plan, sv, kmax = stripes.stage_rows(
+            torch.from_numpy(np.ascontiguousarray(flat).view(np.int32)).cuda(), lengths,
+            buf.lengths, buf.count, params,
+            stripes.plan_rows(buf.lengths, buf.count, width, overlap) + 8,
+        )
+        args = (sv, stripes.owned_lengths(plan), plan["first_row"], plan["k"], lengths)
+        for key in ("name", "n", ""):
+            got = cuda_kernels.striped_json_span(*args, key, kmax, params.step)
+            want = kernels.striped_json_span(*args, key, kmax, params.step)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (width, key)
     torch.cuda.synchronize()
 
 
