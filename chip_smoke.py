@@ -12,7 +12,7 @@ Phases (any failure raises and the script exits non-zero):
 2. kernels: each CUDA kernel against its plain torch version on the card,
    at the main path's shapes (1,048,576 records of the bench JSON corpus,
    width 64) and on an adversarial set, with exact equality (all outputs
-   are integers or bytes); kernel, plain and library times. The two JSON
+   are integers or bytes); kernel, device, plain and library times. The two JSON
    span kernels first, every design their launchers pick: the adversarial
    sets at widths 64 and 100 (a thread a record, with and without 16-byte
    loads) and 1024 and 1000 (a warp a record), with the keys ``name``,
@@ -23,9 +23,14 @@ Phases (any failure raises and the script exits non-zero):
    output) against the plain version; the fat bench shape and a late-key
    fat batch (``name`` after the 70 KiB body) against ``json_get_bytes``.
    Their times are per call (CUDA events around one call, as for every
-   kernel), the device time (torch.profiler) and per call in a run of
-   back-to-back calls. ``--json-only`` builds the kernels and runs only
-   these checks and times;
+   kernel), the device time and per call in a run of back-to-back calls.
+   ``--json-only`` builds the kernels and runs only these checks and times.
+   Then long keys: ``json-map(field=key)`` through ``SmartEngine(device=
+   "cuda")`` against the interpreter for a 49,151-byte key (its needle past
+   48 KB of shared memory) on the narrow and the striped paths, and a
+   240,000-byte key (past a block's shared memory: the needle stays in
+   global memory) on the striped path. Every kernel row gives its device
+   time: torch.profiler's records of every kernel of one call, summed;
 3. headline chain: ``regex-filter(regex="fluvio")`` -> ``json-map(field=
    "name")`` over 4 batches of 1,048,576 records through
    ``SmartEngine(device="cuda")`` and ``process_stream``; one whole batch
@@ -56,9 +61,14 @@ Phases (any failure raises and the script exits non-zero):
    kernel); the resolve kernel, which keeps the Pallas kernel's (base,
    midx) contract but is off the main path, against its plain version on
    the same streams; the encode window match against its plain
-   version on the headline chain's descriptor stream and on seven corpora
-   at chunks of 4, 16, 256 and 512 KiB, with every encoded stream decoded
-   back on the host; all exact;
+   version on the headline chain's descriptor stream at chunks of 256 and
+   512 KiB (with the kernels a call launches: at most two), on period-2
+   and mixed streams of 300,000 groups at 128 to 262,144 groups a chunk (one
+   tile, many, past the join's window) and on seven corpora at chunks of 4,
+   16, 256 and 512 KiB, with every encoded stream decoded back on the host;
+   all exact. The extract kernel's adversarial set holds random spans with
+   overruns, negative starts and lengths past the width at widths 1 to
+   1,000, on 16-byte aligned rows and not;
 8. glz chains: the headline chain with ``LinkParams(compress=True,
    result_compress=True)`` over the same 4 batches as phase 3 (batch 0
    checked against the interpreter; records/s beside phase 3's, link
@@ -71,6 +81,11 @@ Phases (any failure raises and the script exits non-zero):
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
 the result line ``{"ok": true, "device": {...}}``.
+
+``--encode-extract-only`` builds the kernels and prints only the extract
+and encode window match rows at the main path's shapes. Copied into a
+checkout of another commit, the script times that commit's kernels (it
+imports the package beside it and reads the kernel names from its sources).
 """
 
 from __future__ import annotations
@@ -92,7 +107,7 @@ from fluvio_tpu_torch.smartengine import LinkParams, SmartEngine, SmartModuleCon
 from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, glz, kernels, stripes
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
 from fluvio_tpu_torch.smartengine.gpu.executor import _bucket_rows, desc_stream, pad_glz_tokens
-from fluvio_tpu_torch.smartengine.gpu.native import KERNELS
+from fluvio_tpu_torch.smartengine.gpu.native import CSRC, KERNELS
 from fluvio_tpu_torch.smartmodule import dsl
 
 N = 1 << 20
@@ -221,6 +236,7 @@ def phase_kernels(dev, corpus: RecordBuffer):
     st_a, vl_a = cuda_kernels.json_get_span(av, al, "name")
     require_equal("extract adversarial", cuda_kernels.extract_span(av, st_a, vl_a),
                   kernels.extract_span(av, st_a, vl_a))
+    extract_adversarial(dev)
     big = "(a|b)*a(a|b){6}c|x" + "d" * 125  # 257 states: the two-byte table
     for pattern, packed in ((JSON_REGEX, True), (JSON_REGEX, False), ("flu[vV]io", True),
                             (big, True), (big, False)):
@@ -228,8 +244,9 @@ def phase_kernels(dev, corpus: RecordBuffer):
         require_equal(f"dfa_scan adversarial {pattern[:24]} packed={packed}",
                       cuda_kernels.dfa_match(av, al, d), kernels.dfa_match(av, al, d))
     torch.cuda.synchronize()
-    log("kernels: adversarial set equal (extract, dfa_scan incl. 257-state and unpacked 132 KB "
-        "tables)")
+    log(f"kernels: adversarial set equal (extract: the span kernel's spans and random spans with "
+        f"overruns and negative starts at widths {EXTRACT_WIDTHS}, 16-byte aligned rows and not; "
+        f"dfa_scan incl. 257-state and unpacked 132 KB tables)")
 
     rows = []
     # the JSON span of the name field (both chains' first kernel; its row
@@ -237,26 +254,14 @@ def phase_kernels(dev, corpus: RecordBuffer):
     st, vl = cuda_kernels.json_get_span(v, ln, "name")
 
     # 2. extract of the name field (json-regex-filter's byte-mode JsonGet)
+    rows.append(extract_row(v, st, vl))
     ex = cuda_kernels.extract_span(v, st, vl)
-    err = require_equal("extract", ex, kernels.extract_span(v, st, vl))
-    ms = time_ms(lambda: cuda_kernels.extract_span(v, st, vl))
-    plain_ms = time_ms(lambda: kernels.extract_span(v, st, vl), reps=5)
-    j = torch.arange(width, device=dev, dtype=torch.int64)[None, :]
-    idx = (st.to(torch.int64)[:, None] + j).clamp(0, width - 1)
-    keep = j < vl.to(torch.int64)[:, None]
-    library_ms = time_ms(lambda: torch.where(keep, torch.gather(v, 1, idx), 0))
-    bytes_moved = float(vl.to(torch.int64).sum().item()) + 8 * N + N * width
-    b_ms, b_by = bound(bytes_moved, float(N * width))
-    rows.append(dict(name="extract", route="cuda",
-                     source="fluvio_tpu_torch/smartengine/gpu/csrc/extract.cu",
-                     replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:261",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=library_ms))
 
     # 3. DFA verdict over the extracted names (the 22-state bench regex)
     got = cuda_kernels.dfa_match(ex, vl, dfa)
     err = require_equal("dfa_scan", got, kernels.dfa_match(ex, vl, dfa))
-    ms = time_ms(lambda: cuda_kernels.dfa_match(ex, vl, dfa))
+    call = lambda: cuda_kernels.dfa_match(ex, vl, dfa)  # noqa: E731
+    ms, dev_ms = time_ms(call), device_ms(call, kernel_names("dfa_scan.cu"))
     plain_ms = time_ms(lambda: kernels.dfa_match(ex, vl, dfa), reps=3)
     live = float(vl.to(torch.int64).sum().item())
     b_ms, b_by = bound(live + 4 * N + N, live + N)
@@ -264,13 +269,71 @@ def phase_kernels(dev, corpus: RecordBuffer):
                      source="fluvio_tpu_torch/smartengine/gpu/csrc/dfa_scan.cu",
                      replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:651",
                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None))
+                     library_ms=None, device_ms=dev_ms))
     torch.cuda.synchronize()
     for r in rows:
-        log(f"kernel {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, library {r['library_ms']}) "
-            f"at N={N} W={width}, exact")
+        log(f"kernel {r['name']}: {r['ms']:.4f} ms a call, device {r['device_ms']} ms (plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library "
+            f"{r['library_ms']}) at N={N} W={width}, exact")
     return rows
+
+
+def extract_row(v, st, vl):
+    """The extract kernel at the main path's shape (the name field's spans
+    of the bench corpus) against its plain version; times a call, device,
+    plain and the library's gather + where."""
+    n, width = v.shape
+    ex = cuda_kernels.extract_span(v, st, vl)
+    err = require_equal("extract", ex, kernels.extract_span(v, st, vl))
+    call = lambda: cuda_kernels.extract_span(v, st, vl)  # noqa: E731
+    ms, dev_ms = time_ms(call), device_ms(call, kernel_names("extract.cu"))
+    plain_ms = time_ms(lambda: kernels.extract_span(v, st, vl), reps=5)
+    j = torch.arange(width, device=v.device, dtype=torch.int64)[None, :]
+    idx = (st.to(torch.int64)[:, None] + j).clamp(0, width - 1)
+    keep = j < vl.to(torch.int64)[:, None]
+    library_ms = time_ms(lambda: torch.where(keep, torch.gather(v, 1, idx), 0))
+    bytes_moved = float(vl.to(torch.int64).clamp(0, width).sum().item()) + 8 * n + n * width
+    b_ms, b_by = bound(bytes_moved, float(n * width))
+    return dict(name="extract", route="cuda",
+                source="fluvio_tpu_torch/smartengine/gpu/csrc/extract.cu",
+                replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:261",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, device_ms=dev_ms, shape=f"{n} x {width}")
+
+
+EXTRACT_WIDTHS = (1, 3, 15, 16, 17, 63, 64, 65, 100, 1000)
+
+
+def extract_spans(rng, n: int, width: int):
+    """Random rows and spans: in-row spans (what a span kernel emits),
+    spans that overrun the row, negative starts, lengths past the width and
+    negative lengths."""
+    values = rng.integers(0, 256, size=(n, width)).astype(np.uint8)
+    start = rng.integers(0, width + 1, size=n)
+    vlen = (rng.random(n) * (width - start + 1)).astype(np.int64)
+    kind = rng.integers(0, 5, size=n)
+    start = np.where(kind == 1, rng.integers(0, 2 * width + 2, size=n), start)  # overrun
+    vlen = np.where(kind == 1, rng.integers(0, 2 * width + 2, size=n), vlen)
+    start = np.where(kind == 2, -rng.integers(1, 2 * width + 2, size=n), start)  # start < 0
+    vlen = np.where(kind == 3, rng.integers(width, 3 * width + 2, size=n), vlen)  # past W
+    vlen = np.where(kind == 4, -rng.integers(0, 3, size=n), vlen)  # negative: nothing
+    return values, start.astype(np.int32), vlen.astype(np.int32)
+
+
+def extract_adversarial(dev):
+    """The extract kernel against its plain version on random spans at
+    widths 1 to 1,000, on 16-byte aligned rows and (the same bytes one
+    byte into a buffer) on rows that are not."""
+    rng = np.random.default_rng(31)
+    for width in EXTRACT_WIDTHS:
+        values, start, vlen = extract_spans(rng, 4096, width)
+        st, vl = torch.from_numpy(start).to(dev), torch.from_numpy(vlen).to(dev)
+        v = torch.from_numpy(values).to(dev)
+        buf = torch.zeros(values.size + 1, dtype=torch.uint8, device=dev)
+        buf[1:] = v.reshape(-1)
+        for label, vv in (("aligned", v), ("offset", buf[1:].view(values.shape))):
+            require_equal(f"extract adversarial W={width} {label}",
+                          cuda_kernels.extract_span(vv, st, vl), kernels.extract_span(vv, st, vl))
 
 
 def stage_striped(docs, params: stripes.StripeParams, dev):
@@ -288,22 +351,24 @@ def stage_striped(docs, params: stripes.StripeParams, dev):
 
 def compose_row(name, cls, dfa, reps_plain: int = 2):
     """dfa_compose kernel vs plain on one class matrix: (err, ms, plain_ms,
-    bound_ms, bound_by). The bound counts the class matrix read once, the
+    bound_ms, bound_by, device_ms). The bound counts the class matrix read once, the
     table and the output, and one lookup per state per non-identity
     column."""
     table_t = stripes._dfa_device(dfa, cls.device)[1]
     got = cuda_kernels.dfa_compose_columns(cls, table_t)
     err = require_equal(f"dfa_compose {name}", got, kernels.dfa_compose_columns(cls, table_t))
-    ms = time_ms(lambda: cuda_kernels.dfa_compose_columns(cls, table_t))
+    call = lambda: cuda_kernels.dfa_compose_columns(cls, table_t)  # noqa: E731
+    ms, dev_ms = time_ms(call), device_ms(call, kernel_names("dfa_compose.cu"))
     plain_ms = time_ms(lambda: kernels.dfa_compose_columns(cls, table_t), reps=reps_plain,
                        warm=False)
     live = float((cls >= 0).sum().item())
     bytes_moved = cls.numel() * 4.0 + table_t.numel() * 4.0 + got.numel() * 4.0
     b_ms, b_by = bound(bytes_moved, live * dfa.n_states)
-    log(f"kernel dfa_compose {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
-        f"by {b_by}) at rows={cls.shape[0]} T={cls.shape[1]} S={dfa.n_states} "
-        f"C={dfa.n_classes}, {live:.0f} non-identity columns, exact")
-    return err, ms, plain_ms, b_ms, b_by
+    log(f"kernel dfa_compose {name}: {ms:.4f} ms a call, device {dev_ms} ms (plain "
+        f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by}) at rows={cls.shape[0]} "
+        f"T={cls.shape[1]} S={dfa.n_states} C={dfa.n_classes}, {live:.0f} non-identity columns, "
+        f"exact")
+    return err, ms, plain_ms, b_ms, b_by, dev_ms
 
 
 def span_docs(rng):
@@ -336,10 +401,25 @@ SPAN_KEYS = ("name", "n", "", "n\u00e4m\u00e9", "na\\me")
 SMALL_STRIPES = stripes.StripeParams(threshold=64, width=64, overlap=16)
 
 
-def device_ms(fn, reps: int = 20):
-    """Mean device time of the JSON span kernel of one ``fn()`` call, from
-    torch.profiler's kernel records (the wrapper's host time excluded);
-    None where the profiler records no such kernel."""
+_GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+
+
+def kernel_names(source: str, *only: str):
+    """The ``__global__`` functions of a CUDA source (a file name under the
+    imported package's ``csrc/``; ``only``: those whose name holds one of
+    these words)."""
+    names = _GLOBAL.findall((CSRC / source).read_text(encoding="utf-8"))
+    return tuple(n for n in names if not only or any(w in n for w in only))
+
+
+def device_time(fn, names, reps: int = 20, by_kernel=None):
+    """(ms, launches) of one ``fn()`` call: the device time of every kernel
+    named in ``names`` that the call runs, summed, and how many it launches,
+    from torch.profiler's kernel records over ``reps`` calls (the wrapper's
+    host time excluded); (None, None) where the profiler records none. The
+    profiler drops a record now and then, so each kernel counts its mean
+    duration times its launches a call (its records over ``reps``,
+    rounded). ``by_kernel``, a dict, receives each kernel's ms a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -350,14 +430,30 @@ def device_ms(fn, reps: int = 20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum((getattr(ev, "self_device_time_total", None)
-                        or getattr(ev, "self_cuda_time_total", 0))
-                       for ev in prof.key_averages()
-                       if ev.device_type == DeviceType.CUDA and "json_span" in ev.key)
-        if total_us > 0:
-            return total_us / 1e3 / reps
-    log("device_ms: three profiles recorded no json_span kernel")
-    return None
+        found = {}
+        for ev in prof.key_averages():
+            name = next((n for n in names if n in ev.key), None)
+            if ev.device_type != DeviceType.CUDA or name is None or not ev.count:
+                continue
+            us = (getattr(ev, "self_device_time_total", None)
+                  or getattr(ev, "self_cuda_time_total", 0))
+            us0, count0 = found.get(name, (0.0, 0))
+            found[name] = (us0 + us, count0 + ev.count)
+        if found and sum(us for us, _ in found.values()) > 0:
+            ms, launches = 0.0, 0
+            for name, (us, count) in found.items():
+                per_call = max(1, round(count / reps))
+                ms += us / count * per_call / 1e3
+                launches += per_call
+                if by_kernel is not None:
+                    by_kernel[name] = us / count * per_call / 1e3
+            return ms, launches
+    log(f"device_time: three profiles recorded no kernel of {names}")
+    return None, None
+
+
+def device_ms(fn, names, reps: int = 20):
+    return device_time(fn, names, reps)[0]
 
 
 def run_ms(fn, reps: int = 50) -> float:
@@ -451,6 +547,8 @@ def phase_json_span(dev, corpus: RecordBuffer):
     is given per call (CUDA events around one call, as earlier rows) and as
     the kernel's device time (torch.profiler). Returns the two rows."""
     rng = np.random.default_rng(29)
+    narrow_names = kernel_names("json_span.cu", "json_span_kernel", "warp")
+    striped_names = kernel_names("json_span.cu", "striped")
     err = 0
     # narrow adversarial: thread-a-record widths 64 and 100 (no 16-byte
     # loads), warp-a-record widths 1024 and 1000, late and missing keys
@@ -473,7 +571,7 @@ def phase_json_span(dev, corpus: RecordBuffer):
     err = max(err, require_equal("json_span", torch.stack([st, vl]),
                                  torch.stack(kernels.json_get_span(v, ln, "name"))))
     call = lambda: cuda_kernels.json_get_span(v, ln, "name")  # noqa: E731
-    ms, dev_ms, r_ms = time_ms(call), device_ms(call), run_ms(call)
+    ms, dev_ms, r_ms = time_ms(call), device_ms(call, narrow_names), run_ms(call)
     plain_ms = time_ms(lambda: kernels.json_get_span(v, ln, "name"), reps=3)
     b_ms, b_by = span_bound(st, vl, ln, 12.0 * N)
     narrow = dict(name="json_span", route="cuda",
@@ -507,7 +605,7 @@ def phase_json_span(dev, corpus: RecordBuffer):
         call = lambda: cuda_kernels.json_get_span(v, ln, "name")  # noqa: E731
         b_ms, b_by = span_bound(st, vl, ln, 12.0 * count)
         narrow[label] = {"records": count, "width": buf.width, "ms": time_ms(call),
-                         "device_ms": device_ms(call), "run_ms": run_ms(call),
+                         "device_ms": device_ms(call, narrow_names), "run_ms": run_ms(call),
                          "bound_ms": b_ms, "bound_by": b_by}
         log(f"kernel json_span {label}: {narrow[label]}, exact")
         del v, ln, st, vl
@@ -529,7 +627,8 @@ def phase_json_span(dev, corpus: RecordBuffer):
         striped_err = max(striped_err, require_equal(f"json_span_striped key={key}", got,
                                                      torch.stack(plain[key])))
     call = lambda: cuda_kernels.striped_json_span(*args2, "name", kmax2, SPAN_CHECK.step)  # noqa: E731
-    check = {"ms": time_ms(call), "device_ms": device_ms(call), "run_ms": run_ms(call)}
+    check = {"ms": time_ms(call), "device_ms": device_ms(call, striped_names),
+             "run_ms": run_ms(call)}
     sizes = [len(d) for d in docs]
     geometry = (f"{len(docs)} records of {min(sizes)}-{max(sizes)} bytes, stripes of "
                 f"{SPAN_CHECK.width} bytes overlapping by {SPAN_CHECK.overlap}, kmax {kmax2}")
@@ -550,7 +649,8 @@ def phase_json_span(dev, corpus: RecordBuffer):
         b_ms, b_by = span_bound(vst, vln, lengths, 4 * 4 * FAT_RECORDS + 8 * FAT_RECORDS)
         fat_rows[label] = {"records": FAT_RECORDS, "record_bytes": len(fat[0]),
                            "stripe_rows": sv.shape[0], "ms": time_ms(call),
-                           "device_ms": device_ms(call), "run_ms": run_ms(call),
+                           "device_ms": device_ms(call, striped_names),
+                           "run_ms": run_ms(call),
                            "bound_ms": b_ms, "bound_by": b_by}
         log(f"kernel json_span_striped {label}: {fat_rows[label]}, equal to json_get_bytes")
         del sv, vst, vln
@@ -564,6 +664,53 @@ def phase_json_span(dev, corpus: RecordBuffer):
                    check_ms=check["ms"], check_device_ms=check["device_ms"],
                    check_run_ms=check["run_ms"], **fat_rows)
     return narrow, striped
+
+
+# keys whose needle (the key and two quotes) passes 48 KB, and one past the
+# H100's 227 KB of shared memory a block, which the kernels read from global
+# memory
+LONG_KEYS = (49151, 240_000)
+
+
+def phase_long_keys(dev):
+    """Long keys through the user's entry point, ``json-map(field=key)``,
+    against the interpreter: a batch of records up to 64 KiB (the narrow
+    path, a warp a record) where the key fits one, and a batch past 64 KiB
+    (the striped path) for every key; then the narrow kernel called
+    directly at a thread-a-record width (the key never fits a row) against
+    its plain version."""
+    spec = lookup("json-map")
+    checked = []
+    for klen in LONG_KEYS:
+        key = "a" * klen
+        kb = key.encode()
+        docs = [b'{"' + kb + b'":1}', b'{"a":2,"' + kb + b'":"v"}', b'{"' + kb + b'b":3}',
+                b'{"a":4}']
+        batches = [("striped", [d[:-1] + b',"pad":"' + b"x" * 70000 + b'"}' for d in docs])]
+        if max(len(d) for d in docs) <= stripes.StripeParams().threshold:
+            batches.insert(0, ("narrow", docs))
+        prog = dsl.resolve_params(spec.dsl_program(spec.transform_kind()), {"field": key})
+        for path, batch in batches:
+            chain = build_chain([("json-map", {"field": key})])
+            cuda_kernels.reset_launches()
+            got = chain.process_buffer(RecordBuffer.from_values(batch)).value_list()
+            torch.cuda.synchronize()
+            kernel = "json_span_striped" if path == "striped" else "json_span"
+            if cuda_kernels.LAUNCHES[kernel] <= 0:
+                raise AssertionError(f"long key {klen} {path}: no {kernel} launch "
+                                     f"({cuda_kernels.LAUNCHES})")
+            want = [dsl.eval_expr(prog.value, rec, None) for rec in batch]
+            if got != want or got[0] != b"1":
+                raise AssertionError(f"long key {klen} {path}: {[g[:8] for g in got]} vs "
+                                     f"{[w[:8] for w in want]}")
+            checked.append(f"{klen} {path}")
+        v, ln = stage([d[:64] for d in docs], 64, dev)
+        require_equal(f"json_span long key {klen} W=64",
+                      torch.stack(cuda_kernels.json_get_span(v, ln, key)),
+                      torch.stack(kernels.json_get_span(v, ln, key)))
+    log(f"long keys: json-map through SmartEngine(device='cuda') equal to the interpreter "
+        f"({', '.join(checked)}; the first record gives b'1'); the narrow kernel at width 64 "
+        f"equal to its plain version")
 
 
 def phase_striped_kernels(dev):
@@ -591,7 +738,8 @@ def phase_striped_kernels(dev):
     dfa_rec = compile_regex("flu[vV]io")
     rec_cls_ms = time_ms(lambda: stripes.stripe_classes(sv, plan, dfa_rec), reps=5)
     cls_rec = stripes.stripe_classes(sv, plan, dfa_rec)
-    err, ms, plain_ms, b_ms, b_by = compose_row("record-level flu[vV]io", cls_rec, dfa_rec)
+    err, ms, plain_ms, b_ms, b_by, dev_ms = compose_row("record-level flu[vV]io", cls_rec,
+                                                         dfa_rec)
     del cls_rec
     log(f"stripe_classes (torch class pass before dfa_compose) at the fat shape: record-level "
         f"{rec_cls_ms:.4f} ms, in-span {span_cls_ms:.4f} ms")
@@ -600,10 +748,11 @@ def phase_striped_kernels(dev):
                      source="fluvio_tpu_torch/smartengine/gpu/csrc/dfa_compose.cu",
                      replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:850",
                      max_abs_err=max(err, span_row[0]), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=None, stripe_classes_ms=rec_cls_ms,
+                     bound_by=b_by, library_ms=None, device_ms=dev_ms,
+                     stripe_classes_ms=rec_cls_ms,
                      in_span={"ms": span_row[1], "plain_ms": span_row[2],
                               "bound_ms": span_row[3], "bound_by": span_row[4],
-                              "stripe_classes_ms": span_cls_ms}))
+                              "device_ms": span_row[5], "stripe_classes_ms": span_cls_ms}))
     return rows
 
 
@@ -733,6 +882,86 @@ def match_ops(w0, w1, const_m, chunk_groups: int) -> float:
     return float(probes + g_count * kernels.glz_square_rounds(chunk_groups))
 
 
+def enc_match_case(stream: torch.Tensor, chunk: int):
+    """The encode window match on ``stream`` at ``chunk`` bytes a chunk
+    (clamped as `encode_result` clamps a single window) against its plain
+    version: times a call, device time over every kernel of a call and
+    the kernels a call launches, the plain version's time and the bound."""
+    g_count = stream.numel() // glz.ENC_GROUP
+    cg = chunk // glz.ENC_GROUP
+    if g_count <= cg:  # encode_result's single-window clamp
+        cg = max(128, ((g_count + 127) // 128) * 128)
+    w0, w1, const_m = match_inputs(stream, cg)
+    err = check_match(f"headline chunk {chunk}", stream, cg)
+    call = lambda: cuda_kernels.glz_encode_match(w0, w1, const_m, cg)  # noqa: E731
+    ms = time_ms(call)
+    by_kernel = {}
+    dev_ms, per_call = device_time(call, kernel_names("glz_encode.cu"), by_kernel=by_kernel)
+    plain_ms = time_ms(lambda: kernels.glz_encode_match(w0, w1, const_m, cg), reps=3)
+    b_ms, b_by = bound(13.0 * g_count, match_ops(w0, w1, const_m, cg))
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, groups=g_count, chunk_groups=cg, launches_per_call=per_call,
+                device_ms_by_kernel=by_kernel, outside_constant_runs=int((~const_m).sum().item()))
+
+
+def enc_match_row(stream: torch.Tensor):
+    """The encode window match's row: the headline descriptor stream at the
+    link's chunk (256 KiB), and at 512 KiB chunks beside it."""
+    head = enc_match_case(stream, glz.GLZ_CHUNK)
+    wide = enc_match_case(stream, 2 * glz.GLZ_CHUNK)
+    for case in (head, wide):
+        log(f"kernel glz_enc_match: {case['ms']:.4f} ms a call, device {case['device_ms']} ms "
+            f"in {case['launches_per_call']} launches a call {case['device_ms_by_kernel']} (plain "
+            f"{case['plain_ms']:.3f} ms, "
+            f"bound {case['bound_ms']:.6f} ms by {case['bound_by']}, library: none (no single "
+            f"PyTorch call)) on the headline descriptor stream of {case['groups']} groups "
+            f"({case['outside_constant_runs']} outside constant runs), {case['chunk_groups']} "
+            f"groups a chunk, exact")
+    row = dict(name="glz_enc_match", route="cuda",
+               source="fluvio_tpu_torch/smartengine/gpu/csrc/glz_encode.cu",
+               replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:541",
+               library_ms=None, **head)
+    row["max_abs_err"] = max(head["max_abs_err"], wide["max_abs_err"])
+    row["chunk_524288"] = {k: wide[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                 "chunk_groups", "launches_per_call",
+                                                 "device_ms_by_kernel")}
+    return row
+
+
+def enc_match_adversarial(dev):
+    """The encode window match against its plain version where the tiles
+    and their join matter: a period-2 stream (every chain runs back to its
+    chunk's start over every tile border), a mixed stream (few values,
+    constant runs over tile tails, a stretch with no match), chunks of
+    128 groups up to 262,144 (one tile, a tile and a halo, 64 tiles: past
+    the join's window), ragged last chunks; at most two launches a call."""
+    rng = np.random.default_rng(41)
+    g_count = 300_000
+    period2 = np.where(np.arange(g_count) % 2 == 0, 7, 9).astype(np.int32)
+    mixed0 = rng.integers(0, 6, g_count).astype(np.int32)
+    mixed1 = rng.integers(0, 2, g_count).astype(np.int32)
+    for at in range(2048 - 128 - 3, g_count - 64, 2048):
+        mixed0[at: at + 40] = 3
+    mixed0[50_000:60_000] = rng.integers(1000, 1 << 30, 10_000)
+    names = kernel_names("glz_encode.cu")
+    most = 0
+    for label, a, b in (("period-2", period2, np.zeros(g_count, np.int32)),
+                        ("mixed", mixed0, mixed1)):
+        w0, w1 = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        for cg in (128, 2048, 2176, 4096, 32768, 65536, 131072, 262144):
+            const_m, _ = glz.enc_const_runs(w0, w1, cg)
+            call = lambda: cuda_kernels.glz_encode_match(w0, w1, const_m, cg)  # noqa: E731
+            require_equal(f"glz_enc_match {label} chunk groups {cg}", call(),
+                          kernels.glz_encode_match(w0, w1, const_m, cg))
+            per_call = device_time(call, names, reps=10)[1]
+            if per_call is None or per_call > 2:
+                raise AssertionError(f"glz_enc_match {label} cg={cg}: {per_call} launches a call")
+            most = max(most, per_call)
+    torch.cuda.synchronize()
+    log(f"kernel glz_enc_match: tiled adversarial set equal (period-2 and mixed streams of "
+        f"{g_count} groups at 128 to 262,144 groups a chunk), at most {most:g} launches a call")
+
+
 def headline_desc_stream(corpus: RecordBuffer, dev) -> torch.Tensor:
     """The headline chain's down-link stream for one batch: the survivors'
     (start, length) of the name field, compacted and interleaved."""
@@ -760,7 +989,10 @@ def phase_glz_kernels(dev, corpus: RecordBuffer):
     err = require_equal("glz_decode headline", got, glz.decode_plain(*tok, n, chunk))
     if not np.array_equal(got.cpu().numpy(), flat):
         raise AssertionError("glz_decode headline: the decoded flat differs from the raw flat")
-    ms = time_ms(lambda: cuda_kernels.glz_decode(*tok, n, chunk, comp.depth))
+    call = lambda: cuda_kernels.glz_decode(*tok, n, chunk, comp.depth)  # noqa: E731
+    ms = time_ms(call)
+    dev_ms, per_call = device_time(call, kernel_names("glz_decode.cu", "tile", "literal",
+                                                      "round"))
     plain_ms = time_ms(lambda: glz.decode_plain(*tok, n, chunk), reps=3)
     # the old up-link path: the torch byte plan, then the resolve kernel
     old_ms = time_ms(lambda: cuda_kernels.glz_resolve(*glz.byte_plan_device(*tok, n), chunk),
@@ -775,15 +1007,15 @@ def phase_glz_kernels(dev, corpus: RecordBuffer):
                       source="fluvio_tpu_torch/smartengine/gpu/csrc/glz_decode.cu",
                       replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:434",
                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                      library_ms=None, out_bytes=n, token_bytes=token_bytes, depth=comp.depth,
-                      sequences=len(comp.lit_lens), launches_per_call=3 + comp.depth,
+                      library_ms=None, device_ms=dev_ms, out_bytes=n, token_bytes=token_bytes,
+                      depth=comp.depth, sequences=len(comp.lit_lens), launches_per_call=per_call,
                       old_path_ms=old_ms, byte_plan_ms=plan_ms)
     rows.append(decode_row)
-    log(f"kernel glz_decode: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+    log(f"kernel glz_decode: {ms:.4f} ms a call, device {dev_ms} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
         f"{b_by}, library: none (no single PyTorch call); old path byte plan + resolve "
         f"{old_ms:.3f} ms, of it the plan {plan_ms:.3f} ms) on the headline flat of {n} B from "
         f"{token_bytes} B of tokens read (ratio {comp.nbytes / n:.3f}, depth {comp.depth}, "
-        f"{len(comp.lit_lens)} sequences, {3 + comp.depth} launches a call, host compress "
+        f"{len(comp.lit_lens)} sequences, {per_call} launches a call, host compress "
         f"{compress_s * 1e3:.1f} ms), exact")
 
     # the resolve kernel (the Pallas contract, off the main path) on the same plan
@@ -792,7 +1024,9 @@ def phase_glz_kernels(dev, corpus: RecordBuffer):
     r_err = require_equal("glz_resolve headline", got, kernels.glz_resolve(base, midx, chunk))
     if not np.array_equal(got.cpu().numpy(), flat):
         raise AssertionError("glz_resolve headline: the decoded flat differs from the raw flat")
-    r_ms = time_ms(lambda: cuda_kernels.glz_resolve(base, midx, chunk))
+    call = lambda: cuda_kernels.glz_resolve(base, midx, chunk)  # noqa: E731
+    r_ms = time_ms(call)
+    r_dev_ms = device_ms(call, kernel_names("glz_decode.cu", "resolve"))
     r_plain_ms = time_ms(lambda: kernels.glz_resolve(base, midx, chunk), reps=3)
     p, hops = torch.arange(n, device=dev), 0
     m64 = midx.to(torch.int64)
@@ -805,8 +1039,9 @@ def phase_glz_kernels(dev, corpus: RecordBuffer):
                      source="fluvio_tpu_torch/smartengine/gpu/csrc/glz_decode.cu",
                      replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:434",
                      max_abs_err=r_err, ms=r_ms, plain_ms=r_plain_ms, bound_ms=r_b_ms,
-                     bound_by=r_b_by, library_ms=None, out_bytes=n, main_path=False))
-    log(f"kernel glz_resolve: {r_ms:.4f} ms (plain {r_plain_ms:.3f} ms, bound {r_b_ms:.4f} ms "
+                     bound_by=r_b_by, library_ms=None, device_ms=r_dev_ms, out_bytes=n,
+                     main_path=False))
+    log(f"kernel glz_resolve: {r_ms:.4f} ms a call, device {r_dev_ms} ms (plain {r_plain_ms:.3f} ms, bound {r_b_ms:.4f} ms "
         f"by {r_b_by}) on the headline flat's byte plan, exact; off the main path")
     del base, midx, m64, p, got, tok
 
@@ -853,27 +1088,12 @@ def phase_glz_kernels(dev, corpus: RecordBuffer):
         f"{ragged} of {len(cases)} with a ragged last chunk)")
 
     # encode window match at the headline chain's descriptor stream
-    stream = headline_desc_stream(corpus, dev)
-    g_count = stream.numel() // glz.ENC_GROUP
-    cg = glz.GLZ_CHUNK // glz.ENC_GROUP
-    if g_count <= cg:  # encode_result's single-window clamp
-        cg = max(128, ((g_count + 127) // 128) * 128)
-    w0, w1, const_m = match_inputs(stream, cg)
-    err = check_match("headline", stream, cg)
-    ms = time_ms(lambda: cuda_kernels.glz_encode_match(w0, w1, const_m, cg))
-    plain_ms = time_ms(lambda: kernels.glz_encode_match(w0, w1, const_m, cg), reps=3)
-    b_ms, b_by = bound(13.0 * g_count, match_ops(w0, w1, const_m, cg))
-    live = int((~const_m).sum().item())
-    rows.append(dict(name="glz_enc_match", route="cuda",
-                     source="fluvio_tpu_torch/smartengine/gpu/csrc/glz_encode.cu",
-                     replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:541",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, groups=g_count, chunk_groups=cg,
-                     launches_per_call=1 + kernels.glz_square_rounds(cg)))
-    log(f"kernel glz_enc_match: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by "
-        f"{b_by}, library: none (no single PyTorch call)) on the headline descriptor stream of "
-        f"{stream.numel()} B = {g_count} groups ({live} outside constant runs), {cg} groups a "
-        f"chunk, {1 + kernels.glz_square_rounds(cg)} launches a call, exact")
+    row = enc_match_row(headline_desc_stream(corpus, dev))
+    for per_call in (row["launches_per_call"], row["chunk_524288"]["launches_per_call"]):
+        if per_call is None or per_call > 2:
+            raise AssertionError(f"glz_enc_match: {per_call} launches a call")
+    rows.append(row)
+    enc_match_adversarial(dev)
 
     # adversarial encode set: seven corpora at four chunk sizes
     for name, raw in encode_corpora().items():
@@ -1102,6 +1322,9 @@ def main(argv=None) -> int:
     parser.add_argument("--json-only", action="store_true",
                         help="build the kernels and run only phase 2's JSON span checks and "
                              "times (no chains, no ok line)")
+    parser.add_argument("--encode-extract-only", action="store_true",
+                        help="build the kernels and run only the extract and encode window "
+                             "match rows at the main path's shapes (no chains, no ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1124,11 +1347,22 @@ def main(argv=None) -> int:
                 print(f"[nvcc {src}] {line.strip()}", file=sys.stderr)
 
     corpus = RecordBuffer.from_values(gen_json(N, seed=2024))
+    if args.encode_extract_only:
+        v = torch.from_numpy(corpus.values).to(dev)
+        ln = torch.from_numpy(corpus.lengths).to(dev)
+        rows = [extract_row(v, *cuda_kernels.json_get_span(v, ln, "name")),
+                enc_match_row(headline_desc_stream(corpus, dev))]
+        for r in rows:
+            log(f"kernel {r['name']}: {r['ms']:.4f} ms a call, device {r['device_ms']} ms")
+        print(smi)
+        print(json.dumps({"encode_extract_rows": rows}))
+        return 0
     narrow, striped = phase_json_span(dev, corpus)
     if args.json_only:
         print(smi)
         print(json.dumps({"json_span_rows": [narrow, striped]}))
         return 0
+    phase_long_keys(dev)
     rows = [narrow] + phase_kernels(dev, corpus)
     rows += [striped] + phase_striped_kernels(dev)
     rows += phase_glz_kernels(dev, corpus)

@@ -66,7 +66,7 @@
 //       That is exactly what the machine's progressive match accepts: it
 //       restarts at 0 on any mismatch, a backslash or a quote inside the
 //       string, so a key holding a backslash or a quote never matches (the
-//       block checks the needle once), and the empty key matches "". The
+//       wrapper checks the key once), and the empty key matches "". The
 //       comparison reads the staged chunk; one that runs off the chunk's
 //       end carries its progress into the next chunk (strings never nest,
 //       so at most one is open).
@@ -97,6 +97,12 @@
 // The width threshold: on the H100 the warp design was the faster from
 // rows of 1 KB on, and ~200x so at rows of 60 KB (PERF.md).
 //
+// The needle (the key in quotes) sits in shared memory where it fits beside
+// the kernel's own shared memory, up to the device's opt-in maximum a block
+// (227 KB on the H100); a longer one stays in global memory, where the
+// kernels read it through the cache. Both hold any key up to the 1 MiB
+// record ceiling.
+//
 // Striped layout: a segment's owned bytes of stripe rows first_row ..
 // first_row + k - 1, in order (the overlap tail of a non-last row belongs to
 // the next row), at record positions kk * step + j; the start clips to the
@@ -119,6 +125,17 @@ __device__ __forceinline__ uint32_t rep4(uint32_t c) { return c * 0x01010101u; }
 __device__ __forceinline__ uint32_t eq4(uint32_t w, uint32_t rep) {
   const uint32_t t = w ^ rep;
   return ~(((t & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | t) & 0x80808080u;
+}
+
+// The needle the kernel reads: copied into the block's shared memory at
+// `smem_needle` when the launcher gave it room (`staged`), else the global
+// copy. The caller synchronises the block before the first read.
+__device__ __forceinline__ const uint8_t* stage_needle(uint8_t* smem_needle,
+                                                       const uint8_t* needle_g, int klen,
+                                                       int staged) {
+  if (!staged) return needle_g;
+  for (int k = threadIdx.x; k < klen; k += blockDim.x) smem_needle[k] = needle_g[k];
+  return smem_needle;
 }
 
 // ---------------------------------------------------------------------------
@@ -252,14 +269,14 @@ constexpr int kTileWords = 9;     // a row's words in the tile: word w of the 32
 
 __global__ void __launch_bounds__(kThreadWarps * 32)
 json_span_kernel(const uint8_t* __restrict__ values, const int32_t* __restrict__ lengths,
-                 const uint8_t* __restrict__ needle_g, int klen, long long n, int width,
-                 int vec, int32_t* __restrict__ start_out, int32_t* __restrict__ vlen_out) {
+                 const uint8_t* __restrict__ needle_g, int klen, int staged, long long n,
+                 int width, int vec, int32_t* __restrict__ start_out,
+                 int32_t* __restrict__ vlen_out) {
   extern __shared__ __align__(16) uint8_t smem[];
   uint32_t* tiles = reinterpret_cast<uint32_t*>(smem);
   uint8_t* cls = smem + kThreadWarps * 32 * kTileWords * 4;
-  uint8_t* needle = cls + 256;
+  const uint8_t* needle = stage_needle(cls + 256, needle_g, klen, staged);
   for (int k = threadIdx.x; k < 256; k += blockDim.x) cls[k] = class_of(k);
-  for (int k = threadIdx.x; k < klen; k += blockDim.x) needle[k] = needle_g[k];
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -762,33 +779,22 @@ __device__ __forceinline__ void warp_record(Cursor cur, bool vec, int len, int s
   *start_out = st.start < 0 ? 0 : (st.start > start_cap ? start_cap : st.start);
 }
 
-// The block's needle in shared memory, and whether any key can match it
-// (a key holding a backslash or a quote never does).
-__device__ __forceinline__ bool stage_needle(uint8_t* needle, const uint8_t* needle_g, int klen) {
-  int bad = 0;
-  for (int k = threadIdx.x; k < klen; k += blockDim.x) {
-    const uint8_t c = needle_g[k];
-    needle[k] = c;
-    bad |= (k > 0 && k < klen - 1 && (c == '"' || c == '\\')) ? 1 : 0;
-  }
-  return !__syncthreads_or(bad);
-}
-
 // narrow rows, a warp a record
 __global__ void __launch_bounds__(kRecordWarps * 32)
 json_span_warp_kernel(const uint8_t* __restrict__ values, const int32_t* __restrict__ lengths,
-                      const uint8_t* __restrict__ needle_g, int klen, long long n, int width,
-                      int vec, int32_t* __restrict__ start_out, int32_t* __restrict__ vlen_out) {
+                      const uint8_t* __restrict__ needle_g, int klen, int staged,
+                      int matchable, long long n, int width, int vec,
+                      int32_t* __restrict__ start_out, int32_t* __restrict__ vlen_out) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* needle = smem + kRecordWarps * kChunk;
-  const bool matchable = stage_needle(needle, needle_g, klen);
+  const uint8_t* needle = stage_needle(smem + kRecordWarps * kChunk, needle_g, klen, staged);
+  __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long i = (long long)blockIdx.x * kRecordWarps + warp;
   if (i >= n) return;
   const int len = lengths[i];
   Cursor cur{values + i * (long long)width, 0, 0, 1, nullptr};
   cur.lim = len < 0 ? 0 : (len < width ? len : width);
-  warp_record(cur, vec != 0, len, width, smem + warp * kChunk, needle, klen, matchable, lane,
+  warp_record(cur, vec != 0, len, width, smem + warp * kChunk, needle, klen, matchable != 0, lane,
               start_out + i, vlen_out + i);
 }
 
@@ -797,11 +803,12 @@ __global__ void __launch_bounds__(kRecordWarps * 32)
 json_span_striped_kernel(const uint8_t* __restrict__ sv, const int32_t* __restrict__ owned,
                          const int32_t* __restrict__ first_row, const int32_t* __restrict__ kcount,
                          const int32_t* __restrict__ lengths, const uint8_t* __restrict__ needle_g,
-                         int klen, long long n, int s, int step, int vec,
-                         int32_t* __restrict__ start_out, int32_t* __restrict__ vlen_out) {
+                         int klen, int staged, int matchable, long long n, int s, int step,
+                         int vec, int32_t* __restrict__ start_out,
+                         int32_t* __restrict__ vlen_out) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* needle = smem + kRecordWarps * kChunk;
-  const bool matchable = stage_needle(needle, needle_g, klen);
+  const uint8_t* needle = stage_needle(smem + kRecordWarps * kChunk, needle_g, klen, staged);
+  __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long i = (long long)blockIdx.x * kRecordWarps + warp;
   if (i >= n) return;
@@ -809,22 +816,32 @@ json_span_striped_kernel(const uint8_t* __restrict__ sv, const int32_t* __restri
   const long long r0 = first_row[i];
   Cursor cur{sv + r0 * s, s, step, kcount[i], owned + r0};
   cur.lim = cur.pieces > 0 ? owned[r0] : 0;
-  warp_record(cur, vec != 0, len, len, smem + warp * kChunk, needle, klen, matchable, lane,
+  warp_record(cur, vec != 0, len, len, smem + warp * kChunk, needle, klen, matchable != 0, lane,
               start_out + i, vlen_out + i);
 }
 
-// Dynamic shared memory past 48 KB (a long key's needle) needs the opt-in.
+// A kernel's dynamic shared memory: its own `tile` bytes plus the needle
+// where both fit in the device's opt-in maximum a block (*staged = 1); the
+// opt-in taken past 48 KB.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+cudaError_t plan_smem(Kernel kernel, size_t tile, int klen, size_t* bytes, int* staged) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  *staged = tile + (size_t)klen <= (size_t)optin;
+  *bytes = tile + (*staged ? (size_t)klen : 0);
+  if (*bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
 }
 
 }  // namespace
 
+// `matchable`: 0 where the key holds a backslash or a quote (never found).
 extern "C" int fluvio_json_span(const void* values, const void* lengths, const void* needle,
-                                int klen, long long n, int width, void* start, void* vlen,
-                                void* stream) {
+                                int klen, int matchable, long long n, int width, void* start,
+                                void* vlen, void* stream) {
   if (n > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int vec = (width % 16 == 0) && (reinterpret_cast<uintptr_t>(values) % 16 == 0);
@@ -833,19 +850,23 @@ extern "C" int fluvio_json_span(const void* values, const void* lengths, const v
     const auto* nd = static_cast<const uint8_t*>(needle);
     if (width <= kWarpDesignWidth) {
       const long long rows = kThreadWarps * 32;
-      const size_t smem = kThreadWarps * 32 * kTileWords * 4 + 256 + klen;
-      const cudaError_t err = allow_smem(json_span_kernel, smem);
+      size_t smem = 0;
+      int staged = 0;
+      const cudaError_t err = plan_smem(json_span_kernel, kThreadWarps * 32 * kTileWords * 4 + 256,
+                                        klen, &smem, &staged);
       if (err != cudaSuccess) return (int)err;
       json_span_kernel<<<(unsigned)((n + rows - 1) / rows), kThreadWarps * 32, smem, st>>>(
-          v, l, nd, klen, n, width, vec, static_cast<int32_t*>(start),
+          v, l, nd, klen, staged, n, width, vec, static_cast<int32_t*>(start),
           static_cast<int32_t*>(vlen));
     } else {
-      const size_t smem = kRecordWarps * kChunk + klen;
-      const cudaError_t err = allow_smem(json_span_warp_kernel, smem);
+      size_t smem = 0;
+      int staged = 0;
+      const cudaError_t err =
+          plan_smem(json_span_warp_kernel, kRecordWarps * kChunk, klen, &smem, &staged);
       if (err != cudaSuccess) return (int)err;
       json_span_warp_kernel<<<(unsigned)((n + kRecordWarps - 1) / kRecordWarps),
                               kRecordWarps * 32, smem, st>>>(
-          v, l, nd, klen, n, width, vec, static_cast<int32_t*>(start),
+          v, l, nd, klen, staged, matchable, n, width, vec, static_cast<int32_t*>(start),
           static_cast<int32_t*>(vlen));
     }
   }
@@ -855,19 +876,21 @@ extern "C" int fluvio_json_span(const void* values, const void* lengths, const v
 // sv u8[r, s]; owned i32[r]; first_row, k, lengths i32[n] -> start, vlen i32[n].
 extern "C" int fluvio_json_span_striped(const void* sv, const void* owned, const void* first_row,
                                         const void* k, const void* lengths, const void* needle,
-                                        int klen, long long n, int s, int step, void* start,
-                                        void* vlen, void* stream) {
+                                        int klen, int matchable, long long n, int s, int step,
+                                        void* start, void* vlen, void* stream) {
   if (n > 0) {
     const int vec = (s % 16 == 0) && (reinterpret_cast<uintptr_t>(sv) % 16 == 0);
-    const size_t smem = kRecordWarps * kChunk + klen;
-    const cudaError_t err = allow_smem(json_span_striped_kernel, smem);
+    size_t smem = 0;
+    int staged = 0;
+    const cudaError_t err =
+        plan_smem(json_span_striped_kernel, kRecordWarps * kChunk, klen, &smem, &staged);
     if (err != cudaSuccess) return (int)err;
     json_span_striped_kernel<<<(unsigned)((n + kRecordWarps - 1) / kRecordWarps),
                                kRecordWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(sv), static_cast<const int32_t*>(owned),
         static_cast<const int32_t*>(first_row), static_cast<const int32_t*>(k),
-        static_cast<const int32_t*>(lengths), static_cast<const uint8_t*>(needle), klen, n, s,
-        step, vec, static_cast<int32_t*>(start), static_cast<int32_t*>(vlen));
+        static_cast<const int32_t*>(lengths), static_cast<const uint8_t*>(needle), klen, staged,
+        matchable, n, s, step, vec, static_cast<int32_t*>(start), static_cast<int32_t*>(vlen));
   }
   return (int)cudaGetLastError();
 }

@@ -47,8 +47,6 @@ LAUNCHES: Dict[str, int] = {
     "glz_resolve": 0, "glz_enc_match": 0, "glz_decode": 0,
 }
 
-_MAX_NEEDLE = 48 * 1024  # the needle sits in (static-limit) shared memory
-
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -84,9 +82,14 @@ def _stream(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _needle(key: str, device: torch.device) -> torch.Tensor:
-    data = np.frombuffer(b'"' + key.encode("utf-8") + b'"', dtype=np.uint8).copy()
-    return torch.from_numpy(data).to(device)
+def _needle(key: str, device: torch.device) -> Tuple[torch.Tensor, int]:
+    """The key in quotes on ``device``, and 1 unless the key holds a
+    backslash or a quote (which the machine never matches). The launcher
+    puts the needle in shared memory where it fits, else reads it from
+    global memory: any key length runs."""
+    raw = key.encode("utf-8")
+    data = np.frombuffer(b'"' + raw + b'"', dtype=np.uint8).copy()
+    return torch.from_numpy(data).to(device), int(b'"' not in raw and b"\\" not in raw)
 
 
 def json_get_span(
@@ -99,16 +102,14 @@ def json_get_span(
     n, width = values.shape
     _expect("json_get_span values", values, torch.uint8, (n, width))
     _expect("json_get_span lengths", lengths, torch.int32, (n,))
-    needle = _needle(key, values.device)
-    if needle.numel() > _MAX_NEEDLE:
-        raise ValueError(f"json_get_span: key of {len(key)} bytes is too long")
+    needle, matchable = _needle(key, values.device)
     start = torch.empty((n,), dtype=torch.int32, device=values.device)
     vlen = torch.empty((n,), dtype=torch.int32, device=values.device)
     fn = KERNELS.function("fluvio_json_span")
     with torch.cuda.device(values.device):
         rc = fn(
             values.data_ptr(), lengths.data_ptr(), needle.data_ptr(), needle.numel(),
-            n, width, start.data_ptr(), vlen.data_ptr(), _stream(values.device),
+            matchable, n, width, start.data_ptr(), vlen.data_ptr(), _stream(values.device),
         )
     check(rc, "json_span")
     LAUNCHES["json_span"] += 1
@@ -226,16 +227,14 @@ def striped_json_span(
     _expect("striped_json_span owned", owned, torch.int32, (r,))
     for name, t in (("first_row", first_row), ("k", k), ("lengths", lengths)):
         _expect(f"striped_json_span {name}", t, torch.int32, (n,))
-    needle = _needle(key, sv.device)
-    if needle.numel() > _MAX_NEEDLE:
-        raise ValueError(f"striped_json_span: key of {len(key)} bytes is too long")
+    needle, matchable = _needle(key, sv.device)
     start = torch.empty((n,), dtype=torch.int32, device=sv.device)
     vlen = torch.empty((n,), dtype=torch.int32, device=sv.device)
     fn = KERNELS.function("fluvio_json_span_striped")
     with torch.cuda.device(sv.device):
         rc = fn(
             sv.data_ptr(), owned.data_ptr(), first_row.data_ptr(), k.data_ptr(),
-            lengths.data_ptr(), needle.data_ptr(), needle.numel(), n, s, step,
+            lengths.data_ptr(), needle.data_ptr(), needle.numel(), matchable, n, s, step,
             start.data_ptr(), vlen.data_ptr(), _stream(sv.device),
         )
     check(rc, "json_span_striped")
@@ -307,7 +306,8 @@ def glz_encode_match(w0: torch.Tensor, w1: torch.Tensor, const_m: torch.Tensor,
                      chunk_groups: int) -> torch.Tensor:
     """Literal-root source of every 8-byte group: w0, w1 i32[G], const_m
     bool[G], groups per chunk (a multiple of 128) -> global roots i32[G]
-    (root == g: a literal)."""
+    (root == g: a literal). Two launches a call at most, whatever the
+    chunk size (the tiled resolve and its join, ``csrc/glz_encode.cu``)."""
     if not _on_cuda("glz_encode_match", w0, w1, const_m):
         return kernels.glz_encode_match(w0, w1, const_m, chunk_groups)
     g_count = w0.shape[0]
@@ -319,12 +319,10 @@ def glz_encode_match(w0: torch.Tensor, w1: torch.Tensor, const_m: torch.Tensor,
             f"glz_encode_match: chunk groups {chunk_groups} is not a positive multiple of 128"
         )
     out = torch.empty((g_count,), dtype=torch.int32, device=w0.device)
-    scratch = torch.empty_like(out)
     fn = KERNELS.function("fluvio_glz_enc_match")
     with torch.cuda.device(w0.device):
         rc = fn(w0.data_ptr(), w1.data_ptr(), const_m.data_ptr(), g_count, chunk_groups,
-                kernels.glz_square_rounds(chunk_groups), scratch.data_ptr(), out.data_ptr(),
-                _stream(w0.device))
+                out.data_ptr(), _stream(w0.device))
     check(rc, "glz_enc_match")
     LAUNCHES["glz_enc_match"] += 1
     return out

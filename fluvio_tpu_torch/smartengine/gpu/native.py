@@ -39,8 +39,8 @@ _LL = ctypes.c_longlong
 # source file -> {C entry point: argtypes}
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "json_span.cu": {
-        "fluvio_json_span": [_P, _P, _P, _I, _LL, _I, _P, _P, _P],
-        "fluvio_json_span_striped": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P, _P, _P],
+        "fluvio_json_span": [_P, _P, _P, _I, _I, _LL, _I, _P, _P, _P],
+        "fluvio_json_span_striped": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _P, _P, _P],
     },
     "extract.cu": {"fluvio_extract": [_P, _P, _P, _LL, _I, _P, _P]},
     "dfa_scan.cu": {
@@ -51,7 +51,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "fluvio_glz_resolve": [_P, _P, _LL, _LL, _P, _P],
         "fluvio_glz_decode": [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _P, _P, _P],
     },
-    "glz_encode.cu": {"fluvio_glz_enc_match": [_P, _P, _P, _I, _I, _I, _P, _P, _P]},
+    "glz_encode.cu": {"fluvio_glz_enc_match": [_P, _P, _P, _I, _I, _P, _P]},
 }
 
 

@@ -159,10 +159,49 @@ def test_cuda_kernels_equal_plain_versions():
         got = [bytes(lv[i, a: a + b]) for i, (a, b) in enumerate(zip(st_l.tolist(), vl_l.tolist()))]
         assert got == [dsl.json_get_bytes(bytes(lv[i, : ll[i]]), long_key) for i in range(3)]
     assert torch.equal(cuda_kernels.extract_span(v, st_k, vl_k), kernels.extract_span(v, st_k, vl_k))
+    # extract: random spans (overruns, negative starts, lengths past the
+    # width) at widths on and off the 16-byte grid, aligned rows and not
+    for ex_width in (1, 3, 15, 16, 17, 63, 64, 65, 100, 1000):
+        ev = rng.integers(0, 256, size=(512, ex_width)).astype(np.uint8)
+        est = torch.from_numpy(rng.integers(-ex_width - 2, 2 * ex_width + 2, 512).astype(np.int32))
+        evl = torch.from_numpy(rng.integers(-2, 2 * ex_width + 2, 512).astype(np.int32))
+        buf = torch.zeros(ev.size + 1, dtype=torch.uint8).cuda()
+        buf[1:] = torch.from_numpy(ev.reshape(-1)).cuda()
+        for vv in (torch.from_numpy(ev).cuda(), buf[1:].view(ev.shape)):
+            assert torch.equal(cuda_kernels.extract_span(vv, est.cuda(), evl.cuda()),
+                               kernels.extract_span(vv, est.cuda(), evl.cuda())), ex_width
     for pattern, packed in (("^(fluvio|kafka|pulsar)-[0-3]$", True), ("flu[vV]io", False)):
         dfa = compile_regex(pattern, packed=packed)
         assert torch.equal(cuda_kernels.dfa_match(v, ln, dfa), kernels.dfa_match(v, ln, dfa))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_long_keys_through_the_engine_on_the_card():
+    """A 49,151-byte key (its needle past 48 KB) gives b'1' through
+    ``SmartEngine(device="cuda")`` on the narrow and the striped span paths;
+    a 240,000-byte key (past a block's shared memory) on the striped path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.models import lookup
+    from fluvio_tpu_torch.smartengine import SmartEngine, SmartModuleConfig
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
+    from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+
+    for klen, paths in ((49151, ("json_span", "json_span_striped")),
+                        (240000, ("json_span_striped",))):
+        kb = b"a" * klen
+        for path in paths:
+            pad = b',"pad":"' + b"x" * 70000 + b'"' if path == "json_span_striped" else b""
+            docs = [b'{"' + kb + b'":1' + pad + b"}", b'{"a":2' + pad + b"}"]
+            b = SmartEngine(device="cuda").builder()
+            b.add_smart_module(SmartModuleConfig(params={"field": kb.decode()}),
+                               lookup("json-map"))
+            chain = b.initialize()
+            cuda_kernels.reset_launches()
+            out = chain.process_buffer(RecordBuffer.from_values(docs)).value_list()
+            assert cuda_kernels.LAUNCHES[path] > 0, (klen, path)
+            assert out[0] == b"1", (klen, path)
 
 
 @pytest.mark.cuda
@@ -232,10 +271,14 @@ def test_glz_cuda_kernels_equal_plain_versions():
         assert torch.equal(got.cpu(), torch.from_numpy(raw.copy()))
     stream = torch.from_numpy(raw[: len(raw) // 8 * 8].copy()).cuda()
     w0, w1 = glz.enc_group_words(stream)
-    for chunk_groups in (128, 512, 32768, 65536):
-        const_m, _ = glz.enc_const_runs(w0, w1, chunk_groups)
-        assert torch.equal(cuda_kernels.glz_encode_match(w0, w1, const_m, chunk_groups),
-                           kernels.glz_encode_match(w0, w1, const_m, chunk_groups))
+    # a period-2 stream: every chain crosses every tile border of its chunk
+    p0 = torch.from_numpy(np.where(np.arange(150000) % 2 == 0, 7, 9).astype(np.int32)).cuda()
+    p1 = torch.zeros_like(p0)
+    for a, b in ((w0, w1), (p0, p1)):
+        for chunk_groups in (128, 512, 2048, 2176, 32768, 65536, 131072):
+            const_m, _ = glz.enc_const_runs(a, b, chunk_groups)
+            assert torch.equal(cuda_kernels.glz_encode_match(a, b, const_m, chunk_groups),
+                               kernels.glz_encode_match(a, b, const_m, chunk_groups))
     torch.cuda.synchronize()
 
 
