@@ -29,7 +29,17 @@ Phases (any failure raises and the script exits non-zero):
    "cuda")`` against the interpreter for a 49,151-byte key (its needle past
    48 KB of shared memory) on the narrow and the striped paths, and a
    240,000-byte key (past a block's shared memory: the needle stays in
-   global memory) on the striped path. Every kernel row gives its device
+   global memory) on the striped path. Then the DFA scan: against its
+   plain version on the JSON adversarial set and on rows at the edge
+   lengths (-1, 0, 1, 15, 16, 17, W-1, W, W+5) at widths 1 to 64, 16-byte
+   aligned and one byte off, for compiled DFAs of 8 to 257 states (packed
+   and unpacked) and two hand-built tables whose PAD column changes
+   acceptance (the kernel's tail walk); timed at (a) the 22-state bench
+   regex over the extracted names (the row's own numbers), (b) flu[vV]io
+   over the whole bench records and (c) the 257-state DFA, packed and
+   unpacked, over 1,048,576 x 64 records of its alphabet, each with its
+   bound (the log line adds the sector floor). ``--dfa-scan-only`` builds
+   the kernels and runs only these. Every kernel row gives its device
    time: torch.profiler's records of every kernel of one call, summed;
 3. headline chain: ``regex-filter(regex="fluvio")`` -> ``json-map(field=
    "name")`` over 4 batches of 1,048,576 records through
@@ -38,6 +48,9 @@ Phases (any failure raises and the script exits non-zero):
 4. json-regex-filter chain: ``key="name", regex="^(fluvio|kafka|pulsar)-
    [0-3]$"`` over 1,048,576 records; survivors checked against ``re`` over
    ``json_get_bytes`` on the host; all three kernels must have launched;
+   then ``regex-filter("flu[vV]io")`` -> ``json-map(field="name")`` over
+   1,048,576 records (a pattern that is no literal: the whole record goes
+   through the DFA scan); survivors against ``re``, the DFA scan launched;
 5. striped kernels: the column-split DFA composition kernel against its
    plain version at the fat bench shape (1,024 records of 71,709 bytes,
    10,240 stripe rows of 8,192 bytes) for the 22-state in-span classes and
@@ -83,26 +96,29 @@ Standard output ends with three lines: the card's name and power limit as
 the result line ``{"ok": true, "device": {...}}``.
 
 ``--encode-extract-only`` builds the kernels and prints only the extract
-and encode window match rows at the main path's shapes. Copied into a
-checkout of another commit, the script times that commit's kernels (it
-imports the package beside it and reads the kernel names from its sources).
+and encode window match rows at the main path's shapes; ``--dfa-scan-only``
+the DFA scan's checks and its row. Copied into a checkout of another
+commit, the script times that commit's kernels (it imports the package
+beside it and reads the kernel names from its sources).
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from fluvio_tpu_torch.models import lookup
-from fluvio_tpu_torch.ops.regex_dfa import compile_regex
+from fluvio_tpu_torch.ops.regex_dfa import CompiledDfa, compile_regex
 from fluvio_tpu_torch.smartengine import LinkParams, SmartEngine, SmartModuleConfig
 from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, glz, kernels, stripes
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
@@ -226,9 +242,6 @@ def phase_kernels(dev, corpus: RecordBuffer):
         raise AssertionError(f"bench corpus bucketed to width {width}, expected 64")
     v = torch.from_numpy(corpus.values).to(dev)
     ln = torch.from_numpy(corpus.lengths).to(dev)
-    dfa = compile_regex(JSON_REGEX)
-    if dfa.n_states != 22:
-        raise AssertionError(f"bench regex compiled to {dfa.n_states} states, expected 22")
 
     # adversarial set first: corner cases exactly equal (the span kernel's
     # own adversarial checks are in phase_json_span)
@@ -237,16 +250,11 @@ def phase_kernels(dev, corpus: RecordBuffer):
     require_equal("extract adversarial", cuda_kernels.extract_span(av, st_a, vl_a),
                   kernels.extract_span(av, st_a, vl_a))
     extract_adversarial(dev)
-    big = "(a|b)*a(a|b){6}c|x" + "d" * 125  # 257 states: the two-byte table
-    for pattern, packed in ((JSON_REGEX, True), (JSON_REGEX, False), ("flu[vV]io", True),
-                            (big, True), (big, False)):
-        d = compile_regex(pattern, packed=packed)
-        require_equal(f"dfa_scan adversarial {pattern[:24]} packed={packed}",
-                      cuda_kernels.dfa_match(av, al, d), kernels.dfa_match(av, al, d))
+    dfa_scan_adversarial(dev, av, al)
     torch.cuda.synchronize()
     log(f"kernels: adversarial set equal (extract: the span kernel's spans and random spans with "
         f"overruns and negative starts at widths {EXTRACT_WIDTHS}, 16-byte aligned rows and not; "
-        f"dfa_scan incl. 257-state and unpacked 132 KB tables)")
+        f"dfa_scan: see above)")
 
     rows = []
     # the JSON span of the name field (both chains' first kernel; its row
@@ -255,27 +263,136 @@ def phase_kernels(dev, corpus: RecordBuffer):
 
     # 2. extract of the name field (json-regex-filter's byte-mode JsonGet)
     rows.append(extract_row(v, st, vl))
-    ex = cuda_kernels.extract_span(v, st, vl)
 
-    # 3. DFA verdict over the extracted names (the 22-state bench regex)
-    got = cuda_kernels.dfa_match(ex, vl, dfa)
-    err = require_equal("dfa_scan", got, kernels.dfa_match(ex, vl, dfa))
-    call = lambda: cuda_kernels.dfa_match(ex, vl, dfa)  # noqa: E731
-    ms, dev_ms = time_ms(call), device_ms(call, kernel_names("dfa_scan.cu"))
-    plain_ms = time_ms(lambda: kernels.dfa_match(ex, vl, dfa), reps=3)
-    live = float(vl.to(torch.int64).sum().item())
-    b_ms, b_by = bound(live + 4 * N + N, live + N)
-    rows.append(dict(name="dfa_scan", route="cuda",
-                     source="fluvio_tpu_torch/smartengine/gpu/csrc/dfa_scan.cu",
-                     replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:651",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, device_ms=dev_ms))
+    # 3. DFA verdict: over the extracted names (the 22-state bench regex),
+    # whole records, the 257-state DFA
+    rows.append(dfa_scan_row(dev, corpus))
     torch.cuda.synchronize()
     for r in rows:
         log(f"kernel {r['name']}: {r['ms']:.4f} ms a call, device {r['device_ms']} ms (plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library "
             f"{r['library_ms']}) at N={N} W={width}, exact")
     return rows
+
+
+def dfa_scan_cases():
+    """The DFA scan's case builders, shared with its tests: the patterns,
+    widths, edge-length rows and the hand-built tables whose PAD column
+    changes acceptance (``tests/test_torch_isolation.py``, free of jax)."""
+    path = Path(__file__).resolve().parent / "tests" / "test_torch_isolation.py"
+    spec = importlib.util.spec_from_file_location("dfa_scan_cases", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def dfa_scan_adversarial(dev, av, al):
+    """The DFA scan against its plain version: the JSON adversarial set at
+    width 64, and the edge lengths at widths 1 to 64 on 16-byte aligned
+    rows and on rows one byte off; for the compiled DFAs of every shape
+    (the bench regex packed and unpacked, flu[vV]io, the 257-state DFA
+    packed and unpacked) and the hand-built tables."""
+    cases = dfa_scan_cases()
+    dfas = [compile_regex(p, packed=k)
+            for p, k in cases.DFA_SCAN_PATTERNS + ((JSON_REGEX, False),)]
+    dfas += [CompiledDfa(**t) for t in cases.non_invariant_tables()]
+    for d in dfas:
+        require_equal(f"dfa_scan adversarial {d.pattern[:24]} S={d.n_states} C={d.n_classes}",
+                      cuda_kernels.dfa_match(av, al, d), kernels.dfa_match(av, al, d))
+    rng = np.random.default_rng(77)
+    for width in cases.DFA_SCAN_WIDTHS:
+        values, lengths = cases.dfa_scan_inputs(rng, width, per_length=64)
+        v = torch.from_numpy(values).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        buf = torch.zeros(values.size + 1, dtype=torch.uint8, device=dev)
+        buf[1:] = v.reshape(-1)
+        for label, vv in (("aligned", v), ("offset", buf[1:].view(values.shape))):
+            for d in dfas:
+                require_equal(f"dfa_scan edge lengths W={width} {label} {d.pattern[:24]} "
+                              f"S={d.n_states} C={d.n_classes}",
+                              cuda_kernels.dfa_match(vv, ln, d), kernels.dfa_match(vv, ln, d))
+    torch.cuda.synchronize()
+    shapes = ", ".join(f"{d.pattern[:24]} ({d.n_states}x{d.n_classes})" for d in dfas)
+    log(f"kernel dfa_scan: adversarial set equal (the JSON set at W=64; edge lengths -1, 0, 1, "
+        f"15, 16, 17, W-1, W, W+5 at widths {cases.DFA_SCAN_WIDTHS}, aligned and one byte off; "
+        f"{len(dfas)} DFAs: {shapes}; the last two fail the PAD check)")
+
+
+def big_rows(n: int, width: int, seed: int = 257):
+    """Records of the 257-state DFA's alphabet (abcxd) at lengths 0 to
+    ``width``, a match a(a|b){6}c planted after byte min(length, 40) of
+    every fourth record, as ``test_257_state_table`` builds them."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"abcxd", dtype=np.uint8)
+    lengths = rng.integers(0, width + 1, size=n)
+    values = alphabet[rng.integers(0, 5, size=(n, width))]
+    rows = np.arange(0, n, 4)
+    at = np.minimum(lengths[rows], 40)
+    plant = np.concatenate([np.full((len(rows), 1), ord("a"), dtype=np.uint8),
+                            alphabet[rng.integers(0, 2, size=(len(rows), 6))],
+                            np.full((len(rows), 1), ord("c"), dtype=np.uint8)], axis=1)
+    values[rows[:, None], at[:, None] + np.arange(8)] = plant
+    lengths[rows] = at + 8
+    values[np.arange(width)[None, :] >= lengths[:, None]] = 0
+    return values, lengths.astype(np.int32)
+
+
+def dfa_scan_case(label: str, values, lengths, dfa):
+    """The DFA scan on one shape against its plain version: exactness, a
+    call, device time and launches a call, the plain version's time and
+    the bound (live bytes, lengths and verdicts over the memory rate). The
+    log line adds the sector floor (each record's live bytes in whole
+    32-byte sectors), which the kernels line leaves out."""
+    got = cuda_kernels.dfa_match(values, lengths, dfa)
+    err = require_equal(f"dfa_scan {dfa.pattern[:24]} S={dfa.n_states}", got,
+                        kernels.dfa_match(values, lengths, dfa))
+    call = lambda: cuda_kernels.dfa_match(values, lengths, dfa)  # noqa: E731
+    ms = time_ms(call)
+    dev_ms, per_call = device_time(call, kernel_names("dfa_scan.cu"))
+    plain_ms = time_ms(lambda: kernels.dfa_match(values, lengths, dfa), reps=3)
+    n, width = values.shape
+    walk = lengths.to(torch.int64).clamp(0, width)
+    live = float(walk.sum().item())
+    b_ms, b_by = bound(live + 4 * n + n, live + n)
+    sectors = float(((walk + 31) // 32).sum().item()) * 32
+    matches = int(got.sum().item())
+    log(f"kernel dfa_scan {label}: {ms:.4f} ms a call, device {dev_ms} ms in "
+        f"{per_call} launches a call (plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by}, "
+        f"sector floor {(sectors + 5 * n) / HBM_BYTES_PER_S * 1e3:.5f} ms, library: none) at "
+        f"{n} x {width}, {dfa.n_states} states x {dfa.n_classes} classes, {matches} matches, "
+        f"exact")
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, launches_per_call=per_call,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, records=n,
+                width=width, states=dfa.n_states, classes=dfa.n_classes, matches=matches)
+
+
+def dfa_scan_row(dev, corpus: RecordBuffer):
+    """The DFA scan's row at shape (a), the json-regex-filter's: the
+    22-state bench regex over the extracted name fields of the bench corpus
+    (1,048,576 x 64); beside it (b) flu[vV]io over the whole bench records
+    (a regex-filter whose pattern is no literal) and (c) the 257-state DFA
+    packed and unpacked over as many records of its alphabet."""
+    v = torch.from_numpy(corpus.values).to(dev)
+    ln = torch.from_numpy(corpus.lengths).to(dev)
+    dfa = compile_regex(JSON_REGEX)
+    if dfa.n_states != 22:
+        raise AssertionError(f"bench regex compiled to {dfa.n_states} states, expected 22")
+    st, vl = cuda_kernels.json_get_span(v, ln, "name")
+    ex = cuda_kernels.extract_span(v, st, vl)
+    names = dfa_scan_case("names", ex, vl, dfa)
+    del st, ex, vl
+    shapes = {"records_flu": dfa_scan_case("records_flu", v, ln, compile_regex("flu[vV]io"))}
+    del v, ln
+    bv, bl = big_rows(N, corpus.width)
+    bv, bl = torch.from_numpy(bv).to(dev), torch.from_numpy(bl).to(dev)
+    big = dfa_scan_cases().BIG_PATTERN
+    for packed in (True, False):
+        label = f"big_{'packed' if packed else 'unpacked'}"
+        shapes[label] = dfa_scan_case(label, bv, bl, compile_regex(big, packed=packed))
+    del bv, bl
+    return dict(name="dfa_scan", route="cuda",
+                source="fluvio_tpu_torch/smartengine/gpu/csrc/dfa_scan.cu",
+                replaces="fluvio_tpu/smartengine/tpu/pallas_kernels.py:651", **names, **shapes)
 
 
 def extract_row(v, st, vl):
@@ -1317,6 +1434,37 @@ def phase_json_regex():
     return launches, rate
 
 
+def phase_regex_chain():
+    """``regex-filter("flu[vV]io")`` -> ``json-map(field="name")`` over one
+    batch of N narrow records: a pattern that is no literal, so every
+    whole record goes through the DFA scan. Survivors against ``re``."""
+    name = "fluvio_dfa_json_map_fat"  # the same chain as the striped one
+    chain = build_chain(STRIPED_CHAINS[name])
+    corpus = gen_json(N, seed=11)
+    buf = RecordBuffer.from_values(corpus)
+    chain.process_buffer(RecordBuffer.from_values(corpus[:4096]))  # warm-up, small
+    torch.cuda.synchronize()
+
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = chain.process_buffer(buf)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    if min(launches[k] for k in ("dfa_scan", "json_span")) <= 0:
+        raise AssertionError(f"flu[vV]io chain missed a kernel: {launches}")
+    keep, want = striped_truth(name, corpus)
+    if out.offset_deltas[: out.count].tolist() != keep or out.value_list() != want:
+        raise AssertionError(f"flu[vV]io chain survivors differ from re: {out.count} vs "
+                             f"{len(keep)}")
+    if not 0 < len(keep) < N:
+        raise AssertionError(f"flu[vV]io chain: implausible survivor count {len(keep)}")
+    rate = N / elapsed
+    log(f"flu[vV]io chain: {N} records in {elapsed:.3f} s = {rate:.0f} records/s; "
+        f"{len(keep)} survivors equal to re (name field, upper-cased); launches {launches}")
+    return launches, rate
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -1325,6 +1473,9 @@ def main(argv=None) -> int:
     parser.add_argument("--encode-extract-only", action="store_true",
                         help="build the kernels and run only the extract and encode window "
                              "match rows at the main path's shapes (no chains, no ok line)")
+    parser.add_argument("--dfa-scan-only", action="store_true",
+                        help="build the kernels and run only the DFA scan's checks and its "
+                             "shapes (a)-(c) (no chains, no ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1357,6 +1508,12 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"encode_extract_rows": rows}))
         return 0
+    if args.dfa_scan_only:
+        dfa_scan_adversarial(dev, *stage(adversarial(corpus.width), corpus.width, dev))
+        row = dfa_scan_row(dev, corpus)
+        print(smi)
+        print(json.dumps({"dfa_scan_rows": [row]}))
+        return 0
     narrow, striped = phase_json_span(dev, corpus)
     if args.json_only:
         print(smi)
@@ -1369,10 +1526,11 @@ def main(argv=None) -> int:
     corpora = [gen_json(N, seed=100 + k) for k in range(HEADLINE_BATCHES)]
     head_launches, head_rate, head_chain = phase_headline(corpora)
     jr_launches, jr_rate = phase_json_regex()
+    rf_launches, rf_rate = phase_regex_chain()
     st_launches, st_rates = phase_striped_chains()
     glz_launches, glz_rates = phase_glz_chains(corpora, head_rate,
                                                head_chain.link_counts["h2d_bytes"])
-    paths = (head_launches, jr_launches, st_launches, glz_launches)
+    paths = (head_launches, jr_launches, rf_launches, st_launches, glz_launches)
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
         if r.get("main_path", True) and r["launches"] <= 0:
@@ -1381,6 +1539,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"kernel {r['name']} launched on the main path, which it left")
     log(json.dumps({"headline_records_per_s": head_rate,
                     "json_regex_filter_records_per_s": jr_rate,
+                    "flu_regex_json_map_records_per_s": rf_rate,
                     "striped": st_rates,
                     "glz": glz_rates,
                     "build_seconds": KERNELS.build_seconds}))

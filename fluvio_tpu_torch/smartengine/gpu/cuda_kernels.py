@@ -32,7 +32,7 @@ source file.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -140,46 +140,116 @@ def extract_span(
     return out
 
 
+class ScanTables(NamedTuple):
+    """What ``csrc/dfa_scan.cu`` walks, derived from a DFA once on the host."""
+
+    fold: np.ndarray  # [S, 256] next state of (state, byte): table[:, byte_class]
+    eos_next: np.ndarray  # [S] table[:, eos]
+    pad_next: np.ndarray  # [S] table[:, pad]
+    flags: np.ndarray  # uint8 [S]: accept | eos_accept << 1
+    pad_invariant: bool  # PAD never changes whether a state accepts
+
+
+SCAN_ACCEPT, SCAN_EOS_ACCEPT = 1, 2  # the kernel's flag bits
+
+
+def scan_tables(dfa: CompiledDfa) -> ScanTables:
+    """Fold the byte classes into the table, and derive what decides a
+    verdict without walking the EOS/PAD tail: ``eos_accept[s] =
+    accept[table[s, eos]]`` and whether ``accept[table[s, pad]] ==
+    accept[s]`` for every s (the compiler's tables always pass: their PAD
+    column is s where s accepts and the dead state elsewhere). Raises
+    ValueError for a table the kernel does not take: more states or
+    classes than the compiler emits, or ids out of range."""
+    table = np.asarray(dfa.table)
+    n_states, n_classes = table.shape
+    byte_class = np.asarray(dfa.byte_class).astype(np.int64)
+    accept = np.asarray(dfa.accept, dtype=bool)
+    if not 1 <= n_states <= 257 or not 1 <= n_classes <= 258:
+        raise ValueError(
+            f"dfa_match: table {n_states}x{n_classes} exceeds what the compiler emits"
+        )
+    if (byte_class.shape != (256,) or accept.shape != (n_states,)
+            or byte_class.min() < 0 or byte_class.max() >= n_classes
+            or not 0 <= dfa.eos_class < n_classes or not 0 <= dfa.pad_class < n_classes
+            or not 0 <= dfa.start < n_states or table.min() < 0 or table.max() >= n_states):
+        raise ValueError("dfa_match: a class or state id of the DFA is out of range")
+    table = table.astype(np.int64)
+    fold = table[:, byte_class]
+    eos_next = table[:, dfa.eos_class]
+    pad_next = table[:, dfa.pad_class]
+    flags = (accept.astype(np.uint8) * SCAN_ACCEPT
+             | accept[eos_next].astype(np.uint8) * SCAN_EOS_ACCEPT)
+    return ScanTables(fold, eos_next, pad_next, flags,
+                      bool(np.array_equal(accept[pad_next], accept)))
+
+
+def _pad16(data: bytes) -> bytes:
+    return data + bytes(-len(data) % 16)
+
+
+def _column_stride(n_states: int, itemsize: int) -> int:
+    """Bytes from one column of the kernel's table to the next: the column
+    rounded up to 13 four-byte words modulo 32, so the columns of
+    neighbouring bytes start 13 banks apart and lanes that read different
+    bytes in the same few states meet in few banks."""
+    words = -(-n_states * itemsize // 4)
+    return 4 * (words + (13 - words) % 32)
+
+
+def _scan_image(dfa: CompiledDfa) -> Tuple[np.ndarray, Tuple[int, ...]]:
+    """The kernel's shared-memory image of the DFA as one byte blob (a
+    multiple of 16 bytes) and the launch's table arguments (blob bytes,
+    entry bytes, tail, column stride, flags and tail offsets): the folded
+    table column-major, a byte's column every stride bytes, each entry the
+    next state's byte offset in a column; the flags; and for a table that
+    fails the PAD check, (EOS next, PAD next) offsets per state."""
+    t = scan_tables(dfa)
+    n_states = t.fold.shape[0]
+    ids = np.dtype("<u1") if n_states <= 256 else np.dtype("<u2")
+    stride = _column_stride(n_states, ids.itemsize)
+    table = np.zeros((256, stride // ids.itemsize), dtype=ids)
+    table[:, :n_states] = t.fold.T * ids.itemsize
+    parts = [_pad16(table.tobytes())]
+    flags_off = len(parts[0])
+    parts.append(_pad16(t.flags.tobytes()))
+    tail_off = flags_off + len(parts[1])
+    if not t.pad_invariant:
+        pairs = np.stack([t.eos_next, t.pad_next], axis=1) * ids.itemsize
+        parts.append(_pad16(pairs.astype(ids).tobytes()))
+    blob = np.frombuffer(b"".join(parts), dtype=np.uint8).copy()
+    return blob, (blob.size, ids.itemsize, int(not t.pad_invariant), stride, flags_off,
+                  tail_off)
+
+
 def _dfa_tables(dfa: CompiledDfa, device: torch.device):
-    """The DFA's tables on ``device``, uploaded once per device: the
-    transition table as one byte per entry when state ids fit a byte, else
-    two; the byte-class map as two bytes; acceptance as one. Two-byte
-    entries travel as int16 (ids <= 257 keep their bits) and the kernel
-    reads them as uint16."""
-    key = str(device)
+    """The DFA's table image on ``device`` and its launch arguments,
+    uploaded once per device (``dfa.device_tables``, a key of its own)."""
+    key = f"scan:{device}"
     tables = dfa.device_tables.get(key)
     if tables is None:
-        dtype = np.uint8 if dfa.n_states <= 256 else np.int16
-        tables = (
-            torch.from_numpy(np.ascontiguousarray(dfa.table, dtype=dtype)).to(device),
-            torch.from_numpy(np.ascontiguousarray(dfa.byte_class, dtype=np.int16)).to(device),
-            torch.from_numpy(np.ascontiguousarray(dfa.accept, dtype=np.uint8)).to(device),
-        )
+        blob, args = _scan_image(dfa)
+        tables = (torch.from_numpy(blob).to(device), args)
         dfa.device_tables[key] = tables
     return tables
 
 
 def dfa_match(values: torch.Tensor, lengths: torch.Tensor, dfa: CompiledDfa) -> torch.Tensor:
     """Per-record DFA verdict: values u8[N, W], lengths i32[N] -> bool[N]
-    (True where the regex matches)."""
+    (True where the regex matches). The kernel walks each record's live
+    bytes only; a table it does not take raises (`scan_tables`)."""
     if not _on_cuda("dfa_match", values, lengths):
         return kernels.dfa_match(values, lengths, dfa)
     n, width = values.shape
     _expect("dfa_match values", values, torch.uint8, (n, width))
     _expect("dfa_match lengths", lengths, torch.int32, (n,))
-    if dfa.n_states > 257 or dfa.n_classes > 258:
-        raise ValueError(
-            f"dfa_match: table {dfa.n_states}x{dfa.n_classes} exceeds what the compiler emits"
-        )
-    table, byte_class, accept = _dfa_tables(dfa, values.device)
+    blob, args = _dfa_tables(dfa, values.device)
     out = torch.empty((n,), dtype=torch.bool, device=values.device)
     fn = KERNELS.function("fluvio_dfa_scan")
     with torch.cuda.device(values.device):
         rc = fn(
-            values.data_ptr(), lengths.data_ptr(), table.data_ptr(), table.element_size(),
-            byte_class.data_ptr(), accept.data_ptr(), dfa.n_states, dfa.n_classes,
-            dfa.eos_class, dfa.pad_class, dfa.start, n, width, out.data_ptr(),
-            _stream(values.device),
+            values.data_ptr(), lengths.data_ptr(), blob.data_ptr(), *args, int(dfa.start), n,
+            width, out.data_ptr(), _stream(values.device),
         )
     check(rc, "dfa_scan")
     LAUNCHES["dfa_scan"] += 1

@@ -44,7 +44,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "extract.cu": {"fluvio_extract": [_P, _P, _P, _LL, _I, _P, _P]},
     "dfa_scan.cu": {
-        "fluvio_dfa_scan": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _LL, _I, _P, _P]
+        "fluvio_dfa_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _I, _P, _P]
     },
     "dfa_compose.cu": {"fluvio_dfa_compose": [_P, _P, _I, _I, _LL, _I, _P, _P]},
     "glz_decode.cu": {

@@ -8,6 +8,9 @@
   drifting to the CPU.
 - On a machine with a card (marker ``cuda``; skipped elsewhere), each CUDA
   kernel equals its plain torch version exactly on the same inputs.
+
+The DFA scan's cases live here, free of jax, so that its CPU spec
+(``tests/test_torch_dfa_redesign.py``) and its card test share them.
 """
 
 from __future__ import annotations
@@ -21,6 +24,77 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
+
+# The DFA scan's cases, shared by the card test below and the CPU spec of
+# the kernel's walk (`tests/test_torch_dfa_redesign.py`); jax-free, since
+# the card's machine has no jax.
+DFA_SCAN_WIDTHS = (1, 15, 16, 17, 64)
+BIG_PATTERN = "(a|b)*a(a|b){6}c|x" + "d" * 125  # 257 states: two-byte state ids
+DFA_SCAN_PATTERNS = (("flu[vV]io", True), ("^fluvio$", True),
+                     ("^(fluvio|kafka|pulsar)-[0-3]$", True), ("flu[vV]io", False),
+                     (BIG_PATTERN, True), (BIG_PATTERN, False))
+_DFA_TOKENS = (b"fluvio", b"fluVio", b"kafka-2", b"pulsar-3", b"fluvio-1", b"aabababc",
+               b"abbbbbbc", b"xdd", b"a")
+
+
+def dfa_scan_lengths(width: int):
+    """The edge lengths: padded rows (-1), empty, one byte, around one
+    16-byte chunk, one short of the width, the width, past it."""
+    return (-1, 0, 1, 15, 16, 17, width - 1, width, width + 5)
+
+
+def dfa_scan_inputs(rng, width: int, per_length: int = 16):
+    """values u8[N, width], lengths i32[N]: ``per_length`` rows at each edge
+    length and one row a token of exactly the token's length; bytes from
+    the patterns' alphabets with a token planted at 0 or further in, and
+    garbage past every length."""
+    lens = list(np.repeat(dfa_scan_lengths(width), per_length))
+    lens += [len(t) for t in _DFA_TOKENS]
+    alphabet = np.frombuffer(b"fluvioVkapsr-0123abcxd", dtype=np.uint8)
+    values = alphabet[rng.integers(0, len(alphabet), size=(len(lens), width))]
+    exact = len(lens) - len(_DFA_TOKENS)
+    for i, length in enumerate(lens):
+        live = min(max(int(length), 0), width)
+        token = _DFA_TOKENS[i % len(_DFA_TOKENS)] if i < exact else _DFA_TOKENS[i - exact]
+        if live and (i % 3 or i >= exact):
+            at = int(rng.integers(0, live)) if i % 2 and i < exact else 0
+            seg = token[: live - at]
+            values[i, at: at + len(seg)] = np.frombuffer(seg, dtype=np.uint8)
+    return np.ascontiguousarray(values), np.array(lens, dtype=np.int32)
+
+
+def non_invariant_tables():
+    """Hand-built DFAs whose PAD column changes acceptance (the compiler
+    never emits one), as ``CompiledDfa`` keyword arguments:
+
+    - parity: PAD toggles between a rejecting and an accepting state, so
+      the verdict hangs on how many PAD columns follow the record; ``a``
+      toggles too, ``x`` falls into a dead sink and ``y`` into an
+      absorbing accept that PAD sends to the sink;
+    - flu[vV]io whose PAD column sends its accepting state to the dead
+      state: a match survives only in a record at least as long as the row.
+    """
+    byte_class = np.zeros(256, dtype=np.int16)
+    byte_class[ord("a")], byte_class[ord("x")], byte_class[ord("y")] = 1, 2, 3
+    #                   other  a  x  y  EOS PAD
+    parity = np.array([[0, 1, 2, 3, 0, 1],   # 0: even, rejects
+                       [1, 0, 2, 3, 1, 0],   # 1: odd, accepts
+                       [2, 2, 2, 2, 2, 2],   # 2: dead sink
+                       [3, 3, 3, 3, 3, 2]],  # 3: absorbing accept, PAD -> sink
+                      dtype=np.int16)
+    from fluvio_tpu_torch.ops.regex_dfa import compile_regex
+
+    flu = compile_regex("flu[vV]io")
+    # PAD gets a column of its own (packed, it shares one with bytes)
+    table = np.concatenate([flu.table, flu.table[:, [flu.pad_class]]], axis=1)
+    table[flu.accept, -1] = flu.n_states - 1
+    return [
+        dict(table=parity, byte_class=byte_class, eos_class=4, pad_class=5,
+             accept=np.array([False, True, False, True]), start=0, pattern="parity"),
+        dict(table=table, byte_class=flu.byte_class.copy(), eos_class=flu.eos_class,
+             pad_class=flu.n_classes, accept=flu.accept.copy(), start=flu.start,
+             pattern="flu[vV]io, PAD kills the match"),
+    ]
 
 
 def _imported_modules(path: Path):
@@ -318,4 +392,36 @@ def test_redesigned_kernels_on_the_card():
             got = cuda_kernels.glz_decode(ll, ml, srcs, lits, comp.out_len, chunk, comp.depth)
             assert torch.equal(got, glz.decode_plain(ll, ml, srcs, lits, comp.out_len, chunk))
             assert torch.equal(got.cpu(), torch.from_numpy(raw.copy()))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_dfa_scan_redesign_on_the_card():
+    """The DFA scan kernel against its plain version on the cases of its
+    CPU spec: the compiled patterns (8 to 257 states, packed and unpacked)
+    and the hand-built tables whose PAD column changes acceptance (the
+    kernel's tail walk), at every edge length, at widths 1 to 64, on
+    16-byte aligned rows and on rows one byte off; a table the kernel does
+    not take raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.ops.regex_dfa import CompiledDfa, compile_regex
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, kernels
+
+    dfas = [compile_regex(p, packed=packed) for p, packed in DFA_SCAN_PATTERNS]
+    dfas += [CompiledDfa(**t) for t in non_invariant_tables()]
+    rng = np.random.default_rng(70)
+    for width in DFA_SCAN_WIDTHS:
+        values, lengths = dfa_scan_inputs(rng, width)
+        v, ln = torch.from_numpy(values).cuda(), torch.from_numpy(lengths).cuda()
+        buf = torch.zeros(values.size + 1, dtype=torch.uint8).cuda()
+        buf[1:] = v.reshape(-1)
+        for dfa in dfas:
+            for vv in (v, buf[1:].view(values.shape)):
+                assert torch.equal(cuda_kernels.dfa_match(vv, ln, dfa),
+                                   kernels.dfa_match(vv, ln, dfa)), (dfa.pattern[:24], width)
+    bad = CompiledDfa(**non_invariant_tables()[0])
+    bad.table[0, 0] = 9  # a state id past the table
+    with pytest.raises(ValueError):
+        cuda_kernels.dfa_match(v, ln, bad)
     torch.cuda.synchronize()
