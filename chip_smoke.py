@@ -89,7 +89,24 @@ Phases (any failure raises and the script exits non-zero):
    launched and the resolve not), and the
    ``regex-filter("flu[vV]io")`` -> ``json-map`` striped chain with the
    link on over 4 x 1,024 fat records, whose constant descriptors must
-   come back as tokens.
+   come back as tokens;
+9. the aggregate and array_map slice, each over 4 batches of 1,048,576
+   records through ``SmartEngine(device="cuda")`` and ``process_stream``,
+   every output value and offset against the DSL interpreter (running
+   sums continued across batches, and the carries after the last batch):
+   ``3_aggregate`` (``aggregate-field(field="n", combine="add")`` over the
+   bench JSON corpus; the JSON span and extract kernels launched every
+   batch), ``4_array_map`` (``array-map-json`` over ``gen_arrays``, ~6
+   elements a record; the chain starts at the default capacity, so its
+   first batches overflow and run again, which must happen) and
+   ``filter_aggregate`` (``regex-filter("fluvio")`` -> ``aggregate-field``,
+   bench config ``9_partitioned``'s chain on one partition); records/s,
+   output rows/s, link bytes, re-dispatches and the learned capacity;
+   then the device time and kernel launches of one call of each torch op
+   of the two stages the chains ran (``parse_int``, the scans,
+   ``json_array_bounds``, ``fanout_scatter``; torch.profiler, every
+   kernel of the call) at the shapes the chains gave them.
+   ``--slice-only`` builds the kernels and runs only this phase.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -105,6 +122,7 @@ beside it and reads the kernel names from its sources).
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import re
@@ -158,14 +176,12 @@ def log(msg: str) -> None:
 
 def gen_json(n: int, seed: int):
     """The bench corpus (`bench.gen_json`): ~half the names contain "fluvio"."""
-    rng = np.random.default_rng(seed)
-    names = ["fluvio", "kafka", "pulsar", "fluvio-tpu", "redpanda", "flink"]
-    picks = rng.integers(0, len(names), size=n)
-    nums = rng.integers(0, 100000, size=n)
-    return [
-        f'{{"name":"{names[picks[i]]}-{i & 1023}","n":{nums[i]}}}'.encode()
-        for i in range(n)
-    ]
+    return shared_cases().gen_json(n, seed)
+
+
+def gen_arrays(n: int, seed: int):
+    """The bench's JSON-array corpus (`bench.gen_arrays`): ~6 elements a record."""
+    return shared_cases().gen_arrays(n, seed)
 
 
 def adversarial(width: int):
@@ -261,8 +277,14 @@ def phase_kernels(dev, corpus: RecordBuffer):
     # is phase_json_span's)
     st, vl = cuda_kernels.json_get_span(v, ln, "name")
 
-    # 2. extract of the name field (json-regex-filter's byte-mode JsonGet)
+    # 2. extract of the name field (json-regex-filter's byte-mode JsonGet),
+    # and of the "n" field (the bytes 3_aggregate's ParseInt reads)
     rows.append(extract_row(v, st, vl))
+    st_n, vl_n = cuda_kernels.json_get_span(v, ln, "n")
+    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], require_equal(
+        "extract key n", cuda_kernels.extract_span(v, st_n, vl_n),
+        kernels.extract_span(v, st_n, vl_n)))
+    del st_n, vl_n
 
     # 3. DFA verdict: over the extracted names (the 22-state bench regex),
     # whole records, the 257-state DFA
@@ -275,12 +297,14 @@ def phase_kernels(dev, corpus: RecordBuffer):
     return rows
 
 
-def dfa_scan_cases():
-    """The DFA scan's case builders, shared with its tests: the patterns,
-    widths, edge-length rows and the hand-built tables whose PAD column
-    changes acceptance (``tests/test_torch_isolation.py``, free of jax)."""
+@functools.lru_cache(maxsize=None)
+def shared_cases():
+    """The case builders shared with the port's tests
+    (``tests/test_torch_isolation.py``, free of jax): the bench corpora,
+    and the DFA scan's patterns, widths, edge-length rows and the
+    hand-built tables whose PAD column changes acceptance."""
     path = Path(__file__).resolve().parent / "tests" / "test_torch_isolation.py"
-    spec = importlib.util.spec_from_file_location("dfa_scan_cases", path)
+    spec = importlib.util.spec_from_file_location("shared_cases", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -292,7 +316,7 @@ def dfa_scan_adversarial(dev, av, al):
     rows and on rows one byte off; for the compiled DFAs of every shape
     (the bench regex packed and unpacked, flu[vV]io, the 257-state DFA
     packed and unpacked) and the hand-built tables."""
-    cases = dfa_scan_cases()
+    cases = shared_cases()
     dfas = [compile_regex(p, packed=k)
             for p, k in cases.DFA_SCAN_PATTERNS + ((JSON_REGEX, False),)]
     dfas += [CompiledDfa(**t) for t in cases.non_invariant_tables()]
@@ -385,7 +409,7 @@ def dfa_scan_row(dev, corpus: RecordBuffer):
     del v, ln
     bv, bl = big_rows(N, corpus.width)
     bv, bl = torch.from_numpy(bv).to(dev), torch.from_numpy(bl).to(dev)
-    big = dfa_scan_cases().BIG_PATTERN
+    big = shared_cases().BIG_PATTERN
     for packed in (True, False):
         label = f"big_{'packed' if packed else 'unpacked'}"
         shapes[label] = dfa_scan_case(label, bv, bl, compile_regex(big, packed=packed))
@@ -531,7 +555,8 @@ def kernel_names(source: str, *only: str):
 
 def device_time(fn, names, reps: int = 20, by_kernel=None):
     """(ms, launches) of one ``fn()`` call: the device time of every kernel
-    named in ``names`` that the call runs, summed, and how many it launches,
+    named in ``names`` (None: every kernel and copy) that the call runs,
+    summed, and how many it launches,
     from torch.profiler's kernel records over ``reps`` calls (the wrapper's
     host time excluded); (None, None) where the profiler records none. The
     profiler drops a record now and then, so each kernel counts its mean
@@ -549,7 +574,7 @@ def device_time(fn, names, reps: int = 20, by_kernel=None):
             torch.cuda.synchronize()
         found = {}
         for ev in prof.key_averages():
-            name = next((n for n in names if n in ev.key), None)
+            name = ev.key if names is None else next((n for n in names if n in ev.key), None)
             if ev.device_type != DeviceType.CUDA or name is None or not ev.count:
                 continue
             us = (getattr(ev, "self_device_time_total", None)
@@ -687,6 +712,10 @@ def phase_json_span(dev, corpus: RecordBuffer):
     st, vl = cuda_kernels.json_get_span(v, ln, "name")
     err = max(err, require_equal("json_span", torch.stack([st, vl]),
                                  torch.stack(kernels.json_get_span(v, ln, "name"))))
+    # and the "n" field, 3_aggregate's JsonGet on the same corpus
+    err = max(err, require_equal("json_span key n",
+                                 torch.stack(cuda_kernels.json_get_span(v, ln, "n")),
+                                 torch.stack(kernels.json_get_span(v, ln, "n"))))
     call = lambda: cuda_kernels.json_get_span(v, ln, "name")  # noqa: E731
     ms, dev_ms, r_ms = time_ms(call), device_ms(call, narrow_names), run_ms(call)
     plain_ms = time_ms(lambda: kernels.json_get_span(v, ln, "name"), reps=3)
@@ -1465,6 +1494,154 @@ def phase_regex_chain():
     return launches, rate
 
 
+# the aggregate and array_map slice: bench configs 3_aggregate, 4_array_map
+# and 9_partitioned's chain on one partition
+SLICE_CHAINS = {
+    "3_aggregate": [("aggregate-field", {"field": "n", "combine": "add"})],
+    "4_array_map": [("array-map-json", {})],
+    "filter_aggregate": [("regex-filter", {"regex": "fluvio"}),
+                         ("aggregate-field", {"field": "n", "combine": "add"})],
+}
+SLICE_BATCHES = 4
+# the slice's torch code on the card (XLA code, not Pallas, in the JAX
+# package): the functions of `kernels` the two stages call
+SLICE_TORCH_OPS = ("parse_int", "int_to_ascii", "count_words", "segmented_scan",
+                   "propagate_last_valid", "last_true_value", "json_array_bounds",
+                   "split_bounds", "fanout_scatter")
+
+
+def slice_truth(name: str, corpora):
+    """Host truth of a slice chain over its batches, from the DSL
+    interpreter: per batch (output values, source offsets). The running
+    sums continue across batches and wrap as int64."""
+    outs = []
+    if name == "4_array_map":
+        for corpus in corpora:
+            vals, offs = [], []
+            for i, rec in enumerate(corpus):
+                elems = dsl.json_array_elements(rec)
+                vals += elems
+                offs += [i] * len(elems)
+            outs.append((vals, offs))
+        return outs
+    acc = 0
+    for corpus in corpora:
+        vals, offs = [], []
+        for i, rec in enumerate(corpus):
+            if name == "filter_aggregate" and b"fluvio" not in rec:
+                continue
+            acc += dsl.parse_int_prefix(dsl.json_get_bytes(rec, "n"))
+            acc = (acc + 2**63) % 2**64 - 2**63
+            vals.append(str(acc).encode())
+            offs.append(i)
+        outs.append((vals, offs))
+    return outs
+
+
+def capture_torch_ops(run):
+    """Run ``run()`` with each of `SLICE_TORCH_OPS` wrapped to keep the
+    arguments of its first call; returns {name: (function, arguments)} of
+    those the run called."""
+    originals = {n: getattr(kernels, n) for n in SLICE_TORCH_OPS}
+    seen = {}
+
+    def keep(name, fn):
+        def call(*args):
+            seen.setdefault(name, args)
+            return fn(*args)
+        return call
+
+    try:
+        for name, fn in originals.items():
+            setattr(kernels, name, keep(name, fn))
+        run()
+    finally:
+        for name, fn in originals.items():
+            setattr(kernels, name, fn)
+    return {name: (originals[name], args) for name, args in seen.items()}
+
+
+def phase_slice_chain(name: str, corpora):
+    """One slice chain over SLICE_BATCHES full batches through the user's
+    entry point, every output record against the interpreter. The chain
+    starts from the default explode capacity (its warm-up runs on another
+    instance), so 4_array_map's first batch overflows and runs again.
+    Returns (launches, the run's numbers, the torch ops' inputs)."""
+    specs = SLICE_CHAINS[name]
+    build_chain(specs).process_buffer(RecordBuffer.from_values(corpora[0][:4096]))  # warm-up
+    chain = build_chain(specs)
+    bufs = [RecordBuffer.from_values(c) for c in corpora]
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = list(chain.process_stream(bufs))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    if name != "4_array_map" and min(launches["json_span"], launches["extract"]) < len(corpora):
+        raise AssertionError(f"{name}: json_span and extract not launched every batch: {launches}")
+
+    t_truth = time.perf_counter()
+    truth = slice_truth(name, corpora)
+    for k, ((vals, offs), out) in enumerate(zip(truth, outs)):
+        if out.count != len(vals) or out.value_list() != vals:
+            got = out.value_list()
+            first = next((i for i, (a, b) in enumerate(zip(got, vals)) if a != b),
+                         min(len(got), len(vals)))
+            raise AssertionError(f"{name} batch {k}: differs from the interpreter at output "
+                                 f"{first} ({out.count} vs {len(vals)} outputs)")
+        want_off = np.zeros(len(offs), np.int32) if name == "4_array_map" else np.array(offs)
+        if not np.array_equal(out.offset_deltas[: out.count], want_off):
+            raise AssertionError(f"{name} batch {k}: offsets differ from the interpreter's")
+        if (out.key_lengths[: out.count] != -1).any():
+            raise AssertionError(f"{name} batch {k}: keys on keyless records")
+    truth_s = time.perf_counter() - t_truth
+    chain._ensure_host_state()
+    if name != "4_array_map" and chain.carries != [(int(truth[-1][0][-1]), 0, True)]:
+        raise AssertionError(f"{name}: carries {chain.carries} are not the last running sum")
+    n_in = len(corpora) * len(corpora[0])
+    n_out = sum(o.count for o in outs)
+    numbers = {"records_per_s": n_in / elapsed, "output_rows_per_s": n_out / elapsed,
+               "output_rows": n_out, "seconds": elapsed, "carries": chain.carries,
+               "redispatches": chain.redispatches, "cap_ratio": chain._cap_ratio,
+               "link_counts": dict(chain.link_counts), "truth_s": truth_s}
+    if name == "4_array_map" and chain.redispatches < 1:
+        raise AssertionError("4_array_map: the first batch did not overflow the default capacity")
+    log(f"slice chain {name}: {len(corpora)} x {len(corpora[0])} records in {elapsed:.3f} s = "
+        f"{numbers['records_per_s']:.0f} records/s, {numbers['output_rows_per_s']:.0f} output "
+        f"rows/s; every output equal to the interpreter ({n_out} rows; truth {truth_s:.1f} s); "
+        f"carries {chain.carries}; re-dispatches {chain.redispatches}, learned ratio "
+        f"{chain._cap_ratio:.4f}; H2D {chain.link_counts['h2d_bytes']} B, D2H "
+        f"{chain.link_counts['d2h_bytes']} B; launches {launches}")
+    ops = capture_torch_ops(lambda: chain.process_buffer(RecordBuffer.from_values(corpora[0])))
+    return launches, numbers, ops
+
+
+def phase_slice(json_corpora):
+    """Every slice chain (`gen_json` batches for the aggregates, `gen_arrays`
+    for the explode), then the device time of the torch ops they ran.
+    Returns ({chain: numbers, launches included}, torch op rows)."""
+    numbers, captured = {}, {}
+    array_corpora = [gen_arrays(N, seed=200 + k) for k in range(SLICE_BATCHES)]
+    for name in SLICE_CHAINS:
+        launches, numbers[name], captured[name] = phase_slice_chain(
+            name, array_corpora if name == "4_array_map" else json_corpora)
+        numbers[name]["launches"] = launches
+    return numbers, torch_op_rows(captured)
+
+
+def torch_op_rows(captured):
+    """Device time and kernel launches of one call of each slice torch op
+    at the main path's shapes (torch.profiler, every kernel of the call)."""
+    rows = []
+    for chain_name, ops in captured.items():
+        for op, (fn, args) in ops.items():
+            ms, launches = device_time(lambda: fn(*args), None, reps=5)
+            rows.append({"op": op, "chain": chain_name, "device_ms": ms, "launches": launches})
+            log(f"torch op {op} ({chain_name}): device {ms} ms, {launches} kernel launches a call")
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -1476,6 +1653,9 @@ def main(argv=None) -> int:
     parser.add_argument("--dfa-scan-only", action="store_true",
                         help="build the kernels and run only the DFA scan's checks and its "
                              "shapes (a)-(c) (no chains, no ok line)")
+    parser.add_argument("--slice-only", action="store_true",
+                        help="build the kernels and run only the aggregate and array_map "
+                             "chains (phase 9) and their torch ops' times (no ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1514,6 +1694,11 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"dfa_scan_rows": [row]}))
         return 0
+    if args.slice_only:
+        numbers, ops = phase_slice([gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)])
+        print(smi)
+        print(json.dumps({"slice_chains": numbers, "slice_torch_ops": ops}))
+        return 0
     narrow, striped = phase_json_span(dev, corpus)
     if args.json_only:
         print(smi)
@@ -1530,7 +1715,11 @@ def main(argv=None) -> int:
     st_launches, st_rates = phase_striped_chains()
     glz_launches, glz_rates = phase_glz_chains(corpora, head_rate,
                                                head_chain.link_counts["h2d_bytes"])
-    paths = (head_launches, jr_launches, rf_launches, st_launches, glz_launches)
+    slice_numbers, torch_ops = phase_slice(corpora[:SLICE_BATCHES])
+    for r in rows:
+        r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in slice_numbers.items()}
+    slice_launches = [v["launches"] for v in slice_numbers.values()]
+    paths = (head_launches, jr_launches, rf_launches, st_launches, glz_launches, *slice_launches)
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
         if r.get("main_path", True) and r["launches"] <= 0:
@@ -1542,7 +1731,9 @@ def main(argv=None) -> int:
                     "flu_regex_json_map_records_per_s": rf_rate,
                     "striped": st_rates,
                     "glz": glz_rates,
+                    "slice_chains": slice_numbers,
                     "build_seconds": KERNELS.build_seconds}))
+    log(json.dumps({"slice_torch_ops": torch_ops, "device": smi}))
     print(smi)
     key_order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -10,6 +10,8 @@ from typing import Dict
 @dataclass
 class SmartModuleConfig:
     """Per-module invocation config within a chain: the ``params`` that
-    ``@param:`` references resolve against."""
+    ``@param:`` references resolve against, and an aggregate's accumulator
+    seed (``initial_data``, read with `dsl.parse_int_prefix`)."""
 
     params: Dict[str, str] = field(default_factory=dict)
+    initial_data: bytes = b""

@@ -82,9 +82,7 @@ class SmartModuleChainBuilder:
         """Lower the chain for the engine's device and return it (call
         ``process_buffer`` / ``process_stream`` on the result); raises
         :class:`EngineError` when a module has no lowerable DSL program
-        (there is no interpreter to fall back to) and
-        :class:`~fluvio_tpu_torch.smartengine.gpu.executor.GpuSpill` for
-        transform kinds the port does not run yet. With the glz link on,
+        (there is no interpreter to fall back to). With the glz link on,
         the host compressor library must build, or this raises
         :class:`EngineError` (no batch ships raw in its place)."""
         device = torch.device(self.engine.device)

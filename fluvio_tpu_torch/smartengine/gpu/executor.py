@@ -1,8 +1,8 @@
 """Fused GPU chain executor — the narrow ragged path.
 
 The port's counterpart of ``fluvio_tpu/smartengine/tpu/executor.py``
-(`TpuChainExecutor`) for filter, map and filter_map chains over records
-that fit the narrow layout (one row per record):
+(`TpuChainExecutor`) for filter, map, filter_map, array_map and aggregate
+chains over records that fit the narrow layout (one row per record):
 
 1. the host stages a batch's values as 4-aligned ragged bytes (i32 words)
    plus the columns the card cannot derive (`_stage_flat`,
@@ -11,13 +11,21 @@ that fit the narrow layout (one row per record):
    `derived_meta_columns` synthesizes the rest;
 3. the stages update a lazy validity mask (filters) and rewrite the value
    column (maps) — span maps only track (start, length) views, and the
-   span bytes are materialized only if a later stage reads them;
+   span bytes are materialized only if a later stage reads them; an
+   array_map stage explodes each record into ``fanout_cap`` output rows
+   (views of its source record, `_ArrayMapStage`), and an aggregate stage
+   runs a segmented scan seeded by its carry, which stays on the card
+   from batch to batch (`_AggregateStage`, `_device_carries`);
 4. results compact on the card: filter-only chains ship a 1-bit survivor
-   mask, view chains (start, length) descriptors, byte-mode chains the
-   compacted columns; all copies start at dispatch and land in pinned
+   mask, view chains (start, length) descriptors, byte-mode chains (an
+   aggregate's decimals are rendered on the card) the compacted columns;
+   explode chains ship each output row's source row in place of the
+   mask; the header and mask copies start at dispatch and land in pinned
    host memory;
 5. the host rebuilds the output buffer (`_materialize_view_flat`,
-   `_assemble`).
+   `_fetch_bytes`, `_assemble`). An explode whose rows overflow the
+   capacity runs again at the exact (bucketed) count from the batch's
+   own carries, and the learned capacity grows.
 
 Batches wider than the narrow layout (`StripeParams.threshold`) take the
 striped path (`_dispatch_striped`, the reference's `_chain_fn_striped`):
@@ -34,15 +42,16 @@ are smaller than the raw columns. `link_counts` counts which form each
 batch took, the declines by reason and the bytes each way.
 
 What the port does not cover raises :class:`GpuSpill` instead of running
-anywhere else: wide batches of a chain with no striped lowering, and
-aggregate, array_map and windowed stages.
+anywhere else: wide batches of a chain with no striped lowering (every
+aggregate and array_map chain among them), and a batch whose explode
+meets a record that is no JSON array (``transform-error``).
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,14 +76,31 @@ from fluvio_tpu_torch.smartmodule import dsl
 from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
 
 
+# canned aggregate kinds -> their combine monoid
+_AGG_OP = {
+    "sum_int": "add",
+    "count": "add",
+    "word_count": "add",
+    "max_int": "max",
+    "min_int": "min",
+}
+_AGG_NEUTRAL = {op: neutral for op, (neutral, _) in kernels._AGG_OPS.items()}
+
+
 class GpuSpill(Exception):
     """The chain or batch is outside what the GPU port runs (the
     counterpart of the reference's ``TpuSpill``). ``reason`` is a short
-    stable key."""
+    stable key. The port reruns nothing elsewhere: the caller decides."""
 
     def __init__(self, message: str, reason: str):
         super().__init__(message)
         self.reason = reason
+
+
+class _FanoutOverflow(Exception):
+    def __init__(self, total: int):
+        super().__init__(f"fanout total {total} exceeded capacity")
+        self.total = total
 
 
 class _Deferred:
@@ -82,6 +108,19 @@ class _Deferred:
 
     def __init__(self, fn: Callable[[], torch.Tensor]):
         self.fn = fn
+
+
+def _deferred_pair(fn: Callable[[], Tuple[torch.Tensor, torch.Tensor]]):
+    """Two deferred columns from one call of ``fn``, made at most once
+    (a rendering's values and lengths)."""
+    made: List = []
+
+    def part(i: int) -> torch.Tensor:
+        if not made:
+            made.append(fn())
+        return made[0][i]
+
+    return _Deferred(lambda: part(0)), _Deferred(lambda: part(1).to(torch.int32))
 
 
 class _State(dict):
@@ -98,14 +137,28 @@ class _State(dict):
         return _State(self)
 
 
+@dataclass(frozen=True)
+class _Carry:
+    """One aggregate's running state on the card, 0-d tensors: the
+    accumulator (i64), the window it belongs to (i64) and whether any
+    record has reached it (bool)."""
+
+    acc: torch.Tensor
+    win: torch.Tensor
+    has: torch.Tensor
+
+
+Carries = Tuple[_Carry, ...]
+
+
 @dataclass
 class _FilterStage:
     predicate: Callable
 
-    def apply(self, state: _State) -> _State:
+    def apply(self, state: _State, carries: Carries, base_ts: int, ctx: Dict):
         state = state.copy()
         state["valid"] = state["valid"] & self.predicate(state)
-        return state
+        return state, carries
 
 
 @dataclass
@@ -116,7 +169,7 @@ class _MapStage:
     span_fn: Optional[Callable] = None  # value is a view of current values
     span_postops: Tuple[str, ...] = ()  # static byte-wise folds on the view
 
-    def apply(self, state: _State) -> _State:
+    def apply(self, state: _State, carries: Carries, base_ts: int, ctx: Dict):
         new_state = state.copy()
         if self.predicate is not None:
             new_state["valid"] = state["valid"] & self.predicate(state)
@@ -138,7 +191,131 @@ class _MapStage:
         if self.key_fn is not None:
             kv, kl = self.key_fn(state)
             new_state["keys"], new_state["key_lengths"] = kv, kl.to(torch.int32)
-        return new_state
+        return new_state, carries
+
+
+@dataclass
+class _ArrayMapStage:
+    """Fan-out explode (transform kind array_map). Every output element is
+    a substring of its source record, so the stage places (source row,
+    start, length) descriptors in ``ctx["fanout_cap"]`` rows; the view
+    start and source row compose through it. The element bytes, keys and
+    key lengths are deferred: nothing gathers a ``[cap, W]`` matrix (or
+    runs the extract kernel over it) unless a later stage or the output
+    reads it. Offset and timestamp deltas are fresh zeros: the host gives
+    every output row its source record's key and zero deltas."""
+
+    mode: str  # "json_array" | "split"
+    sep: bytes
+
+    def apply(self, state: _State, carries: Carries, base_ts: int, ctx: Dict):
+        cap = ctx["fanout_cap"]
+        values, lengths, valid = state["values"], state["lengths"], state["valid"]
+        n = lengths.shape[0]
+        if self.mode == "json_array":
+            flag, sg, lg, ff, fs, fl, err = kernels.json_array_bounds(values, lengths)
+        else:
+            flag, sg, lg, ff, fs, fl, err = kernels.split_bounds(values, lengths, self.sep)
+        err_v = err & valid
+        # first-error masking: the failing record and every later one
+        # contribute nothing; the fetch raises for the whole batch
+        ridx = torch.arange(n, dtype=torch.int32, device=valid.device)
+        first_err = torch.where(err_v, ridx, n).min()
+        total, local_row, rel_start, elen = kernels.fanout_scatter(
+            flag, sg, lg, ff, fs, fl, valid & (ridx < first_err), cap
+        )
+        del flag, sg, lg  # the [N, W] grids die here
+        lr = local_row.clamp(0, n - 1).to(torch.int64)
+        keys, key_lengths = state["keys"], state["key_lengths"]
+        new_state = _State()
+        new_state["valid"] = (torch.arange(cap, dtype=torch.int32, device=valid.device)
+                              < total.clamp(max=cap))
+        new_state["view_start"] = state["view_start"][lr] + rel_start
+        new_state["src_row"] = state["src_row"][lr]
+        new_state["lengths"] = elen
+        new_state["values"] = _Deferred(lambda: materialize_span(values[lr], rel_start, elen))
+        new_state["keys"] = _Deferred(lambda: keys[lr])
+        new_state["key_lengths"] = _Deferred(lambda: key_lengths[lr])
+        new_state["offset_deltas"] = torch.zeros(
+            (cap,), dtype=state["offset_deltas"].dtype, device=valid.device)
+        new_state["timestamp_deltas"] = torch.zeros(
+            (cap,), dtype=state["timestamp_deltas"].dtype, device=valid.device)
+        new_state["fan_total"] = total
+        new_state["fan_err"] = err_v.any()
+        return new_state, carries
+
+
+def _canned_contribution(kind: str) -> Callable:
+    """The classic reductions as contribution functions: prebuilt
+    instances of the general (contribution, combine monoid) form."""
+    if kind in ("sum_int", "max_int", "min_int"):
+        return lambda s: kernels.parse_int(s["values"], s["lengths"])
+    if kind == "count":
+        return lambda s: torch.ones(s["lengths"].shape[0], dtype=torch.int64,
+                                    device=s["lengths"].device)
+    if kind == "word_count":
+        return lambda s: kernels.count_words(s["values"], s["lengths"])
+    raise Unlowerable(f"aggregate kind {kind}")
+
+
+@dataclass
+class _AggregateStage:
+    """Running aggregate (transform kind aggregate): each record's output
+    value is the accumulator after it, in decimal. With ``window_ms`` the
+    accumulator restarts at every tumbling window and each output's key
+    is its window's start.
+
+    The carry enters as a virtual row 0 ahead of the batch, so a
+    segmented scan over ``[carry] + records`` continues it; a record
+    starts a new segment where no earlier row was valid or its window
+    differs from the last valid row's. The decimal rendering (and the
+    window keys') is deferred until a later stage or the fetch reads it."""
+
+    op: str  # combine monoid: "add" | "max" | "min"
+    window_ms: Optional[int]
+    index: int  # carry slot
+    contribution_fn: Callable  # state -> i64[N] per-record contribution
+
+    def apply(self, state: _State, carries: Carries, base_ts: int, ctx: Dict):
+        carry = carries[self.index]
+        valid = state["valid"]
+        neutral = _AGG_NEUTRAL[self.op]
+        xm = torch.where(valid, self.contribution_fn(state).to(torch.int64), neutral)
+        n = xm.shape[0]
+        dev = xm.device
+        if self.window_ms:
+            if base_ts < 0:
+                ts = torch.zeros((n,), dtype=torch.int64, device=dev)
+            else:
+                ts = (base_ts + state["timestamp_deltas"].to(torch.int64)).clamp(min=0)
+            w = ts - ts % self.window_ms
+        else:
+            w = torch.zeros((n,), dtype=torch.int64, device=dev)
+
+        x_all = torch.cat([torch.where(carry.has, carry.acc, neutral)[None], xm])
+        w_all = torch.cat([carry.win[None], w])
+        valid_all = torch.cat([carry.has[None], valid])
+        prevw_incl, prevhas_incl = kernels.propagate_last_valid(w_all, valid_all)
+        prevw = torch.cat([prevw_incl.new_zeros(1), prevw_incl[:-1]])
+        prevhas = torch.cat([prevhas_incl.new_zeros(1), prevhas_incl[:-1]])
+        reset_all = valid_all & (~prevhas | (w_all != prevw))
+        scan = kernels.segmented_scan(x_all, reset_all, self.op)
+        out_vals = scan[1:]
+
+        new_carry = _Carry(
+            acc=kernels.last_true_value(valid_all, scan, carry.acc),
+            win=kernels.last_true_value(valid_all, w_all, carry.win),
+            has=carry.has | valid.any(),
+        )
+        new_state = state.copy()
+        new_state["values"], new_state["lengths"] = _deferred_pair(
+            lambda: kernels.int_to_ascii(out_vals))
+        if self.window_ms:
+            new_state["keys"], new_state["key_lengths"] = _deferred_pair(
+                lambda: kernels.int_to_ascii(w))
+        new_carries = list(carries)
+        new_carries[self.index] = new_carry
+        return new_state, tuple(new_carries)
 
 
 def ragged_repad_words(flat: torch.Tensor, lengths: torch.Tensor, width: int):
@@ -220,15 +397,24 @@ class _Fetch:
     """Device -> host copies started at dispatch: pinned host tensors plus
     the event that marks them complete (None on the CPU)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, prev_carries: Carries = (), cap: int = 0):
         self.cuda = device.type == "cuda"
         self.host: Dict[str, torch.Tensor] = {}
         self.event = None
+        # the aggregate carries the batch started from (restored when its
+        # fetch fails or its explode re-dispatches) and its explode capacity
+        self.prev_carries = prev_carries
+        self.cap = cap
         # survivors are whole input records: the mask is the whole download
         self.whole_records = False
         # byte mode: compacted (values, lengths, keys, key_lengths) left on
         # the card until the header says how much of them to download
         self.byte_cols: Optional[Tuple[torch.Tensor, ...]] = None
+        # explode chains: the compacted source-row column and its deltas
+        # (the header's probe picks the download), and the staged inputs,
+        # which an overflow re-runs at a larger capacity
+        self.src_col: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.arrays: Optional[Dict[str, torch.Tensor]] = None
         # down link: the raw descriptor columns and the glz tokens of their
         # stream, left on the card until "down_meta" says which is smaller
         self.down: Optional[Tuple] = None
@@ -330,6 +516,25 @@ def desc_split(desc: np.ndarray, count: int, width: int):
     return st, ln.astype(np.int32)
 
 
+# header columns: survivor count, longest value, longest key, explode
+# error, explode total; the delta probes of `_delta_probe` follow
+_HEADER = 5
+
+
+def _delta_probe(col: torch.Tensor, count: torch.Tensor):
+    """A compacted int column's deltas for a narrow download: (deltas,
+    [min delta, max delta, first value]). ``d[0]`` is 0 and the rows past
+    ``count`` are 0, so ``col[i] = col[0] + cumsum(d)[i]`` (int64,
+    wrapping) for the live rows. The probe rides the header: its three
+    scalars say, per batch, whether every delta fits a byte
+    (`_download_src`)."""
+    n = col.shape[0]
+    d = col - torch.cat([col[:1], col[:-1]])
+    d = torch.where(torch.arange(n, device=col.device) < count, d, 0)
+    d[0] = 0
+    return d, [d.min(), d.max(), col[0]]
+
+
 def _link_counts() -> Dict[str, int]:
     return {
         "raw": 0, "glz": 0, "down-glz": 0, "down-packed": 0,
@@ -339,12 +544,13 @@ def _link_counts() -> Dict[str, int]:
 
 
 class GpuChainExecutor:
-    """A compiled filter/map chain over one torch device."""
+    """A compiled chain over one torch device, with its aggregate state."""
 
     def __init__(
         self, stages: List, device: torch.device, programs: Tuple = (),
         stripe_params: Optional[stripes.StripeParams] = None,
         link_params: Optional[glz.LinkParams] = None,
+        agg_configs: Sequence[Tuple[str, Optional[int], bytes]] = (),
     ):
         self.stages = stages
         self.device = device
@@ -356,12 +562,27 @@ class GpuChainExecutor:
         self.link_counts = _link_counts()
         self._striped: Optional[stripes.StripedChain] = None
         self._striped_tried = False
-        self._writes_keys = any(isinstance(s, _MapStage) and s.key_fn is not None for s in stages)
+        # one (combine op, window_ms, initial_data) row per aggregate stage;
+        # the carries live on the card from batch to batch
+        # (`_device_carries`) and reach the host list `carries` only when a
+        # caller asks (`_ensure_host_state`)
+        self.agg_configs = tuple(agg_configs)
+        self.carries: List[Tuple[int, int, bool]] = self.initial_carries()
+        self._device_carries: Optional[Carries] = None
+        self._fanout = any(isinstance(s, _ArrayMapStage) for s in stages)
+        self._cap_ratio = 0.0  # learned explode elements per source row
+        self.redispatches = 0  # explode batches run again after an overflow
+        self._writes_keys = any(
+            (isinstance(s, _MapStage) and s.key_fn is not None)
+            or (isinstance(s, _AggregateStage) and s.window_ms)
+            for s in stages
+        )
         # late materialization: every value-writing stage is a view of the
-        # record's own bytes, so the card ships descriptors and the host
-        # rebuilds output bytes from the slab it already holds
-        self._viewable = all(
-            isinstance(s, _FilterStage)
+        # record's own bytes (explode elements are), so the card ships
+        # descriptors and the host rebuilds output bytes from the slab it
+        # already holds
+        self._viewable = not self.agg_configs and all(
+            isinstance(s, (_FilterStage, _ArrayMapStage))
             or (isinstance(s, _MapStage) and s.span_fn is not None and s.key_fn is None)
             for s in stages
         )
@@ -384,12 +605,15 @@ class GpuChainExecutor:
         link_params: Optional[glz.LinkParams] = None,
     ) -> Optional["GpuChainExecutor"]:
         """Lower a chain of DSL modules; None when a program is missing or
-        outside the lowerable subset, :class:`GpuSpill` for the transform
-        kinds the port does not run yet."""
+        outside the lowerable subset (as the reference's rules decide: one
+        array_map a chain, in mode ``json_array`` or ``split``; no windowed
+        aggregate after an array_map; an aggregate's combine among
+        ``dsl.AGGREGATE_COMBINES`` and its contribution an int)."""
         if not entries:
             return None
         stages: List = []
         programs: List = []
+        agg_configs: List[Tuple[str, Optional[int], bytes]] = []
         try:
             for module, config in entries:
                 prog = module.dsl_program(module.transform_kind())
@@ -417,15 +641,81 @@ class GpuChainExecutor:
                         )
                     )
                 elif isinstance(prog, dsl.AggregateProgram):
-                    kind = "windowed" if prog.window_ms else "aggregate"
-                    raise GpuSpill(f"{kind} stages are not ported yet", reason=f"{kind}-unported")
+                    if prog.window_ms and any(isinstance(s, _ArrayMapStage) for s in stages):
+                        # explode rows carry fresh (zero) timestamps: no window key
+                        raise Unlowerable("windowed aggregate after array_map")
+                    if prog.contribution is not None:
+                        if prog.combine not in dsl.AGGREGATE_COMBINES:
+                            raise Unlowerable(f"aggregate combine {prog.combine}")
+                        if infer_type(prog.contribution) != "int":
+                            raise Unlowerable("aggregate contribution must be int-typed")
+                        op, contribution_fn = prog.combine, lower_expr(prog.contribution)
+                    else:
+                        if prog.kind not in _AGG_OP:
+                            raise Unlowerable(f"aggregate kind {prog.kind}")
+                        op, contribution_fn = _AGG_OP[prog.kind], _canned_contribution(prog.kind)
+                    stages.append(_AggregateStage(op, prog.window_ms or None, len(agg_configs),
+                                                  contribution_fn))
+                    agg_configs.append((op, prog.window_ms or None, config.initial_data))
                 elif isinstance(prog, dsl.ArrayMapProgram):
-                    raise GpuSpill("array_map stages are not ported yet", reason="array-map-unported")
+                    if prog.mode not in ("json_array", "split"):
+                        raise Unlowerable(f"array_map mode {prog.mode}")
+                    if any(isinstance(s, _ArrayMapStage) for s in stages):
+                        raise Unlowerable("one array_map per fused chain")
+                    stages.append(_ArrayMapStage(mode=prog.mode, sep=prog.sep))
                 else:
                     return None
         except (Unlowerable, KeyError):
             return None
-        return cls(stages, device, programs, stripe_params, link_params)
+        return cls(stages, device, programs, stripe_params, link_params, agg_configs)
+
+    # -- aggregate state ----------------------------------------------------
+
+    def initial_carries(self) -> List[Tuple[int, int, bool]]:
+        """The chain's starting aggregate state, (accumulator, window, has)
+        per aggregate: ``initial_data`` seeds an unwindowed accumulator
+        (`dsl.parse_int_prefix`), a windowed one starts empty."""
+        out: List[Tuple[int, int, bool]] = []
+        for op, window_ms, initial in self.agg_configs:
+            neutral = _AGG_NEUTRAL[op]
+            if window_ms:
+                out.append((neutral, 0, False))
+            else:
+                out.append((dsl.parse_int_prefix(initial) if initial else neutral, 0, True))
+        return out
+
+    def _carries_in(self) -> Carries:
+        """The carries the next batch starts from, on the card: the last
+        dispatch's, else the host list's."""
+        if self._device_carries is None:
+            self._device_carries = tuple(
+                _Carry(
+                    acc=torch.tensor(acc, dtype=torch.int64, device=self.device),
+                    win=torch.tensor(win, dtype=torch.int64, device=self.device),
+                    has=torch.tensor(has, dtype=torch.bool, device=self.device),
+                )
+                for acc, win, has in self.carries
+            )
+        return self._device_carries
+
+    def _ensure_host_state(self) -> None:
+        """Copy the card's carries to the host list ``carries`` (the one
+        synchronisation the aggregate state costs, on demand)."""
+        if self._device_carries is None:
+            return
+        self.carries = [(int(c.acc), int(c.win), bool(c.has)) for c in self._device_carries]
+
+    def _fanout_cap(self, buf: RecordBuffer) -> int:
+        """Explode capacity for this batch: the learned elements-per-row
+        ratio (at least 4) times the batch's rows, bucketed."""
+        if not self._fanout:
+            return 0
+        ratio = max(self._cap_ratio, 4.0)
+        return _bucket_rows(max(int(ratio * buf.rows), 1024), 1024)
+
+    def _learn_cap(self, buf: RecordBuffer, total: int) -> None:
+        # 25% headroom over the observed density
+        self._cap_ratio = max(self._cap_ratio, 1.25 * total / max(buf.rows, 1))
 
     def _striped_chain(self) -> Optional[stripes.StripedChain]:
         """The chain's striped lowering, built on first need; None when a
@@ -446,53 +736,74 @@ class GpuChainExecutor:
 
     # -- on the card -----------------------------------------------------------
 
-    def _run(self, arrays: Dict[str, torch.Tensor], count: int, fetch: _Fetch) -> None:
-        """Chain body: run the stages, compact the results and start their
-        copies to the host."""
+    def _run(self, arrays: Dict[str, torch.Tensor], count: int, base_ts: int,
+             fetch: _Fetch) -> None:
+        """Chain body: run the stages from the batch's carries, compact the
+        results and start their copies to the host."""
         n = arrays["lengths"].shape[0]
         state = _State(arrays)
         state["valid"] = torch.arange(n, device=self.device) < count
         state["view_start"] = torch.zeros((n,), dtype=torch.int32, device=self.device)
+        state["src_row"] = torch.arange(n, dtype=torch.int32, device=self.device)
+        carries = fetch.prev_carries
+        ctx = {"fanout_cap": fetch.cap}
         for stage in self.stages:
-            state = stage.apply(state)
+            state, carries = stage.apply(state, carries, base_ts, ctx)
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        fan = [state["fan_err"], state["fan_total"]] if self._fanout else [zero, zero]
         valid = state["valid"]
-        lengths = state["lengths"]
         if self._identity_view:
-            self._ship_views(fetch, valid, lengths)
-            return
-        if self._viewable:
+            self._ship_views(fetch, valid, state["lengths"])
+        elif self._viewable:
             width = arrays["values"].shape[1]
-            self._ship_views(fetch, valid, lengths, state["view_start"], _narrow_dtype(width), width)
-            return
-        fetch.start("mask", kernels.pack_mask(valid))
-        out_count, (vals, lens, keys, klens) = kernels.compact_rows(
-            valid, state["values"], lengths, state["keys"], state["key_lengths"]
-        )
-        fetch.start(
-            "header",
-            torch.stack([out_count.to(torch.int64), lens.max().to(torch.int64),
-                         klens.max().to(torch.int64)]),
-        )
-        fetch.byte_cols = (vals, lens, keys, klens)
+            self._ship_views(fetch, valid, state["lengths"], state["view_start"],
+                             _narrow_dtype(width), width, fan,
+                             state["src_row"] if self._fanout else None)
+        else:
+            self._ship_bytes(fetch, state, fan)
+        # the next dispatch continues from here; a failed fetch restores
+        # `fetch.prev_carries`
+        self._device_carries = carries
+
+    @staticmethod
+    def _header(out_count, max_v, max_k, fan=(), probes=()) -> torch.Tensor:
+        zero = torch.zeros((), dtype=torch.int64, device=out_count.device)
+        fan = list(fan) or [zero, zero]
+        return torch.stack([t.to(torch.int64)
+                            for t in [out_count, max_v, max_k, *fan, *probes]])
+
+    def _ship_src(self, fetch: _Fetch, src_c: torch.Tensor, out_count) -> List:
+        """Keep an explode's compacted source rows on the card beside their
+        deltas; returns the probe for the header."""
+        d, probe = _delta_probe(src_c, out_count)
+        fetch.src_col = (src_c, d)
+        return probe
 
     def _ship_views(self, fetch: _Fetch, valid, lengths, view_start=None,
                     desc_dtype: torch.dtype = torch.int32,
-                    desc_width: int = MAX_RECORD_WIDTH) -> None:
-        """Start the downloads of a view-mode result: the survivor mask and,
-        when the outputs are sub-record views (``view_start`` given), the
-        compacted (start, length) descriptors in ``desc_dtype``. With the
-        down link on, the descriptors instead stay on the card beside the
-        glz tokens of their stream (field widths from ``desc_width``) until
-        the fetch picks the smaller download."""
+                    desc_width: int = MAX_RECORD_WIDTH, fan=(), src_row=None) -> None:
+        """Start the downloads of a view-mode result: the survivor mask (an
+        explode ships its source rows instead, ``src_row``) and, when the
+        outputs are sub-record views (``view_start`` given), the compacted
+        (start, length) descriptors in ``desc_dtype``. With the down link
+        on, the descriptors instead stay on the card beside the glz tokens
+        of their stream (field widths from ``desc_width``) until the fetch
+        picks the smaller download."""
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
-        fetch.start("mask", kernels.pack_mask(valid))
         if view_start is None:
+            fetch.start("mask", kernels.pack_mask(valid))
             fetch.whole_records = True
-            mx = torch.where(valid, lengths, 0).max().to(torch.int64)
-            fetch.start("header", torch.stack([valid.sum(), mx, zero]))
+            mx = torch.where(valid, lengths, 0).max()
+            fetch.start("header", self._header(valid.sum(), mx, zero, fan))
             return
-        out_count, (st, ln) = kernels.compact_rows(valid, view_start, lengths)
-        fetch.start("header", torch.stack([out_count.to(torch.int64), ln.max().to(torch.int64), zero]))
+        probes = []
+        if src_row is None:
+            fetch.start("mask", kernels.pack_mask(valid))
+            out_count, (st, ln) = kernels.compact_rows(valid, view_start, lengths)
+        else:
+            out_count, (st, ln, src_c) = kernels.compact_rows(valid, view_start, lengths, src_row)
+            probes = self._ship_src(fetch, src_c, out_count)
+        fetch.start("header", self._header(out_count, ln.max(), zero, fan, probes))
         if not self.link.result_compress:
             fetch.start("span_start", st.to(desc_dtype))
             fetch.start("span_len", ln.to(desc_dtype))
@@ -502,6 +813,23 @@ class GpuChainExecutor:
         )
         fetch.start("down_meta", torch.stack([n_seq, n_lit, depth]).to(torch.int32))
         fetch.down = (st.to(desc_dtype), ln.to(desc_dtype), ll, ml, srcs, lits, desc_width)
+
+    def _ship_bytes(self, fetch: _Fetch, state: _State, fan) -> None:
+        """Byte mode: the compacted value and key columns stay on the card
+        until the header says how much of them to download; the survivor
+        mask, or an explode's source rows, identify each output's record."""
+        valid = state["valid"]
+        cols = [state["values"], state["lengths"], state["keys"], state["key_lengths"]]
+        probes = []
+        if self._fanout:
+            out_count, compacted = kernels.compact_rows(valid, *cols, state["src_row"])
+            probes = self._ship_src(fetch, compacted[4], out_count)
+        else:
+            fetch.start("mask", kernels.pack_mask(valid))
+            out_count, compacted = kernels.compact_rows(valid, *cols)
+        vals, lens, keys, klens = compacted[:4]
+        fetch.start("header", self._header(out_count, lens.max(), klens.max(), fan, probes))
+        fetch.byte_cols = (vals, lens, keys, klens)
 
     # -- staging ---------------------------------------------------------------
 
@@ -573,13 +901,28 @@ class GpuChainExecutor:
                     reason="record-too-wide-unstripeable",
                 )
             return self._dispatch_striped(buf)
+        return self._dispatch_narrow(buf)
+
+    def _dispatch_narrow(self, buf: RecordBuffer) -> _Fetch:
+        """The narrow path's phase 1. An explode chain's fetch keeps the
+        staged inputs for an overflow's re-run (`_rerun`)."""
         flat_up = self._stage_flat(buf)
         lengths_up, has_keys, has_offsets, ts_mode, ts_np = stage_link_columns(buf)
         values, lengths = ragged_repad_words(flat_up, self._upload(lengths_up), buf.width)
         arrays = self._meta_arrays(buf, lengths.shape[0], has_keys, has_offsets, ts_mode, ts_np)
         arrays["values"], arrays["lengths"] = values, lengths
-        fetch = _Fetch(self.device)
-        self._run(arrays, buf.count, fetch)
+        fetch = _Fetch(self.device, self._carries_in(), self._fanout_cap(buf))
+        if self._fanout:
+            fetch.arrays = arrays
+        self._run(arrays, buf.count, buf.base_timestamp, fetch)
+        fetch.seal()
+        return fetch
+
+    def _rerun(self, buf: RecordBuffer, handle: _Fetch, cap: int) -> _Fetch:
+        """Run an explode batch's chain again at ``cap`` rows, from the
+        inputs it staged and the carries it started from."""
+        fetch = _Fetch(self.device, handle.prev_carries, cap)
+        self._run(handle.arrays, buf.count, buf.base_timestamp, fetch)
         fetch.seal()
         return fetch
 
@@ -616,12 +959,45 @@ class GpuChainExecutor:
     # -- host side -------------------------------------------------------------
 
     def finish_buffer(self, buf: RecordBuffer, handle: _Fetch) -> RecordBuffer:
-        """Phase 2: wait for this batch's copies and rebuild the output."""
+        """Phase 2: wait for this batch's copies and rebuild the output.
+
+        An explode whose element total overflowed its capacity runs again
+        at the exact (bucketed) total from the batch's own carries, and
+        the learned capacity grows; a retry that overflows too raises
+        :class:`GpuSpill` (``fanout-overflow``). A record that is no JSON
+        array raises :class:`GpuSpill` (``transform-error``). Either way
+        the carries are back where the batch found them."""
+        try:
+            try:
+                return self._finish(buf, handle)
+            except _FanoutOverflow as o:
+                self._learn_cap(buf, o.total)
+                self.redispatches += 1
+                retry = self._rerun(buf, handle, _bucket_rows(o.total, 1024))
+                try:
+                    return self._finish(buf, retry)
+                except _FanoutOverflow as e:
+                    raise GpuSpill(f"fanout overflow after retry: {e.total}",
+                                   reason="fanout-overflow") from None
+        except GpuSpill:
+            self._device_carries = handle.prev_carries
+            raise
+
+    def _finish(self, buf: RecordBuffer, handle: _Fetch) -> RecordBuffer:
         host = handle.wait()
         self.link_counts["d2h_bytes"] += sum(a.nbytes for a in host.values())
-        count, max_v, max_k = (int(x) for x in host["header"])
-        src = np.flatnonzero(np.unpackbits(host["mask"], bitorder="little")[: buf.rows])[:count]
+        hdr = [int(x) for x in host["header"]]
+        count, max_v, max_k, fan_err, fan_total = hdr[:_HEADER]
+        if fan_err:
+            raise GpuSpill("array_map transform error: interpreter decides",
+                           reason="transform-error")
+        if self._fanout and fan_total > handle.cap:
+            raise _FanoutOverflow(fan_total)
         rows = _bucket_rows(max(count, 1))
+        if handle.src_col is not None:
+            src = self._download_src(*handle.src_col, hdr[_HEADER:_HEADER + 3], count, rows)
+        else:
+            src = np.flatnonzero(np.unpackbits(host["mask"], bitorder="little")[: buf.rows])[:count]
         variant = "down-packed"
         if self._viewable:
             if handle.whole_records:
@@ -637,6 +1013,17 @@ class GpuChainExecutor:
             return self._materialize_view_flat(buf, count, rows, vw, st, ln, src)
         self.link_counts[variant] += 1
         return self._fetch_bytes(buf, handle, count, rows, max_v, max_k, src)
+
+    def _download_src(self, col: torch.Tensor, delta: torch.Tensor, probe: Sequence[int],
+                      count: int, rows: int) -> np.ndarray:
+        """An explode's compacted source rows, as int64: u8 deltas (then one
+        cumsum from the first row) when every step fits a byte, which it
+        does unless a run of records explodes to nothing; else the column."""
+        lo, hi, first = probe
+        if 0 <= lo and hi <= 255:
+            raw = self._download(delta[:rows].to(torch.uint8))
+            return np.cumsum(raw[:count].astype(np.int64)) + np.int64(first)
+        return self._download(col[:rows])[:count].astype(np.int64)
 
     def _download(self, t: torch.Tensor) -> np.ndarray:
         """One synchronous device -> host copy, counted on the link."""
@@ -755,14 +1142,16 @@ class GpuChainExecutor:
 
     def _assemble(self, buf, count, rows, out_values, out_lengths, out_keys,
                   out_klens, src, flat=None, starts=None, vw: int = 0) -> RecordBuffer:
-        """Rebuild offset/timestamp columns from survivor source rows (every
-        stage of this slice keeps row identity). With ``flat``/``starts``
-        the output buffer is flat-backed."""
-        src_c = np.clip(src[:count], 0, buf.offset_deltas.shape[0] - 1)
+        """Rebuild offset/timestamp columns from survivor source rows: the
+        source's deltas where stages keep row identity, fresh zeros for
+        explode outputs (as the interpreter makes fresh records). With
+        ``flat``/``starts`` the output buffer is flat-backed."""
         out_off = np.zeros((rows,), dtype=np.int32)
         out_ts = np.zeros((rows,), dtype=np.int64)
-        out_off[:count] = buf.offset_deltas[src_c]
-        out_ts[:count] = buf.timestamp_deltas[src_c]
+        if not self._fanout:
+            src_c = np.clip(src[:count], 0, buf.offset_deltas.shape[0] - 1)
+            out_off[:count] = buf.offset_deltas[src_c]
+            out_ts[:count] = buf.timestamp_deltas[src_c]
         return RecordBuffer(
             values=out_values,
             lengths=out_lengths,
@@ -794,7 +1183,15 @@ class GpuChainExecutor:
         batch k-1 is finished: with the up link on, one worker thread
         compresses it meanwhile (the compressor releases the GIL), and its
         job is settled before that buffer dispatches. The cost of that
-        lookahead: batch k-1's results yield once batch k+1 has arrived."""
+        lookahead: batch k-1's results yield once batch k+1 has arrived.
+
+        A chain with an explode and an aggregate runs one batch at a time:
+        an overflow re-dispatch restarts its batch from the carries that
+        the next batch's dispatch would already have moved on from."""
+        if self.agg_configs and self._fanout:
+            for buf in bufs:
+                yield self.process_buffer(buf)
+            return
         if not self.link.compress:
             yield from self._pipeline(iter(bufs), None)
             return

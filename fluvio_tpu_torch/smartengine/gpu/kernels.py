@@ -11,7 +11,11 @@ CUDA kernels in ``cuda_kernels.py`` (the fused glz decode's is
 wrappers there run them for CPU tensors (the tests), and ``chip_smoke.py``
 holds each kernel against them on the card. Nothing on the CUDA path calls
 them. The rest are the chain's torch code
-on every device.
+on every device: among them the aggregate stage's integer kernels
+(`parse_int`, `int_to_ascii`, `count_words`, `segmented_scan`,
+`propagate_last_valid`, `last_true_value`) and the array_map stage's
+fan-out kernels (`split_bounds`, `json_array_bounds`, `fanout_scatter`),
+which are XLA code, not Pallas, in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ import numpy as np
 import torch
 
 from fluvio_tpu_torch.ops.regex_dfa import CompiledDfa
+
+INT64_MIN = -(2**63)
+INT64_MAX = 2**63 - 1
 
 # ---------------------------------------------------------------------------
 # Regex DFA scan (plain version of csrc/dfa_scan.cu)
@@ -490,3 +497,333 @@ def ascii_upper(values: torch.Tensor) -> torch.Tensor:
 def ascii_lower(values: torch.Tensor) -> torch.Tensor:
     upper = (values >= 0x41) & (values <= 0x5A)
     return torch.where(upper, values + 32, values)
+
+
+# ---------------------------------------------------------------------------
+# Integer parse / render, word count (aggregate contributions and outputs)
+# ---------------------------------------------------------------------------
+
+# a digit 64 or more places from the end of its run weighs 10**k = 2**k *
+# 5**k, a multiple of 2**64: it vanishes from the wrapped int64 value
+_PARSE_WINDOW = 64
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along dim 1, ``mask.shape[1]`` where none."""
+    first = mask.to(torch.uint8).argmax(dim=1)  # argmax returns the first maximum
+    return torch.where(mask.any(dim=1), first, mask.shape[1])
+
+
+def _pow10_wrapped(count: int, device) -> torch.Tensor:
+    """10**k mod 2**64 as int64, k = 0..count-1 (numpy's uint64 products wrap)."""
+    p = np.full(count, 10, dtype=np.uint64)
+    p[0] = 1
+    return torch.from_numpy(np.cumprod(p).view(np.int64)).to(device)
+
+
+def parse_int(values: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Leading ASCII integer per record, i64[N] (parity: `dsl.parse_int_prefix`
+    and the JAX package's ``kernels.parse_int``): skip space, tab, CR and
+    LF, take an optional sign, then the digit run; 0 where there is none.
+
+    The reference steps ``num = num * 10 + d`` through every column in
+    wrapping int64. Products and sums mod 2**64 form a ring, so the same
+    value is ``sum(d_j * 10**(end - 1 - j))`` mod 2**64 over the run, and
+    only its last `_PARSE_WINDOW` digits can contribute: one gather of
+    that window replaces the column loop."""
+    n, width = values.shape
+    dev = values.device
+    j = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
+    lengths = lengths.to(torch.int32)
+    inrec = j < lengths[:, None]
+    is_ws = (values == 32) | (values == 9) | (values == 13) | (values == 10)
+    first = _first_true(inrec & ~is_ws)
+    c0 = torch.gather(values, 1, first.clamp(max=width - 1)[:, None])[:, 0]
+    sign = (first < width) & ((c0 == 0x2B) | (c0 == 0x2D))
+    neg = sign & (c0 == 0x2D)
+    ds = first + sign.to(first.dtype)
+    is_digit = (values >= 0x30) & (values <= 0x39) & inrec
+    end = _first_true(~is_digit & (j >= ds[:, None]))
+    k = torch.arange(_PARSE_WINDOW, dtype=torch.int64, device=dev)[None, :]
+    pos = end[:, None] - _PARSE_WINDOW + k  # the window's last column is end - 1
+    run = (pos >= ds[:, None]) & (pos >= 0)
+    digits = torch.gather(values, 1, pos.clamp(0, width - 1)).to(torch.int64) - 0x30
+    weights = _pow10_wrapped(_PARSE_WINDOW, dev).flip(0)[None, :]
+    num = torch.where(run, digits * weights, 0).sum(dim=1)
+    return torch.where(neg, -num, num)
+
+
+INT_ASCII_WIDTH = 20  # sign + 19 digits covers all of int64
+_POW10 = [10**k for k in range(19)]  # 10**18 is the largest that fits int64
+
+
+def int_to_ascii(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Render int64 as ASCII decimal: (u8[N, 20], lengths i32[N]).
+
+    torch has no uint64 for ``|x|``: the digits come from ``-|x|``, which
+    int64 holds for every value, INT64_MIN included (truncating division
+    and remainder keep every quotient <= 0 and every remainder in -9..0)."""
+    dev = x.device
+    x = x.to(torch.int64)
+    neg = x < 0
+    m = torch.where(neg, x, -x)  # -|x|
+    pow10 = torch.tensor(_POW10, dtype=torch.int64, device=dev)
+    ndigits = 1 + (m[:, None] <= -pow10[None, 1:]).sum(dim=1).to(torch.int32)
+    length = ndigits + neg.to(torch.int32)
+    j = torch.arange(INT_ASCII_WIDTH, dtype=torch.int32, device=dev)[None, :]
+    digit_idx = j - neg[:, None].to(torch.int32)
+    pos = (ndigits[:, None] - 1 - digit_idx).clamp(0, len(_POW10) - 1)
+    q = torch.div(m[:, None], pow10[pos.to(torch.int64)], rounding_mode="trunc")
+    ch = (0x30 - torch.fmod(q, 10)).to(torch.uint8)
+    sign_pos = (j == 0) & neg[:, None]
+    out = torch.where(sign_pos, 0x2D, ch)
+    in_range = (digit_idx >= 0) & (digit_idx < ndigits[:, None])
+    return torch.where(in_range | sign_pos, out, 0).to(torch.uint8), length
+
+
+def _is_ws(c: torch.Tensor) -> torch.Tensor:
+    """``bytes.strip()``'s whitespace: tab, LF, VT, FF, CR, space."""
+    return ((c >= 9) & (c <= 13)) | (c == 32)
+
+
+def count_words(values: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Whitespace-separated token count per record, i64[N] (parity:
+    ``len(bytes.split())``)."""
+    n, width = values.shape
+    inrec = (torch.arange(width, dtype=torch.int32, device=values.device)[None, :]
+             < lengths.to(torch.int32)[:, None])
+    nonws = ~_is_ws(values) & inrec
+    prev_ws = torch.ones_like(nonws)
+    prev_ws[:, 1:] = ~nonws[:, :-1]
+    return (nonws & prev_ws).sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# array_map element bounds (fan-out)
+# ---------------------------------------------------------------------------
+#
+# The bounds kernels emit per-position grids: flag[N, W] marks the position
+# where an element is emitted (ascending position = element order in the
+# record), with the element's (start, length) within the record's value
+# bytes; a per-record final slot holds the one element a scan can finish
+# only at the record's end. `fanout_scatter` places them in output rows.
+
+
+def _next_index_ge(cond: torch.Tensor) -> torch.Tensor:
+    """``out[:, j]`` = the smallest j' >= j with ``cond[:, j']``, else the
+    width: a reverse running minimum along the byte axis."""
+    width = cond.shape[1]
+    j = torch.arange(width, dtype=torch.int32, device=cond.device)[None, :]
+    cand = torch.where(cond, j, width)
+    return torch.cummin(cand.flip(1), dim=1).values.flip(1)
+
+
+def split_bounds(values: torch.Tensor, lengths: torch.Tensor, sep: bytes):
+    """Element bounds of ``value.split(sep)`` with empty elements dropped
+    (non-overlapping separator matches, left to right).
+
+    Returns (flag bool[N, W], start i32[N, W], elen i32[N, W], fflag
+    bool[N], fstart i32[N], felen i32[N], err bool[N]); split mode never
+    errs. A one-byte separator is vectorized; a longer one needs the
+    reference's scan over the columns (a match hides the next L-1)."""
+    n, width = values.shape
+    dev = values.device
+    lengths = lengths.to(torch.int32)
+    j = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
+    inrec = j < lengths[:, None]
+    no_final = torch.zeros((n,), dtype=torch.bool, device=dev)
+    zeros_n = torch.zeros((n,), dtype=torch.int32, device=dev)
+    if len(sep) == 1:
+        m = (values == sep[0]) & inrec
+        prev_boundary = torch.ones_like(m)
+        prev_boundary[:, 1:] = m[:, :-1]
+        starts = inrec & ~m & prev_boundary
+        elen = _next_index_ge(m | ~inrec) - j
+        return (starts, j.expand(n, width).contiguous(), torch.where(starts, elen, 0),
+                no_final, zeros_n, zeros_n, no_final)
+
+    sep_len = len(sep)
+    match = torch.ones((n, width), dtype=torch.bool, device=dev)
+    for i, b in enumerate(sep):
+        shifted = torch.zeros_like(match)
+        shifted[:, : width - i] = values[:, i:] == b
+        match &= shifted
+    match &= j + sep_len <= lengths[:, None]
+    skip = torch.zeros((n,), dtype=torch.int32, device=dev)
+    seg_start = torch.zeros((n,), dtype=torch.int32, device=dev)
+    flags, starts, lens = [], [], []
+    for t in range(width):
+        is_sep = match[:, t] & (t >= skip)
+        ln = t - seg_start
+        emit = is_sep & (ln > 0)
+        flags.append(emit)
+        starts.append(torch.where(emit, seg_start, 0))
+        lens.append(torch.where(emit, ln, 0))
+        skip = torch.where(is_sep, t + sep_len, skip)
+        seg_start = torch.where(is_sep, t + sep_len, seg_start)
+    flen = lengths - seg_start
+    fflag = flen > 0
+    return (torch.stack(flags, 1), torch.stack(starts, 1), torch.stack(lens, 1),
+            fflag, seg_start, torch.where(fflag, flen, 0), no_final)
+
+
+def json_array_bounds(values: torch.Tensor, lengths: torch.Tensor):
+    """Element bounds of a top-level JSON array explode, bit-equal to
+    `dsl.json_array_elements`: outer whitespace stripped, ``[`` / ``]``
+    required (``err`` where absent), a comma at depth 0 outside strings
+    ends an element (a backslash in a string skips the next byte), each
+    element trimmed of whitespace and of its quotes when fully quoted,
+    empty elements dropped. The same 7-tuple as `split_bounds`; the final
+    slot stays empty (every element ends at a comma or the closing
+    bracket, both inside the grid).
+
+    The reference's scan over the columns, step for step: the string,
+    escape and depth state cannot be found without walking."""
+    n, width = values.shape
+    dev = values.device
+    lengths = lengths.to(torch.int32)
+    j = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
+    inrec = j < lengths[:, None]
+    ws = _is_ws(values)
+    nonws = ~ws & inrec
+    fa = _first_true(nonws)
+    fb = torch.where(nonws.any(dim=1), width - 1 - _first_true(nonws.flip(1)), -1)
+    open_b = torch.gather(values, 1, fa.clamp(0, width - 1)[:, None])[:, 0]
+    close_b = torch.gather(values, 1, fb.clamp(0, width - 1)[:, None])[:, 0]
+    err = (fa >= width) | (open_b != 0x5B) | (close_b != 0x5D) | (fb <= fa)
+    ok = ~err
+
+    zb = torch.zeros((n,), dtype=torch.bool, device=dev)
+    zi = torch.zeros((n,), dtype=torch.int32, device=dev)
+    neg1 = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    in_str, esc, depth = zb, zb, zi
+    seg_fnw, seg_lnw, first_b, last_b = neg1, neg1, zi, zi
+    flags, starts, lens = [], [], []
+    for t in range(width):
+        col = values[:, t].to(torch.int32)
+        ws_col = ws[:, t]
+        body = (t > fa) & (t < fb) & ok
+        closer = (t == fb) & ok
+        b_str = body & in_str
+        b_out = body & ~in_str
+        set_esc = b_str & ~esc & (col == 0x5C)
+        s_close = b_str & ~esc & (col == 0x22)
+        o_open = b_out & (col == 0x22)
+        o_up = b_out & ((col == 0x5B) | (col == 0x7B))
+        o_dn = b_out & ((col == 0x5D) | (col == 0x7D))
+        comma = b_out & (col == 0x2C) & (depth == 0)
+        boundary = comma | closer
+
+        # the segment's trim trackers skip the delimiter itself
+        upd = body & ~ws_col & ~comma
+        fresh = upd & (seg_fnw < 0)
+        n_fnw = torch.where(fresh, t, seg_fnw)
+        n_first = torch.where(fresh, col, first_b)
+        n_lnw = torch.where(upd, t, seg_lnw)
+        n_last = torch.where(upd, col, last_b)
+        quoted = (n_fnw >= 0) & (n_first == 0x22) & (n_last == 0x22) & (n_lnw > n_fnw)
+        st = n_fnw + quoted.to(torch.int32)
+        ln = n_lnw - quoted.to(torch.int32) - st + 1
+        emit = boundary & (n_fnw >= 0) & (ln > 0)
+        flags.append(emit)
+        starts.append(torch.where(emit, st, 0))
+        lens.append(torch.where(emit, ln, 0))
+
+        in_str = torch.where(s_close, False, torch.where(o_open, True, in_str))
+        esc = torch.where(b_str, set_esc, esc)
+        depth = depth + o_up.to(torch.int32) - o_dn.to(torch.int32)
+        seg_fnw = torch.where(boundary, -1, n_fnw)
+        seg_lnw = torch.where(boundary, -1, n_lnw)
+        first_b = torch.where(boundary, 0, n_first)
+        last_b = torch.where(boundary, 0, n_last)
+    return (torch.stack(flags, 1), torch.stack(starts, 1), torch.stack(lens, 1),
+            zb, zi, zi, err)
+
+
+def fanout_scatter(flag, start_g, len_g, fflag, fstart, flen, contributing, cap: int):
+    """Place element descriptors in ``cap`` output rows.
+
+    Each record's elements follow its grid positions in order, then its
+    final slot; records follow one another. The placement is a gather, as
+    in the reference: the running count of flags over the flattened
+    ``[N, W + 1]`` grid is non-decreasing, so output row r takes the first
+    position where it reaches r + 1 (``searchsorted``, left side). Returns
+    (total i32 — exact, before the cap, so the caller detects an overflow
+    —, local_row i32[cap], rel_start i32[cap], elen i32[cap])."""
+    n, width = flag.shape
+    dev = flag.device
+    flag = flag & contributing[:, None]
+    fflag = fflag & contributing
+    allflag = torch.cat([flag, fflag[:, None]], dim=1).reshape(-1)
+    cum = torch.cumsum(allflag, 0, dtype=torch.int32)
+    del allflag
+    total = cum[-1]
+    pos = torch.searchsorted(cum, torch.arange(1, cap + 1, dtype=torch.int32, device=dev))
+    del cum
+    pos = pos.clamp(0, n * (width + 1) - 1)
+    live = torch.arange(cap, dtype=torch.int32, device=dev) < total.clamp(max=cap)
+    allstart = torch.cat([start_g.to(torch.int32), fstart.to(torch.int32)[:, None]], dim=1)
+    alllen = torch.cat([len_g.to(torch.int32), flen.to(torch.int32)[:, None]], dim=1)
+    out_row = torch.where(live, pos // (width + 1), 0).to(torch.int32)
+    out_start = torch.where(live, allstart.reshape(-1)[pos], 0)
+    out_len = torch.where(live, alllen.reshape(-1)[pos], 0)
+    return total, out_row, out_start, out_len
+
+
+# ---------------------------------------------------------------------------
+# Segmented prefix scans (aggregate)
+# ---------------------------------------------------------------------------
+
+# combine monoids: (neutral, op)
+_AGG_OPS = {
+    "add": (0, torch.add),
+    "max": (INT64_MIN, torch.maximum),
+    "min": (INT64_MAX, torch.minimum),
+}
+
+
+def segmented_scan(x: torch.Tensor, reset: torch.Tensor, op_name: str) -> torch.Tensor:
+    """Inclusive segmented scan of int64 ``x``: a True in ``reset`` starts
+    a new running value.
+
+    ``add``, as in the reference: ``cumsum[i] - cumsum[last_reset(i) - 1]``
+    with the last reset found by a running maximum over flagged indices
+    (int64 addition wraps and is associative in any order). ``max`` and
+    ``min``: a log-step (Hillis-Steele) scan of the reference's
+    associative combine over (flag, value) pairs, ``(fa | fb, vb if fb
+    else op(va, vb))``: exact for integers, ceil(log2 N) steps."""
+    n = x.shape[0]
+    if op_name == "add":
+        idx = torch.arange(n, dtype=torch.int64, device=x.device)
+        c = torch.cumsum(x, 0)
+        last_reset = torch.cummax(torch.where(reset, idx, -1), 0).values
+        base = torch.where(last_reset >= 1, c[(last_reset - 1).clamp(0, n - 1)], 0)
+        return c - base
+    op = _AGG_OPS[op_name][1]
+    f, v = reset, x
+    d = 1
+    while d < n:
+        v = torch.cat([v[:d], torch.where(f[d:], v[d:], op(v[:-d], v[d:]))])
+        f = torch.cat([f[:d], f[d:] | f[:-d]])
+        d <<= 1
+    return v
+
+
+def last_true_value(flags: torch.Tensor, values: torch.Tensor,
+                    fallback: torch.Tensor) -> torch.Tensor:
+    """The value at the last True flag, else ``fallback`` (a 0-d tensor);
+    no host synchronisation."""
+    n = flags.shape[0]
+    li = torch.where(flags, torch.arange(n, dtype=torch.int64, device=flags.device), -1).max()
+    at = values.index_select(0, li.clamp(0, n - 1).view(1))[0]
+    return torch.where(li >= 0, at, fallback)
+
+
+def propagate_last_valid(values: torch.Tensor, valid: torch.Tensor):
+    """Inclusive forward fill of the last valid value: (filled, has_any).
+    Rows before any valid one take row 0's value, as the reference's
+    gather does; ``has_any`` gates every consumer."""
+    n = values.shape[0]
+    idx = torch.arange(n, dtype=torch.int64, device=values.device)
+    li = torch.cummax(torch.where(valid, idx, -1), 0).values
+    return values[li.clamp(0, n - 1)], li >= 0

@@ -12,7 +12,9 @@ The reference picks among Pallas, associative and sequential kernels by
 backend and DFA size; on the card that choice collapses into "call the
 wrapper": every JSON span, span extraction and DFA verdict goes through
 ``cuda_kernels``, whose CUDA DFA kernel takes every table the compiler
-emits. ``ParseInt`` and ``IntToBytes`` come with the aggregate slice.
+emits. ``Len``, ``ParseInt`` and ``IntToBytes`` lower to torch code
+(`kernels.parse_int`, `kernels.int_to_ascii`); ``IntToBytes`` takes an
+int argument only.
 """
 
 from __future__ import annotations
@@ -201,6 +203,16 @@ def lower_expr(expr: dsl.Expr) -> Callable[[Dict[str, torch.Tensor]], object]:
     if isinstance(expr, dsl.Len):
         inner = lower_expr(expr.arg)
         return lambda s: inner(s)[1].to(torch.int64)
+
+    if isinstance(expr, dsl.ParseInt):
+        inner = lower_expr(expr.arg)
+        return lambda s: kernels.parse_int(*inner(s))
+
+    if isinstance(expr, dsl.IntToBytes):
+        if infer_type(expr.arg) != "int":
+            raise Unlowerable("IntToBytes needs an int argument")
+        inner = lower_expr(expr.arg)
+        return lambda s: kernels.int_to_ascii(inner(s))
 
     if isinstance(expr, dsl.Cmp):
         if infer_type(expr.left) != "int" or infer_type(expr.right) != "int":

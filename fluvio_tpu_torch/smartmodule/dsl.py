@@ -4,7 +4,8 @@ A DSL program is pure data. The port lowers it to torch code and CUDA
 kernels over the batched record buffer (``smartengine/gpu/lower.py``);
 the per-record interpreter below (`eval_expr`) is the host truth that
 ``chip_smoke.py`` holds the card's output against. Byte-level semantics
-are the JAX package's: `json_get_bytes`, `ascii_upper`, `ascii_lower`.
+are the JAX package's: `json_get_bytes`, `json_array_elements`,
+`parse_int_prefix`, `count_words`, `ascii_upper`, `ascii_lower`.
 
 Expression types (over one record):
 
@@ -123,6 +124,53 @@ def json_get_bytes(value: bytes, key: str) -> bytes:
     return b""
 
 
+def json_array_elements(value: bytes) -> Optional[List[bytes]]:
+    """Split a top-level JSON array into element byte-slices.
+
+    Strings keep their quotes stripped; other elements are raw trimmed
+    bytes. Returns None if the input is not a JSON array (transform error).
+    """
+    s = value.strip()
+    if not s.startswith(b"[") or not s.endswith(b"]"):
+        return None
+    body = s[1:-1]
+    elements: List[bytes] = []
+    i = 0
+    n = len(body)
+    start = 0
+    depth = 0
+    in_str = False
+
+    def push(seg: bytes) -> None:
+        seg = seg.strip()
+        if seg.startswith(b'"') and seg.endswith(b'"') and len(seg) >= 2:
+            seg = seg[1:-1]
+        if seg:
+            elements.append(seg)
+
+    while i < n:
+        c = body[i]
+        if in_str:
+            if c == 0x5C:
+                i += 2
+                continue
+            if c == 0x22:
+                in_str = False
+        elif c == 0x22:
+            in_str = True
+        elif c in b"[{":
+            depth += 1
+        elif c in b"]}":
+            depth -= 1
+        elif c == 0x2C and depth == 0:
+            push(body[start:i])
+            start = i + 1
+        i += 1
+    if start < n:
+        push(body[start:n])
+    return elements
+
+
 def parse_int_prefix(value: bytes) -> int:
     """Parse a leading ASCII integer (optional ``-``); 0 if none."""
     i = 0
@@ -150,6 +198,10 @@ def ascii_upper(value: bytes) -> bytes:
 
 def ascii_lower(value: bytes) -> bytes:
     return bytes((c + 32) if 0x41 <= c <= 0x5A else c for c in value)
+
+
+def count_words(value: bytes) -> int:
+    return len(value.split())
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +346,9 @@ class FilterMapProgram(Expr):
 class ArrayMapProgram(Expr):
     mode: str = "json_array"  # or "split"
     sep: bytes = b"\n"
+
+
+AGGREGATE_COMBINES = ("add", "max", "min")  # associative monoids
 
 
 @dataclass

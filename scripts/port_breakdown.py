@@ -6,9 +6,14 @@ Run from the repository root on a machine with a CUDA card:
 
 ``--chain headline`` (the default) drives ``regex-filter(regex="fluvio")``
 -> ``json-map(field="name")`` over batches of 1,048,576 bench JSON records
-(the ``chip_smoke.py`` corpus); ``7_fat70k``, ``10_regex_json_fat`` and
-``fluvio_dfa_json_map_fat`` drive the striped chains of ``chip_smoke.py``
-over batches of 1,024 ``gen_fat_70k`` records (71,709 B each). Each chain
+(the ``chip_smoke.py`` corpus); ``3_aggregate`` (``aggregate-field``, a
+running sum of the ``n`` field) and ``filter_aggregate`` drive the same
+corpus, ``4_array_map`` (``array-map-json``) 1,048,576 ``gen_arrays``
+records a batch (~6 elements each; the warm-up batch teaches the explode
+its capacity, so no measured batch overflows); ``7_fat70k``,
+``10_regex_json_fat`` and ``fluvio_dfa_json_map_fat`` drive the striped
+chains of ``chip_smoke.py`` over batches of 1,024 ``gen_fat_70k`` records
+(71,709 B each). Each chain
 runs through ``fluvio_tpu_torch`` three ways, and each prints one JSON line:
 
 - ``serial``: per batch, each phase alone, with the card drained between
@@ -41,14 +46,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
-    FAT_PARAMS, FAT_RECORDS, GLZ_LINK, N, STRIPED_CHAINS, build_chain, gen_fat_70k, gen_json,
+    FAT_PARAMS, FAT_RECORDS, GLZ_LINK, N, SLICE_CHAINS, STRIPED_CHAINS, build_chain, gen_arrays,
+    gen_fat_70k, gen_json,
 )
 from fluvio_tpu_torch.smartengine.gpu import cuda_kernels  # noqa: E402
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer  # noqa: E402
 
 BATCHES = 4
 SPECS = [("regex-filter", {"regex": "fluvio"}), ("json-map", {"field": "name"})]
-CHAINS = {"headline": SPECS, **STRIPED_CHAINS}
+NARROW = {"headline": SPECS, **SLICE_CHAINS}
+CHAINS = {**NARROW, **STRIPED_CHAINS}
 
 
 def fresh(corpora):
@@ -128,9 +135,10 @@ def profile(chain, corpora):
 
 
 def breakdown(name: str, smi: str, link) -> dict:
-    if name == "headline":
-        chain = build_chain(SPECS, link=link)
-        corpora = [gen_json(N, seed=100 + k) for k in range(BATCHES)]
+    if name in NARROW:
+        chain = build_chain(NARROW[name], link=link)
+        gen = gen_arrays if name == "4_array_map" else gen_json
+        corpora = [gen(N, seed=100 + k) for k in range(BATCHES)]
         warm = corpora[0][:4096]
     else:
         chain = build_chain(CHAINS[name], FAT_PARAMS, link)
@@ -147,6 +155,7 @@ def breakdown(name: str, smi: str, link) -> dict:
                         "launches": launches}
     out["profile"] = profile(chain, corpora)
     out["link_counts"] = chain.link_counts
+    out["redispatches"] = chain.redispatches
     return out
 
 

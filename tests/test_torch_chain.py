@@ -33,22 +33,11 @@ from fluvio_tpu_torch.smartengine import (
 from fluvio_tpu_torch.smartmodule import dsl
 from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
 from fluvio_tpu_torch.smartmodule.types import SmartModuleKind
+from tests.test_torch_isolation import gen_json
 from tests.test_tpu_kernels import JSON_DOCS
 
 HEADLINE = [("regex-filter", {"regex": "fluvio"}), ("json-map", {"field": "name"})]
 JSON_REGEX = [("json-regex-filter", {"key": "name", "regex": "^(fluvio|kafka|pulsar)-[0-3]$"})]
-
-
-def gen_json(n: int, seed: int = 2024):
-    """The bench corpus (`bench.gen_json`), seeded."""
-    rng = np.random.default_rng(seed)
-    names = ["fluvio", "kafka", "pulsar", "fluvio-tpu", "redpanda", "flink"]
-    picks = rng.integers(0, len(names), size=n)
-    nums = rng.integers(0, 100000, size=n)
-    return [
-        f'{{"name":"{names[picks[i]]}-{i & 1023}","n":{nums[i]}}}'.encode()
-        for i in range(n)
-    ]
 
 
 def _module_pair(kind: str, build):
@@ -206,16 +195,27 @@ def test_reference_executor_chains():
 
 
 def test_unported_kinds_spill():
+    """What the port still spills or refuses: a batch of an aggregate chain
+    wider than the narrow layout (no striped aggregate yet) spills at
+    dispatch, and an expression outside the lowering (``IntToBytes`` of
+    bytes, a comparison of bytes) makes no chain."""
     agg = ("aggregate", lambda d: d.AggregateProgram(kind="sum_int"))
     _, port_m = _module_pair(*agg)
+    chain = SmartEngine(device="cpu").builder().add_smart_module(SmartModuleConfig(), port_m).initialize()
+    wide = _port_buffer(_ref_buffer([b"1"]))
+    wide.values = np.zeros((8, (1 << 16) + 32), dtype=np.uint8)
     with pytest.raises(GpuSpill) as e:
-        SmartEngine(device="cpu").builder().add_smart_module(SmartModuleConfig(), port_m).initialize()
-    assert e.value.reason == "aggregate-unported"
-    with pytest.raises(EngineError):
-        SmartEngine(device="cpu").builder().add_smart_module(
-            SmartModuleConfig(), SmartModuleDef(dsl={SmartModuleKind.MAP: dsl.MapProgram(
-                value=dsl.IntToBytes(arg=dsl.Len(arg=dsl.Value())))})
-        ).initialize()
+        chain.process_buffer(wide)
+    assert e.value.reason == "record-too-wide-unstripeable"
+    for kind, prog in (
+        (SmartModuleKind.MAP, dsl.MapProgram(value=dsl.IntToBytes(arg=dsl.Value()))),
+        (SmartModuleKind.FILTER, dsl.FilterProgram(
+            predicate=dsl.Cmp(cmp="eq", left=dsl.Value(), right=dsl.Key()))),
+    ):
+        with pytest.raises(EngineError):
+            SmartEngine(device="cpu").builder().add_smart_module(
+                SmartModuleConfig(), SmartModuleDef(dsl={kind: prog})
+            ).initialize()
 
 
 def test_stream_delivers_the_batch_before_a_failed_dispatch():

@@ -7,10 +7,11 @@
 - With no device given and no CUDA, `SmartEngine()` raises instead of
   drifting to the CPU.
 - On a machine with a card (marker ``cuda``; skipped elsewhere), each CUDA
-  kernel equals its plain torch version exactly on the same inputs.
+  kernel equals its plain torch version exactly on the same inputs, and
+  the aggregate and explode chains give the card the CPU's outputs.
 
-The DFA scan's cases live here, free of jax, so that its CPU spec
-(``tests/test_torch_dfa_redesign.py``) and its card test share them.
+The bench corpora and the DFA scan's cases live here, free of jax, so
+that the CPU tests, the card tests and ``chip_smoke.py`` share them.
 """
 
 from __future__ import annotations
@@ -24,6 +25,31 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+# The bench corpora, seeded, shared by the port's tests and `chip_smoke.py`
+# (jax-free, since the card's machine has no jax).
+def gen_json(n: int, seed: int = 2024):
+    """`bench.gen_json`: ~half the names contain "fluvio", ``n`` up to 99,999."""
+    rng = np.random.default_rng(seed)
+    names = ["fluvio", "kafka", "pulsar", "fluvio-tpu", "redpanda", "flink"]
+    picks = rng.integers(0, len(names), size=n)
+    nums = rng.integers(0, 100000, size=n)
+    return [
+        f'{{"name":"{names[picks[i]]}-{i & 1023}","n":{nums[i]}}}'.encode()
+        for i in range(n)
+    ]
+
+
+def gen_arrays(n: int, seed: int = 7):
+    """`bench.gen_arrays`: a JSON array of ~6 elements a record."""
+    rng = np.random.default_rng(seed)
+    nums = rng.integers(0, 10000, size=(n, 3))
+    return [
+        f'["a{i & 255}","b{nums[i][0]}",{nums[i][1]},{nums[i][2]},"x","y"]'.encode()
+        for i in range(n)
+    ]
+
 
 # The DFA scan's cases, shared by the card test below and the CPU spec of
 # the kernel's walk (`tests/test_torch_dfa_redesign.py`); jax-free, since
@@ -425,3 +451,47 @@ def test_dfa_scan_redesign_on_the_card():
     with pytest.raises(ValueError):
         cuda_kernels.dfa_match(v, ln, bad)
     torch.cuda.synchronize()
+
+
+def _slice_chain(device: str, *names: str):
+    from fluvio_tpu_torch.models import lookup
+    from fluvio_tpu_torch.smartengine import SmartEngine, SmartModuleConfig
+
+    b = SmartEngine(device=device).builder()
+    for name in names:
+        b.add_smart_module(SmartModuleConfig(params={"field": "n"}), lookup(name))
+    return b.initialize()
+
+
+@pytest.mark.cuda
+def test_aggregate_and_explode_chains_on_the_card():
+    """`3_aggregate`'s chain (the JSON span and extract kernels launched
+    every batch) and ``array-map-json -> aggregate-count`` (the first batch
+    overflows and runs again) over three batches through
+    ``SmartEngine(device="cuda")``: outputs, keys and carries equal the
+    same chains on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
+    from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+
+    cases = (
+        (("aggregate-field",), gen_json, (5000, 17, 3000)),
+        (("array-map-json", "aggregate-count"), gen_arrays, (4000, 9, 2500)),
+        (("array-map-json",), gen_arrays, (4000, 9, 2500)),
+    )
+    for names, gen, sizes in cases:
+        outs = {}
+        for device in ("cpu", "cuda"):
+            chain = _slice_chain(device, *names)
+            cuda_kernels.reset_launches()
+            bufs = [RecordBuffer.from_values(gen(n, seed=n)) for n in sizes]
+            outs[device] = [(o.value_list(), o.key_list(), o.offset_deltas[: o.count].tolist())
+                            for o in chain.process_stream(bufs)]
+            chain._ensure_host_state()
+            outs[device].append((chain.carries, chain.redispatches))
+        assert outs["cuda"] == outs["cpu"], names
+        if names == ("aggregate-field",):
+            assert cuda_kernels.LAUNCHES["json_span"] == cuda_kernels.LAUNCHES["extract"] == 3
+        else:
+            assert outs["cuda"][-1][1] >= 1
