@@ -106,7 +106,21 @@ Phases (any failure raises and the script exits non-zero):
    of the two stages the chains ran (``parse_int``, the scans,
    ``json_array_bounds``, ``fanout_scatter``; torch.profiler, every
    kernel of the call) at the shapes the chains gave them.
-   ``--slice-only`` builds the kernels and runs only this phase.
+   ``--slice-only`` builds the kernels and runs only this phase;
+10. the windowed-state engine at ``bench.py``'s windowed settings (event
+   time every 4 ms from 1,000,000): the delta arms of ``5_windowed``
+   (tumbling 1,000 ms, 1,000,000 ``gen_ints`` records in batches of
+   16,384), ``11_windowed_sliding`` (window 1,000, slide 250; 500,000
+   records) and ``12_windowed_keyed`` (tumbling, keyed, emit 4,096;
+   500,000 ``gen_keyed_ints`` records in batches of 8,192) through
+   ``WindowedRuntime(spec).process_buffer``, the bank against the host
+   reference after every batch and the materialized view's table at the
+   end; ``5_windowed``'s classic arm, ``windowed-sum`` through
+   ``SmartEngine(device="cuda")`` over its 1,000,000 records as one batch,
+   every output value and key against the interpreter; warm records/s,
+   the first batch's ms, d2h ms, H2D bytes a record, the delta-vs-full
+   byte ratio, then the device time and launches of one update and of its
+   torch ops. ``--windowed-only`` runs only this phase (no kernel build).
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -143,6 +157,14 @@ from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
 from fluvio_tpu_torch.smartengine.gpu.executor import _bucket_rows, desc_stream, pad_glz_tokens
 from fluvio_tpu_torch.smartengine.gpu.native import CSRC, KERNELS
 from fluvio_tpu_torch.smartmodule import dsl
+from fluvio_tpu_torch.windows import (
+    HostWindowReference,
+    MaterializedView,
+    WindowSpec,
+    WindowedRuntime,
+)
+from fluvio_tpu_torch.windows import engine as window_engine
+from fluvio_tpu_torch.windows import kernels as window_kernels
 
 N = 1 << 20
 HEADLINE_BATCHES = 4
@@ -1538,11 +1560,11 @@ def slice_truth(name: str, corpora):
     return outs
 
 
-def capture_torch_ops(run):
-    """Run ``run()`` with each of `SLICE_TORCH_OPS` wrapped to keep the
-    arguments of its first call; returns {name: (function, arguments)} of
-    those the run called."""
-    originals = {n: getattr(kernels, n) for n in SLICE_TORCH_OPS}
+def capture_torch_ops(run, module=kernels, names=SLICE_TORCH_OPS):
+    """Run ``run()`` with each function ``names`` of ``module`` wrapped to
+    keep the arguments of its first call; returns {name: (function,
+    arguments)} of those the run called."""
+    originals = {n: getattr(module, n) for n in names}
     seen = {}
 
     def keep(name, fn):
@@ -1553,11 +1575,11 @@ def capture_torch_ops(run):
 
     try:
         for name, fn in originals.items():
-            setattr(kernels, name, keep(name, fn))
+            setattr(module, name, keep(name, fn))
         run()
     finally:
         for name, fn in originals.items():
-            setattr(kernels, name, fn)
+            setattr(module, name, fn)
     return {name: (originals[name], args) for name, args in seen.items()}
 
 
@@ -1642,6 +1664,204 @@ def torch_op_rows(captured):
     return rows
 
 
+# bench.py's windowed configs at their published settings (BENCH_RECORDS
+# 1,000,000; configs 11 and 12 take divisor 2), event time arange(n) * 4
+# stamped at base 1,000,000 as bench._pack does; the bank and emit
+# capacities default as the bench's spec leaves them (1,024), but for 12's
+# emit of 4,096
+WINDOWED = {
+    "5_windowed": dict(records=1_000_000, batch=16384, spec=dict(window_ms=1000),
+                       corpus="gen_ints"),
+    "11_windowed_sliding": dict(records=500_000, batch=16384,
+                                spec=dict(window_ms=1000, slide_ms=250), corpus="gen_ints"),
+    "12_windowed_keyed": dict(records=500_000, batch=8192,
+                              spec=dict(window_ms=1000, keyed=True, emit_capacity=4096),
+                              corpus="gen_keyed_ints"),
+}
+WINDOW_TS_BASE = 1_000_000
+WINDOW_SPACING_MS = 4
+# the window update's torch code: its sub-functions in `windows.kernels`
+WINDOW_TORCH_OPS = ("parse_int", "parse_two_ints", "_segment_merge", "compact_rows",
+                    "segmented_scan")
+
+
+def window_rows(values, ts, keyed: bool):
+    """(key, contrib, ts) host rows of the bench's pure-ASCII int records,
+    for the host reference."""
+    if keyed:
+        return [(int(v[: v.index(b" ")]), int(v[v.index(b" ") + 1:]), int(t))
+                for v, t in zip(values, ts)]
+    return [(0, int(v), int(t)) for v, t in zip(values, ts)]
+
+
+def window_buffer(values, ts_delta):
+    buf = RecordBuffer.from_values(values, base_timestamp=WINDOW_TS_BASE)
+    buf.timestamp_deltas[: len(values)] = ts_delta
+    return buf
+
+
+def phase_windowed_config(name: str):
+    """One windowed config's delta arm through ``WindowedRuntime(spec)`` on
+    the card, as `bench._run_windowed_config` drives it: even batches, the
+    bank against the host reference after every batch and the view's table
+    at the end. Returns the run's numbers and the update's torch ops."""
+    cfg = WINDOWED[name]
+    spec = WindowSpec(**cfg["spec"])
+    n = cfg["records"]
+    values = getattr(shared_cases(), cfg["corpus"])(n)
+    ts = np.arange(n, dtype=np.int64) * WINDOW_SPACING_MS
+    n_batches = -(-n // cfg["batch"])
+    per = -(-n // n_batches)
+    slices = [(a, min(a + per, n)) for a in range(0, n, per)]
+    rt = WindowedRuntime(spec)
+    ref, view = HostWindowReference(spec), MaterializedView(spec)
+    d2h_s = []
+    download = window_engine._download
+
+    def timed_download(*cols):
+        t0 = time.perf_counter()
+        out = download(*cols)
+        d2h_s.append(time.perf_counter() - t0)
+        return out
+
+    bt, ref_s, deltas, ops = [], 0.0, [], {}
+
+    def step(buf):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        deltas.append(rt.process_buffer(buf))  # ends in the emit download
+        bt.append(time.perf_counter() - t0)
+
+    def step_capturing(buf):
+        # a warm batch keeps the arguments of the update and of its torch
+        # ops for the profile below (a dict entry a call: no device work)
+        update = capture_torch_ops(lambda: step(buf), rt.ops, ("update_values",))
+        ops.update(update=update["update_values"])
+
+    window_engine._download = timed_download
+    try:
+        for k, (a, b) in enumerate(slices):
+            buf = window_buffer(values[a:b], ts[a:b])
+            if k == 1:
+                ops.update(capture_torch_ops(lambda: step_capturing(buf), window_kernels,
+                                             WINDOW_TORCH_OPS))
+            else:
+                step(buf)
+            view.apply_delta(deltas[-1])
+            t0 = time.perf_counter()
+            ref.process_batch(window_rows(values[a:b], ts[a:b] + WINDOW_TS_BASE, spec.keyed))
+            ref_s += time.perf_counter() - t0
+            if rt.bank.snapshot() != ref.bank_entries():
+                raise AssertionError(f"{name}: the device bank left the host reference at "
+                                     f"record {b}")
+    finally:
+        window_engine._download = download
+    if view.table() != ref.table():
+        raise AssertionError(f"{name}: the materialized view differs from the host reference")
+    if any(d.kind != "rows" for d in deltas):
+        raise AssertionError(f"{name}: a batch fell back to a resync")
+    warm = bt[1:] or bt
+    delta_bytes = sum(d.delta_bytes for d in deltas)
+    full_bytes = sum(d.full_bytes for d in deltas)
+    numbers = {
+        "spec": spec.describe(), "records": n, "batches": len(slices), "batch_records": per,
+        "warm_records_per_s": per / statistics.median(warm),
+        "first_batch_ms": bt[0] * 1e3,
+        "warm_batch_ms_median": statistics.median(warm) * 1e3,
+        "d2h_ms": sum(d2h_s) * 1e3, "d2h_ms_warm": sum(d2h_s[1:]) * 1e3,
+        "h2d_bytes_per_record": rt.h2d_bytes_total / n,
+        "delta_bytes": delta_bytes, "full_bytes": full_bytes,
+        "delta_ratio": delta_bytes / full_bytes,
+        "closed": sum(d.n_closed for d in deltas), "late": sum(d.n_late for d in deltas),
+        "keys": len({k for k, _ in ref.table()}), "state_bytes": rt.bank.state_bytes(),
+        "host_reference_s": ref_s,
+        "update_enqueue_ms": update_enqueue_ms(*ops["update"]) if ops else None,
+    }
+    log(f"windowed {name}: {spec.describe()}, {n} records in {len(slices)} batches of {per}: "
+        f"{numbers['warm_records_per_s']:.0f} records/s warm (median "
+        f"{numbers['warm_batch_ms_median']:.3f} ms a batch), first batch "
+        f"{numbers['first_batch_ms']:.3f} ms; d2h {numbers['d2h_ms']:.3f} ms; H2D "
+        f"{numbers['h2d_bytes_per_record']:.3f} B a record; delta {delta_bytes} B vs full "
+        f"{full_bytes} B (ratio {numbers['delta_ratio']:.6f}); host time to enqueue one "
+        f"update {numbers['update_enqueue_ms']} ms; bank equal to the host "
+        f"reference after every batch, view table equal ({len(ref.table())} windows; host "
+        f"reference {ref_s:.1f} s)")
+    return numbers, ops
+
+
+def update_enqueue_ms(fn, args, reps: int = 9) -> float:
+    """Median host time of one update call on the card, from the call to
+    its return, before the device has run it (the enqueue of its kernels)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
+def classic_truth(values, ts_abs, window_ms: int):
+    """The classic windowed-sum chain's outputs from the port's DSL
+    interpreter: per record the running sum of its window (restarting at
+    each window, wrapping as int64) and the window's start."""
+    vals, keys = [], []
+    acc, win = 0, None
+    for v, t in zip(values, ts_abs):
+        w = int(t) - int(t) % window_ms
+        acc = (acc if w == win else 0) + dsl.parse_int_prefix(v)
+        acc = (acc + 2**63) % 2**64 - 2**63
+        win = w
+        vals.append(str(acc).encode())
+        keys.append(str(w).encode())
+    return vals, keys
+
+
+def phase_windowed_classic():
+    """`5_windowed`'s classic arm: ``windowed-sum(kind=sum_int,
+    window_ms=1000)`` through ``SmartEngine(device="cuda")`` over the
+    config's 1,000,000 records as one batch; every output value and key
+    against the interpreter. Returns its numbers."""
+    cfg = WINDOWED["5_windowed"]
+    n = cfg["records"]
+    values = shared_cases().gen_ints(n)
+    ts = np.arange(n, dtype=np.int64) * WINDOW_SPACING_MS
+    specs = [("windowed-sum", {"kind": "sum_int", "window_ms": "1000"})]
+    build_chain(specs).process_buffer(window_buffer(values[:4096], ts[:4096]))  # warm-up
+    chain = build_chain(specs)
+    buf = window_buffer(values, ts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = chain.process_buffer(buf)
+    elapsed = time.perf_counter() - t0
+    want_vals, want_keys = classic_truth(values, ts + WINDOW_TS_BASE, 1000)
+    if out.count != n or out.value_list() != want_vals or out.key_list() != want_keys:
+        raise AssertionError("5_windowed classic arm: outputs differ from the interpreter")
+    numbers = {"records": n, "records_per_s": n / elapsed, "seconds": elapsed,
+               "h2d_bytes_per_record": chain.link_counts["h2d_bytes"] / n,
+               "d2h_bytes_per_record": chain.link_counts["d2h_bytes"] / n}
+    log(f"windowed 5_windowed classic arm: {n} records in one batch, {elapsed:.3f} s = "
+        f"{numbers['records_per_s']:.0f} records/s; H2D {numbers['h2d_bytes_per_record']:.3f} "
+        f"B, D2H {numbers['d2h_bytes_per_record']:.3f} B a record; every output value and key "
+        "equal to the interpreter")
+    return numbers
+
+
+def phase_windowed():
+    """The windowed-state engine: the three delta arms and `5_windowed`'s
+    classic arm, then the device time and launches of one update of each
+    config and of its torch ops (torch.profiler, every kernel of the
+    call). Returns ({config: numbers}, torch op rows, CUDA kernel launches)."""
+    cuda_kernels.reset_launches()
+    numbers, captured = {}, {}
+    for name in WINDOWED:
+        numbers[name], captured[name] = phase_windowed_config(name)
+    numbers["5_windowed_classic"] = phase_windowed_classic()
+    launches = dict(cuda_kernels.LAUNCHES)
+    return numbers, torch_op_rows(captured), launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -1653,6 +1873,9 @@ def main(argv=None) -> int:
     parser.add_argument("--dfa-scan-only", action="store_true",
                         help="build the kernels and run only the DFA scan's checks and its "
                              "shapes (a)-(c) (no chains, no ok line)")
+    parser.add_argument("--windowed-only", action="store_true",
+                        help="run only the windowed-state phase (phase 10: the three delta "
+                             "arms and 5_windowed's classic arm; no kernel build, no ok line)")
     parser.add_argument("--slice-only", action="store_true",
                         help="build the kernels and run only the aggregate and array_map "
                              "chains (phase 9) and their torch ops' times (no ok line)")
@@ -1668,6 +1891,12 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     log(f"device: {name} (count {torch.cuda.device_count()}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {smi}")
+
+    if args.windowed_only:
+        numbers, ops, _launches = phase_windowed()
+        print(smi)
+        print(json.dumps({"windowed": numbers, "windowed_torch_ops": ops}))
+        return 0
 
     logs = KERNELS.build()
     log(f"kernels built in {KERNELS.build_seconds:.2f} s")
@@ -1716,10 +1945,12 @@ def main(argv=None) -> int:
     glz_launches, glz_rates = phase_glz_chains(corpora, head_rate,
                                                head_chain.link_counts["h2d_bytes"])
     slice_numbers, torch_ops = phase_slice(corpora[:SLICE_BATCHES])
+    win_numbers, win_ops, win_launches = phase_windowed()
     for r in rows:
         r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in slice_numbers.items()}
     slice_launches = [v["launches"] for v in slice_numbers.values()]
-    paths = (head_launches, jr_launches, rf_launches, st_launches, glz_launches, *slice_launches)
+    paths = (head_launches, jr_launches, rf_launches, st_launches, glz_launches, *slice_launches,
+             win_launches)
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
         if r.get("main_path", True) and r["launches"] <= 0:
@@ -1732,8 +1963,10 @@ def main(argv=None) -> int:
                     "striped": st_rates,
                     "glz": glz_rates,
                     "slice_chains": slice_numbers,
+                    "windowed": win_numbers,
                     "build_seconds": KERNELS.build_seconds}))
-    log(json.dumps({"slice_torch_ops": torch_ops, "device": smi}))
+    log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
+                    "device": smi}))
     print(smi)
     key_order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")

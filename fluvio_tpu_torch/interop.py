@@ -1,8 +1,9 @@
 """Carry state across from the JAX package to the port.
 
 This system has no weights: what a run depends on is the compiled chain
-state (DFA tables), the staged record columns and, with the glz link on,
-the compressed token streams. These functions take them as plain numpy
+state (DFA tables), the staged record columns, with the glz link on the
+compressed token streams, and the live carry of a windowed stream (its
+spec and its state bank). These functions take them as plain numpy
 arrays — as the JAX package's `CompiledDfa`, `RecordBuffer` and glz
 `Compressed` hold them — and build the port's objects, so a test can run
 the port on exactly the reference's tables, columns and streams and tell
@@ -16,6 +17,8 @@ import numpy as np
 from fluvio_tpu_torch.ops.regex_dfa import CompiledDfa
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
 from fluvio_tpu_torch.smartengine.gpu.glz import Compressed
+from fluvio_tpu_torch.windows.spec import WindowSpec
+from fluvio_tpu_torch.windows.state import WindowStateBank
 
 
 def dfa_from_reference(table, byte_class, accept, start, eos_class, pad_class) -> CompiledDfa:
@@ -61,3 +64,30 @@ def glz_from_reference(comp) -> Compressed:
         chunk_bytes=int(comp.chunk_bytes),
         chunk_seqs=None if comp.chunk_seqs is None else np.array(comp.chunk_seqs, dtype=np.int32),
     )
+
+
+def window_spec_from_reference(
+    window_ms, slide_ms, op, keyed, lateness_ms, capacity, emit_capacity, delta_only,
+) -> WindowSpec:
+    """The JAX package's `WindowSpec` fields, as plain values -> the
+    port's `WindowSpec` (every field given, so nothing resolves to a
+    default)."""
+    return WindowSpec(
+        window_ms=int(window_ms),
+        slide_ms=int(slide_ms),
+        op=str(op),
+        keyed=bool(keyed),
+        lateness_ms=int(lateness_ms),
+        capacity=int(capacity),
+        emit_capacity=int(emit_capacity),
+        delta_only=bool(delta_only),
+    )
+
+
+def window_bank_from_reference(entries, watermark, spec: WindowSpec, device) -> WindowStateBank:
+    """A JAX state bank's ``snapshot()`` ([(id, acc, count), ...] live
+    entries and the watermark, plain ints) -> a port bank on ``device``
+    that carries on from the same state."""
+    bank = WindowStateBank(spec, device=device)
+    bank.restore([tuple(int(x) for x in e) for e in entries], int(watermark))
+    return bank

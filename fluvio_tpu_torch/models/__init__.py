@@ -12,6 +12,7 @@ from fluvio_tpu_torch.models import (
     json_map,
     json_regex_filter,
     regex_filter,
+    windowed_aggregate,
 )
 from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
 
@@ -27,6 +28,7 @@ _REGISTRY = {
     "json-map": json_map.module,
     "json-regex-filter": json_regex_filter.module,
     "regex-filter": regex_filter.module,
+    "windowed-sum": windowed_aggregate.module,
 }
 
 

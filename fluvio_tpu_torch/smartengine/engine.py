@@ -41,6 +41,26 @@ class EngineError(Exception):
     pass
 
 
+def resolve_device(device=None) -> torch.device:
+    """The torch device an entry point runs on: the CUDA card when
+    ``device`` is None, else ``device``, which must be the card or the
+    CPU. Raises :class:`EngineError` when CUDA is asked for, or implied,
+    and not available: no entry point drifts to the CPU on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise EngineError(
+                "CUDA is not available; pass device='cpu' to run the plain "
+                "torch kernels on the CPU"
+            )
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise EngineError(f"device {device!r} requested but CUDA is not available")
+    if dev.type not in ("cuda", "cpu"):
+        raise EngineError(f"unsupported device {device!r}")
+    return dev
+
+
 @dataclass
 class SmartEngine:
     """Engine factory bound to one torch device (default: the CUDA card)."""
@@ -50,18 +70,7 @@ class SmartEngine:
     link: LinkParams = field(default_factory=LinkParams)
 
     def __post_init__(self) -> None:
-        if self.device is None:
-            if not torch.cuda.is_available():
-                raise EngineError(
-                    "CUDA is not available; pass device='cpu' to run the plain "
-                    "torch kernels on the CPU"
-                )
-            self.device = "cuda"
-        dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise EngineError(f"device {self.device!r} requested but CUDA is not available")
-        if dev.type not in ("cuda", "cpu"):
-            raise EngineError(f"unsupported device {self.device!r}")
+        self.device = str(resolve_device(self.device))
 
     def builder(self) -> "SmartModuleChainBuilder":
         return SmartModuleChainBuilder(engine=self)

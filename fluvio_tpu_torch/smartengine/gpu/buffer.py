@@ -143,6 +143,21 @@ class RecordBuffer:
     def rows(self) -> int:
         return self.values.shape[0] if self.values is not None else self._rows
 
+    def dense_values(self) -> np.ndarray:
+        """The padded matrix; materialized on demand (and kept) for
+        flat-backed buffers. The windowed runtime reads it; the chain
+        executor ships the ragged form instead."""
+        if self.values is None:
+            rows, width = self._rows, self._width
+            values = np.zeros((rows, width), dtype=np.uint8)
+            flat, starts = self._flat, self._starts
+            if len(flat):  # all-empty values (tombstones): zeros already
+                mask = np.arange(width, dtype=np.int32)[None, :] < self.lengths[:, None]
+                idx = starts.astype(np.int64)[:, None] + np.arange(width, dtype=np.int64)[None, :]
+                values[mask] = flat[np.clip(idx, 0, len(flat) - 1)][mask]
+            self.values = values
+        return self.values
+
     def ragged_values(self) -> Tuple[np.ndarray, np.ndarray]:
         """(flat, starts): concatenated live bytes + per-row start index.
 

@@ -51,6 +51,23 @@ def gen_arrays(n: int, seed: int = 7):
     ]
 
 
+def gen_ints(n: int, seed: int = 11):
+    """`bench.gen_ints`: decimal ints 0..999, one a record (the windowed
+    configs `5_windowed` and `11_windowed_sliding`)."""
+    rng = np.random.default_rng(seed)
+    nums = rng.integers(0, 1000, size=n)
+    return [str(nums[i]).encode() for i in range(n)]
+
+
+def gen_keyed_ints(n: int, seed: int = 13):
+    """`bench.gen_keyed_ints`: ``"<key> <value>"`` records, 64 keys, values
+    0..999 (the windowed config `12_windowed_keyed`)."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 64, size=n)
+    vals = rng.integers(0, 1000, size=n)
+    return [f"{keys[i]} {vals[i]}".encode() for i in range(n)]
+
+
 # The DFA scan's cases, shared by the card test below and the CPU spec of
 # the kernel's walk (`tests/test_torch_dfa_redesign.py`); jax-free, since
 # the card's machine has no jax.
@@ -495,3 +512,57 @@ def test_aggregate_and_explode_chains_on_the_card():
             assert cuda_kernels.LAUNCHES["json_span"] == cuda_kernels.LAUNCHES["extract"] == 3
         else:
             assert outs["cuda"][-1][1] >= 1
+
+
+def _windowed_rows(values, ts, keyed: bool):
+    """(key, contrib, ts) host rows of pure-ASCII int records."""
+    if keyed:
+        return [(int(v.split(b" ")[0]), int(v.split(b" ")[1]), int(t)) for v, t in zip(values, ts)]
+    return [(0, int(v), int(t)) for v, t in zip(values, ts)]
+
+
+@pytest.mark.cuda
+def test_windowed_runtime_on_the_card():
+    """The windowed-state engine on the card over a few batches of the
+    bench corpora (tumbling and sliding over `gen_ints`, keyed over
+    `gen_keyed_ints`; the buffer path and the array seam): the bank equals
+    the port's `HostWindowReference` after every batch, the view's table
+    at the end, and every delta equals the same runtime's on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the windowed runtime runs there")
+    from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+    from fluvio_tpu_torch.windows import (
+        HostWindowReference, MaterializedView, WindowSpec, WindowedRuntime)
+
+    cases = (
+        (WindowSpec(window_ms=1000), gen_ints, "buffer"),
+        (WindowSpec(window_ms=1000, slide_ms=250), gen_ints, "arrays"),
+        (WindowSpec(window_ms=1000, keyed=True, emit_capacity=4096), gen_keyed_ints, "buffer"),
+    )
+    for spec, gen, seam in cases:
+        card, cpu = WindowedRuntime(spec), WindowedRuntime(spec, device="cpu")
+        ref, view = HostWindowReference(spec), MaterializedView(spec)
+        t0 = 1_000_000
+        for k, n in enumerate((4096, 1000, 4096)):
+            values = gen(n, seed=k)
+            ts = t0 + np.arange(n, dtype=np.int64) * 4
+            t0 = int(ts[-1]) + 4
+            rows = _windowed_rows(values, ts, spec.keyed)
+            deltas = []
+            for rt in (card, cpu):
+                if seam == "buffer":
+                    buf = RecordBuffer.from_values(values, base_timestamp=int(ts[0]))
+                    buf.timestamp_deltas[:n] = ts - ts[0]
+                    deltas.append(rt.process_buffer(buf))
+                else:
+                    cols = np.array([(c, key, t) for key, c, t in rows], dtype=np.int64).T
+                    deltas.append(rt.ingest_arrays(*cols))
+            ref.process_batch(rows)
+            assert card.bank.snapshot() == ref.bank_entries() == cpu.bank.snapshot(), spec
+            for f in ("kind", "watermark", "n_open", "n_closed", "n_late", "delta_bytes"):
+                assert getattr(deltas[0], f) == getattr(deltas[1], f), (spec, f)
+            for f in ("ids", "accs", "counts", "closed"):
+                assert np.array_equal(getattr(deltas[0], f), getattr(deltas[1], f)), (spec, f)
+            view.apply_delta(deltas[0])
+        assert view.table() == ref.table(), spec
+        assert card.bank.device.type == "cuda"
