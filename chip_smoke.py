@@ -120,7 +120,22 @@ Phases (any failure raises and the script exits non-zero):
    every output value and key against the interpreter; warm records/s,
    the first batch's ms, d2h ms, H2D bytes a record, the delta-vs-full
    byte ratio, then the device time and launches of one update and of its
-   torch ops. ``--windowed-only`` runs only this phase (no kernel build).
+   torch ops. ``--windowed-only`` runs only this phase (no kernel build);
+11. partitioned-topic execution at ``bench.py``'s ``9_partitioned``
+   settings: ``regex-filter("fluvio")`` -> ``aggregate-field(field="n")``
+   over 524,288 ``gen_json`` records split round-robin into 4 partitions
+   of 131,072, placed ``.*=spread`` over 2 groups that both fold onto the
+   card, through ``PartitionRuntime`` as ``bench._run_partitioned_config``
+   drives it: a first pass, the lag rebalancer's move of partition 0,
+   three measured passes with ``fail_group(0)`` before the second, the
+   offsets advancing per batch; each partition's sum against its host
+   truth times 4 and every output of the first pass against the running
+   sums; records/s, pass ms, the first pass's s, link bytes a record and
+   the plans; then runtime passes in turns with the same records through
+   one executor's ``process_stream`` (no runtime; the swap's cost is the
+   difference) and one runtime pass's device busy ms, every runtime pass
+   checked again. ``--partitioned-only`` builds the kernels and runs only
+   this phase.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -151,6 +166,14 @@ import torch
 
 from fluvio_tpu_torch.models import lookup
 from fluvio_tpu_torch.ops.regex_dfa import CompiledDfa, compile_regex
+from fluvio_tpu_torch.partition import (
+    PartitionRebalancer,
+    PartitionRuntime,
+    RebalanceConfig,
+    parse_placement_rules,
+    partition_key,
+    plan_placement,
+)
 from fluvio_tpu_torch.smartengine import LinkParams, SmartEngine, SmartModuleConfig
 from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, glz, kernels, stripes
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
@@ -1862,6 +1885,146 @@ def phase_windowed():
     return numbers, torch_op_rows(captured), launches
 
 
+# bench.py's 9_partitioned (bench.py:211-225) at its published settings:
+# BENCH_RECORDS 1,048,576 over divisor 2, round-robin into 4 partitions,
+# placed ".*=spread" over 2 device groups
+PARTITIONED = dict(records=N // 2, partitions=4, groups=2,
+                   specs=[("regex-filter", {"regex": "fluvio"}),
+                          ("aggregate-field", {"field": "n", "combine": "add"})])
+
+
+def running_sums(values):
+    """The aggregate's outputs over one partition's batch, from the host:
+    the running sum of ``n`` over the records the filter keeps."""
+    acc, out = 0, []
+    for v in values:
+        if b"fluvio" in v:
+            acc += json.loads(v)["n"]
+            out.append(str(acc).encode())
+    return out
+
+
+def phase_partitioned():
+    """`9_partitioned` through ``PartitionRuntime`` on the card (the
+    sequence is `run_partitioned` in ``tests/test_torch_isolation.py``);
+    then one pass under the profiler and the same records through one
+    executor's ``process_stream``. Returns (launches, the run's numbers)."""
+    cfg, cases = PARTITIONED, shared_cases()
+    parts = cfg["partitions"]
+    values = cases.gen_json(cfg["records"])
+    per_part = [values[p::parts] for p in range(parts)]
+    t0 = time.perf_counter()
+    bufs = [RecordBuffer.from_values(v) for v in per_part]
+    stage_s = time.perf_counter() - t0
+    truth = [cases.partitioned_truth(v) for v in per_part]
+    keys = [partition_key("bench", p) for p in range(parts)]
+    chain = build_chain(cfg["specs"])
+    runtime = PartitionRuntime(chain, plan_placement(parse_placement_rules(".*=spread"), keys,
+                                                     cfg["groups"]))
+    plan_before = runtime.plan.to_dict()
+    if len({runtime.device_of(g) for g in range(cfg["groups"])}) != 1:
+        raise AssertionError("the device groups did not fold onto one card")
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launches()
+    run = cases.run_partitioned(runtime, bufs, PartitionRebalancer, RebalanceConfig)
+    torch.cuda.synchronize()
+    launches = dict(cuda_kernels.LAUNCHES)
+    link = dict(chain.link_counts)  # the four passes'
+    batches = 4 * parts
+    if launches["json_span"] != batches or launches["extract"] != batches:
+        raise AssertionError(f"9_partitioned: json_span and extract not launched once a batch "
+                             f"({batches}): {launches}")
+
+    def check(passes: int, when: str):
+        for p in range(parts):
+            got = runtime.carry_snapshot("bench", p)
+            if got != [(passes * truth[p], 0, True)]:
+                raise AssertionError(f"9_partitioned {when}: partition {p} carries {got}, host "
+                                     f"truth {passes} x {truth[p]}")
+
+    check(4, "after the move and the group failure")
+    for p, out in enumerate(run["outs"][:parts]):
+        if out.value_list() != running_sums(per_part[p]):
+            raise AssertionError(f"9_partitioned: partition {p}'s first-pass outputs differ from "
+                                 "the running sums")
+    plan_after = runtime.plan.to_dict()
+    moves = [(m["key"], m["from"], m["to"]) for m in run["moves"]]
+    if (moves != [("bench/0", 0, 1)] or runtime.rebalances != 1 or runtime.moves != 1
+            or plan_after["assignments"] != {k: 1 for k in keys}):
+        raise AssertionError(f"9_partitioned: moves {moves}, plan {plan_after}")
+    want_off = {k: 3 * len(per_part[0]) - 1 for k in keys}  # bench.py's commits from -1
+    if runtime.offsets.snapshot() != want_off:
+        raise AssertionError(f"9_partitioned: offsets {runtime.offsets.snapshot()}")
+
+    # the swap's cost: the runtime's passes and one executor's
+    # `process_stream` over the same buffers (no runtime), in turns after a
+    # warm pass of each (a process's early passes run slower), then one
+    # runtime pass under the profiler; every runtime pass is checked again
+    stream = [("bench", p, buf) for p, buf in enumerate(bufs)]
+    plain = build_chain(cfg["specs"])
+    extra = [0]
+
+    def runtime_pass():
+        extra[0] += 1
+        for _ in runtime.process_interleaved(list(stream)):
+            pass
+
+    def plain_pass():
+        for _ in plain.process_stream(bufs):
+            pass
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    plain_first_s = timed(plain_pass)
+    turns = {runtime_pass: [], plain_pass: []}
+    for fn in (runtime_pass, plain_pass, plain_pass, runtime_pass) * 2:
+        turns[fn].append(timed(fn))
+    busy_ms, busy_launches = device_time(runtime_pass, None, reps=1)
+    check(4 + extra[0], f"after {extra[0]} more passes")
+    plain._ensure_host_state()
+    if plain.carries != [(5 * sum(truth), 0, True)]:
+        raise AssertionError(f"9_partitioned without the runtime: carries {plain.carries}")
+
+    n = cfg["records"]
+    med = statistics.median(run["pass_s"])
+    turn_med = statistics.median(turns[runtime_pass])
+    plain_med = statistics.median(turns[plain_pass])
+    numbers = {
+        "records": n, "partitions": parts, "groups": cfg["groups"],
+        "records_per_s": n / med, "pass_ms": [t * 1e3 for t in run["pass_s"]],
+        "first_call_s": run["first_s"], "stage_s": stage_s,
+        "h2d_bytes_per_record": link["h2d_bytes"] / (4 * n),
+        "d2h_bytes_per_record": link["d2h_bytes"] / (4 * n),
+        "plan_before": plan_before, "plan_after": plan_after,
+        "rebalances": runtime.rebalances, "moves": runtime.moves,
+        "offsets": runtime.offsets.snapshot(), "lags": run["lags"],
+        "device_busy_ms": busy_ms, "device_launches": busy_launches,
+        "device_busy_share": busy_ms / (turn_med * 1e3) if busy_ms else None,
+        "turn_pass_ms": [t * 1e3 for t in turns[runtime_pass]],
+        "plain_records_per_s": n / plain_med, "plain_pass_ms": [t * 1e3 for t in turns[plain_pass]],
+        "plain_first_s": plain_first_s, "swap_overhead_ms": (turn_med - plain_med) * 1e3,
+        "sums": truth,
+    }
+    log(f"9_partitioned: {n} records in {parts} partitions over {cfg['groups']} groups (one "
+        f"card): {numbers['records_per_s']:.0f} records/s (median pass "
+        f"{med * 1e3:.3f} ms; passes {[round(t, 3) for t in numbers['pass_ms']]}), first pass "
+        f"{run['first_s']:.3f} s; H2D {numbers['h2d_bytes_per_record']:.3f} B, D2H "
+        f"{numbers['d2h_bytes_per_record']:.3f} B a record; plan {plan_before['assignments']} -> "
+        f"{plan_after['assignments']} (failed {plan_after['failed']}), rebalances "
+        f"{runtime.rebalances}, moves {runtime.moves}; in turns with one executor's "
+        f"process_stream (no runtime): {turn_med * 1e3:.3f} vs {plain_med * 1e3:.3f} ms a pass "
+        f"({numbers['plain_records_per_s']:.0f} records/s without), swap overhead "
+        f"{numbers['swap_overhead_ms']:.3f} ms a pass; device busy {busy_ms} ms a pass "
+        f"({busy_launches} kernels and copies); every partition's sum equal to its host truth "
+        f"x 4 (and x {4 + extra[0]} after {extra[0]} more passes); launches {launches}")
+    return launches, numbers
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -1876,6 +2039,9 @@ def main(argv=None) -> int:
     parser.add_argument("--windowed-only", action="store_true",
                         help="run only the windowed-state phase (phase 10: the three delta "
                              "arms and 5_windowed's classic arm; no kernel build, no ok line)")
+    parser.add_argument("--partitioned-only", action="store_true",
+                        help="build the kernels and run only 9_partitioned through the partition "
+                             "runtime (phase 11; no ok line)")
     parser.add_argument("--slice-only", action="store_true",
                         help="build the kernels and run only the aggregate and array_map "
                              "chains (phase 9) and their torch ops' times (no ok line)")
@@ -1923,6 +2089,11 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"dfa_scan_rows": [row]}))
         return 0
+    if args.partitioned_only:
+        _launches, numbers = phase_partitioned()
+        print(smi)
+        print(json.dumps({"partitioned": numbers}))
+        return 0
     if args.slice_only:
         numbers, ops = phase_slice([gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)])
         print(smi)
@@ -1946,11 +2117,12 @@ def main(argv=None) -> int:
                                                head_chain.link_counts["h2d_bytes"])
     slice_numbers, torch_ops = phase_slice(corpora[:SLICE_BATCHES])
     win_numbers, win_ops, win_launches = phase_windowed()
+    part_launches, part_numbers = phase_partitioned()
     for r in rows:
         r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in slice_numbers.items()}
     slice_launches = [v["launches"] for v in slice_numbers.values()]
     paths = (head_launches, jr_launches, rf_launches, st_launches, glz_launches, *slice_launches,
-             win_launches)
+             win_launches, part_launches)
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
         if r.get("main_path", True) and r["launches"] <= 0:
@@ -1964,6 +2136,7 @@ def main(argv=None) -> int:
                     "glz": glz_rates,
                     "slice_chains": slice_numbers,
                     "windowed": win_numbers,
+                    "partitioned": part_numbers,
                     "build_seconds": KERNELS.build_seconds}))
     log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
                     "device": smi}))

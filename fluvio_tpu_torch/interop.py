@@ -2,10 +2,13 @@
 
 This system has no weights: what a run depends on is the compiled chain
 state (DFA tables), the staged record columns, with the glz link on the
-compressed token streams, and the live carry of a windowed stream (its
-spec and its state bank). These functions take them as plain numpy
-arrays — as the JAX package's `CompiledDfa`, `RecordBuffer` and glz
-`Compressed` hold them — and build the port's objects, so a test can run
+compressed token streams, the live carry of a windowed stream (its spec
+and its state bank) and a partitioned topic's placement plan (each
+partition's carries go across as the plain ints that
+`PartitionRuntime.seed_partition` takes). These functions take them as
+plain values and numpy arrays — as the JAX package's `CompiledDfa`,
+`RecordBuffer` and glz `Compressed` hold them — and build the port's
+objects, so a test can run
 the port on exactly the reference's tables, columns and streams and tell
 a kernel fault from a fault in the port's copy of the compiler.
 """
@@ -15,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from fluvio_tpu_torch.ops.regex_dfa import CompiledDfa
+from fluvio_tpu_torch.partition.placement import PlacementPlan, PlacementRule
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
 from fluvio_tpu_torch.smartengine.gpu.glz import Compressed
 from fluvio_tpu_torch.windows.spec import WindowSpec
@@ -91,3 +95,17 @@ def window_bank_from_reference(entries, watermark, spec: WindowSpec, device) -> 
     bank = WindowStateBank(spec, device=device)
     bank.restore([tuple(int(x) for x in e) for e in entries], int(watermark))
     return bank
+
+
+def placement_plan_from_reference(plan_dict, rules) -> PlacementPlan:
+    """A JAX `PlacementPlan`'s ``to_dict()`` plus its rules as ``(pattern,
+    group)`` pairs (``to_dict`` omits them) -> the port's plan, which makes
+    the same choices from there on."""
+    return PlacementPlan(
+        n_groups=int(plan_dict["n_groups"]),
+        assignments={str(k): int(g) for k, g in plan_dict["assignments"].items()},
+        rules=tuple(PlacementRule(str(p), g if isinstance(g, str) else int(g)) for p, g in rules),
+        failed=frozenset(int(g) for g in plan_dict["failed"]),
+        rebalances=int(plan_dict["rebalances"]),
+        moves=int(plan_dict["moves"]),
+    )

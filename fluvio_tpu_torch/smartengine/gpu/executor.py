@@ -570,6 +570,13 @@ class GpuChainExecutor:
         self.carries: List[Tuple[int, int, bool]] = self.initial_carries()
         self._device_carries: Optional[Carries] = None
         self._fanout = any(isinstance(s, _ArrayMapStage) for s in stages)
+        # the chain@partition identity the partition runtime installs
+        # around a partition's batch (`set_partition_identity`)
+        self._chain_sig = "+".join(
+            type(s).__name__.lstrip("_").replace("Stage", "").lower() for s in stages
+        ) or "empty"
+        self.span_chain: Optional[str] = None
+        self.partition_tag: Optional[str] = None
         self._cap_ratio = 0.0  # learned explode elements per source row
         self.redispatches = 0  # explode batches run again after an overflow
         self._writes_keys = any(
@@ -704,6 +711,22 @@ class GpuChainExecutor:
         if self._device_carries is None:
             return
         self.carries = [(int(c.acc), int(c.win), bool(c.has)) for c in self._device_carries]
+
+    def set_partition_identity(self, key: Optional[str], group=None):
+        """Install (or clear, ``key=None``) the chain@partition identity:
+        ``span_chain`` is ``"<chain>@<topic/partition>"``, ``partition_tag``
+        ``"<topic/partition>:g<group>"``. Returns the previous pair for
+        `restore_partition_identity`."""
+        prev = (self.span_chain, self.partition_tag)
+        if key is None:
+            self.span_chain = self.partition_tag = None
+        else:
+            self.span_chain = f"{self._chain_sig}@{key}"
+            self.partition_tag = f"{key}:g{group}"
+        return prev
+
+    def restore_partition_identity(self, prev) -> None:
+        self.span_chain, self.partition_tag = prev
 
     def _fanout_cap(self, buf: RecordBuffer) -> int:
         """Explode capacity for this batch: the learned elements-per-row
@@ -851,6 +874,12 @@ class GpuChainExecutor:
             cached = buf._glz = (self.link.chunk, comp, reason)
         return cached[1], cached[2]
 
+    def precompress_fn(self, buf: RecordBuffer) -> Optional[Callable]:
+        """The compress-ahead job for ``buf`` (called as ``job(buf)`` on a
+        worker thread before the buffer dispatches, filling the cache
+        `_compressed` reads), or None when the up link is off."""
+        return self._compressed if self.link.compress else None
+
     def _stage_flat(self, buf: RecordBuffer) -> torch.Tensor:
         """The flat on the card as i32 words: the 4-aligned ragged bytes,
         uploaded as they are or, with the up link on, as glz tokens decoded
@@ -982,6 +1011,11 @@ class GpuChainExecutor:
         except GpuSpill:
             self._device_carries = handle.prev_carries
             raise
+
+    def discard_dispatch(self, handle: _Fetch) -> None:
+        """Drop a dispatched batch without finishing it: the carries go
+        back to those the batch started from."""
+        self._device_carries = handle.prev_carries
 
     def _finish(self, buf: RecordBuffer, handle: _Fetch) -> RecordBuffer:
         host = handle.wait()

@@ -8,7 +8,8 @@
   drifting to the CPU.
 - On a machine with a card (marker ``cuda``; skipped elsewhere), each CUDA
   kernel equals its plain torch version exactly on the same inputs, and
-  the aggregate and explode chains give the card the CPU's outputs.
+  the aggregate and explode chains, the windowed runtime and the
+  partition runtime give the card the CPU's outputs.
 
 The bench corpora and the DFA scan's cases live here, free of jax, so
 that the CPU tests, the card tests and ``chip_smoke.py`` share them.
@@ -17,7 +18,9 @@ that the CPU tests, the card tests and ``chip_smoke.py`` share them.
 from __future__ import annotations
 
 import ast
+import json
 import re
+import time
 from pathlib import Path
 
 import numpy as np
@@ -166,6 +169,9 @@ def _forbidden(module: str) -> bool:
 def test_port_imports_no_jax_and_nothing_of_fluvio_tpu():
     files = sorted((REPO / "fluvio_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    for module in ("types.py", "partition/runtime.py", "partition/placement.py",
+                   "partition/rebalancer.py", "partition/failover.py", "windows/engine.py"):
+        assert REPO / "fluvio_tpu_torch" / module in files, module
     bad = [
         f"{path.relative_to(REPO)}:{line}: {module}"
         for path in files
@@ -566,3 +572,117 @@ def test_windowed_runtime_on_the_card():
             view.apply_delta(deltas[0])
         assert view.table() == ref.table(), spec
         assert card.bank.device.type == "cuda"
+
+
+def partitioned_truth(values) -> int:
+    """`9_partitioned`'s host truth (`bench.py`): the sum of ``n`` over the
+    records holding ``fluvio``, the ones its regex filter keeps."""
+    return sum(json.loads(v).get("n", 0) for v in values if b"fluvio" in v)
+
+
+class _Leader:
+    """A stand-in leader replica: its log end offset, which `lag` reads."""
+
+    def __init__(self):
+        self.end = 0
+
+    def leo(self) -> int:
+        return self.end
+
+
+def run_partitioned(runtime, bufs, rebalancer_cls, config_cls, topic: str = "bench"):
+    """`bench._run_partitioned_config`'s sequence over one partition runtime
+    (either package's): a first pass over every partition
+    (``process_interleaved``), the lag rebalancer's two ticks (injected
+    clock; partition 0's backlog the only lag) moving partition 0 to the
+    colder group, then three passes with ``fail_group(0)`` before the
+    second, each partition's leader advancing by its batch before a pass
+    and its offset after each batch. Returns {outs, moves (the second
+    tick's), first_s, pass_s, lags}."""
+    stream = [(topic, p, buf) for p, buf in enumerate(bufs)]
+    leaders = [_Leader() for _ in bufs]
+    for p, leader in enumerate(leaders):
+        runtime.offsets.attach_leader(f"{topic}/{p}", leader)
+
+    def one_pass(outs, commit: bool):
+        t0 = time.perf_counter()
+        for t, p, buf, out in runtime.process_interleaved(list(stream)):
+            if commit:
+                key = f"{t}/{p}"
+                runtime.offsets.advance(key, runtime.offsets.committed(key) + buf.count)
+            outs.append(out)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    outs = []
+    first_s = one_pass(outs, commit=False)
+    clock = [0.0]
+    lags = {f"{topic}/0": float(bufs[0].count)}
+
+    def mover(key, group, reason):
+        t, _, part = key.rpartition("/")
+        return runtime.move_partition(t, int(part), group)
+
+    reb = rebalancer_cls(lambda: runtime.plan, mover,
+                         config=config_cls(interval_s=0.0, burn=1.0, cooldown_s=0.0, max_moves=1,
+                                           hysteresis=4.0),
+                         clock=lambda: clock[0], lag_reader=lambda: dict(lags))
+    reb.tick()  # the first sighting seeds the burn baseline
+    clock[0] += 1.0
+    moves = reb.tick()  # a stalled backlog: hot, so it moves
+    pass_s = []
+    for r in range(3):
+        if r == 1:
+            runtime.fail_group(0)
+        for leader, buf in zip(leaders, bufs):
+            leader.end += buf.count
+        pass_s.append(one_pass(outs, commit=True))
+    return {"outs": outs, "moves": moves, "first_s": first_s, "pass_s": pass_s,
+            "lags": [runtime.offsets.lag(f"{topic}/{p}") for p in range(len(bufs))]}
+
+
+@pytest.mark.cuda
+def test_partitioned_runtime_on_the_card():
+    """`9_partitioned`'s sequence on the card (4 partitions of 4,096
+    `gen_json` records, 2 groups folded onto the card, the rebalancer's
+    move and ``fail_group(0)``): each partition's sum is its host truth
+    times 4, outputs and carries equal the same runtime on the CPU, and
+    the JSON span and extract kernels launched every batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.models import lookup
+    from fluvio_tpu_torch.partition import (
+        PartitionRebalancer, PartitionRuntime, RebalanceConfig, parse_placement_rules,
+        plan_placement)
+    from fluvio_tpu_torch.smartengine import SmartEngine, SmartModuleConfig
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
+    from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+
+    values = gen_json(4 * 4096)
+    per_part = [values[p::4] for p in range(4)]
+    results = {}
+    for device in ("cpu", "cuda"):
+        b = SmartEngine(device=device).builder()
+        b.add_smart_module(SmartModuleConfig(params={"regex": "fluvio"}), lookup("regex-filter"))
+        b.add_smart_module(SmartModuleConfig(params={"field": "n", "combine": "add"}),
+                           lookup("aggregate-field"))
+        plan = plan_placement(parse_placement_rules(".*=spread"),
+                              [f"bench/{p}" for p in range(4)], 2)
+        runtime = PartitionRuntime(b.initialize(), plan,
+                                   devices=["cpu"] if device == "cpu" else None)
+        cuda_kernels.reset_launches()
+        run = run_partitioned(runtime, [RecordBuffer.from_values(v) for v in per_part],
+                              PartitionRebalancer, RebalanceConfig)
+        results[device] = ([(o.value_list(), o.offset_deltas[: o.count].tolist())
+                            for o in run["outs"]],
+                           [runtime.carry_snapshot("bench", p) for p in range(4)],
+                           runtime.to_dict(), [m["to"] for m in run["moves"]])
+        launches = dict(cuda_kernels.LAUNCHES)
+    assert results["cuda"] == results["cpu"]
+    assert results["cuda"][3] == [1]
+    assert results["cuda"][2]["plan"]["failed"] == [0]
+    for p in range(4):
+        assert results["cuda"][1][p] == [(4 * partitioned_truth(per_part[p]), 0, True)]
+    assert launches["json_span"] == launches["extract"] == 16
+    assert runtime.device_of(0) == runtime.device_of(1) and runtime.device_of(0).type == "cuda"

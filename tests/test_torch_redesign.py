@@ -34,6 +34,17 @@ from fluvio_tpu.smartengine.tpu import pallas_kernels
 from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, glz, kernels
 from fluvio_tpu_torch.smartengine.gpu.executor import pad_glz_tokens
 
+
+@pytest.fixture(autouse=True)
+def _dfa_pallas_flags_restored():
+    """A call of the JAX package's Pallas DFA compose sets its process-wide
+    engagement flag, and an engaged flag routes any later dispatch
+    failure in that process into the compose kernel's demotion; leave the
+    flags as the test found them."""
+    saved = (pallas_kernels._dfa_pallas_off, pallas_kernels._dfa_pallas_engaged)
+    yield
+    pallas_kernels._dfa_pallas_off, pallas_kernels._dfa_pallas_engaged = saved
+
 BENCH_REGEX = "^(fluvio|kafka|pulsar)-[0-3]$"
 BIG_REGEX = "(a|b)*a(a|b){6}c|x" + "d" * 125  # 257 states: two-byte table entries
 

@@ -32,6 +32,7 @@ from fluvio_tpu_torch.smartengine.gpu import buffer as port_buffer
 from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, stripes
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
 from tests.test_torch_chain import _assert_equal, _module_pair, _port_buffer, _ref_buffer
+from tests.test_torch_redesign import _dfa_pallas_flags_restored  # noqa: F401
 from tests.test_tpu_kernels import JSON_DOCS
 
 S, V, THRESHOLD = 64, 16, 64
