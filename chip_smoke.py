@@ -135,7 +135,29 @@ Phases (any failure raises and the script exits non-zero):
    one executor's ``process_stream`` (no runtime; the swap's cost is the
    difference) and one runtime pass's device busy ms, every runtime pass
    checked again. ``--partitioned-only`` builds the kernels and runs only
-   this phase.
+   this phase;
+12. byte mode's packed payload and its down link, and the striped
+   aggregate and explode: (1) the D2H bytes a record of ``3_aggregate``,
+   ``filter_aggregate`` (phase 9) and ``9_partitioned`` (phase 11), whose
+   byte-mode outputs now cross as one packed payload and must be
+   flat-backed, beside the parent's figures; (2) one batch of 1,048,576
+   ``gen_json`` records through ``aggregate-field(field="n",
+   combine="max")`` with ``LinkParams(result_compress=True)``, whose
+   settled running max must ship as glz tokens (the encode window match
+   launched), then ``3_aggregate`` likewise, logging the form it shipped,
+   both against the interpreter; (3) ``regex-filter("flu[vV]io")`` ->
+   ``aggregate-sum`` over 4 x 1,024 records of ~71.7 KB (a signed integer
+   and a space, then ``gen_fat_70k``'s record with the name cycling over
+   fluvio, kafka, fluVio, pulsar), striped, the running sums of every
+   batch and the carries after the last against the interpreter, the DFA
+   composition launched every batch; (4) ``regex-filter("flu[vV]io")`` ->
+   ``array-map-lines`` over 4 x 1,024 log records of ~71.7 KB (~1,000
+   lines of 40-100 bytes, runs of empty lines), striped, batch 0 row by
+   row and every batch by count and bytes against the interpreter, the
+   first batch overflowing the default capacity and running again;
+   records/s, bytes/s, output rows/s and D2H. ``--striped-slice-only``
+   builds the kernels and runs phase 9's two aggregate chains, phase 11
+   and this phase.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -1640,6 +1662,8 @@ def phase_slice_chain(name: str, corpora):
             raise AssertionError(f"{name} batch {k}: offsets differ from the interpreter's")
         if (out.key_lengths[: out.count] != -1).any():
             raise AssertionError(f"{name} batch {k}: keys on keyless records")
+        if out.values is not None:
+            raise AssertionError(f"{name} batch {k}: the output is not flat-backed")
     truth_s = time.perf_counter() - t_truth
     chain._ensure_host_state()
     if name != "4_array_map" and chain.carries != [(int(truth[-1][0][-1]), 0, True)]:
@@ -1647,6 +1671,7 @@ def phase_slice_chain(name: str, corpora):
     n_in = len(corpora) * len(corpora[0])
     n_out = sum(o.count for o in outs)
     numbers = {"records_per_s": n_in / elapsed, "output_rows_per_s": n_out / elapsed,
+               "records": n_in, "parent_d2h": parent_byte_mode_d2h(outs, len(corpora[0])),
                "output_rows": n_out, "seconds": elapsed, "carries": chain.carries,
                "redispatches": chain.redispatches, "cap_ratio": chain._cap_ratio,
                "link_counts": dict(chain.link_counts), "truth_s": truth_s}
@@ -1662,13 +1687,15 @@ def phase_slice_chain(name: str, corpora):
     return launches, numbers, ops
 
 
-def phase_slice(json_corpora):
-    """Every slice chain (`gen_json` batches for the aggregates, `gen_arrays`
-    for the explode), then the device time of the torch ops they ran.
-    Returns ({chain: numbers, launches included}, torch op rows)."""
+def phase_slice(json_corpora, names=tuple(SLICE_CHAINS)):
+    """Every slice chain of ``names`` (`gen_json` batches for the
+    aggregates, `gen_arrays` for the explode), then the device time of the
+    torch ops they ran. Returns ({chain: numbers, launches included},
+    torch op rows)."""
     numbers, captured = {}, {}
-    array_corpora = [gen_arrays(N, seed=200 + k) for k in range(SLICE_BATCHES)]
-    for name in SLICE_CHAINS:
+    array_corpora = ([gen_arrays(N, seed=200 + k) for k in range(SLICE_BATCHES)]
+                     if "4_array_map" in names else None)
+    for name in names:
         launches, numbers[name], captured[name] = phase_slice_chain(
             name, array_corpora if name == "4_array_map" else json_corpora)
         numbers[name]["launches"] = launches
@@ -1947,6 +1974,8 @@ def phase_partitioned():
         if out.value_list() != running_sums(per_part[p]):
             raise AssertionError(f"9_partitioned: partition {p}'s first-pass outputs differ from "
                                  "the running sums")
+    if any(out.values is not None for out in run["outs"]):
+        raise AssertionError("9_partitioned: an output is not flat-backed")
     plan_after = runtime.plan.to_dict()
     moves = [(m["key"], m["from"], m["to"]) for m in run["moves"]]
     if (moves != [("bench/0", 0, 1)] or runtime.rebalances != 1 or runtime.moves != 1
@@ -2024,6 +2053,183 @@ def phase_partitioned():
         f"x 4 (and x {4 + extra[0]} after {extra[0]} more passes); launches {launches}")
     return launches, numbers
 
+# phase 12: byte mode's packed payload and its down link, and the striped
+# aggregate and split explode over 71.7 KB records (bench.py's fat shape)
+STRIPED_SLICE_BATCHES = 4
+# D2H bytes a record that PR 10's smoke measured on `9_partitioned` before
+# the packed payload (PERF.md, PR 10, call 18)
+PR10_PARTITIONED_D2H = 7.625
+
+
+def parent_byte_mode_d2h(outs, rows_in: int) -> float:
+    """The D2H bytes a record of the parent's byte-mode download over the
+    same outputs, by its arithmetic (not measured): the 5-column header,
+    the mask, each batch's ``[rows, vw]`` decimal matrix and int32 lengths
+    over the survivors' bucketed rows."""
+    total = 0
+    for out in outs:
+        rows = _bucket_rows(max(out.count, 1))
+        vw = 8
+        while vw < max(int(out.lengths[: out.count].max(initial=1)), 1):
+            vw <<= 1
+        total += 40 + (rows_in + 7) // 8 + rows * (vw + 4)
+    return total / (rows_in * len(outs))
+
+
+def narrow_byte_mode(slice_numbers, part_numbers):
+    """Part 1: the D2H bytes a record of the byte-mode chains of phases 9
+    and 11, which now ship the packed payload (flat-backed outputs, checked
+    there), beside the parent's figures."""
+    out = {}
+    for name in ("3_aggregate", "filter_aggregate"):
+        num = slice_numbers[name]
+        out[name] = {"d2h_bytes_per_record": num["link_counts"]["d2h_bytes"] / num["records"],
+                     "parent_d2h_bytes_per_record_arithmetic": num["parent_d2h"]}
+    out["9_partitioned"] = {"d2h_bytes_per_record": part_numbers["d2h_bytes_per_record"],
+                            "pr10_d2h_bytes_per_record": PR10_PARTITIONED_D2H}
+    for name, v in out.items():
+        log(f"byte mode {name}: D2H {v['d2h_bytes_per_record']:.4f} B a record (packed payload); "
+            f"before: {v.get('parent_d2h_bytes_per_record_arithmetic', PR10_PARTITIONED_D2H):.4f}"
+            f" ({'PR 10 measured' if name == '9_partitioned' else 'parent layout, arithmetic'})")
+    return out
+
+
+def running_truth(corpus, combine: str, acc: int):
+    """The interpreter's running ``combine`` of ``n`` over one batch from
+    ``acc``: (outputs, the last accumulator)."""
+    vals = []
+    for rec in corpus:
+        x = dsl.parse_int_prefix(dsl.json_get_bytes(rec, "n"))
+        acc = max(acc, x) if combine == "max" else (acc + x + 2**63) % 2**64 - 2**63
+        vals.append(str(acc).encode())
+    return vals, acc
+
+
+def phase_down_link(corpus):
+    """Part 2: one batch of N `gen_json` records through a running max and
+    through `3_aggregate` with the down link on; outputs against the
+    interpreter. The max settles, so its payload's tokens must win and
+    ship; `3_aggregate` logs the form it shipped."""
+    cases = shared_cases()
+    link = LinkParams(result_compress=True)
+    numbers = {}
+    buf = RecordBuffer.from_values(corpus)
+    for name, specs, combine in (("down_link_max", cases.DOWN_LINK_MAX, "max"),
+                                 ("down_link_3_aggregate", SLICE_CHAINS["3_aggregate"], "add")):
+        build_chain(specs, link=link).process_buffer(RecordBuffer.from_values(corpus[:4096]))
+        chain = build_chain(specs, link=link)
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = chain.process_buffer(buf)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = dict(cuda_kernels.LAUNCHES)
+        want, _ = running_truth(corpus, combine, kernels.INT64_MIN if combine == "max" else 0)
+        if out.value_list() != want or out.values is not None:
+            raise AssertionError(f"{name}: outputs differ from the interpreter or are not "
+                                 "flat-backed")
+        counts = dict(chain.link_counts)
+        form = "down-glz" if counts["down-glz"] else "down-packed"
+        if launches["glz_enc_match"] < 1 or (name == "down_link_max" and form != "down-glz"):
+            raise AssertionError(f"{name}: shipped {form}, launches {launches}")
+        numbers[name] = {"records_per_s": N / elapsed, "form": form, "link_counts": counts,
+                         "d2h_bytes_per_record": counts["d2h_bytes"] / N, "launches": launches}
+        log(f"{name}: {N} records in {elapsed:.3f} s = {N / elapsed:.0f} records/s with the down "
+            f"link on; shipped {form}; D2H {counts['d2h_bytes'] / N:.4f} B a record; every output "
+            f"equal to the interpreter; launches {launches}")
+    return numbers
+
+
+def striped_slice_truth(name: str, corpora):
+    """Host truth of a striped slice chain, per batch: the running sums
+    (continued across batches) with their records' offsets, or the split's
+    elements of the records the filter keeps."""
+    rx = re.compile(rb"flu[vV]io")
+    outs, acc = [], 0
+    for corpus in corpora:
+        keep = [i for i, rec in enumerate(corpus) if rx.search(rec)]
+        if name == "striped_explode":
+            outs.append(([e for i in keep for e in corpus[i].split(b"\n") if e], keep))
+            continue
+        vals = []
+        for i in keep:
+            acc = (acc + dsl.parse_int_prefix(corpus[i]) + 2**63) % 2**64 - 2**63
+            vals.append(str(acc).encode())
+        outs.append((vals, keep))
+    return outs, acc
+
+
+def phase_striped_slice_chain(name: str, corpora):
+    """Parts 3 and 4: a striped slice chain over the fat batches through
+    ``process_stream``, against the interpreter; `dfa_compose.cu` must
+    launch every batch."""
+    specs = shared_cases().STRIPED_SLICE[name]
+    build_chain(specs, FAT_PARAMS).process_buffer(RecordBuffer.from_values(corpora[0][:8]))
+    chain = build_chain(specs, FAT_PARAMS)
+    bufs = [RecordBuffer.from_values(c) for c in corpora]
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = list(chain.process_stream(bufs))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    if launches["dfa_compose"] < len(corpora):
+        raise AssertionError(f"{name}: dfa_compose not launched every batch: {launches}")
+    if chain._striped is None:
+        raise AssertionError(f"{name}: the chain did not run striped")
+    truth, acc = striped_slice_truth(name, corpora)
+    for k, ((vals, keep), out) in enumerate(zip(truth, outs)):
+        if name == "striped_aggregate" or k == 0:
+            if out.value_list() != vals:
+                raise AssertionError(f"{name} batch {k}: outputs differ from the interpreter "
+                                     f"({out.count} vs {len(vals)})")
+        if name == "striped_aggregate":
+            if out.offset_deltas[: out.count].tolist() != keep:
+                raise AssertionError(f"{name} batch {k}: offsets differ from the survivors'")
+        elif (out.count != len(vals)
+              or int(out.lengths[: out.count].sum()) != sum(len(v) for v in vals)):
+            raise AssertionError(f"{name} batch {k}: {out.count} rows, not {len(vals)}, or their "
+                                 "bytes differ")
+    chain._ensure_host_state()
+    if name == "striped_aggregate" and chain.carries != [(acc, 0, True)]:
+        raise AssertionError(f"{name}: carries {chain.carries}, host truth {acc}")
+    if name == "striped_explode" and chain.redispatches < 1:
+        raise AssertionError(f"{name}: the first batch did not overflow and run again")
+    n_in = len(corpora) * len(corpora[0])
+    n_out = sum(o.count for o in outs)
+    nbytes = sum(len(r) for c in corpora for r in c)
+    counts = dict(chain.link_counts)
+    numbers = {"records_per_s": n_in / elapsed, "bytes_per_s": nbytes / elapsed,
+               "output_rows_per_s": n_out / elapsed, "output_rows": n_out, "seconds": elapsed,
+               "redispatches": chain.redispatches, "cap_ratio": chain._cap_ratio,
+               "carries": chain.carries, "link_counts": counts,
+               "d2h_bytes_per_record": counts["d2h_bytes"] / n_in, "launches": launches}
+    log(f"{name}: {len(corpora)} x {len(corpora[0])} records of ~{nbytes // n_in} B in "
+        f"{elapsed:.3f} s = {n_in / elapsed:.1f} records/s, {nbytes / elapsed / 1e9:.3f} GB/s, "
+        f"{n_out / elapsed:.0f} output rows/s ({n_out} rows); exact against the interpreter; "
+        f"re-dispatches {chain.redispatches}, learned ratio {chain._cap_ratio:.2f}; carries "
+        f"{chain.carries}; H2D {counts['h2d_bytes']} B, D2H {counts['d2h_bytes']} B "
+        f"({numbers['d2h_bytes_per_record']:.2f} a record); launches {launches}")
+    return numbers
+
+
+def phase_striped_slice(json_corpus, slice_numbers, part_numbers):
+    """Phase 12: the narrow byte mode's D2H, its down link, and the striped
+    aggregate and explode. Returns ({chain: numbers, launches included},
+    the narrow byte mode's D2H table)."""
+    cases = shared_cases()
+    d2h = narrow_byte_mode(slice_numbers, part_numbers)
+    numbers = phase_down_link(json_corpus)
+    numbers["striped_aggregate"] = phase_striped_slice_chain(
+        "striped_aggregate",
+        [cases.gen_fat_numbers(FAT_RECORDS, seed=300 + k) for k in range(STRIPED_SLICE_BATCHES)])
+    numbers["striped_explode"] = phase_striped_slice_chain(
+        "striped_explode",
+        [cases.gen_fat_lines(FAT_RECORDS, seed=400 + k) for k in range(STRIPED_SLICE_BATCHES)])
+    return numbers, d2h
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2045,6 +2251,9 @@ def main(argv=None) -> int:
     parser.add_argument("--slice-only", action="store_true",
                         help="build the kernels and run only the aggregate and array_map "
                              "chains (phase 9) and their torch ops' times (no ok line)")
+    parser.add_argument("--striped-slice-only", action="store_true",
+                        help="build the kernels and run only phase 12 (with phase 9's aggregate "
+                             "chains and phase 11, whose D2H it reads; no ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2099,6 +2308,14 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"slice_chains": numbers, "slice_torch_ops": ops}))
         return 0
+    if args.striped_slice_only:
+        json_corpora = [gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)]
+        slice_numbers, _ops = phase_slice(json_corpora, ("3_aggregate", "filter_aggregate"))
+        _launches, part_numbers = phase_partitioned()
+        numbers, d2h = phase_striped_slice(json_corpora[0], slice_numbers, part_numbers)
+        print(smi)
+        print(json.dumps({"striped_slice": numbers, "byte_mode_d2h": d2h}))
+        return 0
     narrow, striped = phase_json_span(dev, corpus)
     if args.json_only:
         print(smi)
@@ -2118,10 +2335,12 @@ def main(argv=None) -> int:
     slice_numbers, torch_ops = phase_slice(corpora[:SLICE_BATCHES])
     win_numbers, win_ops, win_launches = phase_windowed()
     part_launches, part_numbers = phase_partitioned()
+    ss_numbers, byte_d2h = phase_striped_slice(corpora[0], slice_numbers, part_numbers)
+    by_chain = {**slice_numbers, **ss_numbers}
     for r in rows:
-        r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in slice_numbers.items()}
-    slice_launches = [v["launches"] for v in slice_numbers.values()]
-    paths = (head_launches, jr_launches, rf_launches, st_launches, glz_launches, *slice_launches,
+        r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in by_chain.items()}
+    chain_launches = [v["launches"] for v in by_chain.values()]
+    paths = (head_launches, jr_launches, rf_launches, st_launches, glz_launches, *chain_launches,
              win_launches, part_launches)
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
@@ -2137,6 +2356,8 @@ def main(argv=None) -> int:
                     "slice_chains": slice_numbers,
                     "windowed": win_numbers,
                     "partitioned": part_numbers,
+                    "striped_slice": ss_numbers,
+                    "byte_mode_d2h": byte_d2h,
                     "build_seconds": KERNELS.build_seconds}))
     log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
                     "device": smi}))

@@ -18,33 +18,40 @@ chains over records that fit the narrow layout (one row per record):
    from batch to batch (`_AggregateStage`, `_device_carries`);
 4. results compact on the card: filter-only chains ship a 1-bit survivor
    mask, view chains (start, length) descriptors, byte-mode chains (an
-   aggregate's decimals are rendered on the card) the compacted columns;
-   explode chains ship each output row's source row in place of the
-   mask; the header and mask copies start at dispatch and land in pinned
-   host memory;
-5. the host rebuilds the output buffer (`_materialize_view_flat`,
-   `_fetch_bytes`, `_assemble`). An explode whose rows overflow the
-   capacity runs again at the exact (bucketed) count from the batch's
-   own carries, and the learned capacity grows.
+   aggregate's decimals are rendered on the card) one packed 4-aligned
+   payload of the compacted values (`kernels.packed_payload`) with its
+   byte count in the header, u8 or int32 lengths and the keys; explode
+   chains ship each output row's source row in place of the mask; the
+   header and mask copies start at dispatch and land in pinned host
+   memory;
+5. the host rebuilds the output buffer (`_materialize_view_flat`, or
+   `_fetch_bytes`, which adopts the payload flat-backed; `_assemble`). An
+   explode whose rows overflow the capacity runs again at the exact
+   (bucketed) count from the batch's own carries, and the learned
+   capacity grows.
 
 Batches wider than the narrow layout (`StripeParams.threshold`) take the
 striped path (`_dispatch_striped`, the reference's `_chain_fn_striped`):
 the same ragged upload re-padded into stripe rows (`gpu/stripes.py`),
-segment-level verdicts, and the segment survivor mask or (start, length)
-descriptors down, rebuilt by the same host code.
+segment-level verdicts, aggregates over the segment state, and the
+segment survivor mask, (start, length) descriptors, an aggregate's
+byte-mode payload or a split explode's element descriptors down, rebuilt
+by the same host code.
 
 The glz link (`gpu/glz.py`), on only when a `LinkParams` asks for it:
 the up link ships the flat as glz tokens, compressed on the host (a
 worker thread compresses batch k+1 ahead in `process_stream`) and decoded
 on the card before the re-pad; the down link encodes the (start, length)
-descriptors of view chains on the card and downloads the tokens when they
-are smaller than the raw columns. `link_counts` counts which form each
-batch took, the declines by reason and the bytes each way.
+descriptors of view chains, or the byte-mode payload, on the card and
+downloads the tokens when they are smaller than the raw download.
+`link_counts` counts which form each batch took, the declines by reason
+and the bytes each way.
 
 What the port does not cover raises :class:`GpuSpill` instead of running
-anywhere else: wide batches of a chain with no striped lowering (every
-aggregate and array_map chain among them), and a batch whose explode
-meets a record that is no JSON array (``transform-error``).
+anywhere else: wide batches of a chain with no striped lowering (a
+JSON-array explode, a word count, a JsonGet contribution, a key rewrite
+among them), and a batch whose explode meets a record that is no JSON
+array (``transform-error``).
 """
 
 from __future__ import annotations
@@ -407,17 +414,25 @@ class _Fetch:
         self.cap = cap
         # survivors are whole input records: the mask is the whole download
         self.whole_records = False
-        # byte mode: compacted (values, lengths, keys, key_lengths) left on
-        # the card until the header says how much of them to download
+        # byte mode: the packed payload, the narrowed lengths and the
+        # compacted keys, left on the card until the header says how much
+        # of them to download; the payload's byte count rides the header
+        # at `payload_at`
         self.byte_cols: Optional[Tuple[torch.Tensor, ...]] = None
+        self.payload_at = 0
         # explode chains: the compacted source-row column and its deltas
         # (the header's probe picks the download), and the staged inputs,
-        # which an overflow re-runs at a larger capacity
+        # which an overflow re-runs at a larger capacity: the narrow
+        # path's arrays, or a striped batch's (ctx, segment survivors)
         self.src_col: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self.arrays: Optional[Dict[str, torch.Tensor]] = None
-        # down link: the raw descriptor columns and the glz tokens of their
-        # stream, left on the card until "down_meta" says which is smaller
-        self.down: Optional[Tuple] = None
+        self.striped: Optional[Tuple[dict, torch.Tensor]] = None
+        # down link: the glz tokens of the result stream (descriptors or
+        # payload), left on the card until "down_meta" says whether they
+        # beat the raw download; a view chain's raw descriptor columns wait
+        # beside them in `desc`
+        self.down: Optional[Tuple[torch.Tensor, ...]] = None
+        self.desc: Optional[Tuple] = None
 
     def start(self, name: str, t: torch.Tensor) -> None:
         if self.cuda:
@@ -742,15 +757,13 @@ class GpuChainExecutor:
 
     def _striped_chain(self) -> Optional[stripes.StripedChain]:
         """The chain's striped lowering, built on first need; None when a
-        stage is outside the stripeable subset or the outputs are no views
-        of the records (byte mode)."""
+        stage is outside the stripeable subset (`stripes.try_build_striped`
+        keeps the reference's build rules)."""
         if not self._striped_tried:
             self._striped_tried = True
-            sc = None
-            if self._viewable:
-                p = self.stripe_params
-                sc = stripes.try_build_striped(self._programs, p.width, p.overlap)
-            if sc is not None and tuple(sc.postops) != self._view_postops:
+            p = self.stripe_params
+            sc = stripes.try_build_striped(self._programs, self.stages, p.width, p.overlap)
+            if sc is not None and self._viewable and tuple(sc.postops) != self._view_postops:
                 raise AssertionError(  # both derive from the same programs
                     f"striped postops {sc.postops} differ from the view's {self._view_postops}"
                 )
@@ -831,16 +844,25 @@ class GpuChainExecutor:
             fetch.start("span_start", st.to(desc_dtype))
             fetch.start("span_len", ln.to(desc_dtype))
             return
-        ll, ml, srcs, lits, n_seq, n_lit, depth = glz.encode_result(
-            desc_stream(st, ln, desc_width), self.link.chunk
-        )
+        self._down_encode(fetch, desc_stream(st, ln, desc_width))
+        fetch.desc = (st.to(desc_dtype), ln.to(desc_dtype), desc_width)
+
+    def _down_encode(self, fetch: _Fetch, stream: torch.Tensor) -> None:
+        """The down link's card half: encode a result stream (length a
+        multiple of 8) with the glz window match; the tokens stay on the
+        card and their counts ride the header's copies."""
+        ll, ml, srcs, lits, n_seq, n_lit, depth = glz.encode_result(stream, self.link.chunk)
         fetch.start("down_meta", torch.stack([n_seq, n_lit, depth]).to(torch.int32))
-        fetch.down = (st.to(desc_dtype), ln.to(desc_dtype), ll, ml, srcs, lits, desc_width)
+        fetch.down = (ll, ml, srcs, lits)
 
     def _ship_bytes(self, fetch: _Fetch, state: _State, fan) -> None:
-        """Byte mode: the compacted value and key columns stay on the card
-        until the header says how much of them to download; the survivor
-        mask, or an explode's source rows, identify each output's record."""
+        """Byte mode: the compacted values pack into one 4-aligned payload
+        (`kernels.packed_payload`) whose byte count rides the header, so
+        the fetch sizes the download without a second wait; the lengths
+        narrow to u8 where the output width allows. Payload, lengths and
+        keys stay on the card until the header arrives; the survivor mask,
+        or an explode's source rows, identify each output's record. With
+        the down link on, the payload is glz-encoded on the card too."""
         valid = state["valid"]
         cols = [state["values"], state["lengths"], state["keys"], state["key_lengths"]]
         probes = []
@@ -851,8 +873,18 @@ class GpuChainExecutor:
             fetch.start("mask", kernels.pack_mask(valid))
             out_count, compacted = kernels.compact_rows(valid, *cols)
         vals, lens, keys, klens = compacted[:4]
-        fetch.start("header", self._header(out_count, lens.max(), klens.max(), fan, probes))
-        fetch.byte_cols = (vals, lens, keys, klens)
+        payload, total = kernels.packed_payload(vals, lens)
+        fetch.payload_at = _HEADER + len(probes)
+        fetch.start("header", self._header(out_count, lens.max(), klens.max(), fan,
+                                           [*probes, total]))
+        # output widths can exceed the input's (a Concat map): the length
+        # tier keys off the output matrix
+        lens_d = lens.to(torch.uint8) if vals.shape[1] + 1 <= (1 << 8) else lens
+        fetch.byte_cols = (payload, lens_d, keys, klens, vals.shape[1])
+        if self.link.result_compress:
+            pad = (-payload.shape[0]) % 8
+            self._down_encode(fetch, torch.cat([payload, payload.new_zeros(pad)]) if pad
+                              else payload)
 
     # -- staging ---------------------------------------------------------------
 
@@ -948,21 +980,31 @@ class GpuChainExecutor:
         return fetch
 
     def _rerun(self, buf: RecordBuffer, handle: _Fetch, cap: int) -> _Fetch:
-        """Run an explode batch's chain again at ``cap`` rows, from the
-        inputs it staged and the carries it started from."""
+        """Run an explode batch again at ``cap`` rows, from the inputs it
+        staged and the carries it started from. A striped batch re-runs
+        only its fan-out, over the segment survivors its filters left."""
         fetch = _Fetch(self.device, handle.prev_carries, cap)
-        self._run(handle.arrays, buf.count, buf.base_timestamp, fetch)
+        if handle.striped is not None:
+            ctx, valid = handle.striped
+            fetch.striped = handle.striped
+            self._ship_striped_fan(fetch, ctx, valid, self._striped.fan_grid(ctx))
+        else:
+            self._run(handle.arrays, buf.count, buf.base_timestamp, fetch)
         fetch.seal()
         return fetch
 
     def _dispatch_striped(self, buf: RecordBuffer) -> _Fetch:
         """Striped phase 1: the narrow path's ragged upload, re-padded on
         the card into stripe rows with the segment sidecar derived from the
-        lengths; filters reduce per segment. Filter and fold chains ship
-        the segment survivor mask, span chains compacted int32 (start,
-        length) descriptors (striped spans index records wider than int16)
-        beside it."""
+        lengths; filters reduce per segment, aggregates run on the segment
+        axis (the narrow stages, sharing their carry slots). Filter and
+        fold chains ship the segment survivor mask, span chains compacted
+        int32 (start, length) descriptors (striped spans index records
+        wider than int16) beside it, aggregate chains the byte-mode
+        payload of their rendered outputs, split explodes their elements'
+        int32 descriptors and source records (`_ship_striped_fan`)."""
         p = self.stripe_params
+        sc = self._striped
         flat_up = self._stage_flat(buf)
         lengths_up, has_keys, has_offsets, ts_mode, ts_np = stage_link_columns(buf)
         lengths = self._upload(lengths_up).to(torch.int32)
@@ -972,18 +1014,52 @@ class GpuChainExecutor:
         arrays = self._meta_arrays(buf, n, has_keys, has_offsets, ts_mode, ts_np)
         ctx = {
             "sv": sv, "plan": plan, "n": n, "kmax": kmax,
-            "seg_state": stripes.seg_state_of(plan, sv, lengths, arrays),
+            "seg_state": _State(stripes.seg_state_of(plan, sv, lengths, arrays)),
         }
-        valid, vspan = self._striped.run(ctx, plan["k"] > 0)  # k > 0: the live records
-        fetch = _Fetch(self.device)
-        if vspan is None:
+        fetch = _Fetch(self.device, self._carries_in(), self._fanout_cap(buf))
+        # k > 0: the live records
+        valid, seg_state, carries, fan, vspan = sc.run(
+            ctx, plan["k"] > 0, fetch.prev_carries, buf.base_timestamp, {"fanout_cap": fetch.cap})
+        if fan is not None:
+            fetch.striped = (ctx, valid)
+            self._ship_striped_fan(fetch, ctx, valid, fan)
+            del fan  # the last reference to the [r, s] grids
+        elif sc.has_agg:
+            self._ship_bytes(fetch, seg_state, ())
+        elif vspan is None:
             self._ship_views(fetch, valid, lengths)
         else:
             # int32 descriptors at the widest field tier: striped spans index
             # records wider than the u16 tier
             self._ship_views(fetch, valid, vspan[1], vspan[0])
+        self._device_carries = carries
         fetch.seal()
         return fetch
+
+    def _ship_striped_fan(self, fetch: _Fetch, ctx: dict, valid: torch.Tensor, fan) -> None:
+        """A striped split explode's output: `kernels.fanout_scatter` over
+        the ``[r, s]`` emission grid (no final slot: an element ends at a
+        separator or its record's end, both inside the grid), counting the
+        rows of surviving segments only; the elements ship as int32
+        (start, length) descriptors within their source records, the
+        source records as an explode's source rows, and the header
+        carries the exact element total."""
+        plan = ctx["plan"]
+        r = plan["seg"].shape[0]
+        seg = plan["seg"].to(torch.int64)
+        contributing = valid[seg] & plan["row_live"]
+        zb = torch.zeros((r,), dtype=torch.bool, device=self.device)
+        zi = torch.zeros((r,), dtype=torch.int32, device=self.device)
+        flag, st_g, len_g = fan
+        total, local_row, rel_start, elen = kernels.fanout_scatter(
+            flag, st_g, len_g, zb, zi, zi, contributing, fetch.cap)
+        del flag, st_g, len_g, fan
+        src_seg = plan["seg"][local_row.clamp(0, r - 1).to(torch.int64)]
+        live = torch.arange(fetch.cap, dtype=torch.int32, device=self.device) < total.clamp(
+            max=fetch.cap)
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._ship_views(fetch, live, elen, rel_start, torch.int32, MAX_RECORD_WIDTH,
+                         [zero, total], src_seg)
 
     # -- host side -------------------------------------------------------------
 
@@ -1032,21 +1108,20 @@ class GpuChainExecutor:
             src = self._download_src(*handle.src_col, hdr[_HEADER:_HEADER + 3], count, rows)
         else:
             src = np.flatnonzero(np.unpackbits(host["mask"], bitorder="little")[: buf.rows])[:count]
+        if not self._viewable:
+            return self._fetch_bytes(buf, handle, host, hdr, count, rows, src)
         variant = "down-packed"
-        if self._viewable:
-            if handle.whole_records:
-                st = np.zeros(count, dtype=np.int64)
-                ln = buf.lengths[src].astype(np.int32)
-            elif handle.down is not None:
-                st, ln, variant = self._down_fetch(handle.down, host["down_meta"], count, rows)
-            else:
-                st = host["span_start"][:count].astype(np.int64)
-                ln = host["span_len"][:count].astype(np.int32)
-            self.link_counts[variant] += 1
-            vw = min(_pad_slice(max(max_v, 1)), buf.width)
-            return self._materialize_view_flat(buf, count, rows, vw, st, ln, src)
+        if handle.whole_records:
+            st = np.zeros(count, dtype=np.int64)
+            ln = buf.lengths[src].astype(np.int32)
+        elif handle.desc is not None:
+            st, ln, variant = self._down_fetch(handle, host["down_meta"], count, rows)
+        else:
+            st = host["span_start"][:count].astype(np.int64)
+            ln = host["span_len"][:count].astype(np.int32)
         self.link_counts[variant] += 1
-        return self._fetch_bytes(buf, handle, count, rows, max_v, max_k, src)
+        vw = min(_pad_slice(max(max_v, 1)), buf.width)
+        return self._materialize_view_flat(buf, count, rows, vw, st, ln, src)
 
     def _download_src(self, col: torch.Tensor, delta: torch.Tensor, probe: Sequence[int],
                       count: int, rows: int) -> np.ndarray:
@@ -1065,39 +1140,68 @@ class GpuChainExecutor:
         self.link_counts["d2h_bytes"] += out.nbytes
         return out
 
-    def _down_fetch(self, down, meta, count: int, rows: int):
+    def _down_try(self, handle: _Fetch, meta, raw_cost: int) -> Optional[np.ndarray]:
         """The down link's fetch half: download the glz tokens of the
-        descriptor stream when their bucketed slices (6 bytes a sequence
-        plus the literals) cost less than the raw descriptor rows, decode
-        them on the host and split the stream; else decline
-        (`glz-enc-ratio`) and download the raw rows. Returns (start i64,
-        length i32, down-link variant)."""
-        st_d, ln_d, ll, ml, srcs, lits, desc_width = down
+        result stream when their bucketed slices (6 bytes a sequence plus
+        the literals) cost less than ``raw_cost``, the bytes of the raw
+        download, and decode them on the host; else count the decline
+        (`glz-enc-ratio`) and return None, and the caller downloads the
+        raw form. Returns the whole decoded stream."""
+        ll, ml, srcs, lits = handle.down
         n_seq, n_lit, depth = (int(x) for x in meta)
-        rows = min(rows, st_d.shape[0])
-        raw_cost = rows * (st_d.element_size() + ln_d.element_size())
         bs = min(_bucket_rows(max(n_seq, 8), floor=256), ll.shape[0])
         bl = min(_bucket_rows(max(n_lit, 8), floor=256), lits.shape[0])
         if bs * 6 + bl >= raw_cost:
             self.link_counts[glz.DECLINE_ENC_RATIO] += 1
-            st = self._download(st_d[:rows])[:count].astype(np.int64)
-            ln = self._download(ln_d[:rows])[:count].astype(np.int32)
-            return st, ln, "down-packed"
-        stream = glz.decode_result_host(
+            return None
+        return glz.decode_result_host(
             self._download(ll[:bs]), self._download(ml[:bs]), self._download(srcs[:bs]),
             self._download(lits[:bl]), n_seq, n_lit, lits.shape[0], depth,
         )
+
+    def _down_fetch(self, handle: _Fetch, meta, count: int, rows: int):
+        """A view chain's descriptors with the down link on: the decoded
+        token stream split into columns, or the raw descriptor rows when
+        the tokens decline. Returns (start i64, length i32, down-link
+        variant)."""
+        st_d, ln_d, desc_width = handle.desc
+        rows = min(rows, st_d.shape[0])
+        stream = self._down_try(handle, meta, rows * (st_d.element_size() + ln_d.element_size()))
+        if stream is None:
+            st = self._download(st_d[:rows])[:count].astype(np.int64)
+            ln = self._download(ln_d[:rows])[:count].astype(np.int32)
+            return st, ln, "down-packed"
         st, ln = desc_split(stream, count, desc_width)
         return st, ln, "down-glz"
 
-    def _fetch_bytes(self, buf, handle, count, rows, max_v, max_k, src) -> RecordBuffer:
-        """Byte mode: download the compacted value (and key) columns sliced
-        to the survivor rows and the used width."""
-        vals, lens, keys, klens = handle.byte_cols
-        rows = min(rows, vals.shape[0])
-        vw = min(_pad_slice(max(max_v, 1)), vals.shape[1])
-        out_values = self._download(vals[:rows, :vw])
-        out_lengths = self._download(lens[:rows]).astype(np.int32)
+    def _fetch_bytes(self, buf, handle, host, hdr, count, rows, src) -> RecordBuffer:
+        """Byte mode: download the packed payload sliced to its bucketed
+        byte count (``payload[:pb]``), or its glz tokens when the down
+        link is on and they are smaller, with the narrowed lengths and the
+        keys sliced to the survivor rows; the output adopts the payload
+        flat-backed, its row starts one cumsum of the aligned lengths (no
+        ``[rows, width]`` matrix on either side)."""
+        payload, lens_d, keys, klens, width = handle.byte_cols
+        max_v, max_k = hdr[1], hdr[2]
+        rows = min(rows, lens_d.shape[0])
+        vw = min(_pad_slice(max(max_v, 1)), width)
+        pb = min(_bucket_rows(max(hdr[handle.payload_at], 1), floor=256), payload.shape[0])
+        flat_src, variant = None, "down-packed"
+        if handle.down is not None:
+            flat_src = self._down_try(handle, host["down_meta"], pb)
+            if flat_src is not None:
+                variant = "down-glz"
+        if flat_src is None:
+            flat_src = self._download(payload[:pb])
+        # the row starts are one exclusive cumsum of the aligned lengths,
+        # in torch on the host (several times numpy's speed on 1 M rows);
+        # int32 is safe: the payload's total fits it (`kernels.packed_payload`)
+        out_lengths = torch.from_numpy(self._download(lens_d[:rows])).to(torch.int32)
+        out_lengths[count:] = 0
+        l4 = (out_lengths + 3) & ~3
+        starts = torch.zeros_like(l4)
+        torch.cumsum(l4[:-1], 0, dtype=torch.int32, out=starts[1:])
+        total = int(starts[-1] + l4[-1])
         if buf.has_keys() or self._writes_keys:
             out_klens = self._download(klens[:rows]).astype(np.int32)
             if max_k > 0:
@@ -1108,7 +1212,9 @@ class GpuChainExecutor:
         else:
             out_klens = np.full((rows,), -1, dtype=np.int32)
             out_keys = np.zeros((rows, 1), dtype=np.uint8)
-        return self._assemble(buf, count, rows, out_values, out_lengths, out_keys, out_klens, src)
+        self.link_counts[variant] += 1
+        return self._assemble(buf, count, rows, out_lengths.numpy(), out_keys, out_klens, src,
+                              flat_src[:total], starts.numpy(), vw)
 
     def _view_keys(self, buf: RecordBuffer, count: int, rows: int, src):
         """Survivor key columns for view-mode outputs."""
@@ -1171,15 +1277,16 @@ class GpuChainExecutor:
         starts[:count] = starts64
         starts[count:] = total
         out_keys, out_klens = self._view_keys(buf, count, rows, src)
-        return self._assemble(buf, count, rows, None, out_lengths, out_keys, out_klens, src,
-                              flat=flat_out, starts=starts, vw=vw)
+        return self._assemble(buf, count, rows, out_lengths, out_keys, out_klens, src,
+                              flat_out, starts, vw)
 
-    def _assemble(self, buf, count, rows, out_values, out_lengths, out_keys,
-                  out_klens, src, flat=None, starts=None, vw: int = 0) -> RecordBuffer:
-        """Rebuild offset/timestamp columns from survivor source rows: the
-        source's deltas where stages keep row identity, fresh zeros for
-        explode outputs (as the interpreter makes fresh records). With
-        ``flat``/``starts`` the output buffer is flat-backed."""
+    def _assemble(self, buf, count, rows, out_lengths, out_keys, out_klens, src,
+                  flat: np.ndarray, starts: np.ndarray, vw: int) -> RecordBuffer:
+        """The flat-backed output buffer (``flat``/``starts`` the 4-aligned
+        ragged values): offset/timestamp columns rebuilt from survivor
+        source rows, the source's deltas where stages keep row identity,
+        fresh zeros for explode outputs (as the interpreter makes fresh
+        records)."""
         out_off = np.zeros((rows,), dtype=np.int32)
         out_ts = np.zeros((rows,), dtype=np.int64)
         if not self._fanout:
@@ -1187,7 +1294,7 @@ class GpuChainExecutor:
             out_off[:count] = buf.offset_deltas[src_c]
             out_ts[:count] = buf.timestamp_deltas[src_c]
         return RecordBuffer(
-            values=out_values,
+            values=None,
             lengths=out_lengths,
             keys=out_keys,
             key_lengths=out_klens,
@@ -1198,8 +1305,8 @@ class GpuChainExecutor:
             base_timestamp=buf.base_timestamp,
             _flat=flat,
             _starts=starts,
-            _width=vw if flat is not None else 0,
-            _rows=rows if flat is not None else 0,
+            _width=vw,
+            _rows=rows,
         )
 
     # -- entry points ----------------------------------------------------------

@@ -13,9 +13,10 @@ holds each kernel against them on the card. Nothing on the CUDA path calls
 them. The rest are the chain's torch code
 on every device: among them the aggregate stage's integer kernels
 (`parse_int`, `int_to_ascii`, `count_words`, `segmented_scan`,
-`propagate_last_valid`, `last_true_value`) and the array_map stage's
-fan-out kernels (`split_bounds`, `json_array_bounds`, `fanout_scatter`),
-which are XLA code, not Pallas, in the JAX package.
+`propagate_last_valid`, `last_true_value`), the array_map stage's
+fan-out kernels (`split_bounds`, `json_array_bounds`, `fanout_scatter`)
+and the byte-mode result's `packed_payload`, which are XLA code, not
+Pallas, in the JAX package.
 """
 
 from __future__ import annotations
@@ -436,6 +437,35 @@ def compact_rows(mask: torch.Tensor, *arrays: torch.Tensor):
         full.scatter_(0, index, arr)
         out.append(full[:n])
     return mask.to(torch.int32).sum(), tuple(out)
+
+
+def packed_payload(values_c: torch.Tensor, lengths_c: torch.Tensor):
+    """Byte-mode result compaction: compacted value rows u8[rows, width]
+    -> ONE flat 4-aligned payload, each row's first ``(len + 3) & ~3``
+    bytes at the exclusive cumsum of those aligned lengths (the wire form
+    of ``RecordBuffer.ragged_values``, so the host adopts the download as
+    a flat-backed buffer). Returns (payload u8[rows * width4], total i32
+    0-d), ``width4`` the width rounded up to 4 so that every aligned row
+    fits. Bytes past ``total`` are zero.
+
+    torch has no dropping scatter: every byte outside its row's aligned
+    length aims at a sink slot past the end, which is cut off."""
+    rows, width = values_c.shape
+    dev = values_c.device
+    width4 = (width + 3) & ~3
+    if width4 != width:
+        values_c = torch.cat([values_c, values_c.new_zeros((rows, width4 - width))], dim=1)
+    l4 = (lengths_c.to(torch.int32) + 3) & ~3
+    # int32 accumulation is safe: lengths <= the width, and the staging
+    # guard (`buffer._check_matrix_addressing`) holds rows * width under
+    # 2**31, so the total of the aligned lengths fits too
+    starts = torch.cumsum(l4, 0, dtype=torch.int32) - l4
+    cap = rows * width4
+    col = torch.arange(width4, dtype=torch.int32, device=dev)[None, :]
+    dst = torch.where(col < l4[:, None], starts[:, None] + col, cap)
+    payload = torch.zeros((cap + 1,), dtype=torch.uint8, device=dev)
+    payload.scatter_(0, dst.reshape(-1).to(torch.int64), values_c.reshape(-1))
+    return payload[:cap], l4.sum(dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------

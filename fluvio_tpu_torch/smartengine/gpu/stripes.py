@@ -1,12 +1,13 @@
 """Striped wide-record layout on the card.
 
 The port's counterpart of ``fluvio_tpu/smartengine/tpu/stripes.py`` for
-filter, map and filter_map chains. A record wider than the narrow layout
-(`StripeParams.threshold`) becomes K consecutive device rows ("stripes")
-of ``width`` bytes sharing a segment id; consecutive stripes overlap by
-``overlap`` bytes. The row sidecar (segment, stripe index, byte offset,
-stripe length) is derived on the card from the record lengths, so the
-upload stays the narrow path's one ragged flat.
+filter, map, filter_map, aggregate and split array_map chains. A record
+wider than the narrow layout (`StripeParams.threshold`) becomes K
+consecutive device rows ("stripes") of ``width`` bytes sharing a segment
+id; consecutive stripes overlap by ``overlap`` bytes. The row sidecar
+(segment, stripe index, byte offset, stripe length) is derived on the
+card from the record lengths, so the upload stays the narrow path's one
+ragged flat.
 
 - Literals up to the overlap (start-anchored: the stripe width) are whole
   in some stripe: a windowed compare per stripe, OR-reduced per segment.
@@ -21,10 +22,13 @@ upload stays the narrow path's one ragged flat.
 - Maps are the position-wise case folds (upper/lower), which commute with
   striping, or one JsonGet view; outputs ship as the segment survivor mask
   or (start, length) descriptors, and the host rebuilds the bytes.
+- Aggregates run the executor's narrow stage over the segment state (the
+  full record lengths and the first stripe's bytes), so their carries
+  are the narrow path's; a one-byte ``split`` explode emits its elements
+  from the owned bytes of every stripe (`striped_split_bounds`).
 
-Aggregate and array_map stages are not lowered here yet (their chains are
-unstripeable and wide batches spill). The stripe geometry is an explicit
-`StripeParams`, never read from the environment.
+The stripe geometry is an explicit `StripeParams`, never read from the
+environment.
 """
 
 from __future__ import annotations
@@ -591,6 +595,82 @@ def _make_span_fn(key: str, pre: Tuple[str, ...]):
     return fn
 
 
+def _check_contribution(prog) -> None:
+    """An aggregate's contribution must be exact on the segment state:
+    length, key and const reads and the stripe-0 prefix parse of the
+    canned kinds; a JsonGet contribution (``aggregate-field``) is not."""
+    if prog.contribution is not None:
+        _check_seg_exact(prog.contribution)
+    elif prog.kind == "word_count":
+        # per-stripe word counts double-count tokens spanning the overlap
+        raise Unlowerable("word_count is not stripeable")
+
+
+# ---------------------------------------------------------------------------
+# Striped fan-out (array_map split mode, single-byte separator)
+# ---------------------------------------------------------------------------
+
+# packs (segment, byte position) into one int64 for the segment-fenced
+# suffix minimum; a dead row encodes as _DEAD, past every live code
+_ENC_BASE = 1 << 22  # > MAX_RECORD_WIDTH
+_DEAD = 2**62
+
+
+def striped_split_bounds(sv: torch.Tensor, plan: dict, sep: int, n: int):
+    """Element emission grid of ``value.split(sep)`` over stripe rows (the
+    JAX package's ``stripes.striped_split_bounds``).
+
+    Each byte position is OWNED by exactly one stripe row (the overlap
+    tail belongs to the next stripe), so a separator counts once and the
+    row-major flag order is record order within a segment. An element
+    that crosses rows ends at the next row's first separator, found by a
+    suffix minimum over the segment's rows (fenced by the segment id in
+    the high bits of the code), or at the record's end. Returns (flag
+    bool[r, s], abs_start i32[r, s], elen i32[r, s]), starts
+    record-absolute."""
+    r, s = sv.shape
+    dev = sv.device
+    step = plan["step"]
+    jidx = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+    owned = jidx < owned_lengths(plan)[:, None]
+    m = (sv == sep) & owned
+
+    # column 0's predecessor in record order: the previous row's last
+    # owned byte (a row that is not its record's last owns exactly `step`
+    # bytes), or the record's start
+    prev_last = torch.cat([torch.zeros((1,), dtype=torch.bool, device=dev), m[:-1, step - 1]])
+    col0_boundary = (plan["stripe_idx"] == 0) | prev_last
+    prev_boundary = torch.cat([col0_boundary[:, None], m[:, :-1]], dim=1)
+    starts = owned & ~m & prev_boundary
+    del owned, prev_boundary
+
+    # the next separator at or after each position: within the row where
+    # there is one, else the first separator of a later row of the segment
+    row_next = kernels._next_index_ge(m)  # s where none
+    has_sep = m.any(dim=1)
+    del m
+    first_abs = torch.where(has_sep, plan["abs_start"] + row_next[:, 0], _ENC_BASE - 1)
+    seg = plan["seg"].to(torch.int64)
+    enc = torch.where(plan["row_live"], seg * _ENC_BASE + first_abs.to(torch.int64), _DEAD)
+    suffix = torch.cummin(enc.flip(0), 0).values.flip(0)
+    after = torch.cat([suffix[1:], suffix.new_full((1,), _DEAD)])
+    cross_next = torch.where(
+        (after // _ENC_BASE == seg) & (after % _ENC_BASE < _ENC_BASE - 1),
+        after % _ENC_BASE, -1,
+    ).to(torch.int32)
+    # each segment's record length: its last row's end, broadcast to the
+    # segment's rows
+    seg_len = torch.zeros((n,), dtype=torch.int32, device=dev).scatter_reduce(
+        0, seg, torch.where(plan["is_last"], plan["abs_start"] + plan["stripe_len"], 0), "amax")
+    fallback = torch.where(cross_next >= 0, cross_next, seg_len[seg])
+    abs_pos = plan["abs_start"][:, None] + jidx
+    next_abs = torch.where(row_next < s, abs_pos - jidx + row_next, fallback[:, None])
+    del row_next
+    elen = torch.where(starts, next_abs - abs_pos, 0)
+    del next_abs
+    return starts, torch.where(starts, abs_pos, 0), elen
+
+
 # ---------------------------------------------------------------------------
 # Chain build + run
 # ---------------------------------------------------------------------------
@@ -598,46 +678,84 @@ def _make_span_fn(key: str, pre: Tuple[str, ...]):
 
 @dataclass
 class StripedChain:
-    """Stripe-capable lowering of a filter/map chain.
+    """Stripe-capable lowering of a whole chain.
 
-    ``ops`` entries: ("filter", fn) | ("postops", folds) | ("span", fn).
-    ``postops`` accumulates every fold the host applies when it rebuilds
-    the output (it must equal the narrow build's view postops). A span op
-    (JsonGet map) makes the outputs sub-record views: the executor ships
-    its (start, length) descriptors instead of whole records."""
+    ``ops`` entries: ("filter", fn) | ("postops", folds) | ("span", fn) |
+    ("agg", aggregate stage) | ("fanout", separator byte). ``postops``
+    accumulates every fold the host applies when it rebuilds view outputs
+    (it must equal the narrow build's view postops). A span op (JsonGet
+    map) makes the outputs sub-record views: the executor ships their
+    (start, length) descriptors instead of whole records. An aggregate op
+    runs the executor's own narrow stage on the segment state; a fan-out
+    op (last) gives the split's emission grid."""
 
     ops: List = field(default_factory=list)
     postops: Tuple[str, ...] = ()
     has_span: bool = False
+    has_agg: bool = False
+    fanout_sep: Optional[int] = None
 
-    def run(self, ctx: dict, valid: torch.Tensor):
-        """Returns (valid bool[n], vspan): ``vspan`` the per-segment
-        (start, length) of a span chain, else None."""
-        vspan = None
+    @property
+    def fanout(self) -> bool:
+        return self.fanout_sep is not None
+
+    def fan_grid(self, ctx: dict):
+        """The fan-out's (flag, abs_start, elen) grid over ``ctx``'s stripe
+        bytes, as the chain's last op computes it."""
+        return striped_split_bounds(ctx["sv"], ctx["plan"], self.fanout_sep, ctx["n"])
+
+    def run(self, ctx: dict, valid: torch.Tensor, carries, base_ts: int, agg_ctx: dict):
+        """Returns (valid bool[n], seg_state, carries, fan, vspan): ``fan``
+        the emission grid of a fan-out chain, ``vspan`` the per-segment
+        (start, length) of a span chain, else None. ``ctx["seg_state"]``
+        must copy to its own type (the executor's deferred-column state)."""
+        fan = vspan = None
         for kind, arg in self.ops:
             if kind == "filter":
                 valid = valid & arg(ctx)
             elif kind == "postops":
                 ctx["sv"] = apply_postops(ctx["sv"], arg)
                 ctx["seg_state"]["values"] = apply_postops(ctx["seg_state"]["values"], arg)
-            else:  # span
+            elif kind == "span":
                 vspan = arg(ctx)
-        return valid, vspan
+            elif kind == "agg":
+                st = ctx["seg_state"].copy()
+                st["valid"] = valid
+                st, carries = arg.apply(st, carries, base_ts, agg_ctx)
+                ctx["seg_state"] = st
+            else:  # fanout (terminal)
+                fan = self.fan_grid(ctx)
+        return valid, ctx["seg_state"], carries, fan, vspan
 
 
-def try_build_striped(programs, s: int, v: int) -> Optional[StripedChain]:
-    """Striped lowering of the chain's resolved programs; None when a stage
-    is outside the stripeable subset (wide batches then spill)."""
+def try_build_striped(programs, stages, s: int, v: int) -> Optional[StripedChain]:
+    """Striped lowering of the chain's resolved programs (the JAX package's
+    build rules); None when a stage is outside the stripeable subset (wide
+    batches then spill). ``stages`` are the executor's narrow stages, one a
+    program: an aggregate op reuses its stage, so the striped and narrow
+    paths share carry slots and scans.
+
+    - aggregates only as a chain suffix, none after a span map, and only
+      contributions exact on the segment state (`_check_contribution`);
+    - a fan-out only last, only a one-byte ``split``, never after an
+      aggregate or a span map;
+    - no filter after a span map, one span map a chain, no key rewrite."""
     chain = StripedChain()
     try:
-        for prog in programs:
-            if isinstance(prog, (dsl.FilterProgram, dsl.FilterMapProgram)):
+        for prog, stage in zip(programs, stages):
+            if chain.fanout or (chain.has_agg and not isinstance(prog, dsl.AggregateProgram)):
+                raise Unlowerable("stage after a striped terminal stage")
+            if isinstance(prog, dsl.FilterProgram):
                 if chain.has_span:
                     # a later filter would read the extracted view, not the
                     # stripe bytes the striped predicates scan
                     raise Unlowerable("filter after a striped span map")
                 chain.ops.append(("filter", lower_striped_predicate(prog.predicate, s, v)))
-            if isinstance(prog, (dsl.MapProgram, dsl.FilterMapProgram)):
+            elif isinstance(prog, (dsl.MapProgram, dsl.FilterMapProgram)):
+                if isinstance(prog, dsl.FilterMapProgram):
+                    if chain.has_span:
+                        raise Unlowerable("filter after a striped span map")
+                    chain.ops.append(("filter", lower_striped_predicate(prog.predicate, s, v)))
                 if prog.key is not None:
                     raise Unlowerable("striped map cannot rewrite keys")
                 view = _striped_view(prog.value)
@@ -654,9 +772,23 @@ def try_build_striped(programs, s: int, v: int) -> Optional[StripedChain]:
                     chain.ops.append(("span", _make_span_fn(key, pre)))
                     chain.has_span = True
                     chain.postops += total
-            elif not isinstance(prog, dsl.FilterProgram):
-                # aggregate and array_map stages come with their own slice
-                raise Unlowerable(f"{type(prog).__name__} not stripeable yet")
+            elif isinstance(prog, dsl.AggregateProgram):
+                if chain.has_span:
+                    # contributions read the segment state's stripe-0
+                    # prefix, not the extracted view
+                    raise Unlowerable("aggregate after a striped span map")
+                _check_contribution(prog)
+                chain.ops.append(("agg", stage))
+                chain.has_agg = True
+            elif isinstance(prog, dsl.ArrayMapProgram):
+                if prog.mode != "split" or len(prog.sep) != 1:
+                    raise Unlowerable("striped array_map supports a one-byte split only")
+                if chain.has_agg or chain.has_span:
+                    raise Unlowerable("striped fan-out after an aggregate or a span map")
+                chain.ops.append(("fanout", prog.sep[0]))
+                chain.fanout_sep = prog.sep[0]
+            else:
+                raise Unlowerable(f"{type(prog).__name__} not stripeable")
     except Unlowerable:
         return None
     return chain

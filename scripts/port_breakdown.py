@@ -13,7 +13,11 @@ records a batch (~6 elements each; the warm-up batch teaches the explode
 its capacity, so no measured batch overflows); ``7_fat70k``,
 ``10_regex_json_fat`` and ``fluvio_dfa_json_map_fat`` drive the striped
 chains of ``chip_smoke.py`` over batches of 1,024 ``gen_fat_70k`` records
-(71,709 B each). Each chain
+(71,709 B each), and ``striped_aggregate`` / ``striped_explode`` phase 12's
+striped ``regex-filter("flu[vV]io")`` -> ``aggregate-sum`` /
+``array-map-lines`` over 1,024 ``gen_fat_numbers`` / ``gen_fat_lines``
+records of ~71.7 KB (the warm-up teaches the explode its capacity). Each
+chain
 runs through ``fluvio_tpu_torch`` three ways, and each prints one JSON line:
 
 - ``serial``: per batch, each phase alone, with the card drained between
@@ -47,7 +51,7 @@ import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
     FAT_PARAMS, FAT_RECORDS, GLZ_LINK, N, SLICE_CHAINS, STRIPED_CHAINS, build_chain, gen_arrays,
-    gen_fat_70k, gen_json,
+    gen_fat_70k, gen_json, shared_cases,
 )
 from fluvio_tpu_torch.smartengine.gpu import cuda_kernels  # noqa: E402
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer  # noqa: E402
@@ -55,7 +59,8 @@ from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer  # noqa: E402
 BATCHES = 4
 SPECS = [("regex-filter", {"regex": "fluvio"}), ("json-map", {"field": "name"})]
 NARROW = {"headline": SPECS, **SLICE_CHAINS}
-CHAINS = {**NARROW, **STRIPED_CHAINS}
+STRIPED_SLICE = shared_cases().STRIPED_SLICE
+CHAINS = {**NARROW, **STRIPED_CHAINS, **STRIPED_SLICE}
 
 
 def fresh(corpora):
@@ -140,6 +145,12 @@ def breakdown(name: str, smi: str, link) -> dict:
         gen = gen_arrays if name == "4_array_map" else gen_json
         corpora = [gen(N, seed=100 + k) for k in range(BATCHES)]
         warm = corpora[0][:4096]
+    elif name in STRIPED_SLICE:
+        chain = build_chain(CHAINS[name], FAT_PARAMS, link)
+        cases = shared_cases()
+        gen = cases.gen_fat_numbers if name == "striped_aggregate" else cases.gen_fat_lines
+        corpora = [gen(FAT_RECORDS, seed=300 + k) for k in range(BATCHES)]
+        warm = corpora[0][:8]
     else:
         chain = build_chain(CHAINS[name], FAT_PARAMS, link)
         corpora = [gen_fat_70k(FAT_RECORDS)] * BATCHES

@@ -203,15 +203,23 @@ def test_array_map_with_the_glz_link():
     assert port_chain.link_counts["glz"] >= 1 and port_chain.link_counts["down-glz"] >= 1
 
 
-def test_wide_explode_batch_spills_at_dispatch():
-    """Aggregate and array_map chains have no striped lowering yet: a batch
-    wider than the narrow layout spills before anything runs."""
-    for name in ("array-map-json", "aggregate-sum"):
-        chain = (SmartEngine(device="cpu").builder()
-                 .add_smart_module(SmartModuleConfig(), lookup(name)).initialize())
-        wide = _port_buffer(_ref_buffer([b"[1]"]))
-        wide.values = np.zeros((8, (1 << 16) + 32), dtype=np.uint8)
+@pytest.mark.parametrize("name, spills", [("array-map-json", True), ("aggregate-sum", False)])
+def test_wide_explode_batch_spills_at_dispatch(name, spills):
+    """A JSON-array explode has no striped lowering: a batch wider than the
+    narrow layout spills before anything runs and leaves the carries
+    alone. A running sum has one: the same batch runs striped."""
+    chain = (SmartEngine(device="cpu").builder()
+             .add_smart_module(SmartModuleConfig(), lookup(name)).initialize())
+    wide = _port_buffer(_ref_buffer([b"[1]"]))
+    wide.values = np.zeros((8, (1 << 16) + 32), dtype=np.uint8)
+    if spills:
         with pytest.raises(GpuSpill) as e:
             chain.dispatch_buffer(wide)
         assert e.value.reason == "record-too-wide-unstripeable"
         assert chain._device_carries is None
+        return
+    out = chain.process_buffer(wide)
+    assert chain._striped_chain() is not None and chain._striped.has_agg
+    assert out.count == 1 and out.value_list() == [b"0"]
+    chain._ensure_host_state()
+    assert chain.carries == [(0, 0, True)]

@@ -195,11 +195,12 @@ def test_reference_executor_chains():
 
 
 def test_unported_kinds_spill():
-    """What the port still spills or refuses: a batch of an aggregate chain
-    wider than the narrow layout (no striped aggregate yet) spills at
-    dispatch, and an expression outside the lowering (``IntToBytes`` of
+    """What the port still spills or refuses: a batch of a word-count
+    aggregate chain wider than the narrow layout (per-stripe word counts
+    would double-count the overlap, so it has no striped lowering) spills
+    at dispatch, and an expression outside the lowering (``IntToBytes`` of
     bytes, a comparison of bytes) makes no chain."""
-    agg = ("aggregate", lambda d: d.AggregateProgram(kind="sum_int"))
+    agg = ("aggregate", lambda d: d.AggregateProgram(kind="word_count"))
     _, port_m = _module_pair(*agg)
     chain = SmartEngine(device="cpu").builder().add_smart_module(SmartModuleConfig(), port_m).initialize()
     wide = _port_buffer(_ref_buffer([b"1"]))

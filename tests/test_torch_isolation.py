@@ -71,6 +71,44 @@ def gen_keyed_ints(n: int, seed: int = 13):
     return [f"{keys[i]} {vals[i]}".encode() for i in range(n)]
 
 
+FAT_NAMES = ("fluvio", "kafka", "fluVio", "pulsar")  # `flu[vV]io` keeps half
+
+
+def gen_fat_numbers(n: int, seed: int = 21, body: int = 70 * 1024):
+    """The striped aggregate's corpus: a signed integer and a space, then
+    `bench.gen_fat_70k`'s record (71,709 bytes at the default ``body``)
+    with the name cycling over `FAT_NAMES`."""
+    rng = np.random.default_rng(seed)
+    nums = rng.integers(-10**9, 10**9, size=n)
+    pad = "x" * body
+    return [f'{nums[i]} {{"name":"{FAT_NAMES[i % 4]}-{i & 7}","body":"{pad}"}}'.encode()
+            for i in range(n)]
+
+
+def gen_fat_lines(n: int, seed: int = 23, size: int = 71_709):
+    """The striped explode's corpus: a log file shipped as one record of
+    ``size`` bytes, lines of 40-100 bytes (newline included) of lowercase
+    letters, one in twenty followed by a run of one to three empty lines;
+    the first line names one of `FAT_NAMES`."""
+    rng = np.random.default_rng(seed)
+    out = []
+    m = size // 40 + 2
+    for i in range(n):
+        lens = rng.integers(40, 101, size=m)
+        chunk = lens + np.where(rng.random(m) < 0.05, rng.integers(1, 4, size=m), 0)
+        ends = np.cumsum(chunk)
+        rec = rng.integers(97, 123, size=int(ends[-1])).astype(np.uint8)
+        starts = ends - chunk
+        nl = np.repeat(starts + lens - 1, chunk - lens + 1) + (
+            np.arange(int((chunk - lens + 1).sum())) - np.repeat(
+                np.cumsum(chunk - lens + 1) - (chunk - lens + 1), chunk - lens + 1))
+        rec[nl] = ord("\n")
+        head = f"{FAT_NAMES[i % 4]} log {i}".encode()
+        rec[: len(head)] = np.frombuffer(head, dtype=np.uint8)
+        out.append(rec[:size].tobytes())
+    return out
+
+
 # The DFA scan's cases, shared by the card test below and the CPU spec of
 # the kernel's walk (`tests/test_torch_dfa_redesign.py`); jax-free, since
 # the card's machine has no jax.
@@ -518,6 +556,76 @@ def test_aggregate_and_explode_chains_on_the_card():
             assert cuda_kernels.LAUNCHES["json_span"] == cuda_kernels.LAUNCHES["extract"] == 3
         else:
             assert outs["cuda"][-1][1] >= 1
+
+
+STRIPED_SLICE = {
+    "striped_aggregate": [("regex-filter", {"regex": "flu[vV]io"}), ("aggregate-sum", {})],
+    "striped_explode": [("regex-filter", {"regex": "flu[vV]io"}), ("array-map-lines", {})],
+}
+
+
+DOWN_LINK_MAX = [("aggregate-field", {"field": "n", "combine": "max"})]
+
+
+def striped_slice_chain(device: str, specs, stripes=None, link=None):
+    """A chain on ``device``: a name of `STRIPED_SLICE` or a list of
+    (registry name, params)."""
+    from fluvio_tpu_torch.models import lookup
+    from fluvio_tpu_torch.smartengine import (
+        LinkParams,
+        SmartEngine,
+        SmartModuleConfig,
+        StripeParams,
+    )
+
+    b = SmartEngine(device=device, stripes=stripes or StripeParams(),
+                    link=link or LinkParams()).builder()
+    for module, params in (STRIPED_SLICE[specs] if isinstance(specs, str) else specs):
+        b.add_smart_module(SmartModuleConfig(params=dict(params)), lookup(module))
+    return b.initialize()
+
+
+@pytest.mark.cuda
+def test_striped_slice_and_byte_mode_down_link_on_the_card():
+    """Both striped slice chains on small stripes (256 bytes overlapping by
+    64, records of ~3 KB) over three batches, the explode's first batch
+    overflowing, and one byte-mode batch of a settled running max with
+    the down link on: the card's outputs, carries and re-runs equal the
+    CPU's, `dfa_compose.cu` and `glz_encode.cu` launched, the tokens won."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.smartengine import LinkParams, StripeParams
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
+    from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+
+    small = StripeParams(threshold=256, width=256, overlap=64)
+    corpora = {"striped_aggregate": lambda s: gen_fat_numbers(300, seed=s, body=3000),
+               "striped_explode": lambda s: gen_fat_lines(300, seed=s, size=3000)}
+    for name, gen in corpora.items():
+        outs = {}
+        for device in ("cpu", "cuda"):
+            chain = striped_slice_chain(device, name, stripes=small)
+            cuda_kernels.reset_launches()
+            bufs = [RecordBuffer.from_values(gen(s)) for s in (1, 2, 3)]
+            outs[device] = [(o.value_list(), o.offset_deltas[: o.count].tolist())
+                            for o in chain.process_stream(bufs)]
+            chain._ensure_host_state()
+            outs[device].append((chain.carries, chain.redispatches))
+            assert chain._striped is not None
+        assert outs["cuda"] == outs["cpu"], name
+        assert cuda_kernels.LAUNCHES["dfa_compose"] == 3, name
+    assert outs["cuda"][-1][1] >= 1  # the explode's first batch ran again
+
+    link = LinkParams(result_compress=True, chunk=64 * 1024)
+    buf = RecordBuffer.from_values(gen_json(50_000, seed=4))
+    got = {}
+    for device in ("cpu", "cuda"):
+        chain = striped_slice_chain(device, DOWN_LINK_MAX, link=link)
+        cuda_kernels.reset_launches()
+        out = chain.process_buffer(buf)
+        got[device] = (out.value_list(), chain.link_counts["down-glz"])
+    assert got["cuda"] == got["cpu"] and got["cuda"][1] == 1
+    assert cuda_kernels.LAUNCHES["glz_enc_match"] == 1
 
 
 def _windowed_rows(values, ts, keyed: bool):
