@@ -157,7 +157,26 @@ Phases (any failure raises and the script exits non-zero):
    first batch overflowing the default capacity and running again;
    records/s, bytes/s, output rows/s and D2H. ``--striped-slice-only``
    builds the kernels and runs phase 9's two aggregate chains, phase 11
-   and this phase.
+   and this phase;
+13. the broker's consume path, ``bench.run_broker_e2e`` below its socket:
+   1,048,576 ``gen_json`` records stored in 64 batches of 16,384 (offsets
+   from 0, first timestamp 1,000,000, records encoded by the port's native
+   encoder), read in slices of whole batches up to 16 MiB and served by
+   ``smart_chain.stream_slices`` (slice k+1 staged and dispatched before
+   slice k is finished and encoded): the bench's two AdHoc invocations
+   (``regex-filter("fluvio")`` -> ``Upper(JsonGet("name"))``, encoded and
+   decoded with the port's codec, built by ``smart_chain.build_chain``),
+   then ``regex-filter("flu[vV]io")`` and ``3_aggregate``'s chain (one
+   slice at a time) through the same slices. Every output batch of every
+   pass is decoded with the port's codec (CRC checked) and held to the DSL
+   interpreter over every stored record: base offset, last offset delta
+   over the consumed range, offsets, timestamps, keys and values; no slice
+   may decline. A warm pass, then consume passes in turns with
+   ``process_stream`` over the same records (medians): records/s,
+   ``vs_engine_only``, p50/p99 slice latency (read to encoded batch), the
+   host ms a slice of each phase, the engine-only staging, link bytes a
+   record, device busy. ``--broker-only`` builds the kernels and runs only
+   this phase.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -1449,7 +1468,7 @@ def build_chain(specs, stripe_params=None, link=None):
                     link=link or LinkParams()).builder()
     for name, params in specs:
         b.add_smart_module(SmartModuleConfig(params=params), lookup(name))
-    return b.initialize()
+    return b.initialize().gpu_chain
 
 
 def phase_headline(corpora, link=None):
@@ -2231,6 +2250,249 @@ def phase_striped_slice(json_corpus, slice_numbers, part_numbers):
     return numbers, d2h
 
 
+# phase 13: the broker's consume path (`bench.run_broker_e2e` below its
+# socket): 1,048,576 `gen_json` records stored in 64 batches of 16,384,
+# read in slices of whole batches up to 16 MiB
+BROKER = dict(records=N, batch_records=16_384, first_timestamp=1_000_000, max_bytes=16 << 20,
+              turns=3)
+BROKER_CHAINS = {
+    "north_star": None,  # the bench's two AdHoc payloads, from their wire invocations
+    "flu_regex_filter": [("regex-filter", {"regex": "flu[vV]io"})],
+    "3_aggregate": SLICE_CHAINS["3_aggregate"],
+}
+BROKER_PHASES = ("decompress", "decode", "stage", "dispatch", "finish", "encode")
+
+
+def broker_chain(name: str):
+    """A fresh chain instance on the card: the north star through the
+    port's `build_chain` from its wire invocations, the others from the
+    registry."""
+    from fluvio_tpu_torch.spu import smart_chain
+
+    if BROKER_CHAINS[name] is None:
+        return smart_chain.build_chain(shared_cases().north_star_invocations(),
+                                       SmartEngine(device="cuda"))
+    b = SmartEngine(device="cuda").builder()
+    for module, params in BROKER_CHAINS[name]:
+        b.add_smart_module(SmartModuleConfig(params=dict(params)), lookup(module))
+    return b.initialize()
+
+
+def broker_truth(name: str, values):
+    """Host truth of a broker chain over every stored record, from the
+    port's DSL interpreter: (output offsets i64, output lengths i64, the
+    output values joined)."""
+    from fluvio_tpu_torch.smartmodule import load_source
+
+    cases = shared_cases()
+    offs, outs = [], []
+    if name == "3_aggregate":
+        acc = 0
+        for i, rec in enumerate(values):
+            acc += dsl.parse_int_prefix(dsl.json_get_bytes(rec, "n"))
+            acc = (acc + 2**63) % 2**64 - 2**63
+            offs.append(i)
+            outs.append(str(acc).encode())
+    else:
+        def program(module, params):
+            return dsl.resolve_params(module.dsl_program(module.transform_kind()), params)
+
+        if name == "north_star":
+            pred = program(load_source(cases.NORTH_STAR_FILTER_SM), {}).predicate
+            value = program(load_source(cases.NORTH_STAR_MAP_SM), {"field": "name"}).value
+        else:
+            pred = program(lookup("regex-filter"), {"regex": "flu[vV]io"}).predicate
+            value = None
+        for i, rec in enumerate(values):
+            if dsl.eval_expr(pred, rec, None):
+                offs.append(i)
+                outs.append(rec if value is None else dsl.eval_expr(value, rec, None))
+    return (np.array(offs, dtype=np.int64), np.array([len(o) for o in outs], dtype=np.int64),
+            np.frombuffer(b"".join(outs), dtype=np.uint8))
+
+
+def check_broker_pass(name: str, results, starts, truth) -> int:
+    """Hold one pass's output batches to host truth: each decoded with the
+    port's codec (CRC checked), based at its slice's first offset, its
+    last offset delta spanning the consumed range, the records (offsets,
+    timestamps, no keys, values) equal to the truth's in that range; the
+    slices cover the log. Returns the records checked."""
+    from fluvio_tpu_torch.native import records as native_records
+    from fluvio_tpu_torch.protocol.codec import ByteReader, ByteWriter
+    from fluvio_tpu_torch.protocol.record import Batch
+
+    t_off, t_len, t_flat = truth
+    t_start = np.concatenate([[0], np.cumsum(t_len)])
+    checked = 0
+    for k, (res, start) in enumerate(zip(results, starts)):
+        if k and start != results[k - 1].next_offset:
+            raise AssertionError(f"broker {name}: slice {k} starts at {start}, not "
+                                 f"{results[k - 1].next_offset}")
+        lo, hi = np.searchsorted(t_off, [start, res.next_offset])
+        if hi == lo:
+            if res.records.batches:
+                raise AssertionError(f"broker {name}: slice {k} has output, the truth none")
+            continue
+        if len(res.records.batches) != 1:
+            raise AssertionError(f"broker {name}: slice {k}: {len(res.records.batches)} batches")
+        w = ByteWriter()
+        res.records.batches[0].encode(w)
+        batch = Batch.decode(ByteReader(w.bytes()), parse_records=False, check_crc=True)
+        h = batch.header
+        if (batch.base_offset != start or h.last_offset_delta != res.next_offset - 1 - start
+                or h.first_timestamp != BROKER["first_timestamp"]):
+            raise AssertionError(f"broker {name}: slice {k}: base {batch.base_offset}, last "
+                                 f"delta {h.last_offset_delta}, first ts {h.first_timestamp} for "
+                                 f"[{start}, {res.next_offset})")
+        cols = native_records.decode_record_columns(batch.raw_records, align=1)
+        want_flat = t_flat[t_start[lo]: t_start[hi]]
+        if (cols["count"] != hi - lo or cols["parsed"] != len(batch.raw_records)
+                or not np.array_equal(cols["off_delta"] + start, t_off[lo:hi])
+                or not np.array_equal(np.diff(cols["val_off"]), t_len[lo:hi])
+                or not np.array_equal(cols["val_flat"], want_flat)
+                or cols["ts_delta"].any() or cols["key_present"].any()):
+            raise AssertionError(f"broker {name}: slice {k} [{start}, {res.next_offset}) differs "
+                                 f"from host truth ({cols['count']} vs {hi - lo} records)")
+        checked += hi - lo
+    if results[-1].next_offset != BROKER["records"] or starts[0] != 0:
+        raise AssertionError(f"broker {name}: the slices end at {results[-1].next_offset}")
+    if checked != len(t_off):
+        raise AssertionError(f"broker {name}: {checked} records checked, truth {len(t_off)}")
+    return checked
+
+
+def phase_broker():
+    """Phase 13: the broker's consume path on the card. Each chain serves
+    the log through `smart_chain.stream_slices` (slice k+1 staged and
+    dispatched before slice k is finished and encoded, for stateless
+    chains); a warm pass, then measured passes in turns with the same
+    records through one ``process_stream`` (the engine-only way, staging
+    included), every pass held to host truth. Returns ({chain: numbers},
+    launches of one measured pass of each chain)."""
+    from fluvio_tpu_torch.smartengine import SmartModuleChainMetrics
+    from fluvio_tpu_torch.spu import smart_chain
+
+    cfg, cases = BROKER, shared_cases()
+    n = cfg["records"]
+    values = gen_json(n, seed=2024)
+    t0 = time.perf_counter()
+    wires, batches = cases.broker_log(values, cfg["batch_records"], cfg["first_timestamp"])
+    log_s = time.perf_counter() - t0
+    read_slice = cases.slice_reader(wires, batches, cfg["max_bytes"])
+    stored_bytes = sum(len(w) for w in wires)
+    numbers, launches = {}, {}
+    for name in BROKER_CHAINS:
+        truth = broker_truth(name, values)
+        chain = broker_chain(name)
+        engine_chain = broker_chain(name).gpu_chain
+
+        def consume(chain, metrics):
+            starts, t_read = [], []
+
+            def read(offset):
+                starts.append(offset)
+                t_read.append(time.perf_counter())
+                return read_slice(offset)
+
+            results, lat = [], []
+            for res in smart_chain.stream_slices(chain, read, 0, n, cfg["max_bytes"], metrics):
+                lat.append((time.perf_counter() - t_read[len(results)]) * 1e3)
+                results.append(res)
+            return results, starts, lat
+
+        def engine_pass():
+            buf = RecordBuffer.from_values(values)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = list(engine_chain.process_stream([buf]))
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, outs
+
+        stateful = name == "3_aggregate"  # a fresh chain a pass: the sums restart
+        metrics = SmartModuleChainMetrics()
+        results, starts, _lat = consume(chain, metrics)  # warm
+        check_broker_pass(name, results, starts, truth)
+        engine_pass()
+        consume_s, engine_s, lats, phases, d2h, h2d = [], [], [], {}, [], []
+        for turn in range(cfg["turns"]):
+            for way in (("consume", "engine") if turn % 2 == 0 else ("engine", "consume")):
+                if way == "engine":
+                    engine_chain = broker_chain(name).gpu_chain if stateful else engine_chain
+                    dt, outs = engine_pass()
+                    engine_s.append(dt)
+                    if sum(o.count for o in outs) != len(truth[0]):
+                        raise AssertionError(f"broker {name}: process_stream gave "
+                                             f"{sum(o.count for o in outs)} records")
+                    continue
+                chain = broker_chain(name) if stateful else chain
+                for k in chain.gpu_chain.link_counts:
+                    chain.gpu_chain.link_counts[k] = 0
+                torch.cuda.synchronize()
+                if turn == 0:  # the main path's count: this pass's launches
+                    cuda_kernels.reset_launches()
+                t0 = time.perf_counter()
+                results, starts, lat = consume(chain, metrics)
+                torch.cuda.synchronize()
+                consume_s.append(time.perf_counter() - t0)
+                if turn == 0:
+                    launches[name] = dict(cuda_kernels.LAUNCHES)
+                check_broker_pass(name, results, starts, truth)
+                lats += lat
+                for res in results:
+                    for ph in BROKER_PHASES:
+                        phases.setdefault(ph, []).append(res.phase_ms.get(ph, 0.0))
+                h2d.append(chain.gpu_chain.link_counts["h2d_bytes"] / n)
+                d2h.append(chain.gpu_chain.link_counts["d2h_bytes"] / n)
+        if metrics.fallback_slices or metrics.fastpath_slices != (1 + cfg["turns"]) * len(starts):
+            raise AssertionError(f"broker {name}: metrics {metrics.to_dict()}")
+        chain = broker_chain(name)
+        busy_ms, busy_launches = device_time(
+            lambda: consume(chain, SmartModuleChainMetrics()), None, reps=1)
+        # the engine-only staging the aligned decode replaces: the padded
+        # batch from the values and its 4-aligned flat
+        t0 = time.perf_counter()
+        buf = RecordBuffer.from_values(values)
+        buf.ragged_values()
+        engine_stage_ms = (time.perf_counter() - t0) * 1e3
+        med_c, med_e = statistics.median(consume_s), statistics.median(engine_s)
+        slices = len(starts)
+        numbers[name] = {
+            "records": n, "stored_batches": len(batches), "stored_bytes": stored_bytes,
+            "slices": slices,
+            "records_per_s": n / med_c, "engine_records_per_s": n / med_e,
+            "vs_engine_only": med_e / med_c,
+            "pass_ms": [t * 1e3 for t in consume_s], "engine_pass_ms": [t * 1e3 for t in engine_s],
+            "slice_latency_ms": {"p50": float(np.percentile(lats, 50)),
+                                 "p99": float(np.percentile(lats, 99)), "all": lats},
+            "host_ms_per_slice": {ph: statistics.median(v) for ph, v in phases.items()},
+            "host_ms_per_pass": {ph: sum(v) / cfg["turns"] for ph, v in phases.items()},
+            "engine_stage_ms": engine_stage_ms,
+            "h2d_bytes_per_record": statistics.median(h2d),
+            "d2h_bytes_per_record": statistics.median(d2h),
+            "outputs": int(len(truth[0])), "fallback_slices": metrics.fallback_slices,
+            "fastpath_slices": metrics.fastpath_slices,
+            "device_busy_ms": busy_ms, "device_launches": busy_launches,
+            "device_busy_share": busy_ms / (med_c * 1e3) if busy_ms else None,
+            "launches": launches[name],
+        }
+        nb = numbers[name]
+        log(f"broker {name}: {n} records in {len(batches)} stored batches ({stored_bytes} B), "
+            f"{slices} slices a pass of <= {cfg['max_bytes']} B: {nb['records_per_s']:.0f} "
+            f"records/s (median pass {med_c * 1e3:.3f} ms; passes "
+            f"{[round(t, 3) for t in nb['pass_ms']]}), process_stream over the same records "
+            f"{nb['engine_records_per_s']:.0f} records/s (passes "
+            f"{[round(t, 3) for t in nb['engine_pass_ms']]}), vs_engine_only "
+            f"{nb['vs_engine_only']:.4f}; slice latency p50 {nb['slice_latency_ms']['p50']:.3f} "
+            f"p99 {nb['slice_latency_ms']['p99']:.3f} ms; host ms a slice "
+            f"{ {k: round(v, 3) for k, v in nb['host_ms_per_slice'].items()} }; engine-only "
+            f"staging {engine_stage_ms:.3f} ms a pass; H2D {nb['h2d_bytes_per_record']:.4f} B, "
+            f"D2H {nb['d2h_bytes_per_record']:.4f} B a record; device busy {busy_ms} ms a pass "
+            f"({busy_launches} kernels and copies); {nb['outputs']} outputs equal to the DSL "
+            f"interpreter in every pass; fallback slices 0; launches {launches[name]}")
+    log(f"broker log built in {log_s:.3f} s")
+    return numbers, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -2251,6 +2513,9 @@ def main(argv=None) -> int:
     parser.add_argument("--slice-only", action="store_true",
                         help="build the kernels and run only the aggregate and array_map "
                              "chains (phase 9) and their torch ops' times (no ok line)")
+    parser.add_argument("--broker-only", action="store_true",
+                        help="build the kernels and run only the broker's consume path "
+                             "(phase 13; no ok line)")
     parser.add_argument("--striped-slice-only", action="store_true",
                         help="build the kernels and run only phase 12 (with phase 9's aggregate "
                              "chains and phase 11, whose D2H it reads; no ok line)")
@@ -2308,6 +2573,11 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"slice_chains": numbers, "slice_torch_ops": ops}))
         return 0
+    if args.broker_only:
+        numbers, _launches = phase_broker()
+        print(smi)
+        print(json.dumps({"broker": numbers}))
+        return 0
     if args.striped_slice_only:
         json_corpora = [gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)]
         slice_numbers, _ops = phase_slice(json_corpora, ("3_aggregate", "filter_aggregate"))
@@ -2336,7 +2606,9 @@ def main(argv=None) -> int:
     win_numbers, win_ops, win_launches = phase_windowed()
     part_launches, part_numbers = phase_partitioned()
     ss_numbers, byte_d2h = phase_striped_slice(corpora[0], slice_numbers, part_numbers)
-    by_chain = {**slice_numbers, **ss_numbers}
+    broker_numbers, _ = phase_broker()
+    by_chain = {**slice_numbers, **ss_numbers,
+                **{f"broker_{k}": v for k, v in broker_numbers.items()}}
     for r in rows:
         r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in by_chain.items()}
     chain_launches = [v["launches"] for v in by_chain.values()]
@@ -2358,6 +2630,8 @@ def main(argv=None) -> int:
                     "partitioned": part_numbers,
                     "striped_slice": ss_numbers,
                     "byte_mode_d2h": byte_d2h,
+                    "broker": {k: {m: x for m, x in v.items() if m != "launches"}
+                               for k, v in broker_numbers.items()},
                     "build_seconds": KERNELS.build_seconds}))
     log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
                     "device": smi}))

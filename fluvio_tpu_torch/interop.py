@@ -109,3 +109,18 @@ def placement_plan_from_reference(plan_dict, rules) -> PlacementPlan:
         rebalances=int(plan_dict["rebalances"]),
         moves=int(plan_dict["moves"]),
     )
+
+
+def carries_from_reference(executor, carries):
+    """A JAX chain executor's aggregate carries (``_ensure_host_state()``,
+    then ``carries``: one (accumulator, window, has) triple per aggregate,
+    plain values) -> the port's executor ``executor`` of the same chain,
+    whose next batch continues from them. Returns the executor."""
+    carries = [(int(acc), int(win), bool(has)) for acc, win, has in carries]
+    if len(carries) != len(executor.agg_configs):
+        raise ValueError(
+            f"{len(carries)} carries for a chain of {len(executor.agg_configs)} aggregates"
+        )
+    executor.carries = carries
+    executor._device_carries = None  # the host list is the state now
+    return executor

@@ -1,12 +1,18 @@
-"""SmartEngine and chain builder of the GPU port.
+"""SmartEngine, chain builder and chain instance of the GPU port.
 
 The port's counterpart of ``fluvio_tpu/smartengine/engine.py`` for the
-entry point users call (``bench.py:43-50`` has the same shape)::
+entry points users call (``bench.py:43-50`` has the same shape)::
 
     chain = (SmartEngine(device="cuda").builder()
              .add_smart_module(SmartModuleConfig(params=...), lookup("json-map"))
              .initialize())
-    out = chain.process_buffer(buf)            # or chain.process_stream(bufs)
+    out = chain.process(SmartModuleInput.from_records(records))   # the broker's seam
+    out = chain.gpu_chain.process_buffer(buf)   # or .process_stream(bufs)
+
+``add_smart_module`` also takes SmartModule source (str or bytes), the
+payload of an AdHoc invocation (`smartmodule.sdk.load_source`).
+``initialize()`` returns a `SmartModuleChainInstance`; its executor,
+``gpu_chain``, runs batched record buffers.
 
 ``SmartEngine(device=..., stripes=StripeParams(...))`` sets the striped
 wide-record geometry (default: threshold 65536, stripes of 8192 bytes
@@ -24,8 +30,9 @@ the CPU on its own.
 
 from __future__ import annotations
 
+import base64
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 
@@ -34,11 +41,28 @@ from fluvio_tpu_torch.smartengine.gpu import glz
 from fluvio_tpu_torch.smartengine.gpu.executor import GpuChainExecutor
 from fluvio_tpu_torch.smartengine.gpu.glz import LinkParams
 from fluvio_tpu_torch.smartengine.gpu.stripes import StripeParams
-from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
+from fluvio_tpu_torch.smartengine.metrics import SmartModuleChainMetrics
+from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef, load_source
+from fluvio_tpu_torch.smartmodule.types import SmartModuleInput, SmartModuleOutput
+
+DEFAULT_STORE_MAX_MEMORY = 1 << 30  # 1 GB input bound, parity: engine.rs:24
 
 
 class EngineError(Exception):
     pass
+
+
+class StoreMemoryExceeded(EngineError):
+    """An input slab exceeds the engine's memory bound (parity:
+    limiter.rs)."""
+
+    def __init__(self, requested: int, maximum: int):
+        super().__init__(
+            f"SmartModule input of {requested} bytes exceeds engine memory "
+            f"limit of {maximum} bytes"
+        )
+        self.requested = requested
+        self.maximum = maximum
 
 
 def resolve_device(device=None) -> torch.device:
@@ -68,6 +92,7 @@ class SmartEngine:
     device: Optional[str] = None
     stripes: StripeParams = field(default_factory=StripeParams)
     link: LinkParams = field(default_factory=LinkParams)
+    store_max_memory: int = DEFAULT_STORE_MAX_MEMORY
 
     def __post_init__(self) -> None:
         self.device = str(resolve_device(self.device))
@@ -82,14 +107,22 @@ class SmartModuleChainBuilder:
     entries: List[tuple] = field(default_factory=list)
 
     def add_smart_module(
-        self, config: SmartModuleConfig, module: SmartModuleDef
+        self,
+        config: SmartModuleConfig,
+        module: Union[SmartModuleDef, str, bytes],
+        name: str = "adhoc",
     ) -> "SmartModuleChainBuilder":
+        """Append a module: a `SmartModuleDef`, or its source (str or
+        bytes), loaded with `load_source` under ``name``."""
+        if not isinstance(module, SmartModuleDef):
+            module = load_source(module, name=name)
         self.entries.append((module, config))
         return self
 
-    def initialize(self) -> GpuChainExecutor:
-        """Lower the chain for the engine's device and return it (call
-        ``process_buffer`` / ``process_stream`` on the result); raises
+    def initialize(self) -> "SmartModuleChainInstance":
+        """Lower the chain for the engine's device and return its
+        instance (``instance.gpu_chain`` is the executor; an empty chain
+        has none and passes records through). Raises
         :class:`EngineError` when a module has no lowerable DSL program
         (there is no interpreter to fall back to). With the glz link on,
         the host compressor library must build, or this raises
@@ -100,12 +133,60 @@ class SmartModuleChainBuilder:
                 glz.load()
             except glz.GlzUnavailable as e:
                 raise EngineError(f"the glz link is on but the {e}") from e
-        executor = GpuChainExecutor.try_build(
-            self.entries, device, self.engine.stripes, self.engine.link
-        )
-        if executor is None:
-            raise EngineError(
-                "every module in the chain must carry a DSL program the GPU "
-                "lowering supports"
+        executor = None
+        if self.entries:
+            executor = GpuChainExecutor.try_build(
+                self.entries, device, self.engine.stripes, self.engine.link
             )
-        return executor
+            if executor is None:
+                raise EngineError(
+                    "every module in the chain must carry a DSL program the GPU "
+                    "lowering supports"
+                )
+        chain_spec = []
+        for module, config in self.entries:
+            spec = {
+                "name": module.name,
+                "kind": module.transform_kind().value,
+                "params": dict(config.params or {}),
+            }
+            if config.initial_data:
+                spec["initial"] = base64.b64encode(bytes(config.initial_data)).decode("ascii")
+            chain_spec.append(spec)
+        return SmartModuleChainInstance(self.engine, executor, chain_spec)
+
+
+class SmartModuleChainInstance:
+    """An initialized chain (the reference's instance with its
+    ``tpu_chain``): ``process`` runs one input slab through the executor
+    ``gpu_chain``. ``chain_spec`` names each module, its kind, params and
+    aggregate seed."""
+
+    def __init__(self, engine: SmartEngine, gpu_chain: Optional[GpuChainExecutor],
+                 chain_spec: Optional[list] = None):
+        self.engine = engine
+        self.gpu_chain = gpu_chain
+        self.chain_spec = chain_spec or []
+
+    @property
+    def backend_in_use(self) -> str:
+        return "gpu" if self.gpu_chain is not None else "passthrough"
+
+    def process(self, inp: SmartModuleInput,
+                metrics: Optional[SmartModuleChainMetrics] = None) -> SmartModuleOutput:
+        """Run one input through the chain: the outputs are its
+        survivors with their offset and timestamp deltas (explode outputs
+        are fresh records, deltas 0). An input larger than ``engine.store_max_memory`` raises
+        :class:`StoreMemoryExceeded`; a `GpuSpill` from the executor
+        propagates (the port reruns nothing in an interpreter)."""
+        metrics = metrics if metrics is not None else SmartModuleChainMetrics()
+        raw_len = inp.byte_size()
+        if raw_len > self.engine.store_max_memory:
+            raise StoreMemoryExceeded(raw_len, self.engine.store_max_memory)
+        metrics.add_bytes_in(raw_len)
+        if self.gpu_chain is None:
+            # empty chain: decode and pass through (parity: engine.rs:180-184)
+            return SmartModuleOutput.new(inp.into_records())
+        output = self.gpu_chain.process(inp, metrics)
+        metrics.add_records_out(len(output.successes))
+        return output

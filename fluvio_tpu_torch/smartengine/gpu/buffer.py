@@ -4,7 +4,10 @@ The port's copy of ``fluvio_tpu/smartengine/tpu/buffer.py``: records sit
 in padded columnar numpy arrays on the host; the executor ships the
 4-aligned ragged form of the values (`ragged_values`) to the card and
 re-pads it there. Output buffers of view-mode chains are FLAT-BACKED
-(``values is None``): they hold only the aligned flat and its starts.
+(``values is None``): they hold only the aligned flat and its starts. So
+are the consume path's inputs: `from_flat` adopts the native decoder's
+aligned columns, which already are the upload form, and `to_columns`
+hands an output to the native encoder without building a padded matrix.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-NO_TIMESTAMP = -1
+from fluvio_tpu_torch.protocol.record import Record
+from fluvio_tpu_torch.types import NO_TIMESTAMP
 MIN_ROWS = 8
 MIN_WIDTH = 32
 # widest record the narrow (one row per record) layout stages; wider
@@ -123,6 +127,11 @@ class RecordBuffer:
     count: int
     base_offset: int = 0
     base_timestamp: int = NO_TIMESTAMP
+    # explode outputs are "fresh" records of their source record's stored
+    # batch: these columns hold each row's batch rebase deltas, which the
+    # consume path's coalescer sets (None = zeros, one batch)
+    fresh_offset_deltas: Optional[np.ndarray] = None
+    fresh_timestamp_deltas: Optional[np.ndarray] = None
     # cached ragged (flat) form of `values`. A FLAT-BACKED buffer
     # (`values is None`) holds ONLY this form; `_width`/`_rows` carry the
     # shape the padded matrix would have.
@@ -248,6 +257,167 @@ class RecordBuffer:
             base_offset=base_offset, base_timestamp=base_timestamp,
         )
 
+    @classmethod
+    def from_records(
+        cls,
+        records: Sequence[Record],
+        base_offset: int = 0,
+        base_timestamp: int = NO_TIMESTAMP,
+    ) -> "RecordBuffer":
+        """Stage parsed records: values, keys (null keys have length -1),
+        offset and timestamp deltas; each byte column is filled with one
+        masked assignment of the joined bytes."""
+        n = len(records)
+        rows = _next_pow2(max(n, 1), MIN_ROWS)
+        lens = np.zeros(rows, dtype=np.int32)
+        lens[:n] = np.fromiter((len(r.value) for r in records), dtype=np.int64, count=n)
+        klens = np.full(rows, -1, dtype=np.int32)
+        klens[:n] = np.fromiter((-1 if r.key is None else len(r.key) for r in records),
+                                dtype=np.int64, count=n)
+        max_v = int(lens.max())
+        max_k = max(int(klens.max()), 0)
+        width = bucket_width(max_v)
+        kwidth = _next_pow2(max_k, MIN_WIDTH) if max_k else MIN_WIDTH
+        if width > MAX_RECORD_WIDTH:
+            raise ValueError(f"record value of {max_v} bytes exceeds {MAX_RECORD_WIDTH}")
+        _check_matrix_addressing(rows, width)
+        values = np.zeros((rows, width), dtype=np.uint8)
+        values[np.arange(width)[None, :] < lens[:, None]] = np.frombuffer(
+            b"".join(r.value for r in records), dtype=np.uint8)
+        keys = np.zeros((rows, kwidth), dtype=np.uint8)
+        keys[np.arange(kwidth)[None, :] < klens[:, None]] = np.frombuffer(
+            b"".join(r.key for r in records if r.key is not None), dtype=np.uint8)
+        offset_deltas = np.zeros(rows, dtype=np.int32)
+        offset_deltas[:n] = np.fromiter((r.offset_delta for r in records), dtype=np.int64, count=n)
+        timestamp_deltas = np.zeros(rows, dtype=np.int64)
+        timestamp_deltas[:n] = np.fromiter((r.timestamp_delta for r in records), dtype=np.int64,
+                                           count=n)
+        return cls(
+            values=values,
+            lengths=lens,
+            keys=keys,
+            key_lengths=klens,
+            offset_deltas=offset_deltas,
+            timestamp_deltas=timestamp_deltas,
+            count=n,
+            base_offset=base_offset,
+            base_timestamp=base_timestamp,
+        )
+
+    @classmethod
+    def from_smartmodule_input(cls, inp) -> "RecordBuffer":
+        """Stage a `SmartModuleInput`'s records with its bases."""
+        return cls.from_records(
+            inp.into_records(), base_offset=inp.base_offset, base_timestamp=inp.base_timestamp
+        )
+
+    @staticmethod
+    def _stage_meta_columns(cols: dict, rows: int, n: int):
+        """Key, offset and timestamp columns of natively decoded columns
+        (shared by `from_columns` and `from_flat`). Returns (keys,
+        key_lengths, offset_deltas, timestamp_deltas)."""
+        key_present = cols["key_present"].astype(bool)
+        key_lengths = np.full(rows, -1, dtype=np.int32)
+        if n and key_present.any():
+            key_off = cols["key_off"]
+            klive = (key_off[1:] - key_off[:-1]).astype(np.int32)
+            key_lengths[:n] = np.where(key_present, klive, -1)
+            kwidth = _next_pow2(max(int(klive.max()), 1), MIN_WIDTH)
+            keys = np.zeros((rows, kwidth), dtype=np.uint8)
+            kmask = np.arange(kwidth, dtype=np.int32)[None, :] < np.maximum(key_lengths, 0)[:, None]
+            keys[kmask] = cols["key_flat"]
+        else:
+            keys = np.zeros((rows, MIN_WIDTH), dtype=np.uint8)
+        offset_deltas = np.zeros(rows, dtype=np.int32)
+        offset_deltas[:n] = cols["off_delta"]
+        timestamp_deltas = np.zeros(rows, dtype=np.int64)
+        timestamp_deltas[:n] = cols["ts_delta"]
+        return keys, key_lengths, offset_deltas, timestamp_deltas
+
+    @classmethod
+    def from_columns(
+        cls,
+        cols: dict,
+        base_offset: int = 0,
+        base_timestamp: int = NO_TIMESTAMP,
+    ) -> "RecordBuffer":
+        """Adopt exact-packed decoded columns (`native.records.
+        decode_record_columns` at ``align=1``), re-padded into the value
+        matrix with one masked assignment."""
+        n = cols["count"]
+        rows = _next_pow2(max(n, 1), MIN_ROWS)
+        val_off = cols["val_off"]
+        lengths_live = (val_off[1:] - val_off[:-1]).astype(np.int32)
+        max_v = int(lengths_live.max()) if n else 0
+        width = bucket_width(max_v)
+        _check_matrix_addressing(rows, width)
+        if width > MAX_RECORD_WIDTH:
+            raise ValueError(f"record value of {max_v} bytes exceeds {MAX_RECORD_WIDTH}")
+        lengths = np.zeros(rows, dtype=np.int32)
+        lengths[:n] = lengths_live
+        values = np.zeros((rows, width), dtype=np.uint8)
+        values[np.arange(width, dtype=np.int32)[None, :] < lengths[:, None]] = cols["val_flat"]
+        keys, key_lengths, offset_deltas, timestamp_deltas = cls._stage_meta_columns(cols, rows, n)
+        return cls(
+            values=values,
+            lengths=lengths,
+            keys=keys,
+            key_lengths=key_lengths,
+            offset_deltas=offset_deltas,
+            timestamp_deltas=timestamp_deltas,
+            count=n,
+            base_offset=base_offset,
+            base_timestamp=base_timestamp,
+        )
+
+    @classmethod
+    def from_flat(
+        cls,
+        cols: dict,
+        base_offset: int = 0,
+        base_timestamp: int = NO_TIMESTAMP,
+    ) -> "RecordBuffer":
+        """Adopt the aligned decode's columns (`native.records.
+        decode_record_columns` at ``align=4``) with no copy: the value flat
+        already is the 4-aligned upload form, so the buffer is flat-backed
+        and the padded matrix is built only if a consumer asks
+        (`dense_values`)."""
+        n = cols["count"]
+        rows = _next_pow2(max(n, 1), MIN_ROWS)
+        val_len = cols["val_len"]
+        max_v = int(val_len.max()) if n else 0
+        width = bucket_width(max_v)
+        if width > MAX_RECORD_WIDTH:
+            raise ValueError(f"record value of {max_v} bytes exceeds {MAX_RECORD_WIDTH}")
+        _check_matrix_addressing(rows, width)
+        if n and int(cols["val_off"][-1]) > FLAT_ADDRESS_MAX:
+            raise FlatAddressingError(
+                f"decoded flat of {int(cols['val_off'][-1])} bytes exceeds int32 addressing "
+                f"({FLAT_ADDRESS_MAX}); split the batch before staging"
+            )
+        lengths = np.zeros(rows, dtype=np.int32)
+        lengths[:n] = val_len
+        starts = np.zeros(rows, dtype=np.int32)
+        starts[:n] = cols["val_off"][:-1]
+        # padding rows "start" at the end of the flat with length 0
+        starts[n:] = int(cols["val_off"][-1]) if n else 0
+        keys, key_lengths, offset_deltas, timestamp_deltas = cls._stage_meta_columns(cols, rows, n)
+        return cls(
+            values=None,
+            lengths=lengths,
+            keys=keys,
+            key_lengths=key_lengths,
+            offset_deltas=offset_deltas,
+            timestamp_deltas=timestamp_deltas,
+            count=n,
+            base_offset=base_offset,
+            base_timestamp=base_timestamp,
+            _flat=np.asarray(cols["val_flat"], dtype=np.uint8),
+            _starts=starts,
+            _width=width,
+            _rows=rows,
+        )
+
     # -- materialization ----------------------------------------------------
 
     def value_list(self) -> List[bytes]:
@@ -267,4 +437,55 @@ class RecordBuffer:
         return [
             None if int(k) < 0 else self.keys[i, : int(k)].tobytes()
             for i, k in enumerate(self.key_lengths[: self.count])
+        ]
+
+    def to_columns(self) -> dict:
+        """The live rows as exact-packed columns, the input of
+        `native.records.encode_record_columns`. A flat-backed buffer
+        converts with one range select over its flat (no padded
+        matrix)."""
+        n = self.count
+        lengths = self.lengths[:n].astype(np.int64)
+        val_off = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(lengths, out=val_off[1:])
+        if self.values is None:
+            val_flat = self._flat_unaligned(lengths, val_off)
+        else:
+            mask = np.arange(self.values.shape[1], dtype=np.int32)[None, :] < lengths[:, None]
+            val_flat = self.values[:n][mask]
+        key_present = (self.key_lengths[:n] >= 0).astype(np.uint8)
+        klens = np.maximum(self.key_lengths[:n], 0).astype(np.int64)
+        key_off = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(klens, out=key_off[1:])
+        kmask = np.arange(self.keys.shape[1], dtype=np.int32)[None, :] < klens[:, None]
+        return {
+            "count": n,
+            "val_flat": val_flat,
+            "val_off": val_off,
+            "key_flat": self.keys[:n][kmask],
+            "key_off": key_off,
+            "key_present": key_present,
+            "off_delta": self.offset_deltas[:n].astype(np.int64),
+            "ts_delta": self.timestamp_deltas[:n].astype(np.int64),
+        }
+
+    def _flat_unaligned(self, lengths: np.ndarray, val_off: np.ndarray) -> np.ndarray:
+        """The live bytes exact-packed out of the 4-aligned flat: the
+        ranges [start, start + length) ascend and are disjoint (the starts
+        are a cumsum of aligned lengths), so one range select takes
+        them."""
+        total = int(val_off[-1])
+        if not len(lengths) or not total:
+            return np.zeros(0, dtype=np.uint8)
+        return ragged_range_select(self._flat, self._starts[: len(lengths)].astype(np.int64),
+                                   lengths)
+
+    def to_records(self) -> List[Record]:
+        """Each live row as a `Record` (value, key, offset and timestamp
+        deltas)."""
+        return [
+            Record(value=v, key=k, offset_delta=int(od), timestamp_delta=int(td))
+            for v, k, od, td in zip(self.value_list(), self.key_list(),
+                                    self.offset_deltas[: self.count],
+                                    self.timestamp_deltas[: self.count])
         ]

@@ -81,6 +81,7 @@ from fluvio_tpu_torch.smartengine.gpu.lower import (
 )
 from fluvio_tpu_torch.smartmodule import dsl
 from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
+from fluvio_tpu_torch.smartmodule.types import SmartModuleInput, SmartModuleOutput
 
 
 # canned aggregate kinds -> their combine monoid
@@ -209,8 +210,9 @@ class _ArrayMapStage:
     start and source row compose through it. The element bytes, keys and
     key lengths are deferred: nothing gathers a ``[cap, W]`` matrix (or
     runs the extract kernel over it) unless a later stage or the output
-    reads it. Offset and timestamp deltas are fresh zeros: the host gives
-    every output row its source record's key and zero deltas."""
+    reads it. Offset and timestamp deltas are fresh: the host gives every
+    output row its source record's key and its batch's fresh deltas
+    (`RecordBuffer.fresh_offset_deltas`, zeros for one batch)."""
 
     mode: str  # "json_array" | "split"
     sep: bytes
@@ -755,6 +757,15 @@ class GpuChainExecutor:
         # 25% headroom over the observed density
         self._cap_ratio = max(self._cap_ratio, 1.25 * total / max(buf.rows, 1))
 
+    def max_stageable_width(self) -> int:
+        """The widest record value this chain stages: any up to the hard
+        ceiling when the chain has a striped lowering, else the narrow
+        layout's threshold. The consume path declines a wider slice before
+        dispatching any of it."""
+        if self._striped_chain() is not None:
+            return MAX_RECORD_WIDTH
+        return self.stripe_params.threshold
+
     def _striped_chain(self) -> Optional[stripes.StripedChain]:
         """The chain's striped lowering, built on first need; None when a
         stage is outside the stripeable subset (`stripes.try_build_striped`
@@ -1093,6 +1104,33 @@ class GpuChainExecutor:
         back to those the batch started from."""
         self._device_carries = handle.prev_carries
 
+    def dispatch_buffers(self, bufs: Sequence[RecordBuffer]) -> List[Tuple[RecordBuffer, _Fetch]]:
+        """Dispatch every buffer before any is read, for `finish_buffer`
+        in order; returns [(buf, handle), ...]. With the up link on, one
+        worker compresses buffer k+1 while buffer k dispatches. A dispatch
+        that fails discards the handles before it (the carries go back to
+        where the first buffer found them) and raises."""
+        out: List[Tuple[RecordBuffer, _Fetch]] = []
+        pool = (ThreadPoolExecutor(max_workers=1, thread_name_prefix="glz-compress")
+                if self.link.compress and len(bufs) > 1 else None)
+        job = None
+        try:
+            for i, buf in enumerate(bufs):
+                if job is not None:
+                    job.result()  # the worker never races a dispatch on its buffer
+                    job = None
+                if pool is not None and i + 1 < len(bufs):
+                    job = pool.submit(self._compressed, bufs[i + 1])
+                out.append((buf, self.dispatch_buffer(buf)))
+        except BaseException:
+            for _, h in reversed(out):
+                self.discard_dispatch(h)
+            raise
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
+        return out
+
     def _finish(self, buf: RecordBuffer, handle: _Fetch) -> RecordBuffer:
         host = handle.wait()
         self.link_counts["d2h_bytes"] += sum(a.nbytes for a in host.values())
@@ -1284,15 +1322,21 @@ class GpuChainExecutor:
                   flat: np.ndarray, starts: np.ndarray, vw: int) -> RecordBuffer:
         """The flat-backed output buffer (``flat``/``starts`` the 4-aligned
         ragged values): offset/timestamp columns rebuilt from survivor
-        source rows, the source's deltas where stages keep row identity,
-        fresh zeros for explode outputs (as the interpreter makes fresh
-        records)."""
+        source rows, the source's deltas where stages keep row identity;
+        explode outputs are fresh records of their source record's batch,
+        so they take the buffer's fresh deltas (zeros when it has none, as
+        the interpreter makes fresh records)."""
         out_off = np.zeros((rows,), dtype=np.int32)
         out_ts = np.zeros((rows,), dtype=np.int64)
+        src_c = np.clip(src[:count], 0, buf.offset_deltas.shape[0] - 1)
         if not self._fanout:
-            src_c = np.clip(src[:count], 0, buf.offset_deltas.shape[0] - 1)
             out_off[:count] = buf.offset_deltas[src_c]
             out_ts[:count] = buf.timestamp_deltas[src_c]
+        else:
+            if buf.fresh_offset_deltas is not None:
+                out_off[:count] = buf.fresh_offset_deltas[src_c]
+            if buf.fresh_timestamp_deltas is not None:
+                out_ts[:count] = buf.fresh_timestamp_deltas[src_c]
         return RecordBuffer(
             values=None,
             lengths=out_lengths,
@@ -1313,6 +1357,23 @@ class GpuChainExecutor:
 
     def process_buffer(self, buf: RecordBuffer) -> RecordBuffer:
         return self.finish_buffer(buf, self.dispatch_buffer(buf))
+
+    def process(self, inp: SmartModuleInput, metrics=None) -> SmartModuleOutput:
+        """One `SmartModuleInput` through the chain (the chain instance's
+        `process`), as one batch. A record past the hard width ceiling
+        raises :class:`GpuSpill` (``record-too-wide``); a spill of
+        `process_buffer` propagates too: nothing reruns elsewhere. Fuel is
+        the records staged times the stages."""
+        try:
+            buf = RecordBuffer.from_smartmodule_input(inp)
+        except ValueError as e:
+            raise GpuSpill(str(e), reason="record-too-wide") from None
+        out = self.process_buffer(buf)
+        if self.agg_configs:
+            self._ensure_host_state()
+        if metrics is not None:
+            metrics.add_fuel_used(buf.count * max(len(self.stages), 1))
+        return SmartModuleOutput(successes=out.to_records())
 
     def process_stream(self, bufs):
         """Pipelined generator: batch k+1 is staged and queued on the card

@@ -1,6 +1,24 @@
-"""SmartModule definitions: DSL programs and the transform kinds."""
+"""SmartModule definitions: DSL programs, the transform kinds, the
+dataplane types of one invocation and the source loader."""
 
-from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
-from fluvio_tpu_torch.smartmodule.types import TRANSFORM_KIND_ORDER, SmartModuleKind
+from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef, load_source, smartmodule
+from fluvio_tpu_torch.smartmodule.types import (
+    TRANSFORM_KIND_ORDER,
+    SmartModuleInput,
+    SmartModuleKind,
+    SmartModuleOutput,
+    SmartModuleRecord,
+    SmartModuleTransformRuntimeError,
+)
 
-__all__ = ["SmartModuleDef", "SmartModuleKind", "TRANSFORM_KIND_ORDER"]
+__all__ = [
+    "SmartModuleDef",
+    "SmartModuleInput",
+    "SmartModuleKind",
+    "SmartModuleOutput",
+    "SmartModuleRecord",
+    "SmartModuleTransformRuntimeError",
+    "TRANSFORM_KIND_ORDER",
+    "load_source",
+    "smartmodule",
+]

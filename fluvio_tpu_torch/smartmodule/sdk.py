@@ -1,21 +1,29 @@
-"""SmartModule definition: DSL programs by transform kind.
+"""SmartModule definition and source artifacts.
 
-The port's counterpart of ``fluvio_tpu/smartmodule/sdk.py``'s
-`SmartModuleDef`. The GPU engine runs DSL programs only, so the Python
-hooks and the source-artifact loader of the reference are not carried.
+The port's counterpart of ``fluvio_tpu/smartmodule/sdk.py``: a
+`SmartModuleDef` holds DSL programs keyed by transform kind, and
+`load_source` builds one from SmartModule source text, the payload an
+AdHoc invocation carries. The source runs with the port's ``dsl`` and
+``smartmodule`` namespaces bound, and its decorators' ``dsl=`` programs
+make the module. The GPU engine runs DSL programs only: the decorated
+Python functions are not kept, and a transform that carries no program
+makes a module the engine refuses.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
+from fluvio_tpu_torch.smartmodule import dsl as dsl_mod
 from fluvio_tpu_torch.smartmodule.types import TRANSFORM_KIND_ORDER, SmartModuleKind
 
 
 @dataclass
 class SmartModuleDef:
-    """A SmartModule: its DSL programs keyed by transform kind."""
+    """A SmartModule: its DSL programs keyed by transform kind (None for a
+    transform declared without one)."""
 
     name: str = "adhoc"
     dsl: Dict[SmartModuleKind, Any] = field(default_factory=dict)
@@ -34,3 +42,69 @@ class SmartModuleDef:
 
     def dsl_program(self, kind: SmartModuleKind):
         return self.dsl.get(kind)
+
+
+# the module a source load is assembling, per thread, so concurrent loads
+# do not interleave
+_BUILDING = threading.local()
+
+
+def current_module(reset: bool = True) -> SmartModuleDef:
+    """The module assembled by decorator use since the last call."""
+    m = getattr(_BUILDING, "module", None)
+    if m is None:
+        m = SmartModuleDef()
+    _BUILDING.module = None if reset else m
+    return m
+
+
+class _SmartModuleNamespace:
+    """The ``smartmodule`` decorator namespace a source sees:
+    ``@smartmodule.<kind>(dsl=program)`` over the transform's function."""
+
+    @staticmethod
+    def _register(kind: SmartModuleKind, fn: Callable, program: Any) -> Callable:
+        m = current_module(reset=False)
+        if kind in m.dsl:
+            raise ValueError(f"duplicate #[smartmodule({kind.value})] export")
+        m.dsl[kind] = program
+        return fn
+
+    def _make(self, kind: SmartModuleKind):
+        def decorator(fn: Callable = None, *, dsl: Any = None):
+            if fn is None:
+                return lambda f: self._register(kind, f, dsl)
+            return self._register(kind, fn, dsl)
+
+        decorator.__name__ = kind.value
+        return decorator
+
+    def __init__(self) -> None:
+        self.filter = self._make(SmartModuleKind.FILTER)
+        self.map = self._make(SmartModuleKind.MAP)
+        self.filter_map = self._make(SmartModuleKind.FILTER_MAP)
+        self.array_map = self._make(SmartModuleKind.ARRAY_MAP)
+        self.aggregate = self._make(SmartModuleKind.AGGREGATE)
+
+
+smartmodule = _SmartModuleNamespace()
+
+
+def load_source(source, name: str = "adhoc") -> SmartModuleDef:
+    """Build a SmartModule from its source text (str or UTF-8 bytes): the
+    source runs in a fresh namespace holding the port's ``smartmodule``
+    and ``dsl``, and the decorators it applies assemble the module.
+    Raises ``ValueError`` when it exports no transform."""
+    if isinstance(source, bytes):
+        source = source.decode("utf-8")
+    current_module(reset=True)  # drop what an earlier failed load left
+    namespace: Dict[str, Any] = {
+        "smartmodule": smartmodule,
+        "dsl": dsl_mod,
+        "__name__": f"smartmodule_{name}",
+    }
+    exec(compile(source, f"<smartmodule:{name}>", "exec"), namespace)
+    module = current_module(reset=True)
+    module.name = name
+    module.transform_kind()  # validate: must export a transform
+    return module

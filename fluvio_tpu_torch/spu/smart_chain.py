@@ -1,0 +1,614 @@
+"""The SPU's consume path over the GPU chain: stored batches in, wire
+batches out.
+
+The port's counterpart of ``fluvio_tpu/spu/smart_chain.py`` (parity:
+fluvio-spu/src/smartengine/): a chain is built from the wire invocations a
+consumer sends (`build_chain`), and a read slice of stored batches runs
+through it in two phases, so the stream loop (`stream_slices`, the core of
+the reference's ``StreamFetchHandler._run_pipelined``) dispatches slice
+k+1 before it finishes slice k:
+
+1. `gpu_stage_dispatch`: decompress each batch, decode its records into
+   columns natively (`native/records.cpp`, 4-aligned: the upload form),
+   coalesce the slice with offsets rebased to the first batch's base and
+   timestamps to its first timestamp, check the width and staging bounds,
+   cut stateless chains into chunks of `_DISPATCH_CHUNK_ROWS` and
+   dispatch every chunk before any is read;
+2. `gpu_finish`: wait for each chunk, drop outputs below the consume
+   cursor, cut at ``max_bytes`` (stateless chains) and encode the
+   survivors natively into ONE batch spanning the consumed offset range.
+
+A slice whose data the coalesced form cannot stage (mixed present and
+absent base timestamps, a slab that disagrees with its header, a record
+too wide for the chain, the staging cap, the engine's memory bound) is
+declined, counted by reason, and served by `process_batches_per_record`,
+which still runs every batch on the card. A `GpuSpill` or a device error
+propagates to the caller: nothing reruns in an interpreter. The
+reference's admission, partition, flow and telemetry hooks, its dedup
+chain, look_back and stream-chain cache are not carried.
+
+A `PendingSlice` records its host phases in ``phase_ms`` (decompress,
+decode, stage, dispatch) and the `BatchProcessResult` of its finish adds
+``finish`` and ``encode``.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence
+
+import numpy as np
+
+from fluvio_tpu_torch.native import records as native_records
+from fluvio_tpu_torch.protocol.compression import Compression, decompress
+from fluvio_tpu_torch.protocol.error import ErrorCode
+from fluvio_tpu_torch.protocol.record import Batch, RecordSet
+from fluvio_tpu_torch.schema.smartmodule import (
+    SmartModuleInvocation,
+    SmartModuleInvocationWasm,
+)
+from fluvio_tpu_torch.smartengine.engine import SmartEngine, SmartModuleChainInstance
+from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+from fluvio_tpu_torch.smartmodule.types import (
+    SmartModuleInput,
+    SmartModuleTransformRuntimeError,
+)
+from fluvio_tpu_torch.types import NO_TIMESTAMP
+
+# the device-side padded matrix (rows x width) a chunk may stage
+_MAX_STAGING_BYTES = 1 << 29
+# records a dispatch on the stateless path: a 16 MB read slice of short
+# records becomes several chunks in flight at once
+_DISPATCH_CHUNK_ROWS = 65536
+
+
+def _ms(t0: float) -> float:
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _slice_columns(cols: dict, lo: int, hi: int) -> dict:
+    """Record range [lo, hi) of merged aligned-decode columns, as numpy
+    views: val_flat/val_off keep the decoder's 4-aligned form (`from_flat`
+    adopts them as they are), key_flat/key_off are exact-packed."""
+    if lo == 0 and hi == cols["count"]:
+        return cols
+    v0, v1 = int(cols["val_off"][lo]), int(cols["val_off"][hi])
+    k0, k1 = int(cols["key_off"][lo]), int(cols["key_off"][hi])
+    return {
+        "count": hi - lo,
+        "val_flat": cols["val_flat"][v0:v1],
+        "val_len": cols["val_len"][lo:hi],
+        "val_off": cols["val_off"][lo : hi + 1] - v0,
+        "key_flat": cols["key_flat"][k0:k1],
+        "key_off": cols["key_off"][lo : hi + 1] - k0,
+        "key_present": cols["key_present"][lo:hi],
+        "off_delta": cols["off_delta"][lo:hi],
+        "ts_delta": cols["ts_delta"][lo:hi],
+    }
+
+
+def _varint_sizes(x: np.ndarray) -> np.ndarray:
+    """Exact zigzag-varint encoded sizes, vectorized."""
+    xi = x.astype(np.int64)
+    u = ((xi << 1) ^ (xi >> 63)).view(np.uint64)
+    nb = np.ones(len(u), dtype=np.int64)
+    for k in range(1, 10):
+        nb += (u >= np.uint64(1 << (7 * k))).astype(np.int64)
+    return nb
+
+
+def _encoded_record_sizes_at(outbuf, drop: int, deltas: np.ndarray, ts: np.ndarray) -> np.ndarray:
+    """Wire sizes (`Record.write_size`) of output rows [drop, drop +
+    len(deltas))."""
+    n = len(deltas)
+    vlens = outbuf.lengths[drop : drop + n].astype(np.int64)
+    klens_raw = outbuf.key_lengths[drop : drop + n].astype(np.int64)
+    has_key = klens_raw >= 0
+    klens = np.maximum(klens_raw, 0)
+    inner = (
+        1  # attributes
+        + _varint_sizes(ts)
+        + _varint_sizes(deltas)
+        + 1  # key tag
+        + np.where(has_key, _varint_sizes(klens) + klens, 0)
+        + _varint_sizes(vlens)
+        + vlens
+        + 1  # varint(0) header count
+    )
+    return _varint_sizes(inner) + inner
+
+
+class SmartModuleResolutionError(Exception):
+    def __init__(self, code: ErrorCode, message: str):
+        super().__init__(message)
+        self.code = code
+        self.message = message
+
+
+def resolve_invocation(
+    invocation: SmartModuleInvocation, smartmodules: Mapping[str, bytes]
+) -> tuple:
+    """(payload bytes, name) of an invocation: an AdHoc payload passes
+    through, a Predefined name resolves against ``smartmodules`` (the
+    local store's source by name; parity: context.rs:95)."""
+    wasm = invocation.wasm
+    if wasm.tag == SmartModuleInvocationWasm.ADHOC:
+        return wasm.payload, invocation.name or "adhoc"
+    payload = smartmodules.get(wasm.name)
+    if payload is None:
+        raise SmartModuleResolutionError(
+            ErrorCode.SMARTMODULE_NOT_FOUND,
+            f"SmartModule {wasm.name!r} not found in local store",
+        )
+    return payload, invocation.name or wasm.name
+
+
+def build_chain(
+    invocations: Sequence[SmartModuleInvocation],
+    engine: SmartEngine,
+    smartmodules: Optional[Mapping[str, bytes]] = None,
+    version: Optional[int] = None,
+) -> SmartModuleChainInstance:
+    """Build and initialize a chain from wire invocations (parity:
+    context.rs:63). A payload that does not load raises
+    :class:`SmartModuleResolutionError` (``SMARTMODULE_INVALID``)."""
+    builder = engine.builder()
+    for invocation in invocations:
+        payload, name = resolve_invocation(invocation, smartmodules or {})
+        config = invocation.to_config()
+        if version is not None:
+            config.version = version
+        try:
+            builder.add_smart_module(config, payload, name=name)
+        except Exception as e:  # noqa: BLE001 — the artifact's compile boundary
+            raise SmartModuleResolutionError(
+                ErrorCode.SMARTMODULE_INVALID, f"invalid SmartModule {name!r}: {e}"
+            ) from e
+    return builder.initialize()
+
+
+def apply_chain(chain, records: RecordSet, metrics=None):
+    """Run an in-memory record set through a chain, one output batch per
+    input batch (the produce-side transform, parity:
+    produce_handler.rs:215). Returns (RecordSet, error)."""
+    out = RecordSet()
+    for batch in records.batches:
+        inp = SmartModuleInput.from_records(
+            batch.memory_records(),
+            base_offset=0,  # offsets are not assigned until the log write
+            base_timestamp=batch.header.first_timestamp,
+        )
+        output = chain.process(inp, metrics)
+        if output.error is not None:
+            return out, output.error
+        if output.successes:
+            out.add(
+                Batch.from_records(
+                    output.successes,
+                    first_timestamp=(
+                        batch.header.first_timestamp
+                        if batch.header.first_timestamp != NO_TIMESTAMP
+                        else None
+                    ),
+                )
+            )
+    return out, None
+
+
+@dataclass
+class BatchProcessResult:
+    """Output of one pass over a read slice."""
+
+    records: RecordSet = field(default_factory=RecordSet)
+    next_offset: int = 0  # where the consumer continues
+    error: Optional[SmartModuleTransformRuntimeError] = None
+    phase_ms: Dict[str, float] = field(default_factory=dict)
+
+
+@dataclass
+class PendingSlice:
+    """A read slice staged and dispatched to the card, results pending.
+
+    ``chunks`` holds (RecordBuffer, dispatch handle) pairs in slice order:
+    stateless chains cut a large slice into several chunks, all in flight
+    at once; stateful and explode chains stage one."""
+
+    batches: List[Batch]
+    chunks: List[tuple]
+    planned_next: int  # the next offset when max_bytes cuts nothing
+    total_raw: int
+    base0: int
+    ts0: int
+    count: int  # input records across the chunks
+    read_from: Optional[int] = None  # consume cursor: outputs below it drop
+    phase_ms: Dict[str, float] = field(default_factory=dict)
+
+    def discard(self, gpu) -> None:
+        """Drop the dispatched chunks unread (newest first, so the carries
+        end where the slice found them)."""
+        for _, handle in reversed(self.chunks):
+            gpu.discard_dispatch(handle)
+
+
+def _decline(metrics, reason: str):
+    if metrics is not None:
+        metrics.add_fallback(reason)
+    return None
+
+
+def gpu_pipelinable(chain) -> bool:
+    """Safe to dispatch ahead: stateless, row-preserving chains only (no
+    carries to roll back when a speculative slice is discarded, no
+    explode overflow re-runs)."""
+    gpu = chain.gpu_chain
+    return gpu is not None and not gpu.agg_configs and not gpu._fanout
+
+
+def gpu_stage_dispatch(
+    chain: SmartModuleChainInstance,
+    batches: List[Batch],
+    metrics=None,
+    start_offset: Optional[int] = None,
+) -> Optional[PendingSlice]:
+    """Phase 1 of the coalesced path (`tpu_stage_dispatch` in the
+    reference): stage the slice through the native decoder into
+    flat-backed chunk buffers and dispatch them all without blocking.
+
+    Returns None for a chain with no executor or an empty slice, and,
+    counting the reason, when the slice's data declines (see the module
+    docstring): the caller serves it with `process_batches_per_record`.
+    A failed dispatch raises, after discarding the chunks before it."""
+    gpu = chain.gpu_chain
+    if gpu is None or not batches:
+        return None
+    phase = {"decompress": 0.0, "decode": 0.0}
+    staged: List[tuple] = []
+    total_raw = 0
+    for batch in batches:
+        raw = batch.raw_records
+        if raw is None:
+            return _decline(metrics, "no-raw-records")
+        if batch.header.compression() != Compression.NONE:
+            t0 = time.perf_counter()
+            raw = decompress(batch.header.compression(), raw)
+            phase["decompress"] += _ms(t0)
+        t0 = time.perf_counter()
+        cols = native_records.decode_record_columns(raw, align=4)
+        phase["decode"] += _ms(t0)
+        if cols["count"] != batch.records_len() or cols["parsed"] != len(raw):
+            return _decline(metrics, "malformed-slab")
+        staged.append((batch, cols))
+        total_raw += len(raw)
+    if total_raw > chain.engine.store_max_memory:
+        return _decline(metrics, "store-memory")  # the per-batch path raises
+
+    t_stage = time.perf_counter()
+    base0 = staged[0][0].base_offset
+    ts0 = staged[0][0].header.first_timestamp
+    ts_list = [b.header.first_timestamp for b, _ in staged]
+    if any(t < 0 for t in ts_list) and any(t >= 0 for t in ts_list):
+        return _decline(metrics, "mixed-base-timestamps")  # no rebase defined
+    merged = {
+        "count": sum(c["count"] for _, c in staged),
+        # every per-batch flat is 4-aligned, so the concat is too
+        "val_flat": np.concatenate([c["val_flat"] for _, c in staged]),
+        "val_len": np.concatenate([c["val_len"] for _, c in staged]),
+        "key_flat": np.concatenate([c["key_flat"] for _, c in staged]),
+        "key_present": np.concatenate([c["key_present"] for _, c in staged]),
+    }
+    off_parts, ts_parts, val_offs, key_offs = [], [], [], []
+    v_base = k_base = 0
+    for b, c in staged:
+        off_parts.append(c["off_delta"] + (b.base_offset - base0))
+        ts_parts.append(c["ts_delta"] + (b.header.first_timestamp - ts0 if ts0 >= 0 else 0))
+        val_offs.append(c["val_off"][:-1] + v_base)
+        key_offs.append(c["key_off"][:-1] + k_base)
+        v_base += int(c["val_off"][-1])
+        k_base += int(c["key_off"][-1])
+    merged["off_delta"] = np.concatenate(off_parts)
+    merged["ts_delta"] = np.concatenate(ts_parts)
+    merged["val_off"] = np.concatenate(val_offs + [np.array([v_base], dtype=np.int64)])
+    merged["key_off"] = np.concatenate(key_offs + [np.array([k_base], dtype=np.int64)])
+
+    # stateless chains: chunks of equal size, every one in flight while
+    # the first downloads; stateful and explode chains keep one dispatch
+    n_total = merged["count"]
+    chunk_rows = _DISPATCH_CHUNK_ROWS
+    stateless = not gpu.agg_configs and not gpu._fanout
+    if stateless and n_total > chunk_rows * 3 // 2:
+        bounds = list(range(0, n_total, chunk_rows)) + [n_total]
+        if bounds[-1] == bounds[-2]:
+            bounds.pop()
+    else:
+        bounds = [0, n_total]  # an empty slice still stages one chunk
+    # every guard runs before any dispatch: a decline never abandons a
+    # chunk already on the card
+    if n_total and int(merged["val_len"].max()) > gpu.max_stageable_width():
+        return _decline(metrics, "record-too-wide")
+    chunk_bufs: List[RecordBuffer] = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        try:
+            buf = RecordBuffer.from_flat(
+                _slice_columns(merged, lo, hi), base_offset=base0, base_timestamp=ts0
+            )
+        except ValueError:  # a value past the hard ceiling
+            return _decline(metrics, "record-too-wide")
+        if buf.rows * buf.width > _MAX_STAGING_BYTES:
+            return _decline(metrics, "staging-cap")
+        if gpu._fanout:
+            # explode outputs are fresh records of their source record's
+            # batch: they inherit that batch's rebase (one chunk)
+            fo = np.zeros(buf.rows, dtype=np.int32)
+            ft = np.zeros(buf.rows, dtype=np.int64)
+            pos = 0
+            for b, c in staged:
+                n_b = c["count"]
+                fo[pos : pos + n_b] = b.base_offset - base0
+                if ts0 >= 0:
+                    ft[pos : pos + n_b] = b.header.first_timestamp - ts0
+                pos += n_b
+            buf.fresh_offset_deltas = fo
+            buf.fresh_timestamp_deltas = ft
+        chunk_bufs.append(buf)
+    phase["stage"] = _ms(t_stage)
+    t0 = time.perf_counter()
+    chunks = gpu.dispatch_buffers(chunk_bufs)
+    phase["dispatch"] = _ms(t0)
+    return PendingSlice(
+        batches=batches,
+        chunks=chunks,
+        planned_next=staged[-1][0].computed_last_offset(),
+        total_raw=total_raw,
+        base0=base0,
+        ts0=ts0,
+        count=n_total,
+        read_from=start_offset,
+        phase_ms=phase,
+    )
+
+
+class _MergedOut:
+    """Concatenated live rows of per-chunk output buffers, with the
+    surface `gpu_finish` reads (count, the offset, timestamp and length
+    columns, `to_columns`); the chunks meet only in the one encode."""
+
+    def __init__(self, outbufs: List[RecordBuffer]):
+        ns = [b.count for b in outbufs]
+        self.count = sum(ns)
+        self._outbufs = outbufs
+        self.offset_deltas = np.concatenate([b.offset_deltas[:n] for b, n in zip(outbufs, ns)])
+        self.timestamp_deltas = np.concatenate(
+            [b.timestamp_deltas[:n] for b, n in zip(outbufs, ns)])
+        self.lengths = np.concatenate([b.lengths[:n] for b, n in zip(outbufs, ns)])
+        self.key_lengths = np.concatenate([b.key_lengths[:n] for b, n in zip(outbufs, ns)])
+
+    def to_columns(self) -> dict:
+        parts = [b.to_columns() for b in self._outbufs]
+        val_off = np.zeros(self.count + 1, dtype=np.int64)
+        key_off = np.zeros(self.count + 1, dtype=np.int64)
+        pos = v = k = 0
+        for c in parts:
+            n = c["count"]
+            val_off[pos : pos + n + 1] = c["val_off"] + v
+            key_off[pos : pos + n + 1] = c["key_off"] + k
+            pos += n
+            v += int(c["val_off"][-1])
+            k += int(c["key_off"][-1])
+        return {
+            "count": self.count,
+            "val_flat": np.concatenate([c["val_flat"] for c in parts]),
+            "val_off": val_off,
+            "key_flat": np.concatenate([c["key_flat"] for c in parts]),
+            "key_off": key_off,
+            "key_present": np.concatenate([c["key_present"] for c in parts]),
+            "off_delta": self.offset_deltas.astype(np.int64),
+            "ts_delta": self.timestamp_deltas.astype(np.int64),
+        }
+
+
+def gpu_finish(
+    chain: SmartModuleChainInstance,
+    pending: PendingSlice,
+    max_bytes: int,
+    metrics=None,
+) -> BatchProcessResult:
+    """Phase 2 (`tpu_finish` in the reference): wait for each chunk's
+    results and encode the survivors into one wire batch.
+
+    Survivors keep their stored offsets (rebased to the slice's first
+    batch), so a consumer resuming mid-slice filters correctly; a
+    stateless chain drops outputs below the consume cursor and keeps the
+    longest prefix that fits ``max_bytes`` (at least one record).
+    Aggregate chains deliver every output: their carries have moved on.
+    The batch's ``last_offset_delta`` spans the consumed range, filtered
+    records included. A chunk that raises (`GpuSpill`, a device error)
+    discards the chunks after it, leaves the carries where that chunk
+    found them and propagates."""
+    gpu = chain.gpu_chain
+    base0, ts0 = pending.base0, pending.ts0
+    result = BatchProcessResult(next_offset=pending.planned_next, phase_ms=dict(pending.phase_ms))
+    t0 = time.perf_counter()
+    outbufs = []
+    try:
+        for b, h in pending.chunks:
+            outbufs.append(gpu.finish_buffer(b, h))
+    except BaseException:
+        for _, h in reversed(pending.chunks[len(outbufs):]):
+            gpu.discard_dispatch(h)
+        raise
+    outbuf = outbufs[0] if len(outbufs) == 1 else _MergedOut(outbufs)
+    n_out = outbuf.count
+    out_deltas = outbuf.offset_deltas[:n_out].astype(np.int64)
+    out_ts = outbuf.timestamp_deltas[:n_out].astype(np.int64)
+    drop = 0
+    stateless = not gpu.agg_configs and not gpu._fanout
+    if stateless and n_out and pending.read_from is not None and pending.read_from > base0:
+        # resuming mid-batch: outputs below the cursor were served by an
+        # earlier (cut) response; survivor deltas ascend
+        drop = int(np.searchsorted(out_deltas, pending.read_from - base0, side="left"))
+        out_deltas = out_deltas[drop:]
+        out_ts = out_ts[drop:]
+        n_out -= drop
+    if n_out and stateless and max_bytes > 0:
+        sizes = _encoded_record_sizes_at(outbuf, drop, out_deltas, out_ts)
+        keep = int(np.searchsorted(np.cumsum(sizes), max_bytes, side="left")) + 1
+        if keep < n_out:
+            n_out = max(keep, 1)
+            result.next_offset = base0 + int(out_deltas[n_out - 1]) + 1
+    result.phase_ms["finish"] = _ms(t0)
+    t0 = time.perf_counter()
+    if n_out:
+        cols = outbuf.to_columns()
+        vo, ko = cols["val_off"], cols["key_off"]
+        v0, k0 = int(vo[drop]), int(ko[drop])
+        raw_out = native_records.encode_record_columns(
+            cols["val_flat"][v0 : int(vo[drop + n_out])],
+            vo[drop : drop + n_out + 1] - v0,
+            cols["key_flat"][k0 : int(ko[drop + n_out])],
+            ko[drop : drop + n_out + 1] - k0,
+            cols["key_present"][drop : drop + n_out],
+            out_deltas[:n_out],
+            out_ts[:n_out],
+        )
+        out_batch = Batch(base_offset=base0, raw_records=raw_out, raw_record_count=n_out)
+        now = int(time.time() * 1000) if ts0 == NO_TIMESTAMP else ts0
+        out_batch.header.first_timestamp = now
+        out_batch.header.max_time_stamp = now
+        # span the whole consumed range so the consumer's next fetch moves
+        # past every input record, filtered ones included
+        out_batch.header.last_offset_delta = result.next_offset - 1 - base0
+        result.records.add(out_batch)
+    result.phase_ms["encode"] = _ms(t0)
+    if metrics is not None:
+        metrics.add_bytes_in(pending.total_raw)
+        metrics.add_fuel_used(pending.count * max(len(gpu.stages), 1))
+        metrics.add_records_out(n_out)
+        metrics.add_fastpath()
+    if gpu.agg_configs:
+        gpu._ensure_host_state()
+    return result
+
+
+def process_batches(
+    chain: SmartModuleChainInstance,
+    batches: List[Batch],
+    max_bytes: int,
+    metrics=None,
+    start_offset: Optional[int] = None,
+) -> BatchProcessResult:
+    """Run stored batches through the chain and re-batch the outputs: the
+    coalesced path when it takes the slice, else one `chain.process` a
+    batch (`process_batches_per_record`)."""
+    pending = gpu_stage_dispatch(chain, batches, metrics, start_offset)
+    if pending is not None:
+        return gpu_finish(chain, pending, max_bytes, metrics)
+    return process_batches_per_record(chain, batches, max_bytes, metrics)
+
+
+def process_batches_per_record(
+    chain: SmartModuleChainInstance,
+    batches: List[Batch],
+    max_bytes: int,
+    metrics=None,
+) -> BatchProcessResult:
+    """One `chain.process` a stored batch (parity: batch.rs:41-140), each
+    output batch at its input batch's base offset, survivors keeping their
+    stored offsets and the batch spanning the input's offset range; stops
+    once ``max_bytes`` of output is reached or at an output's error."""
+    result = BatchProcessResult()
+    total_bytes = 0
+    for batch in batches:
+        inp = SmartModuleInput.from_records(
+            batch.memory_records(),
+            base_offset=batch.base_offset,
+            base_timestamp=batch.header.first_timestamp,
+        )
+        output = chain.process(inp, metrics)
+        result.next_offset = batch.computed_last_offset()
+        if output.successes:
+            out_batch = Batch.from_records(
+                output.successes,
+                base_offset=batch.base_offset,
+                first_timestamp=(
+                    batch.header.first_timestamp
+                    if batch.header.first_timestamp != NO_TIMESTAMP
+                    else None
+                ),
+                preserve_offsets=True,
+            )
+            # the next fetch offset comes from last_offset_delta: it covers
+            # the records consumed from the log, not those produced
+            out_batch.header.last_offset_delta = (
+                batch.computed_last_offset() - 1 - batch.base_offset
+            )
+            total_bytes += out_batch.write_size()
+            result.records.add(out_batch)
+        if output.error is not None:
+            result.error = output.error
+            break
+        if total_bytes >= max_bytes:
+            break
+    return result
+
+
+def stream_slices(
+    chain: SmartModuleChainInstance,
+    read: Callable[[int], List[Batch]],
+    start: int,
+    end: int,
+    max_bytes: int,
+    metrics=None,
+) -> Iterator[BatchProcessResult]:
+    """Serve offsets [start, end) slice by slice, as the broker's stream
+    loop does below its socket: ``read(offset)`` returns the stored
+    batches of the slice that holds ``offset`` (none past the log's end).
+    For a pipelinable chain (`gpu_pipelinable`), slice k+1 is read, staged
+    and dispatched before slice k is finished and encoded; when
+    ``max_bytes`` cuts slice k, slice k+1 (read from the wrong offset) is
+    discarded and read again. Other chains run one slice at a time
+    (`process_batches`). An error discards what is in flight and
+    propagates."""
+    gpu = chain.gpu_chain
+    current = start
+    if not gpu_pipelinable(chain):
+        while current < end:
+            batches = read(current)
+            if not batches:
+                return
+            result = process_batches(chain, batches, max_bytes, metrics, current)
+            yield result
+            current = result.next_offset
+        return
+    pending: Optional[PendingSlice] = None
+    while True:
+        planned = pending.planned_next if pending is not None else current
+        nxt = None
+        nxt_batches = read(planned) if planned < end else []
+        try:
+            if nxt_batches:
+                nxt = gpu_stage_dispatch(chain, nxt_batches, metrics, start_offset=planned)
+            result = gpu_finish(chain, pending, max_bytes, metrics) if pending else None
+        except BaseException:
+            for p in (nxt, pending):
+                if p is not None:
+                    p.discard(gpu)
+            raise
+        if result is not None:
+            yield result
+            current = result.next_offset
+            truncated = current != pending.planned_next
+            pending = None
+            if truncated:
+                if nxt is not None:
+                    nxt.discard(gpu)
+                continue
+        if nxt is not None:
+            pending = nxt
+        elif nxt_batches:
+            # the coalesced path declined this slice: serve it per batch
+            result = process_batches_per_record(chain, nxt_batches, max_bytes, metrics)
+            yield result
+            current = result.next_offset
+        elif pending is None:
+            return

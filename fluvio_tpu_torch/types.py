@@ -1,8 +1,8 @@
-"""Offset aliases and the in-process offset bus.
+"""Offset and timestamp aliases and the in-process offset bus.
 
-The port's copy of the offset primitives of ``fluvio_tpu/types.py``: the
-``Offset`` alias and `OffsetPublisher` / `OffsetChangeListener`, a
-monotonic value with per-listener change wakeups (the bus that wakes
+The port's copy of the primitives of ``fluvio_tpu/types.py``: the
+``Offset`` and ``Timestamp`` aliases, ``NO_TIMESTAMP``, and
+`OffsetPublisher` / `OffsetChangeListener`, a monotonic value with per-listener change wakeups (the bus that wakes
 consumer streams when a partition's committed offset advances). They are
 asyncio-native: a listener awaits a change, an update from any thread
 wakes the loop its listeners wait on.
@@ -14,6 +14,9 @@ import asyncio
 from typing import Optional
 
 Offset = int
+Timestamp = int  # milliseconds since epoch; NO_TIMESTAMP = -1
+
+NO_TIMESTAMP: Timestamp = -1
 
 
 class OffsetChangeListener:

@@ -174,7 +174,7 @@ def _chains(specs):
         pb.add_smart_module(SmartModuleConfig(params=dict(params), initial_data=initial), port_m)
     ref_chain = rb.initialize()
     assert ref_chain.backend_in_use == "tpu"
-    return ref_chain.tpu_chain, pb.initialize()
+    return ref_chain.tpu_chain, pb.initialize().gpu_chain
 
 
 def run_both(specs, ref_bufs):

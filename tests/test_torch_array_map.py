@@ -195,7 +195,7 @@ def test_array_map_with_the_glz_link():
     ref_chain, _ = _chains([("array-map-json", {}, b"")])
     port_chain = (SmartEngine(device="cpu", link=LinkParams(compress=True, result_compress=True,
                                                             chunk=4096)).builder()
-                  .add_smart_module(SmartModuleConfig(), lookup("array-map-json")).initialize())
+                  .add_smart_module(SmartModuleConfig(), lookup("array-map-json")).initialize().gpu_chain)
     bufs = [_ref_buffer(ARRAY_DOCS * 100), *_array_batches((2000, 3))]
     port_outs = list(port_chain.process_stream([_port_buffer(b) for b in bufs]))
     for ref_out, port_out in zip(ref_chain.process_stream(bufs), port_outs):
@@ -209,7 +209,7 @@ def test_wide_explode_batch_spills_at_dispatch(name, spills):
     narrow layout spills before anything runs and leaves the carries
     alone. A running sum has one: the same batch runs striped."""
     chain = (SmartEngine(device="cpu").builder()
-             .add_smart_module(SmartModuleConfig(), lookup(name)).initialize())
+             .add_smart_module(SmartModuleConfig(), lookup(name)).initialize().gpu_chain)
     wide = _port_buffer(_ref_buffer([b"[1]"]))
     wide.values = np.zeros((8, (1 << 16) + 32), dtype=np.uint8)
     if spills:

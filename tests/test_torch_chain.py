@@ -64,7 +64,7 @@ def _chains(specs):
         pb.add_smart_module(SmartModuleConfig(params=dict(params)), port_m)
     ref_chain = rb.initialize()
     assert ref_chain.backend_in_use == "tpu"
-    return ref_chain.tpu_chain, pb.initialize()
+    return ref_chain.tpu_chain, pb.initialize().gpu_chain
 
 
 def _ref_buffer(values, keys=None, offsets=None, ts=None, base_offset=0, base_ts=-1):
@@ -202,7 +202,7 @@ def test_unported_kinds_spill():
     bytes, a comparison of bytes) makes no chain."""
     agg = ("aggregate", lambda d: d.AggregateProgram(kind="word_count"))
     _, port_m = _module_pair(*agg)
-    chain = SmartEngine(device="cpu").builder().add_smart_module(SmartModuleConfig(), port_m).initialize()
+    chain = SmartEngine(device="cpu").builder().add_smart_module(SmartModuleConfig(), port_m).initialize().gpu_chain
     wide = _port_buffer(_ref_buffer([b"1"]))
     wide.values = np.zeros((8, (1 << 16) + 32), dtype=np.uint8)
     with pytest.raises(GpuSpill) as e:

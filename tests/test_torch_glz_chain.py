@@ -48,7 +48,7 @@ def _port_chain(specs, link, stripes=None):
     pb = SmartEngine(device="cpu", link=link, stripes=stripes or StripeParams()).builder()
     for name, params in specs:
         pb.add_smart_module(SmartModuleConfig(params=dict(params)), lookup(name))
-    return pb.initialize()
+    return pb.initialize().gpu_chain
 
 
 def _linked(specs, link=LINK, stripes=None):
@@ -156,4 +156,5 @@ def test_engine_refuses_the_link_without_its_compressor(monkeypatch, tmp_path):
     for link in (LinkParams(compress=True), LinkParams(result_compress=True)):
         with pytest.raises(EngineError, match="glz"):
             build(link)
-    assert build(LinkParams()).process_buffer(RecordBuffer.from_values([b"fluvio"])).count == 1
+    chain = build(LinkParams()).gpu_chain
+    assert chain.process_buffer(RecordBuffer.from_values([b"fluvio"])).count == 1

@@ -109,6 +109,96 @@ def gen_fat_lines(n: int, seed: int = 23, size: int = 71_709):
     return out
 
 
+# The broker's consume configuration (`bench.run_broker_e2e`), jax-free,
+# shared by the CPU tests, the card test below and `chip_smoke.py`: the
+# bench's two AdHoc SmartModule payloads, a log of stored batches and the
+# storage's read slices.
+NORTH_STAR_FILTER_SM = b"""
+@smartmodule.filter(dsl=dsl.FilterProgram(
+    predicate=dsl.RegexMatch(arg=dsl.Value(), pattern="fluvio")))
+def f(record):
+    import re
+    return re.search(b"fluvio", record.value) is not None
+"""
+
+NORTH_STAR_MAP_SM = b"""
+@smartmodule.map(dsl=dsl.MapProgram(
+    value=dsl.Upper(arg=dsl.JsonGet(arg=dsl.Value(), key="@param:field=name"))))
+def m(record):
+    return dsl.ascii_upper(dsl.json_get_bytes(record.value, "name"))
+"""
+
+
+def north_star_invocations():
+    """The bench's broker chain as a consumer sends it: the two AdHoc
+    invocations, encoded and decoded with the port's codec."""
+    from fluvio_tpu_torch.protocol.codec import ByteReader, ByteWriter
+    from fluvio_tpu_torch.schema.smartmodule import (
+        SmartModuleInvocation,
+        SmartModuleInvocationKind,
+        SmartModuleInvocationWasm,
+    )
+
+    out = []
+    for payload, kind, params in (
+        (NORTH_STAR_FILTER_SM, SmartModuleInvocationKind.FILTER, {}),
+        (NORTH_STAR_MAP_SM, SmartModuleInvocationKind.MAP, {"field": "name"}),
+    ):
+        w = ByteWriter()
+        SmartModuleInvocation(wasm=SmartModuleInvocationWasm.adhoc(payload), kind=kind,
+                              params=params).encode(w)
+        out.append(SmartModuleInvocation.decode(ByteReader(w.bytes())))
+    return out
+
+
+def broker_log(values, batch_records: int, first_timestamp: int = 1_000_000):
+    """The bench's stored log (`bench.run_broker_e2e`): ``values`` in
+    batches of ``batch_records``, offsets from 0, each batch's records
+    encoded by the port's native encoder (offset deltas 0.., timestamp
+    deltas 0) under ``first_timestamp``. Returns (the wire bytes of each
+    batch, the batches decoded raw as storage hands them over)."""
+    from fluvio_tpu_torch.native import records as native_records
+    from fluvio_tpu_torch.protocol.codec import ByteReader, ByteWriter
+    from fluvio_tpu_torch.protocol.record import Batch
+
+    wires, batches = [], []
+    for lo in range(0, len(values), batch_records):
+        chunk = values[lo: lo + batch_records]
+        m = len(chunk)
+        val_off = np.zeros(m + 1, dtype=np.int64)
+        np.cumsum([len(v) for v in chunk], out=val_off[1:])
+        raw = native_records.encode_record_columns(
+            np.frombuffer(b"".join(chunk), dtype=np.uint8), val_off, np.zeros(0, np.uint8),
+            np.zeros(m + 1, np.int64), np.zeros(m, np.uint8), np.arange(m, dtype=np.int64),
+            np.zeros(m, np.int64))
+        b = Batch(base_offset=lo, raw_records=raw, raw_record_count=m)
+        b.header.first_timestamp = b.header.max_time_stamp = first_timestamp
+        b.header.last_offset_delta = m - 1
+        w = ByteWriter()
+        b.encode(w)
+        wires.append(w.bytes())
+        batches.append(Batch.decode(ByteReader(wires[-1]), parse_records=False))
+    return wires, batches
+
+
+def slice_reader(wires, batches, max_bytes: int):
+    """``read(offset)``: the storage's read slice at ``offset``, whole
+    stored batches from the one that holds it while their stored bytes
+    stay within ``max_bytes`` (at least one batch; none past the end)."""
+    ends = np.array([b.computed_last_offset() for b in batches])
+    sizes = np.cumsum([len(w) for w in wires])
+
+    def read(offset: int):
+        first = int(np.searchsorted(ends, offset, side="right"))
+        if first == len(batches):
+            return []
+        room = (sizes[first] - len(wires[first])) + max_bytes
+        last = max(int(np.searchsorted(sizes, room, side="right")), first + 1)
+        return batches[first:last]
+
+    return read
+
+
 # The DFA scan's cases, shared by the card test below and the CPU spec of
 # the kernel's walk (`tests/test_torch_dfa_redesign.py`); jax-free, since
 # the card's machine has no jax.
@@ -208,7 +298,10 @@ def test_port_imports_no_jax_and_nothing_of_fluvio_tpu():
     files = sorted((REPO / "fluvio_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     for module in ("types.py", "partition/runtime.py", "partition/placement.py",
-                   "partition/rebalancer.py", "partition/failover.py", "windows/engine.py"):
+                   "partition/rebalancer.py", "partition/failover.py", "windows/engine.py",
+                   "protocol/record.py", "protocol/compression.py", "protocol/lz4_py.py",
+                   "schema/smartmodule.py", "spu/smart_chain.py", "native/records.py",
+                   "smartmodule/sdk.py", "smartengine/metrics.py"):
         assert REPO / "fluvio_tpu_torch" / module in files, module
     bad = [
         f"{path.relative_to(REPO)}:{line}: {module}"
@@ -358,7 +451,7 @@ def test_long_keys_through_the_engine_on_the_card():
             b = SmartEngine(device="cuda").builder()
             b.add_smart_module(SmartModuleConfig(params={"field": kb.decode()}),
                                lookup("json-map"))
-            chain = b.initialize()
+            chain = b.initialize().gpu_chain
             cuda_kernels.reset_launches()
             out = chain.process_buffer(RecordBuffer.from_values(docs)).value_list()
             assert cuda_kernels.LAUNCHES[path] > 0, (klen, path)
@@ -521,7 +614,7 @@ def _slice_chain(device: str, *names: str):
     b = SmartEngine(device=device).builder()
     for name in names:
         b.add_smart_module(SmartModuleConfig(params={"field": "n"}), lookup(name))
-    return b.initialize()
+    return b.initialize().gpu_chain
 
 
 @pytest.mark.cuda
@@ -582,7 +675,7 @@ def striped_slice_chain(device: str, specs, stripes=None, link=None):
                     link=link or LinkParams()).builder()
     for module, params in (STRIPED_SLICE[specs] if isinstance(specs, str) else specs):
         b.add_smart_module(SmartModuleConfig(params=dict(params)), lookup(module))
-    return b.initialize()
+    return b.initialize().gpu_chain
 
 
 @pytest.mark.cuda
@@ -777,7 +870,7 @@ def test_partitioned_runtime_on_the_card():
                            lookup("aggregate-field"))
         plan = plan_placement(parse_placement_rules(".*=spread"),
                               [f"bench/{p}" for p in range(4)], 2)
-        runtime = PartitionRuntime(b.initialize(), plan,
+        runtime = PartitionRuntime(b.initialize().gpu_chain, plan,
                                    devices=["cpu"] if device == "cpu" else None)
         cuda_kernels.reset_launches()
         run = run_partitioned(runtime, [RecordBuffer.from_values(v) for v in per_part],
@@ -794,3 +887,75 @@ def test_partitioned_runtime_on_the_card():
         assert results["cuda"][1][p] == [(4 * partitioned_truth(per_part[p]), 0, True)]
     assert launches["json_span"] == launches["extract"] == 16
     assert runtime.device_of(0) == runtime.device_of(1) and runtime.device_of(0).type == "cuda"
+
+
+_LOAD_SOURCE_PROBE = """
+import builtins, sys
+sys.path.insert(0, sys.argv[1])
+from tests.test_torch_isolation import NORTH_STAR_FILTER_SM, NORTH_STAR_MAP_SM
+from fluvio_tpu_torch.smartmodule import dsl, load_source, sdk
+for payload, program in ((NORTH_STAR_FILTER_SM, dsl.FilterProgram),
+                         (NORTH_STAR_MAP_SM, dsl.MapProgram)):
+    m = load_source(payload)
+    assert isinstance(m.dsl_program(m.transform_kind()), program), m
+builtins._seen = {}
+load_source(
+    "__import__('builtins')._seen.update(dsl=dsl, smartmodule=smartmodule)\\n"
+    "@smartmodule.filter(dsl=dsl.FilterProgram(predicate=dsl.Value()))\\n"
+    "def f(record):\\n"
+    "    return True\\n")
+assert builtins._seen == {"dsl": dsl, "smartmodule": sdk.smartmodule}, builtins._seen
+bad = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "fluvio_tpu")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_load_source_binds_the_port_in_a_fresh_process():
+    """An AdHoc payload loads in a process that imports only the port: the
+    source sees the port's ``dsl`` and ``smartmodule``, and afterwards
+    ``sys.modules`` holds neither the JAX package nor jax."""
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "-c", _LOAD_SOURCE_PROBE, str(REPO)],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "ok"
+
+
+def test_broker_payloads_are_the_bench_payloads():
+    import bench
+
+    assert NORTH_STAR_FILTER_SM == bench.NORTH_STAR_FILTER_SM
+    assert NORTH_STAR_MAP_SM == bench.NORTH_STAR_MAP_SM
+
+
+@pytest.mark.cuda
+def test_broker_slice_on_the_card():
+    """The bench's broker chain (from its wire invocations) over one read
+    slice of 8 stored batches of 4,096 records, cut into chunks: the card
+    encodes the CPU's bytes, through the JSON span kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.protocol.codec import ByteWriter
+    from fluvio_tpu_torch.smartengine import SmartEngine, SmartModuleChainMetrics
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
+    from fluvio_tpu_torch.spu import smart_chain
+
+    wires, batches = broker_log(gen_json(8 * 4096), 4096)
+    read = slice_reader(wires, batches, 16 << 20)
+    got = {}
+    for device in ("cpu", "cuda"):
+        chain = smart_chain.build_chain(north_star_invocations(), SmartEngine(device=device))
+        metrics = SmartModuleChainMetrics()
+        cuda_kernels.reset_launches()
+        results = list(smart_chain.stream_slices(chain, read, 0, 8 * 4096, 16 << 20, metrics))
+        launches = dict(cuda_kernels.LAUNCHES)
+        w = ByteWriter()
+        for r in results:
+            r.records.encode(w)
+        got[device] = (w.bytes(), [r.next_offset for r in results])
+        assert metrics.fallback_slices == 0 and metrics.fastpath_slices == 1
+    assert got["cuda"] == got["cpu"] and got["cuda"][1] == [8 * 4096]
+    assert launches["json_span"] >= 1

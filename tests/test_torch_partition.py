@@ -75,7 +75,7 @@ def _port_chain(specs):
     b = SmartEngine(device="cpu").builder()
     for name, params in specs:
         b.add_smart_module(SmartModuleConfig(params=dict(params)), lookup(name))
-    return b.initialize()
+    return b.initialize().gpu_chain
 
 
 def _batch(seed: int, n: int = BATCH):
@@ -748,7 +748,7 @@ def test_interleave_compresses_the_next_buffer_ahead():
         b = SmartEngine(device="cpu", link=link).builder()
         for name, params in SPECS:
             b.add_smart_module(SmartModuleConfig(params=dict(params)), lookup(name))
-        ex = b.initialize()
+        ex = b.initialize().gpu_chain
         threads = []
         compressed = ex._compressed
 

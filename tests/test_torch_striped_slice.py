@@ -61,7 +61,7 @@ def _chains(specs, stripes_params=None, link=None):
         pb.add_smart_module(SmartModuleConfig(params=dict(params), initial_data=init), port_m)
     ref_chain = rb.initialize()
     assert ref_chain.backend_in_use == "tpu"
-    return ref_chain.tpu_chain, pb.initialize()
+    return ref_chain.tpu_chain, pb.initialize().gpu_chain
 
 
 def _stream_both(ref_chain, port_chain, ref_bufs):

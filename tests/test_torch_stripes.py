@@ -248,7 +248,7 @@ def _run_striped(specs, values, **buf_kw):
         rb.add_smart_module(RefConfig(params=dict(params)), ref_m)
         pb.add_smart_module(SmartModuleConfig(params=dict(params)), port_m)
     ref_chain = rb.initialize().tpu_chain
-    port_chain = pb.initialize()
+    port_chain = pb.initialize().gpu_chain
     ref_buf = _ref_buffer(values, **buf_kw)
     assert ref_buf.width > THRESHOLD
     assert ref_chain._striped_chain() is not None, "the reference did not take the striped path"
@@ -304,7 +304,7 @@ class TestChains:
             RefConfig(params=params), ref_lookup("regex-filter")).initialize().tpu_chain
         assert ref_chain._striped_chain() is None
         port_chain = SmartEngine(device="cpu", stripes=PARAMS).builder().add_smart_module(
-            SmartModuleConfig(params=params), lookup("regex-filter")).initialize()
+            SmartModuleConfig(params=params), lookup("regex-filter")).initialize().gpu_chain
         with pytest.raises(GpuSpill) as e:
             port_chain.process_buffer(RecordBuffer.from_values([b"ab" * 60]))
         assert e.value.reason == "record-too-wide-unstripeable"
