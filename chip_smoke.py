@@ -176,7 +176,24 @@ Phases (any failure raises and the script exits non-zero):
    ``vs_engine_only``, p50/p99 slice latency (read to encoded batch), the
    host ms a slice of each phase, the engine-only staging, link bytes a
    record, device busy. ``--broker-only`` builds the kernels and runs only
-   this phase.
+   this phase;
+14. the SPU server, ``bench.run_broker_e2e`` whole: phase 13's log written
+   through the port's ``SpuServer`` (its SmartEngine on the card; the
+   leader's ``write_record_set``, one stored batch a record set) into log
+   files under a temporary directory, then each of phase 13's three
+   chains, sent as AdHoc invocations, consumed through ``Fluvio.connect``
+   -> ``partition_consumer`` -> ``stream_batches`` with the bench's
+   ``ConsumerConfig`` (``disable_continuous``, ``max_bytes`` 16 MiB) over a
+   localhost socket: a warm pass, then passes in turns with phase 13's
+   below-socket ``stream_slices`` and with ``process_stream`` over the same
+   records, every pushed batch held to the DSL interpreter as in phase 13
+   and no slice declined (the server's chain metrics): records/s over the
+   socket, ``vs_engine_only``, ``vs_below_socket`` (the server, its
+   storage reads and the ack wait: both sides run ``stream_slices``), the
+   client's batch inter-arrival p50 and max (three slices a pass give too
+   few gaps for a p99), the server's host ms a slice by phase (storage
+   read to ack wait) and the kernels one socket pass launches.
+   ``--server-only`` builds the kernels and runs only this phase.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -2278,10 +2295,18 @@ def broker_chain(name: str):
     return b.initialize()
 
 
-def broker_truth(name: str, values):
-    """Host truth of a broker chain over every stored record, from the
-    port's DSL interpreter: (output offsets i64, output lengths i64, the
-    output values joined)."""
+@functools.lru_cache(maxsize=None)
+def broker_values():
+    """The stored log's values (phases 13 and 14)."""
+    return gen_json(BROKER["records"], seed=2024)
+
+
+@functools.lru_cache(maxsize=None)
+def broker_truth(name: str):
+    """Host truth of a broker chain over every stored record of
+    `broker_values`, from the port's DSL interpreter: (output offsets i64,
+    output lengths i64, the output values joined)."""
+    values = broker_values()
     from fluvio_tpu_torch.smartmodule import load_source
 
     cases = shared_cases()
@@ -2374,7 +2399,7 @@ def phase_broker():
 
     cfg, cases = BROKER, shared_cases()
     n = cfg["records"]
-    values = gen_json(n, seed=2024)
+    values = broker_values()
     t0 = time.perf_counter()
     wires, batches = cases.broker_log(values, cfg["batch_records"], cfg["first_timestamp"])
     log_s = time.perf_counter() - t0
@@ -2382,7 +2407,7 @@ def phase_broker():
     stored_bytes = sum(len(w) for w in wires)
     numbers, launches = {}, {}
     for name in BROKER_CHAINS:
-        truth = broker_truth(name, values)
+        truth = broker_truth(name)
         chain = broker_chain(name)
         engine_chain = broker_chain(name).gpu_chain
 
@@ -2493,6 +2518,186 @@ def phase_broker():
     return numbers, launches
 
 
+# phase 14: the SPU server (`bench.run_broker_e2e` over its socket): phase
+# 13's log written through the port's server, consumed by its client
+SERVER_TURNS = 3
+
+
+def server_results(batches):
+    """The pushed batches as phase 13's pass results (`check_broker_pass`):
+    each batch one slice, from its base offset to past its last offset
+    delta. Every slice of these chains has output, so the slices still
+    cover the log."""
+    from types import SimpleNamespace
+
+    from fluvio_tpu_torch.protocol.record import RecordSet
+
+    results, starts = [], []
+    for b in batches:
+        records = RecordSet()
+        records.add(b)
+        results.append(SimpleNamespace(
+            records=records, next_offset=b.base_offset + b.header.last_offset_delta + 1))
+        starts.append(b.base_offset)
+    return results, starts
+
+
+def phase_server():
+    """Phase 14: the port's SPU server on the card. The log of phase 13
+    goes through `SpuServer` (the leader's ``write_record_set``) into
+    files under a temporary directory; each chain is consumed through
+    ``Fluvio.connect`` -> ``partition_consumer`` -> ``stream_batches`` with
+    the bench's `ConsumerConfig` over a localhost socket (a warm pass,
+    then measured passes in turns with phase 13's below-socket
+    `stream_slices` and with ``process_stream`` over the same records),
+    every pass held to host truth. Returns ({chain: numbers}, launches of
+    one measured socket pass of each chain)."""
+    import asyncio
+    import tempfile
+
+    from fluvio_tpu_torch.client import Fluvio
+    from fluvio_tpu_torch.smartengine import SmartModuleChainMetrics
+    from fluvio_tpu_torch.spu import smart_chain
+
+    cfg, cases = BROKER, shared_cases()
+    n = cfg["records"]
+    values = broker_values()
+    wires, batches = cases.broker_log(values, cfg["batch_records"], cfg["first_timestamp"])
+    read_slice = cases.slice_reader(wires, batches, cfg["max_bytes"])
+    numbers, launches = {}, {}
+
+    async def run(log_dir):
+        t0 = time.perf_counter()
+        server = await cases.start_spu_server(log_dir, batches)  # on the card
+        write_s = time.perf_counter() - t0
+        client = await Fluvio.connect(server.public_addr)
+        try:
+            consumer = await client.partition_consumer("bench", 0)
+            for name in BROKER_CHAINS:
+                truth = broker_truth(name)
+                config = cases.server_consumer_config(cases.server_invocations(name),
+                                                      cfg["max_bytes"])
+                stateful = name == "3_aggregate"
+                below_chain = broker_chain(name)
+                engine_chain = broker_chain(name).gpu_chain
+
+                async def socket_pass():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got, arrivals = await cases.consume_once(consumer, config)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    results, starts = server_results(got)
+                    check_broker_pass(name, results, starts, truth)
+                    return dt, np.diff([t0] + arrivals) * 1e3, len(got)
+
+                def below_pass():
+                    chain = broker_chain(name) if stateful else below_chain
+                    metrics = SmartModuleChainMetrics()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    starts, results = [], []
+
+                    def read(offset):
+                        starts.append(offset)
+                        return read_slice(offset)
+
+                    results = list(smart_chain.stream_slices(chain, read, 0, n, cfg["max_bytes"],
+                                                             metrics))
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    check_broker_pass(name, results, starts, truth)
+                    if metrics.fallback_slices:
+                        raise AssertionError(f"server {name}: below-socket declines "
+                                             f"{metrics.to_dict()}")
+                    return dt
+
+                def engine_pass():
+                    chain = broker_chain(name).gpu_chain if stateful else engine_chain
+                    buf = RecordBuffer.from_values(values)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    outs = list(chain.process_stream([buf]))
+                    torch.cuda.synchronize()
+                    if sum(o.count for o in outs) != len(truth[0]):
+                        raise AssertionError(f"server {name}: process_stream gave "
+                                             f"{sum(o.count for o in outs)} records")
+                    return time.perf_counter() - t0
+
+                t0 = time.perf_counter()
+                await socket_pass()  # warm: the chain's first build and shapes
+                warm_s = time.perf_counter() - t0
+                below_pass()
+                engine_pass()
+                phases_from = len(server.ctx.metrics.slice_phases)
+                socket_s, below_s, engine_s, gaps, slices = [], [], [], [], 0
+                ways = ("socket", "below", "engine")
+                for turn in range(SERVER_TURNS):
+                    for way in ways[turn % 3:] + ways[:turn % 3]:
+                        if way == "below":
+                            below_s.append(below_pass())
+                        elif way == "engine":
+                            engine_s.append(engine_pass())
+                        else:
+                            if turn == 0:  # the main path's count: this pass's launches
+                                cuda_kernels.reset_launches()
+                            dt, gap, slices = await socket_pass()
+                            if turn == 0:
+                                launches[name] = dict(cuda_kernels.LAUNCHES)
+                            socket_s.append(dt)
+                            gaps += gap.tolist()
+                phases = {}
+                for ph in list(server.ctx.metrics.slice_phases)[phases_from:]:
+                    for k, v in ph.items():
+                        phases.setdefault(k, []).append(v)
+                med_s, med_b, med_e = (statistics.median(x) for x in (socket_s, below_s, engine_s))
+                numbers[name] = {
+                    "records": n, "stored_batches": len(batches), "slices": slices,
+                    "records_per_s": n / med_s, "below_socket_records_per_s": n / med_b,
+                    "engine_records_per_s": n / med_e,
+                    "vs_engine_only": med_e / med_s, "vs_below_socket": med_b / med_s,
+                    "pass_ms": [t * 1e3 for t in socket_s],
+                    "below_socket_pass_ms": [t * 1e3 for t in below_s],
+                    "engine_pass_ms": [t * 1e3 for t in engine_s],
+                    "warm_pass_s": warm_s,
+                    # a few slices a pass: too few gaps for a p99, so the max
+                    "inter_arrival_ms": {"p50": float(np.percentile(gaps, 50)),
+                                         "max": float(max(gaps)), "gaps": len(gaps),
+                                         "all": gaps},
+                    "server_phase_ms_per_slice": {k: statistics.median(v)
+                                                  for k, v in phases.items()},
+                    "outputs": int(len(truth[0])),
+                    "launches": launches[name],
+                }
+                nb = numbers[name]
+                log(f"server {name}: {n} records in {len(batches)} stored batches over the "
+                    f"socket, {slices} slices a pass of <= {cfg['max_bytes']} B: "
+                    f"{nb['records_per_s']:.0f} records/s (passes "
+                    f"{[round(t, 3) for t in nb['pass_ms']]} ms; warm pass {warm_s:.3f} s), "
+                    f"below the socket {nb['below_socket_records_per_s']:.0f} records/s (passes "
+                    f"{[round(t, 3) for t in nb['below_socket_pass_ms']]}), process_stream "
+                    f"{nb['engine_records_per_s']:.0f} records/s (passes "
+                    f"{[round(t, 3) for t in nb['engine_pass_ms']]}); vs_engine_only "
+                    f"{nb['vs_engine_only']:.4f}, vs_below_socket {nb['vs_below_socket']:.4f}; "
+                    f"batch inter-arrival p50 {nb['inter_arrival_ms']['p50']:.3f} ms, max "
+                    f"{nb['inter_arrival_ms']['max']:.3f} ms of {len(gaps)} gaps; server ms a slice "
+                    f"{ {k: round(v, 3) for k, v in nb['server_phase_ms_per_slice'].items()} }; "
+                    f"{nb['outputs']} outputs equal to the DSL interpreter in every pass; "
+                    f"launches {launches[name]}")
+            m = server.ctx.metrics.smartmodule.to_dict()
+            if m["fallback_slices"] or not m["fastpath_slices"]:
+                raise AssertionError(f"server: chain metrics {m}")
+            log(f"server: log of {n} records written through the leader in {write_s:.3f} s; "
+                f"chain metrics {m}; outbound {server.ctx.metrics.outbound.to_dict()}")
+        finally:
+            await client.close()
+            await server.stop()
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-spu-") as log_dir:
+        asyncio.run(run(log_dir))
+    return numbers, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -2516,6 +2721,9 @@ def main(argv=None) -> int:
     parser.add_argument("--broker-only", action="store_true",
                         help="build the kernels and run only the broker's consume path "
                              "(phase 13; no ok line)")
+    parser.add_argument("--server-only", action="store_true",
+                        help="build the kernels and run only the SPU server over its socket "
+                             "(phase 14; no ok line)")
     parser.add_argument("--striped-slice-only", action="store_true",
                         help="build the kernels and run only phase 12 (with phase 9's aggregate "
                              "chains and phase 11, whose D2H it reads; no ok line)")
@@ -2578,6 +2786,11 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"broker": numbers}))
         return 0
+    if args.server_only:
+        numbers, _launches = phase_server()
+        print(smi)
+        print(json.dumps({"server": numbers}))
+        return 0
     if args.striped_slice_only:
         json_corpora = [gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)]
         slice_numbers, _ops = phase_slice(json_corpora, ("3_aggregate", "filter_aggregate"))
@@ -2607,8 +2820,10 @@ def main(argv=None) -> int:
     part_launches, part_numbers = phase_partitioned()
     ss_numbers, byte_d2h = phase_striped_slice(corpora[0], slice_numbers, part_numbers)
     broker_numbers, _ = phase_broker()
+    server_numbers, _ = phase_server()
     by_chain = {**slice_numbers, **ss_numbers,
-                **{f"broker_{k}": v for k, v in broker_numbers.items()}}
+                **{f"broker_{k}": v for k, v in broker_numbers.items()},
+                **{f"server_{k}": v for k, v in server_numbers.items()}}
     for r in rows:
         r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in by_chain.items()}
     chain_launches = [v["launches"] for v in by_chain.values()]
@@ -2632,6 +2847,8 @@ def main(argv=None) -> int:
                     "byte_mode_d2h": byte_d2h,
                     "broker": {k: {m: x for m, x in v.items() if m != "launches"}
                                for k, v in broker_numbers.items()},
+                    "server": {k: {m: x for m, x in v.items() if m != "launches"}
+                               for k, v in server_numbers.items()},
                     "build_seconds": KERNELS.build_seconds}))
     log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
                     "device": smi}))

@@ -1,7 +1,8 @@
 """Built-in SmartModules of the port: DSL programs only.
 
 Name-based resolution (``lookup``) mirrors ``fluvio_tpu.models.lookup``
-for the modules the port runs.
+for the modules the port runs; `builtin_sources` gives the source
+artifacts every SPU seeds its local store with.
 """
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 from fluvio_tpu_torch.models import (
     aggregate_sum,
     array_map_explode,
+    dedup_filter,
     json_map,
     json_regex_filter,
     regex_filter,
@@ -37,3 +39,9 @@ def lookup(name: str) -> SmartModuleDef:
     if name not in _REGISTRY:
         raise KeyError(f"unknown built-in SmartModule {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
+
+
+def builtin_sources() -> dict:
+    """Source payloads an SPU pre-provisions in its local store (parity:
+    ``fluvio_tpu.models.builtin_sources``)."""
+    return {"dedup-filter": dedup_filter.SOURCE.encode()}

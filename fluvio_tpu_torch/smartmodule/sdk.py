@@ -7,7 +7,10 @@ AdHoc invocation carries. The source runs with the port's ``dsl`` and
 ``smartmodule`` namespaces bound, and its decorators' ``dsl=`` programs
 make the module. The GPU engine runs DSL programs only: the decorated
 Python functions are not kept, and a transform that carries no program
-makes a module the engine refuses.
+makes a module the engine refuses. ``@smartmodule.init`` and
+``@smartmodule.look_back`` hooks are never run: their decorators return
+the function as it is, so a source that declares them loads, and the
+engine refuses it for its transform.
 """
 
 from __future__ import annotations
@@ -58,6 +61,10 @@ def current_module(reset: bool = True) -> SmartModuleDef:
     return m
 
 
+def _pass_through(fn: Callable) -> Callable:
+    return fn
+
+
 class _SmartModuleNamespace:
     """The ``smartmodule`` decorator namespace a source sees:
     ``@smartmodule.<kind>(dsl=program)`` over the transform's function."""
@@ -85,6 +92,7 @@ class _SmartModuleNamespace:
         self.filter_map = self._make(SmartModuleKind.FILTER_MAP)
         self.array_map = self._make(SmartModuleKind.ARRAY_MAP)
         self.aggregate = self._make(SmartModuleKind.AGGREGATE)
+        self.init = self.look_back = _pass_through
 
 
 smartmodule = _SmartModuleNamespace()

@@ -23,9 +23,11 @@ absent base timestamps, a slab that disagrees with its header, a record
 too wide for the chain, the staging cap, the engine's memory bound) is
 declined, counted by reason, and served by `process_batches_per_record`,
 which still runs every batch on the card. A `GpuSpill` or a device error
-propagates to the caller: nothing reruns in an interpreter. The
-reference's admission, partition, flow and telemetry hooks, its dedup
-chain, look_back and stream-chain cache are not carried.
+propagates to the caller: nothing reruns in an interpreter. The SPU's
+stream handler gets its chains from `acquire_stream_chain`, which caches
+stateless ones. The reference's admission, partition, flow and telemetry
+hooks, its dedup chain and look_back are not carried: an invocation with
+a look-back raises `EngineError`.
 
 A `PendingSlice` records its host phases in ``phase_ms`` (decompress,
 decode, stage, dispatch) and the `BatchProcessResult` of its finish adds
@@ -34,6 +36,7 @@ decode, stage, dispatch) and the `BatchProcessResult` of its finish adds
 
 from __future__ import annotations
 
+import hashlib
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence
@@ -48,7 +51,11 @@ from fluvio_tpu_torch.schema.smartmodule import (
     SmartModuleInvocation,
     SmartModuleInvocationWasm,
 )
-from fluvio_tpu_torch.smartengine.engine import SmartEngine, SmartModuleChainInstance
+from fluvio_tpu_torch.smartengine.engine import (
+    EngineError,
+    SmartEngine,
+    SmartModuleChainInstance,
+)
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
 from fluvio_tpu_torch.smartmodule.types import (
     SmartModuleInput,
@@ -166,6 +173,62 @@ def build_chain(
                 ErrorCode.SMARTMODULE_INVALID, f"invalid SmartModule {name!r}: {e}"
             ) from e
     return builder.initialize()
+
+
+_STREAM_CHAIN_CACHE_MAX = 32
+
+
+def acquire_stream_chain(
+    invocations: Sequence[SmartModuleInvocation], ctx, version: Optional[int] = None
+) -> SmartModuleChainInstance:
+    """`build_chain` on ``ctx.engine`` with the SPU's cache of stateless
+    chains (parity: ``fluvio_tpu.spu.smart_chain.acquire_stream_chain``).
+
+    ``ctx`` is the SPU's `GlobalContext` (its ``engine``, ``smartmodules``
+    and ``stream_chains``). The key is the version and, for each module,
+    its kind, the payload's sha256, the accumulator and the params. A chain is
+    cached, and handed to every later stream with the same key, only when
+    it runs on the GPU executor and keeps no carries; a stateful chain
+    (an aggregate) is built fresh for each stream. An invocation with a
+    look-back raises `EngineError`: the port runs no look_back hook, and
+    the stream is not served without it."""
+    key_parts = [str(version)]
+    cacheable = True
+    for inv in invocations:
+        if inv.lookback() is not None:
+            raise EngineError(
+                f"SmartModule {inv.name or inv.wasm.name or 'adhoc'!r} asks for a look-back, "
+                "which the GPU engine does not run"
+            )
+        payload = (
+            inv.wasm.payload
+            if inv.wasm.tag == SmartModuleInvocationWasm.ADHOC
+            else ctx.smartmodules.get(inv.wasm.name)
+        )
+        if payload is None:  # an unresolved Predefined name: build_chain raises
+            cacheable = False
+            break
+        key_parts.append(
+            "%d:%s:%s:%r" % (
+                int(inv.kind),
+                hashlib.sha256(payload).hexdigest(),
+                inv.accumulator.hex(),
+                sorted((inv.params or {}).items()),
+            )
+        )
+    key = "|".join(key_parts)
+    if cacheable:
+        chain = ctx.stream_chains.get(key)
+        if chain is not None:
+            ctx.stream_chains.move_to_end(key)
+            return chain
+    chain = build_chain(invocations, ctx.engine, ctx.smartmodules, version)
+    gpu = chain.gpu_chain
+    if cacheable and chain.backend_in_use == "gpu" and not gpu.agg_configs:
+        ctx.stream_chains[key] = chain
+        while len(ctx.stream_chains) > _STREAM_CHAIN_CACHE_MAX:
+            ctx.stream_chains.popitem(last=False)
+    return chain
 
 
 def apply_chain(chain, records: RecordSet, metrics=None):
@@ -560,55 +623,66 @@ def stream_slices(
     max_bytes: int,
     metrics=None,
 ) -> Iterator[BatchProcessResult]:
-    """Serve offsets [start, end) slice by slice, as the broker's stream
-    loop does below its socket: ``read(offset)`` returns the stored
-    batches of the slice that holds ``offset`` (none past the log's end).
-    For a pipelinable chain (`gpu_pipelinable`), slice k+1 is read, staged
-    and dispatched before slice k is finished and encoded; when
-    ``max_bytes`` cuts slice k, slice k+1 (read from the wrong offset) is
-    discarded and read again. Other chains run one slice at a time
-    (`process_batches`). An error discards what is in flight and
-    propagates."""
+    """Serve offsets [start, end) slice by slice: the SPU's stream loop
+    (the core of the reference's ``StreamFetchHandler._run_pipelined``).
+    ``read(offset)`` returns the stored batches of the slice that holds
+    ``offset`` (none past the log's end); its time is the slice's
+    ``read`` phase. For a pipelinable chain (`gpu_pipelinable`), slice
+    k+1 is read, staged and dispatched before slice k is finished and
+    encoded; when ``max_bytes`` cuts slice k, slice k+1 (read from the
+    wrong offset) is discarded and read again. Other chains run one slice
+    at a time (`process_batches`). An error, or closing the generator,
+    discards what is in flight."""
     gpu = chain.gpu_chain
     current = start
     if not gpu_pipelinable(chain):
         while current < end:
+            t0 = time.perf_counter()
             batches = read(current)
             if not batches:
                 return
+            read_ms = _ms(t0)
             result = process_batches(chain, batches, max_bytes, metrics, current)
+            result.phase_ms["read"] = read_ms
             yield result
             current = result.next_offset
         return
     pending: Optional[PendingSlice] = None
-    while True:
-        planned = pending.planned_next if pending is not None else current
-        nxt = None
-        nxt_batches = read(planned) if planned < end else []
-        try:
+    nxt: Optional[PendingSlice] = None
+    try:
+        while True:
+            planned = pending.planned_next if pending is not None else current
+            t0 = time.perf_counter()
+            nxt_batches = read(planned) if planned < end else []
+            read_ms = _ms(t0)
             if nxt_batches:
                 nxt = gpu_stage_dispatch(chain, nxt_batches, metrics, start_offset=planned)
-            result = gpu_finish(chain, pending, max_bytes, metrics) if pending else None
-        except BaseException:
-            for p in (nxt, pending):
-                if p is not None:
-                    p.discard(gpu)
-            raise
-        if result is not None:
-            yield result
-            current = result.next_offset
-            truncated = current != pending.planned_next
-            pending = None
-            if truncated:
                 if nxt is not None:
-                    nxt.discard(gpu)
-                continue
-        if nxt is not None:
-            pending = nxt
-        elif nxt_batches:
-            # the coalesced path declined this slice: serve it per batch
-            result = process_batches_per_record(chain, nxt_batches, max_bytes, metrics)
-            yield result
-            current = result.next_offset
-        elif pending is None:
-            return
+                    nxt.phase_ms["read"] = read_ms
+            if pending is not None:
+                # gpu_finish consumes the slice's handles, or discards
+                # those it leaves unread when it raises
+                finished, pending = pending, None
+                result = gpu_finish(chain, finished, max_bytes, metrics)
+                yield result
+                current = result.next_offset
+                if current != finished.planned_next:
+                    # a max_bytes cut: slice k+1 was read from the wrong offset
+                    if nxt is not None:
+                        nxt.discard(gpu)
+                        nxt = None
+                    continue
+            if nxt is not None:
+                pending, nxt = nxt, None
+            elif nxt_batches:
+                # the coalesced path declined this slice: serve it per batch
+                result = process_batches_per_record(chain, nxt_batches, max_bytes, metrics)
+                result.phase_ms["read"] = read_ms
+                yield result
+                current = result.next_offset
+            else:
+                return
+    finally:
+        for p in (nxt, pending):
+            if p is not None:
+                p.discard(gpu)

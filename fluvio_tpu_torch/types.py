@@ -1,8 +1,10 @@
-"""Offset and timestamp aliases and the in-process offset bus.
+"""Offset and timestamp aliases, replica keys and the in-process events.
 
 The port's copy of the primitives of ``fluvio_tpu/types.py``: the
-``Offset`` and ``Timestamp`` aliases, ``NO_TIMESTAMP``, and
-`OffsetPublisher` / `OffsetChangeListener`, a monotonic value with per-listener change wakeups (the bus that wakes
+``Offset`` and ``Timestamp`` aliases, ``NO_TIMESTAMP``, the SPU's public
+port and `partition_replica_key`, `StickyEvent` (a one-way latch for
+end-of-life signals) and `OffsetPublisher` / `OffsetChangeListener`, a
+monotonic value with per-listener change wakeups (the bus that wakes
 consumer streams when a partition's committed offset advances). They are
 asyncio-native: a listener awaits a change, an update from any thread
 wakes the loop its listeners wait on.
@@ -17,6 +19,30 @@ Offset = int
 Timestamp = int  # milliseconds since epoch; NO_TIMESTAMP = -1
 
 NO_TIMESTAMP: Timestamp = -1
+
+SPU_PUBLIC_PORT = 9010
+
+
+def partition_replica_key(topic: str, partition: int) -> str:
+    """Canonical replica id, e.g. ``my-topic-0``."""
+    return f"{topic}-{partition}"
+
+
+class StickyEvent:
+    """One-way latch: once notified, stays set (server shutdown, the end of
+    a connection's streams)."""
+
+    def __init__(self) -> None:
+        self._event = asyncio.Event()
+
+    def notify(self) -> None:
+        self._event.set()
+
+    def is_set(self) -> bool:
+        return self._event.is_set()
+
+    async def wait(self) -> None:
+        await self._event.wait()
 
 
 class OffsetChangeListener:

@@ -384,3 +384,26 @@ def test_stream_slices_pipelined_equals_the_serial_loop(max_bytes, small_chunks)
               port_res)
         current = port_res.next_offset
     assert current == 320
+
+
+def test_stream_slices_closed_mid_stream_discards_what_is_in_flight(small_chunks, monkeypatch):
+    """A consumer that stops after slice k closes the generator while
+    slice k+1 is dispatched: its chunks are discarded, nothing else is,
+    and every served slice carries its storage ``read`` time."""
+    _, port_chain = _north_star()
+    groups = _json_groups([40] * 8, seed=41)
+    wires = _stored(groups, [40 * k for k in range(8)], [10] * 8)
+    _, port_b = _decode(wires)
+    discarded = []
+    real = sc.PendingSlice.discard
+
+    def discard(self, gpu):
+        discarded.append(self.read_from)
+        real(self, gpu)
+
+    monkeypatch.setattr(sc.PendingSlice, "discard", discard)
+    slices = sc.stream_slices(port_chain, slice_reader(wires, port_b, 1_600), 0, 320, 1 << 20)
+    first = next(slices)
+    assert "read" in first.phase_ms and discarded == []
+    slices.close()
+    assert discarded == [first.next_offset]

@@ -1,15 +1,16 @@
 """Isolation of the GPU port from the JAX package, and its device rules.
 
-- No file of ``fluvio_tpu_torch/`` and not ``chip_smoke.py`` imports jax or
-  anything of ``fluvio_tpu`` (an AST scan of every import), and no module
+- No file of ``fluvio_tpu_torch/`` and not ``chip_smoke.py`` imports jax,
+  anything of ``fluvio_tpu`` or yaml (an AST scan of every import), and no module
   of the port names a path under ``fluvio_tpu/`` in its code (the port
   builds its own copy of the glz compressor, never the JAX package's).
 - With no device given and no CUDA, `SmartEngine()` raises instead of
   drifting to the CPU.
 - On a machine with a card (marker ``cuda``; skipped elsewhere), each CUDA
   kernel equals its plain torch version exactly on the same inputs, and
-  the aggregate and explode chains, the windowed runtime and the
-  partition runtime give the card the CPU's outputs.
+  the aggregate and explode chains, the windowed runtime, the
+  partition runtime, the broker's consume slice and the SPU server give
+  the card the CPU's outputs.
 
 The bench corpora and the DFA scan's cases live here, free of jax, so
 that the CPU tests, the card tests and ``chip_smoke.py`` share them.
@@ -199,6 +200,95 @@ def slice_reader(wires, batches, max_bytes: int):
     return read
 
 
+# The SPU server's consume (`bench.run_broker_e2e` over its socket),
+# jax-free, shared by the CPU test, the card test below and
+# `chip_smoke.py`: start the port's server with the stored log, and one
+# consume pass through its client.
+FLU_REGEX_SM = b"""
+@smartmodule.filter(dsl=dsl.FilterProgram(
+    predicate=dsl.RegexMatch(arg=dsl.Value(), pattern="flu[vV]io")))
+def f(record):
+    import re
+    return re.search(b"flu[vV]io", record.value) is not None
+"""
+
+AGGREGATE_SM = b"""
+@smartmodule.aggregate(dsl=dsl.AggregateProgram(
+    contribution=dsl.ParseInt(arg=dsl.JsonGet(arg=dsl.Value(), key="@param:field=n")),
+    combine="@param:combine=add"))
+def a(acc, record):
+    import json
+    return str(int(acc or b"0") + int(json.loads(record.value)["n"])).encode()
+"""
+
+
+def server_invocations(name: str):
+    """A broker chain as a consumer sends it, AdHoc: ``north_star`` (the
+    bench's), ``flu_regex_filter`` (``regex-filter("flu[vV]io")``) or
+    ``3_aggregate`` (``aggregate-field(field="n", combine="add")``)."""
+    from fluvio_tpu_torch.schema.smartmodule import (
+        SmartModuleInvocation,
+        SmartModuleInvocationKind,
+        SmartModuleInvocationWasm,
+    )
+
+    if name == "north_star":
+        return north_star_invocations()
+    payload, kind, params = {
+        "flu_regex_filter": (FLU_REGEX_SM, SmartModuleInvocationKind.FILTER, {}),
+        "3_aggregate": (AGGREGATE_SM, SmartModuleInvocationKind.AGGREGATE,
+                        {"field": "n", "combine": "add"}),
+    }[name]
+    return [SmartModuleInvocation(wasm=SmartModuleInvocationWasm.adhoc(payload), kind=kind,
+                                  params=params)]
+
+
+async def start_spu_server(log_dir, batches, device=None, topic: str = "bench"):
+    """The port's `SpuServer` on ``127.0.0.1:0`` logging under
+    ``log_dir``, its SmartEngine on ``device`` (None: the card), with one
+    replica of ``topic`` holding ``batches``, each written as its own
+    record set through the leader's `write_record_set`. Returns the
+    started server."""
+    from fluvio_tpu_torch.protocol.record import RecordSet
+    from fluvio_tpu_torch.spu.config import SpuConfig
+    from fluvio_tpu_torch.spu.server import SpuServer
+    from fluvio_tpu_torch.storage.config import ReplicaConfig
+
+    config = SpuConfig(public_addr="127.0.0.1:0", log_base_dir=str(log_dir),
+                       replication=ReplicaConfig(base_dir=str(log_dir)))
+    config.smart_engine.device = device
+    server = SpuServer(config)
+    await server.start()
+    leader = server.ctx.create_replica(topic, 0)
+    for batch in batches:
+        records = RecordSet()
+        records.add(batch)
+        await leader.write_record_set(records)
+    return server
+
+
+def server_consumer_config(invocations, max_bytes: int):
+    """The bench's `ConsumerConfig`: stop at the log's end, ``max_bytes``
+    a slice, the chain's invocations."""
+    from fluvio_tpu_torch.client import ConsumerConfig
+
+    return ConsumerConfig(disable_continuous=True, max_bytes=max_bytes,
+                          smartmodules=list(invocations))
+
+
+async def consume_once(consumer, config, offset=None):
+    """One `stream_batches` pass of a `PartitionConsumer` from ``offset``
+    (default: the beginning): (the batches, each batch's arrival time on
+    ``time.perf_counter``)."""
+    from fluvio_tpu_torch.client import Offset
+
+    batches, arrivals = [], []
+    async for batch in consumer.stream_batches(offset or Offset.beginning(), config):
+        arrivals.append(time.perf_counter())
+        batches.append(batch)
+    return batches, arrivals
+
+
 # The DFA scan's cases, shared by the card test below and the CPU spec of
 # the kernel's walk (`tests/test_torch_dfa_redesign.py`); jax-free, since
 # the card's machine has no jax.
@@ -291,7 +381,7 @@ def _imported_modules(path: Path):
 
 def _forbidden(module: str) -> bool:
     root = module.split(".")[0]
-    return root in ("jax", "jaxlib", "fluvio_tpu")
+    return root in ("jax", "jaxlib", "fluvio_tpu", "yaml")  # the card's machine has no yaml
 
 
 def test_port_imports_no_jax_and_nothing_of_fluvio_tpu():
@@ -301,7 +391,15 @@ def test_port_imports_no_jax_and_nothing_of_fluvio_tpu():
                    "partition/rebalancer.py", "partition/failover.py", "windows/engine.py",
                    "protocol/record.py", "protocol/compression.py", "protocol/lz4_py.py",
                    "schema/smartmodule.py", "spu/smart_chain.py", "native/records.py",
-                   "smartmodule/sdk.py", "smartengine/metrics.py"):
+                   "smartmodule/sdk.py", "smartengine/metrics.py", "protocol/api.py",
+                   "schema/spu.py", "storage/__init__.py", "storage/config.py",
+                   "storage/checkpoint.py", "storage/index.py", "storage/segment.py",
+                   "storage/replica.py", "transport/__init__.py", "transport/socket.py",
+                   "transport/sink.py", "transport/multiplexing.py", "transport/service.py",
+                   "transport/versioned.py", "client/__init__.py", "client/offset.py",
+                   "client/consumer.py", "client/fluvio.py", "spu/config.py",
+                   "spu/metrics.py", "spu/replica.py", "spu/context.py",
+                   "spu/public_service.py", "spu/server.py", "models/dedup_filter.py"):
         assert REPO / "fluvio_tpu_torch" / module in files, module
     bad = [
         f"{path.relative_to(REPO)}:{line}: {module}"
@@ -958,4 +1056,49 @@ def test_broker_slice_on_the_card():
         got[device] = (w.bytes(), [r.next_offset for r in results])
         assert metrics.fallback_slices == 0 and metrics.fastpath_slices == 1
     assert got["cuda"] == got["cpu"] and got["cuda"][1] == [8 * 4096]
+    assert launches["json_span"] >= 1
+
+
+@pytest.mark.cuda
+def test_server_stream_on_the_card(tmp_path):
+    """The bench's broker chain through the port's SPU server and client
+    over a socket, 8 stored batches of 4,096 records in slices of 64 KiB:
+    the server on the card pushes the batches the server on the CPU
+    pushes, every slice on the coalesced path, through the JSON span
+    kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    import asyncio
+
+    from fluvio_tpu_torch.client import Fluvio
+    from fluvio_tpu_torch.protocol.codec import ByteWriter
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
+
+    n = 8 * 4096
+    _, batches = broker_log(gen_json(n), 4096)
+
+    async def serve(device: str):
+        server = await start_spu_server(tmp_path / device, batches, device=device)
+        try:
+            client = await Fluvio.connect(server.public_addr)
+            consumer = await client.partition_consumer("bench", 0)
+            cuda_kernels.reset_launches()
+            got, _ = await consume_once(
+                consumer, server_consumer_config(north_star_invocations(), 64 << 10))
+            launches = dict(cuda_kernels.LAUNCHES)
+            await client.close()
+        finally:
+            await server.stop()
+        m = server.ctx.metrics.smartmodule
+        assert m.fallback_slices == 0 and m.fastpath_slices == len(got) > 1
+        out = []
+        for b in got:
+            w = ByteWriter()
+            b.encode(w)
+            out.append(w.bytes())
+        return out, launches
+
+    cpu, _ = asyncio.run(serve("cpu"))
+    card, launches = asyncio.run(serve("cuda"))
+    assert card == cpu
     assert launches["json_span"] >= 1
