@@ -193,7 +193,28 @@ Phases (any failure raises and the script exits non-zero):
    client's batch inter-arrival p50 and max (three slices a pass give too
    few gaps for a p99), the server's host ms a slice by phase (storage
    read to ack wait) and the kernels one socket pass launches.
-   ``--server-only`` builds the kernels and runs only this phase.
+   ``--server-only`` builds the kernels and runs only this phase;
+15. the cluster path (the JAX package's ``boot_cluster``): a port
+   ``ScServer`` and one port ``SpuServer`` on the card, registered through
+   ``admin.register_custom_spu``, topics created through the admin API
+   (topic names allow ``[a-zA-Z0-9.-]``): (a) phase 13's 1,048,576
+   records produced through ``Fluvio.connect(sc).topic_producer``
+   (``send_all``, ``flush``) into ``bench`` with the default
+   ``ProducerConfig`` and into ``bench-1m`` with 1 MiB batches and
+   requests, every returned offset 0..n-1 in order and each log read back
+   equal to the values, then the SC's LRS offsets for ``bench-0``; (b) the
+   north star's two modules pushed by name (namespace form), ``bench``
+   consumed by name through SC routing with the bench's ``ConsumerConfig``,
+   in turns with phase 14's direct-SPU consume (AdHoc), every pass held to
+   the DSL interpreter; (c) the records produced into ``bench-flu`` through
+   a produce-side ``flu[vV]io`` filter by name (the SPU's
+   ``handle_produce`` on the card), the log equal to the ``re`` truth; (d)
+   ``multi`` (2 partitions) produced keyed and consumed merged through
+   ``consumer(PartitionSelectionStrategy.all)`` with ``3_aggregate``'s
+   chain by name, each partition's outputs equal to its running sums in
+   its order. It prints records/s of each produce and consume, the batches
+   of each produce request and the launches of each arm.
+   ``--cluster-only`` builds the kernels and runs only this phase.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -1512,17 +1533,15 @@ def phase_headline(corpora, link=None):
     # host truth: the DSL interpreter over the whole first batch
     progs = [dsl.resolve_params(lookup(n).dsl_program(lookup(n).transform_kind()), p)
              for n, p in specs]
-    want = [
-        dsl.eval_expr(progs[1].value, rec, None)
-        for rec in corpora[0]
-        if dsl.eval_expr(progs[0].predicate, rec, None)
-    ]
+    interp = fork_records(lambda rec: dsl.eval_expr(progs[1].value, rec, None)
+                          if dsl.eval_expr(progs[0].predicate, rec, None) else None, corpora[0])
+    want = [x for x in interp if x is not None]
     got = outs[0].value_list()
     if got != want:
         first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
         raise AssertionError(f"headline batch differs from the interpreter at survivor {first} "
                              f"({len(got)} vs {len(want)} survivors)")
-    want_off = [i for i, rec in enumerate(corpora[0]) if dsl.eval_expr(progs[0].predicate, rec, None)]
+    want_off = [i for i, x in enumerate(interp) if x is not None]
     if outs[0].offset_deltas[: outs[0].count].tolist() != want_off:
         raise AssertionError("headline batch offsets differ from the survivors' offsets")
     for k, o in enumerate(outs):
@@ -1606,6 +1625,8 @@ SLICE_CHAINS = {
                          ("aggregate-field", {"field": "n", "combine": "add"})],
 }
 SLICE_BATCHES = 4
+# records a host-truth task: the interpreter runs in worker processes
+TRUTH_CHUNK = 1 << 16
 # the slice's torch code on the card (XLA code, not Pallas, in the JAX
 # package): the functions of `kernels` the two stages call
 SLICE_TORCH_OPS = ("parse_int", "int_to_ascii", "count_words", "segmented_scan",
@@ -1613,31 +1634,118 @@ SLICE_TORCH_OPS = ("parse_int", "int_to_ascii", "count_words", "segmented_scan",
                    "split_bounds", "fanout_scatter")
 
 
+_TRUTH_CORPORA: list = []  # the batches the forked truth workers read
+TRUTH_WORKERS = 8
+
+
+def _fork_worker(fn, tasks, conn) -> None:
+    try:
+        conn.send(("ok", [fn(t) for t in tasks]))
+    except BaseException as e:  # noqa: BLE001 — sent to the parent, which raises
+        conn.send(("error", f"{type(e).__name__}: {e}"))
+    finally:
+        conn.close()
+
+
+def fork_map(fn, tasks):
+    """``[fn(t) for t in tasks]`` over up to TRUTH_WORKERS forked
+    processes, each taking every n-th task (``fn`` and what it reads are
+    inherited, only the results are pickled). Every process is joined,
+    or ended, before this returns; a worker's error raises here."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("fork")
+    n = max(1, min(TRUTH_WORKERS, len(tasks)))
+    workers = []
+    try:
+        for w in range(n):
+            recv, send = ctx.Pipe(duplex=False)
+            proc = ctx.Process(target=_fork_worker, args=(fn, tasks[w::n], send), daemon=True)
+            proc.start()
+            send.close()
+            workers.append((proc, recv))
+        results = []
+        for proc, recv in workers:
+            status, value = recv.recv()
+            proc.join()
+            if status != "ok":
+                raise RuntimeError(f"host truth worker failed: {value}")
+            results.append(value)
+    finally:
+        for proc, _ in workers:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+    out = [None] * len(tasks)
+    for w, values in enumerate(results):
+        out[w::n] = values
+    return out
+
+
+def fork_records(fn, records):
+    """``[fn(r) for r in records]``, TRUTH_CHUNK records a `fork_map`
+    task: the host truths' interpreter loops."""
+    parts = fork_map(lambda lo: [fn(r) for r in records[lo:lo + TRUTH_CHUNK]],
+                     list(range(0, len(records), TRUTH_CHUNK)))
+    return [x for part in parts for x in part]
+
+
+def json_n(rec: bytes) -> int:
+    """The interpreter's ``n`` of a record (JsonGet, then ParseInt)."""
+    return dsl.parse_int_prefix(dsl.json_get_bytes(rec, "n"))
+
+
+def _truth_chunk(task):
+    """The DSL interpreter over records [lo, hi) of truth batch ``k``:
+    for ``4_array_map`` (elements a record, element lengths, the elements
+    joined); for the aggregates (kept, each kept record's ``n`` wrapped
+    to int64)."""
+    name, k, lo, hi = task
+    recs = _TRUTH_CORPORA[k][lo:hi]
+    if name == "4_array_map":
+        elems = [dsl.json_array_elements(rec) for rec in recs]
+        flat = [e for es in elems for e in es]
+        return (np.array([len(es) for es in elems], np.int64),
+                np.array([len(e) for e in flat], np.int64), b"".join(flat))
+    keep = np.array([name != "filter_aggregate" or b"fluvio" in rec for rec in recs], bool)
+    nums = [(dsl.parse_int_prefix(dsl.json_get_bytes(rec, "n")) + 2**63) % 2**64 - 2**63
+            if kept else 0 for rec, kept in zip(recs, keep)]
+    return keep, np.array(nums, np.int64)
+
+
 def slice_truth(name: str, corpora):
     """Host truth of a slice chain over its batches, from the DSL
-    interpreter: per batch (output values, source offsets). The running
-    sums continue across batches and wrap as int64."""
+    interpreter (in forked worker processes, a chunk of records a task):
+    per batch (output lengths, output values joined, source offsets). The
+    running sums continue across batches and wrap as int64."""
+    global _TRUTH_CORPORA
+    _TRUTH_CORPORA = list(corpora)
+    tasks = [(name, k, lo, min(lo + TRUTH_CHUNK, len(c)))
+             for k, c in enumerate(corpora) for lo in range(0, len(c), TRUTH_CHUNK)]
+    try:
+        parts = fork_map(_truth_chunk, tasks)
+    finally:
+        _TRUTH_CORPORA = []
+    by_batch = [[p for t, p in zip(tasks, parts) if t[1] == k] for k in range(len(corpora))]
     outs = []
     if name == "4_array_map":
-        for corpus in corpora:
-            vals, offs = [], []
-            for i, rec in enumerate(corpus):
-                elems = dsl.json_array_elements(rec)
-                vals += elems
-                offs += [i] * len(elems)
-            outs.append((vals, offs))
+        for chunks in by_batch:
+            counts = np.concatenate([c for c, _, _ in chunks])
+            lens = np.concatenate([ln for _, ln, _ in chunks])
+            offs = np.repeat(np.arange(len(counts)), counts)
+            outs.append((lens, b"".join(f for _, _, f in chunks), offs))
         return outs
-    acc = 0
-    for corpus in corpora:
-        vals, offs = [], []
-        for i, rec in enumerate(corpus):
-            if name == "filter_aggregate" and b"fluvio" not in rec:
-                continue
-            acc += dsl.parse_int_prefix(dsl.json_get_bytes(rec, "n"))
-            acc = (acc + 2**63) % 2**64 - 2**63
-            vals.append(str(acc).encode())
-            offs.append(i)
-        outs.append((vals, offs))
+    keeps = [np.concatenate([kp for kp, _ in chunks]) for chunks in by_batch]
+    nums = np.concatenate([np.concatenate([x for _, x in chunks])[kp]
+                           for kp, chunks in zip(keeps, by_batch)])
+    with np.errstate(over="ignore"):
+        sums = np.cumsum(nums)  # int64 wraps, as the chain's carry does
+    start = 0
+    for kp in keeps:
+        text = [str(x).encode() for x in sums[start:start + int(kp.sum())].tolist()]
+        start += int(kp.sum())
+        outs.append((np.array([len(t) for t in text], np.int64), b"".join(text),
+                     np.flatnonzero(kp)))
     return outs
 
 
@@ -1686,14 +1794,17 @@ def phase_slice_chain(name: str, corpora):
 
     t_truth = time.perf_counter()
     truth = slice_truth(name, corpora)
-    for k, ((vals, offs), out) in enumerate(zip(truth, outs)):
-        if out.count != len(vals) or out.value_list() != vals:
-            got = out.value_list()
-            first = next((i for i, (a, b) in enumerate(zip(got, vals)) if a != b),
-                         min(len(got), len(vals)))
-            raise AssertionError(f"{name} batch {k}: differs from the interpreter at output "
-                                 f"{first} ({out.count} vs {len(vals)} outputs)")
-        want_off = np.zeros(len(offs), np.int32) if name == "4_array_map" else np.array(offs)
+    for k, ((lens, flat, offs), out) in enumerate(zip(truth, outs)):
+        cols = out.to_columns()
+        got_lens = np.diff(cols["val_off"])
+        if out.count != len(lens) or not (np.array_equal(got_lens, lens)
+                                          and cols["val_flat"].tobytes() == flat):
+            n = min(len(got_lens), len(lens))
+            first = int(np.flatnonzero(got_lens[:n] != lens[:n])[0]) if (
+                got_lens[:n] != lens[:n]).any() else n
+            raise AssertionError(f"{name} batch {k}: differs from the interpreter at or before "
+                                 f"output {first} ({out.count} vs {len(lens)} outputs)")
+        want_off = np.zeros(len(offs), np.int32) if name == "4_array_map" else offs
         if not np.array_equal(out.offset_deltas[: out.count], want_off):
             raise AssertionError(f"{name} batch {k}: offsets differ from the interpreter's")
         if (out.key_lengths[: out.count] != -1).any():
@@ -1702,7 +1813,8 @@ def phase_slice_chain(name: str, corpora):
             raise AssertionError(f"{name} batch {k}: the output is not flat-backed")
     truth_s = time.perf_counter() - t_truth
     chain._ensure_host_state()
-    if name != "4_array_map" and chain.carries != [(int(truth[-1][0][-1]), 0, True)]:
+    last = truth[-1][1][len(truth[-1][1]) - int(truth[-1][0][-1]):] if name != "4_array_map" else b""
+    if name != "4_array_map" and chain.carries != [(int(last), 0, True)]:
         raise AssertionError(f"{name}: carries {chain.carries} are not the last running sum")
     n_in = len(corpora) * len(corpora[0])
     n_out = sum(o.count for o in outs)
@@ -1729,7 +1841,7 @@ def phase_slice(json_corpora, names=tuple(SLICE_CHAINS)):
     torch ops they ran. Returns ({chain: numbers, launches included},
     torch op rows)."""
     numbers, captured = {}, {}
-    array_corpora = ([gen_arrays(N, seed=200 + k) for k in range(SLICE_BATCHES)]
+    array_corpora = (fork_map(lambda k: gen_arrays(N, seed=200 + k), list(range(SLICE_BATCHES)))
                      if "4_array_map" in names else None)
     for name in names:
         launches, numbers[name], captured[name] = phase_slice_chain(
@@ -2134,8 +2246,7 @@ def running_truth(corpus, combine: str, acc: int):
     """The interpreter's running ``combine`` of ``n`` over one batch from
     ``acc``: (outputs, the last accumulator)."""
     vals = []
-    for rec in corpus:
-        x = dsl.parse_int_prefix(dsl.json_get_bytes(rec, "n"))
+    for x in fork_records(json_n, corpus):
         acc = max(acc, x) if combine == "max" else (acc + x + 2**63) % 2**64 - 2**63
         vals.append(str(acc).encode())
     return vals, acc
@@ -2313,9 +2424,8 @@ def broker_truth(name: str):
     offs, outs = [], []
     if name == "3_aggregate":
         acc = 0
-        for i, rec in enumerate(values):
-            acc += dsl.parse_int_prefix(dsl.json_get_bytes(rec, "n"))
-            acc = (acc + 2**63) % 2**64 - 2**63
+        for i, x in enumerate(fork_records(json_n, values)):
+            acc = (acc + x + 2**63) % 2**64 - 2**63
             offs.append(i)
             outs.append(str(acc).encode())
     else:
@@ -2328,20 +2438,25 @@ def broker_truth(name: str):
         else:
             pred = program(lookup("regex-filter"), {"regex": "flu[vV]io"}).predicate
             value = None
-        for i, rec in enumerate(values):
-            if dsl.eval_expr(pred, rec, None):
+        interp = fork_records(lambda rec: (rec if value is None else dsl.eval_expr(
+            value, rec, None)) if dsl.eval_expr(pred, rec, None) else None, values)
+        for i, out in enumerate(interp):
+            if out is not None:
                 offs.append(i)
-                outs.append(rec if value is None else dsl.eval_expr(value, rec, None))
+                outs.append(out)
     return (np.array(offs, dtype=np.int64), np.array([len(o) for o in outs], dtype=np.int64),
             np.frombuffer(b"".join(outs), dtype=np.uint8))
 
 
-def check_broker_pass(name: str, results, starts, truth) -> int:
+def check_broker_pass(name: str, results, starts, truth, ts_of=None) -> int:
     """Hold one pass's output batches to host truth: each decoded with the
     port's codec (CRC checked), based at its slice's first offset, its
     last offset delta spanning the consumed range, the records (offsets,
     timestamps, no keys, values) equal to the truth's in that range; the
-    slices cover the log. Returns the records checked."""
+    slices cover the log. The timestamps are the stored log's: every
+    record at ``BROKER["first_timestamp"]``, or ``ts_of[offset]`` (a
+    produced log, a batch stamped as the producer sealed it). Returns the
+    records checked."""
     from fluvio_tpu_torch.native import records as native_records
     from fluvio_tpu_torch.protocol.codec import ByteReader, ByteWriter
     from fluvio_tpu_torch.protocol.record import Batch
@@ -2365,17 +2480,19 @@ def check_broker_pass(name: str, results, starts, truth) -> int:
         batch = Batch.decode(ByteReader(w.bytes()), parse_records=False, check_crc=True)
         h = batch.header
         if (batch.base_offset != start or h.last_offset_delta != res.next_offset - 1 - start
-                or h.first_timestamp != BROKER["first_timestamp"]):
+                or (ts_of is None and h.first_timestamp != BROKER["first_timestamp"])):
             raise AssertionError(f"broker {name}: slice {k}: base {batch.base_offset}, last "
                                  f"delta {h.last_offset_delta}, first ts {h.first_timestamp} for "
                                  f"[{start}, {res.next_offset})")
         cols = native_records.decode_record_columns(batch.raw_records, align=1)
         want_flat = t_flat[t_start[lo]: t_start[hi]]
+        ts_ok = (not cols["ts_delta"].any() if ts_of is None else np.array_equal(
+            h.first_timestamp + cols["ts_delta"], ts_of[t_off[lo:hi]]))
         if (cols["count"] != hi - lo or cols["parsed"] != len(batch.raw_records)
                 or not np.array_equal(cols["off_delta"] + start, t_off[lo:hi])
                 or not np.array_equal(np.diff(cols["val_off"]), t_len[lo:hi])
                 or not np.array_equal(cols["val_flat"], want_flat)
-                or cols["ts_delta"].any() or cols["key_present"].any()):
+                or not ts_ok or cols["key_present"].any()):
             raise AssertionError(f"broker {name}: slice {k} [{start}, {res.next_offset}) differs "
                                  f"from host truth ({cols['count']} vs {hi - lo} records)")
         checked += hi - lo
@@ -2698,6 +2815,287 @@ def phase_server():
     return numbers, launches
 
 
+# phase 15: the cluster (the JAX package's `boot_cluster`, `tests/test_sc.py`):
+# a port SC and one port SPU on the card, topics created through the admin
+# API, phase 13's records produced through the SC-routed producer
+CLUSTER = dict(records=N, turns=3, big_batch=1 << 20, multi_partitions=2, key_space=4096)
+
+
+def read_log(consumer, max_bytes: int):
+    """A partition's whole log, read back plain through the client: the
+    records' offsets, timestamps, key flags, lengths and values joined
+    (the port's native decode of every pushed batch)."""
+    from fluvio_tpu_torch.native import records as native_records
+    from fluvio_tpu_torch.protocol.codec import ByteReader, ByteWriter
+    from fluvio_tpu_torch.protocol.record import Batch
+
+    async def run():
+        cases = shared_cases()
+        got, _ = await cases.consume_once(consumer, cases.server_consumer_config([], max_bytes))
+        offs, ts, keys, lens, flats = [], [], [], [], []
+        for b in got:
+            w = ByteWriter()
+            b.encode(w)
+            batch = Batch.decode(ByteReader(w.bytes()), parse_records=False, check_crc=True)
+            cols = native_records.decode_record_columns(batch.raw_records, align=1)
+            offs.append(batch.base_offset + cols["off_delta"])
+            ts.append(batch.header.first_timestamp + cols["ts_delta"])
+            keys.append(cols["key_present"])
+            lens.append(cols["val_len"])
+            flats.append(cols["val_flat"])
+        cat = lambda xs, t: np.concatenate(xs) if xs else np.zeros(0, t)  # noqa: E731
+        return {"offsets": cat(offs, np.int64), "ts": cat(ts, np.int64),
+                "keys": cat(keys, np.uint8), "lengths": cat(lens, np.int64),
+                "flat": cat(flats, np.uint8)}
+
+    return run()
+
+
+def check_log(label: str, log, values) -> None:
+    """The log read back holds exactly ``values``, at offsets 0.. in order."""
+    want_len = np.array([len(v) for v in values], dtype=np.int64)
+    if (not np.array_equal(log["offsets"], np.arange(len(values)))
+            or not np.array_equal(log["lengths"], want_len)
+            or not np.array_equal(log["flat"], np.frombuffer(b"".join(values), dtype=np.uint8))):
+        raise AssertionError(f"cluster {label}: the stored log ({len(log['offsets'])} records) "
+                             f"differs from the {len(values)} values produced")
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_numbers():
+    """Host truth's ``n`` of every `broker_values` record (the DSL's
+    JsonGet and ParseInt, as `3_aggregate`'s chain reads it)."""
+    return np.array(fork_records(json_n, broker_values()), dtype=np.int64)
+
+
+def phase_cluster():
+    """Phase 15: the cluster path on the card. A port `ScServer` and one
+    port `SpuServer` (its SmartEngine on the card), registered through
+    ``admin.register_custom_spu``; topics created through the admin API;
+    phase 13's 1,048,576 records produced through
+    ``Fluvio.connect(sc).topic_producer`` (``send_all``, ``flush``). Arms:
+    (a) produce into ``bench`` with the default `ProducerConfig` and into
+    ``bench-1m`` with 1 MiB batches; (b) the north star's two
+    modules pushed by name, ``bench`` consumed by name through SC routing
+    in turns with phase 14's direct-SPU consume (AdHoc invocations); (c)
+    the records produced into ``bench-flu`` through a produce-side
+    ``flu[vV]io`` filter by name (the SPU's ``handle_produce`` on the card);
+    (d) ``multi`` (2 partitions) produced keyed and consumed merged through
+    `3_aggregate`'s chain by name. Every arm held to host truth. Returns
+    (numbers, launches of the main path's runs: (b)'s first SC pass, (c)'s
+    produce and (d)'s consume)."""
+    import asyncio
+    import re as re_mod
+    import tempfile
+    import zlib
+
+    from fluvio_tpu_torch.client import Fluvio, PartitionSelectionStrategy, ProducerConfig
+    from fluvio_tpu_torch.client import Offset
+    from fluvio_tpu_torch.client import producer as producer_mod
+    from fluvio_tpu_torch.metadata.topic import TopicSpec
+
+    t_phase = time.perf_counter()
+    cfg, cases = CLUSTER, shared_cases()
+    n = cfg["records"]
+    values = broker_values()
+    numbers, launches = {}, {}
+
+    def add_launches(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    async def produce(client, topic, items, config, label):
+        """One produce arm: (records/s, batches of each produce request)."""
+        requests = []
+        send = producer_mod.PartitionProducer._send
+
+        async def counted(self, pending):
+            requests.append(len(pending))
+            return await send(self, pending)
+
+        producer_mod.PartitionProducer._send = counted
+        try:
+            torch.cuda.synchronize()
+            wall0 = time.time()
+            t0 = time.perf_counter()
+            offsets = await cases.produce_all(client, topic, items, config)
+            dt = time.perf_counter() - t0
+            wall1 = time.time()
+        finally:
+            producer_mod.PartitionProducer._send = send
+        numbers[label] = {"records": len(items), "records_per_s": len(items) / dt,
+                          "seconds": dt, "requests": len(requests),
+                          "batches_a_request": requests,
+                          "wall_ms": (int(wall0 * 1000), int(wall1 * 1000) + 1)}
+        return offsets
+
+    async def run(log_dir):
+        t0 = time.perf_counter()
+        sc, admin, (spu,) = await cases.boot_torch_cluster(log_dir)  # the SPU on the card
+        boot_s = time.perf_counter() - t0
+        client = direct = None
+        try:
+            client = await Fluvio.connect(sc.public_addr)
+            direct = await Fluvio.connect(spu.public_addr)
+            for topic, parts in (("bench", 1), ("bench-1m", 1), ("bench-flu", 1),
+                                 ("multi", cfg["multi_partitions"])):
+                await admin.create_topic(topic, TopicSpec.computed(parts))
+                await cases.wait_for_replicas(spu, topic, range(parts))
+            pushed = {}
+            for chain in ("north_star", "flu_regex_filter", "3_aggregate"):
+                modules, pushed[chain] = cases.namespace_invocations(chain)
+                for name, source in modules:
+                    await admin.create_smartmodule(name, source)
+                    await cases.wait_for_module(spu, name)
+
+            # (a) produce, the default ProducerConfig and 1 MiB batches
+            items = [(None, v) for v in values]
+            big = ProducerConfig(batch_size=cfg["big_batch"])
+            for topic, config, label in (("bench", None, "produce_default"),
+                                         ("bench-1m", big, "produce_1mib")):
+                offsets = await produce(client, topic, items, config, label)
+                if offsets != [(0, i) for i in range(n)]:
+                    raise AssertionError(f"cluster {label}: offsets are not 0..{n - 1} in order")
+                log_ = await read_log(await direct.partition_consumer(topic, 0),
+                                      BROKER["max_bytes"])
+                check_log(label, log_, values)
+                if label == "produce_default":
+                    # (b) takes its expected timestamps from this log: each
+                    # must be the producer's clock during the produce,
+                    # never earlier than the record before it
+                    lo, hi = numbers[label]["wall_ms"]
+                    ts = log_["ts"]
+                    if not (len(ts) and lo <= ts.min() and ts.max() <= hi
+                            and (np.diff(ts) >= 0).all()):
+                        raise AssertionError(f"cluster {label}: stored timestamps "
+                                             f"[{ts.min()}, {ts.max()}] are not the producer's "
+                                             f"clock [{lo}, {hi}] in order")
+                    stored = log_
+            lrs = await sc.ctx.partitions.wait_action(
+                "bench-0", lambda o: o is not None and o.status.leader.leo == n, timeout=30)
+            numbers["lrs_bench"] = {"spu": lrs.status.leader.spu, "hw": lrs.status.leader.hw,
+                                    "leo": lrs.status.leader.leo}
+            if (lrs.status.leader.hw, lrs.status.leader.leo) != (n, n):
+                raise AssertionError(f"cluster: the SC's LRS for bench-0 is {lrs.status.leader}")
+
+            # (b) consume by name through SC routing, in turns with direct
+            truth = broker_truth("north_star")
+            ways = {
+                "sc": (await client.partition_consumer("bench", 0), pushed["north_star"]),
+                "direct": (await direct.partition_consumer("bench", 0),
+                           cases.server_invocations("north_star")),
+            }
+
+            async def consume_pass(way):
+                consumer, invocations = ways[way]
+                config = cases.server_consumer_config(invocations, BROKER["max_bytes"])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, _ = await cases.consume_once(consumer, config)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                results, starts = server_results(got)
+                check_broker_pass("cluster north_star", results, starts, truth, ts_of=stored["ts"])
+                return dt
+
+            for way in ways:  # warm
+                await consume_pass(way)
+            passes = {"sc": [], "direct": []}
+            for turn in range(cfg["turns"]):
+                for way in (("sc", "direct") if turn % 2 == 0 else ("direct", "sc")):
+                    if turn == 0 and way == "sc":
+                        cuda_kernels.reset_launches()
+                    passes[way].append(await consume_pass(way))
+                    if turn == 0 and way == "sc":
+                        numbers["consume_launches"] = dict(cuda_kernels.LAUNCHES)
+                        add_launches(cuda_kernels.LAUNCHES)
+            med = {w: statistics.median(v) for w, v in passes.items()}
+            numbers["consume_by_name"] = {
+                "records": n, "sc_records_per_s": n / med["sc"],
+                "direct_records_per_s": n / med["direct"], "sc_vs_direct": med["direct"] / med["sc"],
+                "sc_pass_ms": [t * 1e3 for t in passes["sc"]],
+                "direct_pass_ms": [t * 1e3 for t in passes["direct"]],
+                "outputs": int(len(truth[0]))}
+
+            # (c) produce through a produce-side flu[vV]io filter by name
+            flu = re_mod.compile(rb"flu[vV]io")
+            kept = [v for v in values if flu.search(v)]
+            cuda_kernels.reset_launches()
+            await produce(client, "bench-flu", items,
+                          ProducerConfig(smartmodules=pushed["flu_regex_filter"]), "produce_flu")
+            numbers["produce_flu"]["launches"] = dict(cuda_kernels.LAUNCHES)
+            add_launches(cuda_kernels.LAUNCHES)
+            check_log("produce_flu", await read_log(await direct.partition_consumer(
+                "bench-flu", 0), BROKER["max_bytes"]), kept)
+            numbers["produce_flu"]["stored"] = len(kept)
+
+            # (d) two partitions, produced keyed, consumed merged through 3_aggregate
+            keyed = [(b"key-%d" % (i % cfg["key_space"]), v) for i, v in enumerate(values)]
+            offsets = await produce(client, "multi", keyed, None, "produce_multi")
+            part = np.array([zlib.crc32(k) % cfg["multi_partitions"] for k, _ in keyed])
+            if [p for p, _ in offsets] != part.tolist():
+                raise AssertionError("cluster multi: records routed off their key's partition")
+            merged = await client.consumer(PartitionSelectionStrategy.all("multi"))
+            config = cases.server_consumer_config(pushed["3_aggregate"], BROKER["max_bytes"])
+            got = {}
+            torch.cuda.synchronize()
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            async for r in merged.stream(Offset.beginning(), config):
+                got.setdefault(r.partition, []).append((r.offset, r.value))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            numbers["merged_aggregate"] = {"records": n, "records_per_s": n / dt, "seconds": dt,
+                                           "launches": dict(cuda_kernels.LAUNCHES)}
+            add_launches(cuda_kernels.LAUNCHES)
+            nums = cluster_numbers()
+            for p in range(cfg["multi_partitions"]):
+                sums = np.cumsum(nums[part == p])  # n < 100,000: no wrap at 1 M records
+                recs = got.get(p, [])
+                if ([o for o, _ in recs] != list(range(len(sums)))
+                        or [v for _, v in recs] != [str(x).encode() for x in sums.tolist()]):
+                    raise AssertionError(f"cluster multi-{p}: {len(recs)} outputs differ from "
+                                         f"the {len(sums)} running sums of host truth")
+            numbers["merged_aggregate"]["by_partition"] = {p: len(v) for p, v in got.items()}
+            numbers["boot_s"] = boot_s
+            numbers["metrics"] = {"smartmodule": spu.ctx.metrics.smartmodule.to_dict(),
+                                  "inbound": spu.ctx.metrics.inbound.to_dict()}
+        finally:
+            for c in (client, direct):
+                if c is not None:
+                    await c.close()
+            await cases.shutdown_torch_cluster(sc, admin, [spu])
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cluster-") as log_dir:
+        asyncio.run(run(log_dir))
+    log(f"cluster: SC and SPU booted in {numbers['boot_s']:.3f} s; the SC's LRS for bench-0 "
+        f"after (a): {numbers['lrs_bench']}")
+    for label in ("produce_default", "produce_1mib", "produce_flu", "produce_multi"):
+        nb = numbers[label]
+        log(f"cluster {label}: {nb['records']} records in {nb['seconds']:.3f} s, "
+            f"{nb['records_per_s']:.0f} records/s; {nb['requests']} produce requests of "
+            f"{nb['batches_a_request']} batches" + (
+                f"; {nb['stored']} stored, launches {nb['launches']}" if "stored" in nb else ""))
+    nb = numbers["consume_by_name"]
+    log(f"cluster consume by name: through the SC {nb['sc_records_per_s']:.0f} records/s (passes "
+        f"{[round(t, 3) for t in nb['sc_pass_ms']]} ms), direct to the SPU "
+        f"{nb['direct_records_per_s']:.0f} records/s (passes "
+        f"{[round(t, 3) for t in nb['direct_pass_ms']]} ms), sc_vs_direct "
+        f"{nb['sc_vs_direct']:.4f}; {nb['outputs']} outputs equal to the DSL interpreter in every "
+        f"pass; launches {numbers['consume_launches']}")
+    nb = numbers["merged_aggregate"]
+    log(f"cluster merged 3_aggregate over multi: {nb['records']} records in {nb['seconds']:.3f} s, "
+        f"{nb['records_per_s']:.0f} records/s, by partition {nb['by_partition']}, every "
+        f"partition's running sums equal to host truth; launches {nb['launches']}")
+    log(f"cluster SPU metrics: {numbers['metrics']}")
+    for k in ("json_span", "extract", "dfa_scan"):
+        if not launches.get(k):
+            raise AssertionError(f"cluster: kernel {k} never launched in phase 15")
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"cluster: phase 15 took {numbers['phase_s']:.1f} s, host truth included")
+    return numbers, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -2724,10 +3122,14 @@ def main(argv=None) -> int:
     parser.add_argument("--server-only", action="store_true",
                         help="build the kernels and run only the SPU server over its socket "
                              "(phase 14; no ok line)")
+    parser.add_argument("--cluster-only", action="store_true",
+                        help="build the kernels and run only the cluster path: an SC and an "
+                             "SPU, the producer, consumes by name (phase 15; no ok line)")
     parser.add_argument("--striped-slice-only", action="store_true",
                         help="build the kernels and run only phase 12 (with phase 9's aggregate "
                              "chains and phase 11, whose D2H it reads; no ok line)")
     args = parser.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -2791,6 +3193,11 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"server": numbers}))
         return 0
+    if args.cluster_only:
+        numbers, _launches = phase_cluster()
+        print(smi)
+        print(json.dumps({"cluster": numbers}))
+        return 0
     if args.striped_slice_only:
         json_corpora = [gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)]
         slice_numbers, _ops = phase_slice(json_corpora, ("3_aggregate", "filter_aggregate"))
@@ -2804,26 +3211,43 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"json_span_rows": [narrow, striped]}))
         return 0
+    laps = {"1-2a build, corpus, json span": time.perf_counter() - t_start}
+
+    def lap(label: str) -> None:
+        laps[label] = time.perf_counter() - t_start - sum(laps.values())
+
     phase_long_keys(dev)
     rows = [narrow] + phase_kernels(dev, corpus)
     rows += [striped] + phase_striped_kernels(dev)
     rows += phase_glz_kernels(dev, corpus)
-    corpora = [gen_json(N, seed=100 + k) for k in range(HEADLINE_BATCHES)]
+    lap("2b-7 long keys, kernels, striped and glz kernels")
+    corpora = fork_map(lambda k: gen_json(N, seed=100 + k), list(range(HEADLINE_BATCHES)))
     head_launches, head_rate, head_chain = phase_headline(corpora)
     jr_launches, jr_rate = phase_json_regex()
     rf_launches, rf_rate = phase_regex_chain()
     st_launches, st_rates = phase_striped_chains()
     glz_launches, glz_rates = phase_glz_chains(corpora, head_rate,
                                                head_chain.link_counts["h2d_bytes"])
+    lap("3-8 chains")
     slice_numbers, torch_ops = phase_slice(corpora[:SLICE_BATCHES])
+    lap("9 slice chains")
     win_numbers, win_ops, win_launches = phase_windowed()
+    lap("10 windowed")
     part_launches, part_numbers = phase_partitioned()
+    lap("11 partitioned")
     ss_numbers, byte_d2h = phase_striped_slice(corpora[0], slice_numbers, part_numbers)
+    lap("12 striped slice")
     broker_numbers, _ = phase_broker()
+    lap("13 broker")
     server_numbers, _ = phase_server()
+    lap("14 server")
+    cluster_numbers_, cluster_launches = phase_cluster()
+    lap("15 cluster")
+    log("smoke phases (s): " + json.dumps({k: round(v, 1) for k, v in laps.items()}))
     by_chain = {**slice_numbers, **ss_numbers,
                 **{f"broker_{k}": v for k, v in broker_numbers.items()},
-                **{f"server_{k}": v for k, v in server_numbers.items()}}
+                **{f"server_{k}": v for k, v in server_numbers.items()},
+                "cluster": {"launches": cluster_launches}}
     for r in rows:
         r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in by_chain.items()}
     chain_launches = [v["launches"] for v in by_chain.values()]
@@ -2849,9 +3273,11 @@ def main(argv=None) -> int:
                                for k, v in broker_numbers.items()},
                     "server": {k: {m: x for m, x in v.items() if m != "launches"}
                                for k, v in server_numbers.items()},
+                    "cluster": cluster_numbers_,
                     "build_seconds": KERNELS.build_seconds}))
     log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
                     "device": smi}))
+    log(f"smoke: {time.perf_counter() - t_start:.1f} s from the start to the result lines")
     print(smi)
     key_order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")

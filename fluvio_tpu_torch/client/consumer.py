@@ -4,12 +4,15 @@ The port's copy of ``fluvio_tpu/client/consumer.py`` (parity:
 fluvio/src/consumer.rs): `PartitionConsumer.stream_batches` opens a
 StreamFetchRequest over the multiplexer, yields the pushed batches and
 sends an `UpdateOffsetsRequest` ack after each response so the server
-keeps pushing; `stream` decodes them into `ConsumerRecord`s. The
-multi-partition consumer is not ported yet.
+keeps pushing; `stream` decodes them into `ConsumerRecord`s.
+`MultiplePartitionConsumer` merges one such stream per partition of a
+`PartitionSelectionStrategy` (per-partition order kept, no order across
+partitions).
 """
 
 from __future__ import annotations
 
+import asyncio
 from dataclasses import dataclass, field
 from typing import AsyncIterator, List, Optional
 
@@ -44,6 +47,76 @@ class ConsumerRecord:
     timestamp: Timestamp
     key: Optional[bytes]
     value: bytes
+
+
+@dataclass
+class PartitionSelectionStrategy:
+    """Which partitions a consumer covers (parity: consumer.rs:590-720).
+
+    ``all(topic)`` resolves the topic's full partition set at consume
+    time; ``multiple(topic, partitions)`` pins an explicit list.
+    """
+
+    topic: str = ""
+    partitions: Optional[List[int]] = None  # None = all partitions
+
+    @classmethod
+    def all(cls, topic: str) -> "PartitionSelectionStrategy":
+        return cls(topic=topic, partitions=None)
+
+    @classmethod
+    def multiple(cls, topic: str, partitions: List[int]) -> "PartitionSelectionStrategy":
+        return cls(topic=topic, partitions=list(partitions))
+
+
+class MultiplePartitionConsumer:
+    """Merged stream over several partitions (consumer.rs:590-720).
+
+    One push stream per partition (each with its own ack flow), merged
+    by arrival order through a queue — the reference's
+    `MultiplePartitionConsumer` semantics: no global ordering across
+    partitions, per-partition order preserved.
+    """
+
+    def __init__(self, consumers: List["PartitionConsumer"]):
+        self.consumers = consumers
+
+    async def stream(
+        self,
+        offset: "Offset",
+        config: Optional[ConsumerConfig] = None,
+    ) -> AsyncIterator[ConsumerRecord]:
+        config = config or ConsumerConfig()
+        queue: asyncio.Queue = asyncio.Queue(maxsize=64)
+        _DONE = object()
+
+        async def pump(consumer: "PartitionConsumer"):
+            try:
+                async for record in consumer.stream(offset, config):
+                    await queue.put(record)
+                await queue.put(_DONE)
+            except asyncio.CancelledError:
+                # shutdown path: never re-enter the (possibly full) queue —
+                # a blocked put here would deadlock the closing reader
+                raise
+            except BaseException as e:  # noqa: BLE001 — surfaced to the reader
+                await queue.put(e)
+
+        tasks = [asyncio.ensure_future(pump(c)) for c in self.consumers]
+        live = len(tasks)
+        try:
+            while live:
+                item = await queue.get()
+                if item is _DONE:
+                    live -= 1
+                    continue
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
 
 
 class PartitionConsumer:

@@ -5,8 +5,9 @@ state (DFA tables), the staged record columns, with the glz link on the
 compressed token streams, the live carry of a windowed stream (its spec
 and its state bank) and a partitioned topic's placement plan (each
 partition's carries go across as the plain ints that
-`PartitionRuntime.seed_partition` takes). These functions take them as
-plain values and numpy arrays — as the JAX package's `CompiledDfa`,
+`PartitionRuntime.seed_partition` takes) and, for the cluster, the SC's
+metadata objects (topics, partitions, SPUs, SmartModules). These
+functions take them as plain values and numpy arrays — as the JAX package's `CompiledDfa`,
 `RecordBuffer` and glz `Compressed` hold them — and build the port's
 objects, so a test can run
 the port on exactly the reference's tables, columns and streams and tell
@@ -17,10 +18,12 @@ from __future__ import annotations
 
 import numpy as np
 
+from fluvio_tpu_torch.metadata import SPEC_BY_KIND
 from fluvio_tpu_torch.ops.regex_dfa import CompiledDfa
 from fluvio_tpu_torch.partition.placement import PlacementPlan, PlacementRule
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
 from fluvio_tpu_torch.smartengine.gpu.glz import Compressed
+from fluvio_tpu_torch.stream_model import MetadataStoreObject
 from fluvio_tpu_torch.windows.spec import WindowSpec
 from fluvio_tpu_torch.windows.state import WindowStateBank
 
@@ -124,3 +127,14 @@ def carries_from_reference(executor, carries):
     executor.carries = carries
     executor._device_carries = None  # the host list is the state now
     return executor
+
+
+def metadata_from_reference(objects) -> list:
+    """The JAX package's metadata store objects as plain dicts (each its
+    ``MetadataStoreObject.to_dict()``: key, kind, revision, spec, status)
+    -> the port's `MetadataStoreObject`s, spec and status rebuilt as the
+    port's dataclasses of that kind. Applied to the stores of an SC's
+    `ScContext`, they make it hold what the JAX SC holds."""
+    return [
+        MetadataStoreObject.from_dict(SPEC_BY_KIND[data["kind"]], data) for data in objects
+    ]

@@ -41,6 +41,15 @@ A batch's record section may be kept as raw (possibly compressed) bytes —
 the analog of the reference's ``RawRecords`` — so the broker can move data
 without parsing it; ``memory_records()`` materializes parsed records on
 demand.
+
+A producer encodes, and a leader parses and encodes again, every record
+of a produce, so a batch's record section goes through `_encode_records`
+and `_decode_records`: loops over the record fields with short varints
+taken from a table (`Record.encode` is the one-record case). The decode
+reads what `Record.decode` reads; on a section that is not plainly well
+formed (a read past a record's end, record headers, a truncated varint)
+it runs `Record.decode` from the start instead, which raises the
+section's `DecodeError`.
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ from typing import List, Optional
 
 from fluvio_tpu_torch.protocol.codec import ByteReader, ByteWriter, DecodeError, Version
 from fluvio_tpu_torch.protocol.compression import Compression, compress, decompress
-from fluvio_tpu_torch.protocol.varint import varint_size
+from fluvio_tpu_torch.protocol.varint import varint_decode, varint_encode, varint_size
 from fluvio_tpu_torch.types import NO_TIMESTAMP, Offset, Timestamp
 
 ATTR_COMPRESSION_MASK = 0x07
@@ -70,6 +79,27 @@ BATCH_FILE_HEADER_SIZE = BATCH_PREAMBLE_SIZE + BATCH_HEADER_SIZE
 MAGIC_V0 = 2  # matches Kafka magic for the v2-style layout
 
 
+# zigzag varints of 0..8191, one or two bytes each (lengths and deltas)
+_VARINTS = []
+for _n in range(8192):
+    _b = bytearray()
+    varint_encode(_b, _n)
+    _VARINTS.append(bytes(_b))
+del _n, _b
+
+
+def _varint_bytes(n: int) -> bytes:
+    if 0 <= n < 8192:
+        return _VARINTS[n]
+    out = bytearray()
+    varint_encode(out, n)
+    return bytes(out)
+
+
+def _varint_len(n: int) -> int:
+    return 1 if -64 <= n < 64 else varint_size(n)
+
+
 @dataclass
 class Record:
     """A single key/value record."""
@@ -81,30 +111,14 @@ class Record:
     offset_delta: Offset = 0
 
     def _inner_size(self) -> int:
-        inner = 1  # attributes
-        inner += varint_size(self.timestamp_delta)
-        inner += varint_size(self.offset_delta)
-        inner += 1  # key tag
+        # attributes, key tag and header count (0) take a byte each
+        inner = 3 + _varint_len(self.timestamp_delta) + _varint_len(self.offset_delta)
         if self.key is not None:
-            inner += varint_size(len(self.key)) + len(self.key)
-        inner += varint_size(len(self.value)) + len(self.value)
-        inner += varint_size(0)  # header count
-        return inner
+            inner += _varint_len(len(self.key)) + len(self.key)
+        return inner + _varint_len(len(self.value)) + len(self.value)
 
     def encode(self, w: ByteWriter, version: Version = 0) -> None:
-        w.write_varint(self._inner_size())
-        w.write_i8(self.attributes)
-        w.write_varint(self.timestamp_delta)
-        w.write_varint(self.offset_delta)
-        if self.key is None:
-            w.write_u8(0)
-        else:
-            w.write_u8(1)
-            w.write_varint(len(self.key))
-            w.write_raw(self.key)
-        w.write_varint(len(self.value))
-        w.write_raw(self.value)
-        w.write_varint(0)  # record headers: none
+        w.write_raw(_encode_records([self]))
 
     @classmethod
     def decode(cls, r: ByteReader, version: Version = 0) -> "Record":
@@ -135,7 +149,101 @@ class Record:
 
     def write_size(self, version: Version = 0) -> int:
         inner = self._inner_size()
-        return varint_size(inner) + inner
+        return _varint_len(inner) + inner
+
+
+def _encode_records(records: List[Record]) -> bytes:
+    """The record section of ``records``, uncompressed, each record as the
+    module docstring lays it out (no record headers)."""
+    out = bytearray()
+    for rec in records:
+        attributes, key, value = rec.attributes, rec.key, rec.value
+        if not -128 <= attributes <= 127:
+            ByteWriter().write_i8(attributes)  # raises struct.error: not an i8
+        ts = _varint_bytes(rec.timestamp_delta)
+        od = _varint_bytes(rec.offset_delta)
+        vl = _varint_bytes(len(value))
+        if key is None:
+            out += _varint_bytes(3 + len(ts) + len(od) + len(vl) + len(value))
+            out.append(attributes & 0xFF)
+            out += ts
+            out += od
+            out.append(0)
+        else:
+            kl = _varint_bytes(len(key))
+            out += _varint_bytes(3 + len(ts) + len(od) + len(kl) + len(key) + len(vl)
+                                 + len(value))
+            out.append(attributes & 0xFF)
+            out += ts
+            out += od
+            out.append(1)
+            out += kl
+            out += key
+        out += vl
+        out += value
+        out.append(0)  # record headers: none
+    return bytes(out)
+
+
+class _NotPlain(Exception):
+    """A record section `_decode_records` leaves to `Record.decode`."""
+
+
+def _read_varint(data: bytes, pos: int, end: int):
+    b = data[pos] if pos < end else 0x80
+    if b < 0x80:
+        return (b >> 1) ^ -(b & 1), pos + 1
+    if pos + 1 < end and data[pos + 1] < 0x80:
+        u = (b & 0x7F) | (data[pos + 1] << 7)
+        return (u >> 1) ^ -(u & 1), pos + 2
+    try:
+        value, pos = varint_decode(data, pos)
+    except ValueError:
+        raise _NotPlain from None
+    if pos > end:
+        raise _NotPlain
+    return value, pos
+
+
+def _decode_records(data, count: int) -> List[Record]:
+    """``count`` records parsed from the head of ``data``, as ``count``
+    calls of `Record.decode` parse them (and raise as they raise)."""
+    data = bytes(data)
+    n = len(data)
+    try:
+        out = []
+        pos = 0
+        for _ in range(count):
+            inner, pos = _read_varint(data, pos, n)
+            end = pos + inner
+            if inner < 1 or end > n:
+                raise _NotPlain
+            attributes = data[pos]
+            if attributes > 127:
+                attributes -= 256
+            ts, pos = _read_varint(data, pos + 1, end)
+            od, pos = _read_varint(data, pos, end)
+            if pos >= end:
+                raise _NotPlain
+            key = None
+            if data[pos]:
+                klen, pos = _read_varint(data, pos + 1, end)
+                if klen < 0 or pos + klen > end:
+                    raise _NotPlain
+                key = data[pos:pos + klen]
+                pos += klen
+            else:
+                pos += 1
+            vlen, pos = _read_varint(data, pos, end)
+            if vlen < 0 or pos + vlen >= end or data[pos + vlen] != 0:
+                raise _NotPlain  # past the end, or record headers follow
+            out.append(Record(value=data[pos:pos + vlen], key=key, attributes=attributes,
+                              timestamp_delta=ts, offset_delta=od))
+            pos = end
+        return out
+    except _NotPlain:
+        r = ByteReader(data)
+        return [Record.decode(r) for _ in range(count)]
 
 
 @dataclass
@@ -246,18 +354,14 @@ class Batch:
         if self.raw_records is None:
             return self.records
         data = decompress(self.header.compression(), self.raw_records)
-        r = ByteReader(data)
-        return [Record.decode(r) for _ in range(self.raw_record_count)]
+        return _decode_records(data, self.raw_record_count)
 
     # -- wire ---------------------------------------------------------------
 
     def _encode_record_section(self) -> bytes:
         if self.raw_records is not None:
             return self.raw_records
-        body = ByteWriter()
-        for rec in self.records:
-            rec.encode(body)
-        return compress(self.header.compression(), body.bytes())
+        return compress(self.header.compression(), _encode_records(self.records))
 
     def encode(self, w: ByteWriter, version: Version = 0) -> None:
         record_section = self._encode_record_section()

@@ -235,23 +235,20 @@ class RecordBuffer:
         base_timestamp: int = NO_TIMESTAMP,
     ) -> "RecordBuffer":
         """Stage record values (no keys, offsets 0..n-1, zero timestamp
-        deltas) with one vectorized ragged copy."""
+        deltas) with one masked assignment of the joined bytes: row-major,
+        the mask's true cells are the values' bytes in order."""
         n = len(values)
         rows = _next_pow2(max(n, 1), MIN_ROWS)
-        lens = np.fromiter((len(v) for v in values), dtype=np.int64, count=n)
-        max_v = int(lens.max()) if n else 0
+        lengths = np.zeros(rows, dtype=np.int32)
+        lengths[:n] = np.fromiter(map(len, values), dtype=np.int64, count=n)
+        max_v = int(lengths.max())
         width = bucket_width(max_v)
         if width > MAX_RECORD_WIDTH:
             raise ValueError(f"record value of {max_v} bytes exceeds {MAX_RECORD_WIDTH}")
         _check_matrix_addressing(rows, width)
         arr = np.zeros((rows, width), dtype=np.uint8)
-        flat = np.frombuffer(b"".join(values), dtype=np.uint8)
-        starts = np.cumsum(lens) - lens
-        dst_rows = np.repeat(np.arange(n), lens)
-        dst_cols = np.arange(flat.size) - np.repeat(starts, lens)
-        arr[dst_rows, dst_cols] = flat
-        lengths = np.zeros(rows, dtype=np.int32)
-        lengths[:n] = lens
+        arr[np.arange(width, dtype=np.int32)[None, :] < lengths[:, None]] = np.frombuffer(
+            b"".join(values), dtype=np.uint8)
         return cls.from_arrays(
             arr, lengths, count=n,
             base_offset=base_offset, base_timestamp=base_timestamp,

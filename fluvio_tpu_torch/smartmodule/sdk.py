@@ -10,11 +10,16 @@ Python functions are not kept, and a transform that carries no program
 makes a module the engine refuses. ``@smartmodule.init`` and
 ``@smartmodule.look_back`` hooks are never run: their decorators return
 the function as it is, so a source that declares them loads, and the
-engine refuses it for its transform.
+engine refuses it for its transform. A source that imports the JAX
+package (``from fluvio_tpu.smartmodule.sdk import smartmodule``, the form
+the JAX package's own tests push) is refused at that import: the port
+never imports that package. Sources in the namespace form, with no
+import, load in both packages.
 """
 
 from __future__ import annotations
 
+import builtins
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict
@@ -46,6 +51,23 @@ class SmartModuleDef:
     def dsl_program(self, kind: SmartModuleKind):
         return self.dsl.get(kind)
 
+
+# the JAX package: the port's own package name without its ``_torch``
+_JAX_PACKAGE = __name__.split(".")[0].removesuffix("_torch")
+
+
+def _import_refusing_the_jax_package(name, globals=None, locals=None, fromlist=(), level=0):
+    """``__import__`` for a source's namespace: the JAX package and its
+    submodules raise ``ValueError``, every other import goes through."""
+    if level == 0 and (name == _JAX_PACKAGE or name.startswith(_JAX_PACKAGE + ".")):
+        raise ValueError(
+            f"the source imports {name}, of the JAX package, which the port never imports: "
+            "write it in the namespace form (`smartmodule`, `dsl`, no import)"
+        )
+    return builtins.__import__(name, globals, locals, fromlist, level)
+
+
+_SOURCE_BUILTINS = {**vars(builtins), "__import__": _import_refusing_the_jax_package}
 
 # the module a source load is assembling, per thread, so concurrent loads
 # do not interleave
@@ -102,7 +124,8 @@ def load_source(source, name: str = "adhoc") -> SmartModuleDef:
     """Build a SmartModule from its source text (str or UTF-8 bytes): the
     source runs in a fresh namespace holding the port's ``smartmodule``
     and ``dsl``, and the decorators it applies assemble the module.
-    Raises ``ValueError`` when it exports no transform."""
+    Raises ``ValueError`` when it exports no transform, or imports the
+    JAX package."""
     if isinstance(source, bytes):
         source = source.decode("utf-8")
     current_module(reset=True)  # drop what an earlier failed load left
@@ -110,6 +133,7 @@ def load_source(source, name: str = "adhoc") -> SmartModuleDef:
         "smartmodule": smartmodule,
         "dsl": dsl_mod,
         "__name__": f"smartmodule_{name}",
+        "__builtins__": _SOURCE_BUILTINS,
     }
     exec(compile(source, f"<smartmodule:{name}>", "exec"), namespace)
     module = current_module(reset=True)

@@ -4,7 +4,9 @@ parity: fluvio-spu/src/config/spu_config.rs).
 The SmartEngine runs on the card: ``smart_engine.device`` None means the
 CUDA card (the server raises at construction when there is none), and
 ``"cpu"`` runs the kernels' plain torch versions, which the tests ask
-for. The public endpoint is plaintext TCP.
+for. The public endpoint is plaintext TCP. With ``sc_addr`` set the SPU
+registers with that SC's private endpoint and takes its replicas and
+SmartModules from it (`sc_dispatcher.ScDispatcher`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ class SmartEngineConfig:
 class SpuConfig:
     id: int = 0
     public_addr: str = f"0.0.0.0:{SPU_PUBLIC_PORT}"
+    sc_addr: str = ""  # SC private endpoint; "" = standalone broker
     log_base_dir: str = "/tmp/fluvio-tpu"
     replication: ReplicaConfig = field(default_factory=ReplicaConfig)
     smart_engine: SmartEngineConfig = field(default_factory=SmartEngineConfig)

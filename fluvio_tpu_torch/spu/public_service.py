@@ -17,6 +17,11 @@ socket send and the ack wait. Other chains run one slice at a time
 through `process_batches`; a slice whose data the coalesced path declines
 goes through `process_batches_per_record`, on the card too.
 
+A produce to a topic whose config carries a deduplication filter answers
+``SMARTMODULE_ERROR``: that filter needs a look-back, which the port does
+not run. A produce to a topic that sets a retention window or a partition
+size answers ``STORAGE_ERROR``: the port has no cleaner to enforce them.
+
 Errors: a chain that does not resolve or build, a `GpuSpill` or
 `EngineError` from the card, or any other failure of a slice's chain
 reaches the consumer as the stream error response the reference sends
@@ -191,6 +196,23 @@ async def handle_produce(ctx: GlobalContext, req: ProduceRequest) -> ProduceResp
                     f"{topic_data.name}-{pdata.partition_index} has no leader here"
                 )
                 continue
+            dedup = _dedup_module(ctx, topic_data.name, pdata.partition_index)
+            if dedup is not None:
+                presp.error_code = ErrorCode.SMARTMODULE_ERROR
+                presp.error_message = (
+                    f"{topic_data.name}-{pdata.partition_index} deduplicates through "
+                    f"SmartModule {dedup!r}, whose look-back and hooks the GPU engine "
+                    "does not run"
+                )
+                continue
+            retention = ctx.unenforced_retention(topic_data.name, pdata.partition_index)
+            if retention is not None:
+                presp.error_code = ErrorCode.STORAGE_ERROR
+                presp.error_message = (
+                    f"{topic_data.name}-{pdata.partition_index} sets {retention}, "
+                    "which the SPU does not enforce: it has no log cleaner"
+                )
+                continue
             records = pdata.records
             if chain is not None:
                 try:
@@ -215,6 +237,18 @@ async def handle_produce(ctx: GlobalContext, req: ProduceRequest) -> ProduceResp
             presp.base_offset = base
             ctx.metrics.inbound.add(records.total_records(), nbytes)
     return response
+
+
+def _dedup_module(ctx: GlobalContext, topic: str, partition: int) -> Optional[str]:
+    """The dedup filter a topic's config names (``deduplication.filter.
+    transform.uses``), or None. The reference attaches it to the leader as
+    a persistent chain seeded by a look-back; the port has no look-back,
+    so a produce to such a topic answers ``SMARTMODULE_ERROR``, the code
+    a stream with the ``dedup-filter`` module gets."""
+    dedup = ctx.replica_config(topic, partition).get("deduplication")
+    if not dedup:
+        return None
+    return ((dedup.get("filter") or {}).get("transform") or {}).get("uses", "")
 
 
 def _chain_lock(chain) -> asyncio.Lock:

@@ -9,8 +9,8 @@
 - On a machine with a card (marker ``cuda``; skipped elsewhere), each CUDA
   kernel equals its plain torch version exactly on the same inputs, and
   the aggregate and explode chains, the windowed runtime, the
-  partition runtime, the broker's consume slice and the SPU server give
-  the card the CPU's outputs.
+  partition runtime, the broker's consume slice, the SPU server and the
+  cluster (an SC, its SPU, the producer) give the card the CPU's outputs.
 
 The bench corpora and the DFA scan's cases live here, free of jax, so
 that the CPU tests, the card tests and ``chip_smoke.py`` share them.
@@ -19,6 +19,7 @@ that the CPU tests, the card tests and ``chip_smoke.py`` share them.
 from __future__ import annotations
 
 import ast
+import asyncio
 import json
 import re
 import time
@@ -289,6 +290,107 @@ async def consume_once(consumer, config, offset=None):
     return batches, arrivals
 
 
+# The cluster (an SC, its SPUs, the admin client and the producer),
+# jax-free, shared by the CPU test `tests/test_torch_cluster.py`, the card
+# test below and `chip_smoke.py`, as the JAX package's tests share
+# `boot_cluster` (`tests/test_sc.py`). Every wait has a timeout.
+CLUSTER_WAIT_S = 10.0
+
+
+async def boot_torch_cluster(log_dir, n_spus: int = 1, device=None, first_id: int = 5000):
+    """The port's `ScServer` and ``n_spus`` `SpuServer`s on
+    ``127.0.0.1:0`` (ids from ``first_id``, each logging under
+    ``log_dir/spu-<id>``, its SmartEngine on ``device``; None: the card),
+    each registered through ``admin.register_custom_spu`` and online at
+    the SC. Returns (sc, admin, spus)."""
+    from pathlib import Path as _Path
+
+    from fluvio_tpu_torch.client import FluvioAdmin
+    from fluvio_tpu_torch.sc import ScServer
+    from fluvio_tpu_torch.spu.config import SpuConfig
+    from fluvio_tpu_torch.spu.server import SpuServer
+    from fluvio_tpu_torch.storage.config import ReplicaConfig
+
+    sc = ScServer()
+    await sc.start()
+    admin = await FluvioAdmin.connect(sc.public_addr)
+    spus = []
+    try:
+        for spu_id in range(first_id, first_id + n_spus):
+            spu_dir = str(_Path(log_dir) / f"spu-{spu_id}")
+            config = SpuConfig(id=spu_id, public_addr="127.0.0.1:0", sc_addr=sc.private_addr,
+                               log_base_dir=spu_dir, replication=ReplicaConfig(base_dir=spu_dir))
+            config.smart_engine.device = device
+            server = SpuServer(config)
+            await server.start()
+            spus.append(server)
+            await admin.register_custom_spu(spu_id, server.public_addr)
+        for server in spus:
+            obj = await sc.ctx.spus.wait_action(
+                str(server.config.id), lambda o: o is not None and o.status.is_online(),
+                timeout=CLUSTER_WAIT_S)
+            if obj is None or not obj.status.is_online():
+                raise TimeoutError(f"SPU {server.config.id} never came online at the SC")
+    except BaseException:
+        await shutdown_torch_cluster(sc, admin, spus)
+        raise
+    return sc, admin, spus
+
+
+async def shutdown_torch_cluster(sc, admin, spus) -> None:
+    await admin.close()
+    for server in spus:
+        await server.stop()
+    await sc.stop()
+
+
+async def wait_for_replicas(spu, topic: str, partitions, timeout: float = CLUSTER_WAIT_S):
+    """Wait until ``spu`` leads every partition of ``topic`` listed."""
+    deadline = time.monotonic() + timeout
+    while not all(spu.ctx.leader_for(topic, p) is not None for p in partitions):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{topic} {list(partitions)} never provisioned on the SPU")
+        await asyncio.sleep(0.02)
+
+
+async def wait_for_module(spu, name: str, timeout: float = CLUSTER_WAIT_S):
+    """Wait until the SC has pushed SmartModule ``name`` to ``spu``."""
+    deadline = time.monotonic() + timeout
+    while spu.ctx.smartmodules.get(name) is None:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"SmartModule {name!r} never reached the SPU")
+        await asyncio.sleep(0.02)
+
+
+async def produce_all(client, topic: str, items, config=None):
+    """``items`` ((key, value) pairs) through ``client.topic_producer``
+    with ``send_all`` and ``flush``: [(partition, offset)] a record, in
+    order."""
+    producer = await client.topic_producer(topic, config=config)
+    try:
+        futs = await producer.send_all(items)
+        await producer.flush()
+        metas = [await f.wait() for f in futs]
+    finally:
+        await producer.close()
+    return [(m.partition, m.offset) for m in metas]
+
+
+def namespace_invocations(name: str):
+    """A broker chain as a consumer sends it by name, Predefined: the
+    modules of `server_invocations(name)` pushed to the SC under
+    ``<name>-<k>``. Returns ([(module name, source)], invocations)."""
+    from fluvio_tpu_torch.schema.smartmodule import SmartModuleInvocationWasm
+
+    modules, out = [], []
+    for k, inv in enumerate(server_invocations(name)):
+        module = f"{name.replace('_', '-')}-{k}"
+        modules.append((module, inv.wasm.payload))
+        inv.wasm = SmartModuleInvocationWasm.predefined(module)
+        out.append(inv)
+    return modules, out
+
+
 # The DFA scan's cases, shared by the card test below and the CPU spec of
 # the kernel's walk (`tests/test_torch_dfa_redesign.py`); jax-free, since
 # the card's machine has no jax.
@@ -399,7 +501,16 @@ def test_port_imports_no_jax_and_nothing_of_fluvio_tpu():
                    "transport/versioned.py", "client/__init__.py", "client/offset.py",
                    "client/consumer.py", "client/fluvio.py", "spu/config.py",
                    "spu/metrics.py", "spu/replica.py", "spu/context.py",
-                   "spu/public_service.py", "spu/server.py", "models/dedup_filter.py"):
+                   "spu/public_service.py", "spu/server.py", "models/dedup_filter.py",
+                   "stream_model/core.py", "stream_model/epoch.py", "stream_model/store.py",
+                   "metadata/topic.py", "metadata/partition.py", "metadata/spu.py",
+                   "metadata/smartmodule.py", "metadata/spg.py", "metadata/tableformat.py",
+                   "schema/admin.py", "schema/controlplane.py", "auth/policy.py",
+                   "sc/scheduler.py", "sc/context.py", "sc/controllers/topics.py",
+                   "sc/controllers/partitions.py", "sc/controllers/spus.py",
+                   "sc/services/private_service.py", "sc/services/public_service.py",
+                   "sc/start.py", "spu/sc_dispatcher.py", "client/sync.py", "client/admin.py",
+                   "client/producer.py"):
         assert REPO / "fluvio_tpu_torch" / module in files, module
     bad = [
         f"{path.relative_to(REPO)}:{line}: {module}"
@@ -1102,3 +1213,55 @@ def test_server_stream_on_the_card(tmp_path):
     card, launches = asyncio.run(serve("cuda"))
     assert card == cpu
     assert launches["json_span"] >= 1
+
+
+@pytest.mark.cuda
+def test_cluster_consume_by_name_on_the_card(tmp_path):
+    """Arm (b) of the smoke's cluster phase at a small size: a port SC and
+    SPU, 8 x 4,096 records produced through the SC-routed producer, the
+    bench's broker chain pushed by name (namespace form) and consumed by
+    name through SC routing in slices of 64 KiB. The cluster on the card
+    stores and pushes the records the cluster on the CPU does, every slice
+    on the coalesced path, through the JSON span kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.client import Fluvio
+    from fluvio_tpu_torch.metadata.topic import TopicSpec
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
+
+    values = gen_json(8 * 4096)
+
+    async def run(device: str):
+        sc, admin, spus = await boot_torch_cluster(tmp_path / device, device=device)
+        try:
+            await admin.create_topic("bench", TopicSpec.computed(1))
+            await wait_for_replicas(spus[0], "bench", [0])
+            modules, invocations = namespace_invocations("north_star")
+            for name, source in modules:
+                await admin.create_smartmodule(name, source)
+                await wait_for_module(spus[0], name)
+            client = await Fluvio.connect(sc.public_addr)
+            try:
+                offsets = await produce_all(client, "bench", [(None, v) for v in values])
+                consumer = await client.partition_consumer("bench", 0)
+                cuda_kernels.reset_launches()
+                got, _ = await consume_once(
+                    consumer, server_consumer_config(invocations, 64 << 10))
+                launches = dict(cuda_kernels.LAUNCHES)
+            finally:
+                await client.close()
+            m = spus[0].ctx.metrics.smartmodule
+            assert m.fallback_slices == 0 and m.fastpath_slices == len(got) > 1
+        finally:
+            await shutdown_torch_cluster(sc, admin, spus)
+        # the producer stamps each batch with the wall clock: compare the
+        # records without their timestamps
+        records = [(b.base_offset + r.offset_delta, r.key, r.value)
+                   for b in got for r in b.memory_records()]
+        return offsets, records, launches
+
+    cpu = asyncio.run(asyncio.wait_for(run("cpu"), 300))
+    card = asyncio.run(asyncio.wait_for(run("cuda"), 300))
+    assert card[0] == cpu[0] == [(0, i) for i in range(len(values))]
+    assert card[1] == cpu[1] and 0 < len(card[1]) < len(values)
+    assert card[2]["json_span"] >= 1

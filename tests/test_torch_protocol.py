@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 import bench
 from fluvio_tpu.protocol import codec as ref_codec
@@ -324,3 +326,52 @@ def test_record_codec_build_failure_raises(monkeypatch, tmp_path):
         native_records.decode_record_columns(b"")
     with pytest.raises(native_records.RecordCodecUnavailable):
         smart_chain.process_batches(chain, batches, 1 << 20)
+
+
+_DELTAS = st.one_of(st.integers(-70, 70), st.integers(-(1 << 63), (1 << 63) - 1),
+                    st.sampled_from([8191, 8192, -8192, 1 << 20]))
+_FIELD = st.one_of(st.binary(max_size=8), st.binary(min_size=60, max_size=70),
+                   st.binary(min_size=8180, max_size=8200))
+_RECORDS = st.lists(st.tuples(_FIELD, st.one_of(st.none(), _FIELD), st.integers(-128, 127),
+                              _DELTAS, _DELTAS), max_size=5)
+
+
+@settings(max_examples=150, deadline=None, suppress_health_check=[HealthCheck.too_slow])
+@given(fields=_RECORDS, cuts=st.lists(st.tuples(st.integers(0, 1 << 16), st.integers(0, 255)),
+                                      max_size=3), truncate=st.integers(0, 1 << 16))
+def test_record_section_codec_matches_the_record_codec_and_the_reference(fields, cuts, truncate):
+    """A batch's record section (`record._encode_records` /
+    `_decode_records`, the produce path's codec) writes the bytes the JAX
+    package's `Record.encode` writes for each record, and each record's
+    `write_size` equals the reference's; it reads them back as the
+    records. On the section with bytes changed and cut short, it returns
+    what `Record.decode` record by record returns, or raises the same
+    error type."""
+    port = [record.Record(value=v, key=k, attributes=a, timestamp_delta=t, offset_delta=o)
+            for v, k, a, t, o in fields]
+    ref = [ref_record.Record(value=v, key=k, attributes=a, timestamp_delta=t, offset_delta=o)
+           for v, k, a, t, o in fields]
+    w = ref_codec.ByteWriter()
+    for r in ref:
+        r.encode(w)
+    section = record._encode_records(port)
+    assert section == bytes(w.buf)
+    assert [r.write_size() for r in port] == [r.write_size() for r in ref]
+    assert record._decode_records(section, len(port)) == port
+    broken = bytearray(section)
+    for at, byte in cuts:
+        if broken:
+            broken[at % len(broken)] = byte
+    del broken[truncate % (len(broken) + 1):]
+
+    def outcome(decode):
+        try:
+            return "ok", decode()
+        except Exception as e:  # noqa: BLE001 — the error's type is compared
+            return "error", type(e)
+
+    def one_by_one():
+        r = codec.ByteReader(bytes(broken))
+        return [record.Record.decode(r) for _ in port]
+
+    assert outcome(lambda: record._decode_records(bytes(broken), len(port))) == outcome(one_by_one)

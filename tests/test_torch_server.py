@@ -44,7 +44,7 @@ from fluvio_tpu.spu import SpuConfig as RefSpuConfig
 from fluvio_tpu.spu import SpuServer as RefSpuServer
 from fluvio_tpu.spu import smart_chain as ref_sc
 from fluvio_tpu.storage.config import ReplicaConfig as RefReplicaConfig
-from fluvio_tpu_torch.client import ConsumerConfig, Fluvio, Offset, ScEndpointUnsupported
+from fluvio_tpu_torch.client import ConsumerConfig, Fluvio, Offset
 from fluvio_tpu_torch.protocol import codec, record
 from fluvio_tpu_torch.protocol.error import ErrorCode, FluvioError
 from fluvio_tpu_torch.schema.smartmodule import (
@@ -644,21 +644,29 @@ def test_leader_chain_transforms_every_produce(tmp_path):
 
 
 def test_server_without_cuda_raises_and_the_client_refuses_an_sc(tmp_path, monkeypatch):
+    """Without CUDA and without ``device="cpu"`` the SPU server raises.
+    The client tells an SC from a lone SPU by the SC's admin api key: it
+    refused an SC endpoint until the port had the cluster path; now it
+    connects to the port's SC in SC mode (a metadata mirror) and to a lone
+    SPU with none."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(EngineError):
         SpuServer(SpuConfig(public_addr="127.0.0.1:0", log_base_dir=str(tmp_path)))
 
-    async def fake_sc():
-        from fluvio_tpu_torch.protocol.api import ApiVersionKey
-        from fluvio_tpu_torch.spu import public_service
+    async def modes():
+        from fluvio_tpu_torch.sc import ScServer
 
-        monkeypatch.setattr(public_service, "SPU_API_KEYS",
-                            public_service.SPU_API_KEYS + [ApiVersionKey(1001, 0, 0)])
+        sc = ScServer()
+        await sc.start()
         server = await start_spu_server(tmp_path, [], device="cpu")
         try:
-            with pytest.raises(ScEndpointUnsupported):
-                await Fluvio.connect(server.public_addr)
+            on_sc, on_spu = await Fluvio.connect(sc.public_addr), await Fluvio.connect(
+                server.public_addr)
+            assert on_sc.metadata is not None and on_spu.metadata is None
+            await on_sc.close()
+            await on_spu.close()
         finally:
             await server.stop()
+            await sc.stop()
 
-    asyncio.run(fake_sc())
+    asyncio.run(asyncio.wait_for(modes(), 30))
