@@ -214,7 +214,25 @@ Phases (any failure raises and the script exits non-zero):
    chain by name, each partition's outputs equal to its running sums in
    its order. It prints records/s of each produce and consume, the batches
    of each produce request and the launches of each arm.
-   ``--cluster-only`` builds the kernels and runs only this phase.
+   ``--cluster-only`` builds the kernels and runs only this phase;
+16. replication (the JAX package's replicated ``boot_cluster``,
+   ``tests/test_replication.py:186-200``): a port ``ScServer`` and three
+   port ``SpuServer``s (ids 5000-5002, each SmartEngine on the card),
+   ``repl`` created with ``TopicSpec.computed(1, 3)``; (a) phase 13's
+   1,048,576 records produced through the SC-routed producer with
+   ``ProducerConfig(isolation=READ_COMMITTED, timeout_ms=60_000)``, each
+   request answered with the leader's HW over its records before the
+   timeout, both followers at LEO = HW = n with the leader's bytes, the
+   SC's LRS listing them (lsr 3); (b) the leader's ``SpuServer`` stopped,
+   a follower elected by the SC and promoted on its storage; (c) a fresh
+   ``Fluvio.connect(sc)`` consuming by name from the new leader the north
+   star (in turns with the direct-SPU consume), ``flu[vV]io`` and
+   ``3_aggregate``, each pass held to the DSL interpreter with 0 fallback
+   slices; (d) the stopped SPU started again on its log directory, a
+   follower of the new leader at its LEO and in the SC's LRS. It prints
+   the produce records/s, the followers' lag, the failover time (stop to
+   the first consumed batch), the consume records/s and the rejoin time.
+   ``--replication-only`` builds the kernels and runs only this phase.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -3096,6 +3114,278 @@ def phase_cluster():
     return numbers, launches
 
 
+# phase 16: replication (the JAX package's replicated `boot_cluster`,
+# `tests/test_replication.py:186-200`): a port SC and three port SPUs on
+# the card, `repl` at replication factor 3, phase 13's records produced
+# READ_COMMITTED, the leader's SPU stopped, the chains consumed from the
+# promoted follower, the stopped SPU restarted as a follower
+REPLICATION = dict(spus=3, timeout_ms=60_000, turns=3, wait_s=60.0)
+
+
+def phase_replication():
+    """Phase 16: replication on the card. A port `ScServer` and three port
+    `SpuServer`s (ids 5000-5002, every SmartEngine on the card), ``repl``
+    created with ``TopicSpec.computed(1, 3)``. (a) phase 13's 1,048,576
+    records produced through the SC-routed producer with
+    ``ProducerConfig(isolation=READ_COMMITTED, timeout_ms=60_000)``: every
+    produce request answered with the leader's HW over its records, well
+    before the timeout (the quorum of 3, not the timeout, ended its wait);
+    the leader's HW = LEO = n, each follower's LEO = HW = n and its stored
+    log the leader's bytes; the SC's LRS lists both followers at n, lsr 3.
+    A cold and a warm north-star pass by name from this leader. (b) the leader's
+    `SpuServer` stopped; the SC elects a follower and its SPU promotes the
+    replica. (c) a fresh ``Fluvio.connect(sc)`` consumes by name from the
+    new leader: the north star in turns with the direct-SPU consume
+    (AdHoc), then ``flu[vV]io`` and ``3_aggregate``; every pass held to the
+    DSL interpreter with 0 fallback slices. (d) the stopped SPU started
+    again on its log directory with its id: a follower of the new leader,
+    its LEO the leader's, listed in the SC's LRS. Returns (numbers,
+    launches of (c)'s first pass of each chain)."""
+    import asyncio
+    import tempfile
+
+    from fluvio_tpu_torch.client import Fluvio, ProducerConfig
+    from fluvio_tpu_torch.client import producer as producer_mod
+    from fluvio_tpu_torch.metadata.topic import TopicSpec
+    from fluvio_tpu_torch.schema.spu import Isolation
+
+    t_phase = time.perf_counter()
+    cfg, cases = REPLICATION, shared_cases()
+    values = broker_values()  # phase 13's records: n = BROKER["records"]
+    n = len(values)
+    truths = {name: broker_truth(name) for name in BROKER_CHAINS}
+    numbers, launches = {}, {}
+
+    async def until(predicate, what: str):
+        deadline = time.perf_counter() + cfg["wait_s"]
+        while not predicate():
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"replication: {what} within {cfg['wait_s']} s")
+            await asyncio.sleep(0.005)
+
+    async def online(sc, not_leader=None):
+        obj = await sc.ctx.partitions.wait_action(
+            "repl-0", lambda o: o is not None and o.status.resolution.value == "online"
+            and o.spec.leader != not_leader, timeout=cfg["wait_s"])
+        if obj is None or obj.status.resolution.value != "online" or obj.spec.leader == not_leader:
+            raise AssertionError(f"replication: repl-0 not online under a new leader ({obj})")
+        return obj.spec.leader
+
+    async def lrs(sc, replicas):
+        want = sorted(replicas)
+
+        def done(o):
+            return (o is not None and o.status.leader.leo == n and o.status.lsr == 3
+                    and sorted((r.spu, r.leo, r.hw) for r in o.status.replicas) == want)
+
+        obj = await sc.ctx.partitions.wait_action("repl-0", done, timeout=cfg["wait_s"])
+        if not done(obj):
+            raise AssertionError(f"replication: the SC's LRS for repl-0 is {obj and obj.status}")
+        st = obj.status
+        return {"leader": [st.leader.spu, st.leader.hw, st.leader.leo], "lsr": st.lsr,
+                "replicas": want}
+
+    async def consume_pass(consumer, name, invocations, stored_ts):
+        config = cases.server_consumer_config(invocations, BROKER["max_bytes"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, arrivals = await cases.consume_once(consumer, config)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        results, starts = server_results(got)
+        check_broker_pass(f"replication {name}", results, starts, truths[name], ts_of=stored_ts)
+        return dt, arrivals
+
+    async def run(log_dir):
+        t0 = time.perf_counter()
+        sc, admin, spus = await cases.boot_torch_cluster(log_dir, cfg["spus"])  # on the card
+        numbers["boot_s"] = time.perf_counter() - t0
+        live, clients = list(spus), []
+        try:
+            await admin.create_topic("repl", TopicSpec.computed(1, cfg["spus"]))
+            first_id = await online(sc)
+            first = next(s for s in spus if s.config.id == first_id)
+            followers = [s for s in spus if s is not first]
+            await until(lambda: first.ctx.leader_for("repl", 0) is not None and all(
+                s.ctx.follower_for("repl", 0) is not None for s in followers), "replicas placed")
+            leader = first.ctx.leader_for("repl", 0)
+            if leader.in_sync_replica != cfg["spus"]:
+                raise AssertionError(f"replication: quorum {leader.in_sync_replica}")
+            pushed = {}
+            for chain in BROKER_CHAINS:
+                modules, pushed[chain] = cases.namespace_invocations(chain)
+                for name, source in modules:
+                    await admin.create_smartmodule(name, source)
+                    for s in spus:
+                        await cases.wait_for_module(s, name)
+            client = await Fluvio.connect(sc.public_addr)
+            clients.append(client)
+
+            # (a) produce READ_COMMITTED at rf 3
+            acks = []
+            send = producer_mod.PartitionProducer._send
+
+            async def acked(self, pending):
+                t_req = time.perf_counter()
+                await send(self, pending)
+                acks.append({"batches": len(pending), "s": time.perf_counter() - t_req,
+                             "hw": leader.hw(), "leo": leader.leo()})
+
+            producer_mod.PartitionProducer._send = acked
+            try:
+                config = ProducerConfig(isolation=Isolation.READ_COMMITTED,
+                                        timeout_ms=cfg["timeout_ms"])
+                t0 = time.perf_counter()
+                offsets = await cases.produce_all(client, "repl", [(None, v) for v in values],
+                                                  config)
+                produce_s = time.perf_counter() - t0
+            finally:
+                producer_mod.PartitionProducer._send = send
+            lag = {s.config.id: leader.leo() - s.ctx.follower_for("repl", 0).leo()
+                   for s in followers}
+            if offsets != [(0, i) for i in range(n)]:
+                raise AssertionError("replication: produce offsets are not 0..n-1 in order")
+            for a in acks:
+                if a["hw"] != a["leo"] or a["s"] >= cfg["timeout_ms"] / 1e3:
+                    raise AssertionError(f"replication: a produce request was answered without "
+                                         f"the quorum: {a}")
+            if (leader.hw(), leader.leo()) != (n, n) or any(lag.values()):
+                raise AssertionError(f"replication: after the produce the leader is at "
+                                     f"{leader.hw()}/{leader.leo()}, the followers lag {lag}")
+            await until(lambda: all(s.ctx.follower_for("repl", 0).hw() == n for s in followers),
+                        "the followers' HW at n")
+            t0 = time.perf_counter()
+            stored_bytes = cases.replica_log(leader.storage)
+            for s in followers:
+                if cases.replica_log(s.ctx.follower_for("repl", 0).storage) != stored_bytes:
+                    raise AssertionError(f"replication: SPU {s.config.id}'s log differs from the "
+                                         "leader's bytes")
+            compare_s = time.perf_counter() - t0
+            numbers["lrs_after_produce"] = await lrs(sc, [(s.config.id, n, n) for s in followers])
+            numbers["produce"] = {
+                "records": n, "records_per_s": n / produce_s, "seconds": produce_s,
+                "requests": len(acks), "batches_a_request": [a["batches"] for a in acks],
+                "request_s": [a["s"] for a in acks], "follower_lag_at_end": lag,
+                "log_bytes": len(stored_bytes), "compare_s": compare_s}
+            stored = await read_log(await client.partition_consumer("repl", 0),
+                                    BROKER["max_bytes"])
+            check_log("replication repl", stored, values)
+            consumer = await client.partition_consumer("repl", 0)
+            before = [(await consume_pass(consumer, "north_star", pushed["north_star"],
+                                          stored["ts"]))[0] for _ in range(2)]  # cold, warm
+            numbers["north_star_before_failover"] = {
+                "records_per_s": n / before[1], "pass_ms": [t * 1e3 for t in before]}
+
+            # (b) failover
+            t_stop = time.perf_counter()
+            await first.stop()
+            live.remove(first)
+            new_id = await online(sc, not_leader=first.config.id)
+            new = next(s for s in followers if s.config.id == new_id)
+            await until(lambda: new.ctx.leader_for("repl", 0) is not None, "the promotion")
+            elect_s = time.perf_counter() - t_stop
+            promoted = new.ctx.leader_for("repl", 0)
+            if (promoted.leo(), promoted.hw(), promoted.in_sync_replica) != (n, n, cfg["spus"]):
+                raise AssertionError(f"replication: promoted at {promoted.leo()}/{promoted.hw()}, "
+                                     f"quorum {promoted.in_sync_replica}")
+
+            # (c) consume from the new leader through a fresh client, and direct
+            fresh = await Fluvio.connect(sc.public_addr)
+            clients.append(fresh)
+            direct = await Fluvio.connect(new.public_addr)
+            clients.append(direct)
+            ways = {"sc": (await fresh.partition_consumer("repl", 0), pushed["north_star"]),
+                    "direct": (await direct.partition_consumer("repl", 0),
+                               cases.server_invocations("north_star"))}
+            passes = {"sc": [], "direct": []}
+            cuda_kernels.reset_launches()
+            first_dt, arrivals = await consume_pass(ways["sc"][0], "north_star", ways["sc"][1],
+                                                    stored["ts"])
+            for k, v in cuda_kernels.LAUNCHES.items():
+                launches[k] = launches.get(k, 0) + v
+            failover_s = arrivals[0] - t_stop
+            await consume_pass(ways["direct"][0], "north_star", ways["direct"][1],
+                               stored["ts"])  # warm the direct way's chain (AdHoc)
+            for turn in range(cfg["turns"]):
+                for way in (("direct", "sc") if turn % 2 == 0 else ("sc", "direct")):
+                    consumer, invocations = ways[way]
+                    passes[way].append((await consume_pass(consumer, "north_star", invocations,
+                                                           stored["ts"]))[0])
+            med = {w: statistics.median(v) for w, v in passes.items()}
+            numbers["north_star_after_failover"] = {
+                "sc_records_per_s": n / med["sc"], "direct_records_per_s": n / med["direct"],
+                "sc_pass_ms": [t * 1e3 for t in passes["sc"]],
+                "direct_pass_ms": [t * 1e3 for t in passes["direct"]],
+                "first_pass_ms": first_dt * 1e3, "outputs": int(len(truths["north_star"][0]))}
+            for name in ("flu_regex_filter", "3_aggregate"):
+                cuda_kernels.reset_launches()
+                dt, _ = await consume_pass(ways["sc"][0], name, pushed[name], stored["ts"])
+                for k, v in cuda_kernels.LAUNCHES.items():
+                    launches[k] = launches.get(k, 0) + v
+                numbers[name] = {"records_per_s": n / dt, "pass_ms": dt * 1e3,
+                                 "outputs": int(len(truths[name][0]))}
+            m = new.ctx.metrics.smartmodule.to_dict()
+            if m["fallback_slices"] or not m["fastpath_slices"]:
+                raise AssertionError(f"replication: the new leader's chain metrics {m}")
+            numbers["failover"] = {"stopped_leader": first.config.id, "new_leader": new_id,
+                                   "elect_s": elect_s, "to_first_batch_s": failover_s}
+            numbers["chain_metrics"] = m
+
+            # (d) the stopped SPU rejoins as a follower of the new leader
+            t0 = time.perf_counter()
+            back = await cases.restart_torch_spu(sc, first)
+            live.append(back)
+            await until(lambda: back.ctx.follower_for("repl", 0) is not None
+                        and back.ctx.follower_for("repl", 0).leader == new_id
+                        and back.ctx.follower_for("repl", 0).leo() == promoted.leo(),
+                        "the rejoin")
+            rejoin_follow_s = time.perf_counter() - t0
+            numbers["lrs_after_rejoin"] = await lrs(sc, [(s.config.id, n, n) for s in spus
+                                                         if s.config.id != new_id])
+            numbers["rejoin"] = {"spu": back.config.id, "follows": new_id,
+                                 "to_follower_at_leo_s": rejoin_follow_s,
+                                 "to_lrs_s": time.perf_counter() - t0}
+        finally:
+            for c in clients:
+                await c.close()
+            await cases.shutdown_torch_cluster(sc, admin, live)
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-replication-") as log_dir:
+        asyncio.run(run(log_dir))
+    p, f = numbers["produce"], numbers["failover"]
+    log(f"replication: SC and 3 SPUs booted in {numbers['boot_s']:.3f} s; (a) {n} records "
+        f"produced READ_COMMITTED at rf 3 in {p['seconds']:.3f} s, {p['records_per_s']:.0f} "
+        f"records/s; {p['requests']} requests of {p['batches_a_request']} batches, answered in "
+        f"{[round(s, 3) for s in p['request_s']]} s with the HW over their records; the "
+        f"followers' lag behind the leader's LEO when the produce ended {p['follower_lag_at_end']}"
+        f"; both followers' logs equal the leader's {p['log_bytes']} B; LRS "
+        f"{numbers['lrs_after_produce']}; north star by name from this leader "
+        f"{numbers['north_star_before_failover']['records_per_s']:.0f} records/s (cold, warm "
+        f"pass {[round(t, 3) for t in numbers['north_star_before_failover']['pass_ms']]} ms)")
+    nb = numbers["north_star_after_failover"]
+    log(f"replication: (b) SPU {f['stopped_leader']} stopped, SPU {f['new_leader']} elected and "
+        f"promoted in {f['elect_s']:.3f} s, the first consumed batch {f['to_first_batch_s']:.3f} "
+        f"s after the stop (that pass, the new leader's first: {nb['first_pass_ms']:.3f} ms); "
+        f"(c) north star from the new leader through the SC, in turns with direct, "
+        f"{nb['sc_records_per_s']:.0f} records/s (passes "
+        f"{[round(t, 3) for t in nb['sc_pass_ms']]} ms), direct "
+        f"{nb['direct_records_per_s']:.0f} records/s (passes "
+        f"{[round(t, 3) for t in nb['direct_pass_ms']]} ms); flu[vV]io "
+        f"{numbers['flu_regex_filter']['records_per_s']:.0f}, 3_aggregate "
+        f"{numbers['3_aggregate']['records_per_s']:.0f} records/s; every pass equal to the DSL "
+        f"interpreter, chain metrics {numbers['chain_metrics']}; launches {launches}")
+    r = numbers["rejoin"]
+    log(f"replication: (d) SPU {r['spu']} restarted on its log, a follower of {r['follows']} at "
+        f"the leader's LEO in {r['to_follower_at_leo_s']:.3f} s, in the SC's LRS in "
+        f"{r['to_lrs_s']:.3f} s: {numbers['lrs_after_rejoin']}")
+    for k in ("json_span", "extract", "dfa_scan"):
+        if not launches.get(k):
+            raise AssertionError(f"replication: kernel {k} never launched in phase 16")
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"replication: phase 16 took {numbers['phase_s']:.1f} s, host truth included")
+    return numbers, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -3125,6 +3415,9 @@ def main(argv=None) -> int:
     parser.add_argument("--cluster-only", action="store_true",
                         help="build the kernels and run only the cluster path: an SC and an "
                              "SPU, the producer, consumes by name (phase 15; no ok line)")
+    parser.add_argument("--replication-only", action="store_true",
+                        help="build the kernels and run only replication: an SC and three SPUs, "
+                             "rf 3, a failover and a rejoin (phase 16; no ok line)")
     parser.add_argument("--striped-slice-only", action="store_true",
                         help="build the kernels and run only phase 12 (with phase 9's aggregate "
                              "chains and phase 11, whose D2H it reads; no ok line)")
@@ -3198,6 +3491,11 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"cluster": numbers}))
         return 0
+    if args.replication_only:
+        numbers, _launches = phase_replication()
+        print(smi)
+        print(json.dumps({"replication": numbers}))
+        return 0
     if args.striped_slice_only:
         json_corpora = [gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)]
         slice_numbers, _ops = phase_slice(json_corpora, ("3_aggregate", "filter_aggregate"))
@@ -3243,11 +3541,20 @@ def main(argv=None) -> int:
     lap("14 server")
     cluster_numbers_, cluster_launches = phase_cluster()
     lap("15 cluster")
+    repl_numbers, repl_launches = phase_replication()
+    lap("16 replication")
+    log(f"replication beside the cluster: north star by name through the SC from the promoted "
+        f"leader {repl_numbers['north_star_after_failover']['sc_records_per_s']:.0f} records/s, "
+        f"phase 15's (b) {cluster_numbers_['consume_by_name']['sc_records_per_s']:.0f}; produce "
+        f"READ_COMMITTED at rf 3 {repl_numbers['produce']['records_per_s']:.0f} records/s, "
+        f"phase 15's default produce at rf 1 "
+        f"{cluster_numbers_['produce_default']['records_per_s']:.0f}")
     log("smoke phases (s): " + json.dumps({k: round(v, 1) for k, v in laps.items()}))
     by_chain = {**slice_numbers, **ss_numbers,
                 **{f"broker_{k}": v for k, v in broker_numbers.items()},
                 **{f"server_{k}": v for k, v in server_numbers.items()},
-                "cluster": {"launches": cluster_launches}}
+                "cluster": {"launches": cluster_launches},
+                "replication": {"launches": repl_launches}}
     for r in rows:
         r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in by_chain.items()}
     chain_launches = [v["launches"] for v in by_chain.values()]
@@ -3274,6 +3581,7 @@ def main(argv=None) -> int:
                     "server": {k: {m: x for m, x in v.items() if m != "launches"}
                                for k, v in server_numbers.items()},
                     "cluster": cluster_numbers_,
+                    "replication": repl_numbers,
                     "build_seconds": KERNELS.build_seconds}))
     log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
                     "device": smi}))

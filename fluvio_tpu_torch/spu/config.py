@@ -6,7 +6,12 @@ CUDA card (the server raises at construction when there is none), and
 ``"cpu"`` runs the kernels' plain torch versions, which the tests ask
 for. The public endpoint is plaintext TCP. With ``sc_addr`` set the SPU
 registers with that SC's private endpoint and takes its replicas and
-SmartModules from it (`sc_dispatcher.ScDispatcher`).
+SmartModules from it (`sc_dispatcher.ScDispatcher`). ``private_addr`` is
+the internal endpoint its followers sync from (empty: no internal
+server); ``in_sync_replica`` is the quorum of a replica created without
+an SC-pushed replica set; ``cleaner_interval_seconds`` is the retention
+sweep's period (0 or less: no sweep). The port reads no environment
+variable: every setting is a field.
 """
 
 from __future__ import annotations
@@ -29,10 +34,16 @@ class SmartEngineConfig:
 class SpuConfig:
     id: int = 0
     public_addr: str = f"0.0.0.0:{SPU_PUBLIC_PORT}"
+    private_addr: str = "127.0.0.1:0"  # internal (peer replication) endpoint
     sc_addr: str = ""  # SC private endpoint; "" = standalone broker
     log_base_dir: str = "/tmp/fluvio-tpu"
     replication: ReplicaConfig = field(default_factory=ReplicaConfig)
     smart_engine: SmartEngineConfig = field(default_factory=SmartEngineConfig)
+    # produce-side flush guarantees: 1 means the HW advances on the local write
+    in_sync_replica: int = 1
+    # retention cleaner pass period (cleaner.rs:20 `CLEANING_INTERVAL`);
+    # <= 0 disables the background task
+    cleaner_interval_seconds: float = 30.0
 
     def __post_init__(self) -> None:
         if self.replication.base_dir in (".", ""):

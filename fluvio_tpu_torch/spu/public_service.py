@@ -19,8 +19,10 @@ goes through `process_batches_per_record`, on the card too.
 
 A produce to a topic whose config carries a deduplication filter answers
 ``SMARTMODULE_ERROR``: that filter needs a look-back, which the port does
-not run. A produce to a topic that sets a retention window or a partition
-size answers ``STORAGE_ERROR``: the port has no cleaner to enforce them.
+not run. A ``READ_COMMITTED`` produce is answered once the leader's HW
+covers the write, which with a replica set of more than one waits for the
+followers' acks (`_wait_for_hw`), or once ``timeout_ms`` has passed: the
+reference answers then too, with the offsets written.
 
 Errors: a chain that does not resolve or build, a `GpuSpill` or
 `EngineError` from the card, or any other failure of a slice's chain
@@ -56,6 +58,7 @@ from fluvio_tpu_torch.schema.spu import (
     FetchOffsetsResponse,
     FetchRequest,
     FetchResponse,
+    Isolation,
     OffsetUpdateStatus,
     PartitionProduceResponse,
     ProduceRequest,
@@ -70,6 +73,7 @@ from fluvio_tpu_torch.schema.spu import (
 from fluvio_tpu_torch.smartengine.engine import EngineError
 from fluvio_tpu_torch.smartengine.gpu.executor import GpuSpill
 from fluvio_tpu_torch.spu.context import GlobalContext
+from fluvio_tpu_torch.spu.replica import LeaderReplicaState
 from fluvio_tpu_torch.spu.smart_chain import (
     BatchProcessResult,
     SmartModuleResolutionError,
@@ -205,14 +209,6 @@ async def handle_produce(ctx: GlobalContext, req: ProduceRequest) -> ProduceResp
                     "does not run"
                 )
                 continue
-            retention = ctx.unenforced_retention(topic_data.name, pdata.partition_index)
-            if retention is not None:
-                presp.error_code = ErrorCode.STORAGE_ERROR
-                presp.error_message = (
-                    f"{topic_data.name}-{pdata.partition_index} sets {retention}, "
-                    "which the SPU does not enforce: it has no log cleaner"
-                )
-                continue
             records = pdata.records
             if chain is not None:
                 try:
@@ -232,11 +228,28 @@ async def handle_produce(ctx: GlobalContext, req: ProduceRequest) -> ProduceResp
                 presp.error_code = e.code
                 presp.error_message = str(e)
                 continue
-            # the HW advances with the local write, so a READ_COMMITTED
-            # ack has nothing to wait for
             presp.base_offset = base
             ctx.metrics.inbound.add(records.total_records(), nbytes)
+            if req.isolation == Isolation.READ_COMMITTED:
+                await _wait_for_hw(leader, leader.leo(), req.timeout_ms)
     return response
+
+
+async def _wait_for_hw(leader: LeaderReplicaState, target: int, timeout_ms: int) -> None:
+    """Block until the HW reaches ``target`` or ``timeout_ms`` passes
+    (read-committed produce acks)."""
+    if leader.hw() >= target:
+        return
+    listener = leader.hw_publisher.change_listener()
+    deadline = asyncio.get_running_loop().time() + timeout_ms / 1000
+    while leader.hw() < target:
+        remaining = deadline - asyncio.get_running_loop().time()
+        if remaining <= 0:
+            return
+        try:
+            await asyncio.wait_for(listener.listen(), timeout=remaining)
+        except asyncio.TimeoutError:
+            return
 
 
 def _dedup_module(ctx: GlobalContext, topic: str, partition: int) -> Optional[str]:

@@ -1,18 +1,22 @@
-"""Leader replica state: storage and offset event publishing.
+"""Leader replica state: storage, offset event publishing and the
+followers' offsets.
 
 The port's copy of the leader half of ``fluvio_tpu/spu/replica.py``
 (parity: fluvio-spu/src/replication/leader/replica_state.rs):
 `LeaderReplicaState` owns the `FileReplica`, serializes writes
-(`write_record_set`), advances the high watermark on the local write
-and publishes LEO and HW changes on `OffsetPublisher`s, which wake the
-stream-fetch loops. A chain attached as ``sm_chain`` transforms every
-produced record set before the log append. Followers and replication,
-and with them an in-sync quorum above 1, are not ported yet.
+(`write_record_set`), and publishes LEO and HW changes on
+`OffsetPublisher`s, which wake the stream-fetch loops and the followers'
+push loops. With ``in_sync_replica`` 1 the high watermark advances on the
+local write; above 1 it advances as followers report their offsets
+(`update_follower_offsets`, replica_state.rs:172), to the highest offset
+``in_sync_replica - 1`` followers hold. A chain attached as ``sm_chain``
+transforms every produced record set before the log append.
 """
 
 from __future__ import annotations
 
 import asyncio
+from typing import Dict, Tuple
 
 from fluvio_tpu_torch.protocol.error import ErrorCode, FluvioError
 from fluvio_tpu_torch.protocol.record import RecordSet
@@ -40,14 +44,19 @@ def _isolation_str(isolation: Isolation) -> str:
 class LeaderReplicaState:
     """One partition's leader: storage, write lock and offset buses."""
 
-    def __init__(self, topic: str, partition: int, config: ReplicaConfig):
+    def __init__(
+        self, topic: str, partition: int, config: ReplicaConfig, in_sync_replica: int = 1
+    ):
         self.topic = topic
         self.partition = partition
         self.replica_key = partition_replica_key(topic, partition)
+        self.in_sync_replica = in_sync_replica
         self.storage = FileReplica(topic, partition, 0, config)
         self.leo_publisher = OffsetPublisher(self.storage.get_leo())
         self.hw_publisher = OffsetPublisher(self.storage.get_hw())
         self._write_lock = asyncio.Lock()
+        # follower spu id -> (leo, hw) as last reported (replica_state.rs:172)
+        self.followers: Dict[int, Tuple[int, int]] = {}
         # a persistent chain every produced record set runs through before
         # the log append (parity: replica_state.rs:394-405 sm_ctx)
         self.sm_chain = None
@@ -76,7 +85,8 @@ class LeaderReplicaState:
     # -- write path ---------------------------------------------------------
 
     async def write_record_set(self, records: RecordSet) -> int:
-        """Append batches; the HW advances with the local write.
+        """Append batches; with ``in_sync_replica`` 1 the HW advances
+        with the local write, else as the followers report.
 
         Returns the base offset assigned to the first batch.
         """
@@ -87,9 +97,12 @@ class LeaderReplicaState:
                 records = await asyncio.to_thread(self._transform, records)
                 if not records.batches:
                     return self.storage.get_leo()
-            base = self.storage.write_recordset(records, update_highwatermark=True)
+            base = self.storage.write_recordset(
+                records, update_highwatermark=(self.in_sync_replica <= 1)
+            )
         self.leo_publisher.update(self.storage.get_leo())
-        self.hw_publisher.update(self.storage.get_hw())
+        if self.in_sync_replica <= 1:
+            self.hw_publisher.update(self.storage.get_hw())
         return base
 
     def _transform(self, records: RecordSet) -> RecordSet:
@@ -105,6 +118,33 @@ class LeaderReplicaState:
 
     def read_records(self, offset: int, max_bytes: int, isolation: Isolation) -> ReplicaSlice:
         return self.storage.read_partition_slice(offset, max_bytes, _isolation_str(isolation))
+
+    # -- follower tracking (replication) ------------------------------------
+
+    def update_follower_offsets(self, spu_id: int, leo: int, hw: int) -> bool:
+        """Record a follower's offsets and maybe advance the HW.
+
+        Parity: update_states_from_followers (replica_state.rs:172) —
+        HW advances to the highest offset replicated by at least
+        ``in_sync_replica - 1`` followers (leader included, bounded by
+        the leader's LEO). Returns True when the HW moved.
+        """
+        self.followers[spu_id] = (leo, hw)
+        if self.in_sync_replica <= 1:
+            return False
+        needed = self.in_sync_replica - 1  # followers besides the leader
+        follower_leos = sorted((l for (l, _) in self.followers.values()), reverse=True)
+        if len(follower_leos) < needed:
+            return False
+        candidate = min(self.leo(), follower_leos[needed - 1])
+        if candidate > self.hw():
+            self.storage.update_high_watermark(candidate)
+            self.hw_publisher.update(self.storage.get_hw())
+            return True
+        return False
+
+    def drop_follower(self, spu_id: int) -> None:
+        self.followers.pop(spu_id, None)
 
     # -- lifecycle ----------------------------------------------------------
 

@@ -4,15 +4,13 @@ The port's copy of ``fluvio_tpu/spu/sc_dispatcher.py`` (parity:
 fluvio-spu/src/control_plane/dispatcher.rs:42): dial the SC's private
 endpoint (with backoff on failure), send RegisterSpu, then loop on the
 push stream applying UpdateSpu / UpdateReplica / UpdateSmartModule.
-Replica adds and removes change the GlobalContext's leader table; pushed
-SmartModules land in its local store. A side loop reports each leader's
-offsets back as UpdateLrs whenever they move.
-
-Followers and replication are not ported, so the SPU refuses an
-assignment in which it is a follower, or the leader of a replica set
-larger than one: it logs an error, holds no replica for that partition
-(a leader it held is closed) and keeps the assignment in ``refused``. It
-never serves such a partition as though it held a quorum.
+Peer SPUs land in the context's ``peers``; replica assignments add,
+promote, demote, re-point and remove the context's leaders and
+followers (a promotion or demotion keeps the storage on disk, and a
+leader's quorum is the size of its replica set); pushed SmartModules
+land in its local store. A side loop reports each leader's offsets, and
+its followers' as the leader saw them, back as UpdateLrs whenever they
+move.
 """
 
 from __future__ import annotations
@@ -51,8 +49,7 @@ class ScDispatcher:
         self._lrs_task: Optional[asyncio.Task] = None
         self._socket: Optional[VersionedSerialSocket] = None
         self.peers: Dict[int, SpuUpdate] = {}
-        # assignments this SPU does not serve (follower, or a replica set > 1)
-        self.refused: Dict[str, Replica] = {}
+        self.first_sync = asyncio.Event()  # set after the first replica update
 
     def start(self) -> None:
         self._task = asyncio.create_task(self._run(), name="sc-dispatcher")
@@ -112,6 +109,7 @@ class ScDispatcher:
             self._apply_spus(update)
         elif update.kind == UpdateKind.REPLICA:
             await self._apply_replicas(update)
+            self.first_sync.set()
         elif update.kind == UpdateKind.SMARTMODULE:
             self._apply_smartmodules(update)
 
@@ -123,58 +121,61 @@ class ScDispatcher:
                 self.peers[s.id] = s
             for key in update.deleted:
                 self.peers.pop(int(key), None)
+        self.ctx.peers = self.peers
+        self.ctx.notify_followers_changed()
 
     async def _apply_replicas(self, update: InternalUpdate) -> None:
         my_id = self.ctx.config.id
         wanted: Dict[str, Replica] = {}
-        refused: Dict[str, Replica] = {}
         for rep in update.replicas:
-            if rep.is_being_deleted or my_id not in rep.replicas:
+            if rep.is_being_deleted:
                 continue
-            key = partition_replica_key(rep.topic, rep.partition)
-            if rep.leader == my_id and len(rep.replicas) == 1:
-                wanted[key] = rep
-            else:
-                refused[key] = rep
-        for key, rep in refused.items():
-            if self.refused.get(key) != rep:
-                role = "leader" if rep.leader == my_id else f"follower of {rep.leader}"
-                logger.error(
-                    "replica %s refused: this SPU would be its %s in the replica set %s, "
-                    "and followers and replication are not ported; it serves nothing "
-                    "for this partition",
-                    key,
-                    role,
-                    rep.replicas,
-                )
-        if update.sync_all:
-            self.refused = refused
-        else:
-            self.refused.update(refused)
-            for key in wanted:
-                self.refused.pop(key, None)
+            if my_id in rep.replicas:
+                wanted[partition_replica_key(rep.topic, rep.partition)] = rep
+        # adds / role changes (promotion and demotion preserve storage)
         for key, rep in wanted.items():
-            if key not in self.ctx.leaders:
-                logger.info("replica add (leader): %s", key)
-            self.ctx.create_replica(rep.topic, rep.partition, rep.config)
-        # removes: leaders no longer assigned to us, or refused now
-        for key in list(self.ctx.leaders):
-            if key in wanted or (not update.sync_all and key not in refused):
-                continue
-            logger.info("replica remove (leader): %s", key)
-            leader = self.ctx.leaders.pop(key)
-            leader.close()
-            if self._socket is not None:
-                try:
-                    await self._socket.send_receive(
-                        ReplicaRemovedRequest(
-                            spu_id=my_id,
-                            topic=leader.topic,
-                            partition=leader.partition,
+            if rep.leader == my_id:
+                if key in self.ctx.followers:
+                    logger.info("replica promote (follower -> leader): %s", key)
+                    self.ctx.promote_follower(rep.topic, rep.partition)
+                elif key not in self.ctx.leaders:
+                    logger.info("replica add (leader): %s", key)
+                self.ctx.create_replica(rep.topic, rep.partition, len(rep.replicas), rep.config)
+            elif key in self.ctx.leaders:
+                logger.info("replica demote (leader -> follower): %s", key)
+                self.ctx.demote_leader(rep.topic, rep.partition, rep.leader)
+            else:
+                cur = self.ctx.followers.get(key)
+                if cur is None:
+                    logger.info("replica add (follower of %s): %s", rep.leader, key)
+                    self.ctx.create_follower(rep.topic, rep.partition, rep.leader, rep.config)
+                elif cur.leader != rep.leader:
+                    logger.info("follower %s re-pointed to leader %s", key, rep.leader)
+                    cur.leader = rep.leader
+        if update.sync_all:
+            # removes: replicas held here that are no longer assigned here
+            for key in list(self.ctx.leaders):
+                if key in wanted:
+                    continue  # kept, or demoted above
+                logger.info("replica remove (leader): %s", key)
+                leader = self.ctx.leaders.pop(key)
+                leader.close()
+                if self._socket is not None:
+                    try:
+                        await self._socket.send_receive(
+                            ReplicaRemovedRequest(
+                                spu_id=my_id,
+                                topic=leader.topic,
+                                partition=leader.partition,
+                            )
                         )
-                    )
-                except Exception:
-                    pass
+                    except Exception:
+                        pass
+            for key in list(self.ctx.followers):
+                if key not in wanted:
+                    logger.info("replica remove (follower): %s", key)
+                    self.ctx.followers.pop(key).close()
+        self.ctx.notify_followers_changed()
 
     def _apply_smartmodules(self, update: InternalUpdate) -> None:
         store = self.ctx.smartmodules
@@ -197,7 +198,7 @@ class ScDispatcher:
     # -- LRS reporting -------------------------------------------------------
 
     def _collect_lrs(self) -> list[LrsStatus]:
-        """Each leader's offsets; a leader here has no followers."""
+        """Each leader's offsets, and its followers' as last reported."""
         out = []
         for leader in self.ctx.leaders.values():
             info = leader.offsets()
@@ -208,12 +209,16 @@ class ScDispatcher:
                     leader=ReplicaStatusUpdate(
                         spu=self.ctx.config.id, hw=info.hw, leo=info.leo
                     ),
+                    replicas=[
+                        ReplicaStatusUpdate(spu=sid, leo=leo, hw=hw)
+                        for sid, (leo, hw) in leader.followers.items()
+                    ],
                 )
             )
         return out
 
     async def _lrs_loop(self) -> None:
-        last: dict[str, tuple[int, int]] = {}
+        last: dict[str, tuple] = {}
         while True:
             await asyncio.sleep(LRS_POLL_INTERVAL)
             socket = self._socket
@@ -222,7 +227,14 @@ class ScDispatcher:
             updates = []
             for lrs in self._collect_lrs():
                 key = f"{lrs.topic}-{lrs.partition}"
-                cur = (lrs.leader.hw, lrs.leader.leo)
+                # the key covers the followers' offsets too: a follower
+                # catching up must reach the SC even when the leader's own
+                # offsets are unchanged
+                cur = (
+                    lrs.leader.hw,
+                    lrs.leader.leo,
+                    tuple(sorted((r.spu, r.leo, r.hw) for r in lrs.replicas)),
+                )
                 if last.get(key) != cur:
                     last[key] = cur
                     updates.append(lrs)

@@ -1,12 +1,15 @@
-"""SPU process assembly (the port's copy of the public half of
-``fluvio_tpu/spu/server.py``; parity: fluvio-spu/src/start.rs).
+"""SPU process assembly (the port's copy of ``fluvio_tpu/spu/server.py``;
+parity: fluvio-spu/src/start.rs).
 
 `SpuServer` builds the `GlobalContext` (its SmartEngine on the card, or
 on the CPU when ``smart_engine.device`` is ``"cpu"``; without CUDA and
 without that, construction raises `EngineError`) and runs the public API
-server and, when ``sc_addr`` is set, the SC dispatcher (register, replica
-and SmartModule pushes, LRS reports). The internal (replication) server,
-followers, monitoring and the retention cleaner are not ported yet.
+server, the internal (replication) server on ``private_addr`` that its
+followers sync from, the followers controller that syncs the replicas
+this SPU follows from their leaders, the retention cleaner and, when
+``sc_addr`` is set, the SC dispatcher (register, replica and SmartModule
+pushes, LRS reports). They start in that order and stop in the reverse
+one. The monitoring socket is not ported.
 
     server = SpuServer(SpuConfig(public_addr="127.0.0.1:0", log_base_dir=d))
     await server.start()
@@ -18,13 +21,19 @@ followers, monitoring and the retention cleaner are not ported yet.
 
 With an SC, the replicas come from the topics an admin creates there
 (``SpuConfig(id=..., sc_addr=sc.private_addr, ...)``, then
-``admin.register_custom_spu(id, server.public_addr)``).
+``admin.register_custom_spu(id, server.public_addr,
+private_addr=server.private_addr)``).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+from fluvio_tpu_torch.spu.cleaner_controller import CleanerController
 from fluvio_tpu_torch.spu.config import SpuConfig
 from fluvio_tpu_torch.spu.context import GlobalContext
+from fluvio_tpu_torch.spu.follower import FollowersController
+from fluvio_tpu_torch.spu.internal_service import SpuInternalService
 from fluvio_tpu_torch.spu.public_service import SpuPublicService
 from fluvio_tpu_torch.spu.sc_dispatcher import ScDispatcher
 from fluvio_tpu_torch.transport.service import FluvioApiServer
@@ -35,14 +44,31 @@ class SpuServer:
         self.config = config
         self.ctx = GlobalContext(config)
         self.public_server = FluvioApiServer(config.public_addr, SpuPublicService(), self.ctx)
+        self.internal_server: Optional[FluvioApiServer] = (
+            FluvioApiServer(config.private_addr, SpuInternalService(), self.ctx)
+            if config.private_addr
+            else None
+        )
+        self.followers_controller = FollowersController(self.ctx)
+        self.ctx.followers_controller = self.followers_controller
+        self.cleaner = CleanerController(self.ctx, config.cleaner_interval_seconds)
         self.sc_dispatcher = ScDispatcher(self.ctx, config.sc_addr) if config.sc_addr else None
 
     @property
     def public_addr(self) -> str:
         return self.public_server.local_addr
 
+    @property
+    def private_addr(self) -> str:
+        assert self.internal_server is not None, "internal server disabled"
+        return self.internal_server.local_addr
+
     async def start(self) -> None:
         await self.public_server.start()
+        if self.internal_server is not None:
+            await self.internal_server.start()
+        self.followers_controller.start()
+        self.cleaner.start()
         if self.sc_dispatcher is not None:
             self.sc_dispatcher.start()
 
@@ -52,5 +78,9 @@ class SpuServer:
     async def stop(self) -> None:
         if self.sc_dispatcher is not None:
             await self.sc_dispatcher.stop()
+        await self.cleaner.stop()
+        await self.followers_controller.stop()
+        if self.internal_server is not None:
+            await self.internal_server.stop()
         await self.public_server.stop()
         self.ctx.close()

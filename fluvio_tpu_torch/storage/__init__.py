@@ -4,10 +4,11 @@
 `FileReplica` holds rolling segments (a ``.log`` batch stream and a
 sparse ``.index``), the high-watermark checkpoint (``replication.chk``),
 crash validation on load, and offset-addressed file-slice reads that feed
-the consume path (`ReplicaSlice`). The retention cleaner is not ported
-yet.
+the consume path (`ReplicaSlice`). `Cleaner` sheds read-only segments by
+age and by the partition's size (cleaner.rs).
 """
 
+from fluvio_tpu_torch.storage.cleaner import Cleaner
 from fluvio_tpu_torch.storage.config import ReplicaConfig
 from fluvio_tpu_torch.storage.replica import FileReplica, FileSlice, OffsetInfo, ReplicaSlice
 
@@ -17,4 +18,5 @@ __all__ = [
     "ReplicaSlice",
     "OffsetInfo",
     "ReplicaConfig",
+    "Cleaner",
 ]

@@ -18,12 +18,14 @@ the same seeded inputs, tolerance 0:
   merged 2-partition stream, the SC's LRS offsets, the admin error codes;
 - an SC of the port seeded from the JAX SC's stores
   (`interop.metadata_from_reference`) answers List and pushes replicas
-  with the same bytes.
+  with the same bytes;
+- an assignment in which an SPU follows another, which leads a replica
+  set of two, and a topic that sets a retention window or a partition
+  size, are served alike: the same roles, produce answers, stored bytes,
+  offsets and LRS (the replication layer itself is held to the JAX
+  package in ``tests/test_torch_replication.py``).
 
 Pinned divergences (each test named for it):
-- an assignment in which the SPU is a follower, or the leader of a
-  replica set larger than one: the JAX SPU serves it; the port's refuses
-  it and holds no replica (followers and replication are not ported);
 - a topic with deduplication: the JAX SPU attaches its dedup chain; the
   port's answers the produce with ``SMARTMODULE_ERROR``;
 - a pushed source that names the JAX package: the JAX SPU runs it; the
@@ -86,8 +88,14 @@ from fluvio_tpu_torch.smartengine import SmartEngine, SmartModuleConfig
 from fluvio_tpu_torch.schema import admin as port_admin_schema
 from fluvio_tpu_torch.schema import controlplane as port_controlplane
 from fluvio_tpu_torch.schema.smartmodule import SmartModuleInvocation, SmartModuleInvocationWasm
-from fluvio_tpu_torch.schema.spu import PartitionProduceData, ProduceRequest, TopicProduceData
+from fluvio_tpu_torch.schema.spu import (
+    Isolation,
+    PartitionProduceData,
+    ProduceRequest,
+    TopicProduceData,
+)
 from fluvio_tpu_torch.transport.versioned import VersionedSerialSocket
+from tests.test_replication import boot_cluster as boot_replicated_cluster
 from tests.test_sc import boot_cluster, shutdown_cluster
 from tests.test_torch_isolation import (
     CLUSTER_WAIT_S,
@@ -95,6 +103,7 @@ from tests.test_torch_isolation import (
     gen_json,
     namespace_invocations,
     produce_all,
+    replica_log,
     shutdown_torch_cluster,
     wait_for_module,
     wait_for_replicas,
@@ -313,9 +322,15 @@ class Side:
         self.AdminError = AdminError if port else RefAdminError
         self.FluvioError = FluvioError if port else RefFluvioError
 
-    async def boot(self, tmp_path, n_spus: int = 1):
+    async def boot(self, tmp_path, n_spus: int = 1, replicated: bool = False):
+        """The side's cluster; ``replicated``: the JAX SPUs register
+        their private addresses too (`tests/test_replication.py`'s
+        `boot_cluster`), so a follower there syncs from its leader, as
+        every port SPU's does."""
         if self.port:
             return await boot_torch_cluster(tmp_path / "port", n_spus, device="cpu")
+        if replicated:
+            return await boot_replicated_cluster(tmp_path / "ref", n_spus)
         return await boot_cluster(tmp_path / "ref", n_spus)
 
     async def shutdown(self, cluster):
@@ -356,6 +371,7 @@ async def _admin_sequence(side, tmp_path):
     try:
         spec = t.TopicSpec.computed(1)
         spec.storage = t.TopicStorageConfig(segment_size=1 << 16)
+        spec.retention_seconds = 3600
         out["create"] = await _status_code(side, admin.create_topic("events", spec))
         out["duplicate"] = await _status_code(side, admin.create_topic("events"))
         out["bad_name"] = await _status_code(side, admin.create_topic("bad topic!"))
@@ -366,7 +382,7 @@ async def _admin_sequence(side, tmp_path):
                                    for o in await admin.list("partition"))
         await wait_for_replicas(spus[0], "events", [0])
         storage = spus[0].ctx.leader_for("events", 0).storage.config
-        out["storage"] = storage.segment_max_bytes
+        out["storage"] = (storage.segment_max_bytes, storage.retention_seconds)
         modules, invocations = namespace_invocations("north_star")
         for name, source in modules:
             await admin.create_smartmodule(name, source)
@@ -406,7 +422,7 @@ def test_admin_produce_and_consume_by_name_equal_the_reference(tmp_path):
     assert got["offsets"] == [(0, i) for i in range(300)]
     assert 0 < len(got["by_name"]) < 300 and got["lrs"] == (5000, 300, 300)
     assert got["after_delete"] == (["wide"], [])
-    assert got["storage"] == 1 << 16
+    assert got["storage"] == (1 << 16, 3600)
 
 
 def test_sc_starts_without_a_card_and_builds_no_engine(tmp_path, monkeypatch):
@@ -536,15 +552,16 @@ def test_port_sc_seeded_from_the_reference_answers_alike(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-async def _produce_direct(addr: str, topic: str, partition: int, values) -> tuple:
-    """One ProduceRequest straight to an SPU: (error code, base offset,
-    error message)."""
+async def _produce_direct(addr: str, topic: str, partition: int, values,
+                          isolation=Isolation.READ_UNCOMMITTED) -> tuple:
+    """One ProduceRequest straight to an SPU, its batch stamped 1,000:
+    (error code, base offset, error message)."""
     socket = await VersionedSerialSocket.connect(addr)
     try:
         records = RecordSet().add(Batch.from_records(
             [Record(value=v) for v in values], first_timestamp=1_000))
-        resp = await socket.send_receive(ProduceRequest(topics=[TopicProduceData(
-            name=topic, partitions=[PartitionProduceData(partition, records)])]))
+        resp = await socket.send_receive(ProduceRequest(isolation=isolation, topics=[
+            TopicProduceData(name=topic, partitions=[PartitionProduceData(partition, records)])]))
         p = resp.find_partition(topic, partition)
         return ErrorCode(p.error_code), p.base_offset, p.error_message
     finally:
@@ -559,51 +576,66 @@ async def _until(predicate, what: str, timeout: float = CLUSTER_WAIT_S):
         await asyncio.sleep(0.02)
 
 
-def test_follower_assignment_divergence_is_pinned(tmp_path):
-    """Two SPUs; topic ``assigned`` places partition 0 on [5001, 5000]: SPU
-    5001 leads a replica set of two and 5000 follows it. The JAX SPUs
-    serve both roles; the port's refuse both (logged, kept in
-    ``sc_dispatcher.refused``), hold no replica and answer a produce with
-    NOT_LEADER_FOR_PARTITION. A single-replica partition of the same
-    topic (1: [5000]) is served by both."""
-    maps = [(0, [5001, 5000]), (1, [5000])]
+ASSIGNED = [(0, [5001, 5000]), (1, [5000])]
 
-    async def ref_body():
-        cluster = await boot_cluster(tmp_path / "ref", 2)
-        sc, admin, (a, b) = cluster
-        try:
-            spec = ref_topic.TopicSpec(replicas=ref_topic.ReplicaSpec.assigned(
-                [ref_topic.PartitionMap(id=i, replicas=r) for i, r in maps]))
-            await admin.create_topic("assigned", spec)
-            await _until(lambda: b.ctx.leader_for("assigned", 0) is not None
-                         and "assigned-0" in a.ctx.followers
-                         and a.ctx.leader_for("assigned", 1) is not None, "JAX replicas")
-        finally:
-            await shutdown_cluster(*cluster)
 
-    async def port_body():
-        cluster = await boot_torch_cluster(tmp_path / "port", 2, device="cpu")
-        sc, admin, (a, b) = cluster
-        try:
-            spec = port_topic.TopicSpec(replicas=port_topic.ReplicaSpec.assigned(
-                [port_topic.PartitionMap(id=i, replicas=r) for i, r in maps]))
-            await admin.create_topic("assigned", spec)
-            await _until(lambda: "assigned-0" in a.sc_dispatcher.refused
-                         and "assigned-0" in b.sc_dispatcher.refused
-                         and a.ctx.leader_for("assigned", 1) is not None, "port replicas")
-            assert a.ctx.leader_for("assigned", 0) is None
-            assert b.ctx.leader_for("assigned", 0) is None and not b.ctx.leaders
-            assert a.sc_dispatcher.refused["assigned-0"].leader == 5001
-            for spu in (a, b):
-                code, _, _ = await _produce_direct(spu.public_addr, "assigned", 0, [b"x"])
-                assert code == ErrorCode.NOT_LEADER_FOR_PARTITION
-            code, base, _ = await _produce_direct(a.public_addr, "assigned", 1, [b"x", b"y"])
-            assert (code, base) == (ErrorCode.NONE, 0)
-        finally:
-            await shutdown_torch_cluster(*cluster)
+async def _assigned_sequence(side, tmp_path):
+    """Two SPUs; topic ``assigned`` places partition 0 on [5001, 5000] (SPU
+    5001 leads a replica set of two, 5000 follows it) and partition 1 on
+    [5000]. Produces straight to each SPU (READ_COMMITTED to the leader of
+    two); then each replica's role, quorum, offsets and stored bytes, and
+    the SC's LRS."""
+    sc, admin, (a, b) = cluster = await side.boot(tmp_path, 2, replicated=True)
+    t, out = side.topic, {}
+    try:
+        spec = t.TopicSpec(replicas=t.ReplicaSpec.assigned(
+            [t.PartitionMap(id=i, replicas=r) for i, r in ASSIGNED]))
+        await admin.create_topic("assigned", spec)
+        await _until(lambda: b.ctx.leader_for("assigned", 0) is not None
+                     and a.ctx.follower_for("assigned", 0) is not None
+                     and a.ctx.leader_for("assigned", 1) is not None, "replicas")
+        out["roles"] = [(sorted(s_.ctx.leaders), sorted(s_.ctx.followers)) for s_ in (a, b)]
+        out["quorum"] = b.ctx.leader_for("assigned", 0).in_sync_replica
+        values = [b"v-%d" % i for i in range(7)]
+        out["produce"] = [
+            (await _produce_direct(spu.public_addr, "assigned", p, values, iso))[:2]
+            for spu, p, iso in ((a, 0, Isolation.READ_UNCOMMITTED),
+                                (b, 0, Isolation.READ_COMMITTED),
+                                (a, 1, Isolation.READ_UNCOMMITTED))]
+        leader, follower = b.ctx.leader_for("assigned", 0), a.ctx.follower_for("assigned", 0)
+        out["acked_hw"] = leader.hw()
+        await _until(lambda: follower.hw() == len(values), "follower HW")
+        out["offsets"] = [(r.leo(), r.hw()) for r in (leader, follower)]
+        logs = [replica_log(r.storage) for r in (leader, follower)]
+        assert logs[0] == logs[1]  # the follower holds the leader's bytes
+        out["log"] = logs[0]
+        obj = await sc.ctx.partitions.wait_action(
+            "assigned-0", lambda o: o is not None and [r.hw for r in o.status.replicas] == [7],
+            timeout=CLUSTER_WAIT_S)
+        st_ = obj.status
+        out["lrs"] = (st_.leader.spu, st_.leader.hw, st_.leader.leo,
+                      [(r.spu, r.leo, r.hw) for r in st_.replicas], st_.lsr)
+    finally:
+        await side.shutdown(cluster)
+    return out
 
-    _run(ref_body())
-    _run(port_body())
+
+def test_follower_assignment_equals_the_reference(tmp_path):
+    """Topic ``assigned`` on [5001, 5000] and [5000]: both packages'
+    SPUs serve the leader of two and its follower alike. A produce to the
+    follower answers NOT_LEADER_FOR_PARTITION; a READ_COMMITTED produce to
+    the leader is answered once the follower holds the records; the
+    follower's log is the leader's bytes, and the SC's LRS lists it in
+    sync."""
+    ref = _run(_assigned_sequence(SIDES[0], tmp_path))
+    got = _run(_assigned_sequence(SIDES[1], tmp_path))
+    assert got == ref
+    assert got["roles"] == [(["assigned-1"], ["assigned-0"]), (["assigned-0"], [])]
+    assert got["quorum"] == 2 and got["acked_hw"] == 7
+    assert got["produce"] == [(ErrorCode.NOT_LEADER_FOR_PARTITION, -1), (ErrorCode.NONE, 0),
+                              (ErrorCode.NONE, 0)]
+    assert got["offsets"] == [(7, 7), (7, 7)]
+    assert got["lrs"] == (5001, 7, 7, [(5000, 7, 7)], 2)
 
 
 DEDUP_VALUES = [b"a", b"b", b"a", b"c", b"b", b"d"]
@@ -617,7 +649,8 @@ def _dedup(t, spec) -> None:
 async def _configured_topic_sequence(side, tmp_path, configure, values=DEDUP_VALUES):
     """Topic ``configured`` created with ``configure(topic module, spec)``
     applied, then ``values`` produced to it through SC routing: the
-    outcome (offsets, or the error) and the records the leader stored."""
+    outcome (offsets, or the error), the records the leader stored and
+    its storage's segment size, retention window and partition size."""
     sc, admin, spus = cluster = await side.boot(tmp_path)
     t = side.topic
     try:
@@ -632,12 +665,15 @@ async def _configured_topic_sequence(side, tmp_path, configure, values=DEDUP_VAL
                 outcome = ("ok", offsets)
             except side.FluvioError as e:
                 outcome = ("error", int(e.code), str(e))
-            stored = spus[0].ctx.leader_for("configured", 0).leo()
+            leader = spus[0].ctx.leader_for("configured", 0)
+            config = leader.storage.config
+            stored = leader.leo()
         finally:
             await client.close()
     finally:
         await side.shutdown(cluster)
-    return outcome, stored
+    return (outcome, stored,
+            (config.segment_max_bytes, config.retention_seconds, config.max_partition_size))
 
 
 def test_dedup_topic_divergence_is_pinned(tmp_path):
@@ -646,8 +682,8 @@ def test_dedup_topic_divergence_is_pinned(tmp_path):
     stores the first of each value; the port's answers the produce with
     SMARTMODULE_ERROR, the code a stream with that module gets, and
     stores nothing."""
-    ref_outcome, ref_stored = _run(_configured_topic_sequence(SIDES[0], tmp_path, _dedup))
-    outcome, stored = _run(_configured_topic_sequence(SIDES[1], tmp_path, _dedup))
+    ref_outcome, ref_stored, _ = _run(_configured_topic_sequence(SIDES[0], tmp_path, _dedup))
+    outcome, stored, _ = _run(_configured_topic_sequence(SIDES[1], tmp_path, _dedup))
     assert ref_outcome[0] == "ok" and ref_stored == 4
     assert outcome[:2] == ("error", ErrorCode.SMARTMODULE_ERROR) and "dedup-filter" in outcome[2]
     assert stored == 0
@@ -661,22 +697,20 @@ def _max_partition_size(t, spec) -> None:
     spec.storage = t.TopicStorageConfig(segment_size=1 << 16, max_partition_size=1 << 30)
 
 
-@pytest.mark.parametrize("configure, setting", [
-    (_retention, "retention_seconds=3600"),
-    (_max_partition_size, "max_partition_size=1073741824"),
+@pytest.mark.parametrize("configure, storage", [
+    (_retention, (1 << 30, 3600, None)),
+    (_max_partition_size, (1 << 16, 7 * 24 * 3600, 1 << 30)),
 ], ids=["retention_seconds", "max_partition_size"])
-def test_retention_topic_divergence_is_pinned(tmp_path, configure, setting):
-    """A topic that sets a retention window or a partition size: the JAX
-    SPU stores the records and its cleaner drops old segments by the
-    setting (none here: an hour, a GiB); the port has no cleaner, so its
-    SPU answers the produce with STORAGE_ERROR naming the setting, and
-    stores nothing, rather than keep data the topic says to drop."""
-    ref_outcome, ref_stored = _run(_configured_topic_sequence(SIDES[0], tmp_path, configure))
-    outcome, stored = _run(_configured_topic_sequence(SIDES[1], tmp_path, configure))
-    assert ref_outcome == ("ok", [(0, i) for i in range(len(DEDUP_VALUES))])
-    assert ref_stored == len(DEDUP_VALUES)
-    assert outcome[:2] == ("error", ErrorCode.STORAGE_ERROR) and setting in outcome[2]
-    assert stored == 0
+def test_retention_topic_equals_the_reference(tmp_path, configure, storage):
+    """A topic that sets a retention window or a partition size: both
+    packages' SPUs store the records (their cleaners drop old segments by
+    the setting; none here: an hour, a GiB) and give the leader's storage
+    the setting."""
+    ref = _run(_configured_topic_sequence(SIDES[0], tmp_path, configure))
+    got = _run(_configured_topic_sequence(SIDES[1], tmp_path, configure))
+    assert got == ref
+    assert got[0] == ("ok", [(0, i) for i in range(len(DEDUP_VALUES))])
+    assert got[1:] == (len(DEDUP_VALUES), storage)
 
 
 JAX_SDK_SOURCE = (

@@ -297,12 +297,20 @@ async def consume_once(consumer, config, offset=None):
 CLUSTER_WAIT_S = 10.0
 
 
+async def wait_spu_online(sc, spu_id: int, online: bool = True, timeout: float = CLUSTER_WAIT_S):
+    """Wait until the SC sees SPU ``spu_id`` online (or offline)."""
+    obj = await sc.ctx.spus.wait_action(
+        str(spu_id), lambda o: o is not None and o.status.is_online() == online, timeout=timeout)
+    if obj is None or obj.status.is_online() != online:
+        raise TimeoutError(f"SPU {spu_id} never went {'on' if online else 'off'}line at the SC")
+
+
 async def boot_torch_cluster(log_dir, n_spus: int = 1, device=None, first_id: int = 5000):
-    """The port's `ScServer` and ``n_spus`` `SpuServer`s on
-    ``127.0.0.1:0`` (ids from ``first_id``, each logging under
-    ``log_dir/spu-<id>``, its SmartEngine on ``device``; None: the card),
-    each registered through ``admin.register_custom_spu`` and online at
-    the SC. Returns (sc, admin, spus)."""
+    """The port's `ScServer` and ``n_spus`` `SpuServer`s (ids from
+    ``first_id``, public and private endpoints on ``127.0.0.1:0``, each
+    logging under ``log_dir/spu-<id>``, its SmartEngine on ``device``;
+    None: the card), each registered through ``admin.register_custom_spu``
+    with both addresses and online at the SC. Returns (sc, admin, spus)."""
     from pathlib import Path as _Path
 
     from fluvio_tpu_torch.client import FluvioAdmin
@@ -318,26 +326,58 @@ async def boot_torch_cluster(log_dir, n_spus: int = 1, device=None, first_id: in
     try:
         for spu_id in range(first_id, first_id + n_spus):
             spu_dir = str(_Path(log_dir) / f"spu-{spu_id}")
-            config = SpuConfig(id=spu_id, public_addr="127.0.0.1:0", sc_addr=sc.private_addr,
-                               log_base_dir=spu_dir, replication=ReplicaConfig(base_dir=spu_dir))
+            config = SpuConfig(id=spu_id, public_addr="127.0.0.1:0", private_addr="127.0.0.1:0",
+                               sc_addr=sc.private_addr, log_base_dir=spu_dir,
+                               replication=ReplicaConfig(base_dir=spu_dir))
             config.smart_engine.device = device
             server = SpuServer(config)
             await server.start()
             spus.append(server)
-            await admin.register_custom_spu(spu_id, server.public_addr)
+            await admin.register_custom_spu(spu_id, server.public_addr,
+                                            private_addr=server.private_addr)
         for server in spus:
-            obj = await sc.ctx.spus.wait_action(
-                str(server.config.id), lambda o: o is not None and o.status.is_online(),
-                timeout=CLUSTER_WAIT_S)
-            if obj is None or not obj.status.is_online():
-                raise TimeoutError(f"SPU {server.config.id} never came online at the SC")
+            await wait_spu_online(sc, server.config.id)
     except BaseException:
         await shutdown_torch_cluster(sc, admin, spus)
         raise
     return sc, admin, spus
 
 
+async def restart_spu(sc, server, make_server):
+    """Start a stopped SPU again: ``make_server(server.config)`` builds it
+    on the same id, config and log directory, its endpoints on
+    ``127.0.0.1:0`` anew (a stopped SPU's ports may be taken); the SPU's
+    spec at the SC takes the new addresses, as a re-registration would,
+    and the SPU comes online there. Serves both packages' clusters (their
+    SCs are one design). Returns the new server."""
+    import dataclasses
+
+    new = make_server(server.config)
+    await new.start()
+    try:
+        key = str(server.config.id)
+        spec = sc.ctx.spus.store.value(key).spec
+        endpoint = type(spec.public_endpoint)
+        await sc.ctx.spus.update_spec(key, dataclasses.replace(
+            spec, public_endpoint=endpoint.from_addr(new.public_addr),
+            private_endpoint=endpoint.from_addr(new.private_addr)))
+        await wait_spu_online(sc, server.config.id)
+    except BaseException:
+        await new.stop()
+        raise
+    return new
+
+
+async def restart_torch_spu(sc, server):
+    """`restart_spu` for a port SPU of `boot_torch_cluster`."""
+    from fluvio_tpu_torch.spu.server import SpuServer
+
+    return await restart_spu(sc, server, SpuServer)
+
+
 async def shutdown_torch_cluster(sc, admin, spus) -> None:
+    """Close the admin client, stop every SPU in ``spus`` (leave out one
+    stopped already) and the SC."""
     await admin.close()
     for server in spus:
         await server.stop()
@@ -374,6 +414,18 @@ async def produce_all(client, topic: str, items, config=None):
     finally:
         await producer.close()
     return [(m.partition, m.offset) for m in metas]
+
+
+def replica_log(storage, max_bytes: int = 16 << 20) -> bytes:
+    """A replica's stored batches from its log start to its LEO, the bytes
+    of each `read_partition_slice` joined (either package's
+    `FileReplica`)."""
+    out, offset = [], storage.get_log_start_offset()
+    while offset < storage.get_leo():
+        sl = storage.read_partition_slice(offset, max_bytes)
+        out.append(sl.file_slice.read_bytes())
+        offset = sl.next_offset
+    return b"".join(out)
 
 
 def namespace_invocations(name: str):
@@ -510,7 +562,9 @@ def test_port_imports_no_jax_and_nothing_of_fluvio_tpu():
                    "sc/controllers/partitions.py", "sc/controllers/spus.py",
                    "sc/services/private_service.py", "sc/services/public_service.py",
                    "sc/start.py", "spu/sc_dispatcher.py", "client/sync.py", "client/admin.py",
-                   "client/producer.py"):
+                   "client/producer.py", "schema/internal_spu.py", "storage/cleaner.py",
+                   "spu/follower.py", "spu/internal_service.py",
+                   "spu/cleaner_controller.py"):
         assert REPO / "fluvio_tpu_torch" / module in files, module
     bad = [
         f"{path.relative_to(REPO)}:{line}: {module}"
@@ -1256,6 +1310,88 @@ def test_cluster_consume_by_name_on_the_card(tmp_path):
             await shutdown_torch_cluster(sc, admin, spus)
         # the producer stamps each batch with the wall clock: compare the
         # records without their timestamps
+        records = [(b.base_offset + r.offset_delta, r.key, r.value)
+                   for b in got for r in b.memory_records()]
+        return offsets, records, launches
+
+    cpu = asyncio.run(asyncio.wait_for(run("cpu"), 300))
+    card = asyncio.run(asyncio.wait_for(run("cuda"), 300))
+    assert card[0] == cpu[0] == [(0, i) for i in range(len(values))]
+    assert card[1] == cpu[1] and 0 < len(card[1]) < len(values)
+    assert card[2]["json_span"] >= 1
+
+
+@pytest.mark.cuda
+def test_replicated_failover_on_the_card(tmp_path):
+    """Phase 16 of the smoke at a small size: a port SC and three SPUs,
+    ``repl`` at rf 3, 8 x 4,096 records produced READ_COMMITTED through
+    the SC; both followers hold the leader's bytes; the leader's SPU
+    stopped, a follower promoted, the north star consumed by name from it
+    through a fresh client. The cluster on the card stores, elects and
+    pushes what the cluster on the CPU does, through the JSON span
+    kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.client import Fluvio, ProducerConfig
+    from fluvio_tpu_torch.metadata.topic import TopicSpec
+    from fluvio_tpu_torch.schema.spu import Isolation
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
+
+    values = gen_json(8 * 4096)
+
+    async def run(device: str):
+        sc, admin, spus = await boot_torch_cluster(tmp_path / device, 3, device=device)
+        live = list(spus)
+        try:
+            await admin.create_topic("repl", TopicSpec.computed(1, 3))
+            obj = await sc.ctx.partitions.wait_action(
+                "repl-0", lambda o: o is not None and o.status.resolution.value == "online",
+                timeout=CLUSTER_WAIT_S)
+            first = next(s for s in spus if s.config.id == obj.spec.leader)
+            others = [s for s in spus if s is not first]
+            modules, invocations = namespace_invocations("north_star")
+            for name, source in modules:
+                await admin.create_smartmodule(name, source)
+                for s in spus:
+                    await wait_for_module(s, name)
+            client = await Fluvio.connect(sc.public_addr)
+            try:
+                offsets = await produce_all(client, "repl", [(None, v) for v in values],
+                                            ProducerConfig(isolation=Isolation.READ_COMMITTED,
+                                                           timeout_ms=60_000))
+            finally:
+                await client.close()
+            leader = first.ctx.leader_for("repl", 0)
+            assert leader.hw() == leader.leo() == len(values), (leader.hw(), leader.leo())
+            deadline = time.monotonic() + CLUSTER_WAIT_S
+            while not all(s.ctx.follower_for("repl", 0).hw() == len(values) for s in others):
+                assert time.monotonic() < deadline, "the followers' HW never reached the LEO"
+                await asyncio.sleep(0.02)
+            log = replica_log(leader.storage)
+            assert all(replica_log(s.ctx.follower_for("repl", 0).storage) == log for s in others)
+            await first.stop()
+            live.remove(first)
+            obj = await sc.ctx.partitions.wait_action(
+                "repl-0", lambda o: o is not None and o.spec.leader != first.config.id
+                and o.status.resolution.value == "online", timeout=CLUSTER_WAIT_S)
+            new = next(s for s in others if s.config.id == obj.spec.leader)
+            deadline = time.monotonic() + CLUSTER_WAIT_S
+            while new.ctx.leader_for("repl", 0) is None:
+                assert time.monotonic() < deadline, "the elected SPU never promoted its replica"
+                await asyncio.sleep(0.02)
+            client = await Fluvio.connect(sc.public_addr)
+            try:
+                consumer = await client.partition_consumer("repl", 0)
+                cuda_kernels.reset_launches()
+                got, _ = await consume_once(
+                    consumer, server_consumer_config(invocations, 64 << 10))
+                launches = dict(cuda_kernels.LAUNCHES)
+            finally:
+                await client.close()
+            m = new.ctx.metrics.smartmodule
+            assert m.fallback_slices == 0 and m.fastpath_slices == len(got) > 1
+        finally:
+            await shutdown_torch_cluster(sc, admin, live)
         records = [(b.base_offset + r.offset_delta, r.key, r.value)
                    for b in got for r in b.memory_records()]
         return offsets, records, launches
