@@ -3386,6 +3386,299 @@ def phase_replication():
     return numbers, launches
 
 
+# phase 17: the durable, secure cluster (the JAX package's `boot_cluster`,
+# `tests/test_sc.py:282`, with `metadata_dir`, TLS and an RBAC policy):
+# compressed topics produced over TLS survive an SC restart and are
+# consumed through card chains
+SECURE = dict(codecs=("lz4", "snappy"), turns=3, wait_s=30.0)
+
+
+def stored_batches(raw: bytes):
+    """The batches of a replica's stored bytes (`replica_log`), each as its
+    own bytes: base offset i64, batch length i32, then that many bytes."""
+    out, pos = [], 0
+    while pos < len(raw):
+        end = pos + 12 + int.from_bytes(raw[pos + 8:pos + 12], "big", signed=True)
+        out.append(raw[pos:end])
+        pos = end
+    return out
+
+
+def _python_decode_batch(wire: bytes):
+    """One stored batch decoded with the pure-Python codecs (`lz4_py`,
+    `snappy_py`; CRC checked): (codec, base offset, first timestamp, the
+    record columns)."""
+    from fluvio_tpu_torch.native import records as native_records
+    from fluvio_tpu_torch.protocol import lz4_py, snappy_py
+    from fluvio_tpu_torch.protocol.codec import ByteReader
+    from fluvio_tpu_torch.protocol.compression import Compression
+    from fluvio_tpu_torch.protocol.record import Batch
+
+    batch = Batch.decode(ByteReader(wire), parse_records=False, check_crc=True)
+    codec = batch.header.compression()
+    plain = {Compression.LZ4: lz4_py, Compression.SNAPPY: snappy_py}[codec]
+    cols = native_records.decode_record_columns(plain.decompress(batch.raw_records), align=1)
+    return codec.name.lower(), batch.base_offset, batch.header.first_timestamp, cols
+
+
+def check_compressed_log(topic: str, codec: str, wires, values):
+    """Every stored batch of ``topic`` carries ``codec``; the log decoded
+    with the pure-Python codec (forked workers) holds exactly ``values`` at
+    offsets 0.. in order, no keys. Returns the stored timestamps a record."""
+    parts = fork_map(lambda ws: [_python_decode_batch(w) for w in ws],
+                     [wires[k:k + 64] for k in range(0, len(wires), 64)])
+    decoded = [d for part in parts for d in part]
+    codecs = {c for c, *_ in decoded}
+    if codecs != {codec}:
+        raise AssertionError(f"secure {topic}: stored batches carry {codecs}, not {codec}")
+    log_ = {"offsets": np.concatenate([b + c["off_delta"] for _, b, _, c in decoded]),
+            "lengths": np.concatenate([c["val_len"] for *_, c in decoded]),
+            "flat": np.concatenate([c["val_flat"] for *_, c in decoded])}
+    if any(c["key_present"].any() for *_, c in decoded):
+        raise AssertionError(f"secure {topic}: a stored record has a key")
+    check_log(f"secure {topic}", log_, values)
+    return np.concatenate([t + c["ts_delta"] for _, _, t, c in decoded])
+
+
+def phase_secure_cluster(cluster_numbers_=None):
+    """Phase 17: the durable, secure cluster on the card. A port
+    `ScServer` with TLS on its public endpoint (verified mode, the
+    committed test certificates), ``metadata_dir`` in a temporary
+    directory and ``auth_policy_path`` a policy under which the ``admins``
+    certificate may do all and the ``viewers`` one may only read; one port
+    `SpuServer` on the card with TLS on its public endpoint. Every client
+    connects through ``Fluvio.connect()`` with no address, from a profile
+    file the port's `ConfigFile` wrote. (a) ``bench-lz4`` and
+    ``bench-snappy`` (``compression_type`` lz4 / snappy) take phase 13's
+    1,048,576 records through the default `ProducerConfig`; every stored
+    batch carries its codec, and each log decoded with the pure-Python
+    codec equals the values; ``bench`` (no compression) takes phase 13's
+    stored log through the leader. (b) the viewer's ``create_topic`` is
+    refused (PERMISSION_DENIED, the JAX SC's code) and a plaintext client
+    is refused by both TLS endpoints. (c) the SC stopped and started again
+    on its metadata directory and addresses: the SPU registers again and
+    shows online; topics, partitions with their leaders and the pushed
+    SmartModules equal those before. (d) a fresh profile client consumes
+    by name: the north star over ``bench-lz4``, ``bench-snappy`` and
+    ``bench`` in turns, then ``flu[vV]io`` and ``3_aggregate`` over each
+    compressed topic; every pass held to the DSL interpreter, 0 fallback
+    slices. Returns (numbers, launches of (d))."""
+    import asyncio
+    import tempfile
+
+    from fluvio_tpu_torch.client import AdminError, Fluvio
+    from fluvio_tpu_torch.metadata.topic import TopicSpec
+    from fluvio_tpu_torch.protocol.error import ErrorCode
+    from fluvio_tpu_torch.protocol.record import RecordSet
+
+    t_phase = time.perf_counter()
+    cfg, cases = SECURE, shared_cases()
+    values = broker_values()
+    n = len(values)
+    truths = {name: broker_truth(name) for name in BROKER_CHAINS}
+    _wires, plain_batches = cases.broker_log(values, BROKER["batch_records"],
+                                             BROKER["first_timestamp"])
+    numbers, launches, raw_logs = {}, {}, {}
+
+    def add_launches(label, counts):
+        numbers.setdefault("launches", {})[label] = dict(counts)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    async def consume_pass(consumer, topic, name, invocations, ts_of, spu):
+        config = cases.server_consumer_config(invocations, BROKER["max_bytes"])
+        phases_from = len(spu.ctx.metrics.slice_phases)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _ = await cases.consume_once(consumer, config)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        results, starts = server_results(got)
+        check_broker_pass(f"secure {topic} {name}", results, starts, truths[name], ts_of=ts_of)
+        return dt, list(spu.ctx.metrics.slice_phases)[phases_from:]
+
+    async def refused(coro) -> str:
+        try:
+            client = await asyncio.wait_for(coro, 10)
+        except (ConnectionError, OSError, EOFError, asyncio.TimeoutError,
+                asyncio.IncompleteReadError) as e:
+            return type(e).__name__
+        await client.close()
+        raise AssertionError("secure: a plaintext client reached a TLS endpoint")
+
+    async def run(work):
+        t0 = time.perf_counter()
+        sc, spu, profiles = await cases.boot_secure_torch_cluster(work)  # the SPU on the card
+        numbers["boot_s"] = time.perf_counter() - t0
+        try:
+            client = await Fluvio.connect(config_path=profiles["admin"])
+            try:
+                admin = await client.admin()
+                for topic, codec in [(f"bench-{c}", c) for c in cfg["codecs"]] + [("bench", None)]:
+                    spec = TopicSpec.computed(1)
+                    if codec:
+                        spec.compression_type = codec
+                    await admin.create_topic(topic, spec)
+                    await cases.wait_for_replicas(spu, topic, [0])
+                pushed = {}
+                for chain in BROKER_CHAINS:
+                    modules, pushed[chain] = cases.namespace_invocations(chain)
+                    for name, source in modules:
+                        await admin.create_smartmodule(name, source)
+                        await cases.wait_for_module(spu, name)
+                await admin.close()
+
+                # (a) produce into the compressed topics; phase 13's log into bench
+                for codec in cfg["codecs"]:
+                    topic = f"bench-{codec}"
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    offsets = await cases.produce_all(client, topic, [(None, v) for v in values])
+                    dt = time.perf_counter() - t0
+                    if offsets != [(0, i) for i in range(n)]:
+                        raise AssertionError(f"secure {topic}: offsets are not 0..{n - 1}")
+                    leader = spu.ctx.leader_for(topic, 0)
+                    raw_logs[topic] = cases.replica_log(leader.storage)
+                    numbers[f"produce_{codec}"] = {"records": n, "seconds": dt,
+                                                   "records_per_s": n / dt,
+                                                   "stored_bytes": len(raw_logs[topic])}
+                leader = spu.ctx.leader_for("bench", 0)
+                for batch in plain_batches:
+                    records = RecordSet()
+                    records.add(batch)
+                    await leader.write_record_set(records)
+            finally:
+                await client.close()
+            stored_ts = {topic: check_compressed_log(topic, topic.split("-")[1],
+                                                     stored_batches(raw), values)
+                         for topic, raw in raw_logs.items()}
+            stored_ts["bench"] = None  # phase 13's log: every record at its first timestamp
+
+            # (b) the viewer may not create; plaintext clients are refused
+            viewer = await Fluvio.connect(config_path=profiles["viewer"])
+            try:
+                vadmin = await viewer.admin()
+                try:
+                    await vadmin.create_topic("bench-viewer", TopicSpec.computed(1))
+                    raise AssertionError("secure: the viewer's create_topic was accepted")
+                except AdminError as e:
+                    status = e.status
+                finally:
+                    await vadmin.close()
+            finally:
+                await viewer.close()
+            if (status.error_code != ErrorCode.PERMISSION_DENIED
+                    or "bench-viewer" in {o.key for o in sc.ctx.topics.store.values()}):
+                raise AssertionError(f"secure: the viewer's create answered {status}")
+            numbers["viewer_create"] = {"error_code": int(status.error_code),
+                                        "error_name": status.error_code.name,
+                                        "message": str(status.error_message)}
+            numbers["plaintext"] = {"sc": await refused(Fluvio.connect(sc.public_addr)),
+                                    "spu": await refused(Fluvio.connect(spu.public_addr))}
+
+            # (c) the SC restarts on its metadata directory and addresses
+            before = cases.cluster_snapshot(sc)
+            t0 = time.perf_counter()
+            sc = await cases.restart_secure_sc(sc, [spu.config.id], timeout=cfg["wait_s"])
+            online_s = time.perf_counter() - t0
+            deadline = time.perf_counter() + cfg["wait_s"]
+            while cases.cluster_snapshot(sc) != before:
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"secure: after the restart the SC holds "
+                                         f"{cases.cluster_snapshot(sc)}, before {before}")
+                await asyncio.sleep(0.005)
+            numbers["restart"] = {
+                "to_spu_online_s": online_s, "to_metadata_equal_s": time.perf_counter() - t0,
+                "topics": sorted(before["topics"]), "smartmodules": sorted(before["smartmodules"]),
+                "leaders": {k: v[0]["leader"] for k, v in before["partitions"].items()}}
+
+            # (d) a fresh profile client consumes every topic by name
+            fresh = await Fluvio.connect(config_path=profiles["admin"])
+            try:
+                topics = [f"bench-{c}" for c in cfg["codecs"]] + ["bench"]
+                consumers = {t: await fresh.partition_consumer(t, 0) for t in topics}
+                passes, phases = {t: [] for t in topics}, {t: [] for t in topics}
+                for t in topics:  # warm: each topic's first pass
+                    await consume_pass(consumers[t], t, "north_star", pushed["north_star"],
+                                       stored_ts[t], spu)
+                for turn in range(cfg["turns"]):
+                    for t in topics[turn % 3:] + topics[:turn % 3]:
+                        if turn == 0:
+                            cuda_kernels.reset_launches()
+                        dt, ph = await consume_pass(consumers[t], t, "north_star",
+                                                    pushed["north_star"], stored_ts[t], spu)
+                        if turn == 0:
+                            add_launches(f"north_star {t}", cuda_kernels.LAUNCHES)
+                        passes[t].append(dt)
+                        phases[t] += ph
+                for t in topics:
+                    numbers[f"north_star {t}"] = {
+                        "records_per_s": n / statistics.median(passes[t]),
+                        "pass_ms": [x * 1e3 for x in passes[t]],
+                        "server_phase_ms_per_slice": {
+                            k: statistics.median([p.get(k, 0.0) for p in phases[t]])
+                            for k in ("read", "decompress", "decode", "stage", "dispatch",
+                                      "finish", "encode", "push", "ack_wait")}}
+                for name in ("flu_regex_filter", "3_aggregate"):
+                    for t in topics[:-1]:
+                        cuda_kernels.reset_launches()
+                        dt, _ = await consume_pass(consumers[t], t, name, pushed[name],
+                                                   stored_ts[t], spu)
+                        add_launches(f"{name} {t}", cuda_kernels.LAUNCHES)
+                        numbers[f"{name} {t}"] = {"records_per_s": n / dt, "pass_ms": dt * 1e3,
+                                                  "outputs": int(len(truths[name][0]))}
+            finally:
+                await fresh.close()
+            m = spu.ctx.metrics.smartmodule.to_dict()
+            if m["fallback_slices"] or not m["fastpath_slices"]:
+                raise AssertionError(f"secure: the SPU's chain metrics {m}")
+            numbers["chain_metrics"] = m
+        finally:
+            await spu.stop()
+            await sc.stop()
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-secure-") as work:
+        asyncio.run(run(Path(work)))
+    log(f"secure: SC and SPU booted with TLS in {numbers['boot_s']:.3f} s; (a) "
+        + "; ".join(f"{c}: {numbers[f'produce_{c}']['records_per_s']:.0f} records/s produced "
+                    f"({numbers[f'produce_{c}']['seconds']:.3f} s, "
+                    f"{numbers[f'produce_{c}']['stored_bytes']} B stored)"
+                    for c in cfg["codecs"])
+        + ", every stored batch in its codec, each log through the pure-Python codec equal "
+          "to the values")
+    log(f"secure: (b) the viewer's create_topic refused with {numbers['viewer_create']}; "
+        f"plaintext clients refused by the SC ({numbers['plaintext']['sc']}) and the SPU "
+        f"({numbers['plaintext']['spu']})")
+    r = numbers["restart"]
+    log(f"secure: (c) the SC restarted on its metadata directory, the SPU online again in "
+        f"{r['to_spu_online_s']:.3f} s after the stop, the metadata equal in "
+        f"{r['to_metadata_equal_s']:.3f} s: topics {r['topics']}, leaders {r['leaders']}, "
+        f"SmartModules {r['smartmodules']}")
+    for t in [f"bench-{c}" for c in cfg["codecs"]] + ["bench"]:
+        nb = numbers[f"north_star {t}"]
+        log(f"secure: (d) north star by name over {t}: {nb['records_per_s']:.0f} records/s "
+            f"(passes {[round(x, 3) for x in nb['pass_ms']]} ms), server ms a slice "
+            f"{ {k: round(v, 3) for k, v in nb['server_phase_ms_per_slice'].items()} }")
+    for name in ("flu_regex_filter", "3_aggregate"):
+        log(f"secure: (d) {name}: " + ", ".join(
+            f"{t} {numbers[f'{name} {t}']['records_per_s']:.0f} records/s"
+            for t in [f"bench-{c}" for c in cfg["codecs"]]))
+    log(f"secure: every pass equal to the DSL interpreter, chain metrics "
+        f"{numbers['chain_metrics']}; launches by arm {numbers['launches']}")
+    if cluster_numbers_ is not None:
+        log(f"secure beside the cluster: north star through the SC over bench-lz4 "
+            f"{numbers['north_star bench-lz4']['records_per_s']:.0f}, bench-snappy "
+            f"{numbers['north_star bench-snappy']['records_per_s']:.0f}, bench "
+            f"{numbers['north_star bench']['records_per_s']:.0f} records/s; phase 15's (b) "
+            f"{cluster_numbers_['consume_by_name']['sc_records_per_s']:.0f}")
+    for k in ("json_span", "extract", "dfa_scan"):
+        if not launches.get(k):
+            raise AssertionError(f"secure: kernel {k} never launched in phase 17")
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"secure: phase 17 took {numbers['phase_s']:.1f} s, host truth included")
+    return numbers, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -3418,6 +3711,9 @@ def main(argv=None) -> int:
     parser.add_argument("--replication-only", action="store_true",
                         help="build the kernels and run only replication: an SC and three SPUs, "
                              "rf 3, a failover and a rejoin (phase 16; no ok line)")
+    parser.add_argument("--secure-cluster-only", action="store_true",
+                        help="build the kernels and run only the durable, secure cluster: TLS, "
+                             "RBAC, lz4 and snappy topics, an SC restart (phase 17; no ok line)")
     parser.add_argument("--striped-slice-only", action="store_true",
                         help="build the kernels and run only phase 12 (with phase 9's aggregate "
                              "chains and phase 11, whose D2H it reads; no ok line)")
@@ -3496,6 +3792,11 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"replication": numbers}))
         return 0
+    if args.secure_cluster_only:
+        numbers, _launches = phase_secure_cluster()
+        print(smi)
+        print(json.dumps({"secure_cluster": numbers}))
+        return 0
     if args.striped_slice_only:
         json_corpora = [gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)]
         slice_numbers, _ops = phase_slice(json_corpora, ("3_aggregate", "filter_aggregate"))
@@ -3543,6 +3844,8 @@ def main(argv=None) -> int:
     lap("15 cluster")
     repl_numbers, repl_launches = phase_replication()
     lap("16 replication")
+    secure_numbers, secure_launches = phase_secure_cluster(cluster_numbers_)
+    lap("17 secure cluster")
     log(f"replication beside the cluster: north star by name through the SC from the promoted "
         f"leader {repl_numbers['north_star_after_failover']['sc_records_per_s']:.0f} records/s, "
         f"phase 15's (b) {cluster_numbers_['consume_by_name']['sc_records_per_s']:.0f}; produce "
@@ -3554,7 +3857,8 @@ def main(argv=None) -> int:
                 **{f"broker_{k}": v for k, v in broker_numbers.items()},
                 **{f"server_{k}": v for k, v in server_numbers.items()},
                 "cluster": {"launches": cluster_launches},
-                "replication": {"launches": repl_launches}}
+                "replication": {"launches": repl_launches},
+                "secure_cluster": {"launches": secure_launches}}
     for r in rows:
         r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in by_chain.items()}
     chain_launches = [v["launches"] for v in by_chain.values()]
@@ -3582,6 +3886,7 @@ def main(argv=None) -> int:
                                for k, v in server_numbers.items()},
                     "cluster": cluster_numbers_,
                     "replication": repl_numbers,
+                    "secure_cluster": secure_numbers,
                     "build_seconds": KERNELS.build_seconds}))
     log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
                     "device": smi}))

@@ -1,10 +1,11 @@
-"""Authorization interfaces and the allow-all policy.
+"""Authorization interfaces and built-in policies (the port's copy of
+``fluvio_tpu/auth/policy.py``).
 
-The port's copy of the parts of ``fluvio_tpu/auth/policy.py`` the SC uses
-(parity: fluvio-auth/src/policy.rs): `TypeAction{Create,Read}`,
-`InstanceAction{Delete}`, the object classes and the SC's built-in
-`RootAuthorization`, whose per-connection context answers
-`allow_type_action` / `allow_instance_action` with yes.
+Capability parity: fluvio-auth/src/policy.rs — `TypeAction{Create,Read}`,
+`InstanceAction{Delete}`, `AuthContext::{allow_type_action,
+allow_instance_action}`, `Authorization::create_auth_context(socket)` —
+plus the SC's built-in Root (allow-all) and ReadOnly authorizators
+(fluvio-sc/src/services/auth/mod.rs).
 """
 
 from __future__ import annotations
@@ -51,7 +52,26 @@ _KIND_MAP = {
 }
 
 
-class RootAuthContext:
+class AuthContext:
+    """Per-connection authorization decisions."""
+
+    def allow_type_action(self, ty: ObjectType, action: TypeAction) -> bool:
+        raise NotImplementedError
+
+    def allow_instance_action(
+        self, ty: ObjectType, action: InstanceAction, key: str
+    ) -> bool:
+        raise NotImplementedError
+
+
+class Authorization:
+    """Factory: one AuthContext per accepted connection."""
+
+    def create_auth_context(self, socket) -> AuthContext:
+        raise NotImplementedError
+
+
+class RootAuthContext(AuthContext):
     """Allow everything (parity: the SC's `RootAuthorization`)."""
 
     def allow_type_action(self, ty, action) -> bool:
@@ -61,8 +81,22 @@ class RootAuthContext:
         return True
 
 
-class RootAuthorization:
-    """One `RootAuthContext` per accepted connection."""
-
+class RootAuthorization(Authorization):
     def create_auth_context(self, socket) -> RootAuthContext:
         return RootAuthContext()
+
+
+class ReadOnlyAuthContext(AuthContext):
+    """Allow reads only (parity: the SC's `ReadOnlyAuthorization`, used
+    by the read-only run mode)."""
+
+    def allow_type_action(self, ty, action) -> bool:
+        return action == TypeAction.READ
+
+    def allow_instance_action(self, ty, action, key) -> bool:
+        return False
+
+
+class ReadOnlyAuthorization(Authorization):
+    def create_auth_context(self, socket) -> ReadOnlyAuthContext:
+        return ReadOnlyAuthContext()

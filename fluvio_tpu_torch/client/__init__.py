@@ -3,10 +3,17 @@
 `topic_producer`, `consumer`) or to a lone SPU; `FluvioAdmin`;
 `TopicProducer` and its `ProducerConfig`; `PartitionConsumer`,
 `MultiplePartitionConsumer` and its `PartitionSelectionStrategy`, their
-`Offset` and `ConsumerConfig`. The profile config and TLS are not
-ported."""
+`Offset` and `ConsumerConfig`; the profile file (`ConfigFile`) and its
+`TlsPolicy`."""
 
 from fluvio_tpu_torch.client.admin import AdminError, FluvioAdmin
+from fluvio_tpu_torch.client.config import (
+    Config,
+    ConfigFile,
+    FluvioClusterConfig,
+    Profile,
+    TlsPolicy,
+)
 from fluvio_tpu_torch.client.consumer import (
     ConsumerConfig,
     ConsumerRecord,
@@ -25,16 +32,21 @@ from fluvio_tpu_torch.client.producer import (
 
 __all__ = [
     "AdminError",
+    "Config",
+    "ConfigFile",
     "ConsumerConfig",
     "ConsumerRecord",
     "Fluvio",
     "FluvioAdmin",
+    "FluvioClusterConfig",
     "MultiplePartitionConsumer",
     "Offset",
     "PartitionConsumer",
     "PartitionSelectionStrategy",
+    "Profile",
     "ProducerConfig",
     "RecordMetadata",
     "RetryPolicy",
+    "TlsPolicy",
     "TopicProducer",
 ]

@@ -51,8 +51,8 @@ class FluvioAdmin:
         self._socket = socket
 
     @classmethod
-    async def connect(cls, sc_addr: str) -> "FluvioAdmin":
-        return cls(await VersionedSerialSocket.connect(sc_addr))
+    async def connect(cls, sc_addr: str, tls=None) -> "FluvioAdmin":
+        return cls(await VersionedSerialSocket.connect(sc_addr, tls=tls))
 
     async def close(self) -> None:
         await self._socket.close()

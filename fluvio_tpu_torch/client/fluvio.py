@@ -9,8 +9,10 @@ Two modes, told apart by the api keys the endpoint advertises:
 - **Lone-SPU mode**: dial one SPU's public endpoint; the pool is that one
   connection.
 
-The address is required: the profile config (``~/.fluvio-tpu/config``) is
-not ported, and neither is TLS.
+With no address, `Fluvio.connect` takes the active profile's endpoint and
+TLS policy from the profile file (`client/config.py`,
+``~/.fluvio-tpu/config`` unless ``config_path`` names another). The TLS
+policy applies to the SC, every SPU dial and the admin client.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import asyncio
 from typing import Dict, Optional
 
 from fluvio_tpu_torch.client.admin import FluvioAdmin
+from fluvio_tpu_torch.client.config import current_cluster
 from fluvio_tpu_torch.client.consumer import (
     MultiplePartitionConsumer,
     PartitionConsumer,
@@ -42,9 +45,11 @@ class SpuPool:
         self,
         default_addr: Optional[str] = None,
         metadata: Optional[MetadataStores] = None,
+        tls=None,
     ):
         self._default_addr = default_addr
         self._metadata = metadata
+        self._tls = tls  # the client TlsPolicy of every SPU dial
         self._sockets: Dict[str, VersionedSerialSocket] = {}
 
     async def addr_for(self, topic: str, partition: int) -> str:
@@ -70,7 +75,7 @@ class SpuPool:
             if sock is not None and not sock.is_stale:
                 return sock
             try:
-                sock = await VersionedSerialSocket.connect(addr)
+                sock = await VersionedSerialSocket.connect(addr, tls=self._tls)
                 self._sockets[addr] = sock
                 return sock
             except OSError as e:
@@ -96,28 +101,40 @@ class Fluvio:
         metadata: Optional[MetadataStores] = None,
         sc_socket: Optional[VersionedSerialSocket] = None,
         sc_addr: Optional[str] = None,
+        tls=None,
     ):
         self._pool = pool
         self._metadata = metadata
         self._sc_socket = sc_socket
         self._sc_addr = sc_addr
+        self._tls = tls
 
     @classmethod
-    async def connect(cls, addr: str) -> "Fluvio":
+    async def connect(
+        cls, addr: Optional[str] = None, tls=None, config_path: Optional[str] = None
+    ) -> "Fluvio":
         """Connect to a cluster at ``host:port``: an SC's public endpoint
-        or a lone SPU."""
-        socket = await VersionedSerialSocket.connect(addr)
+        or a lone SPU. With no address, the active profile's endpoint and,
+        unless ``tls`` is given, its TLS policy (parity: Fluvio::connect ->
+        ConfigFile, fluvio.rs:56)."""
+        if addr is None:
+            cluster = current_cluster(config_path)
+            addr = cluster.endpoint
+            if tls is None and cluster.tls.mode != "disabled":
+                tls = cluster.tls
+        socket = await VersionedSerialSocket.connect(addr, tls=tls)
         if socket.versions.lookup_version(AdminApiKey.CREATE) is not None:
             metadata = MetadataStores(socket)
             await metadata.start()
             return cls(
-                SpuPool(metadata=metadata),
+                SpuPool(metadata=metadata, tls=tls),
                 metadata=metadata,
                 sc_socket=socket,
                 sc_addr=addr,
+                tls=tls,
             )
         await socket.close()
-        pool = SpuPool(default_addr=addr)
+        pool = SpuPool(default_addr=addr, tls=tls)
         await pool.socket_for("", 0)  # eager validation + version negotiation
         return cls(pool)
 
@@ -128,7 +145,7 @@ class Fluvio:
     async def admin(self) -> FluvioAdmin:
         if self._sc_addr is None:
             raise RuntimeError("admin API requires an SC connection")
-        return await FluvioAdmin.connect(self._sc_addr)
+        return await FluvioAdmin.connect(self._sc_addr, tls=self._tls)
 
     async def topic_producer(
         self,

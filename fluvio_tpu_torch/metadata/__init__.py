@@ -2,9 +2,10 @@
 parity: `fluvio-controlplane-metadata`).
 
 Topic / Partition / Spu / SpuGroup / SmartModule / TableFormat specs and
-statuses, shared by the SC, the SPU's SC dispatcher and the admin client.
-The metadata backends (a YAML directory, K8s) are not ported: the port's
-SC keeps its metadata in memory.
+statuses, shared by the SC, the SPU's SC dispatcher and the admin client;
+the SC's metadata backends (`client.py`: in memory, or a directory of one
+file an object, read and written through `yaml_subset.py`) and their
+reconcile loop (`dispatcher.py`). The K8s backend is not ported.
 """
 
 from fluvio_tpu_torch.metadata.topic import (  # noqa: F401

@@ -14,7 +14,7 @@ shared-memory images) live on its one device, so a group cannot move to
 another card the way the reference moves a dispatch with
 ``jax.default_device``. This slice runs every group on ``executor.device``:
 a fold over two or more distinct devices raises (cross-card placement is
-``ROADMAP.md`` §1 item 8). On one card every group folds onto it, and a
+``ROADMAP.md`` §1 item 6). On one card every group folds onto it, and a
 carry "migration" after a move or a group failure re-points the bank and
 copies nothing.
 
@@ -144,7 +144,7 @@ class PartitionRuntime:
             raise ValueError(
                 f"the partition fold spans {len(distinct)} devices; this runtime runs "
                 "every group on its executor's one device (cross-card placement is "
-                "ROADMAP.md §1 item 8)"
+                "ROADMAP.md §1 item 6)"
             )
         if distinct != {_canonical(executor.device)}:
             raise ValueError(

@@ -3,16 +3,19 @@
 The port's copy of ``fluvio_tpu/protocol/compression.py`` (parity: the
 `fluvio-compression` crate, gzip/snappy/lz4/zstd). Codec ids live in the
 low 3 bits of the batch attributes word. gzip runs through zlib; lz4 and
-snappy through their wheels when installed, else through the bundled
-pure-Python codecs (`lz4_py.py`, `snappy_py.py`), so a stored lz4 or
-snappy topic decodes anywhere; zstd needs the ``zstandard`` package, as
-in the reference.
+snappy through the native library ``native/codecs.cpp`` only
+(``native_codecs.py``, built with g++ at first use; a library that does
+not build raises ``CodecLibraryUnavailable``, nothing falls back to the
+pure-Python ``lz4_py.py`` / ``snappy_py.py``); zstd needs the
+``zstandard`` package, as in the reference.
 """
 
 from __future__ import annotations
 
 import enum
 import gzip as _gzip
+
+from fluvio_tpu_torch.protocol import native_codecs
 
 
 class UnsupportedCompression(Exception):
@@ -43,28 +46,6 @@ except ImportError:  # pragma: no cover
     _zstd = None
 
 
-def _lz4():
-    try:
-        import lz4.frame as wheel  # type: ignore
-
-        return wheel
-    except ImportError:
-        from fluvio_tpu_torch.protocol import lz4_py
-
-        return lz4_py
-
-
-def _snappy():
-    try:
-        import snappy as wheel  # type: ignore
-
-        return wheel
-    except ImportError:
-        from fluvio_tpu_torch.protocol import snappy_py
-
-        return snappy_py
-
-
 def compress(codec: Compression, data: bytes) -> bytes:
     if codec == Compression.NONE:
         return data
@@ -75,9 +56,9 @@ def compress(codec: Compression, data: bytes) -> bytes:
             raise UnsupportedCompression("zstd not available")
         return _ZSTD_C.compress(data)
     if codec == Compression.LZ4:
-        return _lz4().compress(data)
+        return native_codecs.lz4_compress(data)
     if codec == Compression.SNAPPY:
-        return _snappy().compress(data)
+        return native_codecs.snappy_compress(data)
     raise UnsupportedCompression(f"unknown codec {codec}")
 
 
@@ -91,7 +72,7 @@ def decompress(codec: Compression, data: bytes) -> bytes:
             raise UnsupportedCompression("zstd not available")
         return _ZSTD_D.decompress(data)
     if codec == Compression.LZ4:
-        return _lz4().decompress(data)
+        return native_codecs.lz4_decompress(data)
     if codec == Compression.SNAPPY:
-        return _snappy().decompress(data)
+        return native_codecs.snappy_decompress(data)
     raise UnsupportedCompression(f"unknown codec {codec}")

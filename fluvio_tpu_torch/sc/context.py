@@ -75,10 +75,10 @@ class HealthStore:
 class ScContext:
     """Everything SC controllers and services share."""
 
-    def __init__(self) -> None:
-        # admin API access policy: allow-all, the reference's
+    def __init__(self, authorization=None) -> None:
+        # admin API access policy; default allow-all, like the reference's
         # RootAuthorization when no x509 auth is configured
-        self.authorization = RootAuthorization()
+        self.authorization = authorization or RootAuthorization()
         self.topics: StoreContext[TopicSpec] = StoreContext(TopicSpec)
         self.partitions: StoreContext[PartitionSpec] = StoreContext(PartitionSpec)
         self.spus: StoreContext[SpuSpec] = StoreContext(SpuSpec)

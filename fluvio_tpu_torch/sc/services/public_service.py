@@ -2,7 +2,7 @@
 
 Capability parity: fluvio-sc/src/services/public_api/ — the generic
 object dispatch (create.rs/delete.rs/list.rs/watch.rs:244). Create
-validates + applies to the store context (in memory);
+validates + applies to the store context (the dispatcher persists it);
 topic creates can optionally wait for a final resolution. Watch opens a
 server-push stream of epoch-fenced updates per kind.
 

@@ -56,6 +56,8 @@ array (``transform-error``).
 
 from __future__ import annotations
 
+import functools
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -558,6 +560,124 @@ def _link_counts() -> Dict[str, int]:
         glz.DECLINE_BELOW_MIN: 0, glz.DECLINE_RATIO: 0, glz.DECLINE_ENC_RATIO: 0,
         "h2d_bytes": 0, "d2h_bytes": 0,
     }
+
+
+_FETCH_POOL: Optional[ThreadPoolExecutor] = None
+_FETCH_POOL_LOCK = threading.Lock()
+
+
+def fetch_mat_pool() -> ThreadPoolExecutor:
+    """The process-wide single-worker pool of the deferred finish: batch
+    k's `_materialize_view_flat` thunk runs here while the calling thread
+    dispatches batch k+1 and waits for its downloads. One worker keeps
+    completion in dispatch order; every executor shares it."""
+    global _FETCH_POOL
+    with _FETCH_POOL_LOCK:
+        if _FETCH_POOL is None:
+            _FETCH_POOL = ThreadPoolExecutor(max_workers=1, thread_name_prefix="fetch-mat")
+        return _FETCH_POOL
+
+
+def _view_keys(buf: RecordBuffer, count: int, rows: int, src):
+    """Survivor key columns for view-mode outputs."""
+    if buf.has_keys():
+        out_keys = np.zeros((rows, buf.keys.shape[1]), dtype=np.uint8)
+        out_klens = np.full((rows,), -1, dtype=np.int32)
+        out_keys[:count] = buf.keys[src]
+        out_klens[:count] = buf.key_lengths[src]
+    else:
+        out_keys = np.zeros((rows, 1), dtype=np.uint8)
+        out_klens = np.full((rows,), -1, dtype=np.int32)
+    return out_keys, out_klens
+
+
+def _materialize_view_flat(
+    buf: RecordBuffer, count: int, rows: int, vw: int,
+    st: np.ndarray, ln: np.ndarray, src: np.ndarray, postops, fanout: bool,
+) -> RecordBuffer:
+    """Flat-backed view materialization: gather every survivor's bytes
+    straight into the 4-aligned ragged form — O(sum of lengths), no
+    padded matrix.
+
+    Fast path: survivor ranges in the input flat are ascending and
+    disjoint for every real view (whole records, JsonGet spans), so one
+    boolean range-select extracts the payload. Alignment-overrun or
+    overlapping spans fall back to the exact gather."""
+    ln64 = ln.astype(np.int64)
+    l4 = (ln64 + 3) & ~3
+    starts64 = np.cumsum(l4) - l4
+    total = int(l4.sum()) if count else 0
+    flat_out = np.zeros((total,), dtype=np.uint8)
+    if count and total:
+        in_flat, in_starts = buf.ragged_values()
+        if len(in_flat):
+            base = in_starts.astype(np.int64)[src] + st
+            fast = (
+                base[0] >= 0
+                and base[-1] + l4[-1] <= len(in_flat)
+                and bool((base[1:] >= base[:-1] + l4[:-1]).all())
+            )
+            if fast:
+                flat_out = ragged_range_select(in_flat, base, l4)
+                # zero the alignment-pad tail bytes (<= 3 per record)
+                pad = l4 - ln64
+                if pad.any():
+                    npad = int(pad.sum())
+                    padbase = np.repeat(starts64 + ln64, pad)
+                    within = np.arange(npad, dtype=np.int64) - np.repeat(
+                        np.cumsum(pad) - pad, pad
+                    )
+                    flat_out[padbase + within] = 0
+            else:
+                pos = np.arange(total, dtype=np.int64) - np.repeat(starts64, l4)
+                idx = np.clip(np.repeat(base, l4) + pos, 0, len(in_flat) - 1)
+                keep = pos < np.repeat(ln64, l4)
+                flat_out = np.where(keep, in_flat[idx], 0).astype(np.uint8)
+        flat_out = apply_postops_host(flat_out, postops)
+    out_lengths = np.zeros((rows,), dtype=np.int32)
+    out_lengths[:count] = ln64
+    starts = np.zeros((rows,), dtype=np.int32)
+    starts[:count] = starts64
+    starts[count:] = total
+    out_keys, out_klens = _view_keys(buf, count, rows, src)
+    return _assemble(buf, count, rows, out_lengths, out_keys, out_klens, src,
+                     flat_out, starts, vw, fanout)
+
+
+def _assemble(buf, count, rows, out_lengths, out_keys, out_klens, src,
+              flat: np.ndarray, starts: np.ndarray, vw: int, fanout: bool) -> RecordBuffer:
+    """The flat-backed output buffer (``flat``/``starts`` the 4-aligned
+    ragged values): offset/timestamp columns rebuilt from survivor
+    source rows, the source's deltas where stages keep row identity;
+    explode outputs are fresh records of their source record's batch,
+    so they take the buffer's fresh deltas (zeros when it has none, as
+    the interpreter makes fresh records)."""
+    out_off = np.zeros((rows,), dtype=np.int32)
+    out_ts = np.zeros((rows,), dtype=np.int64)
+    src_c = np.clip(src[:count], 0, buf.offset_deltas.shape[0] - 1)
+    if not fanout:
+        out_off[:count] = buf.offset_deltas[src_c]
+        out_ts[:count] = buf.timestamp_deltas[src_c]
+    else:
+        if buf.fresh_offset_deltas is not None:
+            out_off[:count] = buf.fresh_offset_deltas[src_c]
+        if buf.fresh_timestamp_deltas is not None:
+            out_ts[:count] = buf.fresh_timestamp_deltas[src_c]
+    return RecordBuffer(
+        values=None,
+        lengths=out_lengths,
+        keys=out_keys,
+        key_lengths=out_klens,
+        offset_deltas=out_off,
+        timestamp_deltas=out_ts,
+        count=count,
+        base_offset=buf.base_offset,
+        base_timestamp=buf.base_timestamp,
+        _flat=flat,
+        _starts=starts,
+        _width=vw,
+        _rows=rows,
+    )
 
 
 class GpuChainExecutor:
@@ -1083,6 +1203,18 @@ class GpuChainExecutor:
         :class:`GpuSpill` (``fanout-overflow``). A record that is no JSON
         array raises :class:`GpuSpill` (``transform-error``). Either way
         the carries are back where the batch found them."""
+        out = self.finish_buffer_deferred(buf, handle)
+        return out() if callable(out) else out
+
+    def finish_buffer_deferred(self, buf: RecordBuffer, handle: _Fetch):
+        """`finish_buffer` with its pure host half split off: every
+        download, the overflow re-dispatch, a `GpuSpill` with its carry
+        restore and the link's byte accounting settle here, on the
+        calling thread; then it returns the finished buffer (byte mode)
+        or a zero-argument thunk, pure numpy over host arrays that
+        touches no executor state, which rebuilds the view-mode output
+        (`_materialize_view_flat`). The stream loops run the thunk on
+        `fetch_mat_pool()` while the next batch dispatches."""
         try:
             try:
                 return self._finish(buf, handle)
@@ -1159,7 +1291,8 @@ class GpuChainExecutor:
             ln = host["span_len"][:count].astype(np.int32)
         self.link_counts[variant] += 1
         vw = min(_pad_slice(max(max_v, 1)), buf.width)
-        return self._materialize_view_flat(buf, count, rows, vw, st, ln, src)
+        return functools.partial(_materialize_view_flat, buf, count, rows, vw, st, ln, src,
+                                 self._view_postops, self._fanout)
 
     def _download_src(self, col: torch.Tensor, delta: torch.Tensor, probe: Sequence[int],
                       count: int, rows: int) -> np.ndarray:
@@ -1251,107 +1384,8 @@ class GpuChainExecutor:
             out_klens = np.full((rows,), -1, dtype=np.int32)
             out_keys = np.zeros((rows, 1), dtype=np.uint8)
         self.link_counts[variant] += 1
-        return self._assemble(buf, count, rows, out_lengths.numpy(), out_keys, out_klens, src,
-                              flat_src[:total], starts.numpy(), vw)
-
-    def _view_keys(self, buf: RecordBuffer, count: int, rows: int, src):
-        """Survivor key columns for view-mode outputs."""
-        if buf.has_keys():
-            out_keys = np.zeros((rows, buf.keys.shape[1]), dtype=np.uint8)
-            out_klens = np.full((rows,), -1, dtype=np.int32)
-            out_keys[:count] = buf.keys[src]
-            out_klens[:count] = buf.key_lengths[src]
-        else:
-            out_keys = np.zeros((rows, 1), dtype=np.uint8)
-            out_klens = np.full((rows,), -1, dtype=np.int32)
-        return out_keys, out_klens
-
-    def _materialize_view_flat(
-        self, buf: RecordBuffer, count: int, rows: int, vw: int,
-        st: np.ndarray, ln: np.ndarray, src: np.ndarray,
-    ) -> RecordBuffer:
-        """Flat-backed view materialization: gather every survivor's bytes
-        straight into the 4-aligned ragged form — O(sum of lengths), no
-        padded matrix.
-
-        Fast path: survivor ranges in the input flat are ascending and
-        disjoint for every real view (whole records, JsonGet spans), so one
-        boolean range-select extracts the payload. Alignment-overrun or
-        overlapping spans fall back to the exact gather."""
-        ln64 = ln.astype(np.int64)
-        l4 = (ln64 + 3) & ~3
-        starts64 = np.cumsum(l4) - l4
-        total = int(l4.sum()) if count else 0
-        flat_out = np.zeros((total,), dtype=np.uint8)
-        if count and total:
-            in_flat, in_starts = buf.ragged_values()
-            if len(in_flat):
-                base = in_starts.astype(np.int64)[src] + st
-                fast = (
-                    base[0] >= 0
-                    and base[-1] + l4[-1] <= len(in_flat)
-                    and bool((base[1:] >= base[:-1] + l4[:-1]).all())
-                )
-                if fast:
-                    flat_out = ragged_range_select(in_flat, base, l4)
-                    # zero the alignment-pad tail bytes (<= 3 per record)
-                    pad = l4 - ln64
-                    if pad.any():
-                        npad = int(pad.sum())
-                        padbase = np.repeat(starts64 + ln64, pad)
-                        within = np.arange(npad, dtype=np.int64) - np.repeat(
-                            np.cumsum(pad) - pad, pad
-                        )
-                        flat_out[padbase + within] = 0
-                else:
-                    pos = np.arange(total, dtype=np.int64) - np.repeat(starts64, l4)
-                    idx = np.clip(np.repeat(base, l4) + pos, 0, len(in_flat) - 1)
-                    keep = pos < np.repeat(ln64, l4)
-                    flat_out = np.where(keep, in_flat[idx], 0).astype(np.uint8)
-            flat_out = apply_postops_host(flat_out, self._view_postops)
-        out_lengths = np.zeros((rows,), dtype=np.int32)
-        out_lengths[:count] = ln64
-        starts = np.zeros((rows,), dtype=np.int32)
-        starts[:count] = starts64
-        starts[count:] = total
-        out_keys, out_klens = self._view_keys(buf, count, rows, src)
-        return self._assemble(buf, count, rows, out_lengths, out_keys, out_klens, src,
-                              flat_out, starts, vw)
-
-    def _assemble(self, buf, count, rows, out_lengths, out_keys, out_klens, src,
-                  flat: np.ndarray, starts: np.ndarray, vw: int) -> RecordBuffer:
-        """The flat-backed output buffer (``flat``/``starts`` the 4-aligned
-        ragged values): offset/timestamp columns rebuilt from survivor
-        source rows, the source's deltas where stages keep row identity;
-        explode outputs are fresh records of their source record's batch,
-        so they take the buffer's fresh deltas (zeros when it has none, as
-        the interpreter makes fresh records)."""
-        out_off = np.zeros((rows,), dtype=np.int32)
-        out_ts = np.zeros((rows,), dtype=np.int64)
-        src_c = np.clip(src[:count], 0, buf.offset_deltas.shape[0] - 1)
-        if not self._fanout:
-            out_off[:count] = buf.offset_deltas[src_c]
-            out_ts[:count] = buf.timestamp_deltas[src_c]
-        else:
-            if buf.fresh_offset_deltas is not None:
-                out_off[:count] = buf.fresh_offset_deltas[src_c]
-            if buf.fresh_timestamp_deltas is not None:
-                out_ts[:count] = buf.fresh_timestamp_deltas[src_c]
-        return RecordBuffer(
-            values=None,
-            lengths=out_lengths,
-            keys=out_keys,
-            key_lengths=out_klens,
-            offset_deltas=out_off,
-            timestamp_deltas=out_ts,
-            count=count,
-            base_offset=buf.base_offset,
-            base_timestamp=buf.base_timestamp,
-            _flat=flat,
-            _starts=starts,
-            _width=vw,
-            _rows=rows,
-        )
+        return _assemble(buf, count, rows, out_lengths.numpy(), out_keys, out_klens, src,
+                         flat_src[:total], starts.numpy(), vw, self._fanout)
 
     # -- entry points ----------------------------------------------------------
 
@@ -1387,6 +1421,9 @@ class GpuChainExecutor:
         job is settled before that buffer dispatches. The cost of that
         lookahead: batch k-1's results yield once batch k+1 has arrived.
 
+        Each batch finishes through `finish_buffer_deferred`: its view
+        rebuild runs on `fetch_mat_pool()` while the next batch dispatches.
+
         A chain with an explode and an aggregate runs one batch at a time:
         an overflow re-dispatch restarts its batch from the carries that
         the next batch's dispatch would already have moved on from."""
@@ -1401,25 +1438,51 @@ class GpuChainExecutor:
             yield from self._pipeline(iter(bufs), pool)
 
     def _pipeline(self, it, pool: Optional[ThreadPoolExecutor]):
+        """Batch k's deferred finish settles on this thread, then its thunk
+        runs on `fetch_mat_pool()` while batch k+1 dispatches and batch k-1's
+        thunk is collected. A failure drains the thunk in flight (its
+        batch is delivered) before it propagates."""
         pending = None
         job = None
+        mat = None  # the previous batch's thunk on the fetch worker
         cur = next(it, None)
-        while cur is not None:
-            try:
-                if job is not None:
-                    job.result()  # the worker never races a dispatch on its buffer
-                    job = None
-                handle = self.dispatch_buffer(cur)
-            except BaseException:
+        try:
+            while cur is not None:
+                try:
+                    if job is not None:
+                        job.result()  # the worker never races a dispatch on its buffer
+                        job = None
+                    handle = self.dispatch_buffer(cur)
+                except BaseException:
+                    if mat is not None:
+                        done, mat = mat, None
+                        yield done.result()
+                    if pending is not None:
+                        yield self.finish_buffer(*pending)
+                    raise
+                nxt = next(it, None)
+                if nxt is not None and pool is not None:
+                    job = pool.submit(self._compressed, nxt)
                 if pending is not None:
-                    yield self.finish_buffer(*pending)
-                raise
-            nxt = next(it, None)
-            if nxt is not None and pool is not None:
-                job = pool.submit(self._compressed, nxt)
+                    out = self.finish_buffer_deferred(*pending)
+                    if mat is not None:
+                        done, mat = mat, None
+                        yield done.result()
+                    if callable(out):
+                        mat = fetch_mat_pool().submit(out)
+                    else:
+                        yield out
+                pending = (cur, handle)
+                cur = nxt
             if pending is not None:
-                yield self.finish_buffer(*pending)
-            pending = (cur, handle)
-            cur = nxt
-        if pending is not None:
-            yield self.finish_buffer(*pending)
+                out = self.finish_buffer_deferred(*pending)
+                if mat is not None:
+                    done, mat = mat, None
+                    yield done.result()
+                yield out() if callable(out) else out
+        except GeneratorExit:
+            raise
+        except BaseException:
+            if mat is not None:
+                yield mat.result()
+            raise

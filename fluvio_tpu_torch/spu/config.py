@@ -4,7 +4,8 @@ parity: fluvio-spu/src/config/spu_config.rs).
 The SmartEngine runs on the card: ``smart_engine.device`` None means the
 CUDA card (the server raises at construction when there is none), and
 ``"cpu"`` runs the kernels' plain torch versions, which the tests ask
-for. The public endpoint is plaintext TCP. With ``sc_addr`` set the SPU
+for. ``tls`` turns on TLS at the public endpoint; the private one stays
+plaintext, as in the reference. With ``sc_addr`` set the SPU
 registers with that SC's private endpoint and takes its replicas and
 SmartModules from it (`sc_dispatcher.ScDispatcher`). ``private_addr`` is
 the internal endpoint its followers sync from (empty: no internal
@@ -21,6 +22,7 @@ from typing import Optional
 
 from fluvio_tpu_torch.smartengine.engine import DEFAULT_STORE_MAX_MEMORY
 from fluvio_tpu_torch.storage.config import ReplicaConfig
+from fluvio_tpu_torch.transport.tls import ServerTlsConfig
 from fluvio_tpu_torch.types import SPU_PUBLIC_PORT
 
 
@@ -44,6 +46,7 @@ class SpuConfig:
     # retention cleaner pass period (cleaner.rs:20 `CLEANING_INTERVAL`);
     # <= 0 disables the background task
     cleaner_interval_seconds: float = 30.0
+    tls: ServerTlsConfig = field(default_factory=ServerTlsConfig)
 
     def __post_init__(self) -> None:
         if self.replication.base_dir in (".", ""):

@@ -4,7 +4,7 @@ parity: fluvio-spu/src/start.rs).
 `SpuServer` builds the `GlobalContext` (its SmartEngine on the card, or
 on the CPU when ``smart_engine.device`` is ``"cpu"``; without CUDA and
 without that, construction raises `EngineError`) and runs the public API
-server, the internal (replication) server on ``private_addr`` that its
+server (TLS when ``config.tls`` is enabled), the internal (replication) server on ``private_addr`` that its
 followers sync from, the followers controller that syncs the replicas
 this SPU follows from their leaders, the retention cleaner and, when
 ``sc_addr`` is set, the SC dispatcher (register, replica and SmartModule
@@ -37,13 +37,16 @@ from fluvio_tpu_torch.spu.internal_service import SpuInternalService
 from fluvio_tpu_torch.spu.public_service import SpuPublicService
 from fluvio_tpu_torch.spu.sc_dispatcher import ScDispatcher
 from fluvio_tpu_torch.transport.service import FluvioApiServer
+from fluvio_tpu_torch.transport.tls import server_ssl
 
 
 class SpuServer:
     def __init__(self, config: SpuConfig):
         self.config = config
         self.ctx = GlobalContext(config)
-        self.public_server = FluvioApiServer(config.public_addr, SpuPublicService(), self.ctx)
+        self.public_server = FluvioApiServer(
+            config.public_addr, SpuPublicService(), self.ctx, ssl_context=server_ssl(config.tls)
+        )
         self.internal_server: Optional[FluvioApiServer] = (
             FluvioApiServer(config.private_addr, SpuInternalService(), self.ctx)
             if config.private_addr

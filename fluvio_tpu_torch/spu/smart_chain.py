@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import hashlib
 import time
+from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence
 
@@ -57,6 +58,7 @@ from fluvio_tpu_torch.smartengine.engine import (
     SmartModuleChainInstance,
 )
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+from fluvio_tpu_torch.smartengine.gpu.executor import fetch_mat_pool
 from fluvio_tpu_torch.smartmodule.types import (
     SmartModuleInput,
     SmartModuleTransformRuntimeError,
@@ -485,19 +487,33 @@ def gpu_finish(
     longest prefix that fits ``max_bytes`` (at least one record).
     Aggregate chains deliver every output: their carries have moved on.
     The batch's ``last_offset_delta`` spans the consumed range, filtered
-    records included. A chunk that raises (`GpuSpill`, a device error)
-    discards the chunks after it, leaves the carries where that chunk
-    found them and propagates."""
+    records included. A slice of several chunks finishes each through
+    `finish_buffer_deferred` and rebuilds it on `fetch_mat_pool()`;
+    ``phase_ms["finish"]`` includes the wait for the last rebuild. A chunk
+    that raises (`GpuSpill`, a device error) discards the chunks after it,
+    leaves the carries where that chunk found them and propagates once
+    the rebuilds in flight have ended."""
     gpu = chain.gpu_chain
     base0, ts0 = pending.base0, pending.ts0
     result = BatchProcessResult(next_offset=pending.planned_next, phase_ms=dict(pending.phase_ms))
     t0 = time.perf_counter()
-    outbufs = []
+    # each chunk's downloads and failures settle here, in order, and its
+    # pure rebuild runs on the fetch worker: chunk k materializes while
+    # chunk k+1's results download
+    overlap = len(pending.chunks) > 1
+    parts = []
     try:
         for b, h in pending.chunks:
-            outbufs.append(gpu.finish_buffer(b, h))
+            out = gpu.finish_buffer_deferred(b, h)
+            if callable(out):
+                out = fetch_mat_pool().submit(out) if overlap else out()
+            parts.append(out)
+        outbufs = [p.result() if isinstance(p, Future) else p for p in parts]
     except BaseException:
-        for _, h in reversed(pending.chunks[len(outbufs):]):
+        for p in parts:  # drain what is in flight before the error propagates
+            if isinstance(p, Future):
+                p.exception()
+        for _, h in reversed(pending.chunks[len(parts):]):
             gpu.discard_dispatch(h)
         raise
     outbuf = outbufs[0] if len(outbufs) == 1 else _MergedOut(outbufs)

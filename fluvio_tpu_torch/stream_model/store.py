@@ -5,9 +5,9 @@ fluvio-stream-model/src/store/{dual_store.rs,event.rs}): `LocalStore`
 wraps the DualEpochMap behind an async notify bus; a `ChangeListener`
 wakes when the store's epoch moves past what it has seen (`listen` /
 `sync_changes`); `StoreContext.wait_action` waits for a change to land
-(the admin API acks a topic create with it). The port keeps its metadata
-in memory only, so `StoreContext` writes the store and queues no action
-for a durable backend.
+(the admin API acks a topic create with it). With a metadata backend
+attached (`metadata/dispatcher.py`), every write also queues an action
+that the dispatcher persists.
 """
 
 from __future__ import annotations
@@ -136,24 +136,54 @@ class LocalStore(Generic[S]):
 
 
 class StoreContext(Generic[S]):
-    """A store and the async write API controllers use (parity:
-    StoreContext in dual_store.rs, without its metadata-backend actions)."""
+    """A store plus the write-intent channel of its metadata backend.
+
+    Parity: StoreContext in dual_store.rs — `apply` / `delete` mutate the
+    local store and, once a dispatcher has attached (`attach_backend`),
+    queue an action for it, as the SC's changes flow to its local-file
+    source of truth. Without a backend nothing is queued.
+    """
 
     def __init__(self, spec_type: type):
         self.spec_type = spec_type
         self.store: LocalStore[S] = LocalStore(spec_type)
+        self._actions: Optional[asyncio.Queue] = None
+
+    # actions: ("apply", obj) | ("delete", key)
+
+    def attach_backend(self) -> None:
+        if self._actions is None:
+            self._actions = asyncio.Queue()
+
+    async def next_action(self):
+        return await self._actions.get()
+
+    def pending_actions(self) -> int:
+        return self._actions.qsize() if self._actions is not None else 0
+
+    def send_action(self, action) -> None:
+        if self._actions is not None:
+            self._actions.put_nowait(action)
 
     async def apply(self, obj: MetadataStoreObject[S]) -> None:
         self.store.apply(obj)
+        self.send_action(("apply", obj))
 
     async def update_spec(self, key: str, spec: S) -> None:
         self.store.update_spec(key, spec)
+        obj = self.store.value(key)
+        if obj is not None:
+            self.send_action(("apply", obj))
 
     async def update_status(self, key: str, status) -> None:
         self.store.update_status(key, status)
+        obj = self.store.value(key)
+        if obj is not None:
+            self.send_action(("apply", obj))
 
     async def delete(self, key: str) -> None:
         self.store.delete(key)
+        self.send_action(("delete", key))
 
     async def wait_action(
         self,

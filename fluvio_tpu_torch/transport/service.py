@@ -31,10 +31,11 @@ class FluvioService(Generic[C]):
 class FluvioApiServer(Generic[C]):
     """Bind + accept loop + per-connection handler tasks."""
 
-    def __init__(self, addr: str, service: FluvioService[C], context: C):
+    def __init__(self, addr: str, service: FluvioService[C], context: C, ssl_context=None):
         self.addr = addr
         self.service = service
         self.context = context
+        self.ssl_context = ssl_context  # a TLS-terminating endpoint when set
         self.shutdown = StickyEvent()
         self._server: asyncio.AbstractServer | None = None
         self._conn_tasks: set = set()
@@ -50,7 +51,7 @@ class FluvioApiServer(Generic[C]):
     async def start(self) -> None:
         host, port_s = self.addr.rsplit(":", 1)
         self._server = await asyncio.start_server(
-            self._handle_connection, host, int(port_s)
+            self._handle_connection, host, int(port_s), ssl=self.ssl_context
         )
         logger.debug("server listening on %s", self.local_addr)
 

@@ -2,8 +2,8 @@
 parity: fluvio-socket/src/socket.rs).
 
 Frame layout both directions: ``i32 payload_len`` + payload bytes, the
-wire format of `fluvio_tpu_torch.protocol.api`. Plaintext TCP only: the
-port has no TLS yet.
+wire format of `fluvio_tpu_torch.protocol.api`; TLS through
+`transport/tls.py` when `connect` is given a client `TlsPolicy`.
 """
 
 from __future__ import annotations
@@ -49,6 +49,14 @@ class FluvioSocket:
     def peer_addr(self) -> str:
         info = self.writer.get_extra_info("peername")
         return f"{info[0]}:{info[1]}" if info else "<unknown>"
+
+    def peer_cert(self) -> Optional[dict]:
+        """The peer's TLS certificate (None on plaintext / no client cert):
+        the x509 identity's source (`auth/identity.py`)."""
+        ssl_obj = self.writer.get_extra_info("ssl_object")
+        if ssl_obj is None:
+            return None
+        return ssl_obj.getpeercert() or None
 
     def set_stale(self) -> None:
         self._stale = True
@@ -122,10 +130,19 @@ class FluvioStream:
         return ByteReader(payload)
 
 
-async def connect(addr: str) -> FluvioSocket:
-    """Connect to ``host:port``."""
+async def connect(addr: str, tls=None) -> FluvioSocket:
+    """Connect to ``host:port`` (``tls``: a client `TlsPolicy`). A failed
+    handshake raises; nothing retries in plaintext."""
+    from fluvio_tpu_torch.transport.tls import client_ssl
+
     host, port_s = addr.rsplit(":", 1)
-    reader, writer = await asyncio.open_connection(host, int(port_s))
+    ctx, sni = client_ssl(tls)
+    if ctx is None:
+        reader, writer = await asyncio.open_connection(host, int(port_s))
+    else:
+        reader, writer = await asyncio.open_connection(
+            host, int(port_s), ssl=ctx, server_hostname=sni or host
+        )
     return FluvioSocket(reader, writer)
 
 

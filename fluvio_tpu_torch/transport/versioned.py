@@ -33,8 +33,8 @@ class VersionedSerialSocket:
         self.versions = versions
 
     @classmethod
-    async def connect(cls, addr: str) -> "VersionedSerialSocket":
-        socket = await connect(addr)
+    async def connect(cls, addr: str, tls=None) -> "VersionedSerialSocket":
+        socket = await connect(addr, tls=tls)
         return await cls.from_socket(socket)
 
     @classmethod

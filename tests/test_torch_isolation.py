@@ -9,8 +9,10 @@
 - On a machine with a card (marker ``cuda``; skipped elsewhere), each CUDA
   kernel equals its plain torch version exactly on the same inputs, and
   the aggregate and explode chains, the windowed runtime, the
-  partition runtime, the broker's consume slice, the SPU server and the
-  cluster (an SC, its SPU, the producer) give the card the CPU's outputs.
+  partition runtime, the broker's consume slice, the SPU server, the
+  cluster (an SC, its SPU, the producer), replication and the secure
+  cluster (TLS, RBAC, compressed topics, an SC restart) give the card the
+  CPU's outputs.
 
 The bench corpora and the DFA scan's cases live here, free of jax, so
 that the CPU tests, the card tests and ``chip_smoke.py`` share them.
@@ -305,21 +307,23 @@ async def wait_spu_online(sc, spu_id: int, online: bool = True, timeout: float =
         raise TimeoutError(f"SPU {spu_id} never went {'on' if online else 'off'}line at the SC")
 
 
-async def boot_torch_cluster(log_dir, n_spus: int = 1, device=None, first_id: int = 5000):
-    """The port's `ScServer` and ``n_spus`` `SpuServer`s (ids from
-    ``first_id``, public and private endpoints on ``127.0.0.1:0``, each
-    logging under ``log_dir/spu-<id>``, its SmartEngine on ``device``;
-    None: the card), each registered through ``admin.register_custom_spu``
-    with both addresses and online at the SC. Returns (sc, admin, spus)."""
+async def boot_torch_cluster(log_dir, n_spus: int = 1, device=None, first_id: int = 5000,
+                             metadata_dir=None):
+    """The port's `ScServer` (its metadata in memory, or in
+    ``metadata_dir``) and ``n_spus`` `SpuServer`s (ids from ``first_id``,
+    public and private endpoints on ``127.0.0.1:0``, each logging under
+    ``log_dir/spu-<id>``, its SmartEngine on ``device``; None: the card),
+    each registered through ``admin.register_custom_spu`` with both
+    addresses and online at the SC. Returns (sc, admin, spus)."""
     from pathlib import Path as _Path
 
     from fluvio_tpu_torch.client import FluvioAdmin
-    from fluvio_tpu_torch.sc import ScServer
+    from fluvio_tpu_torch.sc import ScConfig, ScServer
     from fluvio_tpu_torch.spu.config import SpuConfig
     from fluvio_tpu_torch.spu.server import SpuServer
     from fluvio_tpu_torch.storage.config import ReplicaConfig
 
-    sc = ScServer()
+    sc = ScServer(ScConfig(metadata_dir=str(metadata_dir) if metadata_dir else None))
     await sc.start()
     admin = await FluvioAdmin.connect(sc.public_addr)
     spus = []
@@ -443,6 +447,171 @@ def namespace_invocations(name: str):
     return modules, out
 
 
+# The secure cluster (TLS on both public endpoints, the SC's metadata in a
+# directory, an RBAC policy over the client certificates' identities),
+# jax-free, shared by `tests/test_torch_secure_cluster.py`, the card test
+# below and `chip_smoke.py`'s phase 17. The certificates are committed test
+# material (`tests/data/tls/README.md`); nothing generates them.
+TLS_DIR = REPO / "tests" / "data" / "tls"
+# role (a certificate's O) -> the action it may take on every object type
+SECURE_ROLES = {"admins": "All", "viewers": "Read"}
+SECURE_OBJECT_TYPES = ("Spu", "CustomSpu", "SpuGroup", "Topic", "Partition", "SmartModule",
+                       "TableFormat")
+
+
+def tls_files(tls_dir=TLS_DIR) -> dict:
+    """Paths of the test CA, the server's certificate and key, and the two
+    client certificates and keys (``admin``: CN=alice, O=admins;
+    ``viewer``: CN=bob, O=viewers)."""
+    names = {"ca": "ca.crt", "server_cert": "server.crt", "server_key": "server.key",
+             "admin_cert": "admin.crt", "admin_key": "admin.key",
+             "viewer_cert": "viewer.crt", "viewer_key": "viewer.key"}
+    return {k: str(Path(tls_dir) / v) for k, v in names.items()}
+
+
+def server_tls(config_cls, require_client_cert: bool = False):
+    """An endpoint's TLS (either package's `ServerTlsConfig`): the server
+    certificate, client certificates verified against the test CA."""
+    f = tls_files()
+    return config_cls(enabled=True, server_cert=f["server_cert"], server_key=f["server_key"],
+                      ca_cert=f["ca"], require_client_cert=require_client_cert)
+
+
+def client_tls(policy_cls, who: str = "admin"):
+    """A verified client `TlsPolicy` (either package's) presenting ``who``'s
+    certificate; None presents none."""
+    f = tls_files()
+    cert = {"client_cert": f[f"{who}_cert"], "client_key": f[f"{who}_key"]} if who else {}
+    return policy_cls(mode="verified", domain="localhost", ca_cert=f["ca"], **cert)
+
+
+def rbac_policy() -> dict:
+    """The secure cluster's `BasicRbacPolicy` roles: admins may do all,
+    viewers may read, on every object type."""
+    return {role: {ty: [action] for ty in SECURE_OBJECT_TYPES}
+            for role, action in SECURE_ROLES.items()}
+
+
+def write_rbac_policy(path) -> str:
+    """`rbac_policy` as the JSON file ``auth_policy_path`` names."""
+    Path(path).write_text(json.dumps(rbac_policy()))
+    return str(path)
+
+
+def write_profile(path, endpoint: str, who: str = "admin") -> str:
+    """A profile file, written by the port's `ConfigFile`, whose current
+    profile reaches ``endpoint`` with ``who``'s certificate."""
+    from fluvio_tpu_torch.client.config import ConfigFile, FluvioClusterConfig, TlsPolicy
+
+    cf = ConfigFile(str(path))
+    cf.config.add_cluster("secure", FluvioClusterConfig(endpoint=endpoint,
+                                                        tls=client_tls(TlsPolicy, who)))
+    cf.save()
+    return str(path)
+
+
+def secure_sc_config(work_dir, public_addr: str = "127.0.0.1:0",
+                     private_addr: str = "127.0.0.1:0"):
+    """The port's `ScConfig` of the secure cluster under ``work_dir``:
+    ``metadata/``, ``policy.json``, TLS on the public endpoint."""
+    from fluvio_tpu_torch.sc import ScConfig
+    from fluvio_tpu_torch.transport.tls import ServerTlsConfig
+
+    work = Path(work_dir)
+    work.mkdir(parents=True, exist_ok=True)
+    return ScConfig(public_addr=public_addr, private_addr=private_addr,
+                    metadata_dir=str(work / "metadata"),
+                    auth_policy_path=write_rbac_policy(work / "policy.json"),
+                    tls=server_tls(ServerTlsConfig))
+
+
+async def boot_secure_torch_cluster(work_dir, device=None, spu_id: int = 5000):
+    """The port's secure `ScServer` (`secure_sc_config`) and one `SpuServer`
+    (TLS on its public endpoint, its SmartEngine on ``device``; None: the
+    card), registered by the admin identity through a client of its
+    profile and online at the SC. Returns (sc, spu, profiles: who -> the
+    profile file of ``admin`` and ``viewer``)."""
+    from fluvio_tpu_torch.client import Fluvio
+    from fluvio_tpu_torch.sc import ScServer
+    from fluvio_tpu_torch.spu.config import SpuConfig
+    from fluvio_tpu_torch.spu.server import SpuServer
+    from fluvio_tpu_torch.storage.config import ReplicaConfig
+    from fluvio_tpu_torch.transport.tls import ServerTlsConfig
+
+    work = Path(work_dir)
+    sc = ScServer(secure_sc_config(work))
+    await sc.start()
+    spu = None
+    try:
+        profiles = {who: write_profile(work / f"config-{who}", sc.public_addr, who)
+                    for who in ("admin", "viewer")}
+        spu_dir = str(work / f"spu-{spu_id}")
+        config = SpuConfig(id=spu_id, public_addr="127.0.0.1:0", private_addr="127.0.0.1:0",
+                           sc_addr=sc.private_addr, log_base_dir=spu_dir,
+                           replication=ReplicaConfig(base_dir=spu_dir),
+                           tls=server_tls(ServerTlsConfig))
+        config.smart_engine.device = device
+        spu = SpuServer(config)
+        await spu.start()
+        client = await Fluvio.connect(config_path=profiles["admin"])
+        try:
+            admin = await client.admin()
+            await admin.register_custom_spu(spu_id, spu.public_addr,
+                                            private_addr=spu.private_addr)
+            await admin.close()
+        finally:
+            await client.close()
+        await wait_spu_online(sc, spu_id)
+    except BaseException:
+        if spu is not None:
+            await spu.stop()
+        await sc.stop()
+        raise
+    return sc, spu, profiles
+
+
+async def restart_secure_sc(sc, spu_ids, timeout: float = CLUSTER_WAIT_S):
+    """Stop ``sc`` and start the port's SC again on its config, its
+    metadata directory and the addresses it had bound; wait until every
+    SPU of ``spu_ids`` has registered again (the new SC's health bus) and
+    shows online in its SPU store. Returns the new SC."""
+    import dataclasses
+
+    from fluvio_tpu_torch.sc import ScServer
+
+    config = dataclasses.replace(sc.config, public_addr=sc.public_addr,
+                                 private_addr=sc.private_addr)
+    await sc.stop()
+    new = ScServer(config)
+    await new.start()
+    try:
+        deadline = time.monotonic() + timeout
+        while not all(new.ctx.health.is_online(i) for i in spu_ids):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"SPUs {list(spu_ids)} never registered with the new SC")
+            await asyncio.sleep(0.005)
+        for i in spu_ids:
+            await wait_spu_online(new, i, timeout=timeout)
+    except BaseException:
+        await new.stop()
+        raise
+    return new
+
+
+def cluster_snapshot(sc) -> dict:
+    """What an SC restart must keep: every topic's spec and resolution,
+    every partition's spec (leader, replicas) and resolution, and the
+    SmartModules' names and payloads."""
+    return {
+        "topics": {o.key: (o.spec.to_dict(), o.status.resolution.value)
+                   for o in sc.ctx.topics.store.values()},
+        "partitions": {o.key: (o.spec.to_dict(), o.status.resolution.value)
+                       for o in sc.ctx.partitions.store.values()},
+        "smartmodules": {o.key: o.spec.artifact.payload
+                         for o in sc.ctx.smartmodules.store.values()},
+    }
+
+
 # The DFA scan's cases, shared by the card test below and the CPU spec of
 # the kernel's walk (`tests/test_torch_dfa_redesign.py`); jax-free, since
 # the card's machine has no jax.
@@ -564,7 +733,10 @@ def test_port_imports_no_jax_and_nothing_of_fluvio_tpu():
                    "sc/start.py", "spu/sc_dispatcher.py", "client/sync.py", "client/admin.py",
                    "client/producer.py", "schema/internal_spu.py", "storage/cleaner.py",
                    "spu/follower.py", "spu/internal_service.py",
-                   "spu/cleaner_controller.py"):
+                   "spu/cleaner_controller.py", "protocol/native_codecs.py",
+                   "transport/tls.py", "client/config.py", "metadata/yaml_subset.py",
+                   "metadata/client.py", "metadata/dispatcher.py", "auth/basic.py",
+                   "auth/identity.py"):
         assert REPO / "fluvio_tpu_torch" / module in files, module
     bad = [
         f"{path.relative_to(REPO)}:{line}: {module}"
@@ -1401,3 +1573,93 @@ def test_replicated_failover_on_the_card(tmp_path):
     assert card[0] == cpu[0] == [(0, i) for i in range(len(values))]
     assert card[1] == cpu[1] and 0 < len(card[1]) < len(values)
     assert card[2]["json_span"] >= 1
+
+
+async def _secure_cluster_sequence(work, device: str, values):
+    """Phase 17 of the smoke at a small size, on ``device``: the secure
+    cluster; ``bench-lz4`` and ``bench-snappy`` produced through a profile
+    client over TLS; the viewer's create refused; the SC restarted on its
+    metadata directory with its metadata intact; the north star consumed
+    by name from both topics through a fresh profile client. Returns
+    ({topic: the consumed records without timestamps}, the viewer's error
+    code, launches)."""
+    from fluvio_tpu_torch.client import AdminError, Fluvio
+    from fluvio_tpu_torch.metadata.topic import TopicSpec
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
+
+    sc, spu, profiles = await boot_secure_torch_cluster(work, device=device)
+    try:
+        client = await Fluvio.connect(config_path=profiles["admin"])
+        try:
+            admin = await client.admin()
+            for codec in ("lz4", "snappy"):
+                spec = TopicSpec.computed(1)
+                spec.compression_type = codec
+                await admin.create_topic(f"bench-{codec}", spec)
+                await wait_for_replicas(spu, f"bench-{codec}", [0])
+            modules, invocations = namespace_invocations("north_star")
+            for name, source in modules:
+                await admin.create_smartmodule(name, source)
+                await wait_for_module(spu, name)
+            await admin.close()
+            for codec in ("lz4", "snappy"):
+                offsets = await produce_all(client, f"bench-{codec}", [(None, v) for v in values])
+                assert offsets == [(0, i) for i in range(len(values))]
+        finally:
+            await client.close()
+        viewer = await Fluvio.connect(config_path=profiles["viewer"])
+        try:
+            vadmin = await viewer.admin()
+            with pytest.raises(AdminError) as refused:
+                await vadmin.create_topic("bench-viewer", TopicSpec.computed(1))
+            await vadmin.close()
+        finally:
+            await viewer.close()
+        before = cluster_snapshot(sc)
+        sc = await restart_secure_sc(sc, [spu.config.id])
+        deadline = time.monotonic() + CLUSTER_WAIT_S
+        while cluster_snapshot(sc) != before:
+            assert time.monotonic() < deadline, "the restarted SC lost metadata"
+            await asyncio.sleep(0.02)
+        fresh = await Fluvio.connect(config_path=profiles["admin"])
+        got = {}
+        try:
+            cuda_kernels.reset_launches()
+            for codec in ("lz4", "snappy"):
+                consumer = await fresh.partition_consumer(f"bench-{codec}", 0)
+                batches, _ = await consume_once(consumer,
+                                                server_consumer_config(invocations, 64 << 10))
+                got[codec] = [(b.base_offset + r.offset_delta, r.key, r.value)
+                              for b in batches for r in b.memory_records()]
+            launches = dict(cuda_kernels.LAUNCHES)
+        finally:
+            await fresh.close()
+        m = spu.ctx.metrics.smartmodule
+        assert m.fallback_slices == 0 and m.fastpath_slices >= 2  # a slice or more a topic
+    finally:
+        await spu.stop()
+        await sc.stop()
+    return got, refused.value.status.error_code, launches
+
+
+@pytest.mark.cuda
+def test_secure_cluster_restart_on_the_card(tmp_path):
+    """Phase 17 of the smoke at a small size: 8 x 4,096 records produced
+    over TLS into an lz4 and a snappy topic, the viewer's create refused,
+    the SC restarted from its metadata directory, the north star consumed
+    by name from both topics. The secure cluster on the card refuses,
+    keeps and serves what the one on the CPU does, through the JSON span
+    kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.protocol.error import ErrorCode
+
+    values = gen_json(8 * 4096)
+    cpu = asyncio.run(asyncio.wait_for(_secure_cluster_sequence(tmp_path / "cpu", "cpu", values),
+                                       300))
+    card = asyncio.run(asyncio.wait_for(
+        _secure_cluster_sequence(tmp_path / "cuda", "cuda", values), 300))
+    assert card[0] == cpu[0] and 0 < len(card[0]["lz4"]) < len(values)
+    assert card[0]["lz4"] == card[0]["snappy"]
+    assert card[1] == cpu[1] == ErrorCode.PERMISSION_DENIED
+    assert card[2]["json_span"] >= 2

@@ -223,7 +223,7 @@ def test_runtime_devices_follow_the_device_rule(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(EngineError):
         PartitionRuntime(port_ex, plan)
-    with pytest.raises(ValueError, match="item 8"):
+    with pytest.raises(ValueError, match="item 6"):
         PartitionRuntime(port_ex, plan, devices=["cpu", "cuda:1"])
     with pytest.raises(ValueError):
         PartitionRuntime(port_ex, plan, devices=["cuda:0"])
