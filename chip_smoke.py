@@ -232,7 +232,28 @@ Phases (any failure raises and the script exits non-zero):
    follower of the new leader at its LEO and in the SC's LRS. It prints
    the produce records/s, the followers' lag, the failover time (stop to
    the first consumed batch), the consume records/s and the rejoin time.
-   ``--replication-only`` builds the kernels and runs only this phase.
+   ``--replication-only`` builds the kernels and runs only this phase;
+17. the durable, secure cluster: TLS on the SC's and the SPU's public
+   endpoints, an RBAC policy, lz4 and snappy topics, an SC restart on its
+   metadata directory, consumes through a fresh profile client
+   (``--secure-cluster-only``);
+18. the pipeline telemetry (``fluvio_tpu_torch.telemetry``): a port
+   ``SpuServer`` on the card with its monitoring socket and a
+   ``TelemetryConfig`` whose SLO no batch meets (``e2e_p99`` under 1 µs,
+   1 s windows, a ``torch.profiler`` breach capture) serves phase 13's
+   log to the port's client, the north star then ``3_aggregate``, each
+   pass held to host truth, the ``memory`` mode read over the socket
+   while batches are in flight; then ``5_windowed``'s first 8 batches and
+   one ``9_partitioned`` pass. It checks that all seven modes answer,
+   every fused span has a ``device`` phase, the served records are the
+   consumer's, lag is 0 at the end, the card allocator's live bytes are
+   at least the ledger's, the ledger drains, the one SLO capture holds
+   CUDA kernel events, each native library loaded has one build event,
+   that capture's own calls for one batch take under 200 µs, and that
+   capture costs the headline chain's ``process_stream`` (4 x 1,048,576
+   records, on and off in turns, best of 3, in a fresh process) at most
+   2 % or 200 µs a batch, in one of up to 5 rounds as the JAX gate.
+   ``--telemetry-only`` builds the kernels and runs only this phase.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -275,7 +296,7 @@ from fluvio_tpu_torch.smartengine import LinkParams, SmartEngine, SmartModuleCon
 from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, glz, kernels, stripes
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
 from fluvio_tpu_torch.smartengine.gpu.executor import _bucket_rows, desc_stream, pad_glz_tokens
-from fluvio_tpu_torch.smartengine.gpu.native import CSRC, KERNELS
+from fluvio_tpu_torch.smartengine.gpu.native import CSRC, KERNELS, SIGNATURES
 from fluvio_tpu_torch.smartmodule import dsl
 from fluvio_tpu_torch.windows import (
     HostWindowReference,
@@ -3679,6 +3700,381 @@ def phase_secure_cluster(cluster_numbers_=None):
     return numbers, launches
 
 
+# phase 18: the pipeline telemetry (`fluvio_tpu_torch.telemetry`) and the
+# SPU's monitoring socket while card chains serve a consumer
+TELEMETRY_PHASE = dict(windowed_batches=8, overhead_batches=4, overhead_turns=3,
+                       overhead_rounds=5, gate=0.02, gate_s=200e-6, slo_window_s=1.0,
+                       seam_batches=20_000)
+
+
+def telemetry_phase_config(profile_dir: str = ""):
+    """Phase 18's `TelemetryConfig`: an SLO no batch can meet (``e2e_p99``
+    under 1 µs) in windows of ``slo_window_s``, a breach capture of 200 ms
+    into ``profile_dir`` ("" = none), one capture an hour."""
+    from fluvio_tpu_torch.telemetry import TelemetryConfig
+
+    return TelemetryConfig(slo="e2e_p99:target_ms=0.001",
+                           slo_window_s=TELEMETRY_PHASE["slo_window_s"],
+                           slo_profile_dir=profile_dir, slo_profile_ms=200.0,
+                           slo_profile_cooldown_s=3600.0)
+
+
+def telemetry_overhead_child() -> dict:
+    """Run `telemetry_overhead` in a fresh interpreter (this script with
+    ``--telemetry-overhead``) and return its document. The gate compares
+    two arms of one process; the whole smoke's process carries the server
+    threads and host state of phases 1–17, in which passes drift (PR 18:
+    on 3–8 % slower in one whole smoke, 5 % faster in another), so the
+    gate runs where only the headline chain runs, as the JAX gate's test
+    process does."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--telemetry-overhead"],
+                         capture_output=True, text=True, timeout=600, check=False)
+    if out.returncode != 0:
+        raise AssertionError(f"telemetry: the overhead run exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])["telemetry_overhead"]
+
+
+def telemetry_overhead(cfg):
+    """The JAX package's gate (`tests/test_telemetry_overhead.py:79-103`)
+    on the card: the headline chain's ``process_stream`` over
+    ``overhead_batches`` x 1,048,576 records, telemetry on and off in turns
+    (off first) after a warm pass of each, best of ``overhead_turns`` each.
+    A round passes when capture costs at most ``gate`` of the off arm's
+    time a batch or ``gate_s``; as in the JAX gate's loop, up to
+    ``overhead_rounds`` rounds are measured, stopping at the first that
+    passes. Returns (seconds a batch off, on, whether the round passed,
+    every round's timed passes by arm)."""
+    from dataclasses import replace
+
+    from fluvio_tpu_torch import telemetry
+
+    p = TELEMETRY_PHASE
+    chain = build_chain(HEADLINE)
+    buf = RecordBuffer.from_values(gen_json(N, seed=100))
+    want = None
+
+    def one_pass(enabled):
+        nonlocal want
+        telemetry.configure(replace(cfg, enabled=enabled))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count = sum(o.count for o in chain.process_stream([buf] * p["overhead_batches"]))
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / p["overhead_batches"]
+        want = count if want is None else want
+        if count != want:
+            raise AssertionError(f"telemetry overhead: {count} outputs, then {want}")
+        return dt
+
+    rounds = []
+    try:
+        for enabled in (False, True):  # the warm pass of each
+            one_pass(enabled)
+        for _ in range(p["overhead_rounds"]):
+            times = {False: [], True: []}
+            for _turn in range(p["overhead_turns"]):
+                for enabled in (False, True):
+                    times[enabled].append(one_pass(enabled))
+            rounds.append(times)
+            off_s, on_s = min(times[False]), min(times[True])
+            overhead = max(on_s - off_s, 0.0)
+            ok = overhead <= off_s * p["gate"] or overhead < p["gate_s"]
+            if ok:
+                break
+    finally:
+        telemetry.configure(cfg)
+    return off_s, on_s, ok, rounds
+
+
+def telemetry_seam_cost() -> float:
+    """Seconds a batch of capture's own calls, alone: the registry calls a
+    fused batch makes on its way through the executor (the span, its phase
+    laps, the dispatch and device-ready marks, the ledger's booking and
+    release, the handle gauge, the link form, the span's end), made
+    ``seam_batches`` times on this host with capture on."""
+    from fluvio_tpu_torch.telemetry import TELEMETRY
+
+    n = TELEMETRY_PHASE["seam_batches"]
+    t0 = time.perf_counter()
+    for k in range(n):
+        span = TELEMETRY.begin_batch(chain="seam-cost")
+        for phase in ("stage", "h2d", "stage", "h2d", "dispatch"):
+            span.lap(phase, time.perf_counter())
+        span.mark_dispatched()
+        TELEMETRY.mem_acquire("staged_batch", ("seam-cost", k), 1 << 20)
+        TELEMETRY.gauge_add("live_batch_handles", 1)
+        span.mark_device_ready()
+        span.lap("d2h", time.perf_counter())
+        TELEMETRY.mem_release(("seam-cost", k))
+        TELEMETRY.mem_release(("seam-cost-glz", k))
+        TELEMETRY.gauge_add("live_batch_handles", -1)
+        TELEMETRY.add_link_variant("raw")
+        span.add("fetch", 1e-3)
+        TELEMETRY.end_batch(span, records=N)
+    return (time.perf_counter() - t0) / n
+
+
+def phase_telemetry():
+    """Phase 18: the port's telemetry while card chains serve a consumer.
+    A port `SpuServer` on the card with its monitoring socket and a
+    `TelemetryConfig` whose SLO no batch can meet (``e2e_p99`` under 1 µs,
+    windows of 1 s, a breach capture into a temporary directory) serves
+    phase 13's log (1,048,576 `gen_json` records, 64 stored batches) to the
+    port's client with the bench's `ConsumerConfig`: the north star, then
+    ``3_aggregate``, each held to host truth; the ``memory`` mode is read
+    over the socket while the north star's batches are in flight, and once
+    more with one dispatched batch held unfinished. Then
+    ``5_windowed``'s first batches and one ``9_partitioned`` pass in the same
+    process. Checks: every mode answers; every fused span has a
+    ``device`` phase; the served records are the consumer's; lag 0 at the
+    end; ``backend_bytes`` (the card's allocator) at least the ledger's;
+    the ledger drained; one SLO capture holding CUDA kernel events; one
+    build event a native library loaded; the window and carry banks'
+    owners equal their bytes; the overhead gate. Returns (numbers,
+    launches of the served passes)."""
+    import asyncio
+    import tempfile
+
+    from fluvio_tpu_torch import telemetry
+    from fluvio_tpu_torch.client import Fluvio
+    from fluvio_tpu_torch.native import records as native_records
+    from fluvio_tpu_torch.protocol import native_codecs
+    from fluvio_tpu_torch.spu import monitoring
+    from fluvio_tpu_torch.telemetry import TELEMETRY
+    from fluvio_tpu_torch.telemetry import lag as lag_mod
+    from fluvio_tpu_torch.telemetry import memory as memory_mod
+    from fluvio_tpu_torch.telemetry import slo as slo_mod
+
+    t_phase = time.perf_counter()
+    p, bcfg, cases = TELEMETRY_PHASE, BROKER, shared_cases()
+    values = broker_values()
+    wires, batches = cases.broker_log(values, bcfg["batch_records"], bcfg["first_timestamp"])
+    truths = {name: broker_truth(name) for name in ("north_star", "3_aggregate")}
+    numbers, launches = {}, {}
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-telemetry-") as work:
+        work = Path(work)
+        cfg = telemetry_phase_config(str(work / "profiles"))
+        # the build events of the libraries loaded so far, before the reset
+        # that gives this phase its own counts
+        builds_before = TELEMETRY.compile_totals()
+        for reset in (TELEMETRY.reset, lag_mod.reset_engine, memory_mod.reset_engine,
+                      slo_mod.reset_engine):
+            reset()
+        sock = str(work / "spu.sock")
+
+        async def run():
+            server = await cases.start_spu_server(work / "log", batches, topic="bench",
+                                                  monitoring_path=sock, telemetry=cfg)
+            client = await Fluvio.connect(server.public_addr)
+            try:
+                consumer = await client.partition_consumer("bench", 0)
+                await monitoring.read_health(sock)  # the time series' first sample
+                mid = []
+                for name in truths:
+                    config = cases.server_consumer_config(cases.server_invocations(name),
+                                                          bcfg["max_bytes"])
+                    cuda_kernels.reset_launches()
+                    task = asyncio.ensure_future(cases.consume_once(consumer, config))
+                    while not task.done():  # the ledger read while batches are in flight
+                        doc = await monitoring.read_memory(sock)
+                        # the reconcile's own ledger read (the document's
+                        # total is read a moment later, as the JAX one's)
+                        if doc["reconcile"]["ledger_bytes"]:
+                            mid.append(doc)
+                        await asyncio.sleep(0.01)
+                    got, _arrivals = task.result()
+                    torch.cuda.synchronize()
+                    launches[name] = dict(cuda_kernels.LAUNCHES)
+                    results, starts = server_results(got)
+                    check_broker_pass(name, results, starts, truths[name])
+                    numbers[f"{name}_outputs"] = sum(r.records.total_records() for r in results)
+                # one dispatched batch held unfinished while the socket reads the ledger
+                ex = broker_chain("north_star").gpu_chain
+                held = RecordBuffer.from_values(values[: bcfg["batch_records"]])
+                handle = ex.dispatch_buffer(held)
+                in_flight = await monitoring.read_memory(sock)
+                ex.finish_buffer(held, handle)
+                await asyncio.sleep(p["slo_window_s"] * 1.2)  # past a window boundary
+                docs = {}
+                for mode in monitoring.MODES:
+                    raw = await monitoring._read_mode(sock, mode)
+                    if not raw:
+                        raise AssertionError(f"telemetry: mode {mode} answered nothing")
+                    docs[mode] = raw.decode() if mode == "prom" else json.loads(raw)
+                legacy = json.loads(await monitoring._read_mode(sock, "no-such-mode"))
+                return docs, mid, in_flight, legacy
+            finally:
+                await client.close()
+                await server.stop()
+
+        docs, mid, in_flight, legacy = asyncio.run(run())
+        eng = slo_mod.engine()
+        eng.join_profile_capture(timeout=60)
+        captures = list(eng.profile_captures)
+        refused = list(eng.profile_refused)
+        if len(captures) != 1 or refused:
+            raise AssertionError(f"telemetry: SLO captures {captures}, refused {refused}")
+        trace_file = Path(captures[0]) / slo_mod.PROFILE_TRACE
+        trace_doc = json.loads(trace_file.read_text())
+        events = trace_doc["traceEvents"] if isinstance(trace_doc, dict) else trace_doc
+        kernel_events = [e for e in events if e.get("cat") == "kernel"]
+        if not kernel_events:
+            raise AssertionError(f"telemetry: the SLO capture {trace_file} holds no CUDA kernel "
+                                 "events")
+        numbers["slo_capture"] = {"file": trace_file.name, "bytes": trace_file.stat().st_size,
+                                  "kernel_events": len(kernel_events),
+                                  "breaches": dict(TELEMETRY.slo_breaches)}
+
+    # every mode answered; the documents' checks
+    snap = docs["json"]["telemetry"]
+    if set(legacy) != set(docs["json"]):
+        raise AssertionError("telemetry: an unknown mode line did not answer the json document")
+    fused = [s for s in docs["spans"] if s["path"] == "fused"]
+    if not fused or any(s["phases_ms"].get("device", 0) <= 0 for s in fused):
+        raise AssertionError(f"telemetry: a fused span without a device phase: {fused[:2]}")
+    served = snap["lag"]["served_records"]
+    want_served = {"filter+map@bench/0": numbers["north_star_outputs"],
+                   "aggregate@bench/0": numbers["3_aggregate_outputs"]}
+    if served != want_served:
+        raise AssertionError(f"telemetry: served {served}, the consumer's {want_served}")
+    parts = docs["lag"]["partitions"]
+    if set(parts) != set(want_served) or any(v["lag"] != 0 for v in parts.values()):
+        raise AssertionError(f"telemetry: lag at the end {parts}")
+    recon = in_flight["reconcile"]
+    if (in_flight["total_bytes"] <= 0 or "backend_bytes" not in recon
+            or recon["backend_bytes"] < recon["ledger_bytes"]):
+        raise AssertionError(f"telemetry: the ledger read with a batch in flight: {recon}")
+    mid_ok = [d for d in mid if d["reconcile"].get("backend_bytes", -1)
+              >= d["reconcile"]["ledger_bytes"]]
+    if len(mid_ok) != len(mid):
+        raise AssertionError(f"telemetry: a mid-pass ledger read below its ledger: {mid}")
+    memory_mod.engine().assert_drained()
+    if docs["memory"]["reconcile"].get("backend_bytes") is None:
+        raise AssertionError(f"telemetry: memory mode {docs['memory']['reconcile']}")
+    numbers["memory"] = {
+        "in_flight": recon, "mid_pass_reads": len(mid),
+        "mid_pass_max_ledger_bytes": max((d["reconcile"]["ledger_bytes"] for d in mid),
+                                         default=0),
+        "mid_pass_unaccounted_bytes": [d["reconcile"]["unaccounted_bytes"] for d in mid][:8],
+        "peak_bytes": docs["memory"]["peak_bytes"], "end": docs["memory"]["reconcile"]}
+    numbers["modes_bytes"] = {m: len(d if isinstance(d, str) else json.dumps(d))
+                              for m, d in docs.items()}
+    numbers["spans"] = {"fused": len(fused), "total": snap["spans_total"],
+                        "flows": snap["flows_total"]}
+    numbers["phases_ms_per_span"] = {
+        ph: statistics.median(s["phases_ms"].get(ph, 0.0) for s in fused)
+        for ph in ("stage", "h2d", "dispatch", "device", "d2h", "fetch")}
+    numbers["health_verdict"] = docs["health"]["verdict"]
+    if docs["health"]["verdict"] != "breach":
+        raise AssertionError(f"telemetry: health {docs['health']['verdict']} under an SLO no "
+                             "batch meets")
+
+    # 5_windowed's first batches and one 9_partitioned pass, same process
+    wcfg = WINDOWED["5_windowed"]
+    win_values = shared_cases().gen_ints(p["windowed_batches"] * wcfg["batch"])
+    wrt = WindowedRuntime(WindowSpec(**wcfg["spec"]))
+    for k in range(p["windowed_batches"]):
+        lo = k * wcfg["batch"]
+        vals = win_values[lo: lo + wcfg["batch"]]
+        wrt.process_buffer(window_buffer(vals, (np.arange(len(vals)) + lo) * WINDOW_SPACING_MS))
+    owners = memory_mod.engine().owner_bytes()
+    if owners["window_bank"] != wrt.bank.state_bytes() or owners["emit_buffer"]:
+        raise AssertionError(f"telemetry: window ledger {owners}, bank "
+                             f"{wrt.bank.state_bytes()}")
+    win_spans = [s for s in TELEMETRY.spans_json() if s["path"] == "windowed"]
+    closed, deltas, _db, _fb = TELEMETRY.window_counts()
+    if len(win_spans) != p["windowed_batches"] or closed <= 0:
+        raise AssertionError(f"telemetry: windowed spans {len(win_spans)}, closed {closed}")
+    pcfg = PARTITIONED
+    parts_n = pcfg["partitions"]
+    pvalues = cases.gen_json(pcfg["records"])
+    keys = [partition_key("bench", q) for q in range(parts_n)]
+    runtime = PartitionRuntime(build_chain(pcfg["specs"]),
+                               plan_placement(parse_placement_rules(".*=spread"), keys,
+                                              pcfg["groups"]))
+    leaders = [cases._Leader() for _ in keys]
+    pbufs = [RecordBuffer.from_values(pvalues[q::parts_n]) for q in range(parts_n)]
+    for key, leader, buf in zip(keys, leaders, pbufs):
+        runtime.offsets.attach_leader(key, leader)
+        leader.end = buf.count
+    for t, q, buf, _out in runtime.process_interleaved([("bench", q, b) for q, b in
+                                                         enumerate(pbufs)]):
+        runtime.offsets.advance(f"{t}/{q}", buf.count)
+    carry = memory_mod.engine().owner_bytes()["carry_bank"]
+    if carry != 17 * parts_n:
+        raise AssertionError(f"telemetry: carry_bank {carry} B, the carries' {17 * parts_n}")
+    lags = PartitionRebalancer(lambda: runtime.plan, lambda *a: True)._lag_by_plan_key()
+    if lags != {k: 0.0 for k in keys}:
+        raise AssertionError(f"telemetry: the rebalancer's default lag reader read {lags}")
+    memory_mod.engine().assert_drained()
+    numbers["windowed"] = {"spans": len(win_spans), "closed": closed, "deltas": deltas,
+                           "window_bank_bytes": owners["window_bank"]}
+    numbers["partitioned"] = {"carry_bank_bytes": carry, "lags": lags}
+
+    # one build event a native library this process loaded
+    loaded = {"nvcc": len(SIGNATURES) if KERNELS._entries else 0,
+              "g++": sum(m._lib is not None for m in (native_records, native_codecs, glz))}
+    after = TELEMETRY.compile_totals()
+    by_kind = {k: builds_before["by_kind"].get(k, 0) + after["by_kind"].get(k, 0)
+               for k in ("nvcc", "g++")}
+    outcomes = sum(builds_before[k] + after[k] for k in ("persistent_hits", "persistent_misses"))
+    if by_kind != loaded or outcomes != sum(loaded.values()):
+        raise AssertionError(f"telemetry: build events {by_kind} ({outcomes} outcomes), "
+                             f"libraries loaded {loaded}")
+    numbers["builds"] = {"by_kind": by_kind, "cached": builds_before["persistent_hits"]
+                         + after["persistent_hits"]}
+
+    # capture's own calls timed alone, in this process's state, then the
+    # overhead gate in rounds as the JAX package's, in a fresh process
+    import threading
+
+    numbers["threads"] = sorted(t.name for t in threading.enumerate())
+    seam_s = telemetry_seam_cost()
+    gate = telemetry_overhead_child()
+    off_s, on_s, rounds = gate["off_s"], gate["on_s"], gate["rounds"]
+    for k, times in enumerate(rounds):
+        log(f"telemetry: overhead round {k + 1}, ms a batch a pass: off "
+            f"{[round(t * 1e3, 3) for t in times['off']]}, on "
+            f"{[round(t * 1e3, 3) for t in times['on']]}")
+    overhead = max(on_s - off_s, 0.0)
+    batch = N
+    numbers["overhead"] = {"off_ms_per_batch": off_s * 1e3, "on_ms_per_batch": on_s * 1e3,
+                           "off_records_per_s": batch / off_s, "on_records_per_s": batch / on_s,
+                           "overhead_us_per_batch": overhead * 1e6,
+                           "overhead_share": overhead / off_s, "rounds": len(rounds),
+                           "passes_ms": [{arm: [t * 1e3 for t in times[arm]]
+                                          for arm in ("off", "on")} for times in rounds],
+                           "seam_us_per_batch": seam_s * 1e6}
+    if seam_s >= p["gate_s"]:
+        raise AssertionError(f"telemetry: capture's calls alone take {seam_s * 1e6:.1f} us a "
+                             f"batch, above the gate's {p['gate_s'] * 1e6:.0f} us")
+    if not gate["ok"]:
+        raise AssertionError(f"telemetry: overhead {overhead * 1e6:.0f} us a batch on a "
+                             f"{off_s * 1e3:.2f} ms batch exceeds the gate in each of "
+                             f"{len(rounds)} rounds")
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"telemetry: every mode answered ({numbers['modes_bytes']}); {len(fused)} fused spans, "
+        f"each with a device phase (median ms a span "
+        f"{ {k: round(v, 3) for k, v in numbers['phases_ms_per_span'].items()} }); served "
+        f"{served} equal to the consumer's; lag 0; memory with a batch in flight: ledger "
+        f"{recon['ledger_bytes']} B, the card's allocator {recon['backend_bytes']} B, "
+        f"unaccounted {recon['unaccounted_bytes']} B; {len(mid)} mid-pass reads, the largest "
+        f"ledger {numbers['memory']['mid_pass_max_ledger_bytes']} B; drained; SLO breach capture "
+        f"{numbers['slo_capture']}; builds {numbers['builds']}; windowed "
+        f"{numbers['windowed']}; partitioned {numbers['partitioned']}")
+    o = numbers["overhead"]
+    log(f"telemetry: overhead of capture on the headline chain's process_stream "
+        f"({p['overhead_batches']} x {N} records, best of {p['overhead_turns']} in turns): off "
+        f"{o['off_records_per_s']:.0f} records/s ({o['off_ms_per_batch']:.3f} ms a batch), on "
+        f"{o['on_records_per_s']:.0f} ({o['on_ms_per_batch']:.3f} ms), "
+        f"{o['overhead_us_per_batch']:.1f} us a batch ({o['overhead_share'] * 100:.3f} %), "
+        f"{o['rounds']} round(s); capture's calls alone {o['seam_us_per_batch']:.1f} us a "
+        f"batch; phase 18 took {numbers['phase_s']:.1f} s")
+    return numbers, {k: sum(v[k] for v in launches.values()) for k in cuda_kernels.LAUNCHES}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -3714,6 +4110,12 @@ def main(argv=None) -> int:
     parser.add_argument("--secure-cluster-only", action="store_true",
                         help="build the kernels and run only the durable, secure cluster: TLS, "
                              "RBAC, lz4 and snappy topics, an SC restart (phase 17; no ok line)")
+    parser.add_argument("--telemetry-only", action="store_true",
+                        help="build the kernels and run only the telemetry and the monitoring "
+                             "socket while card chains serve a consumer (phase 18; no ok line)")
+    parser.add_argument("--telemetry-overhead", action="store_true",
+                        help="build the kernels and run only phase 18's overhead gate, printing "
+                             "its document (phase 18 runs it so, in a fresh process)")
     parser.add_argument("--striped-slice-only", action="store_true",
                         help="build the kernels and run only phase 12 (with phase 9's aggregate "
                              "chains and phase 11, whose D2H it reads; no ok line)")
@@ -3745,6 +4147,12 @@ def main(argv=None) -> int:
                     or "error" in line.lower()):
                 print(f"[nvcc {src}] {line.strip()}", file=sys.stderr)
 
+    if args.telemetry_overhead:
+        off_s, on_s, ok, rounds = telemetry_overhead(telemetry_phase_config())
+        print(json.dumps({"telemetry_overhead": {
+            "off_s": off_s, "on_s": on_s, "ok": ok,
+            "rounds": [{"off": t[False], "on": t[True]} for t in rounds]}}))
+        return 0
     corpus = RecordBuffer.from_values(gen_json(N, seed=2024))
     if args.encode_extract_only:
         v = torch.from_numpy(corpus.values).to(dev)
@@ -3797,6 +4205,11 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"secure_cluster": numbers}))
         return 0
+    if args.telemetry_only:
+        numbers, _launches = phase_telemetry()
+        print(smi)
+        print(json.dumps({"telemetry": numbers}))
+        return 0
     if args.striped_slice_only:
         json_corpora = [gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)]
         slice_numbers, _ops = phase_slice(json_corpora, ("3_aggregate", "filter_aggregate"))
@@ -3846,6 +4259,8 @@ def main(argv=None) -> int:
     lap("16 replication")
     secure_numbers, secure_launches = phase_secure_cluster(cluster_numbers_)
     lap("17 secure cluster")
+    telemetry_numbers, telemetry_launches = phase_telemetry()
+    lap("18 telemetry")
     log(f"replication beside the cluster: north star by name through the SC from the promoted "
         f"leader {repl_numbers['north_star_after_failover']['sc_records_per_s']:.0f} records/s, "
         f"phase 15's (b) {cluster_numbers_['consume_by_name']['sc_records_per_s']:.0f}; produce "
@@ -3858,7 +4273,8 @@ def main(argv=None) -> int:
                 **{f"server_{k}": v for k, v in server_numbers.items()},
                 "cluster": {"launches": cluster_launches},
                 "replication": {"launches": repl_launches},
-                "secure_cluster": {"launches": secure_launches}}
+                "secure_cluster": {"launches": secure_launches},
+                "telemetry": {"launches": telemetry_launches}}
     for r in rows:
         r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in by_chain.items()}
     chain_launches = [v["launches"] for v in by_chain.values()]
@@ -3887,6 +4303,7 @@ def main(argv=None) -> int:
                     "cluster": cluster_numbers_,
                     "replication": repl_numbers,
                     "secure_cluster": secure_numbers,
+                    "telemetry": telemetry_numbers,
                     "build_seconds": KERNELS.build_seconds}))
     log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
                     "device": smi}))

@@ -7,13 +7,15 @@ threshold alone cannot tell a draining backlog from a growing one) and
 MOVES hot partitions onto colder device groups through a voluntary-move
 actuator, so a skewed workload drains while other groups idle.
 
-- **The lag reader is injected** (``lag_reader() -> {key: lag}``, keys
-  ``topic/partition`` or ``chain@topic/partition``): the port has no
-  telemetry registry to read by default.
+- **The lag reader is injectable** (``lag_reader() -> {key: lag}``, keys
+  ``topic/partition`` or ``chain@topic/partition``); with none given it
+  reads the telemetry registry's consumer-lag family after a pull-join
+  (`_default_lag_reader`), as the reference's does.
 - **The mover is injected** (``mover(plan_key, group, reason)``; a
   runtime's or a gate's ``move_partition``). A mover returning a dict has
   done its own accounting; a bare truthy return means the rebalancer books
-  the move itself.
+  the move itself, on the registry's ``rebalance_moves`` and migration
+  families too.
 - **Storms are bounded by construction**: per-partition cooldown, a
   max-moves budget per tick, and an absolute-lag hysteresis floor. An
   oscillating load moves a key at most once per cooldown window.
@@ -35,6 +37,8 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
+from fluvio_tpu_torch.telemetry import TELEMETRY
+
 logger = logging.getLogger(__name__)
 
 #: move reasons ("rollback" is booked by a mover on a failed migration)
@@ -54,6 +58,14 @@ class RebalanceConfig:
     hysteresis: float = 4.0  # absolute-lag floor below which never move
 
 
+def _default_lag_reader() -> Dict[str, float]:
+    """The registry's consumer-lag family after a pull-join (the socket's
+    ``lag`` mode reads the same)."""
+    TELEMETRY.refresh_lag()
+    lag, _, _ = TELEMETRY.lag_families()
+    return {k: float(v) for k, v in lag.items()}
+
+
 def partition_of(lag_key: str) -> str:
     """``chain@topic/partition`` -> the plan's ``topic/partition`` key."""
     return lag_key.split("@", 1)[1] if "@" in lag_key else lag_key
@@ -64,7 +76,8 @@ class PartitionRebalancer:
 
     ``plan_view`` returns the CURRENT `PlacementPlan` (a runtime's ``plan``
     property); ``mover`` is the actuator ``(plan_key, group, reason) ->
-    dict | bool``; ``lag_reader`` returns the lag readings. :meth:`tick`
+    dict | bool``; ``lag_reader`` returns the lag readings (None: the
+    telemetry registry's, `_default_lag_reader`). :meth:`tick`
     makes at most ``max_moves`` decisions and returns the moves it
     performed; :meth:`run` wraps it in a stoppable loop.
     """
@@ -76,13 +89,13 @@ class PartitionRebalancer:
         config: Optional[RebalanceConfig] = None,
         clock: Callable[[], float] = time.monotonic,
         *,
-        lag_reader: Callable[[], Dict[str, float]],
+        lag_reader: Optional[Callable[[], Dict[str, float]]] = None,
     ):
         self._plan_view = plan_view
         self._mover = mover
         self.config = config or RebalanceConfig()
         self._clock = clock
-        self._lag_reader = lag_reader
+        self._lag_reader = lag_reader if lag_reader is not None else _default_lag_reader
         self._lock = threading.Lock()
         # plan_key -> (last_lag, last_t) for burn-rate derivation
         self._samples: Dict[str, tuple] = {}
@@ -130,6 +143,9 @@ class PartitionRebalancer:
             "from": src, "to": dst, "replayed": 0, "seconds": 0.0,
         }
         doc = dict(doc, key=key, reason=reason)
+        if doc.get("moved") and not isinstance(result, dict):
+            TELEMETRY.add_rebalance_move(reason, f"{key}:{src}->{dst}")
+            TELEMETRY.add_migration_seconds(doc.get("seconds", 0.0))
         if not doc.get("ok"):
             self.rollbacks += 1
         return doc
@@ -286,6 +302,7 @@ class PartitionRebalancer:
                 }
                 for key in sorted(lags)
             }
+            moves, hist = TELEMETRY.rebalance_families()
             return {
                 "enabled": True,
                 "config": {
@@ -300,5 +317,7 @@ class PartitionRebalancer:
                 "rollbacks": self.rollbacks,
                 "plan": plan.to_dict(),
                 "partitions": partitions,
+                "moves": moves,
+                "migration_seconds": hist.to_dict(),
                 "recent": list(self._recent),
             }

@@ -21,6 +21,13 @@ copies nothing.
 Threading: like the executor, a runtime is driven by ONE dispatcher at a
 time. Its lock guards only the control-plane maps (states, plan), so a
 rebalancer thread can move partitions while batches run.
+
+Telemetry (the reference's seams): a partition's leader registers its
+``topic/partition`` key with the lag engine and each ``advance`` moves its
+committed offset there, so the rebalancer's default lag reader sees it;
+each partition's carry tensors are booked under the device-memory
+ledger's ``carry_bank`` owner after every dispatch and finish (a resize
+of one entry) and retired by `seed_partition`.
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ from fluvio_tpu_torch.partition.placement import (
     partition_key,
 )
 from fluvio_tpu_torch.smartengine.gpu.executor import _Carry
+from fluvio_tpu_torch.telemetry import TELEMETRY
+from fluvio_tpu_torch.telemetry import lag as lag_mod
 from fluvio_tpu_torch.types import OffsetPublisher
 
 logger = logging.getLogger(__name__)
@@ -70,8 +79,12 @@ class PartitionOffsets:
             return pub
 
     def attach_leader(self, key: str, leader) -> None:
+        """Bind the partition to its leader (LEO/HW source); the pair
+        also registers with the streaming lag engine."""
         with self._lock:
             self._leaders[key] = leader
+        if TELEMETRY.enabled:
+            lag_mod.track_stream(key, leader)
 
     def leader(self, key: str):
         with self._lock:
@@ -90,6 +103,8 @@ class PartitionOffsets:
             pub = self._publishers.get(key)
         if pub is not None:
             pub.update(next_offset)
+        if TELEMETRY.enabled:
+            lag_mod.note_commit(key, next_offset)
         return True
 
     def lag(self, key: str) -> Optional[int]:
@@ -258,6 +273,15 @@ class PartitionRuntime:
         st.device_carries = ex._device_carries
         st.host_carries = list(ex.carries)
         st.batches += 1
+        # the partition's carry bank stays on the card between batches:
+        # a persistent owner, re-booked (a resize) every capture
+        if TELEMETRY.enabled:
+            carries = st.device_carries
+            if carries is None:
+                TELEMETRY.mem_release(("carry", st.key))
+            else:
+                nbytes = sum(c.acc.nbytes + c.win.nbytes + c.has.nbytes for c in carries)
+                TELEMETRY.mem_acquire("carry_bank", ("carry", st.key), nbytes)
 
     def _swap_out(self, prev: tuple) -> None:
         ex = self._executor
@@ -281,6 +305,8 @@ class PartitionRuntime:
         st = self._state(partition_key(topic, partition))
         st.device_carries = None
         st.carry_device = None
+        # the old device-resident bank is garbage now: retire its booking
+        TELEMETRY.mem_release(("carry", st.key))
         st.host_carries = [tuple(c) for c in host_carries]
 
     # -- data plane ----------------------------------------------------------

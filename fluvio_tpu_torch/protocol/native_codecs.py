@@ -19,10 +19,12 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 from fluvio_tpu_torch.protocol.lz4_py import Lz4Error
 from fluvio_tpu_torch.protocol.snappy_py import SnappyError
+from fluvio_tpu_torch.telemetry.compiles import note_build
 
 _SOURCE = Path(__file__).resolve().parents[1] / "native" / "codecs.cpp"
 _BUILD_DIR = _SOURCE.parent / "_build"
@@ -46,9 +48,11 @@ def load():
         if _lib is not None:
             return _lib
         try:
+            t0 = time.perf_counter()
             digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
             out = _BUILD_DIR / f"codecs-{digest}.so"
-            if not out.exists():
+            cached = out.exists()
+            if not cached:
                 _BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
                 subprocess.run(
@@ -57,6 +61,7 @@ def load():
                 )
                 os.replace(tmp, out)
             lib = ctypes.CDLL(str(out))
+            note_build("g++", "codecs.cpp", time.perf_counter() - t0, cached=cached)
         except (OSError, subprocess.CalledProcessError) as e:
             detail = getattr(e, "stderr", b"") or b""
             raise CodecLibraryUnavailable(

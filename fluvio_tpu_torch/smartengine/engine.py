@@ -38,12 +38,13 @@ import torch
 
 from fluvio_tpu_torch.smartengine.config import SmartModuleConfig
 from fluvio_tpu_torch.smartengine.gpu import glz
-from fluvio_tpu_torch.smartengine.gpu.executor import GpuChainExecutor
+from fluvio_tpu_torch.smartengine.gpu.executor import GpuChainExecutor, GpuSpill
 from fluvio_tpu_torch.smartengine.gpu.glz import LinkParams
 from fluvio_tpu_torch.smartengine.gpu.stripes import StripeParams
 from fluvio_tpu_torch.smartengine.metrics import SmartModuleChainMetrics
 from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef, load_source
 from fluvio_tpu_torch.smartmodule.types import SmartModuleInput, SmartModuleOutput
+from fluvio_tpu_torch.telemetry import TELEMETRY
 
 DEFAULT_STORE_MAX_MEMORY = 1 << 30  # 1 GB input bound, parity: engine.rs:24
 
@@ -178,7 +179,9 @@ class SmartModuleChainInstance:
         survivors with their offset and timestamp deltas (explode outputs
         are fresh records, deltas 0). An input larger than ``engine.store_max_memory`` raises
         :class:`StoreMemoryExceeded`; a `GpuSpill` from the executor
-        propagates (the port reruns nothing in an interpreter)."""
+        propagates (the port reruns nothing in an interpreter), counted
+        on the telemetry's ``spills`` family by its reason, and any other
+        failure of the chain as ``fused-error``."""
         metrics = metrics if metrics is not None else SmartModuleChainMetrics()
         raw_len = inp.byte_size()
         if raw_len > self.engine.store_max_memory:
@@ -187,6 +190,13 @@ class SmartModuleChainInstance:
         if self.gpu_chain is None:
             # empty chain: decode and pass through (parity: engine.rs:180-184)
             return SmartModuleOutput.new(inp.into_records())
-        output = self.gpu_chain.process(inp, metrics)
+        try:
+            output = self.gpu_chain.process(inp, metrics)
+        except GpuSpill as e:
+            TELEMETRY.add_spill(e.reason)
+            raise
+        except Exception:
+            TELEMETRY.add_spill("fused-error")
+            raise
         metrics.add_records_out(len(output.successes))
         return output

@@ -47,6 +47,22 @@ downloads the tokens when they are smaller than the raw download.
 `link_counts` counts which form each batch took, the declines by reason
 and the bytes each way.
 
+Telemetry (`fluvio_tpu_torch.telemetry`, the reference's seams): each
+dispatched batch opens a `BatchSpan` (path ``fused`` or ``striped``,
+chain ``span_chain`` or the chain signature) whose phases are ``stage``
+(the host's ragged flat and link columns), ``glz_compress`` or ``h2d``
+(the uploads), ``dispatch`` (the chain's torch calls), ``device`` (end of
+dispatch to the return of the batch's result event, the first wait the
+finish makes anyway: telemetry adds no synchronisation), ``d2h`` (the
+synchronous downloads after it) and ``fetch`` (the host rebuild, on the
+fetch worker when deferred, net of the wait and the downloads); the span
+ends when the rebuild does. A batch's handle holds the tensors it
+uploaded until its finish or discard (`_Fetch.staged`), and the ledger
+books their bytes (owners ``staged_batch`` and ``glz_tokens``) with the
+``live_batch_handles`` gauge over the same span;
+link forms, declines and stripe fallbacks count on the registry's
+families (a partitioned batch's again under its partition tag).
+
 What the port does not cover raises :class:`GpuSpill` instead of running
 anywhere else: wide batches of a chain with no striped lowering (a
 JSON-array explode, a word count, a JsonGet contribution, a key rewrite
@@ -58,6 +74,7 @@ from __future__ import annotations
 
 import functools
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -84,6 +101,7 @@ from fluvio_tpu_torch.smartengine.gpu.lower import (
 from fluvio_tpu_torch.smartmodule import dsl
 from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
 from fluvio_tpu_torch.smartmodule.types import SmartModuleInput, SmartModuleOutput
+from fluvio_tpu_torch.telemetry import TELEMETRY
 
 
 # canned aggregate kinds -> their combine monoid
@@ -437,6 +455,12 @@ class _Fetch:
         # beside them in `desc`
         self.down: Optional[Tuple[torch.Tensor, ...]] = None
         self.desc: Optional[Tuple] = None
+        # the batch's uploads, held until its finish or discard; its span
+        # (None with capture off) and whether the device-memory ledger
+        # books the uploads
+        self.staged: List[torch.Tensor] = []
+        self.span = None
+        self.booked = False
 
     def start(self, name: str, t: torch.Tensor) -> None:
         if self.cuda:
@@ -452,9 +476,18 @@ class _Fetch:
             self.event.record()
 
     def wait(self) -> Dict[str, np.ndarray]:
+        """The batch's first blocking wait: the device phase of its span
+        ends when the copies' event returns."""
         if self.event is not None:
             self.event.synchronize()
-        return {k: v.numpy() for k, v in self.host.items()}
+        span = self.span
+        if span is not None:
+            span.mark_device_ready()
+            t = time.perf_counter()
+        host = {k: v.numpy() for k, v in self.host.items()}
+        if span is not None:
+            span.lap("d2h", t)
+        return host
 
 
 def _bucket_rows(n: int, floor: int = 8) -> int:
@@ -714,6 +747,16 @@ class GpuChainExecutor:
         ) or "empty"
         self.span_chain: Optional[str] = None
         self.partition_tag: Optional[str] = None
+        # the link form's name in the telemetry families: the up link's
+        # decode and the down link's encode run as CUDA kernels on the
+        # card, as their plain torch versions on the CPU
+        self._link_route = "cuda" if device.type == "cuda" else "plain"
+        self._glz_last_h2d = 0  # the last dispatch's uploaded token bytes
+        # the tensors the dispatch in progress uploaded: its handle keeps
+        # them until the finish (`_Fetch.staged`), so the bytes the ledger
+        # books as staged are live on the card for as long as it says
+        self._uploads: List[torch.Tensor] = []
+        TELEMETRY.note_device(device)
         self._cap_ratio = 0.0  # learned explode elements per source row
         self.redispatches = 0  # explode batches run again after an overflow
         self._writes_keys = any(
@@ -864,6 +907,24 @@ class GpuChainExecutor:
 
     def restore_partition_identity(self, prev) -> None:
         self.span_chain, self.partition_tag = prev
+
+    def tag_decline(self, reason: str) -> None:
+        """Count a link decline on the registry's family, and again under
+        ``reason@<partition tag>`` when the partition runtime tagged this
+        executor."""
+        TELEMETRY.add_decline(reason)
+        if self.partition_tag is not None:
+            TELEMETRY.add_decline(f"{reason}@{self.partition_tag}")
+
+    def _count_down_variant(self, variant: str) -> None:
+        """A finished batch's down-link form: ``link_counts`` and the
+        registry's ``link_variants`` (``down-packed``, or
+        ``down-glz-<route>`` when glz tokens shipped), per partition too."""
+        self.link_counts[variant] += 1
+        name = f"down-glz-{self._link_route}" if variant == "down-glz" else variant
+        TELEMETRY.add_link_variant(name)
+        if self.partition_tag is not None:
+            TELEMETRY.add_link_variant(f"{name}@{self.partition_tag}")
 
     def _fanout_cap(self, buf: RecordBuffer) -> int:
         """Explode capacity for this batch: the learned elements-per-row
@@ -1023,8 +1084,11 @@ class GpuChainExecutor:
         t = torch.from_numpy(np.ascontiguousarray(arr))
         self.link_counts["h2d_bytes"] += t.nbytes
         if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+            up = t.pin_memory().to(self.device, non_blocking=True)
+        else:
+            up = t.to(self.device)
+        self._uploads.append(up)
+        return up
 
     def _compressed(self, buf: RecordBuffer):
         """(stream, decline reason) of the buffer's flat at the link chunk,
@@ -1043,25 +1107,39 @@ class GpuChainExecutor:
         `_compressed` reads), or None when the up link is off."""
         return self._compressed if self.link.compress else None
 
-    def _stage_flat(self, buf: RecordBuffer) -> torch.Tensor:
+    def _stage_flat(self, buf: RecordBuffer, span=None) -> torch.Tensor:
         """The flat on the card as i32 words: the 4-aligned ragged bytes,
         uploaded as they are or, with the up link on, as glz tokens decoded
         on the card. A batch the compressor declines ships raw and counts
-        its reason."""
+        its reason. ``span`` takes the ``stage`` phase and the
+        ``glz_compress`` (tokens) or ``h2d`` (raw) phase."""
+        t = time.perf_counter() if span is not None else 0.0
         flat, _starts = buf.ragged_values()
+        if span is not None:
+            t = span.lap("stage", t)
+        self._glz_last_h2d = 0
         if self.link.compress:
             comp, reason = self._compressed(buf)
             if comp is not None:
-                ll, ml, srcs, lits = (self._upload(a) for a in pad_glz_tokens(comp))
+                ll, ml, srcs, lits = tokens = [self._upload(a) for a in pad_glz_tokens(comp)]
+                self._glz_last_h2d = sum(t.nbytes for t in tokens)
                 self.link_counts["glz"] += 1
                 raw = glz.decode_link_flat((ll, ml, srcs), lits, comp.out_len, comp.chunk_bytes,
                                            comp.depth)
+                TELEMETRY.add_link_variant(f"glz-{self._link_route}")
+                if span is not None:
+                    span.lap("glz_compress", t)
                 return raw.view(torch.int32)
             self.link_counts[reason] += 1
+            self.tag_decline(reason)
         self.link_counts["raw"] += 1
+        TELEMETRY.add_link_variant("raw")
         if not len(flat):
             flat = np.zeros(4, dtype=np.uint8)  # all-empty values
-        return self._upload(flat.view(np.int32))
+        up = self._upload(flat.view(np.int32))
+        if span is not None:
+            span.lap("h2d", t)
+        return up
 
     def _meta_arrays(self, buf: RecordBuffer, n: int, has_keys: bool, has_offsets: bool,
                      ts_mode: str, ts_np) -> Dict[str, torch.Tensor]:
@@ -1085,29 +1163,78 @@ class GpuChainExecutor:
     def dispatch_buffer(self, buf: RecordBuffer) -> _Fetch:
         """Phase 1: stage, run the chain and start the result copies
         without blocking on the card; the handle feeds `finish_buffer`."""
+        # chain identity on the span: the per-chain latency family the SLO
+        # engine keys on (chain@partition under the partition runtime)
+        span = TELEMETRY.begin_batch(chain=self.span_chain or self._chain_sig)
         if buf.width > self.stripe_params.threshold:
             if self._striped_chain() is None:
+                TELEMETRY.add_stripe_fallback()
                 raise GpuSpill(
                     f"record width {buf.width} exceeds the narrow layout "
                     f"({self.stripe_params.threshold}) and the chain is not stripeable",
                     reason="record-too-wide-unstripeable",
                 )
-            return self._dispatch_striped(buf)
-        return self._dispatch_narrow(buf)
+            if span is not None:
+                span.path = "striped"
+            dispatch = self._dispatch_striped
+        else:
+            dispatch = self._dispatch_narrow
+        self._uploads = []
+        try:
+            fetch = dispatch(buf, span)
+        finally:
+            staged, self._uploads = self._uploads, []
+        fetch.staged = staged
+        if span is not None:
+            span.mark_dispatched()
+            fetch.span = span
+            self._book(fetch, sum(t.nbytes for t in staged))
+        return fetch
 
-    def _dispatch_narrow(self, buf: RecordBuffer) -> _Fetch:
+    def _book(self, handle: _Fetch, nbytes: int) -> None:
+        """A dispatch went up: its uploaded bytes stay on the card until
+        the finish (or a discard) releases them — ``staged_batch``, with
+        the up link's token bytes under ``glz_tokens``."""
+        glz_nbytes = min(self._glz_last_h2d, nbytes)
+        handle.booked = True
+        TELEMETRY.mem_acquire("staged_batch", ("batch", id(handle)), nbytes - glz_nbytes)
+        if glz_nbytes:
+            TELEMETRY.mem_acquire("glz_tokens", ("glz", id(handle)), glz_nbytes)
+        TELEMETRY.gauge_add("live_batch_handles", 1)
+
+    @staticmethod
+    def _unbook(handle: _Fetch) -> None:
+        """Release the batch's uploads (and their ledger booking).
+        Idempotent: a finish and a discard may both see a handle. The
+        booking retires before the uploads drop, so the ledger never books
+        bytes the allocator has already freed (`MemoryLedger.reconcile`)."""
+        if handle.booked:
+            handle.booked = False
+            TELEMETRY.mem_release(("batch", id(handle)))
+            TELEMETRY.mem_release(("glz", id(handle)))
+            TELEMETRY.gauge_add("live_batch_handles", -1)
+        handle.staged = []
+
+    def _dispatch_narrow(self, buf: RecordBuffer, span=None) -> _Fetch:
         """The narrow path's phase 1. An explode chain's fetch keeps the
         staged inputs for an overflow's re-run (`_rerun`)."""
-        flat_up = self._stage_flat(buf)
+        flat_up = self._stage_flat(buf, span)
+        t = time.perf_counter() if span is not None else 0.0
         lengths_up, has_keys, has_offsets, ts_mode, ts_np = stage_link_columns(buf)
+        if span is not None:
+            t = span.lap("stage", t)
         values, lengths = ragged_repad_words(flat_up, self._upload(lengths_up), buf.width)
         arrays = self._meta_arrays(buf, lengths.shape[0], has_keys, has_offsets, ts_mode, ts_np)
         arrays["values"], arrays["lengths"] = values, lengths
+        if span is not None:
+            t = span.lap("h2d", t)
         fetch = _Fetch(self.device, self._carries_in(), self._fanout_cap(buf))
         if self._fanout:
             fetch.arrays = arrays
         self._run(arrays, buf.count, buf.base_timestamp, fetch)
         fetch.seal()
+        if span is not None:
+            span.lap("dispatch", t)
         return fetch
 
     def _rerun(self, buf: RecordBuffer, handle: _Fetch, cap: int) -> _Fetch:
@@ -1115,6 +1242,7 @@ class GpuChainExecutor:
         staged and the carries it started from. A striped batch re-runs
         only its fan-out, over the segment survivors its filters left."""
         fetch = _Fetch(self.device, handle.prev_carries, cap)
+        fetch.span = handle.span
         if handle.striped is not None:
             ctx, valid = handle.striped
             fetch.striped = handle.striped
@@ -1122,9 +1250,11 @@ class GpuChainExecutor:
         else:
             self._run(handle.arrays, buf.count, buf.base_timestamp, fetch)
         fetch.seal()
+        if fetch.span is not None:
+            fetch.span.mark_dispatched()  # the re-run restarts the device phase
         return fetch
 
-    def _dispatch_striped(self, buf: RecordBuffer) -> _Fetch:
+    def _dispatch_striped(self, buf: RecordBuffer, span=None) -> _Fetch:
         """Striped phase 1: the narrow path's ragged upload, re-padded on
         the card into stripe rows with the segment sidecar derived from the
         lengths; filters reduce per segment, aggregates run on the segment
@@ -1136,13 +1266,18 @@ class GpuChainExecutor:
         int32 descriptors and source records (`_ship_striped_fan`)."""
         p = self.stripe_params
         sc = self._striped
-        flat_up = self._stage_flat(buf)
+        flat_up = self._stage_flat(buf, span)
+        t = time.perf_counter() if span is not None else 0.0
         lengths_up, has_keys, has_offsets, ts_mode, ts_np = stage_link_columns(buf)
+        srows = _bucket_rows(max(stripes.plan_rows(buf.lengths, buf.count, p.width, p.overlap), 8))
+        if span is not None:
+            t = span.lap("stage", t)
         lengths = self._upload(lengths_up).to(torch.int32)
         n = lengths.shape[0]
-        srows = _bucket_rows(max(stripes.plan_rows(buf.lengths, buf.count, p.width, p.overlap), 8))
         plan, sv, kmax = stripes.stage_rows(flat_up, lengths, buf.lengths, buf.count, p, srows)
         arrays = self._meta_arrays(buf, n, has_keys, has_offsets, ts_mode, ts_np)
+        if span is not None:
+            t = span.lap("h2d", t)
         ctx = {
             "sv": sv, "plan": plan, "n": n, "kmax": kmax,
             "seg_state": _State(stripes.seg_state_of(plan, sv, lengths, arrays)),
@@ -1165,6 +1300,8 @@ class GpuChainExecutor:
             self._ship_views(fetch, valid, vspan[1], vspan[0])
         self._device_carries = carries
         fetch.seal()
+        if span is not None:
+            span.lap("dispatch", t)
         return fetch
 
     def _ship_striped_fan(self, fetch: _Fetch, ctx: dict, valid: torch.Tensor, fan) -> None:
@@ -1214,26 +1351,50 @@ class GpuChainExecutor:
         or a zero-argument thunk, pure numpy over host arrays that
         touches no executor state, which rebuilds the view-mode output
         (`_materialize_view_flat`). The stream loops run the thunk on
-        `fetch_mat_pool()` while the next batch dispatches."""
+        `fetch_mat_pool()` while the next batch dispatches.
+
+        The batch's span ends when its output is rebuilt (inside the
+        thunk when deferred); its ``fetch`` phase is the finish's time net
+        of the wait for the card and the downloads."""
+        span = handle.span
+        t_f0 = time.perf_counter() if span is not None else 0.0
+        d2h0 = span.phase("d2h") if span is not None else 0.0
         try:
             try:
-                return self._finish(buf, handle)
+                out = self._finish(buf, handle)
             except _FanoutOverflow as o:
                 self._learn_cap(buf, o.total)
                 self.redispatches += 1
                 retry = self._rerun(buf, handle, _bucket_rows(o.total, 1024))
                 try:
-                    return self._finish(buf, retry)
+                    out = self._finish(buf, retry)
                 except _FanoutOverflow as e:
                     raise GpuSpill(f"fanout overflow after retry: {e.total}",
                                    reason="fanout-overflow") from None
         except GpuSpill:
             self._device_carries = handle.prev_carries
             raise
+        finally:
+            # every finish outcome retires the batch's ledger booking
+            self._unbook(handle)
+        if span is None:
+            return out
+
+        def complete(result):
+            wait = span.ready_t - t_f0 if span.ready_t is not None and span.ready_t > t_f0 else 0.0
+            span.add("fetch", (time.perf_counter() - t_f0) - wait - (span.phase("d2h") - d2h0))
+            # records: the INPUT records staged through this batch
+            TELEMETRY.end_batch(span, records=buf.count)
+            return result
+
+        if callable(out):
+            return lambda: complete(out())
+        return complete(out)
 
     def discard_dispatch(self, handle: _Fetch) -> None:
         """Drop a dispatched batch without finishing it: the carries go
-        back to those the batch started from."""
+        back to those the batch started from (its span is dropped)."""
+        self._unbook(handle)
         self._device_carries = handle.prev_carries
 
     def dispatch_buffers(self, bufs: Sequence[RecordBuffer]) -> List[Tuple[RecordBuffer, _Fetch]]:
@@ -1265,6 +1426,7 @@ class GpuChainExecutor:
 
     def _finish(self, buf: RecordBuffer, handle: _Fetch) -> RecordBuffer:
         host = handle.wait()
+        span = handle.span
         self.link_counts["d2h_bytes"] += sum(a.nbytes for a in host.values())
         hdr = [int(x) for x in host["header"]]
         count, max_v, max_k, fan_err, fan_total = hdr[:_HEADER]
@@ -1275,7 +1437,10 @@ class GpuChainExecutor:
             raise _FanoutOverflow(fan_total)
         rows = _bucket_rows(max(count, 1))
         if handle.src_col is not None:
+            t = time.perf_counter() if span is not None else 0.0
             src = self._download_src(*handle.src_col, hdr[_HEADER:_HEADER + 3], count, rows)
+            if span is not None:
+                span.lap("d2h", t)
         else:
             src = np.flatnonzero(np.unpackbits(host["mask"], bitorder="little")[: buf.rows])[:count]
         if not self._viewable:
@@ -1285,11 +1450,14 @@ class GpuChainExecutor:
             st = np.zeros(count, dtype=np.int64)
             ln = buf.lengths[src].astype(np.int32)
         elif handle.desc is not None:
+            t = time.perf_counter() if span is not None else 0.0
             st, ln, variant = self._down_fetch(handle, host["down_meta"], count, rows)
+            if span is not None:
+                span.lap("d2h", t)
         else:
             st = host["span_start"][:count].astype(np.int64)
             ln = host["span_len"][:count].astype(np.int32)
-        self.link_counts[variant] += 1
+        self._count_down_variant(variant)
         vw = min(_pad_slice(max(max_v, 1)), buf.width)
         return functools.partial(_materialize_view_flat, buf, count, rows, vw, st, ln, src,
                                  self._view_postops, self._fanout)
@@ -1324,6 +1492,7 @@ class GpuChainExecutor:
         bl = min(_bucket_rows(max(n_lit, 8), floor=256), lits.shape[0])
         if bs * 6 + bl >= raw_cost:
             self.link_counts[glz.DECLINE_ENC_RATIO] += 1
+            self.tag_decline(glz.DECLINE_ENC_RATIO)
             return None
         return glz.decode_result_host(
             self._download(ll[:bs]), self._download(ml[:bs]), self._download(srcs[:bs]),
@@ -1353,6 +1522,7 @@ class GpuChainExecutor:
         flat-backed, its row starts one cumsum of the aligned lengths (no
         ``[rows, width]`` matrix on either side)."""
         payload, lens_d, keys, klens, width = handle.byte_cols
+        t_d2h = time.perf_counter() if handle.span is not None else 0.0
         max_v, max_k = hdr[1], hdr[2]
         rows = min(rows, lens_d.shape[0])
         vw = min(_pad_slice(max(max_v, 1)), width)
@@ -1383,7 +1553,9 @@ class GpuChainExecutor:
         else:
             out_klens = np.full((rows,), -1, dtype=np.int32)
             out_keys = np.zeros((rows, 1), dtype=np.uint8)
-        self.link_counts[variant] += 1
+        if handle.span is not None:
+            handle.span.lap("d2h", t_d2h)  # the downloads (and a token decode)
+        self._count_down_variant(variant)
         return _assemble(buf, count, rows, out_lengths.numpy(), out_keys, out_klens, src,
                          flat_src[:total], starts.numpy(), vw, self._fanout)
 

@@ -26,6 +26,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from fluvio_tpu_torch.smartengine.gpu import kernels
+from fluvio_tpu_torch.telemetry.compiles import note_build
 
 _SOURCE = Path(__file__).resolve().parents[2] / "native" / "glz.cpp"
 _BUILD_DIR = _SOURCE.parent / "_build"
@@ -114,9 +116,11 @@ def load():
         if _lib is not None:
             return _lib
         try:
+            t0 = time.perf_counter()
             digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
             out = _BUILD_DIR / f"glz-{digest}.so"
-            if not out.exists():
+            cached = out.exists()
+            if not cached:
                 _BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
                 subprocess.run(
@@ -125,6 +129,7 @@ def load():
                 )
                 os.replace(tmp, out)
             lib = ctypes.CDLL(str(out))
+            note_build("g++", "glz.cpp", time.perf_counter() - t0, cached=cached)
         except (OSError, subprocess.CalledProcessError) as e:
             detail = getattr(e, "stderr", b"") or b""
             raise GlzUnavailable(

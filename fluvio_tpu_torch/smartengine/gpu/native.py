@@ -10,7 +10,9 @@ together. Every C entry point takes pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()``.
 
 Nothing here runs at import time; a missing ``nvcc`` or a failed build
-raises — there is no fallback.
+raises — there is no fallback. Each library records one build event in
+the telemetry (`telemetry.compiles.note_build`, kind ``nvcc``): built,
+with the seconds until its nvcc ended, or cached, with its load time.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict
+
+from fluvio_tpu_torch.telemetry.compiles import note_build
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -98,8 +102,10 @@ class _Kernels:
                     tmp,
                 )
             failed = []
+            built_s: Dict[str, float] = {}
             for src, (proc, tmp) in procs.items():
                 out, _ = proc.communicate()
+                built_s[src] = time.perf_counter() - t0
                 self.build_logs[src] = out
                 if proc.returncode != 0:
                     failed.append(f"{src} (rc {proc.returncode}):\n{out}")
@@ -109,12 +115,15 @@ class _Kernels:
                 raise KernelBuildError("nvcc failed for " + "\n".join(failed))
             entries = {}
             for src, so in targets.items():
+                t_load = time.perf_counter()
                 lib = ctypes.CDLL(str(so))
                 for name, argtypes in SIGNATURES[src].items():
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
                     entries[name] = fn
+                note_build("nvcc", src, built_s.get(src, 0.0) + time.perf_counter() - t_load,
+                           cached=src not in procs)
             self._entries = entries
             self.build_seconds = time.perf_counter() - t0
             return self.build_logs

@@ -11,7 +11,11 @@ SmartModules from it (`sc_dispatcher.ScDispatcher`). ``private_addr`` is
 the internal endpoint its followers sync from (empty: no internal
 server); ``in_sync_replica`` is the quorum of a replica created without
 an SC-pushed replica set; ``cleaner_interval_seconds`` is the retention
-sweep's period (0 or less: no sweep). The port reads no environment
+sweep's period (0 or less: no sweep). ``monitoring_path`` is the unix
+socket of the metrics endpoint (`monitoring.MonitoringServer`; None: no
+endpoint, "": its default path) and ``telemetry`` the `TelemetryConfig`
+the server applies to the process at construction (None: leave the
+process's telemetry settings as they are). The port reads no environment
 variable: every setting is a field.
 """
 
@@ -22,6 +26,7 @@ from typing import Optional
 
 from fluvio_tpu_torch.smartengine.engine import DEFAULT_STORE_MAX_MEMORY
 from fluvio_tpu_torch.storage.config import ReplicaConfig
+from fluvio_tpu_torch.telemetry.registry import TelemetryConfig
 from fluvio_tpu_torch.transport.tls import ServerTlsConfig
 from fluvio_tpu_torch.types import SPU_PUBLIC_PORT
 
@@ -43,6 +48,10 @@ class SpuConfig:
     smart_engine: SmartEngineConfig = field(default_factory=SmartEngineConfig)
     # produce-side flush guarantees: 1 means the HW advances on the local write
     in_sync_replica: int = 1
+    # metrics unix-socket endpoint (monitoring.rs); None = disabled,
+    # "" = monitoring.SPU_MONITORING_UNIX_SOCKET
+    monitoring_path: Optional[str] = None
+    telemetry: Optional[TelemetryConfig] = None
     # retention cleaner pass period (cleaner.rs:20 `CLEANING_INTERVAL`);
     # <= 0 disables the background task
     cleaner_interval_seconds: float = 30.0

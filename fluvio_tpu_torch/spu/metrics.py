@@ -6,7 +6,8 @@ Inbound and outbound record and byte counters and the chains'
 slice by phase (``slice_phases``: the storage ``read``, the consume
 path's decompress, decode, stage, dispatch, finish and encode, then the
 response's ``push`` and the consumer's ``ack_wait``), the newest 4,096
-slices.
+slices. ``to_dict`` adds the pipeline telemetry's snapshot under
+``telemetry`` (the monitoring socket's ``json`` mode) unless asked not to.
 """
 
 from __future__ import annotations
@@ -45,12 +46,19 @@ class SpuMetrics:
     smartmodule: SmartModuleChainMetrics = field(default_factory=SmartModuleChainMetrics)
     slice_phases: deque = field(default_factory=lambda: deque(maxlen=SLICE_PHASES_KEPT))
 
-    def to_dict(self) -> dict:
-        return {
+    def to_dict(self, include_telemetry: bool = True) -> dict:
+        out = {
             "inbound": self.inbound.to_dict(),
             "outbound": self.outbound.to_dict(),
             "smartmodule": self.smartmodule.to_dict(),
         }
+        if include_telemetry:
+            from fluvio_tpu_torch.telemetry import TELEMETRY
+
+            # per-phase latency histograms, batch latency by path, the
+            # counters; the Prometheus renderer reads the registry itself
+            out["telemetry"] = TELEMETRY.snapshot()
+        return out
 
     def to_json(self) -> str:
         return json.dumps(self.to_dict())

@@ -32,8 +32,15 @@ Nothing reruns on the CPU. Where the reference meets a transform error it
 reruns the slice in its interpreter and sends the output before the
 failing record with the error; the port sends the error with no records.
 
-The reference's admission control (its hold loop), chain warm-up,
-telemetry flows, lag tracking and tenant labels are not ported.
+Telemetry (the reference's seams): a stream registers its
+``chain@topic/partition`` key (``stream@topic/partition`` without a chain)
+with the lag engine, seeds its committed offset at the resolved start and
+moves it with each consumer ack; each served slice books its records and
+one record-age observation under that key and under the tenant label (the
+topic's prefix before its first dot); each slice of a chain stream has a
+`SliceFlow` from its read to its push. The reference's admission control
+(its hold loop, the held-slice gauge) and chain warm-up are not ported
+yet, so a flow's ``hold`` and ``batcher`` phases stay 0.
 """
 
 from __future__ import annotations
@@ -80,8 +87,12 @@ from fluvio_tpu_torch.spu.smart_chain import (
     acquire_stream_chain,
     apply_chain,
     build_chain,
+    chain_lag_key,
     stream_slices,
 )
+from fluvio_tpu_torch.telemetry import TELEMETRY
+from fluvio_tpu_torch.telemetry import lag as lag_mod
+from fluvio_tpu_torch.telemetry.registry import tenant_label
 from fluvio_tpu_torch.transport.service import FluvioService
 from fluvio_tpu_torch.transport.sink import ExclusiveSink, FluvioSink
 from fluvio_tpu_torch.transport.socket import FluvioSocket, SocketClosed
@@ -283,13 +294,19 @@ async def _chain_off_loop(chain, fn, *args):
 async def _next_slice(chain, slices):
     """The next result of a `stream_slices` generator (None at its end),
     taken as `_chain_off_loop` runs a pass. A cancelled stream still waits
-    for the step to end: the generator is never closed while it runs."""
+    for the step to end, through further cancels too (a loop's shutdown
+    cancels every task again): the generator is never closed while it
+    runs."""
     async with _chain_lock(chain):
         step = asyncio.ensure_future(asyncio.to_thread(next, slices, None))
         try:
             return await asyncio.shield(step)
         except asyncio.CancelledError:
-            await asyncio.wait([step])
+            while not step.done():
+                try:
+                    await asyncio.wait([step])
+                except asyncio.CancelledError:
+                    pass
             raise
 
 
@@ -439,6 +456,11 @@ class StreamFetchHandler:
         self.metrics = ctx.metrics.smartmodule
         self._ended = False  # terminal error pushed; stop the stream
         self._phases: Optional[dict] = None  # the last pushed slice's phase ms
+        # streaming-lag identity: chain@topic/partition for chain streams
+        # (set once the chain is acquired), stream@topic/partition else
+        self._lag_key = f"stream@{req.topic}/{req.partition}"
+        # the tenant: the topic name's prefix before its first dot
+        self._tenant = tenant_label(req.topic)
 
     async def run(self) -> None:
         try:
@@ -466,12 +488,21 @@ class StreamFetchHandler:
             except Exception as e:  # noqa: BLE001 — reported on the stream
                 await self._chain_failed(leader, e)
                 return
+            self._lag_key = chain_lag_key(chain, req.topic, req.partition)
+        if TELEMETRY.enabled:
+            # the lag engine joins this key's committed offset against the
+            # leader's high watermark from here on
+            lag_mod.track_stream(self._lag_key, leader)
 
         # clamp the starting offset into the valid window (stream_fetch.rs
         # resolves the requested offset against [start, bound])
         info = leader.offsets()
         bound = leader.read_bound(req.isolation)
         current = max(info.start_offset, min(req.fetch_offset, bound))
+        if TELEMETRY.enabled and current >= 0:
+            # seed the committed cursor at the resolved start: a tail
+            # consumer on a deep log is not the whole log behind
+            lag_mod.note_commit(self._lag_key, current)
 
         end_wait = asyncio.ensure_future(self.conn.end.wait())
         try:
@@ -522,7 +553,8 @@ class StreamFetchHandler:
         while not self.conn.end.is_set():
             bound = leader.read_bound(req.isolation)
             if current < bound:
-                slices = stream_slices(chain, read, current, bound, req.max_bytes, self.metrics)
+                slices = stream_slices(chain, read, current, bound, req.max_bytes, self.metrics,
+                                       flow_label=(self._lag_key, self._tenant))
                 try:
                     while True:
                         try:
@@ -537,6 +569,7 @@ class StreamFetchHandler:
                         if result is None:
                             break
                         current = await self._push_processed(leader, result)
+                        TELEMETRY.end_flow(result.flow, records=result.records.total_records())
                         if self._ended:
                             return
                         await self._wait_for_ack(current, end_wait)
@@ -590,6 +623,15 @@ class StreamFetchHandler:
         self.ctx.metrics.slice_phases.append(self._phases)
         nbytes = sum(b.write_size() for b in result.records.batches)
         self.ctx.metrics.outbound.add(result.records.total_records(), nbytes)
+        if TELEMETRY.enabled and result.records.batches:
+            # the served-record rate and ONE record-age observation a
+            # pushed slice (the first output batch's append time -> now)
+            served = result.records.total_records()
+            age_s = lag_mod.serve_age_s(result.records.batches[0].header.first_timestamp)
+            lag_mod.note_serve(self._lag_key, served, age_s)
+            TELEMETRY.add_tenant_served(self._tenant, served)
+            if age_s is not None:  # no append time stamped: no age
+                TELEMETRY.add_tenant_age(self._tenant, age_s)
         return result.next_offset
 
     async def _wait_for_ack(self, target: int, end_wait: asyncio.Future) -> None:
@@ -605,6 +647,11 @@ class StreamFetchHandler:
         if self._phases is not None:
             self._phases["ack_wait"] = _ms(t0)
             self._phases = None
+        if TELEMETRY.enabled:
+            # the consumer's ack is the committed offset of the lag join
+            acked = self.ack_publisher.current_value()
+            if acked >= 0:
+                lag_mod.note_commit(self._lag_key, acked)
 
     async def _send_back_records(self, leader, offset: int) -> int:
         """Push one slice of stored batches as they are (no chain); returns

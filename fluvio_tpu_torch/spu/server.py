@@ -8,8 +8,11 @@ server (TLS when ``config.tls`` is enabled), the internal (replication) server o
 followers sync from, the followers controller that syncs the replicas
 this SPU follows from their leaders, the retention cleaner and, when
 ``sc_addr`` is set, the SC dispatcher (register, replica and SmartModule
-pushes, LRS reports). They start in that order and stop in the reverse
-one. The monitoring socket is not ported.
+pushes, LRS reports), and, when ``monitoring_path`` is set, the
+monitoring socket (`monitoring.MonitoringServer`: json, prom, spans,
+trace, health, lag and memory). They start in that order and stop in the
+reverse one. A ``config.telemetry`` is applied to the process's
+telemetry (`telemetry.configure`) at construction.
 
     server = SpuServer(SpuConfig(public_addr="127.0.0.1:0", log_base_dir=d))
     await server.start()
@@ -34,15 +37,19 @@ from fluvio_tpu_torch.spu.config import SpuConfig
 from fluvio_tpu_torch.spu.context import GlobalContext
 from fluvio_tpu_torch.spu.follower import FollowersController
 from fluvio_tpu_torch.spu.internal_service import SpuInternalService
+from fluvio_tpu_torch.spu.monitoring import MonitoringServer
 from fluvio_tpu_torch.spu.public_service import SpuPublicService
 from fluvio_tpu_torch.spu.sc_dispatcher import ScDispatcher
 from fluvio_tpu_torch.transport.service import FluvioApiServer
+from fluvio_tpu_torch.telemetry import configure as configure_telemetry
 from fluvio_tpu_torch.transport.tls import server_ssl
 
 
 class SpuServer:
     def __init__(self, config: SpuConfig):
         self.config = config
+        if config.telemetry is not None:
+            configure_telemetry(config.telemetry)
         self.ctx = GlobalContext(config)
         self.public_server = FluvioApiServer(
             config.public_addr, SpuPublicService(), self.ctx, ssl_context=server_ssl(config.tls)
@@ -56,6 +63,11 @@ class SpuServer:
         self.ctx.followers_controller = self.followers_controller
         self.cleaner = CleanerController(self.ctx, config.cleaner_interval_seconds)
         self.sc_dispatcher = ScDispatcher(self.ctx, config.sc_addr) if config.sc_addr else None
+        self.monitoring: Optional[MonitoringServer] = (
+            MonitoringServer(self.ctx, config.monitoring_path)
+            if config.monitoring_path is not None
+            else None
+        )
 
     @property
     def public_addr(self) -> str:
@@ -74,11 +86,15 @@ class SpuServer:
         self.cleaner.start()
         if self.sc_dispatcher is not None:
             self.sc_dispatcher.start()
+        if self.monitoring is not None:
+            await self.monitoring.start()
 
     async def run(self) -> None:
         await self.public_server.run()
 
     async def stop(self) -> None:
+        if self.monitoring is not None:
+            await self.monitoring.stop()
         if self.sc_dispatcher is not None:
             await self.sc_dispatcher.stop()
         await self.cleaner.stop()

@@ -25,13 +25,19 @@ declined, counted by reason, and served by `process_batches_per_record`,
 which still runs every batch on the card. A `GpuSpill` or a device error
 propagates to the caller: nothing reruns in an interpreter. The SPU's
 stream handler gets its chains from `acquire_stream_chain`, which caches
-stateless ones. The reference's admission, partition, flow and telemetry
-hooks, its dedup chain and look_back are not carried: an invocation with
-a look-back raises `EngineError`.
+stateless ones. The reference's admission and partition hooks, its dedup
+chain and look_back are not carried: an invocation with a look-back
+raises `EngineError`.
 
 A `PendingSlice` records its host phases in ``phase_ms`` (decompress,
 decode, stage, dispatch) and the `BatchProcessResult` of its finish adds
-``finish`` and ``encode``.
+``finish`` and ``encode``. The telemetry seams are the reference's: a
+slice's staging books the ``stage`` and ``glz_decode`` (stored-batch
+decompression) phases, its dispatched chunks the
+``inflight_queue_depth`` gauge until its finish or discard, a declined
+slice its reason on the ``declines`` family; `stream_slices` gives each
+slice a `SliceFlow` (``flow_label``), which rides the slice's result to
+the caller that serves it and ends it (`telemetry.TELEMETRY.end_flow`).
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import hashlib
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -63,6 +69,7 @@ from fluvio_tpu_torch.smartmodule.types import (
     SmartModuleInput,
     SmartModuleTransformRuntimeError,
 )
+from fluvio_tpu_torch.telemetry import TELEMETRY
 from fluvio_tpu_torch.types import NO_TIMESTAMP
 
 # the device-side padded matrix (rows x width) a chunk may stage
@@ -269,6 +276,9 @@ class BatchProcessResult:
     next_offset: int = 0  # where the consumer continues
     error: Optional[SmartModuleTransformRuntimeError] = None
     phase_ms: Dict[str, float] = field(default_factory=dict)
+    # the slice's flow record, for the caller that serves it to end
+    # (None when `stream_slices` was given no flow label or capture is off)
+    flow: Optional[object] = None
 
 
 @dataclass
@@ -288,10 +298,20 @@ class PendingSlice:
     count: int  # input records across the chunks
     read_from: Optional[int] = None  # consume cursor: outputs below it drop
     phase_ms: Dict[str, float] = field(default_factory=dict)
+    # chunks counted in the inflight_queue_depth gauge (released once, by
+    # the finish or the discard)
+    tracked_depth: int = 0
+    flow: Optional[object] = None  # the slice's flow record
+
+    def release_depth(self) -> None:
+        if self.tracked_depth:
+            TELEMETRY.gauge_add("inflight_queue_depth", -self.tracked_depth)
+            self.tracked_depth = 0
 
     def discard(self, gpu) -> None:
         """Drop the dispatched chunks unread (newest first, so the carries
-        end where the slice found them)."""
+        end where the slice found them); the flow dies with them."""
+        self.release_depth()
         for _, handle in reversed(self.chunks):
             gpu.discard_dispatch(handle)
 
@@ -299,7 +319,28 @@ class PendingSlice:
 def _decline(metrics, reason: str):
     if metrics is not None:
         metrics.add_fallback(reason)
+    TELEMETRY.add_decline(reason)
     return None
+
+
+def chain_lag_key(chain, topic: str, partition: int) -> str:
+    """The ``chain@topic/partition`` identity of a served chain (the lag,
+    flow and tenant families key on it, as the reference's
+    ``admission_chain_sig`` does): the executor's chain signature."""
+    gpu = chain.gpu_chain
+    return f"{gpu._chain_sig if gpu is not None else 'chain'}@{topic}/{partition}"
+
+
+def _begin_flow(flow_label):
+    """A new slice's flow record under ``flow_label`` (key, tenant), or
+    None. Every slice the port serves is admitted (it has no admission
+    front door), so the decision is ``admit``."""
+    if flow_label is None:
+        return None
+    flow = TELEMETRY.begin_flow(*flow_label)
+    if flow is not None:
+        flow.decision = "admit"
+    return flow
 
 
 def gpu_pipelinable(chain) -> bool:
@@ -315,6 +356,7 @@ def gpu_stage_dispatch(
     batches: List[Batch],
     metrics=None,
     start_offset: Optional[int] = None,
+    flow=None,
 ) -> Optional[PendingSlice]:
     """Phase 1 of the coalesced path (`tpu_stage_dispatch` in the
     reference): stage the slice through the native decoder into
@@ -323,7 +365,9 @@ def gpu_stage_dispatch(
     Returns None for a chain with no executor or an empty slice, and,
     counting the reason, when the slice's data declines (see the module
     docstring): the caller serves it with `process_batches_per_record`.
-    A failed dispatch raises, after discarding the chunks before it."""
+    A failed dispatch raises, after discarding the chunks before it.
+    ``flow`` (the slice's `SliceFlow`) is marked dispatched and rides
+    the pending slice."""
     gpu = chain.gpu_chain
     if gpu is None or not batches:
         return None
@@ -417,10 +461,19 @@ def gpu_stage_dispatch(
             buf.fresh_timestamp_deltas = ft
         chunk_bufs.append(buf)
     phase["stage"] = _ms(t_stage)
+    if TELEMETRY.enabled:
+        # slice-level staging cost (native decode, column merge, chunk
+        # builds), net of stored-batch decompression; the chunks' device
+        # work books into their own spans
+        TELEMETRY.add_phase("glz_decode", phase["decompress"] / 1e3)
+        TELEMETRY.add_phase("stage", (phase["decode"] + phase["stage"]) / 1e3)
     t0 = time.perf_counter()
     chunks = gpu.dispatch_buffers(chunk_bufs)
     phase["dispatch"] = _ms(t0)
-    return PendingSlice(
+    if flow is not None:
+        # the trace joins batch spans against [dispatch, serve] of the flow
+        flow.mark_dispatch()
+    pending = PendingSlice(
         batches=batches,
         chunks=chunks,
         planned_next=staged[-1][0].computed_last_offset(),
@@ -430,7 +483,14 @@ def gpu_stage_dispatch(
         count=n_total,
         read_from=start_offset,
         phase_ms=phase,
+        flow=flow,
     )
+    if TELEMETRY.enabled:
+        # pipelined occupancy: every dispatched chunk counts until its
+        # slice's finish or discard retires it
+        TELEMETRY.gauge_add("inflight_queue_depth", len(chunks))
+        pending.tracked_depth = len(chunks)
+    return pending
 
 
 class _MergedOut:
@@ -495,7 +555,10 @@ def gpu_finish(
     the rebuilds in flight have ended."""
     gpu = chain.gpu_chain
     base0, ts0 = pending.base0, pending.ts0
-    result = BatchProcessResult(next_offset=pending.planned_next, phase_ms=dict(pending.phase_ms))
+    result = BatchProcessResult(next_offset=pending.planned_next, phase_ms=dict(pending.phase_ms),
+                                flow=pending.flow)
+    # whatever the outcome below, the slice's chunks leave the queue now
+    pending.release_depth()
     t0 = time.perf_counter()
     # each chunk's downloads and failures settle here, in order, and its
     # pure rebuild runs on the fetch worker: chunk k materializes while
@@ -638,6 +701,7 @@ def stream_slices(
     end: int,
     max_bytes: int,
     metrics=None,
+    flow_label: Optional[Tuple[str, str]] = None,
 ) -> Iterator[BatchProcessResult]:
     """Serve offsets [start, end) slice by slice: the SPU's stream loop
     (the core of the reference's ``StreamFetchHandler._run_pipelined``).
@@ -648,11 +712,15 @@ def stream_slices(
     encoded; when ``max_bytes`` cuts slice k, slice k+1 (read from the
     wrong offset) is discarded and read again. Other chains run one slice
     at a time (`process_batches`). An error, or closing the generator,
-    discards what is in flight."""
+    discards what is in flight. With ``flow_label`` (``(key, tenant)``)
+    each slice read gets a `SliceFlow`, carried on its result
+    (``result.flow``) for the caller to end when it serves the slice; a
+    discarded slice's flow is dropped."""
     gpu = chain.gpu_chain
     current = start
     if not gpu_pipelinable(chain):
         while current < end:
+            flow = _begin_flow(flow_label)  # born at arrival, before the read
             t0 = time.perf_counter()
             batches = read(current)
             if not batches:
@@ -660,6 +728,7 @@ def stream_slices(
             read_ms = _ms(t0)
             result = process_batches(chain, batches, max_bytes, metrics, current)
             result.phase_ms["read"] = read_ms
+            result.flow = flow
             yield result
             current = result.next_offset
         return
@@ -668,11 +737,13 @@ def stream_slices(
     try:
         while True:
             planned = pending.planned_next if pending is not None else current
+            flow = _begin_flow(flow_label) if planned < end else None
             t0 = time.perf_counter()
             nxt_batches = read(planned) if planned < end else []
             read_ms = _ms(t0)
             if nxt_batches:
-                nxt = gpu_stage_dispatch(chain, nxt_batches, metrics, start_offset=planned)
+                nxt = gpu_stage_dispatch(chain, nxt_batches, metrics, start_offset=planned,
+                                         flow=flow)
                 if nxt is not None:
                     nxt.phase_ms["read"] = read_ms
             if pending is not None:
@@ -694,6 +765,7 @@ def stream_slices(
                 # the coalesced path declined this slice: serve it per batch
                 result = process_batches_per_record(chain, nxt_batches, max_bytes, metrics)
                 result.phase_ms["read"] = read_ms
+                result.flow = flow
                 yield result
                 current = result.next_offset
             else:

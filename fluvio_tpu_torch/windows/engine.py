@@ -12,12 +12,24 @@ carries the batch's closed rows (their final aggregates were evicted
 from the bank), never dropping closes.
 
 The bank commits only after the header passed its checks, so a batch
-that raises `WindowCapacityError` leaves the carry exactly as it was.
+that raises `WindowCapacityError` leaves the carry exactly as it was
+(and counts a ``window-capacity`` decline).
+
+Telemetry (the reference's seams): each batch is a span on the
+``windowed`` path, chain label the window mode, with phases ``stage``
+(the host columns), ``h2d`` (their uploads), ``dispatch`` (the update's
+torch calls), ``device`` (to the header's download, the batch's first
+synchronisation) and ``d2h`` (the emit slice's download, booked under the
+``emit_buffer`` ledger owner while it is in flight); windows closed,
+delta rows by kind, the delta-vs-full downlink bytes and one
+``down-packed`` link form a batch count on the registry's families, and
+the bank's live bytes on the ``window_bank`` owner (`state.py`).
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -25,6 +37,7 @@ import numpy as np
 import torch
 
 from fluvio_tpu_torch.smartengine.engine import resolve_device
+from fluvio_tpu_torch.telemetry import TELEMETRY
 from fluvio_tpu_torch.windows.kernels import WindowEagerOps
 from fluvio_tpu_torch.windows.spec import DEFAULT_DELTA_ONLY, WindowCapacityError, WindowSpec
 from fluvio_tpu_torch.windows.state import ENTRY_BYTES, WindowStateBank
@@ -96,6 +109,7 @@ class WindowedRuntime:
         self.spec = spec
         self.ops = ops if ops is not None else WindowEagerOps(spec)
         self.bank = WindowStateBank(spec, device=resolve_device(device))
+        TELEMETRY.note_device(self.bank.device)
         self.batches = 0
         self.d2h_bytes_total = 0
         self.h2d_bytes_total = 0
@@ -118,6 +132,8 @@ class WindowedRuntime:
         """Fold one RecordBuffer; returns the batch's delta. Uploads the
         padded values, the lengths, the absolute event times and the
         validity column."""
+        span = TELEMETRY.begin_batch("windowed", chain=self.spec.mode)
+        t = time.perf_counter() if span is not None else 0.0
         values = buf.dense_values()
         n = values.shape[0]
         count = int(buf.count)
@@ -126,11 +142,12 @@ class WindowedRuntime:
         ts = np.asarray(buf.timestamp_deltas, dtype=np.int64) + base
         valid = np.arange(n, dtype=np.int64) < count
         lengths = np.asarray(buf.lengths, dtype=np.int32)
-        return self._run(
-            self.ops.update_values,
-            tuple(self._upload(a) for a in (values, lengths, ts, valid)),
-            count,
-        )
+        if span is not None:
+            t = span.lap("stage", t)
+        args = tuple(self._upload(a) for a in (values, lengths, ts, valid))
+        if span is not None:
+            span.lap("h2d", t)
+        return self._run(self.ops.update_values, args, count, span)
 
     def ingest_arrays(self, contribs, keys, ts, count: Optional[int] = None) -> WindowDelta:
         """Pre-parsed seam for the striped/sharded split-backs (and tests):
@@ -144,17 +161,25 @@ class WindowedRuntime:
         n = int(cols[0].shape[0])
         count = n if count is None else int(count)
         valid = torch.arange(n, dtype=torch.int64, device=self.bank.device) < count
-        return self._run(self.ops.update_arrays, (*cols, valid), count)
+        span = TELEMETRY.begin_batch("windowed", chain=self.spec.mode)
+        return self._run(self.ops.update_arrays, (*cols, valid), count, span)
 
-    def _run(self, update, batch_args, count: int) -> WindowDelta:
+    def _run(self, update, batch_args, count: int, span=None) -> WindowDelta:
+        t = time.perf_counter() if span is not None else 0.0
         (header, nb_ids, nb_accs, nb_cnts,
          em_ids, em_accs, em_cnts, em_closed) = update(*self.bank.arrays(), *batch_args)
+        if span is not None:
+            span.lap("dispatch", t)
+            span.mark_dispatched()
         # first blocking sync: the scalar header (8 i64 = 64 bytes)
         (n_emit, n_open, n_closed, n_late, new_wm, bank_ovf, emit_ovf,
          n_invalid) = header.cpu().tolist()
+        if span is not None:
+            span.mark_device_ready()
         if bank_ovf:
             # the merged open set no longer fits the device bank: loud
             # failure BEFORE committing, so the carry stays valid
+            TELEMETRY.add_decline("window-capacity")
             raise WindowCapacityError(
                 f"{n_open} open windows exceed bank capacity {self.spec.capacity}"
             )
@@ -164,6 +189,7 @@ class WindowedRuntime:
             # the batch closed more windows than the emit columns hold:
             # their final aggregates exist ONLY there (a close evicts the
             # entry from the bank), so they cannot be delivered
+            TELEMETRY.add_decline("window-capacity")
             raise WindowCapacityError(
                 f"{n_closed} windows closed in one batch exceed emit capacity {emit_cols}"
             )
@@ -172,16 +198,20 @@ class WindowedRuntime:
             # more changed rows than the emit columns hold, or full-state
             # emission: ship the batch's CLOSED rows (the compacted emit
             # prefix: closes compact first) plus ONE full open-state image
+            t = time.perf_counter() if span is not None else 0.0
             if n_closed:
                 fetch_rows = _fetch_bucket(n_closed, emit_cols)
-                cl_ids, cl_accs, cl_cnts = _download(
-                    em_ids[:fetch_rows], em_accs[:fetch_rows], em_cnts[:fetch_rows]
+                cl_ids, cl_accs, cl_cnts = self._fetch_emit(
+                    fetch_rows * ENTRY_BYTES,
+                    em_ids[:fetch_rows], em_accs[:fetch_rows], em_cnts[:fetch_rows],
                 )[:, :n_closed]
                 closed_bytes = fetch_rows * ENTRY_BYTES
             else:
                 cl_ids = cl_accs = cl_cnts = np.zeros((0,), dtype=np.int64)
                 closed_bytes = 0
             rows = self.bank.full_rows()
+            if span is not None:
+                span.lap("d2h", t)
             ids = np.concatenate([cl_ids, rows[:, 0]])
             accs = np.concatenate([cl_accs, rows[:, 1]])
             cnts = np.concatenate([cl_cnts, rows[:, 2]])
@@ -191,15 +221,37 @@ class WindowedRuntime:
             delta_bytes = closed_bytes + rows.shape[0] * ENTRY_BYTES + DELTA_FRAME_BYTES
         else:
             # second sync: the bucketed emit slice, one download
+            t = time.perf_counter() if span is not None else 0.0
             fetch_rows = _fetch_bucket(n_emit, self.spec.emit_capacity)
-            ids, accs, cnts, closed = _download(
+            ids, accs, cnts, closed = self._fetch_emit(
+                fetch_rows * EMIT_ROW_BYTES,
                 em_ids[:fetch_rows], em_accs[:fetch_rows],
                 em_cnts[:fetch_rows], em_closed[:fetch_rows],
             )[:, :n_emit]
+            if span is not None:
+                span.lap("d2h", t)
             kind = "rows"
             delta_bytes = fetch_rows * EMIT_ROW_BYTES + DELTA_FRAME_BYTES
         self.batches += 1
         self.d2h_bytes_total += delta_bytes
+        # counters always on (exactness evidence); the span only with capture
+        TELEMETRY.add_windows_closed(n_closed)
+        if n_closed:
+            TELEMETRY.add_window_delta("close", n_closed)
+        if kind == "rows":
+            upserts = int(ids.shape[0]) - n_closed
+            if upserts:
+                TELEMETRY.add_window_delta("upsert", upserts)
+        else:
+            # closes riding the resync are already counted under "close"
+            TELEMETRY.add_window_delta("resync", int(ids.shape[0]) - n_closed)
+        if n_late:
+            TELEMETRY.add_window_delta("late", n_late)
+        if n_invalid:
+            TELEMETRY.add_window_delta("invalid", n_invalid)
+        TELEMETRY.add_window_downlink(delta_bytes, _full_state_bytes(count))
+        TELEMETRY.add_link_variant("down-packed")
+        TELEMETRY.end_batch(span, records=count)
         return WindowDelta(
             kind=kind,
             ids=np.asarray(ids, dtype=np.int64),
@@ -215,6 +267,16 @@ class WindowedRuntime:
             records=count,
             n_invalid=n_invalid,
         )
+
+    def _fetch_emit(self, nbytes: int, *columns: torch.Tensor) -> np.ndarray:
+        """Download emit-slice columns (`_download`), their device rows
+        booked under the ledger's ``emit_buffer`` owner until the copy
+        lands."""
+        TELEMETRY.mem_acquire("emit_buffer", ("emit", id(self)), nbytes)
+        try:
+            return _download(*columns)
+        finally:
+            TELEMETRY.mem_release(("emit", id(self)))
 
     # -- attach / resync -----------------------------------------------------
 

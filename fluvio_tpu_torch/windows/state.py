@@ -7,6 +7,10 @@ delta crosses the link down. The host mirrors (`occupancy`, `watermark`)
 update from each batch's scalar header; `snapshot` / `restore` produce
 and take the host tuples of the replica bus, and `to_device` re-places
 the live tensors. Only `snapshot` and `full_rows` download the bank.
+Every commit and restore books the bank's live bytes (`state_bytes`: the
+live entries' id, acc and count plus the watermark scalar) under the
+device-memory ledger's ``window_bank`` owner, always on, as the
+reference books them: state size is exactness evidence.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from fluvio_tpu_torch.telemetry import memory as memory_mod
 from fluvio_tpu_torch.windows.spec import EMPTY_ID, INT64_MIN, WindowCapacityError, WindowSpec
 
 # bytes one live bank entry occupies on device (id + acc + count, i64)
@@ -46,6 +51,7 @@ class WindowStateBank:
         self.ids, self.accs, self.counts, self.wm = ids, accs, counts, wm
         self.occupancy = int(occupancy)
         self.watermark = int(watermark)
+        memory_mod.note_window_bank(id(self), self.state_bytes())
 
     def state_bytes(self) -> int:
         """Live device bytes of the carry."""
@@ -84,6 +90,7 @@ class WindowStateBank:
         self.wm = torch.tensor(int(watermark), dtype=torch.int64, device=self.device)
         self.occupancy = len(entries)
         self.watermark = int(watermark)
+        memory_mod.note_window_bank(id(self), self.state_bytes())
 
     def to_device(self, device) -> None:
         """Re-place the live tensors on ``device`` (the partition runtime's

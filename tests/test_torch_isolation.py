@@ -3,7 +3,9 @@
 - No file of ``fluvio_tpu_torch/`` and not ``chip_smoke.py`` imports jax,
   anything of ``fluvio_tpu`` or yaml (an AST scan of every import), and no module
   of the port names a path under ``fluvio_tpu/`` in its code (the port
-  builds its own copy of the glz compressor, never the JAX package's).
+  builds its own copy of the glz compressor, never the JAX package's) or
+  reads the environment (``os.environ``, ``os.getenv``: every setting is
+  a field, the telemetry's included).
 - With no device given and no CUDA, `SmartEngine()` raises instead of
   drifting to the CPU.
 - On a machine with a card (marker ``cuda``; skipped elsewhere), each CUDA
@@ -246,19 +248,22 @@ def server_invocations(name: str):
                                   params=params)]
 
 
-async def start_spu_server(log_dir, batches, device=None, topic: str = "bench"):
+async def start_spu_server(log_dir, batches, device=None, topic: str = "bench",
+                           monitoring_path=None, telemetry=None):
     """The port's `SpuServer` on ``127.0.0.1:0`` logging under
     ``log_dir``, its SmartEngine on ``device`` (None: the card), with one
     replica of ``topic`` holding ``batches``, each written as its own
-    record set through the leader's `write_record_set`. Returns the
-    started server."""
+    record set through the leader's `write_record_set`; its monitoring
+    socket at ``monitoring_path`` (None: none) and ``telemetry`` (a
+    `TelemetryConfig`) applied. Returns the started server."""
     from fluvio_tpu_torch.protocol.record import RecordSet
     from fluvio_tpu_torch.spu.config import SpuConfig
     from fluvio_tpu_torch.spu.server import SpuServer
     from fluvio_tpu_torch.storage.config import ReplicaConfig
 
     config = SpuConfig(public_addr="127.0.0.1:0", log_base_dir=str(log_dir),
-                       replication=ReplicaConfig(base_dir=str(log_dir)))
+                       replication=ReplicaConfig(base_dir=str(log_dir)),
+                       monitoring_path=monitoring_path, telemetry=telemetry)
     config.smart_engine.device = device
     server = SpuServer(config)
     await server.start()
@@ -736,7 +741,11 @@ def test_port_imports_no_jax_and_nothing_of_fluvio_tpu():
                    "spu/cleaner_controller.py", "protocol/native_codecs.py",
                    "transport/tls.py", "client/config.py", "metadata/yaml_subset.py",
                    "metadata/client.py", "metadata/dispatcher.py", "auth/basic.py",
-                   "auth/identity.py"):
+                   "auth/identity.py", "telemetry/__init__.py", "telemetry/histogram.py",
+                   "telemetry/spans.py", "telemetry/flow.py", "telemetry/registry.py",
+                   "telemetry/prometheus.py", "telemetry/trace.py", "telemetry/timeseries.py",
+                   "telemetry/slo.py", "telemetry/memory.py", "telemetry/lag.py",
+                   "telemetry/compiles.py", "spu/monitoring.py"):
         assert REPO / "fluvio_tpu_torch" / module in files, module
     bad = [
         f"{path.relative_to(REPO)}:{line}: {module}"
@@ -774,6 +783,36 @@ def test_port_names_no_path_under_fluvio_tpu():
     from fluvio_tpu_torch.smartengine.gpu import glz
 
     assert glz._SOURCE == REPO / "fluvio_tpu_torch" / "native" / "glz.cpp"
+
+
+def _environment_reads(source: str):
+    """(line, text) of every read of the process environment in a module's
+    source: ``os.environ`` / ``os.environb`` / ``os.getenv`` /
+    ``os.getenvb`` / ``os.putenv``, and those names imported from ``os``."""
+    names = ("environ", "environb", "getenv", "getenvb", "putenv")
+    for node in ast.walk(ast.parse(source)):
+        if (isinstance(node, ast.Attribute) and node.attr in names
+                and isinstance(node.value, ast.Name) and node.value.id == "os"):
+            yield node.lineno, f"os.{node.attr}"
+        elif isinstance(node, ast.ImportFrom) and node.module == "os":
+            for alias in node.names:
+                if alias.name in names:
+                    yield node.lineno, f"from os import {alias.name}"
+
+
+def test_port_reads_no_environment():
+    # the scan sees each form it looks for
+    probe = "import os\nfrom os import getenv\na = os.environ.get('A')\nb = os.getenv('B')\n"
+    assert sorted(t for _, t in _environment_reads(probe)) == [
+        "from os import getenv", "os.environ", "os.getenv"]
+    files = sorted((REPO / "fluvio_tpu_torch").rglob("*.py"))
+    assert len(files) > 10
+    bad = [
+        f"{path.relative_to(REPO)}:{line}: {text}"
+        for path in files
+        for line, text in _environment_reads(path.read_text(encoding="utf-8"))
+    ]
+    assert not bad, bad
 
 
 def test_engine_without_cuda_raises(monkeypatch):

@@ -662,8 +662,22 @@ def test_rebalancer_defaults_and_partition_of():
     assert rebalancer.MOVE_REASONS == ref_rebalancer.MOVE_REASONS
     for key in ("sig123@t00.s0/0", "t00.s0/0", "a@b@c/1"):
         assert rebalancer.partition_of(key) == ref_rebalancer.partition_of(key)
-    with pytest.raises(TypeError):
-        PartitionRebalancer(lambda: None, lambda *a: True)  # no lag reader: the port has no default
+    # no lag reader: each reads its telemetry registry's consumer-lag family
+    from fluvio_tpu.telemetry import TELEMETRY as REF_TELEMETRY
+    from fluvio_tpu_torch.telemetry import TELEMETRY
+
+    for t in (REF_TELEMETRY, TELEMETRY):
+        t.reset()
+        t.set_consumer_lag("sig123@t00.s0/0", 7)
+        t.set_consumer_lag("t00.s0/1", 2)
+    try:
+        port = PartitionRebalancer(lambda: None, lambda *a: True)
+        ref = ref_rebalancer.PartitionRebalancer(lambda: None, lambda *a: True)
+        assert port._lag_by_plan_key() == ref._lag_by_plan_key() == {
+            "t00.s0/0": 7.0, "t00.s0/1": 2.0}
+    finally:
+        for t in (REF_TELEMETRY, TELEMETRY):
+            t.reset()
 
 
 # ---------------------------------------------------------------------------

@@ -670,3 +670,38 @@ def test_server_without_cuda_raises_and_the_client_refuses_an_sc(tmp_path, monke
             await sc.stop()
 
     asyncio.run(asyncio.wait_for(modes(), 30))
+
+
+@pytest.mark.parametrize("cancels", [1, 2, 3])
+def test_cancelled_slice_step_never_closes_a_running_generator(cancels):
+    """`public_service._next_slice` under ``cancels`` cancels (a stream
+    ended, then the loop's shutdown): it raises only once the step in its
+    worker thread has ended, so the generator can be closed after it."""
+    import threading
+    from types import SimpleNamespace
+
+    from fluvio_tpu_torch.spu import public_service
+
+    started, release = threading.Event(), threading.Event()
+
+    def slices():
+        started.set()
+        release.wait(10)
+        yield "slice"
+
+    gen = slices()
+
+    async def body():
+        task = asyncio.ensure_future(public_service._next_slice(SimpleNamespace(), gen))
+        while not started.is_set():
+            await asyncio.sleep(0.005)
+        for _ in range(cancels):
+            task.cancel()
+            await asyncio.sleep(0.02)
+        assert not task.done()  # the step still runs
+        release.set()
+        with pytest.raises(asyncio.CancelledError):
+            await task
+        gen.close()  # not running: closing it raises nothing
+
+    asyncio.run(body())
