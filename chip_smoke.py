@@ -254,6 +254,19 @@ Phases (any failure raises and the script exits non-zero):
    records, on and off in turns, best of 3, in a fresh process) at most
    2 % or 200 µs a batch, in one of up to 5 rounds as the JAX gate.
    ``--telemetry-only`` builds the kernels and runs only this phase.
+19. admission (``fluvio_tpu_torch.admission``) on phase 13's log behind
+   the port's ``SpuServer``: (a) the serve gate's warm-up (consumers of a
+   fresh north star and ``3_aggregate`` held ``cold-chain`` while the
+   chain warms, then served; no warm-up error, no build but the warms';
+   each chain's first slice warmed against not warmed), (b) four tenants
+   at once under a token bucket of 1 refilled 1 a second (``no-tokens``
+   sheds, every tenant held, ``held_slices`` back at 0), (c) a
+   ``record_age_p99`` target of 1 ms: ``breach-shed`` until the windows
+   age out, then served, (d) ``AdmissionPipeline``'s batcher coalescing
+   the four tenants' 16,384-record slices into warmed 65,536-row buckets
+   (no ``cold-bucket``), each tenant's outputs split back. Every consumer
+   and tenant is held to host truth. ``--admission-only`` builds the
+   kernels and runs only this phase.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -4075,6 +4088,307 @@ def phase_telemetry():
     return numbers, {k: sum(v[k] for v in launches.values()) for k in cuda_kernels.LAUNCHES}
 
 
+# phase 19: admission (`fluvio_tpu_torch.admission`) behind the port's SPU
+# server and its pipeline, on phase 13's log
+ADMISSION_PHASE = dict(tenants=4, token_tokens=1.0, token_refill=1.0, breach_window_s=0.25,
+                       breach_windows=4, breach_refresh_s=0.05, pipeline_rows=65_536)
+# the phase's SLO rules: the defaults but the two that judge a replayed
+# backlog, which would shed the consumers for reasons (a), (b) and (d) do
+# not test: consumer_lag (a consumer starting 1,048,576 records behind
+# breaches its 65,536-record target by design) and record_age_p99 (records
+# appended at the phase's start); (c) arms record_age_p99 alone, at 1 ms
+ADMISSION_SLO = "consumer_lag:off=1;record_age_p99:off=1"
+
+
+def first_slice(server, since: int) -> dict:
+    """The host phases (ms) of the first slice ``server`` pushed after its
+    first ``since``, and their sum without the ack wait."""
+    phases = dict(list(server.ctx.metrics.slice_phases)[since])
+    return {"ms": sum(v for k, v in phases.items() if k != "ack_wait"), "phases": phases}
+
+
+def phase_admission():
+    """Phase 19: admission on the card. Phase 13's log (1,048,576 `gen_json`
+    records in 64 stored batches of 16,384, stamped with the wall clock so
+    the default record-age rule holds) behind the port's `SpuServer`:
+
+    (a) the serve gate's warm-up: the north star, then ``3_aggregate``,
+        served by a server with ``AdmissionConfig(enabled=True)`` (only the
+        2-record warm of a fresh stateless chain), then by a fresh server
+        with ``AdmissionConfig(enabled=True, warmup=True)``: each consumer
+        arrives while its fresh chain warms, is held ``cold-chain``, then
+        served; no warm-up error and no build event but the warms'; each
+        chain's first slice (server ms, and the client's ms to its first
+        batch) warmed against not warmed, the allocator emptied first;
+    (b) token shed, on the second server: four tenants (topics
+        ``t0.bench`` .. ``t3.bench``, the same log), four consumers at once
+        of the north star and ``flu[vV]io`` under a controller of 1 token
+        refilled 1 a second: ``no-tokens`` sheds, held flows with their
+        hold, every tenant held, ``held_slices`` back at 0;
+    (c) breach shed: a ``record_age_p99`` target of 1 ms in 4 windows of
+        0.25 s; a consumer served with the gate disarmed breaches it, then
+        the next consumer of the same chain and partition is shed
+        ``breach-shed`` until the windows age out, and served;
+    (d) the pipeline: `AdmissionPipeline` (batcher row target 65,536)
+        takes the four tenants' 16,384-record slices of the north star
+        (the 64 stored batches), coalesces them into the buckets a
+        warm-up warmed (no ``cold-bucket``), and each tenant's outputs,
+        split back, equal host truth.
+
+    Every consumer's records are held to host truth (contiguous offsets,
+    no duplicates). Returns (numbers, launches of (a)-(d))."""
+    import asyncio
+    import random
+    import tempfile
+    from collections import Counter
+
+    from fluvio_tpu_torch import admission, telemetry
+    from fluvio_tpu_torch.admission import AdmissionConfig
+    from fluvio_tpu_torch.admission import warmup as adm_warmup
+    from fluvio_tpu_torch.client import Fluvio
+    from fluvio_tpu_torch.native import records as native_records
+    from fluvio_tpu_torch.telemetry import TELEMETRY, TelemetryConfig
+    from fluvio_tpu_torch.telemetry import slo as slo_mod
+
+    t_phase = time.perf_counter()
+    p, bcfg, cases = ADMISSION_PHASE, BROKER, shared_cases()
+    values = broker_values()
+    n = len(values)
+    truths = {name: broker_truth(name) for name in ("north_star", "flu_regex_filter",
+                                                     "3_aggregate")}
+    now_ms = int(time.time() * 1000)
+    wires, batches = cases.broker_log(values, bcfg["batch_records"], now_ms)
+    ts_of = np.full(n, now_ms, dtype=np.int64)
+    numbers, launches = {}, {}
+    telemetry.configure(TelemetryConfig(slo=ADMISSION_SLO))
+    TELEMETRY.reset()
+    adm_warmup.reset_warm_registry()
+
+    def counts(reason: str) -> int:
+        return TELEMETRY.admission.get(reason, 0)
+
+    async def consume(addr, topic: str, name: str, max_bytes: int = bcfg["max_bytes"]):
+        """One pass held to host truth: (s, s to the first batch, batches)."""
+        client = await Fluvio.connect(addr)
+        try:
+            consumer = await client.partition_consumer(topic, 0)
+            config = cases.server_consumer_config(cases.server_invocations(name), max_bytes)
+            t0 = time.perf_counter()
+            got, arrivals = await cases.consume_once(consumer, config)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            await client.close()
+        results, starts = server_results(got)
+        check_broker_pass(f"admission {name} on {topic}", results, starts, truths[name], ts_of)
+        return dt, arrivals[0] - t0, len(got)
+
+    async def serve_first(server, arm: str, first: dict):
+        for name in ("north_star", "3_aggregate"):
+            cold0, since = counts("cold-chain"), len(server.ctx.metrics.slice_phases)
+            dt, ttfb, slices = await consume(server.public_addr, "bench", name)
+            first[f"{arm}/{name}"] = dict(first_slice(server, since), first_batch_ms=ttfb * 1e3,
+                                          pass_s=dt, slices=slices,
+                                          cold_chain=counts("cold-chain") - cold0)
+
+    async def run(work: Path):
+        # (a) not warmed, then warmed
+        first = {}
+        torch.cuda.empty_cache()
+        server = await cases.start_spu_server(work / "a", batches,
+                                              admission=AdmissionConfig(enabled=True))
+        try:
+            cuda_kernels.reset_launches()
+            await serve_first(server, "not_warmed", first)
+            launches["a_not_warmed"] = dict(cuda_kernels.LAUNCHES)
+        finally:
+            await server.stop()
+        if first["not_warmed/north_star"]["cold_chain"] or first[
+                "not_warmed/3_aggregate"]["cold_chain"]:
+            raise AssertionError(f"admission (a): cold-chain sheds without the warm-up {first}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        server = await cases.start_spu_server(
+            work / "b", batches, admission=AdmissionConfig(enabled=True, warmup=True))
+        write_s = time.perf_counter() - t0
+        try:
+            reports0 = len(adm_warmup.recent_reports())
+            builds0 = TELEMETRY.compile_totals()["compiles"]
+            cuda_kernels.reset_launches()
+            await serve_first(server, "warmed", first)
+            launches["a_warmed"] = dict(cuda_kernels.LAUNCHES)
+            reports = adm_warmup.recent_reports()[reports0:]
+            builds = TELEMETRY.compile_totals()["compiles"] - builds0
+            if [r.chain for r in reports] != ["filter+map", "aggregate"] or any(
+                    r.errors for r in reports):
+                raise AssertionError(f"admission (a): warm reports "
+                                     f"{[r.to_dict() for r in reports]}")
+            if builds != sum(r.compiles for r in reports):
+                raise AssertionError(f"admission (a): {builds} build events while serving, "
+                                     f"{sum(r.compiles for r in reports)} of them the warms'")
+            for name in ("north_star", "3_aggregate"):
+                if first[f"warmed/{name}"]["cold_chain"] < 1:
+                    raise AssertionError(f"admission (a): {name}'s consumer was not held "
+                                         "cold-chain during its warm")
+            numbers["a_warms"] = [r.to_dict() for r in reports]
+            numbers["a_first_slice"] = first
+            numbers["write_s"] = write_s
+
+            # (b) four tenants under a tight token bucket
+            t0 = time.perf_counter()
+            plan = []
+            for k in range(p["tenants"]):
+                await cases.write_topic(server, f"t{k}.bench", batches)
+                plan.append((f"t{k}.bench", ("north_star", "flu_regex_filter")[k % 2]))
+            numbers["b_write_s"] = time.perf_counter() - t0
+            admission.configure(AdmissionConfig(enabled=True))
+            admission.set_gate(admission.AdmissionController(tokens=p["token_tokens"],
+                                                             refill=p["token_refill"]))
+            TELEMETRY.reset()
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            passes = await asyncio.gather(*(consume(server.public_addr, topic, name)
+                                            for topic, name in plan))
+            wall = time.perf_counter() - t0
+            launches["b_tokens"] = dict(cuda_kernels.LAUNCHES)
+            held = [f for f in TELEMETRY.flows_json() if f.get("phases_ms", {}).get("hold")]
+            tenants_held = TELEMETRY.tenant_families()[2]
+            if (counts("no-tokens") < 1 or not held or TELEMETRY.gauge_value("held_slices")
+                    or set(tenants_held) != {f"t{k}" for k in range(p["tenants"])}):
+                raise AssertionError(f"admission (b): no-tokens {counts('no-tokens')}, "
+                                     f"{len(held)} held flows, held_slices "
+                                     f"{TELEMETRY.gauge_value('held_slices')}, tenants held "
+                                     f"{tenants_held}, shed {TELEMETRY.tenant_families()[1]}, "
+                                     f"slices {[x[2] for x in passes]}")
+            numbers["b_tokens"] = {
+                "wall_s": wall, "records_per_s": p["tenants"] * n / wall,
+                "passes_s": [x[0] for x in passes], "slices": [x[2] for x in passes],
+                "admission": dict(TELEMETRY.admission), "tenants_held": tenants_held,
+                "tenants_shed": TELEMETRY.tenant_families()[1], "held_flows": len(held),
+                "hold_ms": sorted(f["phases_ms"]["hold"] for f in held)}
+
+            # (c) a record-age target of 1 ms: a consumer the gate lets
+            # through breaches it, the next one is shed until it ages out
+            telemetry.configure(TelemetryConfig(
+                slo="consumer_lag:off=1;record_age_p99:target_ms=1",
+                slo_window_s=p["breach_window_s"], slo_windows=p["breach_windows"]))
+            admission.configure(AdmissionConfig())
+            TELEMETRY.reset()
+            slo_mod.engine().evaluate()  # the windows' first sample
+            await consume(server.public_addr, "bench", "north_star")
+            await asyncio.sleep(p["breach_window_s"] * 1.2)  # past a window boundary
+            admission.set_gate(admission.AdmissionController(refresh_s=p["breach_refresh_s"],
+                                                             rng=random.Random(19)))
+            cuda_kernels.reset_launches()
+            dt, ttfb, slices = await consume(server.public_addr, "bench", "north_star")
+            launches["c_breach"] = dict(cuda_kernels.LAUNCHES)
+            held = [f for f in TELEMETRY.flows_json() if f.get("phases_ms", {}).get("hold")]
+            if counts("breach-shed") < 1 or TELEMETRY.gauge_value("held_slices") or not held:
+                raise AssertionError(f"admission (c): {dict(TELEMETRY.admission)}, held_slices "
+                                     f"{TELEMETRY.gauge_value('held_slices')}")
+            numbers["c_breach"] = {
+                "pass_s": dt, "first_batch_ms": ttfb * 1e3, "slices": slices,
+                "admission": dict(TELEMETRY.admission),
+                "slo_breaches": dict(TELEMETRY.slo_breaches),
+                "hold_ms": sorted(f["phases_ms"]["hold"] for f in held)}
+        finally:
+            admission.configure(AdmissionConfig())
+            telemetry.configure(TelemetryConfig())
+            await server.stop()
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-admission-") as work:
+        asyncio.run(run(Path(work)))
+
+    # (d) the pipeline: the four tenants' slices coalesced into warmed buckets
+    ex = broker_chain("north_star").gpu_chain
+    slices, owner = [], {}
+    for k, b in enumerate(batches):
+        cols = native_records.decode_record_columns(b.raw_records, align=4)
+        buf = RecordBuffer.from_flat(cols, base_offset=b.base_offset)
+        slices.append((f"t{k % p['tenants']}", buf))
+        owner[id(buf)] = (f"t{k % p['tenants']}", b.base_offset)
+    widths = sorted({buf.width for _, buf in slices})
+    admission.configure(AdmissionConfig(enabled=True, batch_rows=p["pipeline_rows"]))
+    TELEMETRY.reset()
+    report = admission.warm_executor(ex, widths=widths, rows=p["pipeline_rows"])
+    if report.errors or sorted(report.buckets) != widths:
+        raise AssertionError(f"admission (d): warm {report.to_dict()}")
+    outputs = {f"t{k}": [] for k in range(p["tenants"])}
+    flush_log = []
+
+    def dispatch(flush):
+        out = ex.process_buffer(flush.buffer)
+        for buf, part in zip(flush.items, admission.split_output(out, flush.bases)):
+            tenant, base = owner[id(buf)]
+            outputs[tenant] += [(base + d, v) for v, d in part]
+        flush_log.append((flush.cause, flush.buffer.count, flush.width_bucket))
+
+    pipe = admission.AdmissionPipeline(dispatch)
+    pipe.register_chain("filter+map")
+    pipe.note_warm("filter+map", report.buckets)
+    cuda_kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resubmitted = 0
+    for tenant, buf in slices:
+        while not pipe.submit("filter+map", buf, tenant=tenant):
+            resubmitted += 1  # a shed slice is held and submitted again
+            time.sleep(0.005)
+        pipe.pump()
+    pipe.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["d_pipeline"] = dict(cuda_kernels.LAUNCHES)
+    admission.configure(AdmissionConfig())
+    t_off, t_len, t_flat = truths["north_star"]
+    t_start = np.concatenate([[0], np.cumsum(t_len)])
+    for k in range(p["tenants"]):
+        mine = np.zeros(n, dtype=bool)
+        for j in range(k, len(batches), p["tenants"]):
+            mine[batches[j].base_offset: batches[j].computed_last_offset()] = True
+        want = [(int(t_off[i]), t_flat[t_start[i]: t_start[i + 1]].tobytes())
+                for i in np.nonzero(mine[t_off])[0]]
+        if outputs[f"t{k}"] != want:
+            raise AssertionError(f"admission (d): tenant t{k}: {len(outputs[f't{k}'])} outputs, "
+                                 f"host truth {len(want)}")
+    rows = [r for _, r, _ in flush_log]
+    if counts("cold-bucket") or sum(rows) != n:
+        raise AssertionError(f"admission (d): flushes {flush_log}, admission "
+                             f"{dict(TELEMETRY.admission)}")
+    numbers["d_pipeline"] = {
+        "records_per_s": n / wall, "wall_s": wall, "flushes": len(flush_log),
+        "causes": dict(Counter(c for c, _, _ in flush_log)), "rows": rows,
+        "buckets": sorted({w for _, _, w in flush_log}), "warm": report.to_dict(),
+        "resubmitted": resubmitted, "admission": dict(TELEMETRY.admission),
+        "outputs": sum(len(v) for v in outputs.values())}
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log("admission (a): warm-up wall s "
+        f"{[round(w['wall_s'], 4) for w in numbers['a_warms']]} (buckets "
+        f"{[w['buckets'] for w in numbers['a_warms']]}, skipped "
+        f"{[w['skipped'] for w in numbers['a_warms']]}, builds "
+        f"{[w['compiles'] for w in numbers['a_warms']]}, launches "
+        f"{[w['launches'] for w in numbers['a_warms']]}, allocator growth B "
+        f"{[w['reserved_bytes'] for w in numbers['a_warms']]}); first slice server ms / "
+        "client ms to the first batch: " + "; ".join(
+            f"{k} {v['ms']:.3f} / {v['first_batch_ms']:.3f} (cold-chain {v['cold_chain']})"
+            for k, v in numbers["a_first_slice"].items()))
+    b = numbers["b_tokens"]
+    log(f"admission (b): {p['tenants']} tenants x {n} records in {b['wall_s']:.3f} s "
+        f"({b['records_per_s']:.0f} records/s), admission {b['admission']}, tenants held "
+        f"{b['tenants_held']}, {b['held_flows']} held flows (hold ms "
+        f"{[round(x, 1) for x in b['hold_ms']]}), held_slices 0")
+    c = numbers["c_breach"]
+    log(f"admission (c): breach-shed, then served in {c['pass_s']:.3f} s (first batch after "
+        f"{c['first_batch_ms']:.1f} ms), admission {c['admission']}, hold ms "
+        f"{[round(x, 1) for x in c['hold_ms']]}, SLO breaches {c['slo_breaches']}")
+    d = numbers["d_pipeline"]
+    log(f"admission (d): {n} records of {p['tenants']} tenants in {d['flushes']} flushes "
+        f"{d['causes']} (rows {sorted(set(d['rows']))}, buckets {d['buckets']}) at "
+        f"{d['records_per_s']:.0f} records/s, resubmitted {d['resubmitted']}, no cold-bucket, "
+        f"each tenant's outputs equal host truth; phase 19 took {numbers['phase_s']:.1f} s")
+    return numbers, {k: sum(v[k] for v in launches.values()) for k in cuda_kernels.LAUNCHES}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -4116,6 +4430,10 @@ def main(argv=None) -> int:
     parser.add_argument("--telemetry-overhead", action="store_true",
                         help="build the kernels and run only phase 18's overhead gate, printing "
                              "its document (phase 18 runs it so, in a fresh process)")
+    parser.add_argument("--admission-only", action="store_true",
+                        help="build the kernels and run only admission: the serve gate's "
+                             "warm-up, token and breach sheds over the socket, the pipeline's "
+                             "batcher (phase 19; no ok line)")
     parser.add_argument("--striped-slice-only", action="store_true",
                         help="build the kernels and run only phase 12 (with phase 9's aggregate "
                              "chains and phase 11, whose D2H it reads; no ok line)")
@@ -4210,6 +4528,11 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"telemetry": numbers}))
         return 0
+    if args.admission_only:
+        numbers, launches = phase_admission()
+        print(smi)
+        print(json.dumps({"admission": numbers, "launches": launches}))
+        return 0
     if args.striped_slice_only:
         json_corpora = [gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)]
         slice_numbers, _ops = phase_slice(json_corpora, ("3_aggregate", "filter_aggregate"))
@@ -4261,6 +4584,8 @@ def main(argv=None) -> int:
     lap("17 secure cluster")
     telemetry_numbers, telemetry_launches = phase_telemetry()
     lap("18 telemetry")
+    admission_numbers, admission_launches = phase_admission()
+    lap("19 admission")
     log(f"replication beside the cluster: north star by name through the SC from the promoted "
         f"leader {repl_numbers['north_star_after_failover']['sc_records_per_s']:.0f} records/s, "
         f"phase 15's (b) {cluster_numbers_['consume_by_name']['sc_records_per_s']:.0f}; produce "
@@ -4274,7 +4599,8 @@ def main(argv=None) -> int:
                 "cluster": {"launches": cluster_launches},
                 "replication": {"launches": repl_launches},
                 "secure_cluster": {"launches": secure_launches},
-                "telemetry": {"launches": telemetry_launches}}
+                "telemetry": {"launches": telemetry_launches},
+                "admission": {"launches": admission_launches}}
     for r in rows:
         r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in by_chain.items()}
     chain_launches = [v["launches"] for v in by_chain.values()]
@@ -4304,6 +4630,7 @@ def main(argv=None) -> int:
                     "replication": repl_numbers,
                     "secure_cluster": secure_numbers,
                     "telemetry": telemetry_numbers,
+                    "admission": admission_numbers,
                     "build_seconds": KERNELS.build_seconds}))
     log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
                     "device": smi}))

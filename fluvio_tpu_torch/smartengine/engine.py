@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import base64
 from dataclasses import dataclass, field
-from typing import List, Optional, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 
@@ -154,20 +154,23 @@ class SmartModuleChainBuilder:
             if config.initial_data:
                 spec["initial"] = base64.b64encode(bytes(config.initial_data)).decode("ascii")
             chain_spec.append(spec)
-        return SmartModuleChainInstance(self.engine, executor, chain_spec)
+        look_back = [module.name for module, _ in self.entries if module.has_look_back()]
+        return SmartModuleChainInstance(self.engine, executor, chain_spec, look_back)
 
 
 class SmartModuleChainInstance:
     """An initialized chain (the reference's instance with its
     ``tpu_chain``): ``process`` runs one input slab through the executor
     ``gpu_chain``. ``chain_spec`` names each module, its kind, params and
-    aggregate seed."""
+    aggregate seed; ``look_back_modules`` the modules that export a
+    ``look_back`` hook, which the port never runs."""
 
     def __init__(self, engine: SmartEngine, gpu_chain: Optional[GpuChainExecutor],
-                 chain_spec: Optional[list] = None):
+                 chain_spec: Optional[list] = None, look_back_modules: Sequence[str] = ()):
         self.engine = engine
         self.gpu_chain = gpu_chain
         self.chain_spec = chain_spec or []
+        self.look_back_modules = list(look_back_modules)
 
     @property
     def backend_in_use(self) -> str:

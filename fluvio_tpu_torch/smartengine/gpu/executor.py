@@ -713,6 +713,75 @@ def _assemble(buf, count, rows, out_lengths, out_keys, out_klens, src,
     )
 
 
+def lower_chain(entries: List[Tuple[SmartModuleDef, SmartModuleConfig]]):
+    """(stages, programs, agg_configs) of a chain of DSL modules, or None
+    when a program is missing or outside the lowerable subset (as the
+    reference's rules decide: one array_map a chain, in mode
+    ``json_array`` or ``split``; no windowed aggregate after an array_map;
+    an aggregate's combine among ``dsl.AGGREGATE_COMBINES`` and its
+    contribution an int). Touches no device and no telemetry, so the
+    preflight (`analysis.spec`) walks the same rules."""
+    if not entries:
+        return None
+    stages: List = []
+    programs: List = []
+    agg_configs: List[Tuple[str, Optional[int], bytes]] = []
+    try:
+        for module, config in entries:
+            prog = module.dsl_program(module.transform_kind())
+            if prog is None:
+                return None
+            prog = dsl.resolve_params(prog, config.params)
+            programs.append(prog)
+            if isinstance(prog, dsl.FilterProgram):
+                if infer_type(prog.predicate) != "bool":
+                    raise Unlowerable("filter predicate must be bool")
+                stages.append(_FilterStage(lower_expr(prog.predicate)))
+            elif isinstance(prog, (dsl.MapProgram, dsl.FilterMapProgram)):
+                sp = lower_span(prog.value)
+                span_fn, span_post = sp if sp is not None else (None, ())
+                predicate = None
+                if isinstance(prog, dsl.FilterMapProgram):
+                    predicate = lower_expr(prog.predicate)
+                stages.append(
+                    _MapStage(
+                        value_fn=None if span_fn else lower_expr(prog.value),
+                        key_fn=lower_expr(prog.key) if prog.key is not None else None,
+                        predicate=predicate,
+                        span_fn=span_fn,
+                        span_postops=span_post,
+                    )
+                )
+            elif isinstance(prog, dsl.AggregateProgram):
+                if prog.window_ms and any(isinstance(s, _ArrayMapStage) for s in stages):
+                    # explode rows carry fresh (zero) timestamps: no window key
+                    raise Unlowerable("windowed aggregate after array_map")
+                if prog.contribution is not None:
+                    if prog.combine not in dsl.AGGREGATE_COMBINES:
+                        raise Unlowerable(f"aggregate combine {prog.combine}")
+                    if infer_type(prog.contribution) != "int":
+                        raise Unlowerable("aggregate contribution must be int-typed")
+                    op, contribution_fn = prog.combine, lower_expr(prog.contribution)
+                else:
+                    if prog.kind not in _AGG_OP:
+                        raise Unlowerable(f"aggregate kind {prog.kind}")
+                    op, contribution_fn = _AGG_OP[prog.kind], _canned_contribution(prog.kind)
+                stages.append(_AggregateStage(op, prog.window_ms or None, len(agg_configs),
+                                              contribution_fn))
+                agg_configs.append((op, prog.window_ms or None, config.initial_data))
+            elif isinstance(prog, dsl.ArrayMapProgram):
+                if prog.mode not in ("json_array", "split"):
+                    raise Unlowerable(f"array_map mode {prog.mode}")
+                if any(isinstance(s, _ArrayMapStage) for s in stages):
+                    raise Unlowerable("one array_map per fused chain")
+                stages.append(_ArrayMapStage(mode=prog.mode, sep=prog.sep))
+            else:
+                return None
+    except (Unlowerable, KeyError):
+        return None
+    return stages, programs, agg_configs
+
+
 class GpuChainExecutor:
     """A compiled chain over one torch device, with its aggregate state."""
 
@@ -791,69 +860,12 @@ class GpuChainExecutor:
         stripe_params: Optional[stripes.StripeParams] = None,
         link_params: Optional[glz.LinkParams] = None,
     ) -> Optional["GpuChainExecutor"]:
-        """Lower a chain of DSL modules; None when a program is missing or
-        outside the lowerable subset (as the reference's rules decide: one
-        array_map a chain, in mode ``json_array`` or ``split``; no windowed
-        aggregate after an array_map; an aggregate's combine among
-        ``dsl.AGGREGATE_COMBINES`` and its contribution an int)."""
-        if not entries:
+        """Lower a chain of DSL modules (`lower_chain`); None when it does
+        not lower."""
+        lowered = lower_chain(entries)
+        if lowered is None:
             return None
-        stages: List = []
-        programs: List = []
-        agg_configs: List[Tuple[str, Optional[int], bytes]] = []
-        try:
-            for module, config in entries:
-                prog = module.dsl_program(module.transform_kind())
-                if prog is None:
-                    return None
-                prog = dsl.resolve_params(prog, config.params)
-                programs.append(prog)
-                if isinstance(prog, dsl.FilterProgram):
-                    if infer_type(prog.predicate) != "bool":
-                        raise Unlowerable("filter predicate must be bool")
-                    stages.append(_FilterStage(lower_expr(prog.predicate)))
-                elif isinstance(prog, (dsl.MapProgram, dsl.FilterMapProgram)):
-                    sp = lower_span(prog.value)
-                    span_fn, span_post = sp if sp is not None else (None, ())
-                    predicate = None
-                    if isinstance(prog, dsl.FilterMapProgram):
-                        predicate = lower_expr(prog.predicate)
-                    stages.append(
-                        _MapStage(
-                            value_fn=None if span_fn else lower_expr(prog.value),
-                            key_fn=lower_expr(prog.key) if prog.key is not None else None,
-                            predicate=predicate,
-                            span_fn=span_fn,
-                            span_postops=span_post,
-                        )
-                    )
-                elif isinstance(prog, dsl.AggregateProgram):
-                    if prog.window_ms and any(isinstance(s, _ArrayMapStage) for s in stages):
-                        # explode rows carry fresh (zero) timestamps: no window key
-                        raise Unlowerable("windowed aggregate after array_map")
-                    if prog.contribution is not None:
-                        if prog.combine not in dsl.AGGREGATE_COMBINES:
-                            raise Unlowerable(f"aggregate combine {prog.combine}")
-                        if infer_type(prog.contribution) != "int":
-                            raise Unlowerable("aggregate contribution must be int-typed")
-                        op, contribution_fn = prog.combine, lower_expr(prog.contribution)
-                    else:
-                        if prog.kind not in _AGG_OP:
-                            raise Unlowerable(f"aggregate kind {prog.kind}")
-                        op, contribution_fn = _AGG_OP[prog.kind], _canned_contribution(prog.kind)
-                    stages.append(_AggregateStage(op, prog.window_ms or None, len(agg_configs),
-                                                  contribution_fn))
-                    agg_configs.append((op, prog.window_ms or None, config.initial_data))
-                elif isinstance(prog, dsl.ArrayMapProgram):
-                    if prog.mode not in ("json_array", "split"):
-                        raise Unlowerable(f"array_map mode {prog.mode}")
-                    if any(isinstance(s, _ArrayMapStage) for s in stages):
-                        raise Unlowerable("one array_map per fused chain")
-                    stages.append(_ArrayMapStage(mode=prog.mode, sep=prog.sep))
-                else:
-                    return None
-        except (Unlowerable, KeyError):
-            return None
+        stages, programs, agg_configs = lowered
         return cls(stages, device, programs, stripe_params, link_params, agg_configs)
 
     # -- aggregate state ----------------------------------------------------

@@ -9,8 +9,10 @@ make the module. The GPU engine runs DSL programs only: the decorated
 Python functions are not kept, and a transform that carries no program
 makes a module the engine refuses. ``@smartmodule.init`` and
 ``@smartmodule.look_back`` hooks are never run: their decorators return
-the function as it is, so a source that declares them loads, and the
-engine refuses it for its transform. A source that imports the JAX
+the function as it is and record only that the module exports the hook
+(``hooks``, `SmartModuleDef.has_look_back`), so a source that declares
+them loads; the SPU refuses a look-back invocation of a module that
+exports a ``look_back`` hook. A source that imports the JAX
 package (``from fluvio_tpu.smartmodule.sdk import smartmodule``, the form
 the JAX package's own tests push) is refused at that import: the port
 never imports that package. Sources in the namespace form, with no
@@ -22,7 +24,7 @@ from __future__ import annotations
 import builtins
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Set
 
 from fluvio_tpu_torch.smartmodule import dsl as dsl_mod
 from fluvio_tpu_torch.smartmodule.types import TRANSFORM_KIND_ORDER, SmartModuleKind
@@ -35,6 +37,8 @@ class SmartModuleDef:
 
     name: str = "adhoc"
     dsl: Dict[SmartModuleKind, Any] = field(default_factory=dict)
+    # the hooks the source declares (init, look_back); never run
+    hooks: Set[SmartModuleKind] = field(default_factory=set)
 
     def transform_kind(self) -> SmartModuleKind:
         """Detect the module's transform kind in the engine's export
@@ -50,6 +54,9 @@ class SmartModuleDef:
 
     def dsl_program(self, kind: SmartModuleKind):
         return self.dsl.get(kind)
+
+    def has_look_back(self) -> bool:
+        return SmartModuleKind.LOOK_BACK in self.hooks
 
 
 # the JAX package: the port's own package name without its ``_torch``
@@ -83,8 +90,16 @@ def current_module(reset: bool = True) -> SmartModuleDef:
     return m
 
 
-def _pass_through(fn: Callable) -> Callable:
-    return fn
+def _hook(kind: SmartModuleKind) -> Callable:
+    """``@smartmodule.init`` / ``@smartmodule.look_back``: the function as
+    it is, the hook recorded on the module being assembled."""
+
+    def decorator(fn: Callable) -> Callable:
+        current_module(reset=False).hooks.add(kind)
+        return fn
+
+    decorator.__name__ = kind.value
+    return decorator
 
 
 class _SmartModuleNamespace:
@@ -114,7 +129,8 @@ class _SmartModuleNamespace:
         self.filter_map = self._make(SmartModuleKind.FILTER_MAP)
         self.array_map = self._make(SmartModuleKind.ARRAY_MAP)
         self.aggregate = self._make(SmartModuleKind.AGGREGATE)
-        self.init = self.look_back = _pass_through
+        self.init = _hook(SmartModuleKind.INIT)
+        self.look_back = _hook(SmartModuleKind.LOOK_BACK)
 
 
 smartmodule = _SmartModuleNamespace()

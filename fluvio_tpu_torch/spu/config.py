@@ -15,8 +15,10 @@ sweep's period (0 or less: no sweep). ``monitoring_path`` is the unix
 socket of the metrics endpoint (`monitoring.MonitoringServer`; None: no
 endpoint, "": its default path) and ``telemetry`` the `TelemetryConfig`
 the server applies to the process at construction (None: leave the
-process's telemetry settings as they are). The port reads no environment
-variable: every setting is a field.
+process's telemetry settings as they are); ``admission`` likewise the
+`AdmissionConfig` (None: leave the process's admission settings as they
+are, which start disarmed). The port reads no environment variable:
+every setting is a field.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional
 
+from fluvio_tpu_torch.admission.types import AdmissionConfig
 from fluvio_tpu_torch.smartengine.engine import DEFAULT_STORE_MAX_MEMORY
 from fluvio_tpu_torch.storage.config import ReplicaConfig
 from fluvio_tpu_torch.telemetry.registry import TelemetryConfig
@@ -52,6 +55,9 @@ class SpuConfig:
     # "" = monitoring.SPU_MONITORING_UNIX_SOCKET
     monitoring_path: Optional[str] = None
     telemetry: Optional[TelemetryConfig] = None
+    # admission control (the shed/hold gate and the chain warm-up); None
+    # leaves the process's settings (disarmed unless configured)
+    admission: Optional[AdmissionConfig] = None
     # retention cleaner pass period (cleaner.rs:20 `CLEANING_INTERVAL`);
     # <= 0 disables the background task
     cleaner_interval_seconds: float = 30.0

@@ -38,9 +38,27 @@ with the lag engine, seeds its committed offset at the resolved start and
 moves it with each consumer ack; each served slice books its records and
 one record-age observation under that key and under the tenant label (the
 topic's prefix before its first dot); each slice of a chain stream has a
-`SliceFlow` from its read to its push. The reference's admission control
-(its hold loop, the held-slice gauge) and chain warm-up are not ported
-yet, so a flow's ``hold`` and ``batcher`` phases stay 0.
+`SliceFlow` from its arrival to its push.
+
+Admission (the reference's front door, `fluvio_tpu_torch.admission`):
+with the process's gate armed, each slice of a chain stream is admitted
+before its read (`smart_chain.admission_check`, asked inside
+`stream_slices`). A shed slice is HELD: the generator yields a
+`smart_chain.SliceHold` and the handler waits ``retry_after_s`` (at least
+5 ms, at most 250 ms) on the event loop, where it keeps seeing the
+connection's end and the consumer's acks, before the next step asks again
+at the same offset; nothing is lost or read twice. While a slice is held
+the ``held_slices`` gauge counts it and the tenant's held count moves
+once; its release books the hold on the ``hold`` slice phase and on the
+slice's flow, which was born at the slice's arrival and carries the
+decision. A chain attached to a stream is warmed once
+(`_schedule_chain_warmup`): a fresh stateless chain with one 2-record
+batch by default, or, with ``AdmissionConfig.warmup``, the whole
+shape-bucket warm-up (`admission.warmup.warm_executor`) behind the serve
+gate, which sheds ``cold-chain`` until the warm is done. A look-back
+invocation is served when no module of its chain exports a ``look_back``
+hook, as the reference serves it; a module that exports one is refused
+(`acquire_stream_chain`).
 """
 
 from __future__ import annotations
@@ -48,6 +66,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
+import weakref
 from typing import Dict, Optional
 
 from fluvio_tpu_torch.protocol.api import (
@@ -83,11 +102,16 @@ from fluvio_tpu_torch.spu.context import GlobalContext
 from fluvio_tpu_torch.spu.replica import LeaderReplicaState
 from fluvio_tpu_torch.spu.smart_chain import (
     BatchProcessResult,
+    SliceHold,
     SmartModuleResolutionError,
+    _admission_gate,
     acquire_stream_chain,
+    admission_chain_sig,
+    admission_check,
+    admission_note_warm,
+    admission_require_warm,
     apply_chain,
     build_chain,
-    chain_lag_key,
     stream_slices,
 )
 from fluvio_tpu_torch.telemetry import TELEMETRY
@@ -310,6 +334,93 @@ async def _next_slice(chain, slices):
             raise
 
 
+_warmed_chains: "weakref.WeakSet" = weakref.WeakSet()
+# the warm tasks in flight (the loop keeps only weak references to tasks)
+_warm_tasks: set = set()
+
+
+def _schedule_chain_warmup(chain) -> Optional[asyncio.Task]:
+    """Pay a chain's first-dispatch costs off the hot path, once a chain
+    instance. Two regimes, as the reference's:
+
+    - **Admission warm-up** (``AdmissionConfig.warmup``): the shape-bucket
+      work-list walk (`admission.warmup.warm_executor`) — every bucket of
+      the probe grid paid at attach, the warmed buckets registered with
+      the admission controller (the serve gate sheds ``cold-chain`` until
+      then), stateful chains warmed behind the carry save and restore;
+    - **tiny warm** (default): one 2-record buffer pays the fixed
+      per-chain costs; stateless chains only (a warm record would race
+      the carries).
+
+    The warm runs on a worker thread under the chain's lock
+    (`_chain_lock`), so it never races a stream's step on the same
+    executor. Returns its task (None when nothing is warmed, or without a
+    running loop, where it warms inline). A caller that yields once after
+    scheduling lets the tiny warm take the lock before its stream's first
+    step; the serve-gate warm yields once more first, so that step sheds
+    ``cold-chain`` (the stream is held) and the warm runs after it. The
+    serve gate lifts on every outcome: warmed buckets registered, or
+    (nothing warmed, or the warm raised) explicitly un-gated, never armed
+    forever. A failed warm is logged at warning
+    level; its probes' failures are in its report and booked as telemetry
+    events (`admission.warmup`)."""
+    from fluvio_tpu_torch.admission import warmup as adm_warmup
+
+    gpu = chain.gpu_chain
+    aot = adm_warmup.warmup_enabled()
+    if gpu is None or (gpu.agg_configs and not aot) or chain in _warmed_chains:
+        return None
+    _warmed_chains.add(chain)
+    if aot:
+        # the serve gate arms BEFORE the warm starts: traffic arriving
+        # mid-warm sheds cold-chain instead of paying the costs inline
+        admission_require_warm(chain)
+
+    def _lift_gate() -> None:
+        ctl = _admission_gate()
+        if ctl is not None:
+            ctl.require_warm(admission_chain_sig(chain), False)
+
+    def _warm() -> None:
+        if aot:
+            report = None
+            try:
+                report = adm_warmup.warm_executor(gpu)
+            finally:
+                if report is not None and report.buckets:
+                    admission_note_warm(chain, report.buckets)
+                else:
+                    _lift_gate()
+            return
+        from fluvio_tpu_torch.protocol.record import Record
+        from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+
+        records = [Record(value=b"[1]"), Record(value=b"[2]")]
+        for i, r in enumerate(records):
+            r.offset_delta = i
+        gpu.process_buffer(RecordBuffer.from_records(records))
+
+    async def _run() -> None:
+        try:
+            if aot:
+                await asyncio.sleep(0)  # the stream's first step takes the lock first
+            await _chain_off_loop(chain, _warm)
+        except Exception:  # noqa: BLE001 — the warm is best-effort; serving goes on
+            logger.warning("chain warm-up failed", exc_info=True)
+
+    try:
+        task = asyncio.get_running_loop().create_task(_run())
+    except RuntimeError:  # no loop (sync callers): warm inline
+        try:
+            _warm()
+        except Exception:  # noqa: BLE001
+            logger.warning("chain warm-up failed", exc_info=True)
+        return None
+    _warm_tasks.add(task)
+    task.add_done_callback(_warm_tasks.discard)
+    return task
+
+
 def _smartmodule_error_code(e: Exception) -> ErrorCode:
     """The stream or produce error code the reference sends for the same
     invocation: a resolution error's own code; a transform error (the
@@ -456,6 +567,9 @@ class StreamFetchHandler:
         self.metrics = ctx.metrics.smartmodule
         self._ended = False  # terminal error pushed; stop the stream
         self._phases: Optional[dict] = None  # the last pushed slice's phase ms
+        # while a slice is held by admission backpressure: the hold's
+        # start (the held_slices gauge is up until its release books it)
+        self._hold_t0: Optional[float] = None
         # streaming-lag identity: chain@topic/partition for chain streams
         # (set once the chain is acquired), stream@topic/partition else
         self._lag_key = f"stream@{req.topic}/{req.partition}"
@@ -469,6 +583,46 @@ class StreamFetchHandler:
             pass
         except Exception:  # noqa: BLE001 — one stream's failure must not end the server
             logger.exception("stream fetch failed (%s-%s)", self.req.topic, self.req.partition)
+        finally:
+            # a stream that ends mid-hold releases it as a re-admit does:
+            # the gauge drops and the hold's time is booked
+            self._release_hold()
+
+    def _note_hold(self) -> None:
+        """A shed slice: stamp the hold's start and raise the gauge (once
+        a hold, across its retries)."""
+        if self._hold_t0 is None:
+            self._hold_t0 = time.monotonic()
+            TELEMETRY.gauge_add("held_slices", 1)
+            TELEMETRY.add_tenant_held(self._tenant)
+
+    def _release_hold(self, flow=None) -> None:
+        """A held slice was admitted (or its stream ended): book the hold
+        on the ``hold`` slice phase and the slice's flow, drop the gauge."""
+        if self._hold_t0 is None:
+            return
+        held_s = time.monotonic() - self._hold_t0
+        self._hold_t0 = None
+        TELEMETRY.gauge_add("held_slices", -1)
+        TELEMETRY.add_slice_phase("hold", held_s)
+        if flow is not None:
+            flow.hold(held_s)
+
+    def _admit(self, chain, flow):
+        """`stream_slices`' admission callable, run in the slice's worker
+        step before its read: None admits (releasing a hold), a
+        `Rejected` decline holds the slice, its reason on the flow. A
+        ``breaker-open`` decline proceeds, the flow says so."""
+        rej = admission_check(chain, topic=self.req.topic, partition=self.req.partition,
+                              tenant=self._tenant)
+        if rej is not None and rej.reason != "breaker-open":
+            if flow is not None:
+                flow.decision = rej.reason
+            return rej
+        self._release_hold(flow)
+        if flow is not None:
+            flow.decision = "breaker-open" if rej is not None else "admit"
+        return None
 
     async def _run(self) -> None:
         req = self.req
@@ -488,7 +642,9 @@ class StreamFetchHandler:
             except Exception as e:  # noqa: BLE001 — reported on the stream
                 await self._chain_failed(leader, e)
                 return
-            self._lag_key = chain_lag_key(chain, req.topic, req.partition)
+            if _schedule_chain_warmup(chain) is not None:
+                await asyncio.sleep(0)  # the warm's task runs up to its lock
+            self._lag_key = admission_chain_sig(chain, req.topic, req.partition)
         if TELEMETRY.enabled:
             # the lag engine joins this key's committed offset against the
             # leader's high watermark from here on
@@ -541,7 +697,9 @@ class StreamFetchHandler:
         stored log up to its read bound, each slice pushed and acked
         before the next is taken; at the log's end, wait for more data.
         For a stateless chain the card works on slice k+1 under slice k's
-        push and ack wait."""
+        push and ack wait. A slice the admission gate sheds is held here,
+        on the loop, for its ``retry_after_s`` (5 ms to 250 ms), then the
+        next step asks again."""
         req = self.req
 
         def read(offset: int):
@@ -554,7 +712,8 @@ class StreamFetchHandler:
             bound = leader.read_bound(req.isolation)
             if current < bound:
                 slices = stream_slices(chain, read, current, bound, req.max_bytes, self.metrics,
-                                       flow_label=(self._lag_key, self._tenant))
+                                       flow_label=(self._lag_key, self._tenant),
+                                       admit=lambda flow: self._admit(chain, flow))
                 try:
                     while True:
                         try:
@@ -568,6 +727,12 @@ class StreamFetchHandler:
                             return
                         if result is None:
                             break
+                        if isinstance(result, SliceHold):
+                            self._note_hold()
+                            await asyncio.sleep(min(max(result.retry_after_s, 0.005), 0.25))
+                            if self.conn.end.is_set():
+                                return
+                            continue
                         current = await self._push_processed(leader, result)
                         TELEMETRY.end_flow(result.flow, records=result.records.total_records())
                         if self._ended:

@@ -12,7 +12,8 @@ pushes, LRS reports), and, when ``monitoring_path`` is set, the
 monitoring socket (`monitoring.MonitoringServer`: json, prom, spans,
 trace, health, lag and memory). They start in that order and stop in the
 reverse one. A ``config.telemetry`` is applied to the process's
-telemetry (`telemetry.configure`) at construction.
+telemetry (`telemetry.configure`) at construction, and a
+``config.admission`` to its admission gate (`admission.configure`).
 
     server = SpuServer(SpuConfig(public_addr="127.0.0.1:0", log_base_dir=d))
     await server.start()
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from fluvio_tpu_torch.admission import configure as configure_admission
 from fluvio_tpu_torch.spu.cleaner_controller import CleanerController
 from fluvio_tpu_torch.spu.config import SpuConfig
 from fluvio_tpu_torch.spu.context import GlobalContext
@@ -50,6 +52,8 @@ class SpuServer:
         self.config = config
         if config.telemetry is not None:
             configure_telemetry(config.telemetry)
+        if config.admission is not None:
+            configure_admission(config.admission)
         self.ctx = GlobalContext(config)
         self.public_server = FluvioApiServer(
             config.public_addr, SpuPublicService(), self.ctx, ssl_context=server_ssl(config.tls)

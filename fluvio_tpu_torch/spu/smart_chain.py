@@ -25,9 +25,20 @@ declined, counted by reason, and served by `process_batches_per_record`,
 which still runs every batch on the card. A `GpuSpill` or a device error
 propagates to the caller: nothing reruns in an interpreter. The SPU's
 stream handler gets its chains from `acquire_stream_chain`, which caches
-stateless ones. The reference's admission and partition hooks, its dedup
-chain and look_back are not carried: an invocation with a look-back
-raises `EngineError`.
+stateless ones. The reference's partition hook, its dedup chain and
+look_back hooks are not carried: a look-back invocation of a module that
+exports a ``look_back`` hook raises `EngineError`; one whose modules
+export none is served, as the reference serves it (its ``look_back``
+skips every instance without the hook).
+
+The admission seam is the reference's (`admission_check`,
+`admission_note_warm`, `admission_require_warm`, `admission_chain_sig`):
+with the process's admission gate armed (`fluvio_tpu_torch.admission`),
+`stream_slices` asks its ``admit`` callable before each read, and a shed
+slice is yielded as a `SliceHold` for the caller to wait out (on its event
+loop) before the generator asks again at the same offset. A shed comes
+before `gpu_stage_dispatch`, so ``inflight_queue_depth`` does not move
+for it.
 
 A `PendingSlice` records its host phases in ``phase_ms`` (decompress,
 decode, stage, dispatch) and the `BatchProcessResult` of its finish adds
@@ -197,18 +208,19 @@ def acquire_stream_chain(
     and ``stream_chains``). The key is the version and, for each module,
     its kind, the payload's sha256, the accumulator and the params. A chain is
     cached, and handed to every later stream with the same key, only when
-    it runs on the GPU executor and keeps no carries; a stateful chain
-    (an aggregate) is built fresh for each stream. An invocation with a
-    look-back raises `EngineError`: the port runs no look_back hook, and
-    the stream is not served without it."""
+    it runs on the GPU executor, keeps no carries and asks for no
+    look-back; any other chain is built fresh for each stream. A look-back
+    invocation is served when no module of the chain exports a
+    ``look_back`` hook (the reference's ``look_back`` skips such
+    instances); when one does, this raises `EngineError`: the port runs no
+    look_back hook, and the stream is not served without it."""
     key_parts = [str(version)]
     cacheable = True
+    look_back = any(inv.lookback() is not None for inv in invocations)
     for inv in invocations:
-        if inv.lookback() is not None:
-            raise EngineError(
-                f"SmartModule {inv.name or inv.wasm.name or 'adhoc'!r} asks for a look-back, "
-                "which the GPU engine does not run"
-            )
+        if look_back:
+            cacheable = False
+            break
         payload = (
             inv.wasm.payload
             if inv.wasm.tag == SmartModuleInvocationWasm.ADHOC
@@ -232,6 +244,11 @@ def acquire_stream_chain(
             ctx.stream_chains.move_to_end(key)
             return chain
     chain = build_chain(invocations, ctx.engine, ctx.smartmodules, version)
+    if look_back and chain.look_back_modules:
+        raise EngineError(
+            f"SmartModule {chain.look_back_modules[0]!r} exports a look_back hook and the "
+            "invocation asks for a look-back, which the GPU engine does not run"
+        )
     gpu = chain.gpu_chain
     if cacheable and chain.backend_in_use == "gpu" and not gpu.agg_configs:
         ctx.stream_chains[key] = chain
@@ -323,18 +340,100 @@ def _decline(metrics, reason: str):
     return None
 
 
-def chain_lag_key(chain, topic: str, partition: int) -> str:
-    """The ``chain@topic/partition`` identity of a served chain (the lag,
-    flow and tenant families key on it, as the reference's
-    ``admission_chain_sig`` does): the executor's chain signature."""
+# --- admission seam (fluvio_tpu_torch.admission) -----------------------------
+# One source of truth: admission.gate() owns the resolve-once state, so
+# admission.configure()/set_gate()/reset_gate() affect the broker seam
+# immediately. Only the import is cached here; disarmed (the default) the
+# per-slice cost is one resolved-flag check returning None.
+_GATE_FN = None
+
+
+def _admission_gate():
+    global _GATE_FN
+    if _GATE_FN is None:
+        from fluvio_tpu_torch.admission import gate
+
+        _GATE_FN = gate
+    return _GATE_FN()
+
+
+def admission_chain_sig(chain, topic=None, partition=None) -> str:
+    """A served chain's admission identity: the executor's chain
+    signature, and ``sig@topic/partition`` with a partition (its own
+    token bucket and SLO-verdict family: a hot partition sheds without
+    starving its siblings; the lag, flow and tenant families key on it
+    too). Warm bookkeeping stays per chain: the controller strips the
+    suffix for warm lookups."""
     gpu = chain.gpu_chain
-    return f"{gpu._chain_sig if gpu is not None else 'chain'}@{topic}/{partition}"
+    sig = gpu._chain_sig if gpu is not None else "chain"
+    if partition is None:
+        return sig
+    return f"{sig}@{topic or 't'}/{partition}"
+
+
+def admission_check(chain, topic=None, partition=None, tenant=""):
+    """The broker front door: one admission decision for one read slice.
+
+    Returns None when admitted (or admission is disarmed), else the typed
+    ``Rejected`` decline. A health/credit shed means HOLD the slice — the
+    stream handler waits ``retry_after_s`` and asks again, so offsets
+    never advance past unserved records (no loss, no duplicates) and no
+    exception ever reaches the client. A ``breaker-open`` rejection
+    (none arises in the port, which has no breakers yet) is counted on
+    the same decline surface, and the caller proceeds.
+
+    A shed happens BEFORE `gpu_stage_dispatch`, so a shed slice never
+    constructs a dispatched `PendingSlice`: the ``inflight_queue_depth``
+    gauge does not move for it.
+
+    ``tenant`` attributes real sheds (not breaker-open) to the per-tenant
+    accounting plane. The attribution happens HERE, not inside the gate:
+    `set_gate` installs duck-typed controllers whose ``admit(chain, cost,
+    breaker)`` contract predates tenancy and must keep working."""
+    ctl = _admission_gate()
+    if ctl is None:
+        return None
+    decision = ctl.admit(
+        admission_chain_sig(chain, topic, partition), breaker=getattr(chain, "breaker", None)
+    )
+    if decision:
+        return None
+    if tenant and decision.reason != "breaker-open":
+        TELEMETRY.add_tenant_shed(tenant)
+    return decision
+
+
+def admission_note_warm(chain, buckets) -> None:
+    """Register warmed width buckets with the live controller (the serve
+    gate's cold-chain shed lifts once the chain's buckets are warm)."""
+    ctl = _admission_gate()
+    if ctl is not None:
+        ctl.note_warm(admission_chain_sig(chain), buckets)
+
+
+def admission_require_warm(chain) -> None:
+    ctl = _admission_gate()
+    if ctl is not None:
+        ctl.require_warm(admission_chain_sig(chain))
+
+
+@dataclass
+class SliceHold:
+    """`stream_slices`' answer for a slice the admission gate shed: no
+    records were read; the caller waits ``retry_after_s`` and takes the
+    next step, which asks again at the same offset."""
+
+    decision: object  # the `Rejected` decline
+
+    @property
+    def retry_after_s(self) -> float:
+        return self.decision.retry_after_s
 
 
 def _begin_flow(flow_label):
     """A new slice's flow record under ``flow_label`` (key, tenant), or
-    None. Every slice the port serves is admitted (it has no admission
-    front door), so the decision is ``admit``."""
+    None. Its decision is ``admit`` until an admission check says
+    otherwise."""
     if flow_label is None:
         return None
     flow = TELEMETRY.begin_flow(*flow_label)
@@ -702,25 +801,42 @@ def stream_slices(
     max_bytes: int,
     metrics=None,
     flow_label: Optional[Tuple[str, str]] = None,
-) -> Iterator[BatchProcessResult]:
+    admit: Optional[Callable[[object], object]] = None,
+) -> Iterator[object]:
     """Serve offsets [start, end) slice by slice: the SPU's stream loop
-    (the core of the reference's ``StreamFetchHandler._run_pipelined``).
-    ``read(offset)`` returns the stored batches of the slice that holds
-    ``offset`` (none past the log's end); its time is the slice's
-    ``read`` phase. For a pipelinable chain (`gpu_pipelinable`), slice
-    k+1 is read, staged and dispatched before slice k is finished and
-    encoded; when ``max_bytes`` cuts slice k, slice k+1 (read from the
+    (the core of the reference's ``StreamFetchHandler._run`` and
+    ``_run_pipelined``). ``read(offset)`` returns the stored batches of the
+    slice that holds ``offset`` (none past the log's end); its time is the
+    slice's ``read`` phase. For a pipelinable chain (`gpu_pipelinable`),
+    slice k+1 is read, staged and dispatched before slice k is finished
+    and encoded; when ``max_bytes`` cuts slice k, slice k+1 (read from the
     wrong offset) is discarded and read again. Other chains run one slice
     at a time (`process_batches`). An error, or closing the generator,
     discards what is in flight. With ``flow_label`` (``(key, tenant)``)
-    each slice read gets a `SliceFlow`, carried on its result
+    each slice gets a `SliceFlow` when it arrives, carried on its result
     (``result.flow``) for the caller to end when it serves the slice; a
-    discarded slice's flow is dropped."""
+    discarded slice's flow is dropped.
+
+    ``admit(flow)``, when given, is asked before each read with the
+    slice's flow (None without a flow label): None admits, a `Rejected`
+    decline holds the slice. A held slice is yielded as a `SliceHold` (no
+    read, no dispatch: ``inflight_queue_depth`` does not move); the slice
+    in flight, if any, is finished and yielded first, and the next step
+    asks again at the same offset with the same flow. The caller waits
+    the hold out between steps. Yields `BatchProcessResult` and
+    `SliceHold`."""
     gpu = chain.gpu_chain
     current = start
+    flow = None  # the next slice's flow, born at its arrival, kept across holds
     if not gpu_pipelinable(chain):
         while current < end:
-            flow = _begin_flow(flow_label)  # born at arrival, before the read
+            if flow is None:
+                flow = _begin_flow(flow_label)
+            if admit is not None:
+                shed = admit(flow)
+                if shed is not None:
+                    yield SliceHold(shed)
+                    continue
             t0 = time.perf_counter()
             batches = read(current)
             if not batches:
@@ -728,7 +844,7 @@ def stream_slices(
             read_ms = _ms(t0)
             result = process_batches(chain, batches, max_bytes, metrics, current)
             result.phase_ms["read"] = read_ms
-            result.flow = flow
+            result.flow, flow = flow, None
             yield result
             current = result.next_offset
         return
@@ -737,13 +853,23 @@ def stream_slices(
     try:
         while True:
             planned = pending.planned_next if pending is not None else current
-            flow = _begin_flow(flow_label) if planned < end else None
-            t0 = time.perf_counter()
-            nxt_batches = read(planned) if planned < end else []
-            read_ms = _ms(t0)
+            shed = None
+            nxt_batches: List[Batch] = []
+            read_ms = 0.0
+            read_flow = None
+            if planned < end:
+                if flow is None:
+                    flow = _begin_flow(flow_label)
+                if admit is not None:
+                    shed = admit(flow)
+                if shed is None:
+                    read_flow, flow = flow, None
+                    t0 = time.perf_counter()
+                    nxt_batches = read(planned)
+                    read_ms = _ms(t0)
             if nxt_batches:
                 nxt = gpu_stage_dispatch(chain, nxt_batches, metrics, start_offset=planned,
-                                         flow=flow)
+                                         flow=read_flow)
                 if nxt is not None:
                     nxt.phase_ms["read"] = read_ms
             if pending is not None:
@@ -759,13 +885,17 @@ def stream_slices(
                         nxt.discard(gpu)
                         nxt = None
                     continue
+            if shed is not None:
+                # nothing in flight now: the caller waits the hold out
+                yield SliceHold(shed)
+                continue
             if nxt is not None:
                 pending, nxt = nxt, None
             elif nxt_batches:
                 # the coalesced path declined this slice: serve it per batch
                 result = process_batches_per_record(chain, nxt_batches, max_bytes, metrics)
                 result.phase_ms["read"] = read_ms
-                result.flow = flow
+                result.flow = read_flow
                 yield result
                 current = result.next_offset
             else:

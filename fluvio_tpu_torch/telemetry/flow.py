@@ -1,8 +1,9 @@
 """Per-slice causal flow records for the flight recorder.
 
-The port's copy of ``fluvio_tpu/telemetry/flow.py``. The port has no
-admission front door or batcher yet, so a flow's ``hold``, ``queue_wait``
-and ``batcher`` phases stay 0 and its decision is ``admit``.
+The port's copy of ``fluvio_tpu/telemetry/flow.py``. The SPU's stream
+handler books a held slice's ``hold`` on its flow, and an
+`admission.AdmissionPipeline` its ``queue_wait`` and ``batcher``
+residence; a flow's decision is ``admit`` or the last shed reason.
 
 The span ring sees batches, not the slices a consumer is served: a
 :class:`SliceFlow` is the per-slice walk: it is born when a

@@ -485,7 +485,7 @@ def render_prometheus(
         ("admission_queue_depth",
          "Slices held in the admission fair queues, not yet dispatched."),
         ("warmed_buckets",
-         "Shape buckets precompiled by the AOT warmup pass."),
+         "Shape buckets warmed by the warm-up pass (distinct chain x width)."),
         ("held_slices",
          "Stream slices currently shed-held by admission backpressure."),
     ):

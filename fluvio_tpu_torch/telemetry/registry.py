@@ -164,8 +164,8 @@ class PipelineTelemetry:
         # admission-controller decisions keyed by outcome (admission/):
         # "admit" plus the shed reasons (breach-shed, warn-shed,
         # no-tokens, queue-full, breaker-open, cold-chain) and the
-        # batcher flush causes (batch-full, batch-deadline, cold-bucket).
-        # The port has no admission controller yet: nothing moves it
+        # batcher flush causes (batch-full, batch-deadline, shutdown,
+        # solo, cold-bucket)
         self.admission: Dict[str, int] = {}
         self.breaker_states: Dict[str, str] = {}
         self.breaker_transitions: Dict[str, int] = {}

@@ -32,6 +32,7 @@ from tests.test_torch_chain import (
     _ref_buffer,
 )
 from tests.test_torch_isolation import gen_json
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 
 INT64_MIN = -(2**63)
 INT64_MAX = 2**63 - 1

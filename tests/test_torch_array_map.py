@@ -25,6 +25,7 @@ from fluvio_tpu_torch.smartmodule import dsl
 from tests.test_torch_aggregate import _chains, _gauges_unchanged, _stage, run_both  # noqa: F401
 from tests.test_torch_chain import _assert_equal, _port_buffer, _ref_buffer
 from tests.test_torch_isolation import gen_arrays
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 
 
 ARRAY_DOCS = [

@@ -34,6 +34,7 @@ from fluvio_tpu_torch.smartmodule import dsl
 from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
 from fluvio_tpu_torch.smartmodule.types import SmartModuleKind
 from tests.test_torch_isolation import gen_json
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 from tests.test_tpu_kernels import JSON_DOCS
 
 HEADLINE = [("regex-filter", {"regex": "fluvio"}), ("json-map", {"field": "name"})]

@@ -44,6 +44,7 @@ from tests.test_torch_aggregate import _gauges_unchanged  # noqa: F401
 from tests.test_torch_consume import _both, _chains, _decode, _north_star, small_chunks  # noqa: F401
 from tests.test_torch_isolation import gen_json
 from tests.test_torch_redesign import _dfa_pallas_flags_restored  # noqa: F401
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 
 CODECS = {
     "lz4": (native_codecs.lz4_compress, native_codecs.lz4_decompress, lz4_py, ref_lz4_py,

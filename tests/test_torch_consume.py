@@ -48,6 +48,7 @@ from tests.test_torch_aggregate import _gauges_unchanged  # noqa: F401
 from tests.test_torch_chain import _module_pair
 from tests.test_torch_isolation import gen_arrays, gen_json, north_star_invocations, slice_reader
 from tests.test_torch_redesign import _dfa_pallas_flags_restored  # noqa: F401
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 
 AGGREGATE = [("aggregate-field", {"field": "n", "combine": "add"}, b"")]
 EXPLODE = [("array-map-json", {}, b"")]

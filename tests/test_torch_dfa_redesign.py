@@ -39,6 +39,7 @@ from tests.test_torch_isolation import (
     non_invariant_tables,
 )
 from tests.test_torch_regex_dfa import PATTERNS
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 
 SOURCE = (Path(__file__).resolve().parent.parent
           / "fluvio_tpu_torch/smartengine/gpu/csrc/dfa_scan.cu").read_text(encoding="utf-8")

@@ -37,6 +37,7 @@ from fluvio_tpu.smartengine.tpu import kernels as jax_kernels
 from fluvio_tpu.smartengine.tpu import pallas_kernels
 from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, glz, kernels
 from fluvio_tpu_torch.smartengine.gpu.native import CSRC
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 
 
 def _cu_constant(source: str, name: str) -> int:

@@ -27,6 +27,7 @@ from fluvio_tpu_torch.smartengine.gpu.executor import (
     desc_stream,
     pad_glz_tokens,
 )
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 
 CHUNK = 4096
 

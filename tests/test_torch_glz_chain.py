@@ -29,6 +29,7 @@ from fluvio_tpu_torch.smartengine.gpu import glz
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
 from tests.test_torch_chain import HEADLINE, _assert_equal, _port_buffer, _ref_buffer
 from tests.test_torch_isolation import gen_json
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 from tests.test_torch_stripes import PARAMS, _json_corpus
 
 CHUNK = 16 * 1024

@@ -249,30 +249,40 @@ def server_invocations(name: str):
 
 
 async def start_spu_server(log_dir, batches, device=None, topic: str = "bench",
-                           monitoring_path=None, telemetry=None):
+                           monitoring_path=None, telemetry=None, admission=None):
     """The port's `SpuServer` on ``127.0.0.1:0`` logging under
     ``log_dir``, its SmartEngine on ``device`` (None: the card), with one
     replica of ``topic`` holding ``batches``, each written as its own
     record set through the leader's `write_record_set`; its monitoring
-    socket at ``monitoring_path`` (None: none) and ``telemetry`` (a
-    `TelemetryConfig`) applied. Returns the started server."""
-    from fluvio_tpu_torch.protocol.record import RecordSet
+    socket at ``monitoring_path`` (None: none), ``telemetry`` (a
+    `TelemetryConfig`) and ``admission`` (an `AdmissionConfig`) applied.
+    Returns the started server."""
     from fluvio_tpu_torch.spu.config import SpuConfig
     from fluvio_tpu_torch.spu.server import SpuServer
     from fluvio_tpu_torch.storage.config import ReplicaConfig
 
     config = SpuConfig(public_addr="127.0.0.1:0", log_base_dir=str(log_dir),
                        replication=ReplicaConfig(base_dir=str(log_dir)),
-                       monitoring_path=monitoring_path, telemetry=telemetry)
+                       monitoring_path=monitoring_path, telemetry=telemetry,
+                       admission=admission)
     config.smart_engine.device = device
     server = SpuServer(config)
     await server.start()
+    await write_topic(server, topic, batches)
+    return server
+
+
+async def write_topic(server, topic: str, batches):
+    """A replica of ``topic`` on ``server`` holding ``batches``, each
+    written as its own record set through the leader's
+    `write_record_set`."""
+    from fluvio_tpu_torch.protocol.record import RecordSet
+
     leader = server.ctx.create_replica(topic, 0)
     for batch in batches:
         records = RecordSet()
         records.add(batch)
         await leader.write_record_set(records)
-    return server
 
 
 def server_consumer_config(invocations, max_bytes: int):
@@ -745,7 +755,10 @@ def test_port_imports_no_jax_and_nothing_of_fluvio_tpu():
                    "telemetry/spans.py", "telemetry/flow.py", "telemetry/registry.py",
                    "telemetry/prometheus.py", "telemetry/trace.py", "telemetry/timeseries.py",
                    "telemetry/slo.py", "telemetry/memory.py", "telemetry/lag.py",
-                   "telemetry/compiles.py", "spu/monitoring.py"):
+                   "telemetry/compiles.py", "spu/monitoring.py", "admission/__init__.py",
+                   "admission/types.py", "admission/fairness.py", "admission/controller.py",
+                   "admission/batcher.py", "admission/warmup.py", "analysis/__init__.py",
+                   "analysis/spec.py", "cluster/__init__.py", "cluster/check.py"):
         assert REPO / "fluvio_tpu_torch" / module in files, module
     bad = [
         f"{path.relative_to(REPO)}:{line}: {module}"
@@ -1433,6 +1446,49 @@ def test_broker_slice_on_the_card():
         assert metrics.fallback_slices == 0 and metrics.fastpath_slices == 1
     assert got["cuda"] == got["cpu"] and got["cuda"][1] == [8 * 4096]
     assert launches["json_span"] >= 1
+
+
+@pytest.mark.cuda
+def test_admission_warm_up_and_batcher_on_the_card():
+    """The warm-up on the card pays the chain's first dispatch (builds,
+    launches, the allocator's growth for the bucket) and reports no error;
+    a real dispatch after `warm_buffer` books no build event; four
+    tenants' slices coalesced by the batcher into the warmed bucket and
+    split back give the CPU chain's records and offset deltas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch import admission
+    from fluvio_tpu_torch.smartengine import SmartEngine
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
+    from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+    from fluvio_tpu_torch.spu import smart_chain
+    from fluvio_tpu_torch.telemetry import TELEMETRY
+
+    chains = {d: smart_chain.build_chain(north_star_invocations(), SmartEngine(device=d))
+              for d in ("cpu", "cuda")}
+    ex = chains["cuda"].gpu_chain
+    report = admission.warm_executor(ex, widths=(100, 70_000), rows=(8, 4096))
+    assert report.errors == [] and report.buckets == (128, 81920)
+    assert report.launches.get("json_span") and report.launches.get("json_span_striped")
+    slices = [RecordBuffer.from_values(gen_json(4096, seed=k)) for k in range(4)]
+    twin = admission.warm_buffer(ex, admission.coalesce_buffers(slices)[0])
+    assert twin.errors == []
+    builds = TELEMETRY.compile_totals()["compiles"]
+    got = {}
+    for device, chain in chains.items():
+        flushes = []
+        bt = admission.ShapeBucketBatcher(
+            lambda f, c=chain: flushes.append(
+                admission.split_output(c.gpu_chain.process_buffer(f.buffer), f.bases)),
+            row_target=4 * 4096)
+        bt.note_warm("ns", [128])
+        cuda_kernels.reset_launches()
+        for buf in slices:
+            bt.add("ns", buf)
+        got[device] = flushes
+    assert TELEMETRY.compile_totals()["compiles"] == builds
+    assert got["cuda"] == got["cpu"] and len(got["cuda"]) == 1
+    assert sum(map(len, got["cuda"][0])) > 0 and cuda_kernels.LAUNCHES["json_span"] >= 1
 
 
 @pytest.mark.cuda

@@ -54,6 +54,7 @@ from fluvio_tpu_torch.smartengine.gpu import kernels, stripes
 from tests.test_torch_kernels import (
     VT_CORNER, _TOKENS_ANY, _TOKENS_NO_ABORT, _edge_docs, _garbage, _stage,
 )
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 from tests.test_torch_stripes import S, V, _json_corpus, _striped
 from tests.test_tpu_kernels import JSON_DOCS
 

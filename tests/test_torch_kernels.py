@@ -32,6 +32,7 @@ from fluvio_tpu.smartmodule import dsl as ref_dsl
 from fluvio_tpu_torch import interop
 from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
 from tests.test_tpu_kernels import JSON_DOCS
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 
 W = 64
 VT_CORNER = [b'{"n":123\x0b,"m":1}', b'{"n":12 \x0c}', b'{"n":\x0b7\x0c}']

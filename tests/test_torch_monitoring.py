@@ -5,7 +5,9 @@ The same stored log (seeded ``gen_json`` batches) is written to a JAX
 `SpuServer` and to the port's (engine on the CPU), each with its
 monitoring socket; each package's client consumes the north star (the
 bench's AdHoc filter and map, dispatch-ahead, chunks of 64 rows) and then
-``3_aggregate`` (one slice at a time). Then all seven modes are read from
+``3_aggregate`` (one slice at a time); each SPU warms the north star's
+fresh chain with one 2-record batch (`_schedule_chain_warmup`), a span
+on each side. Then all seven modes are read from
 both sockets and compared at tolerance 0: the families present, the
 served records by key and by tenant, the span and flow counts by path and
 chain label, the decline reasons and link forms, lag 0 at the end, the
@@ -14,10 +16,6 @@ times, observed SLO values) are left out by name.
 
 Pinned divergences (`ROADMAP.md` §3):
 
-- the JAX SPU warms a fresh stateless chain with one 2-record batch on a
-  worker thread (`_schedule_chain_warmup`), which adds a span; the port
-  ports chain warm-up with the admission slice, so the test turns the
-  JAX warm-up off;
 - the JAX ``json`` document has ``hook_quarantine`` (its Python hook
   metering); the port runs no Python hooks;
 - the JAX chains register a circuit breaker each (the resilience item,
@@ -48,7 +46,6 @@ import pytest
 from fluvio_tpu.spu import SpuConfig as RefSpuConfig
 from fluvio_tpu.spu import SpuServer as RefSpuServer
 from fluvio_tpu.spu import monitoring as ref_monitoring
-from fluvio_tpu.spu import public_service as ref_public_service
 from fluvio_tpu.storage.config import ReplicaConfig as RefReplicaConfig
 from fluvio_tpu_torch.spu import monitoring
 from fluvio_tpu_torch.spu.config import SpuConfig
@@ -79,8 +76,7 @@ WALL_CLOCK = {"t0", "t_end", "e2e_ms", "serve_ms", "sum_s", "p50_ms", "p90_ms", 
 
 
 @pytest.fixture(autouse=True)
-def _fresh_registries(monkeypatch):
-    monkeypatch.setattr(ref_public_service, "_schedule_chain_warmup", lambda chain: None)
+def _fresh_registries():
     for ns in BOTH:
         _reset(ns)
     yield
@@ -251,7 +247,8 @@ def test_monitoring_modes_equal_reference(tmp_path, monkeypatch, small_chunks):
         k: v for k, v in rt["gauges"].items() if k != "device_memory_peak_bytes"}
     assert {p: (h["count"], h["records"]) for p, h in pt["batches"].items()} == {
         p: (h["count"], h["records"]) for p, h in rt["batches"].items()}
-    assert pt["batches"]["fused"]["records"] == 2 * n
+    # both passes, and each SPU's 2-record warm of the fresh stateless chain
+    assert pt["batches"]["fused"]["records"] == 2 * n + 2
     assert {c: h["count"] for c, h in pt["chains"].items()} == {
         c: h["count"] for c, h in rt["chains"].items()}
     for counters in (pt["counters"], rt["counters"]):

@@ -54,6 +54,7 @@ from tests.test_torch_isolation import (
     partitioned_truth,
     run_partitioned,
 )
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 
 SPECS = [("regex-filter", {"regex": "fluvio"}),
          ("aggregate-field", {"field": "n", "combine": "add"})]  # 9_partitioned's chain

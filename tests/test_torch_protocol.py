@@ -45,6 +45,7 @@ from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
 from fluvio_tpu_torch.smartmodule import sdk
 from fluvio_tpu_torch.smartmodule import types as sm_types
 from fluvio_tpu_torch.types import NO_TIMESTAMP
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 
 
 def _records(pkg, n: int, seed: int, keyed: bool = True):

@@ -12,6 +12,7 @@ import pytest
 
 from fluvio_tpu.ops import regex_dfa as ref
 from fluvio_tpu_torch.ops import regex_dfa as port
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 
 PATTERNS = [
     "fluvio",

@@ -16,10 +16,11 @@ Pinned divergences (each test named for it):
 - a transform error: the JAX server reruns the slice in its interpreter
   and sends the records before the failing one with the error; the port
   sends the same ``ErrorCode`` with no records;
-- a look-back invocation on a module with a DSL program: the JAX server
-  serves it (the module has no look_back hook to seed); the port refuses
-  every look-back invocation with ``SMARTMODULE_ERROR``, the code the
-  JAX server sends for a hook module its TPU backend cannot run.
+- a look-back invocation of a module that exports a ``look_back`` hook
+  beside its DSL transform: the JAX server runs the hook and serves the
+  stream; the port refuses it with ``SMARTMODULE_ERROR``, the code the JAX
+  server sends for a hook module its TPU backend cannot run. A look-back
+  invocation of modules that export no hook is served alike.
 """
 
 from __future__ import annotations
@@ -496,18 +497,56 @@ def test_unknown_partition_and_missing_module_errors(tmp_path):
 
 
 def test_look_back_divergence_is_pinned(tmp_path):
-    """A DSL module invoked with a look-back: the JAX server serves it (the
-    module exports no look_back hook to seed); the port refuses the
-    look-back with SMARTMODULE_ERROR rather than serve without it."""
+    """A DSL module invoked with a look-back (by count, then by age) and
+    one stateful chain with a look-back: the module exports no look_back
+    hook, so both servers serve the stream alike, batch for batch on the
+    wire (the JAX server's ``look_back`` skips the instance)."""
     wires = _stored([60, 40], seed=59)
-    invocations = _flu_regex()
-    invocations[0].lookback_last = 3
+    by_count = _flu_regex()
+    by_count[0].lookback_last = 3
+    by_age = _flu_regex()
+    by_age[0].lookback_last, by_age[0].lookback_age_ms = 3, 60_000
+    aggregate = _aggregate()
+    aggregate[0].lookback_last = 2
 
     async def body(servers):
-        served = await _consume(servers.ref.public_addr, invocations, port_client=False)
+        for invocations in (by_count, by_age, aggregate):
+            served = await _both(servers, invocations)
+            assert served and served[0][0][3]
+
+    _run(tmp_path, wires, body)
+
+
+LOOK_BACK_HOOK_SM = b"""
+@smartmodule.filter(dsl=dsl.FilterProgram(
+    predicate=dsl.RegexMatch(arg=dsl.Value(), pattern="flu[vV]io")))
+def f(record):
+    import re
+    return re.search(b"flu[vV]io", record.value) is not None
+
+
+@smartmodule.look_back
+def look_back(record):
+    pass
+"""
+
+
+def test_look_back_hook_module_divergence_is_pinned(tmp_path):
+    """A DSL filter that also exports a look_back hook, invoked with a
+    look-back: the JAX server runs the hook over the last records and
+    serves the stream; the port runs no hook and refuses the stream with
+    SMARTMODULE_ERROR, naming the hook. Invoked without a look-back, the
+    same module is served alike."""
+    wires = _stored([60, 40], seed=62)
+    hooked = [_adhoc(LOOK_BACK_HOOK_SM, SmartModuleInvocationKind.FILTER, lookback_last=3)]
+
+    async def body(servers):
+        served = await _consume(servers.ref.public_addr, hooked, port_client=False)
         assert served and served[0][0][3]
-        code, message = await _stream_error(servers.port.public_addr, invocations)
-        assert code == ErrorCode.SMARTMODULE_ERROR and "look-back" in message
+        code, message = await _stream_error(servers.port.public_addr, hooked)
+        assert code == ErrorCode.SMARTMODULE_ERROR and "look_back hook" in message
+        plain = [_adhoc(LOOK_BACK_HOOK_SM, SmartModuleInvocationKind.FILTER)]
+        assert await _both(servers, plain)
 
     _run(tmp_path, wires, body)
 
@@ -555,8 +594,9 @@ def test_transform_error_divergence_is_pinned(tmp_path):
 
 def test_acquire_stream_chain_caches_stateless_chains_only(tmp_path):
     """The SPU's chain cache: a second stateless stream gets the cached
-    instance, a stateful one a fresh instance each time, on both
-    packages; a look-back invocation raises on the port."""
+    instance, a stateful one or one with a look-back a fresh instance each
+    time, on both packages; a look-back invocation of a module exporting a
+    look_back hook raises on the port."""
     wires = _stored([20], seed=60)
 
     async def body(servers):
@@ -570,10 +610,14 @@ def test_acquire_stream_chain_caches_stateless_chains_only(tmp_path):
             s1 = acquire(convert(_aggregate()), ctx, 23)
             s2 = acquire(convert(_aggregate()), ctx, 23)
             assert s1 is not s2 and len(ctx.stream_chains) == 2
-        look = _flu_regex()
-        look[0].lookback_age_ms = 1000
+            look = _flu_regex()
+            look[0].lookback_age_ms = 1000
+            l1 = acquire(convert(look), ctx, 23)
+            l2 = acquire(convert(look), ctx, 23)
+            assert l1 is not l2 and len(ctx.stream_chains) == 2
+        hooked = [_adhoc(LOOK_BACK_HOOK_SM, SmartModuleInvocationKind.FILTER, lookback_last=1)]
         with pytest.raises(EngineError, match="look-back"):
-            sc.acquire_stream_chain(look, servers.port.ctx)
+            sc.acquire_stream_chain(hooked, servers.port.ctx)
 
     _run(tmp_path, wires, body)
 

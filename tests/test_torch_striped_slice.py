@@ -42,6 +42,7 @@ from tests.test_torch_aggregate import _gauges_unchanged  # noqa: F401
 from tests.test_torch_chain import _assert_equal, _module_pair, _port_buffer, _ref_buffer
 from tests.test_torch_isolation import gen_arrays, gen_json
 from tests.test_torch_redesign import _dfa_pallas_flags_restored  # noqa: F401
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 from tests.test_torch_stripes import PARAMS, S, V, _striped, small_stripes  # noqa: F401
 
 NEWLINE = ord("\n")

@@ -392,7 +392,8 @@ def test_prometheus_text_equals_reference(clocks, spu):
     assert "fluvio_tpu_device_memory_bytes" in families
     assert "fluvio_tpu_slo_verdict" in families
     assert ("fluvio_tpu_spu_inbound_records_total" in families) == spu
-    # the help text differs only for the build families and the leak counter
+    # the help text differs only for the build families, the leak counter
+    # and the warm-up's gauge (the port warms, it compiles no jit)
     helps = [{line.split()[2]: line for line in text.splitlines() if line.startswith("# HELP ")}
              for text in (ref, port)]
     assert helps[0].keys() == helps[1].keys()
@@ -401,8 +402,8 @@ def test_prometheus_text_equals_reference(clocks, spu):
         "fluvio_tpu_compiles_total", "fluvio_tpu_compile_seconds_total",
         "fluvio_tpu_compile_latency_seconds", "fluvio_tpu_persistent_cache_hits_total",
         "fluvio_tpu_persistent_cache_misses_total", "fluvio_tpu_jit_cache_hits_total",
-        "fluvio_tpu_memory_leaks_total"} | ({"fluvio_tpu_smartmodule_fastpath_slices_total"}
-                                           if spu else set())
+        "fluvio_tpu_memory_leaks_total", "fluvio_tpu_warmed_buckets"} | (
+            {"fluvio_tpu_smartmodule_fastpath_slices_total"} if spu else set())
 
 
 def test_trace_json_equals_reference(clocks):

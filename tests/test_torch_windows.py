@@ -43,6 +43,7 @@ from fluvio_tpu_torch.windows.kernels import parse_two_ints
 from tests.test_torch_aggregate import _gauges_unchanged, run_both  # noqa: F401
 from tests.test_torch_chain import _port_buffer, _ref_buffer
 from tests.test_torch_isolation import gen_ints, gen_keyed_ints
+from tests.test_torch_server import _leaked_spin_threads_stopped  # noqa: F401
 
 INT64_MIN = -(2**63)
 INT64_MAX = 2**63 - 1
