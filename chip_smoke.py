@@ -200,8 +200,8 @@ Phases (any failure raises and the script exits non-zero):
    (topic names allow ``[a-zA-Z0-9.-]``): (a) phase 13's 1,048,576
    records produced through ``Fluvio.connect(sc).topic_producer``
    (``send_all``, ``flush``) into ``bench`` with the default
-   ``ProducerConfig`` and into ``bench-1m`` with 1 MiB batches and
-   requests, every returned offset 0..n-1 in order and each log read back
+   ``ProducerConfig`` and the first 262,144 of them into ``bench-1m`` with
+   1 MiB batches and requests, every returned offset 0..n-1 in order and each log read back
    equal to the values, then the SC's LRS offsets for ``bench-0``; (b) the
    north star's two modules pushed by name (namespace form), ``bench``
    consumed by name through SC routing with the bench's ``ConsumerConfig``,
@@ -267,6 +267,20 @@ Phases (any failure raises and the script exits non-zero):
    (no ``cold-bucket``), each tenant's outputs split back. Every consumer
    and tenant is held to host truth. ``--admission-only`` builds the
    kernels and runs only this phase.
+20. user Python SmartModules beside the card's segments (`phase_hooks`):
+   (a) the first error on the card: ``array-map-json`` ->
+   ``regex-filter("a1[0-9]")`` -> ``aggregate-count`` over 1,048,576
+   ``gen_arrays`` records with ``{"no":1}`` planted at row 0, 786,431 or
+   nowhere, then a clean batch (the count's carry); (b) that chain over
+   the ``SpuServer`` socket, the error response against the truth; (c) a
+   dedup topic (``dedup-filter``, count 10,000): 262,144 keyed records
+   produced through the SC, the SPU restarted (look-back re-seed), 65,536
+   more, the stored log against the filter's rule, then the north star;
+   (d) a look-back stream (a DSL ``flu[vV]io`` filter with a ``look_back``
+   hook, 1,000 records of phase 13's log); (e) a mixed chain (card filter,
+   host hook map, card ``json-map``) over 1,048,576 records. Each arm is
+   exact against a host truth computed without the port's engine.
+   ``--hooks-only`` builds the kernels and runs only this phase.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -2870,7 +2884,10 @@ def phase_server():
 # phase 15: the cluster (the JAX package's `boot_cluster`, `tests/test_sc.py`):
 # a port SC and one port SPU on the card, topics created through the admin
 # API, phase 13's records produced through the SC-routed producer
-CLUSTER = dict(records=N, turns=3, big_batch=1 << 20, multi_partitions=2, key_space=4096)
+# the 1 MiB-batch produce takes the first quarter of the records: cut from
+# all of them when phase 20 came, to hold the smoke's time
+CLUSTER = dict(records=N, turns=3, big_batch=1 << 20, big_records=N // 4, multi_partitions=2,
+               key_space=4096)
 
 
 def read_log(consumer, max_bytes: int):
@@ -2926,10 +2943,11 @@ def phase_cluster():
     ``admin.register_custom_spu``; topics created through the admin API;
     phase 13's 1,048,576 records produced through
     ``Fluvio.connect(sc).topic_producer`` (``send_all``, ``flush``). Arms:
-    (a) produce into ``bench`` with the default `ProducerConfig` and into
-    ``bench-1m`` with 1 MiB batches; (b) the north star's two
-    modules pushed by name, ``bench`` consumed by name through SC routing
-    in turns with phase 14's direct-SPU consume (AdHoc invocations); (c)
+    (a) produce into ``bench`` with the default `ProducerConfig` and the
+    first ``CLUSTER["big_records"]`` into ``bench-1m`` with 1 MiB batches;
+    (b) the north star's two modules pushed by name, ``bench`` consumed by
+    name through SC routing in turns with phase 14's direct-SPU consume
+    (AdHoc invocations); (c)
     the records produced into ``bench-flu`` through a produce-side
     ``flu[vV]io`` filter by name (the SPU's ``handle_produce`` on the card);
     (d) ``multi`` (2 partitions) produced keyed and consumed merged through
@@ -3003,14 +3021,16 @@ def phase_cluster():
             # (a) produce, the default ProducerConfig and 1 MiB batches
             items = [(None, v) for v in values]
             big = ProducerConfig(batch_size=cfg["big_batch"])
-            for topic, config, label in (("bench", None, "produce_default"),
-                                         ("bench-1m", big, "produce_1mib")):
-                offsets = await produce(client, topic, items, config, label)
-                if offsets != [(0, i) for i in range(n)]:
-                    raise AssertionError(f"cluster {label}: offsets are not 0..{n - 1} in order")
+            for topic, config, label, count in (
+                    ("bench", None, "produce_default", n),
+                    ("bench-1m", big, "produce_1mib", cfg["big_records"])):
+                offsets = await produce(client, topic, items[:count], config, label)
+                if offsets != [(0, i) for i in range(count)]:
+                    raise AssertionError(f"cluster {label}: offsets are not 0..{count - 1} in "
+                                         f"order")
                 log_ = await read_log(await direct.partition_consumer(topic, 0),
                                       BROKER["max_bytes"])
-                check_log(label, log_, values)
+                check_log(label, log_, values[:count])
                 if label == "produce_default":
                     # (b) takes its expected timestamps from this log: each
                     # must be the producer's clock during the produce,
@@ -4389,6 +4409,412 @@ def phase_admission():
     return numbers, {k: sum(v[k] for v in launches.values()) for k in cuda_kernels.LAUNCHES}
 
 
+# phase 20: user Python SmartModules beside the card's segments
+HOOKS_PHASE = dict(records=N, plants=(0, 786_431, None), batch_records=16_384,
+                   max_bytes=16 << 20, dedup_records=1 << 18, dedup_more=1 << 16,
+                   dedup_ids=1 << 15, dedup_count=10_000, lookback_last=1000)
+_ELEMENT_PATTERN = re.compile(rb"a1[0-9]")
+
+
+def array_elements(rec: bytes):
+    """The elements of a `gen_arrays` record as ``array-map-json`` emits
+    them (strings unquoted), read with no engine: the records hold no
+    comma inside an element."""
+    return [e[1:-1] if e[:1] == b'"' else e for e in rec[1:-1].split(b",")]
+
+
+def element_matches(rec: bytes) -> int:
+    """How many of a record's elements ``regex-filter("a1[0-9]")`` keeps."""
+    return sum(1 for e in array_elements(rec) if _ELEMENT_PATTERN.search(e))
+
+
+def exploded_truth(records):
+    """(lengths i64, flat u8) of every element of ``records``, in order."""
+    parts = fork_records(lambda rec: b"\0".join(array_elements(rec)), records)
+    elements = [e for part in parts for e in part.split(b"\0")]
+    return (np.fromiter(map(len, elements), dtype=np.int64, count=len(elements)),
+            np.frombuffer(b"".join(elements), dtype=np.uint8))
+
+
+def counts_truth(first: int, m: int):
+    """(lengths i64, flat u8) of the running counts first+1 .. first+m."""
+    outs = [str(c).encode() for c in range(first + 1, first + m + 1)]
+    return (np.fromiter(map(len, outs), dtype=np.int64, count=m),
+            np.frombuffer(b"".join(outs), dtype=np.uint8))
+
+
+def check_columns(label: str, lengths, flat, truth) -> None:
+    """Output columns (lengths, flat bytes) against a truth of the same
+    form, exactly."""
+    t_len, t_flat = truth
+    if not (np.array_equal(np.asarray(lengths, dtype=np.int64), t_len)
+            and np.array_equal(np.asarray(flat, dtype=np.uint8), t_flat)):
+        raise AssertionError(f"hooks {label}: {len(lengths)} outputs differ from host truth "
+                             f"({len(t_len)})")
+
+
+def check_error(label: str, err, offset: int) -> None:
+    want = ("input record is not a JSON array", offset, "array_map", None,
+            shared_cases().FIRST_ERROR_RECORD)
+    got = None if err is None else (err.hint, err.offset, err.kind.value, err.record_key,
+                                    err.record_value)
+    if got != want:
+        raise AssertionError(f"hooks {label}: error {got}, truth {want}")
+
+
+def phase_hooks():
+    """Phase 20: user Python SmartModules beside the card's segments, each
+    arm exact against a host truth computed without the port's engine:
+
+    (a) first error: `FIRST_ERROR_CHAIN` (``array-map-json`` ->
+        ``regex-filter("a1[0-9]")`` over the elements -> ``aggregate-count``)
+        through ``process_buffer`` over 1,048,576 `gen_arrays` records with
+        ``{"no":1}`` planted at row 0, at row 786,431 or nowhere, then a
+        clean batch of 1,048,576 (the count's carry after an error batch);
+        an error batch's output is the explode's elements before the record,
+        re-dispatched on the card;
+    (b) the same chain over the port's `SpuServer` socket: the planted log
+        (row 786,431) in 64 stored batches, a raw stream acked slice by
+        slice; every response's records, then the error response's records,
+        error and ``next_filter_offset``;
+    (c) a dedup topic: an SC and an SPU, a topic deduplicating through
+        ``dedup-filter`` (count 10,000); 262,144 `gen_json` records keyed
+        from 32,768 ids produced through the SC-routed producer; the SPU
+        restarted (its leader re-seeded by a look-back of 10,000 records
+        from its log), 65,536 more produced; the stored log against the
+        filter's rule run over every produced record, then consumed
+        through the north star;
+    (d) a look-back stream: a DSL ``flu[vV]io`` filter exporting a
+        ``look_back`` hook, ``lookback_last`` 1,000, over phase 13's log
+        behind the server of (b): the hook sees the log's last 1,000
+        values, and the stream is phase 13's truth;
+    (e) a mixed chain, `MIXED_CHAIN` (``regex-filter("fluvio")`` on the card
+        -> a Python map hook on the host -> ``json-map("name")`` on the card)
+        through ``chain.process`` over 1,048,576 `gen_json` records.
+
+    Returns (numbers, launches of (a)-(e))."""
+    import asyncio
+    import tempfile
+    from collections import OrderedDict
+
+    from fluvio_tpu_torch.client import Fluvio, Offset
+    from fluvio_tpu_torch.metadata.topic import Bounds, Deduplication, Filter, TopicSpec
+    from fluvio_tpu_torch.metadata.topic import Transform
+    from fluvio_tpu_torch.protocol.error import ErrorCode
+    from fluvio_tpu_torch.protocol.record import Record
+    from fluvio_tpu_torch.schema.smartmodule import SmartModuleInvocation
+    from fluvio_tpu_torch.schema.smartmodule import SmartModuleInvocationKind
+    from fluvio_tpu_torch.schema.smartmodule import SmartModuleInvocationWasm
+    from fluvio_tpu_torch.schema.spu import OffsetUpdate, StreamFetchRequest
+    from fluvio_tpu_torch.schema.spu import UpdateOffsetsRequest
+    from fluvio_tpu_torch.smartmodule.types import (
+        SmartModuleInput,
+        SmartModuleKind,
+        SmartModuleTransformRuntimeError,
+    )
+    from fluvio_tpu_torch.spu import public_service
+    from fluvio_tpu_torch.telemetry import TELEMETRY
+
+    t_phase = time.perf_counter()
+    p, cases = HOOKS_PHASE, shared_cases()
+    n = p["records"]
+    numbers, launches = {}, {}
+
+    def add_launches(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def measured(fn):
+        """``fn()`` with the launch counts set to 0 just before it and read
+        just after (the main path's runs)."""
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        add_launches(cuda_kernels.LAUNCHES)
+        return out, dt
+
+    # (a) first error through process_buffer
+    clean = gen_arrays(n, seed=2020)
+    follow = gen_arrays(n, seed=2021)
+    m_clean, m_follow = fork_records(element_matches, clean), fork_records(element_matches,
+                                                                            follow)
+    arms = []
+    for plant in p["plants"]:
+        values = list(clean)
+        if plant is not None:
+            values[plant] = cases.FIRST_ERROR_RECORD
+        gpu = cases.hook_chain(cases.FIRST_ERROR_CHAIN, "cuda").gpu_chain
+        carry, arm = 0, {"plant": plant, "batches": []}
+        for k, batch in enumerate((values, follow)):
+            buf = RecordBuffer.from_values(batch, base_offset=k * n)
+            redo0 = gpu.error_redispatch_seconds
+            out, dt = measured(lambda: gpu.process_buffer(buf))
+            cols = out.to_columns()
+            label = f"(a) plant {plant} batch {k}"
+            if k == 0 and plant is not None:
+                check_error(label, out.error, plant)
+                check_columns(label, np.diff(cols["val_off"]), cols["val_flat"],
+                              exploded_truth(values[:plant]))
+            else:
+                if out.error is not None:
+                    raise AssertionError(f"hooks {label}: error {out.error}")
+                m = sum(m_clean if k == 0 else m_follow)
+                check_columns(label, np.diff(cols["val_off"]), cols["val_flat"],
+                              counts_truth(carry, m))
+                carry += m
+            arm["batches"].append({"records_per_s": n / dt, "ms": dt * 1e3,
+                                   "outputs": int(out.count),
+                                   "redispatch_ms": (gpu.error_redispatch_seconds - redo0) * 1e3})
+        gpu._ensure_host_state()
+        if gpu.carries[0][0] != carry:
+            raise AssertionError(f"hooks (a) plant {plant}: carry {gpu.carries}, truth {carry}")
+        arms.append(arm)
+    numbers["a_first_error"] = arms
+
+    # (b) + (d): the SPU server; (c): a cluster
+    planted = list(clean)
+    planted[p["plants"][1]] = cases.FIRST_ERROR_RECORD
+    bcfg = BROKER
+    _w, json_batches = cases.broker_log(broker_values(), bcfg["batch_records"],
+                                        bcfg["first_timestamp"])
+    _w, array_batches = cases.broker_log(planted, p["batch_records"], bcfg["first_timestamp"])
+    m_planted = fork_records(element_matches, planted)
+
+    async def first_error_stream(server):
+        client = await Fluvio.connect(server.public_addr)
+        try:
+            consumer = await client.partition_consumer("arrays", 0)
+            stream = await consumer._socket.create_stream(StreamFetchRequest(
+                topic="arrays", max_bytes=p["max_bytes"],
+                smartmodules=cases.first_error_invocations()))
+            parts = []
+            try:
+                async for response in stream:
+                    part = response.partition
+                    parts.append(part)
+                    if part.error_code != ErrorCode.NONE:
+                        break
+                    await consumer._socket.send_async(UpdateOffsetsRequest(offsets=[
+                        OffsetUpdate(offset=part.next_filter_offset,
+                                     session_id=response.stream_id)]))
+            finally:
+                await stream.close()
+            return parts
+        finally:
+            await client.close()
+
+    seen = []
+    real_look_back = public_service.chain_look_back
+
+    async def watched_look_back(chain, leader):
+        await real_look_back(chain, leader)
+        for inst in chain.instances:
+            hook = inst.module.hook(SmartModuleKind.LOOK_BACK)
+            if hook is not None:
+                seen.append(list(hook.__globals__["SEEN"]))
+
+    async def look_back_stream(server):
+        inv = [SmartModuleInvocation(wasm=SmartModuleInvocationWasm.adhoc(
+            cases.LOOK_BACK_SEEN_SM), kind=SmartModuleInvocationKind.FILTER,
+            lookback_last=p["lookback_last"])]
+        client = await Fluvio.connect(server.public_addr)
+        try:
+            consumer = await client.partition_consumer("bench", 0)
+            config = cases.server_consumer_config(inv, bcfg["max_bytes"])
+            got, _arrivals = await cases.consume_once(consumer, config)
+            return got
+        finally:
+            await client.close()
+
+    async def run_server(log_dir):
+        t0 = time.perf_counter()
+        server = await cases.start_spu_server(log_dir, json_batches)  # on the card
+        await cases.write_topic(server, "arrays", array_batches)
+        log_s = time.perf_counter() - t0
+        public_service.chain_look_back = watched_look_back
+        try:
+            torch.cuda.synchronize()
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            parts = await first_error_stream(server)
+            torch.cuda.synchronize()
+            b_s = time.perf_counter() - t0
+            add_launches(cuda_kernels.LAUNCHES)
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            got = await look_back_stream(server)
+            torch.cuda.synchronize()
+            d_s = time.perf_counter() - t0
+            add_launches(cuda_kernels.LAUNCHES)
+        finally:
+            public_service.chain_look_back = real_look_back
+            await server.stop()
+        return log_s, parts, b_s, got, d_s
+
+    with tempfile.TemporaryDirectory(prefix="hooks-server-") as d:
+        log_s, parts, b_s, got, d_s = asyncio.run(run_server(d))
+    # (b): counts for every stored batch before the failing one, then that
+    # batch's elements before the record; the next offset at its end
+    fail = p["plants"][1]
+    fail_start = fail - fail % p["batch_records"]
+    fail_end = fail_start + p["batch_records"]
+    last = parts[-1]
+    want_message = str(SmartModuleTransformRuntimeError(
+        hint="input record is not a JSON array", offset=fail, kind=SmartModuleKind.ARRAY_MAP,
+        record_value=cases.FIRST_ERROR_RECORD))
+    if (last.error_code != ErrorCode.SMARTMODULE_RUNTIME_ERROR
+            or last.error_message != want_message or last.next_filter_offset != fail_end):
+        raise AssertionError(f"hooks (b): {last.error_code} {last.error_message!r}, next "
+                             f"{last.next_filter_offset}")
+    values_out = [r.value for part in parts for b in part.records.batches
+                  for r in b.memory_records()]
+    m_before = sum(m_planted[:fail_start])
+    c_len, c_flat = counts_truth(0, m_before)
+    e_len, e_flat = exploded_truth(planted[fail_start:fail])
+    check_columns("(b)", [len(v) for v in values_out],
+                  np.frombuffer(b"".join(values_out), dtype=np.uint8),
+                  (np.concatenate([c_len, e_len]), np.concatenate([c_flat, e_flat])))
+    numbers["b_server"] = {"records_per_s": fail_end / b_s, "seconds": b_s,
+                           "responses": len(parts), "log_s": log_s,
+                           "error_records": sum(len(b.memory_records())
+                                                for b in last.records.batches),
+                           "next_filter_offset": last.next_filter_offset}
+    # (d): the hook saw the log's last 1,000 values; the stream is the truth
+    values13 = broker_values()
+    if seen != [values13[-p["lookback_last"]:]]:
+        raise AssertionError(f"hooks (d): the look-back hook saw {[len(s) for s in seen]} "
+                             f"records, not the log's last {p['lookback_last']}")
+    results, starts = server_results(got)
+    check_broker_pass("flu_regex_filter", results, starts, broker_truth("flu_regex_filter"))
+    numbers["d_look_back"] = {"records_per_s": n / d_s, "seconds": d_s,
+                              "look_back_records": len(seen[0])}
+
+    # (c) the dedup topic
+    rng = np.random.default_rng(2022)
+    dvals = gen_json(p["dedup_records"] + p["dedup_more"], seed=2022)
+    dkeys = [b"id%d" % k for k in rng.integers(0, p["dedup_ids"], size=len(dvals))]
+    items = list(zip(dkeys, dvals))
+    kept, window = [], OrderedDict()
+    for key, value in items:  # the filter's rule: count-bounded, no age
+        if key in window:
+            continue
+        window[key] = True
+        while len(window) > p["dedup_count"]:
+            window.popitem(last=False)
+        kept.append((key, value))
+
+    async def dedup_run(log_dir):
+        sc, admin, (spu,) = await cases.boot_torch_cluster(log_dir)  # the SPU on the card
+        spus = [spu]
+        try:
+            spec = TopicSpec.computed(1)
+            spec.deduplication = Deduplication(
+                bounds=Bounds(count=p["dedup_count"]),
+                filter=Filter(transform=Transform(uses="dedup-filter")))
+            await admin.create_topic("dedup", spec)
+            await cases.wait_for_replicas(spu, "dedup", [0])
+            out = {}
+            for label, part in (("first", items[:p["dedup_records"]]),
+                                ("after_restart", items[p["dedup_records"]:])):
+                if label == "after_restart":
+                    t0 = time.perf_counter()
+                    await spu.stop()
+                    spus = []
+                    spu = await cases.restart_torch_spu(sc, spu)
+                    spus = [spu]
+                    await cases.wait_for_replicas(spu, "dedup", [0])
+                    out["restart_s"] = time.perf_counter() - t0
+                client = await Fluvio.connect(sc.public_addr)
+                try:
+                    interp0 = TELEMETRY.interp_seconds
+                    t0 = time.perf_counter()
+                    await cases.produce_all(client, "dedup", part)
+                    dt = time.perf_counter() - t0
+                    out[label] = {"records": len(part), "records_per_s": len(part) / dt,
+                                  "seconds": dt,
+                                  "hook_ms": (TELEMETRY.interp_seconds - interp0) * 1e3}
+                finally:
+                    await client.close()
+            leader = spu.ctx.leader_for("dedup", 0)
+            stored = [(r.key, r.value) for b in leader.storage.read_records(
+                0, 1 << 30, "read_committed") for r in b.memory_records()]
+            client = await Fluvio.connect(sc.public_addr)
+            try:
+                consumer = await client.partition_consumer("dedup", 0)
+                config = cases.server_consumer_config(cases.north_star_invocations(),
+                                                      bcfg["max_bytes"])
+                torch.cuda.synchronize()
+                cuda_kernels.reset_launches()
+                t0 = time.perf_counter()
+                got, _ = await cases.consume_once(consumer, config)
+                torch.cuda.synchronize()
+                out["north_star_s"] = time.perf_counter() - t0
+                add_launches(cuda_kernels.LAUNCHES)
+            finally:
+                await client.close()
+            return out, stored, got
+        finally:
+            await cases.shutdown_torch_cluster(sc, admin, spus)
+
+    with tempfile.TemporaryDirectory(prefix="hooks-dedup-") as d:
+        dedup, stored, ns_batches = asyncio.run(dedup_run(d))
+    if stored != kept:
+        raise AssertionError(f"hooks (c): {len(stored)} records stored, the filter's rule "
+                             f"keeps {len(kept)}")
+    ns_out = [r.value for b in ns_batches for r in b.memory_records()]
+    ns_truth = [dsl.ascii_upper(dsl.json_get_bytes(v, "name")) for _, v in kept
+                if b"fluvio" in v]
+    if ns_out != ns_truth:
+        raise AssertionError(f"hooks (c): the north star gave {len(ns_out)} records, truth "
+                             f"{len(ns_truth)}")
+    dedup.update(stored=len(stored), north_star_records=len(ns_out),
+                 north_star_records_per_s=len(stored) / dedup["north_star_s"])
+    numbers["c_dedup"] = dedup
+
+    # (e) the mixed chain through chain.process
+    docs = gen_json(n, seed=2023)
+    mixed = cases.hook_chain(cases.MIXED_CHAIN, "cuda")
+    mixed.process(SmartModuleInput.from_records([Record(value=v) for v in docs[:4096]]))
+    inp = SmartModuleInput.from_records([Record(value=v, offset_delta=i)
+                                         for i, v in enumerate(docs)])
+    interp0 = TELEMETRY.interp_seconds
+    out, e_s = measured(lambda: mixed.process(inp))
+    hook_ms = (TELEMETRY.interp_seconds - interp0) * 1e3
+    want = [b"HOOK/" + dsl.ascii_upper(dsl.json_get_bytes(v, "name")) for v in docs
+            if b"fluvio" in v]
+    if out.error is not None or [r.value for r in out.successes] != want:
+        raise AssertionError(f"hooks (e): {len(out.successes)} outputs, truth {len(want)}")
+    numbers["e_mixed"] = {"records_per_s": n / e_s, "seconds": e_s, "outputs": len(want),
+                          "hook_segment_ms": hook_ms, "segments": len(mixed.segments)}
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    for arm in numbers["a_first_error"]:
+        log(f"hooks (a) plant {arm['plant']}: " + "; ".join(
+            f"batch {k} {b['records_per_s']:.0f} records/s ({b['ms']:.1f} ms, {b['outputs']} "
+            f"outputs, re-dispatch {b['redispatch_ms']:.2f} ms)"
+            for k, b in enumerate(arm["batches"])))
+    b = numbers["b_server"]
+    log(f"hooks (b): the planted log over the socket to the error in {b['seconds']:.3f} s "
+        f"({b['records_per_s']:.0f} records/s, {b['responses']} responses, the error's "
+        f"{b['error_records']} records, next offset {b['next_filter_offset']}; log written "
+        f"in {b['log_s']:.1f} s)")
+    c = numbers["c_dedup"]
+    log(f"hooks (c): dedup produce {c['first']['records_per_s']:.0f} records/s (hook "
+        f"{c['first']['hook_ms']:.1f} ms), restart {c['restart_s']:.2f} s, then "
+        f"{c['after_restart']['records_per_s']:.0f} records/s (hook "
+        f"{c['after_restart']['hook_ms']:.1f} ms); {c['stored']} stored; north star "
+        f"{c['north_star_records_per_s']:.0f} records/s")
+    dd = numbers["d_look_back"]
+    log(f"hooks (d): look-back of {dd['look_back_records']} records, the stream at "
+        f"{dd['records_per_s']:.0f} records/s ({dd['seconds']:.3f} s)")
+    e = numbers["e_mixed"]
+    log(f"hooks (e): mixed chain {e['records_per_s']:.0f} records/s ({e['seconds']:.3f} s, "
+        f"the hook segment {e['hook_segment_ms']:.1f} ms, {e['outputs']} outputs); phase 20 "
+        f"took {numbers['phase_s']:.1f} s; launches {launches}")
+    return numbers, launches
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -4434,6 +4860,10 @@ def main(argv=None) -> int:
                         help="build the kernels and run only admission: the serve gate's "
                              "warm-up, token and breach sheds over the socket, the pipeline's "
                              "batcher (phase 19; no ok line)")
+    parser.add_argument("--hooks-only", action="store_true",
+                        help="build the kernels and run only user Python SmartModules: the "
+                             "first error on the card, over the socket, a dedup topic, a "
+                             "look-back stream, a mixed chain (phase 20; no ok line)")
     parser.add_argument("--striped-slice-only", action="store_true",
                         help="build the kernels and run only phase 12 (with phase 9's aggregate "
                              "chains and phase 11, whose D2H it reads; no ok line)")
@@ -4533,6 +4963,11 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"admission": numbers, "launches": launches}))
         return 0
+    if args.hooks_only:
+        numbers, launches = phase_hooks()
+        print(smi)
+        print(json.dumps({"hooks": numbers, "launches": launches}))
+        return 0
     if args.striped_slice_only:
         json_corpora = [gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)]
         slice_numbers, _ops = phase_slice(json_corpora, ("3_aggregate", "filter_aggregate"))
@@ -4586,6 +5021,8 @@ def main(argv=None) -> int:
     lap("18 telemetry")
     admission_numbers, admission_launches = phase_admission()
     lap("19 admission")
+    hooks_numbers, hooks_launches = phase_hooks()
+    lap("20 hooks")
     log(f"replication beside the cluster: north star by name through the SC from the promoted "
         f"leader {repl_numbers['north_star_after_failover']['sc_records_per_s']:.0f} records/s, "
         f"phase 15's (b) {cluster_numbers_['consume_by_name']['sc_records_per_s']:.0f}; produce "
@@ -4600,7 +5037,8 @@ def main(argv=None) -> int:
                 "replication": {"launches": repl_launches},
                 "secure_cluster": {"launches": secure_launches},
                 "telemetry": {"launches": telemetry_launches},
-                "admission": {"launches": admission_launches}}
+                "admission": {"launches": admission_launches},
+                "hooks": {"launches": hooks_launches}}
     for r in rows:
         r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in by_chain.items()}
     chain_launches = [v["launches"] for v in by_chain.values()]
@@ -4631,6 +5069,7 @@ def main(argv=None) -> int:
                     "secure_cluster": secure_numbers,
                     "telemetry": telemetry_numbers,
                     "admission": admission_numbers,
+                    "hooks": hooks_numbers,
                     "build_seconds": KERNELS.build_seconds}))
     log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
                     "device": smi}))

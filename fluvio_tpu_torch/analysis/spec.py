@@ -13,8 +13,12 @@ interpreter, so a batch runs one of two paths or raises:
                  wider bucket, no striped lowering) or
                  ``record-too-wide`` (past ``MAX_RECORD_WIDTH``), the
                  reason strings the runtime's spill and decline counters
-                 use; a chain that does not lower at all is refused by the
-                 engine at ``initialize`` (``EngineError``).
+                 use. A chain that does not lower as a whole is predicted
+                 ``raise`` (``unlowerable``): a DSL program outside the
+                 lowerable subset is refused at ``initialize``
+                 (``EngineError``); a module with no DSL program runs as a
+                 host hook segment, whose path this level does not
+                 predict.
 
 The prediction walks the port's own rules, not a mirror of them:
 `executor.lower_chain` (what `GpuChainExecutor.try_build` lowers, with no
@@ -198,8 +202,9 @@ def analyze_entries(entries, widths: Optional[Sequence[int]] = None, engine=None
         report = ChainReport("unlowerable", gates)
         report.hazards.append(Hazard(
             ERROR, "unlowerable",
-            "a module carries no DSL program the GPU lowering supports: the engine "
-            "refuses the chain at initialize"))
+            "a module carries no DSL program the GPU lowering supports: a DSL program "
+            "outside it is refused at initialize, and a Python hook runs on the host, "
+            "which this prediction does not cover"))
         report.predictions = [predict_path(w, gates, False, False) for w in widths]
         return report
     stages, programs, _agg = lowered
@@ -210,8 +215,8 @@ def analyze_entries(entries, widths: Optional[Sequence[int]] = None, engine=None
         if isinstance(prog, dsl.ArrayMapProgram) and prog.mode == "json_array":
             report.hazards.append(Hazard(
                 INFO, "data-dependent-spill",
-                "json_array explode: a record that is no JSON array raises GpuSpill "
-                "(transform-error) for its batch"))
+                "json_array explode: a record that is no JSON array ends its batch with a "
+                "transform error (the stages up to the explode run again on the card)"))
     for w in widths:
         pred = predict_path(w, gates, True, striped_ok)
         pred.link_variant = predict_link_variant(gates, pred.path)

@@ -1,4 +1,5 @@
-"""Built-in SmartModules of the port: DSL programs only.
+"""Built-in SmartModules of the port: DSL programs, and the dedup filter's
+Python source.
 
 Name-based resolution (``lookup``) mirrors ``fluvio_tpu.models.lookup``
 for the modules the port runs; `builtin_sources` gives the source

@@ -3,8 +3,9 @@ SmartModule, a copy of ``fluvio_tpu/models/dedup_filter.py``'s ``SOURCE``.
 
 Every SPU seeds its local store with it (`builtin_sources`), so a topic
 config or a Predefined invocation can name it. Its transform is a Python
-hook with no DSL program, seeded by a ``look_back`` hook: the GPU engine
-refuses it (`EngineError`), as the reference's TPU backend does.
+hook with no DSL program, seeded by a ``look_back`` hook: the engine runs
+it as a host hook segment (`smartengine.hooks`), metered, and a topic that
+deduplicates attaches it to its leader (`spu.smart_chain.ensure_dedup_chain`).
 """
 
 from __future__ import annotations

@@ -13,8 +13,8 @@ from fluvio_tpu_torch.smartmodule.types import DEFAULT_SMARTENGINE_VERSION
 @dataclass
 class Lookback:
     """How much stored history a module asks to see at (re)start: the
-    last ``last`` records, bounded by ``age_ms`` when set. The port
-    carries the wire form; it runs no look_back hook."""
+    last ``last`` records, bounded by ``age_ms`` when set; its
+    ``look_back`` hook gets them (`SmartModuleChainInstance.look_back`)."""
 
     last: int = 0
     age_ms: Optional[int] = None

@@ -14,6 +14,27 @@ payload of an AdHoc invocation (`smartmodule.sdk.load_source`).
 ``initialize()`` returns a `SmartModuleChainInstance`; its executor,
 ``gpu_chain``, runs batched record buffers.
 
+Segments. ``initialize()`` runs every module's ``init`` hook (metered)
+and cuts the chain into segments, in order: a card segment is one
+`GpuChainExecutor` over a maximal run of consecutive modules that carry a
+DSL program, a host segment one `hooks.HookInstance` for a module that
+carries none (a user Python SmartModule). A module routes by what it
+carries, once, at build: a DSL program goes to the card even when the
+module also exports Python hooks. An all-DSL chain is one card segment
+and is exactly its executor (``gpu_chain``); a chain with a host segment
+has no ``gpu_chain``, and ``process`` runs its segments one after the
+other as the reference's ``_process_instances`` runs its instances: each
+next input is the last output's records at the same base offset and
+timestamp, and the first error ends the pass with that segment's
+partial output. Host segments run under the engine's wall-clock fuel
+budget, ``SmartEngine.hook_budget_ms`` (0: unmetered; the SPU's default
+is 5,000 ms, `spu.config.SmartEngineConfig`), scaled by the input's
+records (`metering.scale_budget`). A hook thread the metering had to
+abandon, or a trapped aggregate hook, poisons the chain: every later
+pass returns that error without running a hook. ``look_back(read_fn)``
+feeds stored records to the modules' ``look_back`` hooks, off the event
+loop and metered. Nothing interprets a DSL program on the host.
+
 ``SmartEngine(device=..., stripes=StripeParams(...))`` sets the striped
 wide-record geometry (default: threshold 65536, stripes of 8192 bytes
 overlapping by 128, the JAX package's defaults).
@@ -30,20 +51,29 @@ the CPU on its own.
 
 from __future__ import annotations
 
+import asyncio
 import base64
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Union
+from typing import Awaitable, Callable, List, Optional, Union
 
 import torch
 
-from fluvio_tpu_torch.smartengine.config import SmartModuleConfig
+from fluvio_tpu_torch.smartengine.config import Lookback, SmartModuleConfig
 from fluvio_tpu_torch.smartengine.gpu import glz
 from fluvio_tpu_torch.smartengine.gpu.executor import GpuChainExecutor, GpuSpill
 from fluvio_tpu_torch.smartengine.gpu.glz import LinkParams
 from fluvio_tpu_torch.smartengine.gpu.stripes import StripeParams
+from fluvio_tpu_torch.smartengine.hooks import HookInstance
+from fluvio_tpu_torch.smartengine.metering import SmartModuleFuelError, run_metered, scale_budget
 from fluvio_tpu_torch.smartengine.metrics import SmartModuleChainMetrics
 from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef, load_source
-from fluvio_tpu_torch.smartmodule.types import SmartModuleInput, SmartModuleOutput
+from fluvio_tpu_torch.smartmodule.types import (
+    SmartModuleInput,
+    SmartModuleKind,
+    SmartModuleOutput,
+    SmartModuleRecord,
+    SmartModuleTransformRuntimeError,
+)
 from fluvio_tpu_torch.telemetry import TELEMETRY
 
 DEFAULT_STORE_MAX_MEMORY = 1 << 30  # 1 GB input bound, parity: engine.rs:24
@@ -64,6 +94,10 @@ class StoreMemoryExceeded(EngineError):
         )
         self.requested = requested
         self.maximum = maximum
+
+
+class SmartModuleChainInitError(EngineError):
+    """A module's init hook failed during chain build (parity: engine.rs)."""
 
 
 def resolve_device(device=None) -> torch.device:
@@ -88,18 +122,27 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclass
 class SmartEngine:
-    """Engine factory bound to one torch device (default: the CUDA card)."""
+    """Engine factory bound to one torch device (default: the CUDA card).
+    ``hook_budget_ms`` is the wall-clock budget of one Python hook call (0:
+    unmetered)."""
 
     device: Optional[str] = None
     stripes: StripeParams = field(default_factory=StripeParams)
     link: LinkParams = field(default_factory=LinkParams)
     store_max_memory: int = DEFAULT_STORE_MAX_MEMORY
+    hook_budget_ms: int = 0
 
     def __post_init__(self) -> None:
         self.device = str(resolve_device(self.device))
 
     def builder(self) -> "SmartModuleChainBuilder":
         return SmartModuleChainBuilder(engine=self)
+
+
+def _on_card(module: SmartModuleDef) -> bool:
+    """A module's route, fixed at build: the card when its transform
+    carries a DSL program, else the host."""
+    return module.dsl_program(module.transform_kind()) is not None
 
 
 @dataclass
@@ -121,29 +164,51 @@ class SmartModuleChainBuilder:
         return self
 
     def initialize(self) -> "SmartModuleChainInstance":
-        """Lower the chain for the engine's device and return its
-        instance (``instance.gpu_chain`` is the executor; an empty chain
-        has none and passes records through). Raises
-        :class:`EngineError` when a module has no lowerable DSL program
-        (there is no interpreter to fall back to). With the glz link on,
-        the host compressor library must build, or this raises
-        :class:`EngineError` (no batch ships raw in its place)."""
-        device = torch.device(self.engine.device)
-        if self.engine.link.any:
+        """Run every module's ``init`` hook, metered (a failure raises
+        :class:`SmartModuleChainInitError`), and build the chain's
+        segments for the engine's device (see the module docstring; an
+        empty chain has none and passes records through). Raises
+        :class:`EngineError` when a run of DSL modules does not lower to
+        the card (no host interpreter takes it), and, with the glz link
+        on, when the host compressor library does not build (no batch
+        ships raw in its place)."""
+        engine = self.engine
+        device = torch.device(engine.device)
+        if engine.link.any:
             try:
                 glz.load()
             except glz.GlzUnavailable as e:
                 raise EngineError(f"the glz link is on but the {e}") from e
-        executor = None
-        if self.entries:
-            executor = GpuChainExecutor.try_build(
-                self.entries, device, self.engine.stripes, self.engine.link
-            )
+        instances = []
+        for module, config in self.entries:
+            inst = HookInstance(module, config)
+            try:
+                # init is user code too: a looping init becomes a typed
+                # chain-init error, not a wedged chain build
+                run_metered(inst.call_init, engine.hook_budget_ms, module.name,
+                            key=module.meter_key)
+            except Exception as e:  # noqa: BLE001 — the user code boundary
+                raise SmartModuleChainInitError(
+                    f"init failed for SmartModule {module.name!r}: {e}") from e
+            instances.append(inst)
+        segments: List[Union[GpuChainExecutor, HookInstance]] = []
+        i, n = 0, len(self.entries)
+        while i < n:
+            if not _on_card(self.entries[i][0]):
+                segments.append(instances[i])
+                i += 1
+                continue
+            j = i
+            while j < n and _on_card(self.entries[j][0]):
+                j += 1
+            executor = GpuChainExecutor.try_build(self.entries[i:j], device, engine.stripes,
+                                                  engine.link)
             if executor is None:
                 raise EngineError(
-                    "every module in the chain must carry a DSL program the GPU "
-                    "lowering supports"
-                )
+                    "the chain's DSL programs must lower to the GPU (modules "
+                    f"{[m.name for m, _ in self.entries[i:j]]}): no host interpreter runs them")
+            segments.append(executor)
+            i = j
         chain_spec = []
         for module, config in self.entries:
             spec = {
@@ -154,52 +219,165 @@ class SmartModuleChainBuilder:
             if config.initial_data:
                 spec["initial"] = base64.b64encode(bytes(config.initial_data)).decode("ascii")
             chain_spec.append(spec)
-        look_back = [module.name for module, _ in self.entries if module.has_look_back()]
-        return SmartModuleChainInstance(self.engine, executor, chain_spec, look_back)
+        return SmartModuleChainInstance(engine, segments, instances, chain_spec)
 
 
 class SmartModuleChainInstance:
-    """An initialized chain (the reference's instance with its
-    ``tpu_chain``): ``process`` runs one input slab through the executor
-    ``gpu_chain``. ``chain_spec`` names each module, its kind, params and
-    aggregate seed; ``look_back_modules`` the modules that export a
-    ``look_back`` hook, which the port never runs."""
+    """An initialized chain: its ``segments`` (card executors and host hook
+    instances, in order), one `HookInstance` per module (``instances``,
+    whose ``init`` hooks ran at build and whose ``look_back`` hooks
+    `look_back` runs) and ``chain_spec``, each module's name, kind, params
+    and aggregate seed. ``gpu_chain`` is the executor of an all-DSL chain
+    (its one segment), else None: the batched consume path runs only such
+    chains, and others go one input at a time through ``process``."""
 
-    def __init__(self, engine: SmartEngine, gpu_chain: Optional[GpuChainExecutor],
-                 chain_spec: Optional[list] = None, look_back_modules: Sequence[str] = ()):
+    def __init__(self, engine: SmartEngine, segments: list, instances: List[HookInstance],
+                 chain_spec: Optional[list] = None):
         self.engine = engine
-        self.gpu_chain = gpu_chain
+        self.segments = segments
+        self.instances = instances
         self.chain_spec = chain_spec or []
-        self.look_back_modules = list(look_back_modules)
+        self.gpu_chain: Optional[GpuChainExecutor] = (
+            segments[0] if len(segments) == 1 and isinstance(segments[0], GpuChainExecutor)
+            else None)
+        # chain identity on the telemetry's spans: the executor's signature,
+        # else the modules' kinds (the reference's label for its
+        # interpreter chains)
+        self.chain_label = (self.gpu_chain._chain_sig if self.gpu_chain is not None
+                            else "+".join(i.kind.value for i in instances) or "empty")
+        # set when a fuel trap abandoned a hook thread (or trapped an
+        # aggregate hook): the chain fails fast with this error instead of
+        # re-entering user code whose previous call may still run
+        self._poisoned: Optional[SmartModuleTransformRuntimeError] = None
 
     @property
     def backend_in_use(self) -> str:
-        return "gpu" if self.gpu_chain is not None else "passthrough"
+        """``gpu`` (one card segment), ``host`` (host segments only),
+        ``mixed`` or ``passthrough`` (no module)."""
+        if self.gpu_chain is not None:
+            return "gpu"
+        if not self.segments:
+            return "passthrough"
+        if all(isinstance(s, HookInstance) for s in self.segments):
+            return "host"
+        return "mixed"
 
     def process(self, inp: SmartModuleInput,
                 metrics: Optional[SmartModuleChainMetrics] = None) -> SmartModuleOutput:
-        """Run one input through the chain: the outputs are its
-        survivors with their offset and timestamp deltas (explode outputs
-        are fresh records, deltas 0). An input larger than ``engine.store_max_memory`` raises
-        :class:`StoreMemoryExceeded`; a `GpuSpill` from the executor
-        propagates (the port reruns nothing in an interpreter), counted
-        on the telemetry's ``spills`` family by its reason, and any other
-        failure of the chain as ``fused-error``."""
+        """Run one input through the chain: the outputs are its survivors
+        with their offset and timestamp deltas (explode outputs are fresh
+        records, deltas 0); the first transform error ends the pass, and
+        the output holds the records before it and the error. An input
+        larger than ``engine.store_max_memory`` raises
+        :class:`StoreMemoryExceeded`; a `GpuSpill` from a card segment
+        propagates (the port reruns nothing in an interpreter), counted on
+        the telemetry's ``spills`` family by its reason, and any other
+        failure of a card segment as ``fused-error``."""
         metrics = metrics if metrics is not None else SmartModuleChainMetrics()
         raw_len = inp.byte_size()
         if raw_len > self.engine.store_max_memory:
             raise StoreMemoryExceeded(raw_len, self.engine.store_max_memory)
         metrics.add_bytes_in(raw_len)
-        if self.gpu_chain is None:
+        if not self.segments:
             # empty chain: decode and pass through (parity: engine.rs:180-184)
             return SmartModuleOutput.new(inp.into_records())
+        if self.gpu_chain is not None:
+            output = self._card(self.gpu_chain, inp, metrics)
+        else:
+            output = self._process_segments(inp, metrics)
+        if output.error is None:
+            metrics.add_records_out(len(output.successes))
+        return output
+
+    @staticmethod
+    def _card(executor: GpuChainExecutor, inp: SmartModuleInput,
+              metrics: SmartModuleChainMetrics) -> SmartModuleOutput:
         try:
-            output = self.gpu_chain.process(inp, metrics)
+            return executor.process(inp, metrics)
         except GpuSpill as e:
             TELEMETRY.add_spill(e.reason)
             raise
         except Exception:
             TELEMETRY.add_spill("fused-error")
             raise
-        metrics.add_records_out(len(output.successes))
+
+    def _process_segments(self, inp: SmartModuleInput,
+                          metrics: SmartModuleChainMetrics) -> SmartModuleOutput:
+        """The segments one after the other (the reference's
+        ``_process_instances``). Each host segment runs metered, under its
+        own ``interpreter`` batch span; a fuel trap becomes a transform
+        error at the input's base offset, and poisons the chain when the
+        hook thread was abandoned or the hook is an aggregate's (the
+        injected exception may have left its accumulator half-written)."""
+        if self._poisoned is not None:
+            # the rejected pass still records, so an error storm on a
+            # poisoned chain stays visible in the interpreter batch counts
+            span = TELEMETRY.begin_batch(path="interpreter", chain=self.chain_label)
+            if span is not None:
+                TELEMETRY.end_batch(span, records=inp.record_count())
+            return SmartModuleOutput(error=self._poisoned)
+        base_offset, base_timestamp = inp.base_offset, inp.base_timestamp
+        budget = scale_budget(self.engine.hook_budget_ms, inp.record_count())
+        next_input = inp
+        output = SmartModuleOutput()
+        for i, seg in enumerate(self.segments):
+            if isinstance(seg, GpuChainExecutor):
+                output = self._card(seg, next_input, metrics)
+            else:
+                output = self._run_hook_segment(seg, next_input, metrics, budget, base_offset)
+            if output.error is not None:
+                break  # the partial output of the failing segment (engine.rs:159-161)
+            if i + 1 < len(self.segments):
+                next_input = SmartModuleInput.from_records(
+                    output.successes, base_offset=base_offset, base_timestamp=base_timestamp)
         return output
+
+    def _run_hook_segment(self, inst: HookInstance, inp: SmartModuleInput,
+                          metrics: SmartModuleChainMetrics, budget: int,
+                          base_offset: int) -> SmartModuleOutput:
+        span = TELEMETRY.begin_batch(path="interpreter", chain=self.chain_label)
+        try:
+            return run_metered(lambda: inst.process(inp, metrics), budget, inst.module.name,
+                               key=inst.module.meter_key)
+        except SmartModuleFuelError as e:
+            error = SmartModuleTransformRuntimeError(hint=str(e), offset=base_offset,
+                                                     kind=inst.kind)
+            if e.abandoned or inst.kind is SmartModuleKind.AGGREGATE:
+                self._poisoned = error
+            return SmartModuleOutput(error=error)
+        finally:
+            if span is not None:
+                TELEMETRY.end_batch(span, records=inp.record_count())
+
+    async def look_back(
+        self,
+        read_fn: Callable[[Lookback], Awaitable[List[SmartModuleRecord]]],
+        metrics: Optional[SmartModuleChainMetrics] = None,
+    ) -> None:
+        """Feed stored records to each module that exports a ``look_back``
+        hook (parity: engine.rs:187-218): ``read_fn(lookback)`` returns the
+        records the module's `Lookback` asks for (none asked: the last 0).
+        The hooks run in a worker thread, so a looping one stalls only
+        this call, under the engine's budget scaled by the records. A
+        hook that raises raises `SmartModuleLookbackError` (the record's
+        offset); a fuel trap raises `SmartModuleFuelError`, and poisons the
+        chain when its thread was abandoned."""
+        for inst in self.instances:
+            if not inst.module.has_look_back():
+                continue
+            records = await read_fn(inst.config.lookback or Lookback.last_n(0))
+            if metrics is not None:
+                metrics.add_bytes_in(sum(len(r.value) for r in records))
+            try:
+                await asyncio.to_thread(
+                    run_metered,
+                    lambda: inst.call_look_back(records),
+                    scale_budget(self.engine.hook_budget_ms, len(records)),
+                    inst.module.name,
+                    inst.module.meter_key,
+                )
+            except SmartModuleFuelError as e:
+                if e.abandoned:
+                    self._poisoned = SmartModuleTransformRuntimeError(hint=str(e),
+                                                                      kind=inst.kind)
+                raise

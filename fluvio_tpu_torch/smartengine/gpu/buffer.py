@@ -142,6 +142,9 @@ class RecordBuffer:
     # the flat's glz link form, (chunk, stream or None, decline reason),
     # cached by the executor's up link
     _glz: Optional[tuple] = None
+    # an output batch's transform error: the chain met it at its first
+    # failing record, and the rows are the output before it
+    error: Optional[object] = None
 
     @property
     def width(self) -> int:
@@ -166,6 +169,18 @@ class RecordBuffer:
                 values[mask] = flat[np.clip(idx, 0, len(flat) - 1)][mask]
             self.values = values
         return self.values
+
+    def record_bytes(self, row: int) -> Tuple[bytes, Optional[bytes]]:
+        """(value, key) of one row (key None for a null key), read from
+        either backing form without building the padded matrix."""
+        n = int(self.lengths[row])
+        if self.values is not None:
+            value = self.values[row, :n].tobytes()
+        else:
+            start = int(self._starts[row])
+            value = self._flat[start:start + n].tobytes()
+        klen = int(self.key_lengths[row])
+        return value, None if klen < 0 else self.keys[row, :klen].tobytes()
 
     def ragged_values(self) -> Tuple[np.ndarray, np.ndarray]:
         """(flat, starts): concatenated live bytes + per-row start index.

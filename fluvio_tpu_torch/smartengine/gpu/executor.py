@@ -30,6 +30,19 @@ chains over records that fit the narrow layout (one row per record):
    (bucketed) count from the batch's own carries, and the learned
    capacity grows.
 
+Exact first error (the reference chain's: it stops after the failing
+instance and returns that instance's partial output). A JSON-array
+explode masks the first record that is no JSON array and every later one,
+and the header carries that row and the explode's stage index k. The
+finish then runs stages 0..k again on the card from the batch's starting
+carries (`_first_error`, over the inputs the batch staged): the explode's
+elements before the failing row are the chain's output, the stages
+before k keep the carries they advanced over the whole batch, and stages
+k and after keep the starting ones. The output buffer's ``error`` is the
+`SmartModuleTransformRuntimeError` at that record, its key and value as
+stage k saw them (one row copied from the card when an earlier stage
+rewrote them).
+
 Batches wider than the narrow layout (`StripeParams.threshold`) take the
 striped path (`_dispatch_striped`, the reference's `_chain_fn_striped`):
 the same ragged upload re-padded into stripe rows (`gpu/stripes.py`),
@@ -66,8 +79,8 @@ families (a partitioned batch's again under its partition tag).
 What the port does not cover raises :class:`GpuSpill` instead of running
 anywhere else: wide batches of a chain with no striped lowering (a
 JSON-array explode, a word count, a JsonGet contribution, a key rewrite
-among them), and a batch whose explode meets a record that is no JSON
-array (``transform-error``).
+among them; ``record-too-wide-unstripeable``), and an explode that
+overflows its capacity again after its retry (``fanout-overflow``).
 """
 
 from __future__ import annotations
@@ -100,7 +113,12 @@ from fluvio_tpu_torch.smartengine.gpu.lower import (
 )
 from fluvio_tpu_torch.smartmodule import dsl
 from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
-from fluvio_tpu_torch.smartmodule.types import SmartModuleInput, SmartModuleOutput
+from fluvio_tpu_torch.smartmodule.types import (
+    SmartModuleInput,
+    SmartModuleKind,
+    SmartModuleOutput,
+    SmartModuleTransformRuntimeError,
+)
 from fluvio_tpu_torch.telemetry import TELEMETRY
 
 
@@ -247,7 +265,8 @@ class _ArrayMapStage:
             flag, sg, lg, ff, fs, fl, err = kernels.split_bounds(values, lengths, self.sep)
         err_v = err & valid
         # first-error masking: the failing record and every later one
-        # contribute nothing; the fetch raises for the whole batch
+        # contribute nothing, so the elements before it are the explode's
+        # exact output (the finish re-dispatches the stages up to this one)
         ridx = torch.arange(n, dtype=torch.int32, device=valid.device)
         first_err = torch.where(err_v, ridx, n).min()
         total, local_row, rel_start, elen = kernels.fanout_scatter(
@@ -270,7 +289,11 @@ class _ArrayMapStage:
         new_state["timestamp_deltas"] = torch.zeros(
             (cap,), dtype=state["timestamp_deltas"].dtype, device=valid.device)
         new_state["fan_total"] = total
-        new_state["fan_err"] = err_v.any()
+        # the header's error columns: the failing row + 1 (0: none) and
+        # this stage's index
+        new_state["fan_err"] = torch.where(first_err < n, first_err + 1, 0)
+        new_state["fan_err_stage"] = torch.full((), ctx["stage"], dtype=torch.int64,
+                                                device=valid.device)
         return new_state, carries
 
 
@@ -429,6 +452,7 @@ class _Fetch:
     def __init__(self, device: torch.device, prev_carries: Carries = (), cap: int = 0):
         self.cuda = device.type == "cuda"
         self.host: Dict[str, torch.Tensor] = {}
+        self._host: Optional[Dict[str, np.ndarray]] = None
         self.event = None
         # the aggregate carries the batch started from (restored when its
         # fetch fails or its explode re-dispatches) and its explode capacity
@@ -461,6 +485,13 @@ class _Fetch:
         self.staged: List[torch.Tensor] = []
         self.span = None
         self.booked = False
+        # a first-error re-dispatch: how its stage run ships (None: the
+        # chain's), the failing row and its stage; the error the finish
+        # resolved, for the caller that settles the batch
+        self.ship = None
+        self.err_row: Optional[int] = None
+        self.err_stage: Optional[int] = None
+        self.error = None
 
     def start(self, name: str, t: torch.Tensor) -> None:
         if self.cuda:
@@ -477,14 +508,17 @@ class _Fetch:
 
     def wait(self) -> Dict[str, np.ndarray]:
         """The batch's first blocking wait: the device phase of its span
-        ends when the copies' event returns."""
+        ends when the copies' event returns. Later calls return the same
+        host arrays."""
+        if self._host is not None:
+            return self._host
         if self.event is not None:
             self.event.synchronize()
         span = self.span
         if span is not None:
             span.mark_device_ready()
             t = time.perf_counter()
-        host = {k: v.numpy() for k, v in self.host.items()}
+        host = self._host = {k: v.numpy() for k, v in self.host.items()}
         if span is not None:
             span.lap("d2h", t)
         return host
@@ -568,9 +602,10 @@ def desc_split(desc: np.ndarray, count: int, width: int):
     return st, ln.astype(np.int32)
 
 
-# header columns: survivor count, longest value, longest key, explode
-# error, explode total; the delta probes of `_delta_probe` follow
-_HEADER = 5
+# header columns: survivor count, longest value, longest key, the explode's
+# failing row + 1 (0: none), explode total, the failing stage's index; the
+# delta probes of `_delta_probe` follow
+_HEADER = 6
 
 
 def _delta_probe(col: torch.Tensor, count: torch.Tensor):
@@ -713,6 +748,14 @@ def _assemble(buf, count, rows, out_lengths, out_keys, out_klens, src,
     )
 
 
+def _with_error(out, error):
+    """A finished output (or its rebuild thunk) with its ``error`` set."""
+    if callable(out):
+        return lambda: _with_error(out(), error)
+    out.error = error
+    return out
+
+
 def lower_chain(entries: List[Tuple[SmartModuleDef, SmartModuleConfig]]):
     """(stages, programs, agg_configs) of a chain of DSL modules, or None
     when a program is missing or outside the lowerable subset (as the
@@ -782,6 +825,56 @@ def lower_chain(entries: List[Tuple[SmartModuleDef, SmartModuleConfig]]):
     return stages, programs, agg_configs
 
 
+@dataclass(frozen=True)
+class _Ship:
+    """How a run of stages ships its result to the host: ``identity_view``
+    (filters only: the 1-bit mask is the whole download), ``viewable``
+    (late materialization: every value-writing stage is a view of the
+    record's own bytes, explode elements included, so the card ships
+    (start, length) descriptors and the host rebuilds the bytes from the
+    slab it already holds), the views' static byte-wise folds, whether a
+    stage writes keys, and whether the run explodes."""
+
+    identity_view: bool
+    viewable: bool
+    view_postops: Tuple[str, ...]
+    writes_keys: bool
+    fanout: bool
+
+    @classmethod
+    def of(cls, stages: Sequence) -> "_Ship":
+        return cls(
+            identity_view=all(isinstance(s, _FilterStage) for s in stages),
+            viewable=all(
+                isinstance(s, (_FilterStage, _ArrayMapStage))
+                or (isinstance(s, _MapStage) and s.span_fn is not None and s.key_fn is None)
+                for s in stages
+            ),
+            view_postops=tuple(
+                op
+                for s in stages
+                if isinstance(s, _MapStage) and s.span_fn is not None
+                for op in s.span_postops
+            ),
+            writes_keys=any(
+                (isinstance(s, _MapStage) and s.key_fn is not None)
+                or (isinstance(s, _AggregateStage) and s.window_ms)
+                for s in stages
+            ),
+            fanout=any(isinstance(s, _ArrayMapStage) for s in stages),
+        )
+
+
+class _FirstError(Exception):
+    """A batch's explode met a record that is no JSON array: ``row`` is its
+    input row, ``stage`` the explode's index, ``cap`` the capacity of the
+    run that saw it."""
+
+    def __init__(self, row: int, stage: int, cap: int):
+        super().__init__(f"transform error at row {row}, stage {stage}")
+        self.row, self.stage, self.cap = row, stage, cap
+
+
 class GpuChainExecutor:
     """A compiled chain over one torch device, with its aggregate state."""
 
@@ -828,29 +921,22 @@ class GpuChainExecutor:
         TELEMETRY.note_device(device)
         self._cap_ratio = 0.0  # learned explode elements per source row
         self.redispatches = 0  # explode batches run again after an overflow
-        self._writes_keys = any(
-            (isinstance(s, _MapStage) and s.key_fn is not None)
-            or (isinstance(s, _AggregateStage) and s.window_ms)
-            for s in stages
-        )
-        # late materialization: every value-writing stage is a view of the
-        # record's own bytes (explode elements are), so the card ships
-        # descriptors and the host rebuilds output bytes from the slab it
-        # already holds
-        self._viewable = not self.agg_configs and all(
-            isinstance(s, (_FilterStage, _ArrayMapStage))
-            or (isinstance(s, _MapStage) and s.span_fn is not None and s.key_fn is None)
-            for s in stages
-        )
-        # pure-filter chains: survivors are whole input records, so the
-        # 1-bit mask is the whole download
-        self._identity_view = all(isinstance(s, _FilterStage) for s in stages)
-        self._view_postops = tuple(
-            op
-            for s in stages
-            if isinstance(s, _MapStage) and s.span_fn is not None
-            for op in s.span_postops
-        )
+        # batches whose explode met a record that is no JSON array, each
+        # re-dispatched through the stages up to the explode (`_first_error`)
+        self.error_redispatches = 0
+        self.error_redispatch_seconds = 0.0
+        # how the whole chain ships its result, and how a run of its first
+        # k stages does (the first-error re-dispatch's), made on first need
+        self._ship = _Ship.of(stages)
+        self._ship_prefix: Dict[int, _Ship] = {}
+
+    @property
+    def _viewable(self) -> bool:
+        return self._ship.viewable
+
+    @property
+    def _writes_keys(self) -> bool:
+        return self._ship.writes_keys
 
     # -- build --------------------------------------------------------------
 
@@ -967,9 +1053,10 @@ class GpuChainExecutor:
             self._striped_tried = True
             p = self.stripe_params
             sc = stripes.try_build_striped(self._programs, self.stages, p.width, p.overlap)
-            if sc is not None and self._viewable and tuple(sc.postops) != self._view_postops:
+            postops = self._ship.view_postops
+            if sc is not None and self._viewable and tuple(sc.postops) != postops:
                 raise AssertionError(  # both derive from the same programs
-                    f"striped postops {sc.postops} differ from the view's {self._view_postops}"
+                    f"striped postops {sc.postops} differ from the view's {postops}"
                 )
             self._striped = sc
         return self._striped
@@ -979,7 +1066,10 @@ class GpuChainExecutor:
     def _run(self, arrays: Dict[str, torch.Tensor], count: int, base_ts: int,
              fetch: _Fetch) -> None:
         """Chain body: run the stages from the batch's carries, compact the
-        results and start their copies to the host."""
+        results and start their copies to the host. A first-error
+        re-dispatch (``fetch.err_row`` set) runs stages 0..``fetch.
+        err_stage`` only, ships as ``fetch.ship`` says, and copies the
+        failing row as that stage saw it when an earlier stage rewrote it."""
         n = arrays["lengths"].shape[0]
         state = _State(arrays)
         state["valid"] = torch.arange(n, device=self.device) < count
@@ -987,28 +1077,45 @@ class GpuChainExecutor:
         state["src_row"] = torch.arange(n, dtype=torch.int32, device=self.device)
         carries = fetch.prev_carries
         ctx = {"fanout_cap": fetch.cap}
-        for stage in self.stages:
+        ship = fetch.ship or self._ship
+        upto = len(self.stages) if fetch.err_row is None else fetch.err_stage + 1
+        for k, stage in enumerate(self.stages[:upto]):
+            if k == fetch.err_stage and k and not all(
+                    isinstance(s, _FilterStage) for s in self.stages[:k]):
+                self._ship_err_row(fetch, state)
+            ctx["stage"] = k
             state, carries = stage.apply(state, carries, base_ts, ctx)
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
-        fan = [state["fan_err"], state["fan_total"]] if self._fanout else [zero, zero]
+        fan = ([state["fan_err"], state["fan_total"], state["fan_err_stage"]] if ship.fanout
+               else [zero, zero, zero])
         valid = state["valid"]
-        if self._identity_view:
+        if ship.identity_view:
             self._ship_views(fetch, valid, state["lengths"])
-        elif self._viewable:
+        elif ship.viewable:
             width = arrays["values"].shape[1]
             self._ship_views(fetch, valid, state["lengths"], state["view_start"],
                              _narrow_dtype(width), width, fan,
-                             state["src_row"] if self._fanout else None)
+                             state["src_row"] if ship.fanout else None)
         else:
             self._ship_bytes(fetch, state, fan)
         # the next dispatch continues from here; a failed fetch restores
         # `fetch.prev_carries`
         self._device_carries = carries
 
+    def _ship_err_row(self, fetch: _Fetch, state: _State) -> None:
+        """Copy the failing row's value and key as the failing stage sees
+        them (an earlier stage rewrote them) beside the re-dispatch's
+        result: one row, not the batch."""
+        row = fetch.err_row
+        fetch.start("err_value", state["values"][row])
+        fetch.start("err_key", state["keys"][row])
+        fetch.start("err_lengths", torch.stack([state["lengths"][row].to(torch.int64),
+                                                state["key_lengths"][row].to(torch.int64)]))
+
     @staticmethod
     def _header(out_count, max_v, max_k, fan=(), probes=()) -> torch.Tensor:
         zero = torch.zeros((), dtype=torch.int64, device=out_count.device)
-        fan = list(fan) or [zero, zero]
+        fan = list(fan) or [zero, zero, zero]
         return torch.stack([t.to(torch.int64)
                             for t in [out_count, max_v, max_k, *fan, *probes]])
 
@@ -1070,7 +1177,7 @@ class GpuChainExecutor:
         valid = state["valid"]
         cols = [state["values"], state["lengths"], state["keys"], state["key_lengths"]]
         probes = []
-        if self._fanout:
+        if (fetch.ship or self._ship).fanout:
             out_count, compacted = kernels.compact_rows(valid, *cols, state["src_row"])
             probes = self._ship_src(fetch, compacted[4], out_count)
         else:
@@ -1339,7 +1446,7 @@ class GpuChainExecutor:
             max=fetch.cap)
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         self._ship_views(fetch, live, elen, rel_start, torch.int32, MAX_RECORD_WIDTH,
-                         [zero, total], src_seg)
+                         [zero, total, zero], src_seg)
 
     # -- host side -------------------------------------------------------------
 
@@ -1349,9 +1456,11 @@ class GpuChainExecutor:
         An explode whose element total overflowed its capacity runs again
         at the exact (bucketed) total from the batch's own carries, and
         the learned capacity grows; a retry that overflows too raises
-        :class:`GpuSpill` (``fanout-overflow``). A record that is no JSON
-        array raises :class:`GpuSpill` (``transform-error``). Either way
-        the carries are back where the batch found them."""
+        :class:`GpuSpill` (``fanout-overflow``), with the carries back
+        where the batch found them. A record that is no JSON array ends
+        the batch as the reference's chain ends it: the stages up to the
+        explode run again on the card (`_first_error`), and their output
+        comes back with its ``error`` set."""
         out = self.finish_buffer_deferred(buf, handle)
         return out() if callable(out) else out
 
@@ -1371,24 +1480,21 @@ class GpuChainExecutor:
         span = handle.span
         t_f0 = time.perf_counter() if span is not None else 0.0
         d2h0 = span.phase("d2h") if span is not None else 0.0
+        error = None
         try:
             try:
-                out = self._finish(buf, handle)
-            except _FanoutOverflow as o:
-                self._learn_cap(buf, o.total)
-                self.redispatches += 1
-                retry = self._rerun(buf, handle, _bucket_rows(o.total, 1024))
-                try:
-                    out = self._finish(buf, retry)
-                except _FanoutOverflow as e:
-                    raise GpuSpill(f"fanout overflow after retry: {e.total}",
-                                   reason="fanout-overflow") from None
+                out = self._settle(buf, handle)
+            except _FirstError as fe:
+                out, error = self._first_error(buf, handle, fe)
         except GpuSpill:
             self._device_carries = handle.prev_carries
             raise
         finally:
             # every finish outcome retires the batch's ledger booking
             self._unbook(handle)
+        handle.error = error
+        if error is not None:
+            out = _with_error(out, error)
         if span is None:
             return out
 
@@ -1402,6 +1508,64 @@ class GpuChainExecutor:
         if callable(out):
             return lambda: complete(out())
         return complete(out)
+
+    def _settle(self, buf: RecordBuffer, handle: _Fetch):
+        """`_finish`, with an overflowed explode run again once at its
+        exact (bucketed) total. Raises `_FirstError` for a batch whose
+        explode failed."""
+        try:
+            return self._finish(buf, handle)
+        except _FanoutOverflow as o:
+            self._learn_cap(buf, o.total)
+            self.redispatches += 1
+            retry = self._rerun(buf, handle, _bucket_rows(o.total, 1024))
+            try:
+                return self._finish(buf, retry)
+            except _FanoutOverflow as e:
+                raise GpuSpill(f"fanout overflow after retry: {e.total}",
+                               reason="fanout-overflow") from None
+
+    def _first_error(self, buf: RecordBuffer, handle: _Fetch, fe: _FirstError):
+        """Exact first-error semantics on the card, the reference chain's
+        (engine.rs:159-161): it stops after the failing instance and returns
+        that instance's partial output. From the batch's starting carries,
+        stages 0..k (k the explode) run again over the staged inputs; the
+        explode's mask already ends before the failing row, so its elements
+        are the chain's output. Stages before k advance their carries over
+        the whole batch, stages k and after keep the batch's starting ones.
+        Returns (output, `SmartModuleTransformRuntimeError` at the failing
+        record with its key and value as stage k saw them)."""
+        t0 = time.perf_counter()
+        k1 = fe.stage + 1
+        ship = self._ship_prefix.get(k1)
+        if ship is None:
+            ship = self._ship_prefix[k1] = _Ship.of(self.stages[:k1])
+        fetch = _Fetch(self.device, handle.prev_carries, fe.cap)
+        fetch.span = handle.span
+        fetch.ship, fetch.err_row, fetch.err_stage = ship, fe.row, fe.stage
+        self._run(handle.arrays, buf.count, buf.base_timestamp, fetch)
+        fetch.seal()
+        if fetch.span is not None:
+            fetch.span.mark_dispatched()  # the re-run restarts the device phase
+        # the same elements as the run that saw the error: no overflow
+        out = self._finish(buf, fetch)
+        host = fetch.wait()
+        if "err_value" in host:
+            vlen, klen = (int(x) for x in host["err_lengths"])
+            value = host["err_value"][:vlen].tobytes()
+            key = None if klen < 0 else host["err_key"][:klen].tobytes()
+        else:  # only filters before the explode: the row is the input's
+            value, key = buf.record_bytes(fe.row)
+        error = SmartModuleTransformRuntimeError(
+            hint="input record is not a JSON array",
+            offset=buf.base_offset + int(buf.offset_deltas[fe.row]),
+            kind=SmartModuleKind.ARRAY_MAP,
+            record_key=key,
+            record_value=value,
+        )
+        self.error_redispatches += 1
+        self.error_redispatch_seconds += time.perf_counter() - t0
+        return out, error
 
     def discard_dispatch(self, handle: _Fetch) -> None:
         """Drop a dispatched batch without finishing it: the carries go
@@ -1441,12 +1605,12 @@ class GpuChainExecutor:
         span = handle.span
         self.link_counts["d2h_bytes"] += sum(a.nbytes for a in host.values())
         hdr = [int(x) for x in host["header"]]
-        count, max_v, max_k, fan_err, fan_total = hdr[:_HEADER]
-        if fan_err:
-            raise GpuSpill("array_map transform error: interpreter decides",
-                           reason="transform-error")
-        if self._fanout and fan_total > handle.cap:
+        count, max_v, max_k, err_row1, fan_total, err_stage = hdr[:_HEADER]
+        ship = handle.ship or self._ship
+        if ship.fanout and fan_total > handle.cap:
             raise _FanoutOverflow(fan_total)
+        if err_row1 and handle.err_row is None:
+            raise _FirstError(err_row1 - 1, err_stage, handle.cap)
         rows = _bucket_rows(max(count, 1))
         if handle.src_col is not None:
             t = time.perf_counter() if span is not None else 0.0
@@ -1455,7 +1619,7 @@ class GpuChainExecutor:
                 span.lap("d2h", t)
         else:
             src = np.flatnonzero(np.unpackbits(host["mask"], bitorder="little")[: buf.rows])[:count]
-        if not self._viewable:
+        if not ship.viewable:
             return self._fetch_bytes(buf, handle, host, hdr, count, rows, src)
         variant = "down-packed"
         if handle.whole_records:
@@ -1472,7 +1636,7 @@ class GpuChainExecutor:
         self._count_down_variant(variant)
         vw = min(_pad_slice(max(max_v, 1)), buf.width)
         return functools.partial(_materialize_view_flat, buf, count, rows, vw, st, ln, src,
-                                 self._view_postops, self._fanout)
+                                 ship.view_postops, ship.fanout)
 
     def _download_src(self, col: torch.Tensor, delta: torch.Tensor, probe: Sequence[int],
                       count: int, rows: int) -> np.ndarray:
@@ -1555,7 +1719,8 @@ class GpuChainExecutor:
         starts = torch.zeros_like(l4)
         torch.cumsum(l4[:-1], 0, dtype=torch.int32, out=starts[1:])
         total = int(starts[-1] + l4[-1])
-        if buf.has_keys() or self._writes_keys:
+        ship = handle.ship or self._ship
+        if buf.has_keys() or ship.writes_keys:
             out_klens = self._download(klens[:rows]).astype(np.int32)
             if max_k > 0:
                 kw = min(_pad_slice(max_k), keys.shape[1])
@@ -1569,7 +1734,7 @@ class GpuChainExecutor:
             handle.span.lap("d2h", t_d2h)  # the downloads (and a token decode)
         self._count_down_variant(variant)
         return _assemble(buf, count, rows, out_lengths.numpy(), out_keys, out_klens, src,
-                         flat_src[:total], starts.numpy(), vw, self._fanout)
+                         flat_src[:total], starts.numpy(), vw, ship.fanout)
 
     # -- entry points ----------------------------------------------------------
 
@@ -1580,8 +1745,9 @@ class GpuChainExecutor:
         """One `SmartModuleInput` through the chain (the chain instance's
         `process`), as one batch. A record past the hard width ceiling
         raises :class:`GpuSpill` (``record-too-wide``); a spill of
-        `process_buffer` propagates too: nothing reruns elsewhere. Fuel is
-        the records staged times the stages."""
+        `process_buffer` propagates too: nothing reruns elsewhere. A
+        transform error comes back as the output's ``error`` beside the
+        records before it. Fuel is the records staged times the stages."""
         try:
             buf = RecordBuffer.from_smartmodule_input(inp)
         except ValueError as e:
@@ -1591,7 +1757,7 @@ class GpuChainExecutor:
             self._ensure_host_state()
         if metrics is not None:
             metrics.add_fuel_used(buf.count * max(len(self.stages), 1))
-        return SmartModuleOutput(successes=out.to_records())
+        return SmartModuleOutput(successes=out.to_records(), error=out.error)
 
     def process_stream(self, bufs):
         """Pipelined generator: batch k+1 is staged and queued on the card

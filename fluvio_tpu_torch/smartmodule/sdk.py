@@ -1,18 +1,27 @@
 """SmartModule definition and source artifacts.
 
 The port's counterpart of ``fluvio_tpu/smartmodule/sdk.py``: a
-`SmartModuleDef` holds DSL programs keyed by transform kind, and
+`SmartModuleDef` holds a module's hooks and DSL programs by kind, and
 `load_source` builds one from SmartModule source text, the payload an
 AdHoc invocation carries. The source runs with the port's ``dsl`` and
-``smartmodule`` namespaces bound, and its decorators' ``dsl=`` programs
-make the module. The GPU engine runs DSL programs only: the decorated
-Python functions are not kept, and a transform that carries no program
-makes a module the engine refuses. ``@smartmodule.init`` and
-``@smartmodule.look_back`` hooks are never run: their decorators return
-the function as it is and record only that the module exports the hook
-(``hooks``, `SmartModuleDef.has_look_back`), so a source that declares
-them loads; the SPU refuses a look-back invocation of a module that
-exports a ``look_back`` hook. A source that imports the JAX
+``smartmodule`` namespaces bound; each decorator records its Python
+function as the module's hook of that kind (``hooks``) and its ``dsl=``
+program, when given, beside it (``dsl``). The engine runs a transform
+that carries a DSL program on the card and one that carries none as a
+host hook (`smartengine.hooks`); ``@smartmodule.init`` and
+``@smartmodule.look_back`` are hooks only, run on the host at chain
+build and at a look-back. User function contracts (the Rust SDK's
+signatures):
+
+- ``@smartmodule.filter``      ``fn(record) -> bool``
+- ``@smartmodule.map``         ``fn(record) -> bytes | (key, value)``
+- ``@smartmodule.filter_map``  ``fn(record) -> None | bytes | (key, value)``
+- ``@smartmodule.array_map``   ``fn(record) -> list[bytes | (key, value)]``
+- ``@smartmodule.aggregate``   ``fn(acc: bytes, record) -> bytes``
+- ``@smartmodule.init``        ``fn(params: dict) -> None``
+- ``@smartmodule.look_back``   ``fn(record) -> None``
+
+A source that imports the JAX
 package (``from fluvio_tpu.smartmodule.sdk import smartmodule``, the form
 the JAX package's own tests push) is refused at that import: the port
 never imports that package. Sources in the namespace form, with no
@@ -22,9 +31,10 @@ import, load in both packages.
 from __future__ import annotations
 
 import builtins
+import hashlib
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Set
+from typing import Any, Callable, Dict, Optional
 
 from fluvio_tpu_torch.smartmodule import dsl as dsl_mod
 from fluvio_tpu_torch.smartmodule.types import TRANSFORM_KIND_ORDER, SmartModuleKind
@@ -32,28 +42,36 @@ from fluvio_tpu_torch.smartmodule.types import TRANSFORM_KIND_ORDER, SmartModule
 
 @dataclass
 class SmartModuleDef:
-    """A SmartModule: its DSL programs keyed by transform kind (None for a
-    transform declared without one)."""
+    """A SmartModule: its Python hooks and its DSL programs, each keyed
+    by kind (a transform may carry either or both)."""
 
     name: str = "adhoc"
     dsl: Dict[SmartModuleKind, Any] = field(default_factory=dict)
-    # the hooks the source declares (init, look_back); never run
-    hooks: Set[SmartModuleKind] = field(default_factory=set)
+    hooks: Dict[SmartModuleKind, Callable] = field(default_factory=dict)
+    # stable identity for the metering quarantine: the source's hash when
+    # the module came from source bytes, else the name (adhoc names collide)
+    meter_key: str = ""
 
     def transform_kind(self) -> SmartModuleKind:
         """Detect the module's transform kind in the engine's export
         probing order (filter -> map -> filter_map -> array_map ->
         aggregate)."""
         for kind in TRANSFORM_KIND_ORDER:
-            if kind in self.dsl:
+            if kind in self.hooks or kind in self.dsl:
                 return kind
         raise ValueError(
             f"SmartModule {self.name!r} exports no transform "
             f"(expected one of filter/map/filter_map/array_map/aggregate)"
         )
 
+    def hook(self, kind: SmartModuleKind) -> Optional[Callable]:
+        return self.hooks.get(kind)
+
     def dsl_program(self, kind: SmartModuleKind):
         return self.dsl.get(kind)
+
+    def has_init(self) -> bool:
+        return SmartModuleKind.INIT in self.hooks
 
     def has_look_back(self) -> bool:
         return SmartModuleKind.LOOK_BACK in self.hooks
@@ -90,28 +108,19 @@ def current_module(reset: bool = True) -> SmartModuleDef:
     return m
 
 
-def _hook(kind: SmartModuleKind) -> Callable:
-    """``@smartmodule.init`` / ``@smartmodule.look_back``: the function as
-    it is, the hook recorded on the module being assembled."""
-
-    def decorator(fn: Callable) -> Callable:
-        current_module(reset=False).hooks.add(kind)
-        return fn
-
-    decorator.__name__ = kind.value
-    return decorator
-
-
 class _SmartModuleNamespace:
     """The ``smartmodule`` decorator namespace a source sees:
-    ``@smartmodule.<kind>(dsl=program)`` over the transform's function."""
+    ``@smartmodule.<kind>`` (or ``@smartmodule.<kind>(dsl=program)``) over
+    the hook's function."""
 
     @staticmethod
     def _register(kind: SmartModuleKind, fn: Callable, program: Any) -> Callable:
         m = current_module(reset=False)
-        if kind in m.dsl:
+        if kind in m.hooks or kind in m.dsl:
             raise ValueError(f"duplicate #[smartmodule({kind.value})] export")
-        m.dsl[kind] = program
+        m.hooks[kind] = fn
+        if program is not None:
+            m.dsl[kind] = program
         return fn
 
     def _make(self, kind: SmartModuleKind):
@@ -129,8 +138,8 @@ class _SmartModuleNamespace:
         self.filter_map = self._make(SmartModuleKind.FILTER_MAP)
         self.array_map = self._make(SmartModuleKind.ARRAY_MAP)
         self.aggregate = self._make(SmartModuleKind.AGGREGATE)
-        self.init = _hook(SmartModuleKind.INIT)
-        self.look_back = _hook(SmartModuleKind.LOOK_BACK)
+        self.init = self._make(SmartModuleKind.INIT)
+        self.look_back = self._make(SmartModuleKind.LOOK_BACK)
 
 
 smartmodule = _SmartModuleNamespace()
@@ -154,5 +163,6 @@ def load_source(source, name: str = "adhoc") -> SmartModuleDef:
     exec(compile(source, f"<smartmodule:{name}>", "exec"), namespace)
     module = current_module(reset=True)
     module.name = name
+    module.meter_key = hashlib.sha256(source.encode("utf-8")).hexdigest()[:16]
     module.transform_kind()  # validate: must export a transform
     return module

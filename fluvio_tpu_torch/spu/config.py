@@ -38,6 +38,10 @@ from fluvio_tpu_torch.types import SPU_PUBLIC_PORT
 class SmartEngineConfig:
     device: Optional[str] = None  # None: the CUDA card; "cpu": the plain kernels
     store_max_memory: int = DEFAULT_STORE_MAX_MEMORY
+    # the fuel analog: wall-clock budget of one Python hook call, ms (the
+    # broker meters user hooks by default so a hostile module cannot
+    # wedge it; 0 turns metering off; see smartengine/metering.py)
+    hook_budget_ms: int = 5000
 
 
 @dataclass

@@ -72,6 +72,7 @@ class GlobalContext:
         self.engine = SmartEngine(
             device=config.smart_engine.device,
             store_max_memory=config.smart_engine.store_max_memory,
+            hook_budget_ms=config.smart_engine.hook_budget_ms,
         )
         self.metrics = SpuMetrics()
         # stateless stream chains keyed by invocation fingerprint (LRU): a

@@ -6,8 +6,10 @@ Inbound and outbound record and byte counters and the chains'
 slice by phase (``slice_phases``: the storage ``read``, the consume
 path's decompress, decode, stage, dispatch, finish and encode, then the
 response's ``push`` and the consumer's ``ack_wait``), the newest 4,096
-slices. ``to_dict`` adds the pipeline telemetry's snapshot under
-``telemetry`` (the monitoring socket's ``json`` mode) unless asked not to.
+slices. ``to_dict`` (the monitoring socket's ``json`` mode) adds the hook
+metering's quarantine state under ``hook_quarantine`` (`metering.
+quarantine_state`), and the pipeline telemetry's snapshot under
+``telemetry`` unless asked not to.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import threading
 from collections import deque
 from dataclasses import dataclass, field
 
+from fluvio_tpu_torch.smartengine.metering import quarantine_state
 from fluvio_tpu_torch.smartengine.metrics import SmartModuleChainMetrics
 
 SLICE_PHASES_KEPT = 4096
@@ -51,6 +54,9 @@ class SpuMetrics:
             "inbound": self.inbound.to_dict(),
             "outbound": self.outbound.to_dict(),
             "smartmodule": self.smartmodule.to_dict(),
+            # the modules quarantined for abandoned hook threads, and whether
+            # the process-wide breaker is open: why a module's streams error
+            "hook_quarantine": quarantine_state(),
         }
         if include_telemetry:
             from fluvio_tpu_torch.telemetry import TELEMETRY

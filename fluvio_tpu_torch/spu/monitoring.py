@@ -9,7 +9,9 @@ port reads no environment variable for it).
 Protocol: the client MAY send one mode line before reading:
 
 - ``json``  (or nothing — the legacy reader) → the metrics JSON dump,
-  including the pipeline-telemetry snapshot,
+  including the hook metering's quarantine state (``hook_quarantine``,
+  the port's `metering.quarantine_state`) and the pipeline-telemetry
+  snapshot,
 - ``prom``  → Prometheus text-format exposition of the same snapshot,
 - ``spans`` → the recent per-batch span ring as a JSON array,
 - ``trace`` → the flight recorder's span/event/flow rings as one

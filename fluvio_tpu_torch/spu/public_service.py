@@ -17,20 +17,28 @@ socket send and the ack wait. Other chains run one slice at a time
 through `process_batches`; a slice whose data the coalesced path declines
 goes through `process_batches_per_record`, on the card too.
 
-A produce to a topic whose config carries a deduplication filter answers
-``SMARTMODULE_ERROR``: that filter needs a look-back, which the port does
-not run. A ``READ_COMMITTED`` produce is answered once the leader's HW
+A produce to a topic whose config carries a deduplication filter first
+attaches the topic's dedup chain to the leader, under its write lock,
+seeded by a look-back from its log (`smart_chain.ensure_dedup_chain`);
+the leader runs every produced record set through it before the append.
+A ``READ_COMMITTED`` produce is answered once the leader's HW
 covers the write, which with a replica set of more than one waits for the
 followers' acks (`_wait_for_hw`), or once ``timeout_ms`` has passed: the
 reference answers then too, with the offsets written.
 
-Errors: a chain that does not resolve or build, a `GpuSpill` or
-`EngineError` from the card, or any other failure of a slice's chain
-reaches the consumer as the stream error response the reference sends
-(`_smartmodule_error_code`), the stream ends and the connection stays up.
-Nothing reruns on the CPU. Where the reference meets a transform error it
-reruns the slice in its interpreter and sends the output before the
-failing record with the error; the port sends the error with no records.
+A stream's chain runs its modules' ``look_back`` hooks over the leader's
+log before its first slice, in a worker thread (`smart_chain.
+chain_look_back`).
+
+Errors: a chain that does not resolve or build, a look-back hook out of
+fuel, a `GpuSpill` or `EngineError` from the card, or any other failure of
+a slice's chain reaches the consumer as the stream error response the
+reference sends (`_smartmodule_error_code`), the stream ends and the
+connection stays up. A look-back hook that raises
+(`SmartModuleLookbackError`) ends the stream with no response, as the
+reference's handler does (it logs the error). A transform error is the
+slice's output: the records before the failing one, the error and the
+next offset, then the stream ends.
 
 Telemetry (the reference's seams): a stream registers its
 ``chain@topic/partition`` key (``stream@topic/partition`` without a chain)
@@ -55,10 +63,7 @@ decision. A chain attached to a stream is warmed once
 (`_schedule_chain_warmup`): a fresh stateless chain with one 2-record
 batch by default, or, with ``AdmissionConfig.warmup``, the whole
 shape-bucket warm-up (`admission.warmup.warm_executor`) behind the serve
-gate, which sheds ``cold-chain`` until the warm is done. A look-back
-invocation is served when no module of its chain exports a ``look_back``
-hook, as the reference serves it; a module that exports one is refused
-(`acquire_stream_chain`).
+gate, which sheds ``cold-chain`` until the warm is done.
 """
 
 from __future__ import annotations
@@ -96,8 +101,9 @@ from fluvio_tpu_torch.schema.spu import (
     UpdateOffsetsRequest,
     UpdateOffsetsResponse,
 )
-from fluvio_tpu_torch.smartengine.engine import EngineError
+from fluvio_tpu_torch.smartengine.engine import EngineError, SmartModuleChainInitError
 from fluvio_tpu_torch.smartengine.gpu.executor import GpuSpill
+from fluvio_tpu_torch.smartengine.metering import SmartModuleFuelError
 from fluvio_tpu_torch.spu.context import GlobalContext
 from fluvio_tpu_torch.spu.replica import LeaderReplicaState
 from fluvio_tpu_torch.spu.smart_chain import (
@@ -112,6 +118,8 @@ from fluvio_tpu_torch.spu.smart_chain import (
     admission_require_warm,
     apply_chain,
     build_chain,
+    chain_look_back,
+    ensure_dedup_chain,
     stream_slices,
 )
 from fluvio_tpu_torch.telemetry import TELEMETRY
@@ -235,14 +243,15 @@ async def handle_produce(ctx: GlobalContext, req: ProduceRequest) -> ProduceResp
                     f"{topic_data.name}-{pdata.partition_index} has no leader here"
                 )
                 continue
-            dedup = _dedup_module(ctx, topic_data.name, pdata.partition_index)
-            if dedup is not None:
-                presp.error_code = ErrorCode.SMARTMODULE_ERROR
-                presp.error_message = (
-                    f"{topic_data.name}-{pdata.partition_index} deduplicates through "
-                    f"SmartModule {dedup!r}, whose look-back and hooks the GPU engine "
-                    "does not run"
-                )
+            try:
+                await ensure_dedup_chain(ctx, leader)
+            except SmartModuleResolutionError as e:
+                presp.error_code = e.code
+                presp.error_message = e.message
+                continue
+            except Exception as e:  # noqa: BLE001 — the chain's init boundary
+                presp.error_code = ErrorCode.SMARTMODULE_CHAIN_INIT_ERROR
+                presp.error_message = str(e)
                 continue
             records = pdata.records
             if chain is not None:
@@ -285,18 +294,6 @@ async def _wait_for_hw(leader: LeaderReplicaState, target: int, timeout_ms: int)
             await asyncio.wait_for(listener.listen(), timeout=remaining)
         except asyncio.TimeoutError:
             return
-
-
-def _dedup_module(ctx: GlobalContext, topic: str, partition: int) -> Optional[str]:
-    """The dedup filter a topic's config names (``deduplication.filter.
-    transform.uses``), or None. The reference attaches it to the leader as
-    a persistent chain seeded by a look-back; the port has no look-back,
-    so a produce to such a topic answers ``SMARTMODULE_ERROR``, the code
-    a stream with the ``dedup-filter`` module gets."""
-    dedup = ctx.replica_config(topic, partition).get("deduplication")
-    if not dedup:
-        return None
-    return ((dedup.get("filter") or {}).get("transform") or {}).get("uses", "")
 
 
 def _chain_lock(chain) -> asyncio.Lock:
@@ -423,14 +420,14 @@ def _schedule_chain_warmup(chain) -> Optional[asyncio.Task]:
 
 def _smartmodule_error_code(e: Exception) -> ErrorCode:
     """The stream or produce error code the reference sends for the same
-    invocation: a resolution error's own code; a transform error (the
-    reference's interpreter returns it as the slice's error) is
-    ``SMARTMODULE_RUNTIME_ERROR``; any other failure of the chain,
-    ``SMARTMODULE_ERROR``."""
+    invocation: a resolution error's own code; an init hook's failure,
+    ``SMARTMODULE_CHAIN_INIT_ERROR``; any other failure of the chain,
+    ``SMARTMODULE_ERROR`` (a transform error is no failure: it is the
+    slice's output, sent as ``SMARTMODULE_RUNTIME_ERROR``)."""
     if isinstance(e, SmartModuleResolutionError):
         return e.code
-    if isinstance(e, GpuSpill) and e.reason == "transform-error":
-        return ErrorCode.SMARTMODULE_RUNTIME_ERROR
+    if isinstance(e, SmartModuleChainInitError):
+        return ErrorCode.SMARTMODULE_CHAIN_INIT_ERROR
     return ErrorCode.SMARTMODULE_ERROR
 
 
@@ -642,6 +639,11 @@ class StreamFetchHandler:
             except Exception as e:  # noqa: BLE001 — reported on the stream
                 await self._chain_failed(leader, e)
                 return
+            try:
+                await chain_look_back(chain, leader)
+            except SmartModuleFuelError as e:
+                await self._chain_failed(leader, e)
+                return
             if _schedule_chain_warmup(chain) is not None:
                 await asyncio.sleep(0)  # the warm's task runs up to its lock
             self._lag_key = admission_chain_sig(chain, req.topic, req.partition)
@@ -752,7 +754,8 @@ class StreamFetchHandler:
         invocation, the message, no records. A failure that is no
         resolution error, `GpuSpill` or `EngineError` (a device error) is
         logged with its traceback too."""
-        if not isinstance(e, (SmartModuleResolutionError, GpuSpill, EngineError)):
+        if not isinstance(e, (SmartModuleResolutionError, GpuSpill, EngineError,
+                              SmartModuleFuelError)):
             logger.error(
                 "chain failed on %s-%s", self.req.topic, self.req.partition, exc_info=e
             )

@@ -10,7 +10,8 @@ push loops. With ``in_sync_replica`` 1 the high watermark advances on the
 local write; above 1 it advances as followers report their offsets
 (`update_follower_offsets`, replica_state.rs:172), to the highest offset
 ``in_sync_replica - 1`` followers hold. A chain attached as ``sm_chain``
-transforms every produced record set before the log append.
+(a topic's dedup filter, `smart_chain.ensure_dedup_chain`, whose hooks run
+on the host) transforms every produced record set before the log append.
 """
 
 from __future__ import annotations
@@ -92,8 +93,8 @@ class LeaderReplicaState:
         """
         async with self._write_lock:
             if self.sm_chain is not None:
-                # the chain runs on the card: keep it off the event loop
-                # (the write lock already serializes this chain)
+                # the chain runs on the card or in user hooks: keep it off
+                # the event loop (the write lock already serializes it)
                 records = await asyncio.to_thread(self._transform, records)
                 if not records.batches:
                     return self.storage.get_leo()

@@ -22,14 +22,21 @@ A slice whose data the coalesced form cannot stage (mixed present and
 absent base timestamps, a slab that disagrees with its header, a record
 too wide for the chain, the staging cap, the engine's memory bound) is
 declined, counted by reason, and served by `process_batches_per_record`,
-which still runs every batch on the card. A `GpuSpill` or a device error
-propagates to the caller: nothing reruns in an interpreter. The SPU's
-stream handler gets its chains from `acquire_stream_chain`, which caches
-stateless ones. The reference's partition hook, its dedup chain and
-look_back hooks are not carried: a look-back invocation of a module that
-exports a ``look_back`` hook raises `EngineError`; one whose modules
-export none is served, as the reference serves it (its ``look_back``
-skips every instance without the hook).
+which still runs every batch on the card. So is a slice whose finish
+meets a transform error (``transform-error-spill``, as the reference
+declines it): served batch by batch, it gives the reference's response,
+the batches before, the failing batch's output before the failing record,
+the error, and the next offset at the failing batch's end. A `GpuSpill`
+or a device error propagates to the caller: nothing reruns in an
+interpreter. A chain with a host hook segment (a user Python SmartModule)
+has no batched form: every slice goes through `process_batches_per_record`
+(``chain.process`` a batch).
+
+The SPU's stream handler gets its chains from `acquire_stream_chain`,
+which caches stateless card chains, and feeds the chain's ``look_back``
+hooks with `chain_look_back`. A topic whose config deduplicates gets a
+persistent dedup chain on its leader (`dedup_to_invocation`,
+`ensure_dedup_chain`). The reference's partition hook is not carried.
 
 The admission seam is the reference's (`admission_check`,
 `admission_note_warm`, `admission_require_warm`, `admission_chain_sig`):
@@ -53,6 +60,7 @@ the caller that serves it and ends it (`telemetry.TELEMETRY.end_flow`).
 
 from __future__ import annotations
 
+import asyncio
 import hashlib
 import time
 from concurrent.futures import Future
@@ -69,15 +77,13 @@ from fluvio_tpu_torch.schema.smartmodule import (
     SmartModuleInvocation,
     SmartModuleInvocationWasm,
 )
-from fluvio_tpu_torch.smartengine.engine import (
-    EngineError,
-    SmartEngine,
-    SmartModuleChainInstance,
-)
+from fluvio_tpu_torch.smartengine.config import Lookback
+from fluvio_tpu_torch.smartengine.engine import SmartEngine, SmartModuleChainInstance
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
 from fluvio_tpu_torch.smartengine.gpu.executor import fetch_mat_pool
 from fluvio_tpu_torch.smartmodule.types import (
     SmartModuleInput,
+    SmartModuleRecord,
     SmartModuleTransformRuntimeError,
 )
 from fluvio_tpu_torch.telemetry import TELEMETRY
@@ -171,6 +177,37 @@ def resolve_invocation(
     return payload, invocation.name or wasm.name
 
 
+def dedup_to_invocation(topic_config: dict) -> Optional[SmartModuleInvocation]:
+    """A topic's ``deduplication`` config as the filter invocation its
+    leader runs (parity: fluvio-spu/src/smartengine/mod.rs:152
+    `dedup_to_invocation`): the Predefined module that
+    ``deduplication.filter.transform.uses`` names, its params the window
+    bounds (``count``; ``age`` in milliseconds) then the transform's
+    ``with`` params (which may override them), seeded from the log by a
+    look-back of ``count`` records (and ``age``). None without one."""
+    dedup = topic_config.get("deduplication")
+    if not dedup:
+        return None
+    bounds = dedup.get("bounds") or {}
+    transform = (dedup.get("filter") or {}).get("transform") or {}
+    uses = transform.get("uses", "")
+    count = int(bounds.get("count") or 0)
+    age_seconds = bounds.get("age_seconds")
+    params = {"count": str(count)}
+    if age_seconds is not None:
+        params["age"] = str(int(age_seconds) * 1000)
+    params.update(transform.get("with_params") or {})
+    inv = SmartModuleInvocation(
+        wasm=SmartModuleInvocationWasm.predefined(uses),
+        params=params,
+        lookback_last=count,
+        name=f"dedup/{uses}",
+    )
+    if age_seconds is not None:
+        inv.lookback_age_ms = int(age_seconds) * 1000
+    return inv
+
+
 def build_chain(
     invocations: Sequence[SmartModuleInvocation],
     engine: SmartEngine,
@@ -208,12 +245,10 @@ def acquire_stream_chain(
     and ``stream_chains``). The key is the version and, for each module,
     its kind, the payload's sha256, the accumulator and the params. A chain is
     cached, and handed to every later stream with the same key, only when
-    it runs on the GPU executor, keeps no carries and asks for no
-    look-back; any other chain is built fresh for each stream. A look-back
-    invocation is served when no module of the chain exports a
-    ``look_back`` hook (the reference's ``look_back`` skips such
-    instances); when one does, this raises `EngineError`: the port runs no
-    look_back hook, and the stream is not served without it."""
+    it is one card segment (no host hook, which may keep state), keeps no
+    carries and asks for no look-back; any other chain is built fresh for
+    each stream, so a look-back seeds a chain of its own
+    (`chain_look_back`, which the stream handler runs)."""
     key_parts = [str(version)]
     cacheable = True
     look_back = any(inv.lookback() is not None for inv in invocations)
@@ -244,17 +279,55 @@ def acquire_stream_chain(
             ctx.stream_chains.move_to_end(key)
             return chain
     chain = build_chain(invocations, ctx.engine, ctx.smartmodules, version)
-    if look_back and chain.look_back_modules:
-        raise EngineError(
-            f"SmartModule {chain.look_back_modules[0]!r} exports a look_back hook and the "
-            "invocation asks for a look-back, which the GPU engine does not run"
-        )
     gpu = chain.gpu_chain
-    if cacheable and chain.backend_in_use == "gpu" and not gpu.agg_configs:
+    if cacheable and gpu is not None and not gpu.agg_configs:
         ctx.stream_chains[key] = chain
         while len(ctx.stream_chains) > _STREAM_CHAIN_CACHE_MAX:
             ctx.stream_chains.popitem(last=False)
     return chain
+
+
+async def chain_look_back(chain: SmartModuleChainInstance, leader) -> None:
+    """Feed a leader's recent stored records to the chain's ``look_back``
+    hooks (parity: context.rs:117-240): each module's `Lookback`, the last
+    ``last`` records below the HW, bounded by ``age_ms`` against the wall
+    clock when set. The records go to the hooks as the reference hands
+    them over: their offsets are their deltas in their stored batch, with
+    no timestamp."""
+
+    async def read_fn(lookback: Lookback) -> List[SmartModuleRecord]:
+        if lookback.age_ms is not None:
+            floor = int(time.time() * 1000) - lookback.age_ms
+            records = leader.storage.read_last_records(lookback.last, min_timestamp=floor)
+        else:
+            records = leader.storage.read_last_records(lookback.last)
+        return [SmartModuleRecord(rec) for rec in records]
+
+    await chain.look_back(read_fn)
+
+
+async def ensure_dedup_chain(ctx, leader) -> None:
+    """Attach the topic's dedup filter chain to a leader replica, once
+    (parity: ``Uninit<LeaderReplicaState>::init``, replica_state.rs:392-405):
+    a replica whose topic config carries a deduplication gets a persistent
+    chain, seeded once by a look-back from its log, that every produced
+    record set runs through (`LeaderReplicaState.write_record_set`). The
+    build and the seed run under the leader's write lock, so no produce
+    appends between them; a failure (the module not yet pushed by the SC,
+    an init or look-back hook that fails) raises, and the next produce
+    tries again."""
+    if leader.sm_chain is not None:
+        return
+    inv = dedup_to_invocation(ctx.replica_config(leader.topic, leader.partition))
+    if inv is None:
+        return
+    async with leader._write_lock:
+        if leader.sm_chain is not None:  # another produce attached it meanwhile
+            return
+        chain = await asyncio.to_thread(build_chain, [inv], ctx.engine, ctx.smartmodules)
+        await chain_look_back(chain, leader)
+        leader.sm_chain_metrics = ctx.metrics.smartmodule
+        leader.sm_chain = chain
 
 
 def apply_chain(chain, records: RecordSet, metrics=None):
@@ -636,7 +709,7 @@ def gpu_finish(
     pending: PendingSlice,
     max_bytes: int,
     metrics=None,
-) -> BatchProcessResult:
+) -> Optional[BatchProcessResult]:
     """Phase 2 (`tpu_finish` in the reference): wait for each chunk's
     results and encode the survivors into one wire batch.
 
@@ -651,7 +724,10 @@ def gpu_finish(
     ``phase_ms["finish"]`` includes the wait for the last rebuild. A chunk
     that raises (`GpuSpill`, a device error) discards the chunks after it,
     leaves the carries where that chunk found them and propagates once
-    the rebuilds in flight have ended."""
+    the rebuilds in flight have ended. A chunk whose finish met a
+    transform error discards the slice (the carries go back to where the
+    slice found them) and returns None, the decline counted as
+    ``transform-error-spill``: the caller serves the slice per batch."""
     gpu = chain.gpu_chain
     base0, ts0 = pending.base0, pending.ts0
     result = BatchProcessResult(next_offset=pending.planned_next, phase_ms=dict(pending.phase_ms),
@@ -667,6 +743,8 @@ def gpu_finish(
     try:
         for b, h in pending.chunks:
             out = gpu.finish_buffer_deferred(b, h)
+            if h.error is not None:
+                break
             if callable(out):
                 out = fetch_mat_pool().submit(out) if overlap else out()
             parts.append(out)
@@ -678,6 +756,16 @@ def gpu_finish(
         for _, h in reversed(pending.chunks[len(parts):]):
             gpu.discard_dispatch(h)
         raise
+    if len(parts) < len(pending.chunks):
+        # a transform error: the reference discards the slice and serves it
+        # batch by batch (its `transform-error-spill`); newest first, so the
+        # carries end where the slice found them
+        for p in parts:
+            if isinstance(p, Future):
+                p.exception()
+        for _, h in reversed(pending.chunks):
+            gpu.discard_dispatch(h)
+        return _decline(metrics, "transform-error-spill")
     outbuf = outbufs[0] if len(outbufs) == 1 else _MergedOut(outbufs)
     n_out = outbuf.count
     out_deltas = outbuf.offset_deltas[:n_out].astype(np.int64)
@@ -739,11 +827,14 @@ def process_batches(
     start_offset: Optional[int] = None,
 ) -> BatchProcessResult:
     """Run stored batches through the chain and re-batch the outputs: the
-    coalesced path when it takes the slice, else one `chain.process` a
-    batch (`process_batches_per_record`)."""
+    coalesced path when it takes the slice, else (a decline, a transform
+    error in its finish, a chain with a host segment) one `chain.process`
+    a batch (`process_batches_per_record`)."""
     pending = gpu_stage_dispatch(chain, batches, metrics, start_offset)
     if pending is not None:
-        return gpu_finish(chain, pending, max_bytes, metrics)
+        result = gpu_finish(chain, pending, max_bytes, metrics)
+        if result is not None:
+            return result
     return process_batches_per_record(chain, batches, max_bytes, metrics)
 
 
@@ -874,7 +965,8 @@ def stream_slices(
                     nxt.phase_ms["read"] = read_ms
             if pending is not None:
                 # gpu_finish consumes the slice's handles, or discards
-                # those it leaves unread when it raises
+                # those it leaves unread when it raises (a pipelinable
+                # chain has no explode: its finish meets no transform error)
                 finished, pending = pending, None
                 result = gpu_finish(chain, finished, max_bytes, metrics)
                 yield result

@@ -11,6 +11,8 @@ where it found them.
 
 from __future__ import annotations
 
+import json
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,18 +173,43 @@ def test_array_map_then_count_across_an_overflow():
 
 
 def test_non_array_record_spills_and_keeps_the_carries():
-    """A record that is no JSON array: the port raises `GpuSpill`
-    (``transform-error``) as the reference raises `TpuSpill`; the
-    aggregate downstream keeps the carries of the batch before."""
-    ref_chain, port_chain = _chains([("array-map-json", {}, b""), ("aggregate-count", {}, b"")])
+    """A record that is no JSON array: the JAX executor raises `TpuSpill`
+    (``transform-error``) and its chain reruns the batch in its
+    interpreter; the port's executor re-dispatches the explode on the card
+    and returns what that interpreter returns, the elements before the
+    failing record with the error at it. The aggregate downstream keeps
+    the carries of the batch before on both."""
+    from fluvio_tpu.models import lookup as ref_lookup
+    from fluvio_tpu.smartengine import SmartEngine as RefEngine
+    from fluvio_tpu.smartengine import SmartModuleConfig as RefConfig
+    from fluvio_tpu.smartmodule.types import SmartModuleInput as RefInput
+
+    specs = [("array-map-json", {}, b""), ("aggregate-count", {}, b"")]
+    ref_chain, port_chain = _chains(specs)
+    interp = RefEngine(backend="python").builder()
+    for name, _, _ in specs:
+        interp.add_smart_module(RefConfig(), ref_lookup(name))
+    interp = interp.initialize()
+
+    def interpreted(buf):
+        return interp.process(RefInput.from_records(
+            buf.to_records(), base_offset=buf.base_offset, base_timestamp=buf.base_timestamp))
+
     good = _ref_buffer(gen_arrays(50))
     _assert_equal(ref_chain.process_buffer(good), port_chain.process_buffer(_port_buffer(good)))
+    interpreted(good)
     bad = _ref_buffer(gen_arrays(10) + [b'{"not":"an array"}'] + gen_arrays(5))
     with pytest.raises(TpuSpill) as r:
         ref_chain.process_buffer(bad)
-    with pytest.raises(GpuSpill) as p:
-        port_chain.process_buffer(_port_buffer(bad))
-    assert p.value.reason == r.value.reason == "transform-error"
+    assert r.value.reason == "transform-error"
+    got, want = port_chain.process_buffer(_port_buffer(bad)), interpreted(bad)
+    assert got.value_list() == [rec.value for rec in want.successes]
+    assert got.key_list() == [rec.key for rec in want.successes]
+    assert len(want.successes) == sum(len(json.loads(d)) for d in gen_arrays(10))
+    e, w = got.error, want.error
+    assert (e.hint, e.offset, e.kind.value, e.record_key, e.record_value) == (
+        w.hint, w.offset, w.kind.value, w.record_key, w.record_value)
+    assert port_chain.error_redispatches == 1
     ref_chain._ensure_host_state()
     port_chain._ensure_host_state()
     assert port_chain.carries == ref_chain.carries == [(300, 0, True)]

@@ -25,11 +25,14 @@ the same seeded inputs, tolerance 0:
   offsets and LRS (the replication layer itself is held to the JAX
   package in ``tests/test_torch_replication.py``).
 
-Pinned divergences (each test named for it):
-- a topic with deduplication: the JAX SPU attaches its dedup chain; the
-  port's answers the produce with ``SMARTMODULE_ERROR``;
-- a pushed source that names the JAX package: the JAX SPU runs it; the
-  port's stream answers ``SMARTMODULE_INVALID``.
+A topic with deduplication (`test_dedup_topic_divergence_is_pinned`, named
+for the divergence it pinned until both SPUs ran the dedup chain) is
+served alike: both attach the filter, seeded by a look-back, and store the
+first of each value.
+
+Pinned divergence (its test named for it): a pushed source that names the
+JAX package: the JAX SPU runs it; the port's stream answers
+``SMARTMODULE_INVALID``.
 """
 
 from __future__ import annotations
@@ -677,16 +680,14 @@ async def _configured_topic_sequence(side, tmp_path, configure, values=DEDUP_VAL
 
 
 def test_dedup_topic_divergence_is_pinned(tmp_path):
-    """A topic whose config deduplicates through ``dedup-filter``: the JAX
-    SPU attaches the filter (seeded by a look-back) to the leader and
-    stores the first of each value; the port's answers the produce with
-    SMARTMODULE_ERROR, the code a stream with that module gets, and
-    stores nothing."""
+    """A topic whose config deduplicates through ``dedup-filter``: both
+    SPUs attach the filter (seeded by a look-back) to the leader, the
+    port's as a host hook segment, and store the first of each value; the
+    producers see the same offsets."""
     ref_outcome, ref_stored, _ = _run(_configured_topic_sequence(SIDES[0], tmp_path, _dedup))
     outcome, stored, _ = _run(_configured_topic_sequence(SIDES[1], tmp_path, _dedup))
     assert ref_outcome[0] == "ok" and ref_stored == 4
-    assert outcome[:2] == ("error", ErrorCode.SMARTMODULE_ERROR) and "dedup-filter" in outcome[2]
-    assert stored == 0
+    assert outcome == ref_outcome and stored == ref_stored
 
 
 def _retention(t, spec) -> None:

@@ -9,9 +9,9 @@ the bench's AdHoc payloads from wire invocations). The JAX chains are
 records, and `process_batches` must encode the same `RecordSet` bytes
 and the same ``next_offset``.
 
-Where the JAX package meets a transform error it reruns the slice in its
-interpreter and returns the partial output with the error; the port
-raises `GpuSpill` (``transform-error``). Both behaviours are pinned.
+A transform error: the JAX package reruns the slice in its interpreter,
+the port re-dispatches the stages up to the explode on the card; both
+return the partial output with the same error.
 """
 
 from __future__ import annotations
@@ -266,21 +266,31 @@ def test_a_too_wide_slice_declines_and_the_card_path_raises():
 
 
 def test_transform_error_divergence_is_pinned():
-    """An explode meets a record that is no JSON array: the JAX package
-    reruns the slice in its interpreter and returns the output before
-    the record with the error; the port raises `GpuSpill`
-    (``transform-error``) and its carries stay where they were."""
+    """An explode meets a record that is no JSON array in the second of two
+    stored batches: the JAX package reruns the slice in its interpreter,
+    the port re-dispatches the explode on the card, and both return the
+    first batch's elements, the failing batch's elements before the
+    record, the same error (hint, offset, kind, key, value) and the next
+    offset at the failing batch's end. The port's coalesced slice declines
+    (``transform-error-spill``) and is served batch by batch."""
     arrays = gen_arrays(10, seed=37)
-    wires = _stored([arrays[:5] + [b'{"no":1}'] + arrays[5:]], [0], [1])
+    wires = _stored([arrays[:4], arrays[4:6] + [b'{"no":1}'] + arrays[6:]], [0, 4], [1, 1])
     ref_chain, port_chain = _chains(EXPLODE)
     ref_b, port_b = _decode(wires)
+    m = SmartModuleChainMetrics()
     ref_res = ref_sc.process_batches(ref_chain, ref_b, 1 << 20)
+    port_res = sc.process_batches(port_chain, port_b, 1 << 20, m)
     assert ref_res.error is not None
     assert ref_res.error.kind == ref_types.SmartModuleKind.ARRAY_MAP
-    assert ref_res.records.total_records() == 30  # 6 elements x the 5 before it
-    with pytest.raises(GpuSpill) as e:
-        sc.process_batches(port_chain, port_b, 1 << 20)
-    assert e.value.reason == "transform-error"
+    assert ref_res.records.total_records() == sum(len(json.loads(a)) for a in arrays[:6])
+    assert port_res.next_offset == ref_res.next_offset == 11
+    assert _set_bytes(port_res.records, codec.ByteWriter) == _set_bytes(
+        ref_res.records, ref_codec.ByteWriter)
+    e, w = port_res.error, ref_res.error
+    assert (e.hint, e.offset, e.kind.value, e.record_key, e.record_value) == (
+        w.hint, w.offset, w.kind.value, w.record_key, w.record_value) == (
+        "input record is not a JSON array", 6, "array_map", None, b'{"no":1}')
+    assert m.fallback_reasons == {"transform-error-spill": 1}
 
 
 @pytest.mark.parametrize("kind", ["filter", "map", "filter_map", "array_map", "aggregate"])

@@ -135,6 +135,92 @@ def m(record):
 """
 
 
+# a Python map hook with no DSL program: the host segment between two card
+# segments of `MIXED_CHAIN` (phase 20 of the chip smoke)
+HOOK_TAG_SM = b"""
+@smartmodule.map
+def tag(record):
+    return record.value.replace(b'"name":"', b'"name":"hook/', 1)
+"""
+
+# phase 20's chains: an explode, a non-literal regex over its elements and a
+# count (a record that is no JSON array ends its batch: the first error);
+# a card filter, the host hook, a card map
+FIRST_ERROR_CHAIN = [("array-map-json", {}), ("regex-filter", {"regex": "a1[0-9]"}),
+                     ("aggregate-count", {})]
+MIXED_CHAIN = [("regex-filter", {"regex": "fluvio"}), (HOOK_TAG_SM, {}),
+               ("json-map", {"field": "name"})]
+FIRST_ERROR_RECORD = b'{"no":1}'
+
+# `FIRST_ERROR_CHAIN` as AdHoc sources, for a consumer of the SPU server
+# (DSL programs: each module runs on the card)
+FIRST_ERROR_SMS = (
+    (b"""
+@smartmodule.array_map(dsl=dsl.ArrayMapProgram(mode="json_array"))
+def explode(record):
+    import json
+    return [i.encode() if isinstance(i, str) else json.dumps(i).encode()
+            for i in json.loads(record.value)]
+""", "ARRAY_MAP"),
+    (b"""
+@smartmodule.filter(dsl=dsl.FilterProgram(
+    predicate=dsl.RegexMatch(arg=dsl.Value(), pattern="a1[0-9]")))
+def f(record):
+    import re
+    return re.search(b"a1[0-9]", record.value) is not None
+""", "FILTER"),
+    (b"""
+@smartmodule.aggregate(dsl=dsl.AggregateProgram(kind="count"))
+def count(acc, record):
+    return str(int(acc or b"0") + 1).encode()
+""", "AGGREGATE"),
+)
+
+# a DSL `flu[vV]io` filter that exports a look_back hook, which keeps what it
+# sees in ``SEEN`` (phase 20's look-back stream)
+LOOK_BACK_SEEN_SM = b"""
+SEEN = []
+
+
+@smartmodule.filter(dsl=dsl.FilterProgram(
+    predicate=dsl.RegexMatch(arg=dsl.Value(), pattern="flu[vV]io")))
+def f(record):
+    import re
+    return re.search(b"flu[vV]io", record.value) is not None
+
+
+@smartmodule.look_back
+def look_back(record):
+    SEEN.append(record.value)
+"""
+
+
+def first_error_invocations():
+    """`FIRST_ERROR_SMS` as a consumer's AdHoc invocations."""
+    from fluvio_tpu_torch.schema.smartmodule import (
+        SmartModuleInvocation,
+        SmartModuleInvocationKind,
+        SmartModuleInvocationWasm,
+    )
+
+    return [SmartModuleInvocation(wasm=SmartModuleInvocationWasm.adhoc(src),
+                                  kind=getattr(SmartModuleInvocationKind, kind))
+            for src, kind in FIRST_ERROR_SMS]
+
+
+def hook_chain(specs, device: str, hook_budget_ms: int = 5000):
+    """A chain instance on ``device`` from [(registry name | source bytes,
+    params)]: DSL modules on the card's segments, hooks on the host."""
+    from fluvio_tpu_torch.models import lookup
+    from fluvio_tpu_torch.smartengine import SmartEngine, SmartModuleConfig
+
+    b = SmartEngine(device=device, hook_budget_ms=hook_budget_ms).builder()
+    for k, (spec, params) in enumerate(specs):
+        module = lookup(spec) if isinstance(spec, str) else spec
+        b.add_smart_module(SmartModuleConfig(params=dict(params)), module, name=f"hook{k}")
+    return b.initialize()
+
+
 def north_star_invocations():
     """The bench's broker chain as a consumer sends it: the two AdHoc
     invocations, encoded and decoded with the port's codec."""
@@ -758,7 +844,9 @@ def test_port_imports_no_jax_and_nothing_of_fluvio_tpu():
                    "telemetry/compiles.py", "spu/monitoring.py", "admission/__init__.py",
                    "admission/types.py", "admission/fairness.py", "admission/controller.py",
                    "admission/batcher.py", "admission/warmup.py", "analysis/__init__.py",
-                   "analysis/spec.py", "cluster/__init__.py", "cluster/check.py"):
+                   "analysis/spec.py", "cluster/__init__.py", "cluster/check.py",
+                   "smartengine/engine.py", "smartengine/metering.py",
+                   "smartengine/hooks.py", "smartengine/gpu/executor.py"):
         assert REPO / "fluvio_tpu_torch" / module in files, module
     bad = [
         f"{path.relative_to(REPO)}:{line}: {module}"
@@ -1136,6 +1224,48 @@ def test_aggregate_and_explode_chains_on_the_card():
             assert cuda_kernels.LAUNCHES["json_span"] == cuda_kernels.LAUNCHES["extract"] == 3
         else:
             assert outs["cuda"][-1][1] >= 1
+
+
+@pytest.mark.cuda
+def test_first_error_and_mixed_chains_on_the_card():
+    """Phase 20's chains through ``SmartEngine(device="cuda")``, each against
+    the same chain on the CPU: `FIRST_ERROR_CHAIN` over four ``gen_arrays``
+    batches with `FIRST_ERROR_RECORD` planted at the first row of one and a
+    middle row of another (outputs, errors, and the count's carry on the
+    batches after), and `MIXED_CHAIN` (a card filter, a host hook, a card
+    map) over two ``gen_json`` batches. The card re-dispatched each error
+    batch and launched the DFA scan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.protocol.record import Record
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
+    from fluvio_tpu_torch.smartmodule.types import SmartModuleInput
+
+    def run(device, specs, batches):
+        chain = hook_chain(specs, device)
+        outs = []
+        for k, values in enumerate(batches):
+            out = chain.process(SmartModuleInput.from_records(
+                [Record(value=v, offset_delta=i) for i, v in enumerate(values)],
+                base_offset=10_000 * k))
+            e = out.error
+            outs.append(([r.value for r in out.successes],
+                         None if e is None else (e.hint, e.offset, e.record_value)))
+        return outs, chain
+
+    arrays = [gen_arrays(3000, seed=s) for s in (1, 2, 3, 4)]
+    arrays[0][0] = FIRST_ERROR_RECORD
+    arrays[2][1700] = FIRST_ERROR_RECORD
+    cuda_kernels.reset_launches()
+    got, chain = run("cuda", FIRST_ERROR_CHAIN, arrays)
+    assert cuda_kernels.LAUNCHES["dfa_scan"] >= 1 and chain.gpu_chain.error_redispatches == 2
+    want, _ = run("cpu", FIRST_ERROR_CHAIN, arrays)
+    assert got == want
+    assert [o[1][1] if o[1] else None for o in got] == [0, None, 21_700, None]
+    docs = [gen_json(5000, seed=s) for s in (5, 6)]
+    got, chain = run("cuda", MIXED_CHAIN, docs)
+    assert chain.backend_in_use == "mixed"
+    assert got == run("cpu", MIXED_CHAIN, docs)[0] and all(o[0] for o in got)
 
 
 STRIPED_SLICE = {

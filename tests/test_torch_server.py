@@ -12,15 +12,13 @@ same `ConsumerConfig`. Tolerance 0: every pushed batch has the same wire
 bytes, and its decoded records the same offsets, timestamps, keys and
 values, slice by slice.
 
-Pinned divergences (each test named for it):
-- a transform error: the JAX server reruns the slice in its interpreter
-  and sends the records before the failing one with the error; the port
-  sends the same ``ErrorCode`` with no records;
-- a look-back invocation of a module that exports a ``look_back`` hook
-  beside its DSL transform: the JAX server runs the hook and serves the
-  stream; the port refuses it with ``SMARTMODULE_ERROR``, the code the JAX
-  server sends for a hook module its TPU backend cannot run. A look-back
-  invocation of modules that export no hook is served alike.
+The tests named for a divergence the port had assert equality now: a
+transform error (both servers send the records before the failing one,
+the error and the next offset), a look-back invocation of a module that
+exports a ``look_back`` hook beside its DSL transform (both run the hook
+and serve the stream). A module with Python hooks only (the seeded
+``dedup-filter``) is refused by the JAX server's TPU backend; with the JAX
+engine on its ``auto`` backend both servers serve it alike.
 """
 
 from __future__ import annotations
@@ -486,12 +484,20 @@ def test_unknown_partition_and_missing_module_errors(tmp_path):
                                          kind=SmartModuleInvocationKind.FILTER)]
         code, message = await _both_errors(servers, missing)
         assert code == ErrorCode.SMARTMODULE_NOT_FOUND and "nope" in message
-        for lookback_last in (0, 4):  # the seeded dedup-filter: hooks only, no DSL
-            dedup = [SmartModuleInvocation(
-                wasm=SmartModuleInvocationWasm.predefined("dedup-filter"),
-                kind=SmartModuleInvocationKind.FILTER, lookback_last=lookback_last)]
-            code, _ = await _both_errors(servers, dedup)
-            assert code == ErrorCode.SMARTMODULE_ERROR
+        # the seeded dedup-filter, hooks only: the JAX server's TPU backend
+        # refuses it; on its auto backend it runs the hooks, as the port does
+        dedup = [SmartModuleInvocation(
+            wasm=SmartModuleInvocationWasm.predefined("dedup-filter"),
+            kind=SmartModuleInvocationKind.FILTER, lookback_last=4)]
+        code, _ = await _stream_error(servers.ref.public_addr, dedup, port_client=False)
+        assert code == ErrorCode.SMARTMODULE_ERROR
+        servers.ref.ctx.engine.backend = "auto"
+        # 17 keys and 14 keyless values; the look-back of the last 4 records
+        # seeds 2 keys and 2 values, which the pass then drops
+        for lookback_last, kept in ((0, 31), (4, 27)):
+            dedup[0].lookback_last = lookback_last
+            served = await _both(servers, dedup)
+            assert sum(len(v[3]) for v, _ in served) == kept
 
     _run(tmp_path, wires, body)
 
@@ -533,18 +539,16 @@ def look_back(record):
 
 def test_look_back_hook_module_divergence_is_pinned(tmp_path):
     """A DSL filter that also exports a look_back hook, invoked with a
-    look-back: the JAX server runs the hook over the last records and
-    serves the stream; the port runs no hook and refuses the stream with
-    SMARTMODULE_ERROR, naming the hook. Invoked without a look-back, the
+    look-back: both servers run the hook over the last 3 stored records
+    (the port on the host, its filter on the card) and serve the stream
+    alike; the hook's seen offsets agree. Invoked without a look-back, the
     same module is served alike."""
     wires = _stored([60, 40], seed=62)
     hooked = [_adhoc(LOOK_BACK_HOOK_SM, SmartModuleInvocationKind.FILTER, lookback_last=3)]
 
     async def body(servers):
-        served = await _consume(servers.ref.public_addr, hooked, port_client=False)
+        served = await _both(servers, hooked)
         assert served and served[0][0][3]
-        code, message = await _stream_error(servers.port.public_addr, hooked)
-        assert code == ErrorCode.SMARTMODULE_ERROR and "look_back hook" in message
         plain = [_adhoc(LOOK_BACK_HOOK_SM, SmartModuleInvocationKind.FILTER)]
         assert await _both(servers, plain)
 
@@ -554,9 +558,11 @@ def test_look_back_hook_module_divergence_is_pinned(tmp_path):
 def test_transform_error_divergence_is_pinned(tmp_path):
     """An explode meets a record that is no JSON array: both clients get
     SMARTMODULE_RUNTIME_ERROR and their connections stay up. On the wire
-    the JAX server's error response carries the 30 records before the
-    failing one (its interpreter's rerun) and their next offset; the
-    port's carries no records and no next offset."""
+    both error responses carry the 30 records before the failing one (the
+    JAX server's interpreter rerun, the port's re-dispatch on the card),
+    the same bytes, the same next offset and the same error but for its
+    hint: this module carries a hook beside its DSL program, and the JAX
+    interpreter calls the hook (`ROADMAP.md` §3)."""
     arrays = gen_arrays(10, seed=37)
     wires = _stored([10], seed=0, values=arrays[:5] + [b'{"no":1}'] + arrays[5:9], keyed=False)
     invocations = [_adhoc(EXPLODE_SM, SmartModuleInvocationKind.ARRAY_MAP)]
@@ -586,8 +592,16 @@ def test_transform_error_divergence_is_pinned(tmp_path):
         assert int(port_part.error_code) == int(ref_part.error_code) == int(
             RefErrorCode.SMARTMODULE_RUNTIME_ERROR)
         assert ref_part.records.total_records() == 30 and ref_part.next_filter_offset == 10
-        assert port_part.records.total_records() == 0 and port_part.next_filter_offset == -1
-        assert port_part.error_message
+        assert port_part.next_filter_offset == ref_part.next_filter_offset
+        assert [_wire(b, codec.ByteWriter) for b in port_part.records.batches] == [
+            _wire(b, ref_codec.ByteWriter) for b in ref_part.records.batches]
+        # the same record, offset and kind; the hint is the DSL program's on
+        # the port, which runs the module's DSL on the card, and the hook's
+        # on the JAX server, whose interpreter rerun calls the module's hook
+        port_hint, port_rest = port_part.error_message.split("\n", 1)
+        ref_hint, ref_rest = ref_part.error_message.split("\n", 1)
+        assert port_rest == ref_rest and "offset 5" in port_rest
+        assert (port_hint, ref_hint) == ("input record is not a JSON array", "not a JSON array")
 
     _run(tmp_path, wires, body)
 
@@ -595,8 +609,8 @@ def test_transform_error_divergence_is_pinned(tmp_path):
 def test_acquire_stream_chain_caches_stateless_chains_only(tmp_path):
     """The SPU's chain cache: a second stateless stream gets the cached
     instance, a stateful one or one with a look-back a fresh instance each
-    time, on both packages; a look-back invocation of a module exporting a
-    look_back hook raises on the port."""
+    time, on both packages, a look-back invocation of a module exporting a
+    look_back hook too (the stream handler runs its look-back)."""
     wires = _stored([20], seed=60)
 
     async def body(servers):
@@ -616,8 +630,11 @@ def test_acquire_stream_chain_caches_stateless_chains_only(tmp_path):
             l2 = acquire(convert(look), ctx, 23)
             assert l1 is not l2 and len(ctx.stream_chains) == 2
         hooked = [_adhoc(LOOK_BACK_HOOK_SM, SmartModuleInvocationKind.FILTER, lookback_last=1)]
-        with pytest.raises(EngineError, match="look-back"):
-            sc.acquire_stream_chain(hooked, servers.port.ctx)
+        for ctx, acquire, convert in ((servers.port.ctx, sc.acquire_stream_chain, list),
+                                      (servers.ref.ctx, ref_sc.acquire_stream_chain,
+                                       _ref_invocations)):
+            h1, h2 = (acquire(convert(hooked), ctx, 23) for _ in range(2))
+            assert h1 is not h2 and len(ctx.stream_chains) == 2
 
     _run(tmp_path, wires, body)
 
