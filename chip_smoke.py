@@ -296,6 +296,7 @@ beside it and reads the kernel names from its sources).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import importlib.util
 import json
@@ -4815,6 +4816,507 @@ def phase_hooks():
         f"took {numbers['phase_s']:.1f} s; launches {launches}")
     return numbers, launches
 
+RESILIENCE_PHASE = dict(records=N, batches=HEADLINE_BATCHES, process_records=1 << 18,
+                        breaker_records=1 << 16, consume_fault_read=3, window_fault_batch=10,
+                        repair_records=1 << 18)
+RESILIENCE_SEAMS = ("stage", "h2d", "dispatch", "device", "fetch")
+_FLU = re.compile(rb"flu[vV]io")
+
+
+def served_records(results):
+    """(offsets i64, lengths i64, values u8) of every record of every
+    output batch of a consume pass, in order, each batch encoded and
+    decoded with the port's codec (CRC checked)."""
+    from fluvio_tpu_torch.native import records as native_records
+    from fluvio_tpu_torch.protocol.codec import ByteReader, ByteWriter
+    from fluvio_tpu_torch.protocol.record import Batch
+
+    offs, lens, flats = [], [], []
+    for res in results:
+        for b in res.records.batches:
+            w = ByteWriter()
+            b.encode(w)
+            batch = Batch.decode(ByteReader(w.bytes()), parse_records=False, check_crc=True)
+            cols = native_records.decode_record_columns(batch.raw_records, align=1)
+            offs.append(batch.base_offset + cols["off_delta"].astype(np.int64))
+            lens.append(np.diff(cols["val_off"]).astype(np.int64))
+            flats.append(cols["val_flat"])
+    cat = (lambda parts, dt: np.concatenate(parts) if parts else np.zeros(0, dt))
+    return cat(offs, np.int64), cat(lens, np.int64), cat(flats, np.uint8)
+
+
+def phase_resilience(corpora=None):
+    """Phase 21: the resilience ladder on the card, each arm exact against
+    a host truth computed without the port's engine; every fault is armed
+    for its arm alone and cleared in a ``finally``:
+
+    (a) the headline chain through ``SmartEngine(device="cuda")``: one
+        transient fault (first=1) at each of the seams ``stage``, ``h2d``,
+        ``dispatch``, ``device`` and ``fetch``, in turns, over the
+        executor's ``process_buffer`` (batch 0 of the 4 x 1,048,576
+        `gen_json` batches of phase 3), over ``chain.process`` (the first
+        262,144 records of batch 0: cut from 1,048,576 because ``process``
+        hands over `Record` lists, ~4 s a pass at 1 M) and over the
+        executor's ``process_stream`` (the 4 batches, two in flight); a
+        retry's ms is the retry itself, as the telemetry books it
+        (``retry_seconds``: from its backoff to the end of the repeated
+        attempt); every pass exact, the retry counted and timed at its
+        point, the breaker closed, the ledger drained; a
+        `torch.cuda.OutOfMemoryError` raised once in place of the chain's
+        run, retried at ``dispatch`` after the allocator's cache is freed;
+        then a deterministic ``device`` fault: one ``fused-error`` spill,
+        the card re-run exact (its ms: the engine's ``_spill_rerun`` call),
+        no retry;
+    (b) ``3_aggregate`` and ``regex-filter("flu[vV]io")`` over the same 4
+        batches through ``process_stream`` with a transient ``fetch`` fault
+        at the third batch's finish (``every=3``: one hit a finish; the
+        fourth batch, in flight, runs again from the repaired carries):
+        every batch exact; then a fresh ``3_aggregate`` chain: batch 0, a
+        poison batch 1 (``device`` and ``spill_rerun`` deterministic)
+        quarantined into a temporary directory and read back with
+        `load_entry` (its 1,048,576 records), then batch 2, whose running
+        totals are the host truth without batch 1;
+    (c) the breaker with an injected clock (threshold 2, cooldown 5 s, one
+        probe) over the first 65,536 records of batch 0: two deterministic
+        ``device`` faults trip it, the open breaker short-circuits (the
+        card re-run serves the batch), the cooldown half-opens it and the
+        probe closes it; every pass exact; its transitions on the
+        telemetry's ``breaker`` family;
+    (d) the consume path: phase 13's stored log (64 batches of 16,384)
+        through `smart_chain.stream_slices` (the north star), a
+        deterministic ``dispatch`` fault armed as the third slice is read:
+        that slice declines ``fused-error`` and is served batch by batch;
+        every offset once, the records exact;
+    (e) `5_windowed`'s delta arm with a transient ``device`` fault at batch
+        10: one retry, the bank equal to `HostWindowReference` after every
+        batch;
+    (f) the repair: ``array-map-json`` -> ``array-map-lines`` (two card
+        segments) over 262,144 `gen_arrays` records (about 1.57 M rows
+        between the segments) through ``chain.process``, equal to host
+        truth. Cut from 1,048,576 because the segments hand over `Record`
+        lists.
+
+    Returns (numbers, launches of (a)-(f))."""
+    import os
+    import shutil
+    import tempfile
+
+    from fluvio_tpu_torch.protocol.record import Record
+    from fluvio_tpu_torch.resilience import CLOSED, ResilienceConfig, faults, load_entry
+    from fluvio_tpu_torch.smartengine import SmartModuleChainMetrics
+    from fluvio_tpu_torch.smartmodule.types import SmartModuleInput
+    from fluvio_tpu_torch.spu import smart_chain
+    from fluvio_tpu_torch.telemetry import TELEMETRY
+    from fluvio_tpu_torch.telemetry import memory as memory_mod
+
+    t_phase = time.perf_counter()
+    p, cases = RESILIENCE_PHASE, shared_cases()
+    n = p["records"]
+    numbers, launches = {}, {}
+    if corpora is None:
+        corpora = fork_map(lambda k: gen_json(n, seed=100 + k), list(range(p["batches"])))
+    dl_dir = tempfile.mkdtemp(prefix="fluvio-deadletter-")
+    cfg = ResilienceConfig(deadletter_dir=dl_dir)
+
+    def add_launches(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def measured(fn):
+        """``fn()`` with the launch counts set to 0 just before it and read
+        just after (the main path's runs)."""
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        add_launches(cuda_kernels.LAUNCHES)
+        return out, dt
+
+    def moved(before: dict, after: dict) -> dict:
+        return {k: after.get(k, 0) - before.get(k, 0) for k in set(before) | set(after)
+                if after.get(k, 0) != before.get(k, 0)}
+
+    def drained(label: str) -> None:
+        if TELEMETRY.gauge_value("live_batch_handles") != 0:
+            raise AssertionError(f"resilience {label}: live_batch_handles "
+                                 f"{TELEMETRY.gauge_value('live_batch_handles')}")
+        memory_mod.engine().assert_drained()
+
+    def armed(rules, fn):
+        """``fn`` measured with ``rules`` ({point: inject kwargs}) armed,
+        cleared whatever happens."""
+        for point, kw in rules.items():
+            faults.FAULTS.inject(point, **kw)
+        try:
+            return measured(fn)
+        finally:
+            faults.FAULTS.clear()
+
+    def timing(chain, attr, sink):
+        """``chain.<attr>`` wrapped so each call appends its wall ms to
+        ``sink``; returns the undo."""
+        inner = getattr(chain, attr)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **kw)
+            finally:
+                sink.append((time.perf_counter() - t0) * 1e3)
+
+        setattr(chain, attr, timed)
+        return lambda: delattr(chain, attr)
+
+    def retry_ms_at(before: dict, label: str, point: str) -> float:
+        """The retry time the telemetry booked since ``before``: exactly one
+        point, ``point``."""
+        booked = moved(before, TELEMETRY.retry_seconds)
+        if set(booked) != {point}:
+            raise AssertionError(f"resilience {label}: retry time booked at {booked}")
+        return booked[point] * 1e3
+
+    def chain_of(specs, resilience=cfg):
+        b = SmartEngine(device="cuda", resilience=resilience).builder()
+        for name, params in specs:
+            b.add_smart_module(SmartModuleConfig(params=dict(params)), lookup(name))
+        return b.initialize()
+
+    try:
+        # (a) the headline chain
+        progs = [dsl.resolve_params(lookup(m).dsl_program(lookup(m).transform_kind()), q)
+                 for m, q in HEADLINE]
+        truth = []
+        for c in corpora:
+            interp = fork_records(lambda rec: dsl.eval_expr(progs[1].value, rec, None)
+                                  if dsl.eval_expr(progs[0].predicate, rec, None) else None, c)
+            truth.append(([x for x in interp if x is not None],
+                          [i for i, x in enumerate(interp) if x is not None]))
+        bufs = [RecordBuffer.from_values(c) for c in corpora]
+        pm = p["process_records"]
+        recs0 = [Record(value=v, offset_delta=i) for i, v in enumerate(corpora[0][:pm])]
+        inp0 = SmartModuleInput.from_records(recs0)
+        chain = chain_of(HEADLINE)
+
+        def check_process(label, out, m=pm):
+            want = [(v, o) for v, o in zip(*truth[0]) if o < m]
+            if out.error is not None or [(r.value, r.offset_delta) for r in out.successes] != want:
+                raise AssertionError(f"resilience (a) {label}: {len(out.successes)} outputs "
+                                     f"differ from the interpreter ({len(want)})")
+
+        def check_stream(label, outs):
+            for k, o in enumerate(outs):
+                if (o.value_list() != truth[k][0]
+                        or o.offset_deltas[: o.count].tolist() != truth[k][1]):
+                    raise AssertionError(f"resilience {label}: batch {k} differs from the "
+                                         "interpreter")
+            if len(outs) not in (1, len(corpora)):
+                raise AssertionError(f"resilience {label}: {len(outs)} batches")
+
+        ways = {"process_buffer": (lambda: [chain.gpu_chain.process_buffer(bufs[0])],
+                                   check_stream),
+                "process": (lambda: chain.process(inp0), check_process),
+                "process_stream": (lambda: list(chain.gpu_chain.process_stream(bufs)),
+                                   check_stream)}
+        clean_ms = {}
+        for way, (fn, check) in ways.items():
+            # the executor's own pass (no `Record`s) first, warm once and
+            # timed three times: its retry costs are the least noisy
+            times = []
+            for _ in range(4 if way == "process_buffer" else 1):
+                out, dt = measured(fn)
+                check(f"{way} clean", out)
+                times.append(dt * 1e3)
+            clean_ms[way] = statistics.median(times[1:] or times)
+        pass_ms, retry_ms = {}, {}
+        for point in RESILIENCE_SEAMS:
+            for way, (fn, check) in ways.items():
+                r0, rs0 = dict(TELEMETRY.retries), dict(TELEMETRY.retry_seconds)
+                out, dt = armed({point: dict(first=1)}, fn)
+                check(f"{way} {point}", out)
+                if moved(r0, TELEMETRY.retries) != {point: 1}:
+                    raise AssertionError(f"resilience (a) {way} {point}: retries "
+                                         f"{moved(r0, TELEMETRY.retries)}")
+                retry_ms[f"{way}:{point}"] = retry_ms_at(rs0, f"(a) {way}", point)
+                if chain.breaker.state != CLOSED:
+                    raise AssertionError(f"resilience (a): breaker {chain.breaker.state}")
+                drained(f"(a) {way} {point}")
+                pass_ms[f"{way}:{point}"] = dt * 1e3
+        # a card allocation failure in the chain's run (raised once in place
+        # of the run): retried at ``dispatch`` after the allocator's cache
+        # is freed
+        ex0, run, cache_frees, reserved = chain.gpu_chain, chain.gpu_chain._run, [], []
+        empty_cache = torch.cuda.empty_cache
+
+        def run_once_oom(*a, **kw):
+            ex0._run = run
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (raised by the smoke)")
+
+        def counted_empty_cache():
+            reserved.append(torch.cuda.memory_reserved())
+            empty_cache()
+            reserved.append(torch.cuda.memory_reserved())
+            cache_frees.append(1)
+
+        r0, rs0 = dict(TELEMETRY.retries), dict(TELEMETRY.retry_seconds)
+        ex0._run, torch.cuda.empty_cache = run_once_oom, counted_empty_cache
+        try:
+            out, oom_dt = measured(ways["process_buffer"][0])
+        finally:
+            ex0._run, torch.cuda.empty_cache = run, empty_cache
+        check_stream("process_buffer oom", out)
+        if moved(r0, TELEMETRY.retries) != {"dispatch": 1} or len(cache_frees) != 1:
+            raise AssertionError(f"resilience (a) oom: retries {moved(r0, TELEMETRY.retries)}, "
+                                 f"cache frees {len(cache_frees)}")
+        oom_retry_ms = retry_ms_at(rs0, "(a) oom", "dispatch")
+        drained("(a) oom")
+        spills0, r0 = dict(TELEMETRY.spills), dict(TELEMETRY.retries)
+        rerun_ms = []
+        undo = timing(chain, "_spill_rerun", rerun_ms)
+        try:
+            out, det_dt = armed({"device": dict(first=1, exc="deterministic")},
+                                ways["process"][0])
+        finally:
+            undo()
+        check_process("deterministic device", out)
+        if (moved(spills0, TELEMETRY.spills) != {"fused-error": 1} or moved(r0, TELEMETRY.retries)
+                or len(rerun_ms) != 1):
+            raise AssertionError(f"resilience (a) deterministic: spills "
+                                 f"{moved(spills0, TELEMETRY.spills)}, retries "
+                                 f"{moved(r0, TELEMETRY.retries)}")
+        drained("(a) deterministic")
+        numbers["headline"] = {
+            "clean_ms": clean_ms, "faulted_pass_ms": pass_ms, "retry_ms": retry_ms,
+            "rerun_pass_ms": det_dt * 1e3, "rerun_ms": rerun_ms[0],
+            "oom_pass_ms": oom_dt * 1e3, "oom_retry_ms": oom_retry_ms,
+            "oom_reserved_bytes_before_after_free": reserved,
+        }
+        log(f"resilience (a) headline: clean process_buffer {clean_ms['process_buffer']:.3f} "
+            f"ms (batch 0), process {clean_ms['process']:.3f} ms ({pm} records, `Record`s in "
+            f"and out), process_stream {clean_ms['process_stream']:.3f} ms (4 x {n}); retry ms by "
+            f"way:point (the retry itself, booked by the telemetry) {json.dumps(retry_ms)}; "
+            f"faulted pass ms {json.dumps(pass_ms)}; card re-run of a deterministic device fault "
+            f"{rerun_ms[0]:.3f} ms (in a {det_dt * 1e3:.3f} ms pass); an out-of-memory in the run "
+            f"retried at dispatch in {oom_retry_ms:.3f} ms, the allocator's reserved bytes "
+            f"{reserved[0]} -> {reserved[1]} at its cache free; every pass exact, breaker closed, "
+            "ledger drained")
+
+        # (b) 3_aggregate and flu[vV]io through process_stream with a fetch retry
+        agg_truth, acc = [], 0
+        for c in corpora:
+            vals, acc = running_truth(c, "add", acc)
+            agg_truth.append(vals)
+        flu_truth = []
+        for c in corpora:
+            keep = fork_records(lambda rec: _FLU.search(rec) is not None, c)
+            flu_truth.append(([v for v, k in zip(c, keep) if k],
+                              [i for i, k in enumerate(keep) if k]))
+        stream_ms, fetch_retry_ms = {}, {}
+        for label, specs, want in (("3_aggregate", SLICE_CHAINS["3_aggregate"], None),
+                                   ("flu_regex", [("regex-filter", {"regex": "flu[vV]io"})],
+                                    flu_truth)):
+            ex = chain_of(specs).gpu_chain
+            r0, rs0 = dict(TELEMETRY.retries), dict(TELEMETRY.retry_seconds)
+            outs, dt = armed({"fetch": dict(every=3)}, lambda: list(ex.process_stream(bufs)))
+            for k, o in enumerate(outs):
+                ok = (o.value_list() == agg_truth[k] if want is None else
+                      (o.value_list(), o.offset_deltas[: o.count].tolist()) == want[k])
+                if not ok:
+                    raise AssertionError(f"resilience (b) {label}: batch {k} differs from "
+                                         "host truth after the fetch retry")
+            if moved(r0, TELEMETRY.retries) != {"fetch": 1} or len(outs) != len(corpora):
+                raise AssertionError(f"resilience (b) {label}: retries "
+                                     f"{moved(r0, TELEMETRY.retries)}")
+            if want is None:
+                ex._ensure_host_state()
+                if ex.carries[0][0] != acc:
+                    raise AssertionError(f"resilience (b): carry {ex.carries[0][0]}, truth {acc}")
+            drained(f"(b) {label}")
+            stream_ms[label] = dt * 1e3
+            fetch_retry_ms[label] = retry_ms_at(rs0, f"(b) {label}", "fetch")
+        agg = chain_of(SLICE_CHAINS["3_aggregate"])
+        out0, _ = measured(lambda: agg.gpu_chain.process_buffer(bufs[0]))
+        if out0.value_list() != agg_truth[0]:
+            raise AssertionError("resilience (b): the poison arm's batch 0 differs")
+        inp1 = SmartModuleInput.from_records(
+            [Record(value=v, offset_delta=i) for i, v in enumerate(corpora[1])], base_offset=n)
+        q0, quarantine_ms = TELEMETRY.quarantined, []
+        undo = timing(agg, "_quarantine", quarantine_ms)
+        try:
+            poison, q_dt = armed({"device": dict(every=1, exc="deterministic"),
+                                  "spill_rerun": dict(every=1, exc="deterministic")},
+                                 lambda: agg.process(inp1))
+        finally:
+            undo()
+        if (poison.successes or poison.error is not None or TELEMETRY.quarantined != q0 + 1
+                or len(quarantine_ms) != 1):
+            raise AssertionError("resilience (b): the poison batch was not quarantined")
+        drained("(b) quarantine")
+        (entry,) = os.listdir(dl_dir)
+        path = os.path.join(dl_dir, entry)
+        entry_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        spec, back = load_entry(path)
+        back_recs = back.into_records()
+        load_s = time.perf_counter() - t0
+        if (len(back_recs) != n or back.base_offset != n or spec != agg.chain_spec
+                or [r.value for r in back_recs] != corpora[1]
+                or [r.offset_delta for r in back_recs] != list(range(n))):
+            raise AssertionError(f"resilience (b): the dead-letter entry holds "
+                                 f"{len(back_recs)} records")
+        out2, _ = measured(lambda: agg.gpu_chain.process_buffer(bufs[2]))
+        skip_truth, _ = running_truth(corpora[2], "add", int(agg_truth[0][-1]))
+        if out2.value_list() != skip_truth:
+            raise AssertionError("resilience (b): the batch after the poison batch is not the "
+                                 "host truth without it")
+        numbers["stream_fetch_retry"] = {"pass_ms": stream_ms, "retry_ms": fetch_retry_ms}
+        numbers["quarantine"] = {"pass_ms": q_dt * 1e3, "quarantine_ms": quarantine_ms[0],
+                                 "entry_bytes": entry_bytes, "records": n,
+                                 "load_entry_s": load_s}
+        log(f"resilience (b) process_stream with a fetch retry at batch 2 of 4: pass ms "
+            f"{json.dumps(stream_ms)}, the retry itself ms {json.dumps(fetch_retry_ms)}, every "
+            f"batch exact (the running totals too); poison batch: a {q_dt * 1e3:.3f} ms process "
+            f"call, of which the quarantine (restore and entry write) {quarantine_ms[0]:.3f} ms, "
+            f"entry {entry_bytes} bytes holding {n} records (read back in {load_s:.3f} s); the "
+            "next batch's totals equal host truth without it")
+
+        # (c) the breaker with an injected clock
+        m = p["breaker_records"]
+        small = SmartModuleInput.from_records(recs0[:m])
+        bchain = chain_of(HEADLINE, dataclasses.replace(
+            cfg, breaker_threshold=2, breaker_window_s=100.0, breaker_cooldown_s=5.0,
+            breaker_probes=1))
+        br, clock = bchain.breaker, [0.0]
+        br.clock = lambda: clock[0]  # the engine builds its breakers on the monotonic clock
+        tr0, sc0 = dict(TELEMETRY.breaker_transitions), TELEMETRY.breaker_short_circuits
+        states = []
+        for fault, t in ((True, 0.0), (True, 1.0), (False, 2.0), (False, 7.5)):
+            clock[0] = t
+            rules = {"device": dict(first=1, exc="deterministic")} if fault else {}
+            out, _ = armed(rules, lambda: bchain.process(small))
+            check_process(f"breaker at {t}", out, m)
+            states.append(br.state)
+        if (states != ["closed", "open", "open", "closed"]
+                or moved(tr0, TELEMETRY.breaker_transitions) != {"open": 1, "half_open": 1,
+                                                                 "closed": 1}
+                or TELEMETRY.breaker_short_circuits != sc0 + 1
+                or TELEMETRY.snapshot()["counters"]["breaker"]["states"][br.name] != CLOSED):
+            raise AssertionError(f"resilience (c): breaker states {states}, transitions "
+                                 f"{moved(tr0, TELEMETRY.breaker_transitions)}")
+        drained("(c)")
+        numbers["breaker"] = {"states": states, "name": br.name}
+        log(f"resilience (c) breaker {br.name}: states {states} (two deterministic device "
+            "faults trip it, a short circuit served by the card re-run, the probe closes it)")
+
+        # (d) the consume path's fused-error decline
+        bcfg = BROKER
+        values, btruth = broker_values(), broker_truth("north_star")
+        wires, batches = cases.broker_log(values, bcfg["batch_records"], bcfg["first_timestamp"])
+        read_slice = cases.slice_reader(wires, batches, bcfg["max_bytes"])
+        cchain = broker_chain("north_star")
+        starts, t_read = [], []
+
+        def read(offset):
+            starts.append(offset)
+            t_read.append(time.perf_counter())
+            if len(starts) == p["consume_fault_read"]:
+                faults.FAULTS.inject("dispatch", first=1, exc="deterministic")
+            return read_slice(offset)
+
+        def consume():
+            results, lat = [], []
+            for res in smart_chain.stream_slices(cchain, read, 0, bcfg["records"],
+                                                 bcfg["max_bytes"], SmartModuleChainMetrics()):
+                lat.append((time.perf_counter() - t_read[len(results)]) * 1e3)
+                results.append(res)
+            return results, lat
+
+        d0 = dict(TELEMETRY.declines)
+        (results, lat), consume_dt = armed({}, consume)
+        got = served_records(results)
+        if (moved(d0, TELEMETRY.declines) != {"fused-error": 1}
+                or results[-1].next_offset != bcfg["records"]
+                or not all(np.array_equal(a, b) for a, b in zip(got, btruth))):
+            raise AssertionError(f"resilience (d): declines {moved(d0, TELEMETRY.declines)}, "
+                                 f"{len(got[0])} records served, truth {len(btruth[0])}")
+        declined = p["consume_fault_read"] - 1
+        drained("(d)")
+        numbers["consume"] = {"slices": len(results), "pass_ms": consume_dt * 1e3,
+                              "slice_ms": lat, "declined_slice": declined,
+                              "declined_slice_ms": lat[declined],
+                              "declined_slice_batches": len(results[declined].records.batches)}
+        log(f"resilience (d) consume: {len(results)} slices in {consume_dt * 1e3:.1f} ms; slice "
+            f"{declined} declined fused-error and was served per batch "
+            f"({len(results[declined].records.batches)} batches) in {lat[declined]:.1f} ms "
+            f"(the others: {[round(x, 1) for i, x in enumerate(lat) if i != declined]} ms); "
+            f"every offset once, {len(got[0])} records exact")
+
+        # (e) the windowed runtime's retry
+        wcfg = WINDOWED["5_windowed"]
+        spec = WindowSpec(**wcfg["spec"])
+        wn = wcfg["records"]
+        wvalues = cases.gen_ints(wn)
+        ts = np.arange(wn, dtype=np.int64) * WINDOW_SPACING_MS
+        per = -(-wn // -(-wn // wcfg["batch"]))
+        rt, ref = WindowedRuntime(spec), HostWindowReference(spec)
+        r0, rs0, wt = dict(TELEMETRY.retries), dict(TELEMETRY.retry_seconds), []
+        for k, a in enumerate(range(0, wn, per)):
+            b = min(a + per, wn)
+            buf = window_buffer(wvalues[a:b], ts[a:b])
+            rules = {"device": dict(first=1)} if k == p["window_fault_batch"] else {}
+            _delta, dt = armed(rules, lambda: rt.process_buffer(buf))
+            wt.append(dt * 1e3)
+            ref.process_batch(window_rows(wvalues[a:b], ts[a:b] + WINDOW_TS_BASE, spec.keyed))
+            if rt.bank.snapshot() != ref.bank_entries():
+                raise AssertionError(f"resilience (e): the bank left the host reference at "
+                                     f"batch {k}")
+        if moved(r0, TELEMETRY.retries) != {"device": 1}:
+            raise AssertionError(f"resilience (e): retries {moved(r0, TELEMETRY.retries)}")
+        window_retry_ms = retry_ms_at(rs0, "(e)", "device")
+        others = [t for i, t in enumerate(wt) if i != p["window_fault_batch"]]
+        numbers["windowed"] = {"batches": len(wt), "retry_ms": window_retry_ms,
+                               "fault_batch_ms": wt[p["window_fault_batch"]],
+                               "batch_ms_median": statistics.median(others)}
+        log(f"resilience (e) 5_windowed: {len(wt)} batches, the device fault's batch "
+            f"{wt[p['window_fault_batch']]:.3f} ms (its retry itself {window_retry_ms:.3f} ms) "
+            f"against a median {statistics.median(others):.3f} ms; one retry, the bank equal to "
+            "the host reference after every batch")
+
+        # (f) the repair: a DSL run cut into two card segments
+        rm = p["repair_records"]
+        arrays = cases.gen_arrays(rm, seed=2121)
+        cut = chain_of([("array-map-json", {}), ("array-map-lines", {})])
+        if cut.gpu_chain is not None or len(cut.segments) != 2:
+            raise AssertionError(f"resilience (f): {len(cut.segments)} segments")
+        inp = SmartModuleInput.from_records([Record(value=v, offset_delta=i)
+                                             for i, v in enumerate(arrays)])
+        out, cut_dt = measured(lambda: cut.process(inp))
+        t_len, t_flat = exploded_truth(arrays)
+        vals = [r.value for r in out.successes]
+        if (out.error is not None
+                or not np.array_equal(np.fromiter(map(len, vals), np.int64, len(vals)), t_len)
+                or not np.array_equal(np.frombuffer(b"".join(vals), np.uint8), t_flat)):
+            raise AssertionError(f"resilience (f): {len(vals)} rows differ from host truth "
+                                 f"({len(t_len)})")
+        numbers["repair"] = {"records": rm, "rows": len(vals), "ms": cut_dt * 1e3,
+                             "records_per_s": rm / cut_dt}
+        log(f"resilience (f) array-map-json -> array-map-lines (2 card segments): {rm} records, "
+            f"{len(vals)} rows, {cut_dt * 1e3:.1f} ms ({rm / cut_dt:.0f} records/s), equal to "
+            "host truth")
+    finally:
+        faults.FAULTS.clear()
+        shutil.rmtree(dl_dir, ignore_errors=True)
+    for kernel in ("json_span", "extract", "dfa_scan"):
+        if launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"resilience: {kernel} never launched in phase 21 ({launches})")
+    numbers["launches"] = {k: launches.get(k, 0) for k in ("json_span", "extract", "dfa_scan")}
+    numbers["wall_s"] = time.perf_counter() - t_phase
+    log(f"resilience: phase 21 took {numbers['wall_s']:.1f} s; launches "
+        f"{json.dumps(numbers['launches'])}")
+    return numbers, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -4864,6 +5366,11 @@ def main(argv=None) -> int:
                         help="build the kernels and run only user Python SmartModules: the "
                              "first error on the card, over the socket, a dedup topic, a "
                              "look-back stream, a mixed chain (phase 20; no ok line)")
+    parser.add_argument("--resilience-only", action="store_true",
+                        help="build the kernels and run only the resilience ladder: retries at "
+                             "each seam, the card re-run, the quarantine, the breaker, the "
+                             "consume path's decline, the windowed retry and a cut DSL run "
+                             "(phase 21; no ok line)")
     parser.add_argument("--striped-slice-only", action="store_true",
                         help="build the kernels and run only phase 12 (with phase 9's aggregate "
                              "chains and phase 11, whose D2H it reads; no ok line)")
@@ -4968,6 +5475,11 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"hooks": numbers, "launches": launches}))
         return 0
+    if args.resilience_only:
+        numbers, launches = phase_resilience()
+        print(smi)
+        print(json.dumps({"resilience": numbers, "launches": launches}))
+        return 0
     if args.striped_slice_only:
         json_corpora = [gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)]
         slice_numbers, _ops = phase_slice(json_corpora, ("3_aggregate", "filter_aggregate"))
@@ -5023,6 +5535,8 @@ def main(argv=None) -> int:
     lap("19 admission")
     hooks_numbers, hooks_launches = phase_hooks()
     lap("20 hooks")
+    res_numbers, res_launches = phase_resilience(corpora)
+    lap("21 resilience")
     log(f"replication beside the cluster: north star by name through the SC from the promoted "
         f"leader {repl_numbers['north_star_after_failover']['sc_records_per_s']:.0f} records/s, "
         f"phase 15's (b) {cluster_numbers_['consume_by_name']['sc_records_per_s']:.0f}; produce "
@@ -5038,7 +5552,8 @@ def main(argv=None) -> int:
                 "secure_cluster": {"launches": secure_launches},
                 "telemetry": {"launches": telemetry_launches},
                 "admission": {"launches": admission_launches},
-                "hooks": {"launches": hooks_launches}}
+                "hooks": {"launches": hooks_launches},
+                "resilience": {"launches": res_launches}}
     for r in rows:
         r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in by_chain.items()}
     chain_launches = [v["launches"] for v in by_chain.values()]
@@ -5070,6 +5585,7 @@ def main(argv=None) -> int:
                     "telemetry": telemetry_numbers,
                     "admission": admission_numbers,
                     "hooks": hooks_numbers,
+                    "resilience": res_numbers,
                     "build_seconds": KERNELS.build_seconds}))
     log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
                     "device": smi}))

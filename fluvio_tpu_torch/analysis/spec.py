@@ -13,12 +13,20 @@ interpreter, so a batch runs one of two paths or raises:
                  wider bucket, no striped lowering) or
                  ``record-too-wide`` (past ``MAX_RECORD_WIDTH``), the
                  reason strings the runtime's spill and decline counters
-                 use. A chain that does not lower as a whole is predicted
-                 ``raise`` (``unlowerable``): a DSL program outside the
-                 lowerable subset is refused at ``initialize``
-                 (``EngineError``); a module with no DSL program runs as a
-                 host hook segment, whose path this level does not
-                 predict.
+                 use. A chain that does not lower is predicted ``raise``
+                 (``unlowerable``): a DSL program that does not lower
+                 alone is refused at ``initialize`` (``EngineError``); a
+                 module with no DSL program runs as a host hook segment,
+                 whose path this level does not predict.
+
+A DSL chain that does not lower as one fused chain but whose modules each
+lower (two explodes, a windowed aggregate after an explode) is cut at
+``initialize`` into maximal runs that do (`engine.cut_card_runs`): the
+report lists each card segment's signature in ``segments``, with an INFO
+``cut`` hazard, and predicts each segment at the probed width (a later
+segment's records are no wider than the chain's input for the explodes
+and aggregates that force a cut); the chain's path is the first raise
+among them, else ``striped`` when one runs striped, else ``fused``.
 
 The prediction walks the port's own rules, not a mirror of them:
 `executor.lower_chain` (what `GpuChainExecutor.try_build` lowers, with no
@@ -93,6 +101,7 @@ class ChainReport:
     gates: Dict
     predictions: List[PathPrediction] = field(default_factory=list)
     hazards: List[Hazard] = field(default_factory=list)
+    segments: List[str] = field(default_factory=list)  # each card segment's signature
 
     def errors(self) -> List[Hazard]:
         return [h for h in self.hazards if h.level == ERROR]
@@ -106,6 +115,7 @@ class ChainReport:
     def to_dict(self) -> dict:
         return {
             "chain": self.chain_sig,
+            "segments": list(self.segments),
             "gates": dict(self.gates),
             "predictions": [p.to_dict() for p in self.predictions],
             "hazards": [h.to_dict() for h in sorted(self.hazards,
@@ -194,11 +204,21 @@ def analyze_entries(entries, widths: Optional[Sequence[int]] = None, engine=None
     from fluvio_tpu_torch.smartengine.gpu.executor import lower_chain
     from fluvio_tpu_torch.smartmodule import dsl
 
+    from fluvio_tpu_torch.smartengine.engine import EngineError, cut_card_runs
+
     gates = resolve_gates(engine)
     if widths is None:
         widths = (1024, gates["stripe_threshold"] + 1)
-    lowered = lower_chain(list(entries))
-    if lowered is None:
+    entries = list(entries)
+    lowered = [lower_chain(entries)]
+    if lowered[0] is None and all(m.dsl_program(m.transform_kind()) is not None
+                                  for m, _ in entries):
+        try:
+            runs = cut_card_runs(entries, 0, len(entries))
+        except EngineError:
+            runs = []
+        lowered = [lower_chain(entries[lo:hi]) for lo, hi in runs] or lowered
+    if lowered[0] is None:
         report = ChainReport("unlowerable", gates)
         report.hazards.append(Hazard(
             ERROR, "unlowerable",
@@ -207,18 +227,29 @@ def analyze_entries(entries, widths: Optional[Sequence[int]] = None, engine=None
             "which this prediction does not cover"))
         report.predictions = [predict_path(w, gates, False, False) for w in widths]
         return report
-    stages, programs, _agg = lowered
-    striped_ok = stripes_mod.try_build_striped(
-        programs, stages, gates["stripe_width"], gates["stripe_overlap"]) is not None
-    report = ChainReport(chain_sig(stages), gates)
-    for prog in programs:
-        if isinstance(prog, dsl.ArrayMapProgram) and prog.mode == "json_array":
+    sigs = [chain_sig(stages) for stages, _p, _a in lowered]
+    report = ChainReport("|".join(sigs), gates, segments=sigs)
+    if len(lowered) > 1:
+        report.hazards.append(Hazard(
+            INFO, "cut",
+            f"the chain does not lower as one fused chain: it runs as {len(sigs)} card "
+            f"segments ({', '.join(sigs)}), records handed between them on the host and "
+            "each batch served one input at a time"))
+    striped_ok = []
+    for stages, programs, _agg in lowered:
+        striped_ok.append(stripes_mod.try_build_striped(
+            programs, stages, gates["stripe_width"], gates["stripe_overlap"]) is not None)
+        if any(isinstance(prog, dsl.ArrayMapProgram) and prog.mode == "json_array"
+               for prog in programs):
             report.hazards.append(Hazard(
                 INFO, "data-dependent-spill",
                 "json_array explode: a record that is no JSON array ends its batch with a "
                 "transform error (the stages up to the explode run again on the card)"))
     for w in widths:
-        pred = predict_path(w, gates, True, striped_ok)
+        preds = [predict_path(w, gates, True, ok) for ok in striped_ok]
+        pred = next((p for p in preds if p.path == "raise"), None)
+        if pred is None:
+            pred = next((p for p in preds if p.path == "striped"), preds[0])
         pred.link_variant = predict_link_variant(gates, pred.path)
         report.predictions.append(pred)
         if pred.path == "raise":

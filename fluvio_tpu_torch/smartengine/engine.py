@@ -20,10 +20,14 @@ and cuts the chain into segments, in order: a card segment is one
 DSL program, a host segment one `hooks.HookInstance` for a module that
 carries none (a user Python SmartModule). A module routes by what it
 carries, once, at build: a DSL program goes to the card even when the
-module also exports Python hooks. An all-DSL chain is one card segment
-and is exactly its executor (``gpu_chain``); a chain with a host segment
-has no ``gpu_chain``, and ``process`` runs its segments one after the
-other as the reference's ``_process_instances`` runs its instances: each
+module also exports Python hooks. A run of DSL modules that does not lower
+as a whole (two explodes, a windowed aggregate after an explode) is cut
+into maximal runs that do, greedily from the left, each its own card
+segment (`cut_card_runs`); only a module that does not lower alone is
+refused. A chain that is one card segment is exactly its executor
+(``gpu_chain``); any other chain has no ``gpu_chain``, and ``process``
+runs its segments one after the other as the reference's
+``_process_instances`` runs its instances: each
 next input is the last output's records at the same base offset and
 timestamp, and the first error ends the pass with that segment's
 partial output. Host segments run under the engine's wall-clock fuel
@@ -35,6 +39,23 @@ pass returns that error without running a hook. ``look_back(read_fn)``
 feeds stored records to the modules' ``look_back`` hooks, off the event
 loop and metered. Nothing interprets a DSL program on the host.
 
+Resilience (`fluvio_tpu_torch.resilience`, the reference's ladder with
+the card in place of its interpreter). The executor retries a transient
+failure itself, from the batch's starting carries. A failure its retries
+did not clear counts ``fused-error`` and a failure on the segment's
+`CircuitBreaker`, and the segment runs again on the card (`_spill_rerun`:
+the ``spill_rerun`` seam, the state of that segment and the ones after
+it restored before each attempt, transient failures retried under the
+engine's
+`ResilienceConfig`); an open breaker skips the first attempt and goes
+straight there. A batch whose re-run fails too is quarantined into the
+dead-letter directory, every carry back where the batch found it, and
+``process`` returns an empty output. A `GpuSpill` and a fatal failure (a
+sticky CUDA error) propagate; a transform error is an output with
+``error`` set.
+
+``SmartEngine(device=..., resilience=ResilienceConfig(...))`` sets the
+retry, breaker and dead-letter budgets (default: the reference's).
 ``SmartEngine(device=..., stripes=StripeParams(...))`` sets the striped
 wide-record geometry (default: threshold 65536, stripes of 8192 bytes
 overlapping by 128, the JAX package's defaults).
@@ -53,14 +74,23 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import logging
 from dataclasses import dataclass, field
 from typing import Awaitable, Callable, List, Optional, Union
 
 import torch
 
+from fluvio_tpu_torch.resilience import faults
+from fluvio_tpu_torch.resilience.deadletter import quarantine_batch
+from fluvio_tpu_torch.resilience.policy import (
+    CircuitBreaker,
+    ResilienceConfig,
+    RetryPolicy,
+    is_fatal,
+)
 from fluvio_tpu_torch.smartengine.config import Lookback, SmartModuleConfig
 from fluvio_tpu_torch.smartengine.gpu import glz
-from fluvio_tpu_torch.smartengine.gpu.executor import GpuChainExecutor, GpuSpill
+from fluvio_tpu_torch.smartengine.gpu.executor import GpuChainExecutor, GpuSpill, lower_chain
 from fluvio_tpu_torch.smartengine.gpu.glz import LinkParams
 from fluvio_tpu_torch.smartengine.gpu.stripes import StripeParams
 from fluvio_tpu_torch.smartengine.hooks import HookInstance
@@ -75,6 +105,8 @@ from fluvio_tpu_torch.smartmodule.types import (
     SmartModuleTransformRuntimeError,
 )
 from fluvio_tpu_torch.telemetry import TELEMETRY
+
+logger = logging.getLogger(__name__)
 
 DEFAULT_STORE_MAX_MEMORY = 1 << 30  # 1 GB input bound, parity: engine.rs:24
 
@@ -124,13 +156,15 @@ def resolve_device(device=None) -> torch.device:
 class SmartEngine:
     """Engine factory bound to one torch device (default: the CUDA card).
     ``hook_budget_ms`` is the wall-clock budget of one Python hook call (0:
-    unmetered)."""
+    unmetered); ``resilience`` the retry, breaker and dead-letter budgets
+    of its chains."""
 
     device: Optional[str] = None
     stripes: StripeParams = field(default_factory=StripeParams)
     link: LinkParams = field(default_factory=LinkParams)
     store_max_memory: int = DEFAULT_STORE_MAX_MEMORY
     hook_budget_ms: int = 0
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
 
     def __post_init__(self) -> None:
         self.device = str(resolve_device(self.device))
@@ -201,13 +235,9 @@ class SmartModuleChainBuilder:
             j = i
             while j < n and _on_card(self.entries[j][0]):
                 j += 1
-            executor = GpuChainExecutor.try_build(self.entries[i:j], device, engine.stripes,
-                                                  engine.link)
-            if executor is None:
-                raise EngineError(
-                    "the chain's DSL programs must lower to the GPU (modules "
-                    f"{[m.name for m, _ in self.entries[i:j]]}): no host interpreter runs them")
-            segments.append(executor)
+            for lo, hi in cut_card_runs(self.entries, i, j):
+                segments.append(GpuChainExecutor.try_build(
+                    self.entries[lo:hi], device, engine.stripes, engine.link, engine.resilience))
             i = j
         chain_spec = []
         for module, config in self.entries:
@@ -220,6 +250,27 @@ class SmartModuleChainBuilder:
                 spec["initial"] = base64.b64encode(bytes(config.initial_data)).decode("ascii")
             chain_spec.append(spec)
         return SmartModuleChainInstance(engine, segments, instances, chain_spec)
+
+
+def cut_card_runs(entries, i: int, j: int) -> List[tuple]:
+    """The card segments of the DSL run ``entries[i:j]``: the whole run
+    when it lowers (`lower_chain`), else maximal runs that do, greedily
+    from the left (two explodes, a windowed aggregate after an explode).
+    Returns ``[(lo, hi), ...]``. Raises :class:`EngineError` for a module
+    that does not lower alone: no host interpreter runs it."""
+    out = []
+    lo = i
+    while lo < j:
+        hi = j
+        while hi > lo and lower_chain(entries[lo:hi]) is None:
+            hi -= 1
+        if hi == lo:
+            raise EngineError(
+                "the chain's DSL programs must lower to the GPU (module "
+                f"{entries[lo][0].name!r} does not): no host interpreter runs it")
+        out.append((lo, hi))
+        lo = hi
+    return out
 
 
 class SmartModuleChainInstance:
@@ -249,15 +300,28 @@ class SmartModuleChainInstance:
         # aggregate hook): the chain fails fast with this error instead of
         # re-entering user code whose previous call may still run
         self._poisoned: Optional[SmartModuleTransformRuntimeError] = None
+        # the resilience ladder: a circuit breaker for each card segment
+        # (None beside a host segment) and the card re-run's retry policy
+        cfg = engine.resilience
+        self.breakers: List[Optional[CircuitBreaker]] = [
+            CircuitBreaker(cfg) if isinstance(seg, GpuChainExecutor) else None
+            for seg in segments
+        ]
+        self._rerun_retry = RetryPolicy(cfg)
+
+    @property
+    def breaker(self) -> Optional[CircuitBreaker]:
+        """The first card segment's breaker (an all-DSL chain's only one)."""
+        return next((b for b in self.breakers if b is not None), None)
 
     @property
     def backend_in_use(self) -> str:
-        """``gpu`` (one card segment), ``host`` (host segments only),
+        """``gpu`` (card segments only), ``host`` (host segments only),
         ``mixed`` or ``passthrough`` (no module)."""
-        if self.gpu_chain is not None:
-            return "gpu"
         if not self.segments:
             return "passthrough"
+        if all(isinstance(s, GpuChainExecutor) for s in self.segments):
+            return "gpu"
         if all(isinstance(s, HookInstance) for s in self.segments):
             return "host"
         return "mixed"
@@ -271,8 +335,10 @@ class SmartModuleChainInstance:
         larger than ``engine.store_max_memory`` raises
         :class:`StoreMemoryExceeded`; a `GpuSpill` from a card segment
         propagates (the port reruns nothing in an interpreter), counted on
-        the telemetry's ``spills`` family by its reason, and any other
-        failure of a card segment as ``fused-error``."""
+        the telemetry's ``spills`` family by its reason. Any other failure
+        of a card segment takes the resilience ladder (`_card`); a batch
+        it quarantines gives an empty output, no error, with every
+        segment's state where the batch found it."""
         metrics = metrics if metrics is not None else SmartModuleChainMetrics()
         raw_len = inp.byte_size()
         if raw_len > self.engine.store_max_memory:
@@ -281,34 +347,121 @@ class SmartModuleChainInstance:
         if not self.segments:
             # empty chain: decode and pass through (parity: engine.rs:180-184)
             return SmartModuleOutput.new(inp.into_records())
+        ladder = (inp, self._snapshot())
         if self.gpu_chain is not None:
-            output = self._card(self.gpu_chain, inp, metrics)
+            output = self._card(0, inp, metrics, ladder)
         else:
-            output = self._process_segments(inp, metrics)
+            output = self._process_segments(inp, metrics, ladder)
+        if output is None:
+            return SmartModuleOutput()  # quarantined: the stream advances
         if output.error is None:
             metrics.add_records_out(len(output.successes))
         return output
 
-    @staticmethod
-    def _card(executor: GpuChainExecutor, inp: SmartModuleInput,
-              metrics: SmartModuleChainMetrics) -> SmartModuleOutput:
+    def _snapshot(self) -> list:
+        """Every segment's state: a card executor's carries (on the card
+        and on the host), a host segment's accumulator."""
+        return [(seg._device_carries, list(seg.carries)) if isinstance(seg, GpuChainExecutor)
+                else seg.accumulator for seg in self.segments]
+
+    def _restore(self, snapshot: list, start: int = 0) -> None:
+        for seg, state in zip(self.segments[start:], snapshot[start:]):
+            if isinstance(seg, GpuChainExecutor):
+                seg._device_carries, carries = state
+                seg.carries = list(carries)
+            else:
+                seg.accumulator = state
+
+    def _card(self, i: int, inp: SmartModuleInput, metrics: SmartModuleChainMetrics,
+              ladder: tuple) -> Optional[SmartModuleOutput]:
+        """Card segment ``i`` over ``inp``, under the resilience ladder
+        (the reference's fused attempt, `fluvio_tpu/smartengine/engine.py`
+        ``process``): its breaker gates the fused attempt (an open one
+        counts a short circuit and skips it); a failure the executor's
+        retries did not clear counts ``fused-error`` and a breaker failure
+        and goes to `_spill_rerun`; a fatal one (a sticky CUDA error)
+        propagates. ``ladder`` is the chain's input and the pass's starting
+        state. Returns None when the batch was quarantined."""
+        executor, breaker = self.segments[i], self.breakers[i]
+        if not breaker.allow_fused():
+            TELEMETRY.add_breaker_short_circuit()
+            return self._spill_rerun(i, inp, metrics, ladder,
+                                     RuntimeError("fused path skipped: breaker open"))
         try:
-            return executor.process(inp, metrics)
+            output = executor.process(inp, metrics)
         except GpuSpill as e:
             TELEMETRY.add_spill(e.reason)
             raise
-        except Exception:
-            TELEMETRY.add_spill("fused-error")
+        except (KeyboardInterrupt, SystemExit):
             raise
+        except Exception as e:
+            TELEMETRY.add_spill("fused-error")
+            if is_fatal(e):
+                raise
+            logger.warning("fused attempt failed (%s: %s); card re-run", type(e).__name__, e)
+            breaker.record_failure()
+            return self._spill_rerun(i, inp, metrics, ladder, e)
+        if output.error is None:
+            breaker.record_success()
+        return output
 
-    def _process_segments(self, inp: SmartModuleInput,
-                          metrics: SmartModuleChainMetrics) -> SmartModuleOutput:
+    def _spill_rerun(self, i: int, inp: SmartModuleInput, metrics: SmartModuleChainMetrics,
+                     ladder: tuple, fused_error: BaseException) -> Optional[SmartModuleOutput]:
+        """The re-run every failed or skipped fused attempt takes (the
+        reference's interpreter rerun ladder, on the card: the same
+        kernels again): the ``spill_rerun`` seam, then segment ``i`` runs
+        again over ``inp`` from the state the pass gave it, every segment
+        from ``i`` on restored before each attempt, with bounded retry of
+        transient failures. A batch whose re-run fails too is quarantined
+        (`_quarantine`); a fatal failure propagates."""
+        executor = self.segments[i]
+        chain_inp, snapshot = ladder
+        attempt = 0
+        while True:
+            self._restore(snapshot, i)
+            try:
+                faults.maybe_fire("spill_rerun")
+                return executor.process(inp, metrics)
+            except GpuSpill as e:
+                TELEMETRY.add_spill(e.reason)
+                raise
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as rerun_error:
+                if is_fatal(rerun_error):
+                    raise
+                if self._rerun_retry.should_retry(rerun_error, attempt):
+                    TELEMETRY.add_retry("spill_rerun")
+                    self._rerun_retry.sleep(attempt)
+                    attempt += 1
+                    continue
+                return self._quarantine(chain_inp, snapshot, fused_error, rerun_error)
+
+    def _quarantine(self, inp: SmartModuleInput, snapshot: list, fused_error: BaseException,
+                    rerun_error: BaseException) -> None:
+        """Poison: the fused attempt and the card re-run both failed. Every
+        segment's state goes back to where the batch found it, so the batch
+        contributes nothing to a carry (replaying its entry later cannot
+        count twice); the chain's input, its spec and both errors go to the
+        dead-letter directory (`resilience.deadletter`), the ``quarantined``
+        counter ticks, and the stream advances."""
+        self._restore(snapshot)
+        path = quarantine_batch(self.chain_spec, inp, fused_error, rerun_error,
+                                self.engine.resilience)
+        TELEMETRY.add_quarantine()
+        logger.error("poison batch quarantined to %s (fused: %s; re-run: %s)",
+                     path or "<dead-letter dir unwritable>", fused_error, rerun_error)
+        return None
+
+    def _process_segments(self, inp: SmartModuleInput, metrics: SmartModuleChainMetrics,
+                          ladder: tuple) -> Optional[SmartModuleOutput]:
         """The segments one after the other (the reference's
         ``_process_instances``). Each host segment runs metered, under its
         own ``interpreter`` batch span; a fuel trap becomes a transform
         error at the input's base offset, and poisons the chain when the
         hook thread was abandoned or the hook is an aggregate's (the
-        injected exception may have left its accumulator half-written)."""
+        injected exception may have left its accumulator half-written).
+        Returns None when a card segment quarantined the batch."""
         if self._poisoned is not None:
             # the rejected pass still records, so an error storm on a
             # poisoned chain stays visible in the interpreter batch counts
@@ -322,7 +475,9 @@ class SmartModuleChainInstance:
         output = SmartModuleOutput()
         for i, seg in enumerate(self.segments):
             if isinstance(seg, GpuChainExecutor):
-                output = self._card(seg, next_input, metrics)
+                output = self._card(i, next_input, metrics, ladder)
+                if output is None:
+                    return None
             else:
                 output = self._run_hook_segment(seg, next_input, metrics, budget, base_offset)
             if output.error is not None:

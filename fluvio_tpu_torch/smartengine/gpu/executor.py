@@ -76,6 +76,22 @@ books their bytes (owners ``staged_batch`` and ``glz_tokens``) with the
 link forms, declines and stripe fallbacks count on the registry's
 families (a partitioned batch's again under its partition tag).
 
+Resilience (`fluvio_tpu_torch.resilience`, the reference's seams):
+`faults.maybe_fire` at ``stage``, ``h2d``, ``glz_decode`` (up link on),
+``glz_encode`` (down link on) and ``dispatch`` in the dispatch, and at
+``device`` (before the batch's first wait) and ``fetch`` (after it) in the
+finish. A transient failure retries the same kernels under the executor's
+`RetryPolicy` (a card allocation failure frees the allocator's cache
+first): a dispatch-side one dispatches again from the same carries (they
+commit only when the chain's run returns); a finish-side one stages and
+runs the batch again from the carries it started with, into the same
+handle and span (`_settle_retrying`), and an aggregate chain's later
+batches in flight that started from its result run again from the
+repaired one (`_heal_lineage`). A failure its retries do not clear puts
+the carries back where the batch found them (`_abandon`) and propagates to
+the engine's ladder. Nothing gives way to another path: no interpreter,
+no other link form.
+
 What the port does not cover raises :class:`GpuSpill` instead of running
 anywhere else: wide batches of a chain with no striped lowering (a
 JSON-array explode, a word count, a JsonGet contribution, a key rewrite
@@ -86,8 +102,10 @@ overflows its capacity again after its retry (``fanout-overflow``).
 from __future__ import annotations
 
 import functools
+import logging
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -95,6 +113,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from fluvio_tpu_torch.resilience import faults
+from fluvio_tpu_torch.resilience.policy import ResilienceConfig, RetryPolicy, is_oom
 from fluvio_tpu_torch.smartengine.config import SmartModuleConfig
 from fluvio_tpu_torch.smartengine.gpu import glz, kernels, stripes
 from fluvio_tpu_torch.smartengine.gpu.buffer import (
@@ -492,6 +512,17 @@ class _Fetch:
         self.err_row: Optional[int] = None
         self.err_stage: Optional[int] = None
         self.error = None
+        # the carries the batch's run left (the next dispatch's starting
+        # ones), its buffer and dispatch number (a retry re-stages it), and
+        # the lineage repair's marks: ``stale`` when the batch it started
+        # from was given up (it runs again from ``prev_carries`` before its
+        # finish), ``redo_error`` when its re-run after an earlier batch's
+        # retry failed (its finish retries that)
+        self.out_carries: Carries = ()
+        self.buf: Optional[RecordBuffer] = None
+        self.seq = 0
+        self.stale = False
+        self.redo_error: Optional[BaseException] = None
 
     def start(self, name: str, t: torch.Tensor) -> None:
         if self.cuda:
@@ -883,6 +914,7 @@ class GpuChainExecutor:
         stripe_params: Optional[stripes.StripeParams] = None,
         link_params: Optional[glz.LinkParams] = None,
         agg_configs: Sequence[Tuple[str, Optional[int], bytes]] = (),
+        resilience: Optional[ResilienceConfig] = None,
     ):
         self.stages = stages
         self.device = device
@@ -929,6 +961,12 @@ class GpuChainExecutor:
         # k stages does (the first-error re-dispatch's), made on first need
         self._ship = _Ship.of(stages)
         self._ship_prefix: Dict[int, _Ship] = {}
+        # transient failures retry the same kernels under this policy; an
+        # aggregate chain's dispatched, unfinished batches, by dispatch
+        # number, so a retry re-runs the later ones from its repaired tip
+        self._retry_policy = RetryPolicy(resilience or ResilienceConfig())
+        self._inflight: "weakref.WeakValueDictionary[int, _Fetch]" = weakref.WeakValueDictionary()
+        self._seq = 0
 
     @property
     def _viewable(self) -> bool:
@@ -945,6 +983,7 @@ class GpuChainExecutor:
         cls, entries: List[Tuple[SmartModuleDef, SmartModuleConfig]], device: torch.device,
         stripe_params: Optional[stripes.StripeParams] = None,
         link_params: Optional[glz.LinkParams] = None,
+        resilience: Optional[ResilienceConfig] = None,
     ) -> Optional["GpuChainExecutor"]:
         """Lower a chain of DSL modules (`lower_chain`); None when it does
         not lower."""
@@ -952,7 +991,7 @@ class GpuChainExecutor:
         if lowered is None:
             return None
         stages, programs, agg_configs = lowered
-        return cls(stages, device, programs, stripe_params, link_params, agg_configs)
+        return cls(stages, device, programs, stripe_params, link_params, agg_configs, resilience)
 
     # -- aggregate state ----------------------------------------------------
 
@@ -1100,7 +1139,7 @@ class GpuChainExecutor:
             self._ship_bytes(fetch, state, fan)
         # the next dispatch continues from here; a failed fetch restores
         # `fetch.prev_carries`
-        self._device_carries = carries
+        fetch.out_carries = self._device_carries = carries
 
     def _ship_err_row(self, fetch: _Fetch, state: _State) -> None:
         """Copy the failing row's value and key as the failing stage sees
@@ -1233,16 +1272,19 @@ class GpuChainExecutor:
         its reason. ``span`` takes the ``stage`` phase and the
         ``glz_compress`` (tokens) or ``h2d`` (raw) phase."""
         t = time.perf_counter() if span is not None else 0.0
+        faults.maybe_fire("stage")
         flat, _starts = buf.ragged_values()
         if span is not None:
             t = span.lap("stage", t)
         self._glz_last_h2d = 0
+        faults.maybe_fire("h2d")
         if self.link.compress:
             comp, reason = self._compressed(buf)
             if comp is not None:
                 ll, ml, srcs, lits = tokens = [self._upload(a) for a in pad_glz_tokens(comp)]
                 self._glz_last_h2d = sum(t.nbytes for t in tokens)
                 self.link_counts["glz"] += 1
+                faults.maybe_fire("glz_decode")
                 raw = glz.decode_link_flat((ll, ml, srcs), lits, comp.out_len, comp.chunk_bytes,
                                            comp.depth)
                 TELEMETRY.add_link_variant(f"glz-{self._link_route}")
@@ -1281,34 +1323,84 @@ class GpuChainExecutor:
 
     def dispatch_buffer(self, buf: RecordBuffer) -> _Fetch:
         """Phase 1: stage, run the chain and start the result copies
-        without blocking on the card; the handle feeds `finish_buffer`."""
+        without blocking on the card; the handle feeds `finish_buffer`. A
+        transient failure (the ``stage``, ``h2d``, ``glz_decode``,
+        ``glz_encode`` and ``dispatch`` seams) retries the dispatch under
+        the retry policy from the same carries: they commit only when the
+        chain's run returns."""
         # chain identity on the span: the per-chain latency family the SLO
         # engine keys on (chain@partition under the partition runtime)
         span = TELEMETRY.begin_batch(chain=self.span_chain or self._chain_sig)
-        if buf.width > self.stripe_params.threshold:
-            if self._striped_chain() is None:
-                TELEMETRY.add_stripe_fallback()
-                raise GpuSpill(
-                    f"record width {buf.width} exceeds the narrow layout "
-                    f"({self.stripe_params.threshold}) and the chain is not stripeable",
-                    reason="record-too-wide-unstripeable",
-                )
-            if span is not None:
-                span.path = "striped"
-            dispatch = self._dispatch_striped
-        else:
-            dispatch = self._dispatch_narrow
-        self._uploads = []
-        try:
-            fetch = dispatch(buf, span)
-        finally:
-            staged, self._uploads = self._uploads, []
-        fetch.staged = staged
+        dispatch = self._dispatch_fn(buf)
+        if span is not None and dispatch == self._dispatch_striped:
+            span.path = "striped"
+        prev = self._carries_in()
+        attempt, retried = 0, None
+        while True:
+            try:
+                fetch = self._dispatch_once(dispatch, buf, span, prev)
+                break
+            except (GpuSpill, KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                if not self._retry_policy.should_retry(e, attempt):
+                    raise
+                t = time.perf_counter()
+                point = self._before_retry(e, "dispatch", attempt)
+                retried = retried or (point, t)
+                attempt += 1
+        if retried is not None:
+            TELEMETRY.add_retry_time(retried[0], time.perf_counter() - retried[1])
+        fetch.buf = buf
+        self._seq += 1
+        fetch.seq = self._seq
+        if self.agg_configs:
+            self._inflight[fetch.seq] = fetch
         if span is not None:
             span.mark_dispatched()
             fetch.span = span
-            self._book(fetch, sum(t.nbytes for t in staged))
+            self._book(fetch, sum(t.nbytes for t in fetch.staged))
         return fetch
+
+    def _dispatch_fn(self, buf: RecordBuffer):
+        """The batch's dispatch path by its width: narrow, striped, or a
+        `GpuSpill` for a wide batch of a chain with no striped lowering."""
+        if buf.width <= self.stripe_params.threshold:
+            return self._dispatch_narrow
+        if self._striped_chain() is None:
+            TELEMETRY.add_stripe_fallback()
+            raise GpuSpill(
+                f"record width {buf.width} exceeds the narrow layout "
+                f"({self.stripe_params.threshold}) and the chain is not stripeable",
+                reason="record-too-wide-unstripeable",
+            )
+        return self._dispatch_striped
+
+    def _dispatch_once(self, dispatch, buf: RecordBuffer, span, prev: Carries) -> _Fetch:
+        """One dispatch attempt from ``prev``; the handle holds what it
+        uploaded (a failed attempt's uploads drop with it)."""
+        self._uploads = []
+        try:
+            fetch = dispatch(buf, span, prev)
+        finally:
+            staged, self._uploads = self._uploads, []
+        fetch.staged = staged
+        return fetch
+
+    def _before_retry(self, exc: BaseException, point: str, attempt: int) -> str:
+        """Count a retry at the failed seam (an injected fault's point, else
+        ``point``, which it returns) and back off; a card allocation
+        failure frees the allocator's cache first. The caller books the
+        retry's time (`Telemetry.add_retry_time`) once the retry clears
+        the failure."""
+        point = getattr(exc, "point", None) or point
+        TELEMETRY.add_retry(point)
+        logging.getLogger(__name__).warning(
+            "transient failure (retry %d at %s): %s", attempt + 1, point, exc)
+        if self.device.type == "cuda" and is_oom(exc):
+            torch.cuda.empty_cache()
+        self._retry_policy.sleep(attempt)
+        return point
 
     def _book(self, handle: _Fetch, nbytes: int) -> None:
         """A dispatch went up: its uploaded bytes stay on the card until
@@ -1334,9 +1426,10 @@ class GpuChainExecutor:
             TELEMETRY.gauge_add("live_batch_handles", -1)
         handle.staged = []
 
-    def _dispatch_narrow(self, buf: RecordBuffer, span=None) -> _Fetch:
-        """The narrow path's phase 1. An explode chain's fetch keeps the
-        staged inputs for an overflow's re-run (`_rerun`)."""
+    def _dispatch_narrow(self, buf: RecordBuffer, span, prev: Carries) -> _Fetch:
+        """The narrow path's phase 1 from the carries ``prev``. An explode
+        chain's fetch keeps the staged inputs for an overflow's re-run
+        (`_rerun`)."""
         flat_up = self._stage_flat(buf, span)
         t = time.perf_counter() if span is not None else 0.0
         lengths_up, has_keys, has_offsets, ts_mode, ts_np = stage_link_columns(buf)
@@ -1347,9 +1440,10 @@ class GpuChainExecutor:
         arrays["values"], arrays["lengths"] = values, lengths
         if span is not None:
             t = span.lap("h2d", t)
-        fetch = _Fetch(self.device, self._carries_in(), self._fanout_cap(buf))
+        fetch = _Fetch(self.device, prev, self._fanout_cap(buf))
         if self._fanout:
             fetch.arrays = arrays
+        self._dispatch_seams()
         self._run(arrays, buf.count, buf.base_timestamp, fetch)
         fetch.seal()
         if span is not None:
@@ -1373,9 +1467,16 @@ class GpuChainExecutor:
             fetch.span.mark_dispatched()  # the re-run restarts the device phase
         return fetch
 
-    def _dispatch_striped(self, buf: RecordBuffer, span=None) -> _Fetch:
-        """Striped phase 1: the narrow path's ragged upload, re-padded on
-        the card into stripe rows with the segment sidecar derived from the
+    def _dispatch_seams(self) -> None:
+        """The fault seams of the chain's run: the down link's encode (when
+        on) and the torch calls and kernel launches."""
+        if self.link.result_compress:
+            faults.maybe_fire("glz_encode")
+        faults.maybe_fire("dispatch")
+
+    def _dispatch_striped(self, buf: RecordBuffer, span, prev: Carries) -> _Fetch:
+        """Striped phase 1 from the carries ``prev``: the narrow path's
+        ragged upload, re-padded on the card into stripe rows with the segment sidecar derived from the
         lengths; filters reduce per segment, aggregates run on the segment
         axis (the narrow stages, sharing their carry slots). Filter and
         fold chains ship the segment survivor mask, span chains compacted
@@ -1401,7 +1502,8 @@ class GpuChainExecutor:
             "sv": sv, "plan": plan, "n": n, "kmax": kmax,
             "seg_state": _State(stripes.seg_state_of(plan, sv, lengths, arrays)),
         }
-        fetch = _Fetch(self.device, self._carries_in(), self._fanout_cap(buf))
+        fetch = _Fetch(self.device, prev, self._fanout_cap(buf))
+        self._dispatch_seams()
         # k > 0: the live records
         valid, seg_state, carries, fan, vspan = sc.run(
             ctx, plan["k"] > 0, fetch.prev_carries, buf.base_timestamp, {"fanout_cap": fetch.cap})
@@ -1417,7 +1519,7 @@ class GpuChainExecutor:
             # int32 descriptors at the widest field tier: striped spans index
             # records wider than the u16 tier
             self._ship_views(fetch, valid, vspan[1], vspan[0])
-        self._device_carries = carries
+        fetch.out_carries = self._device_carries = carries
         fetch.seal()
         if span is not None:
             span.lap("dispatch", t)
@@ -1483,15 +1585,18 @@ class GpuChainExecutor:
         error = None
         try:
             try:
-                out = self._settle(buf, handle)
+                out = self._settle_retrying(buf, handle)
             except _FirstError as fe:
                 out, error = self._first_error(buf, handle, fe)
-        except GpuSpill:
-            self._device_carries = handle.prev_carries
+        except BaseException:
+            # a spill, or a failure its retries did not clear: the carries
+            # go back to where the batch found them
+            self._abandon(handle)
             raise
         finally:
             # every finish outcome retires the batch's ledger booking
             self._unbook(handle)
+            self._inflight.pop(handle.seq, None)
         handle.error = error
         if error is not None:
             out = _with_error(out, error)
@@ -1508,6 +1613,107 @@ class GpuChainExecutor:
         if callable(out):
             return lambda: complete(out())
         return complete(out)
+
+    def _settle_retrying(self, buf: RecordBuffer, handle: _Fetch):
+        """`_settle`, with a transient failure (the ``device`` and
+        ``fetch`` seams, or a re-dispatch's) retried under the retry
+        policy: the batch is staged and run again from the carries it
+        started with, and so is every later batch in flight that started
+        from its result (`_redispatch`). A batch whose starting batch was
+        given up runs again first (``stale``)."""
+        try:
+            if handle.redo_error is not None:
+                e, handle.redo_error = handle.redo_error, None
+                raise e
+            if handle.stale:
+                self._redispatch(buf, handle)
+            return self._settle(buf, handle)
+        except (GpuSpill, _FirstError, KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as e:
+            exc = e
+        attempt, retried = 0, None
+        while self._retry_policy.should_retry(exc, attempt):
+            t = time.perf_counter()
+            point = self._before_retry(exc, "fetch", attempt)
+            retried = retried or (point, t)
+            try:
+                self._redispatch(buf, handle)
+                out = self._settle(buf, handle)
+            except (GpuSpill, _FirstError, KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                exc = e
+                attempt += 1
+                continue
+            TELEMETRY.add_retry_time(retried[0], time.perf_counter() - retried[1])
+            return out
+        raise exc
+
+    def _redispatch(self, buf: RecordBuffer, handle: _Fetch) -> None:
+        """Stage and run the batch again from ``handle.prev_carries``, into
+        the same handle (its span too), then repair the lineage."""
+        old_out = handle.out_carries
+        self._redo(buf, handle)
+        if self.agg_configs:
+            self._heal_lineage(handle, old_out)
+
+    def _redo(self, buf: RecordBuffer, handle: _Fetch) -> None:
+        """One re-dispatch into ``handle``; the carry tip stays where it
+        was (the lineage repair moves it)."""
+        tip = self._device_carries
+        self._unbook(handle)
+        try:
+            new = self._dispatch_once(self._dispatch_fn(buf), buf, handle.span,
+                                      handle.prev_carries)
+        finally:
+            self._device_carries = tip
+        span, seq = handle.span, handle.seq
+        handle.__dict__.update(new.__dict__)
+        handle.span, handle.buf, handle.seq = span, buf, seq
+        if span is not None:
+            span.mark_dispatched()  # the re-run restarts the device phase
+            self._book(handle, sum(t.nbytes for t in handle.staged))
+
+    def _heal_lineage(self, handle: _Fetch, old_out: Carries) -> None:
+        """After ``handle`` ran again, every later batch in flight that
+        started from its old result runs again from its new one, in
+        dispatch order (one in flight: `process_stream`'s pipeline), and
+        the carry tip follows, so no batch's contribution counts twice or
+        not at all. A re-run that fails marks its batch (``redo_error``):
+        its own finish retries it, and repairs the batches after it."""
+        new_out = handle.out_carries
+        tip = new_out if self._device_carries is old_out else self._device_carries
+        for seq in sorted(k for k in self._inflight.keys() if k > handle.seq):
+            h = self._inflight.get(seq)
+            if h is None or h.prev_carries is not old_out:
+                continue
+            h_old = h.out_carries
+            h.prev_carries = new_out
+            try:
+                self._redo(h.buf, h)
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                h.redo_error = e
+                break
+            old_out, new_out = h_old, h.out_carries
+            if tip is old_out:
+                tip = new_out
+        self._device_carries = tip
+
+    def _abandon(self, handle: _Fetch) -> None:
+        """A batch given up at its finish: the carries go back to where it
+        found them, and a later batch in flight that started from its
+        result starts from there instead (``stale``: it runs again before
+        its finish; a discard leaves the carries there)."""
+        self._device_carries = handle.prev_carries
+        if not self.agg_configs:
+            return
+        for h in list(self._inflight.values()):
+            if h.seq > handle.seq and h.prev_carries is handle.out_carries:
+                h.prev_carries = handle.prev_carries
+                h.stale = True
 
     def _settle(self, buf: RecordBuffer, handle: _Fetch):
         """`_finish`, with an overflowed explode run again once at its
@@ -1571,6 +1777,7 @@ class GpuChainExecutor:
         """Drop a dispatched batch without finishing it: the carries go
         back to those the batch started from (its span is dropped)."""
         self._unbook(handle)
+        self._inflight.pop(handle.seq, None)
         self._device_carries = handle.prev_carries
 
     def dispatch_buffers(self, bufs: Sequence[RecordBuffer]) -> List[Tuple[RecordBuffer, _Fetch]]:
@@ -1601,7 +1808,10 @@ class GpuChainExecutor:
         return out
 
     def _finish(self, buf: RecordBuffer, handle: _Fetch) -> RecordBuffer:
+        # a failure on the card surfaces at the batch's first blocking wait
+        faults.maybe_fire("device")
         host = handle.wait()
+        faults.maybe_fire("fetch")
         span = handle.span
         self.link_counts["d2h_bytes"] += sum(a.nbytes for a in host.values())
         hdr = [int(x) for x in host["header"]]
@@ -1791,8 +2001,10 @@ class GpuChainExecutor:
         """Batch k's deferred finish settles on this thread, then its thunk
         runs on `fetch_mat_pool()` while batch k+1 dispatches and batch k-1's
         thunk is collected. A failure drains the thunk in flight (its
-        batch is delivered) before it propagates."""
-        pending = None
+        batch is delivered) before it propagates; a batch dispatched and
+        not finished when the stream ends early (a failure, or the
+        consumer closing it) is discarded, newest first."""
+        outstanding: List[Tuple[RecordBuffer, _Fetch]] = []  # dispatched, unfinished
         job = None
         mat = None  # the previous batch's thunk on the fetch worker
         cur = next(it, None)
@@ -1807,14 +2019,15 @@ class GpuChainExecutor:
                     if mat is not None:
                         done, mat = mat, None
                         yield done.result()
-                    if pending is not None:
-                        yield self.finish_buffer(*pending)
+                    if outstanding:
+                        yield self.finish_buffer(*outstanding.pop(0))
                     raise
+                outstanding.append((cur, handle))
                 nxt = next(it, None)
                 if nxt is not None and pool is not None:
                     job = pool.submit(self._compressed, nxt)
-                if pending is not None:
-                    out = self.finish_buffer_deferred(*pending)
+                if len(outstanding) > 1:
+                    out = self.finish_buffer_deferred(*outstanding.pop(0))
                     if mat is not None:
                         done, mat = mat, None
                         yield done.result()
@@ -1822,10 +2035,9 @@ class GpuChainExecutor:
                         mat = fetch_mat_pool().submit(out)
                     else:
                         yield out
-                pending = (cur, handle)
                 cur = nxt
-            if pending is not None:
-                out = self.finish_buffer_deferred(*pending)
+            if outstanding:
+                out = self.finish_buffer_deferred(*outstanding.pop(0))
                 if mat is not None:
                     done, mat = mat, None
                     yield done.result()
@@ -1836,3 +2048,6 @@ class GpuChainExecutor:
             if mat is not None:
                 yield mat.result()
             raise
+        finally:
+            for _, h in reversed(outstanding):
+                self.discard_dispatch(h)

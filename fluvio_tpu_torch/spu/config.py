@@ -17,16 +17,21 @@ endpoint, "": its default path) and ``telemetry`` the `TelemetryConfig`
 the server applies to the process at construction (None: leave the
 process's telemetry settings as they are); ``admission`` likewise the
 `AdmissionConfig` (None: leave the process's admission settings as they
-are, which start disarmed). The port reads no environment variable:
+are, which start disarmed). ``smart_engine.resilience`` holds the
+chains' retry, breaker and dead-letter budgets (`ResilienceConfig`); a
+dead-letter directory left at its default goes under ``log_base_dir``
+(``<log_base_dir>/deadletter``). The port reads no environment variable:
 every setting is a field.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import os
+from dataclasses import dataclass, field, replace
 from typing import Optional
 
 from fluvio_tpu_torch.admission.types import AdmissionConfig
+from fluvio_tpu_torch.resilience.policy import DEFAULT_DEADLETTER_DIR, ResilienceConfig
 from fluvio_tpu_torch.smartengine.engine import DEFAULT_STORE_MAX_MEMORY
 from fluvio_tpu_torch.storage.config import ReplicaConfig
 from fluvio_tpu_torch.telemetry.registry import TelemetryConfig
@@ -42,6 +47,9 @@ class SmartEngineConfig:
     # broker meters user hooks by default so a hostile module cannot
     # wedge it; 0 turns metering off; see smartengine/metering.py)
     hook_budget_ms: int = 5000
+    # the retry, breaker and dead-letter budgets of the SPU's chains (the
+    # reference's FLUVIO_RETRY_*, FLUVIO_BREAKER_* and FLUVIO_DEADLETTER_*)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
 
 
 @dataclass
@@ -70,3 +78,9 @@ class SpuConfig:
     def __post_init__(self) -> None:
         if self.replication.base_dir in (".", ""):
             self.replication.base_dir = self.log_base_dir
+        # the SPU's dead-letter entries live under its own directory, not
+        # beside every other process's in the shared default
+        res = self.smart_engine.resilience
+        if res.deadletter_dir == DEFAULT_DEADLETTER_DIR:
+            self.smart_engine = replace(self.smart_engine, resilience=replace(
+                res, deadletter_dir=os.path.join(self.log_base_dir, "deadletter")))

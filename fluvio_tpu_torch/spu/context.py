@@ -73,6 +73,7 @@ class GlobalContext:
             device=config.smart_engine.device,
             store_max_memory=config.smart_engine.store_max_memory,
             hook_budget_ms=config.smart_engine.hook_budget_ms,
+            resilience=config.smart_engine.resilience,
         )
         self.metrics = SpuMetrics()
         # stateless stream chains keyed by invocation fingerprint (LRU): a

@@ -99,9 +99,11 @@ class MonitoringServer:
     async def _handle(
         self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
     ) -> None:
+        from fluvio_tpu_torch.resilience import faults
         from fluvio_tpu_torch.telemetry import TELEMETRY
 
         try:
+            faults.maybe_fire("socket_accept")
             mode = "json"
             try:
                 line = await asyncio.wait_for(reader.readline(), _MODE_LINE_TIMEOUT_S)
@@ -115,9 +117,11 @@ class MonitoringServer:
                 pass
             writer.write(self._payload(mode))
             await writer.drain()
-        except (ConnectionResetError, BrokenPipeError, ConnectionAbortedError) as e:
-            # a scraper that disconnects mid-write must never take the
-            # accept loop with it: count it and keep serving the next client
+        except (ConnectionResetError, BrokenPipeError, ConnectionAbortedError,
+                faults.InjectedFault) as e:
+            # a scraper that disconnects mid-write (or an armed
+            # socket_accept fault) must never take the accept loop with it:
+            # count it and keep serving the next client
             logger.warning("monitoring client gone mid-request: %s", e)
             TELEMETRY.add_decline("client-gone")
         except (KeyboardInterrupt, SystemExit):

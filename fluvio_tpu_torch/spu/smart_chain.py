@@ -26,11 +26,16 @@ which still runs every batch on the card. So is a slice whose finish
 meets a transform error (``transform-error-spill``, as the reference
 declines it): served batch by batch, it gives the reference's response,
 the batches before, the failing batch's output before the failing record,
-the error, and the next offset at the failing batch's end. A `GpuSpill`
-or a device error propagates to the caller: nothing reruns in an
-interpreter. A chain with a host hook segment (a user Python SmartModule)
-has no batched form: every slice goes through `process_batches_per_record`
-(``chain.process`` a batch).
+the error, and the next offset at the failing batch's end. So is a slice
+whose dispatch or finish fails once the executor's retries are spent
+(``fused-error``, the reference's decline): its chunks are discarded,
+newest first, and each batch goes through ``chain.process``, whose
+resilience ladder re-runs it on the card and quarantines a poison batch.
+A `GpuSpill` and a fatal device error (a sticky CUDA error) propagate to
+the caller: nothing reruns in an interpreter. A chain that is not one
+card segment (a user Python SmartModule's host segment, or a DSL run cut
+into several card segments) has no batched form: every slice goes through
+`process_batches_per_record` (``chain.process`` a batch).
 
 The SPU's stream handler gets its chains from `acquire_stream_chain`,
 which caches stateless card chains, and feeds the chain's ``look_back``
@@ -62,6 +67,7 @@ from __future__ import annotations
 
 import asyncio
 import hashlib
+import logging
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
@@ -73,6 +79,7 @@ from fluvio_tpu_torch.native import records as native_records
 from fluvio_tpu_torch.protocol.compression import Compression, decompress
 from fluvio_tpu_torch.protocol.error import ErrorCode
 from fluvio_tpu_torch.protocol.record import Batch, RecordSet
+from fluvio_tpu_torch.resilience.policy import is_fatal
 from fluvio_tpu_torch.schema.smartmodule import (
     SmartModuleInvocation,
     SmartModuleInvocationWasm,
@@ -80,7 +87,7 @@ from fluvio_tpu_torch.schema.smartmodule import (
 from fluvio_tpu_torch.smartengine.config import Lookback
 from fluvio_tpu_torch.smartengine.engine import SmartEngine, SmartModuleChainInstance
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
-from fluvio_tpu_torch.smartengine.gpu.executor import fetch_mat_pool
+from fluvio_tpu_torch.smartengine.gpu.executor import GpuSpill, fetch_mat_pool
 from fluvio_tpu_torch.smartmodule.types import (
     SmartModuleInput,
     SmartModuleRecord,
@@ -88,6 +95,8 @@ from fluvio_tpu_torch.smartmodule.types import (
 )
 from fluvio_tpu_torch.telemetry import TELEMETRY
 from fluvio_tpu_torch.types import NO_TIMESTAMP
+
+logger = logging.getLogger(__name__)
 
 # the device-side padded matrix (rows x width) a chunk may stage
 _MAX_STAGING_BYTES = 1 << 29
@@ -640,7 +649,17 @@ def gpu_stage_dispatch(
         TELEMETRY.add_phase("glz_decode", phase["decompress"] / 1e3)
         TELEMETRY.add_phase("stage", (phase["decode"] + phase["stage"]) / 1e3)
     t0 = time.perf_counter()
-    chunks = gpu.dispatch_buffers(chunk_bufs)
+    try:
+        chunks = gpu.dispatch_buffers(chunk_bufs)
+    except (GpuSpill, KeyboardInterrupt, SystemExit):
+        raise
+    except Exception as e:
+        # the executor's retries are spent (it discarded the chunks before
+        # the failed one): the per-batch path's ladder decides each batch
+        if is_fatal(e):
+            raise
+        logger.warning("slice dispatch failed (%s: %s); served per batch", type(e).__name__, e)
+        return _decline(metrics, "fused-error")
     phase["dispatch"] = _ms(t0)
     if flow is not None:
         # the trace joins batch spans against [dispatch, serve] of the flow
@@ -722,12 +741,14 @@ def gpu_finish(
     records included. A slice of several chunks finishes each through
     `finish_buffer_deferred` and rebuilds it on `fetch_mat_pool()`;
     ``phase_ms["finish"]`` includes the wait for the last rebuild. A chunk
-    that raises (`GpuSpill`, a device error) discards the chunks after it,
-    leaves the carries where that chunk found them and propagates once
-    the rebuilds in flight have ended. A chunk whose finish met a
-    transform error discards the slice (the carries go back to where the
-    slice found them) and returns None, the decline counted as
-    ``transform-error-spill``: the caller serves the slice per batch."""
+    that raises discards the chunks after it and leaves the carries where
+    that chunk found them, once the rebuilds in flight have ended; then a
+    `GpuSpill` or a fatal error propagates, and any other failure (the
+    executor's retries spent) returns None, the decline counted as
+    ``fused-error``. A chunk whose finish met a transform error discards
+    the slice (the carries go back to where the slice found them) and
+    returns None, the decline counted as ``transform-error-spill``. On a
+    None the caller serves the slice per batch."""
     gpu = chain.gpu_chain
     base0, ts0 = pending.base0, pending.ts0
     result = BatchProcessResult(next_offset=pending.planned_next, phase_ms=dict(pending.phase_ms),
@@ -749,13 +770,16 @@ def gpu_finish(
                 out = fetch_mat_pool().submit(out) if overlap else out()
             parts.append(out)
         outbufs = [p.result() if isinstance(p, Future) else p for p in parts]
-    except BaseException:
+    except BaseException as e:
         for p in parts:  # drain what is in flight before the error propagates
             if isinstance(p, Future):
                 p.exception()
         for _, h in reversed(pending.chunks[len(parts):]):
             gpu.discard_dispatch(h)
-        raise
+        if isinstance(e, GpuSpill) or not isinstance(e, Exception) or is_fatal(e):
+            raise
+        logger.warning("slice finish failed (%s: %s); served per batch", type(e).__name__, e)
+        return _decline(metrics, "fused-error")
     if len(parts) < len(pending.chunks):
         # a transform error: the reference discards the slice and serves it
         # batch by batch (its `transform-error-spill`); newest first, so the
@@ -965,10 +989,17 @@ def stream_slices(
                     nxt.phase_ms["read"] = read_ms
             if pending is not None:
                 # gpu_finish consumes the slice's handles, or discards
-                # those it leaves unread when it raises (a pipelinable
-                # chain has no explode: its finish meets no transform error)
+                # those it leaves unread (a pipelinable chain has no
+                # explode: its finish meets no transform error; a failure
+                # past the executor's retries declines the slice, served
+                # per batch while slice k+1 stays in flight)
                 finished, pending = pending, None
                 result = gpu_finish(chain, finished, max_bytes, metrics)
+                if result is None:
+                    result = process_batches_per_record(chain, finished.batches, max_bytes,
+                                                        metrics)
+                    result.phase_ms["read"] = finished.phase_ms.get("read", 0.0)
+                    result.flow = finished.flow
                 yield result
                 current = result.next_offset
                 if current != finished.planned_next:

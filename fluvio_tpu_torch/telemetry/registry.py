@@ -151,6 +151,10 @@ class PipelineTelemetry:
         # per-chain circuit-breaker state machine (current state per
         # breaker + transition counts + open-state short-circuits)
         self.retries: Dict[str, int] = {}
+        # wall seconds of the retries that cleared their failure, by the
+        # seam of the first failure: from the first backoff to the end of
+        # the repeated attempt
+        self.retry_seconds: Dict[str, float] = {}
         self.quarantined = 0
         # sharded inline-compress accounting (ROADMAP's noted gap: the
         # compress-ahead worker covers only single-device buffers, so a
@@ -597,6 +601,10 @@ class PipelineTelemetry:
         with self._lock:
             self.retries[point] = self.retries.get(point, 0) + 1
         self._event("retry", point)
+
+    def add_retry_time(self, point: str, seconds: float) -> None:
+        with self._lock:
+            self.retry_seconds[point] = self.retry_seconds.get(point, 0.0) + seconds
 
     def add_quarantine(self) -> None:
         with self._lock:
@@ -1049,6 +1057,7 @@ class PipelineTelemetry:
             self.declines = {}
             self.link_variants = {}
             self.retries = {}
+            self.retry_seconds = {}
             self.quarantined = 0
             self.sharded_compress_shards = 0
             self.slo_breaches = {}

@@ -15,6 +15,14 @@ The bank commits only after the header passed its checks, so a batch
 that raises `WindowCapacityError` leaves the carry exactly as it was
 (and counts a ``window-capacity`` decline).
 
+Fault seams (`fluvio_tpu_torch.resilience.faults`, the reference's):
+``stage`` (the host columns), ``dispatch`` (the update's torch calls),
+``device`` (before the header's download) and ``fetch`` (after it). The
+bank commits only after the fetch, so `process_buffer` retries a transient
+`InjectedFault` once against the untouched bank (counted on the
+``retries`` family at its point); a second fault, or a deterministic one,
+raises.
+
 Telemetry (the reference's seams): each batch is a span on the
 ``windowed`` path, chain label the window mode, with phases ``stage``
 (the host columns), ``h2d`` (their uploads), ``dispatch`` (the update's
@@ -36,6 +44,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from fluvio_tpu_torch.resilience import faults
 from fluvio_tpu_torch.smartengine.engine import resolve_device
 from fluvio_tpu_torch.telemetry import TELEMETRY
 from fluvio_tpu_torch.windows.kernels import WindowEagerOps
@@ -131,9 +140,23 @@ class WindowedRuntime:
     def process_buffer(self, buf) -> WindowDelta:
         """Fold one RecordBuffer; returns the batch's delta. Uploads the
         padded values, the lengths, the absolute event times and the
-        validity column."""
+        validity column. A transient injected fault retries once against
+        the identical carry (the bank is untouched until the fetch)."""
+        try:
+            return self._process_once(buf)
+        except faults.InjectedFault as exc:
+            if not exc.transient:
+                raise
+            TELEMETRY.add_retry(exc.point)
+            t = time.perf_counter()
+            out = self._process_once(buf)
+            TELEMETRY.add_retry_time(exc.point, time.perf_counter() - t)
+            return out
+
+    def _process_once(self, buf) -> WindowDelta:
         span = TELEMETRY.begin_batch("windowed", chain=self.spec.mode)
         t = time.perf_counter() if span is not None else 0.0
+        faults.maybe_fire("stage")
         values = buf.dense_values()
         n = values.shape[0]
         count = int(buf.count)
@@ -166,16 +189,19 @@ class WindowedRuntime:
 
     def _run(self, update, batch_args, count: int, span=None) -> WindowDelta:
         t = time.perf_counter() if span is not None else 0.0
+        faults.maybe_fire("dispatch")
         (header, nb_ids, nb_accs, nb_cnts,
          em_ids, em_accs, em_cnts, em_closed) = update(*self.bank.arrays(), *batch_args)
         if span is not None:
             span.lap("dispatch", t)
             span.mark_dispatched()
+        faults.maybe_fire("device")
         # first blocking sync: the scalar header (8 i64 = 64 bytes)
         (n_emit, n_open, n_closed, n_late, new_wm, bank_ovf, emit_ovf,
          n_invalid) = header.cpu().tolist()
         if span is not None:
             span.mark_device_ready()
+        faults.maybe_fire("fetch")
         if bank_ovf:
             # the merged open set no longer fits the device bank: loud
             # failure BEFORE committing, so the carry stays valid

@@ -24,6 +24,7 @@ from fluvio_tpu.telemetry import TELEMETRY
 from fluvio_tpu_torch.models import lookup
 from fluvio_tpu_torch.smartengine import EngineError, SmartEngine, SmartModuleConfig
 from fluvio_tpu_torch.smartengine.gpu import kernels
+from fluvio_tpu_torch.smartengine.gpu.executor import GpuChainExecutor
 from fluvio_tpu_torch.smartmodule import dsl
 from tests.test_torch_chain import (
     _assert_equal,
@@ -319,7 +320,10 @@ def test_delta_tiers_and_the_reference_delta_fault():
 
 def test_try_build_refuses_what_the_reference_refuses():
     """The reference's rules: a windowed aggregate after an array_map, an
-    unknown combine, a contribution that is no int."""
+    unknown combine, a contribution that is no int. The port's lowering
+    refuses each as one fused chain; the engine refuses a single module
+    outside it, and cuts the explode and the windowed aggregate into two
+    card segments (`engine.cut_card_runs`)."""
     cases = [
         ["array-map-json", ("aggregate", lambda d: d.AggregateProgram(
             kind="count", window_ms=100))],
@@ -330,14 +334,22 @@ def test_try_build_refuses_what_the_reference_refuses():
         [("aggregate", lambda d: d.AggregateProgram(kind="median_int"))],
     ]
     for case in cases:
-        ref_entries, pb = [], SmartEngine(device="cpu").builder()
+        ref_entries, port_entries = [], []
+        pb = SmartEngine(device="cpu").builder()
         for spec in case:
             if isinstance(spec, str):
                 ref_m, port_m = ref_lookup(spec), lookup(spec)
             else:
                 ref_m, port_m = _module_pair(*spec)
             ref_entries.append((ref_m, RefConfig()))
+            port_entries.append((port_m, SmartModuleConfig()))
             pb.add_smart_module(SmartModuleConfig(), port_m)
         assert TpuChainExecutor.try_build(ref_entries) is None
+        assert GpuChainExecutor.try_build(port_entries, torch.device("cpu")) is None
+        if len(case) > 1:
+            chain = pb.initialize()
+            assert [s._chain_sig for s in chain.segments] == ["arraymap", "aggregate"]
+            assert chain.gpu_chain is None
+            continue
         with pytest.raises(EngineError):
             pb.initialize()

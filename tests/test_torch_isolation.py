@@ -1227,6 +1227,65 @@ def test_aggregate_and_explode_chains_on_the_card():
 
 
 @pytest.mark.cuda
+def test_resilience_ladder_on_the_card(tmp_path):
+    """The headline chain through ``SmartEngine(device="cuda")`` with one
+    transient fault (first=1) at each card seam in turn, each pass equal to
+    the fault-free one and the retry counted at its point; then a poison
+    ``aggregate-sum`` batch (``device`` and ``spill_rerun`` failing on every
+    hit) quarantined with the carry where the batch found it, and the
+    cut chain ``array-map-json`` -> ``array-map-lines`` equal to the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.models import lookup
+    from fluvio_tpu_torch.protocol.record import Record
+    from fluvio_tpu_torch.resilience import ResilienceConfig, faults
+    from fluvio_tpu_torch.smartengine import SmartEngine, SmartModuleConfig
+    from fluvio_tpu_torch.smartmodule.types import SmartModuleInput
+    from fluvio_tpu_torch.telemetry import TELEMETRY
+
+    def build(device, specs, initial=None):
+        b = SmartEngine(device=device, resilience=ResilienceConfig(
+            retry_base_ms=0, deadletter_dir=str(tmp_path))).builder()
+        for name, params in specs:
+            cfg = SmartModuleConfig(params=dict(params))
+            if initial is not None:
+                cfg.initial_data = initial
+            b.add_smart_module(cfg, lookup(name))
+        return b.initialize()
+
+    def run(chain, batches):
+        return [[(r.key, r.value) for r in chain.process(SmartModuleInput.from_records(
+            [Record(value=v, offset_delta=i) for i, v in enumerate(values)])).successes]
+            for values in batches]
+
+    docs = [gen_json(4096, seed=s) for s in (31, 32)]
+    chain = build("cuda", [("regex-filter", {"regex": "fluvio"}), ("json-map", {"field": "name"})])
+    truth = run(chain, docs)
+    retries0 = dict(TELEMETRY.retries)
+    try:
+        for point in ("stage", "h2d", "dispatch", "device", "fetch"):
+            faults.FAULTS.inject(point, first=1)
+            assert run(chain, docs) == truth, point
+            faults.FAULTS.clear()
+            assert TELEMETRY.retries.get(point, 0) == retries0.get(point, 0) + 1, point
+        agg = build("cuda", [("aggregate-sum", {})], initial=b"0")
+        nums = [[b"%d" % (k * 1000 + i) for i in range(4096)] for k in range(2)]
+        run(agg, nums[:1])
+        agg.gpu_chain._ensure_host_state()
+        before = agg.gpu_chain.carries
+        faults.FAULTS.inject("device", every=1, exc="deterministic")
+        faults.FAULTS.inject("spill_rerun", every=1, exc="deterministic")
+        assert run(agg, nums[1:]) == [[]]
+    finally:
+        faults.FAULTS.clear()
+    agg.gpu_chain._ensure_host_state()
+    assert agg.gpu_chain.carries == before and len(list(tmp_path.iterdir())) == 1
+    arrays = gen_arrays(2048, seed=33)
+    cut = [("array-map-json", {}), ("array-map-lines", {})]
+    assert run(build("cuda", cut), [arrays]) == run(build("cpu", cut), [arrays])
+
+
+@pytest.mark.cuda
 def test_first_error_and_mixed_chains_on_the_card():
     """Phase 20's chains through ``SmartEngine(device="cuda")``, each against
     the same chain on the CPU: `FIRST_ERROR_CHAIN` over four ``gen_arrays``

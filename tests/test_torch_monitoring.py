@@ -15,10 +15,12 @@ transient ledger owners drained, the hook metering's quarantine state
 (``hook_quarantine``). Wall-clock fields (latencies, ages, times, observed
 SLO values) are left out by name.
 
+Each package's breakers are numbered from 1 for the test (both packages
+name a chain's breaker ``chain-<n>`` in creation order), so the
+``breaker`` states are an equality too.
+
 Pinned divergences (`ROADMAP.md` §3):
 
-- the JAX chains register a circuit breaker each (the resilience item,
-  not ported), so its ``breaker`` states list them; the port's is empty;
 - compile events: the JAX package's are jit trace-cache misses, the
   port's its native library builds, so their counts differ, and with
   them the ``recompile-storm`` declines the storm detector counts;
@@ -42,10 +44,12 @@ from collections import Counter
 import numpy as np
 import pytest
 
+from fluvio_tpu.resilience import policy as ref_policy
 from fluvio_tpu.spu import SpuConfig as RefSpuConfig
 from fluvio_tpu.spu import SpuServer as RefSpuServer
 from fluvio_tpu.spu import monitoring as ref_monitoring
 from fluvio_tpu.storage.config import ReplicaConfig as RefReplicaConfig
+from fluvio_tpu_torch.resilience import policy
 from fluvio_tpu_torch.spu import monitoring
 from fluvio_tpu_torch.spu.config import SpuConfig
 from fluvio_tpu_torch.spu.server import SpuServer
@@ -180,6 +184,8 @@ def _trace_counts(doc):
 
 def test_monitoring_modes_equal_reference(tmp_path, monkeypatch, small_chunks):
     monkeypatch.chdir(tmp_path)
+    for mod in (ref_policy, policy):
+        monkeypatch.setattr(mod, "_BREAKER_SEQ", [0])
     wires = _stored(SIZES, seed=61)
 
     async def main():
@@ -253,8 +259,8 @@ def test_monitoring_modes_equal_reference(tmp_path, monkeypatch, small_chunks):
         c: h["count"] for c, h in rt["chains"].items()}
     for counters in (pt["counters"], rt["counters"]):
         counters["declines"].pop("recompile-storm", None)
-    assert pt["counters"]["breaker"]["states"] == {}
-    rt["counters"]["breaker"]["states"] = {}
+    assert pt["counters"]["breaker"]["states"] == rt["counters"]["breaker"]["states"]
+    assert pt["counters"]["breaker"]["states"]
     assert pt["counters"] == rt["counters"]
     assert pt["lag"]["served_records"] == rt["lag"]["served_records"]
     assert pt["lag"]["consumer_lag"] == rt["lag"]["consumer_lag"]

@@ -157,6 +157,32 @@ def test_hard_ceiling_and_unlowerable_predictions():
     assert json_explode.to_dict()["predictions"][1]["path"] == "raise"
 
 
+CUT_RUNS = {
+    "lines_lines": [("array-map-lines", None), ("array-map-lines", None)],
+    "json_lines": [("array-map-json", None), ("array-map-lines", None)],
+    "windowed_after_explode": [("array-map-lines", None), ("windowed-sum", {"window_ms": "100"})],
+}
+
+
+@pytest.mark.parametrize("name", sorted(CUT_RUNS))
+def test_cut_run_reports_its_card_segments(name):
+    """A DSL run that does not lower as one chain is predicted as the card
+    segments `initialize` cuts it into, not as a raise: their signatures,
+    an INFO ``cut`` hazard, no error, and the path the chain runs."""
+    engine = SmartEngine(device="cpu")
+    specs = CUT_RUNS[name]
+    report = analyze_named(specs, widths=(40,), engine=engine)
+    chain = _chain(specs, engine)
+    assert report.segments == [seg._chain_sig for seg in chain.segments]
+    assert len(report.segments) == 2 and report.chain_sig == "|".join(report.segments)
+    assert not report.errors()
+    assert "cut" in [h.code for h in report.hazards if h.level == "info"]
+    values = [b"[1,2]", b'["a\\nb","c"]'] if name == "json_lines" else [b"1\n2", b"3"]
+    observed, spilled = _observe(chain, values, ts=[5, 9, 11][: len(values)])
+    assert report.predictions[0].path == observed == "fused" and not spilled
+    assert report.to_dict()["segments"] == report.segments
+
+
 def test_gates_report_the_engine_settings_and_move_no_counter():
     counters = (TELEMETRY.path_records(), dict(TELEMETRY.spills), dict(TELEMETRY.declines),
                 TELEMETRY.device)
