@@ -281,6 +281,15 @@ Phases (any failure raises and the script exits non-zero):
    host hook map, card ``json-map``) over 1,048,576 records. Each arm is
    exact against a host truth computed without the port's engine.
    ``--hooks-only`` builds the kernels and runs only this phase.
+21. the resilience ladder (`phase_resilience`): retries at each seam, the
+   card re-run, the quarantine, the breaker, the consume path's decline,
+   the windowed retry and a cut DSL run. ``--resilience-only`` builds the
+   kernels and runs only this phase.
+22. partitioned topics through a leader loss (`phase_failover`,
+   `9_partitioned`'s configuration): the failover coordinator's promotion
+   at each seam, a migration and its rollback, the SPU's partition gate
+   armed and unarmed in turns and its placement-error decline.
+   ``--failover-only`` builds the kernels and runs only this phase.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -5317,6 +5326,431 @@ def phase_resilience(corpora=None):
     return numbers, launches
 
 
+# phase 22: partitioned topics through a leader loss (`9_partitioned`'s
+# configuration, `bench.py:211-225`)
+FAILOVER_PHASE = dict(records=N // 2, partitions=4, groups=2, slab_records=1 << 15,
+                      batch_records=1 << 14, turns=4, kill_at=2, scope_calls=20_000,
+                      spec=[{"name": "regex-filter", "kind": "filter",
+                             "params": {"regex": "fluvio"}},
+                            {"name": "aggregate-field", "kind": "aggregate",
+                             "params": {"field": "n", "combine": "add"}}])
+FAILOVER_SEAMS = ("stage", "h2d", "dispatch", "device", "fetch")
+FAILOVER_CHAINS = ("3_aggregate", "flu_regex_filter")
+
+
+def pushed_columns(batches):
+    """(offsets, lengths, values flat) of every record a consumer was
+    pushed, each batch encoded and decoded with the port's codec."""
+    return served_records(server_results(batches)[0])
+
+
+def decimal_truth(values):
+    """(lengths, flat) of the running sums of ``n`` over ``values`` as the
+    aggregate renders them."""
+    sums = np.cumsum(np.fromiter((json.loads(v)["n"] for v in values), np.int64, len(values)))
+    outs = [str(int(x)).encode() for x in sums]
+    return (np.fromiter(map(len, outs), np.int64, len(outs)),
+            np.frombuffer(b"".join(outs), np.uint8))
+
+
+def phase_failover():
+    """Phase 22: partitioned topics through a leader loss on the card,
+    `9_partitioned`'s configuration (`bench.py:211-225`):
+    ``regex-filter("fluvio")`` -> ``aggregate-field(n, add)`` over 524,288
+    `gen_json` records in 4 partitions of 131,072 (record i to partition
+    i mod 4), 2 groups, ``.*=spread``; each partition as 4 slabs of 32,768
+    records, interleaved across the partitions (16 slabs), through
+    `FailoverCoordinator(device="cuda")`:
+
+    (a) a clean run (and again after the seams' runs, warm); then, for
+        each seam ``stage``, ``h2d``, ``dispatch``, ``device``, ``fetch``, a
+        run whose leader dies on its third slab (a deterministic fault
+        armed ``first=1`` once two slabs are served):
+        one promotion (the chain rebuilt from its spec, every partition
+        seeded from its replicated carries, the un-acked slab replayed
+        through the ladder), timed; every run's carries, served values and
+        committed offsets equal the clean run's and the host truth. Then
+        ``device`` armed ``first=3`` from the start, the kept divergence:
+        the fault also meets the promoted chain's fused attempt and its card
+        re-run, so the slab that killed the leader is quarantined; the run
+        is held to exactly-once (every offset committed once, the
+        dead-letter entry holding that slab's records, the carries the
+        truth less that slab's);
+    (b) partition 0 migrated to the other group with its last two slabs
+        un-acked in the follower's log (replayed on the new group), then
+        the same with the replay failing on its second slab (rolled back,
+        the tail replayed by the next promotion): both end equal to the
+        clean run;
+    (c) the records stored as batches of 16,384 in a 4-partition topic
+        behind the port's `SpuServer` with the gate armed through
+        ``SpuConfig.partitions``; each partition consumed with the bench's
+        `ConsumerConfig` through ``3_aggregate`` and ``flu[vV]io``, gate
+        armed and unarmed in turns; every pass equal to host truth and
+        ``chain@bench/p`` booked for every partition; then the scope's own
+        cost a dispatch or finish, armed and unarmed, over 20,000 calls;
+    (d) the placement-error decline: a gate whose rules match no topic
+        ``bench`` books ``partition-placement-error`` twice for a slice,
+        which the card serves with no per-batch fallback.
+
+    Returns (numbers, launches of (a)-(d))."""
+    import asyncio
+    import os
+    import shutil
+    import tempfile
+
+    from fluvio_tpu_torch import partition
+    from fluvio_tpu_torch.client import Fluvio
+    from fluvio_tpu_torch.partition import (
+        BrokerPartitionGate,
+        FailoverCoordinator,
+        PartitionGateConfig,
+    )
+    from fluvio_tpu_torch.protocol.record import Record, RecordSet
+    from fluvio_tpu_torch.resilience import ResilienceConfig, faults, load_entry
+    from fluvio_tpu_torch.smartengine import SmartModuleChainMetrics
+    from fluvio_tpu_torch.smartmodule.types import SmartModuleInput
+    from fluvio_tpu_torch.spu import smart_chain
+    from fluvio_tpu_torch.spu.config import SpuConfig
+    from fluvio_tpu_torch.spu.server import SpuServer
+    from fluvio_tpu_torch.storage.config import ReplicaConfig
+    from fluvio_tpu_torch.telemetry import TELEMETRY
+
+    t_phase = time.perf_counter()
+    cfg, cases = FAILOVER_PHASE, shared_cases()
+    parts, slab_n, rules = cfg["partitions"], cfg["slab_records"], ".*=spread"
+    values = cases.gen_json(cfg["records"])
+    per_part = [values[p::parts] for p in range(parts)]
+    n_part = len(per_part[0])
+    slabs_per = n_part // slab_n
+    truth = [cases.partitioned_truth(v) for v in per_part]
+    sums = [running_sums(v) for v in per_part]
+    slabs = {(p, k): SmartModuleInput.from_records(
+        [Record(value=v) for v in per_part[p][k * slab_n:(k + 1) * slab_n]])
+        for p in range(parts) for k in range(slabs_per)}
+    stream = [(p, slabs[p, k]) for k in range(slabs_per) for p in range(parts)]
+    dl_dir = tempfile.mkdtemp(prefix="fluvio-failover-deadletter-")
+    numbers, launches = {}, {}
+
+    def measured(fn):
+        """``fn()`` with the launch counts set to 0 just before it and read
+        just after (the main path's runs)."""
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for k, v in cuda_kernels.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, dt
+
+    def coordinator():
+        return FailoverCoordinator(cfg["spec"], topic="bench", n_groups=cfg["groups"],
+                                   device="cuda", rules=parse_placement_rules(rules),
+                                   resilience=ResilienceConfig(deadletter_dir=dl_dir))
+
+    def timed_promotions(coord):
+        """Each ``coord.promote()``'s (seconds, records it replayed)."""
+        sink, inner = [], coord.promote
+
+        def promote():
+            replay = sum(slab.record_count() for key, plog in coord.logs.items()
+                         for _b, _n, slab in plog.unacked(coord.replica.latest(key)[0]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inner()
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t0, replay))
+
+        coord.promote = promote
+        return sink
+
+    def check(coord, label: str, less=None) -> None:
+        """Carries, served values and committed offsets of every partition
+        against the host truth (``less``: {partition: values dead-lettered})."""
+        less = less or {}
+        for p in range(parts):
+            gone = less.get(p, [])
+            want = [(truth[p] - cases.partitioned_truth(gone), 0, True)]
+            got = coord.final_carries(p)
+            committed = coord.leader.offsets.committed(partition_key("bench", p))
+            if got != want or committed != n_part:
+                raise AssertionError(f"failover {label}: partition {p} carries {got} (truth "
+                                     f"{want}), committed {committed} of {n_part}")
+            if not gone and coord.served_values(p) != sums[p]:
+                raise AssertionError(f"failover {label}: partition {p}'s served values differ "
+                                     "from the running sums")
+
+    def run(seam=None, first=1, kill_at=cfg["kill_at"]):
+        coord = coordinator()
+        promos = timed_promotions(coord)
+        if seam is None:
+            coord.run(stream)
+            return coord, promos
+        if first == 1:
+            coord.run(stream[:kill_at])
+        faults.FAULTS.inject(seam, first=first, exc="deterministic")
+        try:
+            coord.run(stream[kill_at:] if first == 1 else stream)
+        finally:
+            faults.FAULTS.clear()
+        return coord, promos
+
+    async def serve(log_dir):
+        """(c): every partition consumed per chain, gate armed and unarmed
+        in turns; returns ({chain: {"armed"|"unarmed": [records/s a pass]}},
+        the armed gate's plan)."""
+        config = SpuConfig(public_addr="127.0.0.1:0", private_addr="",
+                           log_base_dir=str(log_dir), cleaner_interval_seconds=0,
+                           replication=ReplicaConfig(base_dir=str(log_dir)),
+                           partitions=PartitionGateConfig(groups=cfg["groups"], rules=rules))
+        server = SpuServer(config)  # on the card
+        await server.start()
+        armed = partition.gate()
+        if not isinstance(armed, BrokerPartitionGate):
+            raise AssertionError(f"failover (c): the server's gate is {armed!r}")
+        rates = {name: {"armed": [], "unarmed": []} for name in FAILOVER_CHAINS}
+        try:
+            for p in range(parts):
+                leader = server.ctx.create_replica("bench", p)
+                for b in cases.broker_log(per_part[p], cfg["batch_records"])[1]:
+                    records = RecordSet()
+                    records.add(b)
+                    await leader.write_record_set(records)
+            client = await Fluvio.connect(server.public_addr)
+            try:
+                for name in FAILOVER_CHAINS:
+                    config = cases.server_consumer_config(cases.server_invocations(name),
+                                                          BROKER["max_bytes"])
+                    for turn in range(cfg["turns"]):
+                        for on in ((True, False) if turn % 2 == 0 else (False, True)):
+                            partition.set_gate(armed if on else None)
+                            for p in range(parts):
+                                consumer = await client.partition_consumer("bench", p)
+                                (got, _), dt = await measured_async(
+                                    lambda: cases.consume_once(consumer, config))
+                                offs, lens, flat = pushed_columns(got)
+                                if name == "3_aggregate":
+                                    t_len, t_flat = agg_truth[p]
+                                    t_off = np.arange(n_part)
+                                else:
+                                    keep = [i for i, v in enumerate(per_part[p])
+                                            if _FLU.search(v)]
+                                    t_off = np.array(keep, np.int64)
+                                    t_len = np.array([len(per_part[p][i]) for i in keep])
+                                    t_flat = np.frombuffer(b"".join(per_part[p][i] for i in keep),
+                                                           np.uint8)
+                                if (not np.array_equal(offs, t_off)
+                                        or not np.array_equal(lens, t_len)
+                                        or not np.array_equal(flat, t_flat)):
+                                    raise AssertionError(
+                                        f"failover (c) {name}: partition {p} (gate "
+                                        f"{'armed' if on else 'unarmed'}) differs from host "
+                                        f"truth ({len(offs)} records, truth {len(t_off)})")
+                                rates[name]["armed" if on else "unarmed"].append(n_part / dt)
+            finally:
+                await client.close()
+        finally:
+            await server.stop()
+        return rates, armed.plan.to_dict()
+
+    async def measured_async(make):
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = await make()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for k, v in cuda_kernels.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, dt
+
+    agg_truth = [decimal_truth(v) for v in per_part]
+    try:
+        # (a) the clean run and a leader death at each seam
+        (clean, clean_promos), clean_s = measured(run)
+        check(clean, "(a) clean run")
+        if clean.promotions or clean_promos:
+            raise AssertionError(f"failover (a): the clean run promoted {clean.promotions}")
+        seams = {}
+        for seam in FAILOVER_SEAMS:
+            (coord, promos), dt = measured(lambda: run(seam))
+            check(coord, f"(a) {seam}")
+            if coord.promotions != 1 or len(promos) != 1:
+                raise AssertionError(f"failover (a) {seam}: {coord.promotions} promotions")
+            prom_s, replayed = promos[0]
+            if replayed != slab_n:
+                raise AssertionError(f"failover (a) {seam}: replayed {replayed} records")
+            seams[seam] = {"run_s": dt, "promotion_s": prom_s, "replayed": replayed,
+                           "replayed_records_per_s": replayed / prom_s}
+        # the process's first run pays its warm-up: a clean run again, warm
+        (again, _), warm_s = measured(run)
+        check(again, "(a) warm clean run")
+        numbers["clean_run_s"] = clean_s
+        numbers["clean_records_per_s"] = cfg["records"] / clean_s
+        numbers["warm_clean_run_s"] = warm_s
+        numbers["warm_clean_records_per_s"] = cfg["records"] / warm_s
+        numbers["seams"] = seams
+        log(f"failover (a): clean run {clean_s:.3f} s ({cfg['records'] / clean_s:.0f} records/s, "
+            f"16 slabs of {slab_n}), again after the seams {warm_s:.3f} s "
+            f"({cfg['records'] / warm_s:.0f} records/s); the leader killed on its third slab at each seam, one "
+            "promotion each, every run equal to the host truth: " + ", ".join(
+                f"{s} promotion {v['promotion_s'] * 1e3:.1f} ms ({v['replayed']} records "
+                f"replayed, {v['replayed_records_per_s']:.0f} records/s; run {v['run_s']:.3f} s)"
+                for s, v in seams.items()))
+        (coord, promos), dt = measured(lambda: run("device", first=3))
+        entries = sorted(f for f in os.listdir(dl_dir) if f.endswith(".json"))
+        if len(entries) != 1:
+            raise AssertionError(f"failover (a) device first=3: dead-letter entries {entries}")
+        _spec, dead = load_entry(os.path.join(dl_dir, entries[0]))
+        dead_values = [r.value for r in dead.records]
+        if dead_values != per_part[0][:slab_n]:
+            raise AssertionError("failover (a) device first=3: the dead-letter entry is not "
+                                 "partition 0's first slab")
+        check(coord, "(a) device first=3", less={0: dead_values})
+        numbers["first3_divergence"] = {"run_s": dt, "promotions": coord.promotions,
+                                        "dead_lettered": len(dead_values),
+                                        "promotion_s": [s for s, _ in promos]}
+        log(f"failover (a) device first=3 (kept divergence): {coord.promotions} promotions, "
+            f"partition 0's first slab ({len(dead_values)} records) quarantined by the "
+            f"promoted chain's re-run; every offset committed once, carries the truth less that "
+            f"slab; run {dt:.3f} s")
+
+        # (b) a migration, then a rollback
+        def migrate(fail_second: bool):
+            coord = coordinator()
+            promos = timed_promotions(coord)
+            head = [(p, s) for p, s in stream[:parts * (slabs_per - 2)]]
+            coord.run(head)
+            key = partition_key("bench", 0)
+            base = coord.leader.offsets.committed(key)
+            for k in (slabs_per - 2, slabs_per - 1):
+                coord.logs[key].append(base, base + slab_n, slabs[0, k])
+                base += slab_n
+            src = coord.leader.plan.assignments[key]
+            dst = next(g for g in coord.leader.plan.live_groups() if g != src)
+            if fail_second:
+                real, calls = coord.leader.process_chain, []
+
+                def dies(topic, part, slab):
+                    calls.append(1)
+                    if len(calls) == 2:
+                        raise RuntimeError("the new group's card failed mid-replay")
+                    return real(topic, part, slab)
+
+                coord.leader.process_chain = dies
+            torch.cuda.synchronize()
+            res = coord.migrate_partition(0, dst, reason="lag", clock=time.perf_counter)
+            if fail_second:
+                del coord.leader.process_chain
+                if res["ok"] or res["replayed"] != 1 or coord.leader.plan.assignments[key] != src:
+                    raise AssertionError(f"failover (b): the rollback gave {res}")
+                coord.promote()
+            elif not (res["ok"] and res["moved"] and res["replayed"] == 2):
+                raise AssertionError(f"failover (b): the migration gave {res}")
+            coord.run([(p, s) for p, s in stream[parts * (slabs_per - 2):] if p != 0])
+            check(coord, "(b) rollback" if fail_second else "(b) migration")
+            return res, promos
+
+        (mig, _), mig_dt = measured(lambda: migrate(False))
+        (rb, rb_promos), rb_dt = measured(lambda: migrate(True))
+        numbers["migration"] = {"seconds": mig["seconds"], "replayed_slabs": mig["replayed"],
+                                "run_s": mig_dt,
+                                "replayed_records_per_s": 2 * slab_n / mig["seconds"]}
+        numbers["rollback"] = {"seconds": rb["seconds"], "replayed_slabs": rb["replayed"],
+                               "recovery_promotion_s": rb_promos[0][0], "run_s": rb_dt}
+        log(f"failover (b): partition 0 migrated {mig['from']} -> {mig['to']} replaying 2 slabs "
+            f"({2 * slab_n} records) in {mig['seconds'] * 1e3:.1f} ms; the replay failed on its "
+            f"second slab and rolled back in {rb['seconds'] * 1e3:.1f} ms, the next promotion "
+            f"replayed the tail in {rb_promos[0][0] * 1e3:.1f} ms; both equal to the host truth")
+
+        # (c) the SPU's consume through the armed gate, in turns with unarmed
+        sigs = [smart_chain.build_chain(cases.server_invocations(name),
+                                        SmartEngine(device="cuda")).gpu_chain._chain_sig
+                for name in FAILOVER_CHAINS]
+        keys = [f"{sig}@bench/{p}" for sig in sigs for p in range(parts)]
+        counts0 = {k: h.count for k, h in TELEMETRY.chain_hist_copies().items()}
+        log_dir = tempfile.mkdtemp(prefix="fluvio-failover-spu-")
+        try:
+            rates, plan = asyncio.run(serve(log_dir))
+        finally:
+            partition.configure(PartitionGateConfig())
+            shutil.rmtree(log_dir, ignore_errors=True)
+        hists = TELEMETRY.chain_hist_copies()
+        unplaced = [k for k in keys if k not in hists or hists[k].count <= counts0.get(k, 0)]
+        if unplaced:
+            raise AssertionError(f"failover (c): no armed slice booked under {unplaced}")
+        # what the stream handler pays a dispatch or a finish: the scope's
+        # enter and exit with the gate armed, the one global read unarmed
+        ex = build_chain([(m["name"], m["params"]) for m in cfg["spec"]])
+        partition.set_gate(BrokerPartitionGate(cfg["groups"], parse_placement_rules(rules)))
+        calls = cfg["scope_calls"]
+        t0 = time.perf_counter()
+        for k in range(calls):
+            scope = smart_chain._enter_partition_scope("bench", k & 3, ex)
+            scope.__exit__(None, None, None)
+        armed_us = (time.perf_counter() - t0) / calls * 1e6
+        partition.configure(PartitionGateConfig())
+        t0 = time.perf_counter()
+        for k in range(calls):
+            smart_chain._enter_partition_scope("bench", k & 3, ex)
+        unarmed_us = (time.perf_counter() - t0) / calls * 1e6
+        numbers["scope_us"] = {"armed": armed_us, "unarmed": unarmed_us}
+        numbers["consume"] = {
+            name: {arm: {"records_per_s_median": statistics.median(r), "records_per_s": r}
+                   for arm, r in by.items()} for name, by in rates.items()}
+        numbers["gate_plan"] = plan["assignments"]
+        log(f"failover (c): {parts} partitions x {n_part} records behind SpuServer, each "
+            "consumed per partition, gate armed vs unarmed in turns (median records/s a "
+            "partition): " + ", ".join(
+                f"{name} {by['armed']['records_per_s_median']:.0f} armed / "
+                f"{by['unarmed']['records_per_s_median']:.0f} unarmed"
+                for name, by in numbers["consume"].items())
+            + f"; every pass equal to host truth; booked under {keys}; gate plan "
+              f"{plan['assignments']}; the scope {armed_us:.2f} us a dispatch or finish "
+              f"armed, {unarmed_us:.3f} us unarmed")
+
+        # (d) the placement-error decline
+        chain = smart_chain.build_chain(cases.server_invocations("flu_regex_filter"),
+                                        SmartEngine(device="cuda"))
+        partition.set_gate(BrokerPartitionGate(cfg["groups"],
+                                               parse_placement_rules("orders/.*=0")))
+        try:
+            batches = cases.broker_log(per_part[0][:cfg["batch_records"]],
+                                       cfg["batch_records"])[1]
+            metrics = SmartModuleChainMetrics()
+            d0 = TELEMETRY.declines.get("partition-placement-error", 0)
+            result, d_dt = measured(lambda: smart_chain.process_batches(
+                chain, batches, BROKER["max_bytes"], metrics, 0, topic="bench", partition=0))
+            booked = TELEMETRY.declines.get("partition-placement-error", 0) - d0
+        finally:
+            partition.configure(PartitionGateConfig())
+        offs, lens, flat = served_records([result])
+        keep = [i for i, v in enumerate(per_part[0][:cfg["batch_records"]]) if _FLU.search(v)]
+        if (booked != 2 or metrics.fallback_slices or metrics.fastpath_slices != 1
+                or not np.array_equal(offs, np.array(keep, np.int64))
+                or not np.array_equal(flat, np.frombuffer(
+                    b"".join(per_part[0][i] for i in keep), np.uint8))):
+            raise AssertionError(f"failover (d): {booked} placement-error declines, metrics "
+                                 f"{metrics.to_dict()}, {len(offs)} records (truth {len(keep)})")
+        numbers["placement_error"] = {"declines": booked, "slice_ms": d_dt * 1e3}
+        log(f"failover (d): a slice of topic bench under rules orders/.*=0 booked "
+            f"partition-placement-error {booked} times and served on the card "
+            f"({len(offs)} records, {d_dt * 1e3:.1f} ms, no per-batch fallback)")
+    finally:
+        faults.FAULTS.clear()
+        partition.configure(PartitionGateConfig())
+        shutil.rmtree(dl_dir, ignore_errors=True)
+    for kernel in ("json_span", "extract", "dfa_scan"):
+        if launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"failover: {kernel} never launched in phase 22 ({launches})")
+    numbers["launches"] = {k: launches.get(k, 0) for k in ("json_span", "extract", "dfa_scan")}
+    numbers["wall_s"] = time.perf_counter() - t_phase
+    log(f"failover: phase 22 took {numbers['wall_s']:.1f} s; launches "
+        f"{json.dumps(numbers['launches'])}")
+    return numbers, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -5371,6 +5805,10 @@ def main(argv=None) -> int:
                              "each seam, the card re-run, the quarantine, the breaker, the "
                              "consume path's decline, the windowed retry and a cut DSL run "
                              "(phase 21; no ok line)")
+    parser.add_argument("--failover-only", action="store_true",
+                        help="build the kernels and run only partitioned topics through a "
+                             "leader loss: promotion at each seam, a migration and its "
+                             "rollback, the SPU's partition gate (phase 22; no ok line)")
     parser.add_argument("--striped-slice-only", action="store_true",
                         help="build the kernels and run only phase 12 (with phase 9's aggregate "
                              "chains and phase 11, whose D2H it reads; no ok line)")
@@ -5480,6 +5918,11 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"resilience": numbers, "launches": launches}))
         return 0
+    if args.failover_only:
+        numbers, launches = phase_failover()
+        print(smi)
+        print(json.dumps({"failover": numbers, "launches": launches}))
+        return 0
     if args.striped_slice_only:
         json_corpora = [gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)]
         slice_numbers, _ops = phase_slice(json_corpora, ("3_aggregate", "filter_aggregate"))
@@ -5537,6 +5980,8 @@ def main(argv=None) -> int:
     lap("20 hooks")
     res_numbers, res_launches = phase_resilience(corpora)
     lap("21 resilience")
+    fo_numbers, fo_launches = phase_failover()
+    lap("22 failover")
     log(f"replication beside the cluster: north star by name through the SC from the promoted "
         f"leader {repl_numbers['north_star_after_failover']['sc_records_per_s']:.0f} records/s, "
         f"phase 15's (b) {cluster_numbers_['consume_by_name']['sc_records_per_s']:.0f}; produce "
@@ -5553,7 +5998,8 @@ def main(argv=None) -> int:
                 "telemetry": {"launches": telemetry_launches},
                 "admission": {"launches": admission_launches},
                 "hooks": {"launches": hooks_launches},
-                "resilience": {"launches": res_launches}}
+                "resilience": {"launches": res_launches},
+                "failover": {"launches": fo_launches}}
     for r in rows:
         r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in by_chain.items()}
     chain_launches = [v["launches"] for v in by_chain.values()]
@@ -5586,6 +6032,7 @@ def main(argv=None) -> int:
                     "admission": admission_numbers,
                     "hooks": hooks_numbers,
                     "resilience": res_numbers,
+                    "failover": fo_numbers,
                     "build_seconds": KERNELS.build_seconds}))
     log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
                     "device": smi}))

@@ -5,7 +5,8 @@ state (DFA tables), the staged record columns, with the glz link on the
 compressed token streams, the live carry of a windowed stream (its spec
 and its state bank) and a partitioned topic's placement plan (each
 partition's carries go across as the plain ints that
-`PartitionRuntime.seed_partition` takes) and, for the cluster, the SC's
+`PartitionRuntime.seed_partition` takes, and a follower's replicated
+carry snapshot, `carry_state_from_reference`) and, for the cluster, the SC's
 metadata objects (topics, partitions, SPUs, SmartModules). These
 functions take them as plain values and numpy arrays — as the JAX package's `CompiledDfa`,
 `RecordBuffer` and glz `Compressed` hold them — and build the port's
@@ -22,6 +23,7 @@ from fluvio_tpu_torch.metadata import SPEC_BY_KIND
 from fluvio_tpu_torch.ops.regex_dfa import CompiledDfa
 from fluvio_tpu_torch.partition.placement import PlacementPlan, PlacementRule
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+from fluvio_tpu_torch.smartengine.gpu.executor import GpuChainExecutor
 from fluvio_tpu_torch.smartengine.gpu.glz import Compressed
 from fluvio_tpu_torch.stream_model import MetadataStoreObject
 from fluvio_tpu_torch.windows.spec import WindowSpec
@@ -127,6 +129,36 @@ def carries_from_reference(executor, carries):
     executor.carries = carries
     executor._device_carries = None  # the host list is the state now
     return executor
+
+
+def carry_state_from_reference(latest, chain):
+    """A JAX `CarryReplica.latest(key)`, ``(committed, carries,
+    inst_state)`` as plain values, -> the port's, for ``chain`` (the port's
+    `SmartModuleChainInstance` of the same spec): the carries as
+    ``(accumulator, window, has)`` ints, and the reference's per-instance
+    ``(accumulator, window_start)`` state as the port's segment snapshot
+    (`SmartModuleChainInstance._snapshot` form: a card segment's carries,
+    its slice of ``carries`` in order; a host segment's accumulator, its
+    instance's). Seeding a port `FailoverCoordinator`'s replica with it
+    promotes from the JAX leader's last commit."""
+    committed, carries, inst = latest
+    if carries is None:
+        return int(committed), None, None
+    carries = [(int(acc), int(win), bool(has)) for acc, win, has in carries]
+    if inst is None:
+        return int(committed), carries, None
+    snapshot, slot = [], 0
+    for seg in chain.segments:
+        if isinstance(seg, GpuChainExecutor):
+            n = len(seg.agg_configs)
+            snapshot.append((None, carries[slot: slot + n]))
+            slot += n
+        else:
+            k = next(i for i, x in enumerate(chain.instances) if x is seg)
+            snapshot.append(bytes(inst[k][0] or b""))
+    if slot != len(carries):
+        raise ValueError(f"{len(carries)} carries for a chain of {slot} card aggregates")
+    return int(committed), carries, snapshot
 
 
 def metadata_from_reference(objects) -> list:

@@ -65,6 +65,17 @@ class PlacementRule:
 DEFAULT_RULES: Tuple[PlacementRule, ...] = (PlacementRule(".*", "hash"),)
 
 
+@dataclass(frozen=True)
+class PartitionGateConfig:
+    """The broker's partition gate (the reference's ``FLUVIO_PARTITIONS``
+    and ``FLUVIO_PARTITION_RULES``): ``groups`` device groups (0: the gate
+    is unarmed) placed by ``rules`` in `parse_placement_rules` syntax
+    (None: `DEFAULT_RULES`)."""
+
+    groups: int = 0
+    rules: Optional[str] = None
+
+
 def parse_placement_rules(spec: Optional[str]) -> Tuple[PlacementRule, ...]:
     """Parse the rule grammar ``"pat=group;pat=group"``; empty or None
     yields the default hash-everything rule. Malformed specs raise

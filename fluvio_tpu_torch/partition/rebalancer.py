@@ -12,10 +12,11 @@ actuator, so a skewed workload drains while other groups idle.
   reads the telemetry registry's consumer-lag family after a pull-join
   (`_default_lag_reader`), as the reference's does.
 - **The mover is injected** (``mover(plan_key, group, reason)``; a
-  runtime's or a gate's ``move_partition``). A mover returning a dict has
-  done its own accounting; a bare truthy return means the rebalancer books
-  the move itself, on the registry's ``rebalance_moves`` and migration
-  families too.
+  runtime's or a gate's ``move_partition``, or a failover coordinator's
+  ``migrate_partition`` for the key's partition). A mover returning a dict
+  (``migrate_partition``'s move document) has done its own accounting; a
+  bare truthy return means the rebalancer books the move itself, on the
+  registry's ``rebalance_moves`` and migration families too.
 - **Storms are bounded by construction**: per-partition cooldown, a
   max-moves budget per tick, and an absolute-lag hysteresis floor. An
   oscillating load moves a key at most once per cooldown window.

@@ -22,6 +22,21 @@ Threading: like the executor, a runtime is driven by ONE dispatcher at a
 time. Its lock guards only the control-plane maps (states, plan), so a
 rebalancer thread can move partitions while batches run.
 
+The full ladder. A runtime built with ``chain=`` (the
+`SmartModuleChainInstance` whose card segment ``executor`` is) also runs
+one partition slab through the engine's whole ladder (`process_chain`:
+the executor's retries, the card re-run, the quarantine), the promotion
+replay of `failover.FailoverCoordinator`. Besides the executor's carries,
+each partition then keeps the state of the chain's other segments (a
+mixed chain's host hooks and further card segments, in
+`SmartModuleChainInstance._snapshot` form), swapped in the same way.
+
+The broker's gate. `BrokerPartitionGate` is the SPU's placement seam: a
+broker stream already owns its chain (one stream, one partition), so the
+gate gives each slice its partition's group, the ``chain@topic/partition``
+identity on the executor and, on the card, its group's device
+(`_GateScope`). It folds under the same one-device rule.
+
 Telemetry (the reference's seams): a partition's leader registers its
 ``topic/partition`` key with the lag engine and each ``advance`` moves its
 committed offset there, so the rebalancer's default lag reader sees it;
@@ -32,6 +47,7 @@ of one entry) and retired by `seed_partition`.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -41,13 +57,16 @@ from typing import Dict, Iterable, List, Optional
 import torch
 
 from fluvio_tpu_torch.partition.placement import (
+    DEFAULT_RULES,
     PlacementPlan,
     device_for_group,
     fold_shape,
     make_partition_fold,
     partition_key,
+    plan_placement,
+    validate_rules,
 )
-from fluvio_tpu_torch.smartengine.gpu.executor import _Carry
+from fluvio_tpu_torch.smartengine.gpu.executor import GpuChainExecutor, _Carry
 from fluvio_tpu_torch.telemetry import TELEMETRY
 from fluvio_tpu_torch.telemetry import lag as lag_mod
 from fluvio_tpu_torch.types import OffsetPublisher
@@ -131,6 +150,10 @@ class PartitionState:
     host_carries: List[tuple] = field(default_factory=list)
     carry_device: Optional[torch.device] = None  # where device_carries live
     batches: int = 0
+    # the chain's other segments' state (`process_chain`), one entry a
+    # segment in `SmartModuleChainInstance._snapshot` form; the runtime's
+    # own executor's entry is unused (its carries are the two above)
+    inst_state: Optional[list] = None
 
 
 def _canonical(dev: torch.device) -> torch.device:
@@ -141,33 +164,50 @@ def _canonical(dev: torch.device) -> torch.device:
     return dev
 
 
+def _one_device_fold(n_groups: int, devices, executor_device=None):
+    """The groups' fold (`make_partition_fold`), which must name one device
+    (and, given ``executor_device``, that one): cross-card placement is
+    ``ROADMAP.md`` §1 item 6. Raises `ValueError` otherwise."""
+    fold = make_partition_fold(n_groups, devices=devices)
+    distinct = {_canonical(d) for row in fold for d in row}
+    if len(distinct) > 1:
+        raise ValueError(
+            f"the partition fold spans {len(distinct)} devices; this runtime runs "
+            "every group on its executor's one device (cross-card placement is "
+            "ROADMAP.md §1 item 6)"
+        )
+    if executor_device is not None and distinct != {_canonical(executor_device)}:
+        raise ValueError(
+            f"the partition fold's device {fold[0][0]} is not the executor's "
+            f"{executor_device}"
+        )
+    return fold
+
+
+def _device_scope(dev: torch.device):
+    """The current-device scope of a group's device (nothing on the CPU)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
 class PartitionRuntime:
     """Partition-parallel execution over one lowered chain.
 
     ``executor`` is the shared `GpuChainExecutor`; ``plan`` the placement;
     ``devices`` the devices to fold the groups onto (None: every visible
     CUDA device, raising without one). Every group's lead device must be
-    ``executor.device``.
+    ``executor.device``. ``chain`` (optional) is the chain instance that
+    holds ``executor`` as a segment; with it, `process_chain` runs the
+    engine's full ladder per partition.
     """
 
-    def __init__(self, executor, plan: PlacementPlan, devices=None):
+    def __init__(self, executor, plan: PlacementPlan, devices=None, chain=None):
         if executor is None:
             raise ValueError("PartitionRuntime needs a GPU chain executor")
-        fold = make_partition_fold(plan.n_groups, devices=devices)
-        distinct = {_canonical(d) for row in fold for d in row}
-        if len(distinct) > 1:
-            raise ValueError(
-                f"the partition fold spans {len(distinct)} devices; this runtime runs "
-                "every group on its executor's one device (cross-card placement is "
-                "ROADMAP.md §1 item 6)"
-            )
-        if distinct != {_canonical(executor.device)}:
-            raise ValueError(
-                f"the partition fold's device {fold[0][0]} is not the executor's "
-                f"{executor.device}"
-            )
+        if chain is not None and not any(seg is executor for seg in chain.segments):
+            raise ValueError("the executor is not a segment of the chain")
         self._executor = executor
-        self._fold = fold
+        self._fold = _one_device_fold(plan.n_groups, devices, executor.device)
+        self._chain = chain
         self._lock = threading.Lock()
         self._plan = plan
         self._states: Dict[str, PartitionState] = {}
@@ -176,7 +216,22 @@ class PartitionRuntime:
         # aggregates, never the live executor's carries (a warmed executor
         # may already hold another stream's sums)
         self._seed_carries = executor.initial_carries()
+        self._seed_inst = self._seed_segments() if chain is not None else None
         self._stateful = bool(executor.agg_configs)
+
+    def _seed_segments(self) -> list:
+        """What a new partition's other segments start from, from the chain
+        spec as the carries are: a card segment's initial carries, a host
+        segment's ``initial_data``."""
+        out: list = []
+        for seg in self._chain.segments:
+            if seg is self._executor:
+                out.append(None)
+            elif isinstance(seg, GpuChainExecutor):
+                out.append((None, seg.initial_carries()))
+            else:
+                out.append(seg.config.initial_data)
+        return out
 
     # -- control plane -------------------------------------------------------
 
@@ -209,7 +264,9 @@ class PartitionRuntime:
                 if key not in self._plan.assignments:
                     self._plan = self._plan.with_partitions([key])
                 st = PartitionState(key=key, group=self._plan.assignments[key],
-                                    host_carries=list(self._seed_carries))
+                                    host_carries=list(self._seed_carries),
+                                    inst_state=(list(self._seed_inst)
+                                                if self._seed_inst is not None else None))
                 self._states[key] = st
             return st
 
@@ -298,16 +355,22 @@ class PartitionRuntime:
             return [(int(acc), int(win), bool(has)) for acc, win, has in host]
         return [tuple(c) for c in st.host_carries]
 
-    def seed_partition(self, topic: str, partition: int, host_carries: Iterable[tuple]) -> None:
+    def seed_partition(self, topic: str, partition: int, host_carries: Iterable[tuple],
+                       inst_state: Optional[list] = None) -> None:
         """Install replicated carry state (follower promotion): the
         partition resumes from the snapshot, on its group's device again at
-        its next dispatch."""
+        its next dispatch. ``inst_state`` is the chain's other segments'
+        state (`process_chain`'s form); None starts them from the spec."""
         st = self._state(partition_key(topic, partition))
         st.device_carries = None
         st.carry_device = None
         # the old device-resident bank is garbage now: retire its booking
         TELEMETRY.mem_release(("carry", st.key))
         st.host_carries = [tuple(c) for c in host_carries]
+        if inst_state is not None:
+            st.inst_state = list(inst_state)
+        elif self._seed_inst is not None:
+            st.inst_state = list(self._seed_inst)
 
     # -- data plane ----------------------------------------------------------
 
@@ -413,6 +476,33 @@ class PartitionRuntime:
             if pool is not None:
                 pool.shutdown(wait=True)
 
+    def process_chain(self, topic: str, partition: int, inp):
+        """One partition slab (a `SmartModuleInput`) through the chain's
+        full ladder (`SmartModuleChainInstance.process`: the executor's
+        retries, the card re-run, the quarantine) on the partition's state:
+        the executor's carries swap as in `dispatch`, every other segment's
+        state through the chain's ``_snapshot`` / ``_restore``. A
+        quarantined slab leaves the partition where the slab found it. The
+        promotion replay's entry point (`failover.py`). Returns the chain's
+        `SmartModuleOutput`."""
+        if self._chain is None:
+            raise ValueError("process_chain needs the runtime built with chain=")
+        st = self._state(partition_key(topic, partition))
+        chain, ex = self._chain, self._executor
+        prev_segments = chain._snapshot()
+        prev = self._swap_in(st)
+        chain._restore([(ex._device_carries, list(ex.carries)) if seg is ex else state
+                        for seg, state in zip(chain.segments, st.inst_state)])
+        try:
+            with _device_scope(self.device_of(st.group)):
+                return chain.process(inp)
+        finally:
+            self._capture(st)
+            st.inst_state = [None if seg is ex else state
+                             for seg, state in zip(chain.segments, chain._snapshot())]
+            chain._restore(prev_segments)
+            self._swap_out(prev)
+
     # -- observability -------------------------------------------------------
 
     def to_dict(self) -> dict:
@@ -426,3 +516,94 @@ class PartitionRuntime:
             "offsets": self.offsets.snapshot(),
             "mesh": {"axes": fold_shape(self._fold)},
         }
+
+
+class BrokerPartitionGate:
+    """The broker's placement seam (`SpuConfig.partitions`, or
+    `fluvio_tpu_torch.partition.set_gate`).
+
+    A broker stream owns its chain (one stream, one partition), so its
+    carries are per partition already; what the gate adds is placement:
+    each slice's dispatches and finish run in its partition's group scope
+    (`scope`), with the ``chain@topic/partition`` identity on the spans,
+    declines and down-link families. ``rules`` (None: `DEFAULT_RULES`) are
+    validated here, so a rule pinning a group past ``n_groups`` fails when
+    the gate is built, never on the first slice of some topic. The groups
+    fold onto ``devices`` (None: the visible CUDA devices) under the
+    runtime's one-device rule."""
+
+    def __init__(self, n_groups: int, rules=None, devices=None):
+        rules = tuple(rules) if rules is not None else DEFAULT_RULES
+        validate_rules(rules, n_groups)
+        self._lock = threading.Lock()
+        self._plan = plan_placement(rules, [], n_groups)
+        self._fold = _one_device_fold(n_groups, devices)
+
+    @property
+    def plan(self) -> PlacementPlan:
+        with self._lock:
+            return self._plan
+
+    def device_of(self, group: int) -> torch.device:
+        return device_for_group(self._fold, group)
+
+    def group_for(self, topic: str, partition: int) -> int:
+        """The partition's group, placed by the rules on first sight (no
+        matching rule raises `ValueError`)."""
+        key = partition_key(topic, partition)
+        with self._lock:
+            if key not in self._plan.assignments:
+                self._plan = self._plan.with_partitions([key])
+            return self._plan.assignments[key]
+
+    def fail_group(self, group: int) -> None:
+        with self._lock:
+            self._plan = self._plan.rebalance(group)
+
+    def move_partition(self, topic: str, partition: int, group: int) -> bool:
+        """Voluntary move (the rebalancer's actuator): the stream's slices
+        take the new group from the next one; the vacated group stays
+        schedulable. Returns whether the assignment changed."""
+        key = partition_key(topic, partition)
+        with self._lock:
+            plan = self._plan
+            if key not in plan.assignments:
+                plan = plan.with_partitions([key])
+            new_plan = plan.move_partition(key, group)
+            changed = new_plan is not plan
+            self._plan = new_plan
+        return changed
+
+    def scope(self, topic: str, partition: int, executor) -> "_GateScope":
+        """A context manager: the partition's identity on ``executor`` and
+        its group's device for one slice's dispatches or finish."""
+        return _GateScope(self, topic, partition, executor)
+
+
+class _GateScope:
+    def __init__(self, gate: BrokerPartitionGate, topic: str, partition: int, executor):
+        self._gate = gate
+        self._topic = topic
+        self._partition = partition
+        self._ex = executor
+        self._prev = None
+        self._dev_ctx = None
+
+    def __enter__(self) -> int:
+        group = self._gate.group_for(self._topic, self._partition)
+        dev = self._gate.device_of(group)
+        if _canonical(dev) != _canonical(self._ex.device):
+            # the executor's lowered constants live on its one device
+            raise ValueError(f"group {group} is on {dev}, the chain on {self._ex.device}")
+        self._prev = self._ex.set_partition_identity(
+            partition_key(self._topic, self._partition), group)
+        self._dev_ctx = _device_scope(dev)
+        self._dev_ctx.__enter__()
+        return group
+
+    def __exit__(self, *exc) -> bool:
+        try:
+            self._dev_ctx.__exit__(*exc)
+        finally:
+            self._ex.restore_partition_identity(self._prev)
+        return False

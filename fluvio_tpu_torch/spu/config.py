@@ -17,7 +17,10 @@ endpoint, "": its default path) and ``telemetry`` the `TelemetryConfig`
 the server applies to the process at construction (None: leave the
 process's telemetry settings as they are); ``admission`` likewise the
 `AdmissionConfig` (None: leave the process's admission settings as they
-are, which start disarmed). ``smart_engine.resilience`` holds the
+are, which start disarmed) and ``partitions`` the broker's partition gate
+(`PartitionGateConfig`: device groups and placement rules; None leaves
+the process's gate, unarmed unless configured, and ``groups`` 0 disarms
+it). ``smart_engine.resilience`` holds the
 chains' retry, breaker and dead-letter budgets (`ResilienceConfig`); a
 dead-letter directory left at its default goes under ``log_base_dir``
 (``<log_base_dir>/deadletter``). The port reads no environment variable:
@@ -31,6 +34,7 @@ from dataclasses import dataclass, field, replace
 from typing import Optional
 
 from fluvio_tpu_torch.admission.types import AdmissionConfig
+from fluvio_tpu_torch.partition.placement import PartitionGateConfig
 from fluvio_tpu_torch.resilience.policy import DEFAULT_DEADLETTER_DIR, ResilienceConfig
 from fluvio_tpu_torch.smartengine.engine import DEFAULT_STORE_MAX_MEMORY
 from fluvio_tpu_torch.storage.config import ReplicaConfig
@@ -70,6 +74,10 @@ class SpuConfig:
     # admission control (the shed/hold gate and the chain warm-up); None
     # leaves the process's settings (disarmed unless configured)
     admission: Optional[AdmissionConfig] = None
+    # the broker's partition gate (each stream's slices placed by partition
+    # onto the engine's device); None leaves the process's (unarmed unless
+    # configured), groups 0 disarms it
+    partitions: Optional[PartitionGateConfig] = None
     # retention cleaner pass period (cleaner.rs:20 `CLEANING_INTERVAL`);
     # <= 0 disables the background task
     cleaner_interval_seconds: float = 30.0

@@ -715,7 +715,8 @@ class StreamFetchHandler:
             if current < bound:
                 slices = stream_slices(chain, read, current, bound, req.max_bytes, self.metrics,
                                        flow_label=(self._lag_key, self._tenant),
-                                       admit=lambda flow: self._admit(chain, flow))
+                                       admit=lambda flow: self._admit(chain, flow),
+                                       topic=req.topic, partition=req.partition)
                 try:
                     while True:
                         try:

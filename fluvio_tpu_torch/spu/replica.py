@@ -6,8 +6,9 @@ The port's copy of the leader half of ``fluvio_tpu/spu/replica.py``
 `LeaderReplicaState` owns the `FileReplica`, serializes writes
 (`write_record_set`), and publishes LEO and HW changes on
 `OffsetPublisher`s, which wake the stream-fetch loops and the followers'
-push loops. With ``in_sync_replica`` 1 the high watermark advances on the
-local write; above 1 it advances as followers report their offsets
+push loops, and a chain's replicated carry (`publish_carry`). With
+``in_sync_replica`` 1 the high watermark advances on the local write;
+above 1 it advances as followers report their offsets
 (`update_follower_offsets`, replica_state.rs:172), to the highest offset
 ``in_sync_replica - 1`` followers hold. A chain attached as ``sm_chain``
 (a topic's dedup filter, `smart_chain.ensure_dedup_chain`, whose hooks run
@@ -17,7 +18,7 @@ on the host) transforms every produced record set before the log append.
 from __future__ import annotations
 
 import asyncio
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from fluvio_tpu_torch.protocol.error import ErrorCode, FluvioError
 from fluvio_tpu_torch.protocol.record import RecordSet
@@ -62,6 +63,12 @@ class LeaderReplicaState:
         # the log append (parity: replica_state.rs:394-405 sm_ctx)
         self.sm_chain = None
         self.sm_chain_metrics = None
+        # the partition layer's carry replication (partition/failover.py):
+        # a chain's few-scalar aggregate carry at the last committed
+        # consumer offset, on its own bus; a promoted follower seeds from
+        # it and replays only the un-acked suffix
+        self.carry_state: Optional[tuple] = None  # (committed, carries)
+        self.carry_publisher = OffsetPublisher(-1)
 
     # -- offsets ------------------------------------------------------------
 
@@ -79,6 +86,12 @@ class LeaderReplicaState:
         if isolation == Isolation.READ_COMMITTED:
             return self.hw_publisher
         return self.leo_publisher
+
+    def publish_carry(self, committed_offset: int, carries) -> None:
+        """Replicate the chain's aggregate carry snapshot beside its
+        committed consumer offset, and wake the carry bus."""
+        self.carry_state = (committed_offset, [tuple(c) for c in carries])
+        self.carry_publisher.update(committed_offset)
 
     def read_bound(self, isolation: Isolation) -> int:
         return self.hw() if isolation == Isolation.READ_COMMITTED else self.leo()

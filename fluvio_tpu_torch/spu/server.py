@@ -12,8 +12,12 @@ pushes, LRS reports), and, when ``monitoring_path`` is set, the
 monitoring socket (`monitoring.MonitoringServer`: json, prom, spans,
 trace, health, lag and memory). They start in that order and stop in the
 reverse one. A ``config.telemetry`` is applied to the process's
-telemetry (`telemetry.configure`) at construction, and a
-``config.admission`` to its admission gate (`admission.configure`).
+telemetry (`telemetry.configure`) at construction, a
+``config.admission`` to its admission gate (`admission.configure`) and a
+``config.partitions`` to its partition gate (`partition.configure`, the
+groups folded onto the engine's device, the gate built there: one that
+cannot be built is logged and stays unarmed); `stop` disarms the gate
+again if it is still the one this server installed.
 
     server = SpuServer(SpuConfig(public_addr="127.0.0.1:0", log_base_dir=d))
     await server.start()
@@ -34,6 +38,9 @@ from __future__ import annotations
 from typing import Optional
 
 from fluvio_tpu_torch.admission import configure as configure_admission
+from fluvio_tpu_torch.partition import configure as configure_partitions
+from fluvio_tpu_torch.partition import gate as partition_gate
+from fluvio_tpu_torch.partition import set_gate as set_partition_gate
 from fluvio_tpu_torch.spu.cleaner_controller import CleanerController
 from fluvio_tpu_torch.spu.config import SpuConfig
 from fluvio_tpu_torch.spu.context import GlobalContext
@@ -55,6 +62,12 @@ class SpuServer:
         if config.admission is not None:
             configure_admission(config.admission)
         self.ctx = GlobalContext(config)
+        # the gate this server installed, disarmed again when it stops
+        self.partition_gate = (
+            configure_partitions(config.partitions, devices=[self.ctx.engine.device])
+            if config.partitions is not None
+            else None
+        )
         self.public_server = FluvioApiServer(
             config.public_addr, SpuPublicService(), self.ctx, ssl_context=server_ssl(config.tls)
         )
@@ -106,4 +119,6 @@ class SpuServer:
         if self.internal_server is not None:
             await self.internal_server.stop()
         await self.public_server.stop()
+        if self.partition_gate is not None and partition_gate() is self.partition_gate:
+            set_partition_gate(None)
         self.ctx.close()

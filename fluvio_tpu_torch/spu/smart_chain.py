@@ -41,7 +41,10 @@ The SPU's stream handler gets its chains from `acquire_stream_chain`,
 which caches stateless card chains, and feeds the chain's ``look_back``
 hooks with `chain_look_back`. A topic whose config deduplicates gets a
 persistent dedup chain on its leader (`dedup_to_invocation`,
-`ensure_dedup_chain`). The reference's partition hook is not carried.
+`ensure_dedup_chain`). With the process's partition gate armed
+(`fluvio_tpu_torch.partition.gate`), the handler passes its stream's
+topic and partition, and each slice's dispatch and finish run in the
+partition's scope (`_enter_partition_scope`).
 
 The admission seam is the reference's (`admission_check`,
 `admission_note_warm`, `admission_require_warm`, `admission_chain_sig`):
@@ -76,6 +79,7 @@ from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence, 
 import numpy as np
 
 from fluvio_tpu_torch.native import records as native_records
+from fluvio_tpu_torch.partition import gate as partition_gate
 from fluvio_tpu_torch.protocol.compression import Compression, decompress
 from fluvio_tpu_torch.protocol.error import ErrorCode
 from fluvio_tpu_torch.protocol.record import Batch, RecordSet
@@ -439,6 +443,33 @@ def _admission_gate():
     return _GATE_FN()
 
 
+def _enter_partition_scope(topic, partition, gpu):
+    """Enter the partition gate's scope for one slice's dispatches or its
+    finish (`BrokerPartitionGate.scope`: the ``chain@topic/partition``
+    identity, the group's device), or None: an unarmed gate (one
+    global read), no partition given, no executor, or a placement
+    that fails. A failure (a rule set that matches nothing for this
+    topic) is logged and counted on its own typed decline,
+    ``partition-placement-error``: a decline counter only, no per-batch
+    fallback, since the slice still serves on the card, unpartitioned.
+    The dispatch and the finish both come through here, and either can be
+    the first to meet the bad rule."""
+    pgate = partition_gate()
+    if pgate is None or partition is None or gpu is None:
+        return None
+    scope = pgate.scope(topic or "t", partition, gpu)
+    try:
+        scope.__enter__()
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except Exception as e:
+        logger.error("partition placement failed for %s/%s (%s: %s); serving unpartitioned",
+                     topic, partition, type(e).__name__, e)
+        TELEMETRY.add_decline("partition-placement-error")
+        return None
+    return scope
+
+
 def admission_chain_sig(chain, topic=None, partition=None) -> str:
     """A served chain's admission identity: the executor's chain
     signature, and ``sig@topic/partition`` with a partition (its own
@@ -538,10 +569,14 @@ def gpu_stage_dispatch(
     metrics=None,
     start_offset: Optional[int] = None,
     flow=None,
+    topic: Optional[str] = None,
+    partition: Optional[int] = None,
 ) -> Optional[PendingSlice]:
     """Phase 1 of the coalesced path (`tpu_stage_dispatch` in the
     reference): stage the slice through the native decoder into
     flat-backed chunk buffers and dispatch them all without blocking.
+    With the partition gate armed and a ``partition`` given, the dispatch
+    runs in the partition's scope (`_enter_partition_scope`).
 
     Returns None for a chain with no executor or an empty slice, and,
     counting the reason, when the slice's data declines (see the module
@@ -649,6 +684,7 @@ def gpu_stage_dispatch(
         TELEMETRY.add_phase("glz_decode", phase["decompress"] / 1e3)
         TELEMETRY.add_phase("stage", (phase["decode"] + phase["stage"]) / 1e3)
     t0 = time.perf_counter()
+    pscope = _enter_partition_scope(topic, partition, gpu)
     try:
         chunks = gpu.dispatch_buffers(chunk_bufs)
     except (GpuSpill, KeyboardInterrupt, SystemExit):
@@ -660,6 +696,9 @@ def gpu_stage_dispatch(
             raise
         logger.warning("slice dispatch failed (%s: %s); served per batch", type(e).__name__, e)
         return _decline(metrics, "fused-error")
+    finally:
+        if pscope is not None:
+            pscope.__exit__(None, None, None)
     phase["dispatch"] = _ms(t0)
     if flow is not None:
         # the trace joins batch spans against [dispatch, serve] of the flow
@@ -728,6 +767,8 @@ def gpu_finish(
     pending: PendingSlice,
     max_bytes: int,
     metrics=None,
+    topic: Optional[str] = None,
+    partition: Optional[int] = None,
 ) -> Optional[BatchProcessResult]:
     """Phase 2 (`tpu_finish` in the reference): wait for each chunk's
     results and encode the survivors into one wire batch.
@@ -748,7 +789,20 @@ def gpu_finish(
     ``fused-error``. A chunk whose finish met a transform error discards
     the slice (the carries go back to where the slice found them) and
     returns None, the decline counted as ``transform-error-spill``. On a
-    None the caller serves the slice per batch."""
+    None the caller serves the slice per batch. With the partition gate
+    armed and a ``partition`` given, the whole finish runs in the
+    partition's scope, so its fetch-side families book per partition as
+    the dispatch's do."""
+    pscope = _enter_partition_scope(topic, partition, chain.gpu_chain)
+    try:
+        return _gpu_finish(chain, pending, max_bytes, metrics)
+    finally:
+        if pscope is not None:
+            pscope.__exit__(None, None, None)
+
+
+def _gpu_finish(chain: SmartModuleChainInstance, pending: PendingSlice, max_bytes: int,
+                metrics) -> Optional[BatchProcessResult]:
     gpu = chain.gpu_chain
     base0, ts0 = pending.base0, pending.ts0
     result = BatchProcessResult(next_offset=pending.planned_next, phase_ms=dict(pending.phase_ms),
@@ -849,14 +903,19 @@ def process_batches(
     max_bytes: int,
     metrics=None,
     start_offset: Optional[int] = None,
+    topic: Optional[str] = None,
+    partition: Optional[int] = None,
 ) -> BatchProcessResult:
     """Run stored batches through the chain and re-batch the outputs: the
     coalesced path when it takes the slice, else (a decline, a transform
     error in its finish, a chain with a host segment) one `chain.process`
-    a batch (`process_batches_per_record`)."""
-    pending = gpu_stage_dispatch(chain, batches, metrics, start_offset)
+    a batch (`process_batches_per_record`). ``topic`` / ``partition``
+    place the coalesced path through the partition gate."""
+    pending = gpu_stage_dispatch(chain, batches, metrics, start_offset, topic=topic,
+                                 partition=partition)
     if pending is not None:
-        result = gpu_finish(chain, pending, max_bytes, metrics)
+        result = gpu_finish(chain, pending, max_bytes, metrics, topic=topic,
+                            partition=partition)
         if result is not None:
             return result
     return process_batches_per_record(chain, batches, max_bytes, metrics)
@@ -917,6 +976,8 @@ def stream_slices(
     metrics=None,
     flow_label: Optional[Tuple[str, str]] = None,
     admit: Optional[Callable[[object], object]] = None,
+    topic: Optional[str] = None,
+    partition: Optional[int] = None,
 ) -> Iterator[object]:
     """Serve offsets [start, end) slice by slice: the SPU's stream loop
     (the core of the reference's ``StreamFetchHandler._run`` and
@@ -939,7 +1000,8 @@ def stream_slices(
     in flight, if any, is finished and yielded first, and the next step
     asks again at the same offset with the same flow. The caller waits
     the hold out between steps. Yields `BatchProcessResult` and
-    `SliceHold`."""
+    `SliceHold`. ``topic`` / ``partition`` (the stream's) place every
+    slice's dispatches and finish through the partition gate."""
     gpu = chain.gpu_chain
     current = start
     flow = None  # the next slice's flow, born at its arrival, kept across holds
@@ -957,7 +1019,8 @@ def stream_slices(
             if not batches:
                 return
             read_ms = _ms(t0)
-            result = process_batches(chain, batches, max_bytes, metrics, current)
+            result = process_batches(chain, batches, max_bytes, metrics, current, topic=topic,
+                                     partition=partition)
             result.phase_ms["read"] = read_ms
             result.flow, flow = flow, None
             yield result
@@ -984,7 +1047,7 @@ def stream_slices(
                     read_ms = _ms(t0)
             if nxt_batches:
                 nxt = gpu_stage_dispatch(chain, nxt_batches, metrics, start_offset=planned,
-                                         flow=read_flow)
+                                         flow=read_flow, topic=topic, partition=partition)
                 if nxt is not None:
                     nxt.phase_ms["read"] = read_ms
             if pending is not None:
@@ -994,7 +1057,8 @@ def stream_slices(
                 # past the executor's retries declines the slice, served
                 # per batch while slice k+1 stays in flight)
                 finished, pending = pending, None
-                result = gpu_finish(chain, finished, max_bytes, metrics)
+                result = gpu_finish(chain, finished, max_bytes, metrics, topic=topic,
+                                    partition=partition)
                 if result is None:
                     result = process_batches_per_record(chain, finished.batches, max_bytes,
                                                         metrics)

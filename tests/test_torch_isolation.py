@@ -1565,6 +1565,61 @@ def test_partitioned_runtime_on_the_card():
     assert runtime.device_of(0) == runtime.device_of(1) and runtime.device_of(0).type == "cuda"
 
 
+@pytest.mark.cuda
+def test_failover_on_the_card(tmp_path):
+    """The failover coordinator on the card against the same run on the
+    CPU: 4 partitions of 2,048 `gen_json` records in slabs of 512,
+    interleaved; the leader killed on its third slab by a deterministic
+    ``device`` fault (one promotion), then partition 0 migrated with its
+    last slab un-acked. Carries, served values and committed offsets equal
+    the CPU's and the host truth; the JSON span and extract kernels
+    launched on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.partition import FailoverCoordinator, parse_placement_rules
+    from fluvio_tpu_torch.protocol.record import Record
+    from fluvio_tpu_torch.resilience import ResilienceConfig, faults
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
+    from fluvio_tpu_torch.smartmodule.types import SmartModuleInput
+
+    spec = [{"name": "regex-filter", "kind": "filter", "params": {"regex": "fluvio"}},
+            {"name": "aggregate-field", "kind": "aggregate",
+             "params": {"field": "n", "combine": "add"}}]
+    values = gen_json(4 * 2048)
+    per_part = [values[p::4] for p in range(4)]
+    slabs = {(p, k): SmartModuleInput.from_records(
+        [Record(value=v) for v in per_part[p][k * 512:(k + 1) * 512]])
+        for p in range(4) for k in range(4)}
+    stream = [(p, slabs[p, k]) for k in range(4) for p in range(4)]
+    results = {}
+    for device in ("cpu", "cuda"):
+        coord = FailoverCoordinator(spec, topic="bench", device=device,
+                                    rules=parse_placement_rules(".*=spread"),
+                                    resilience=ResilienceConfig(
+                                        retry_base_ms=0, deadletter_dir=str(tmp_path / device)))
+        cuda_kernels.reset_launches()
+        coord.run(stream[:2])
+        faults.FAULTS.inject("device", first=1, exc="deterministic")
+        try:
+            coord.run(stream[2:12])
+        finally:
+            faults.FAULTS.clear()
+        base = coord.leader.offsets.committed("bench/0")
+        coord.logs["bench/0"].append(base, base + 512, slabs[0, 3])
+        src = coord.leader.plan.assignments["bench/0"]
+        res = coord.migrate_partition(0, 1 - src)
+        coord.run([(p, s) for p, s in stream[12:] if p != 0])
+        launches = dict(cuda_kernels.LAUNCHES)
+        assert coord.promotions == 1 and res["ok"] and res["moved"] and res["replayed"] == 1
+        results[device] = ([coord.final_carries(p) for p in range(4)],
+                           [coord.served_values(p) for p in range(4)],
+                           coord.leader.offsets.snapshot())
+    assert results["cuda"] == results["cpu"]
+    assert results["cuda"][0] == [[(partitioned_truth(v), 0, True)] for v in per_part]
+    assert results["cuda"][2] == {f"bench/{p}": 2048 for p in range(4)}
+    assert launches["json_span"] > 0 and launches["extract"] > 0
+
+
 _LOAD_SOURCE_PROBE = """
 import builtins, sys
 sys.path.insert(0, sys.argv[1])

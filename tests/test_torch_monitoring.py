@@ -7,7 +7,11 @@ monitoring socket; each package's client consumes the north star (the
 bench's AdHoc filter and map, dispatch-ahead, chunks of 64 rows) and then
 ``3_aggregate`` (one slice at a time); each SPU warms the north star's
 fresh chain with one 2-record batch (`_schedule_chain_warmup`), a span
-on each side. Then all seven modes are read from
+on each side, finished before the stream's first slice (the port's warm
+takes the chain's lock first; the JAX SPU's, a cold jit on a thread of
+its own, is made to finish before its handler goes on, so its span never
+falls inside the first slice's window and both traces join the same
+work). Then all seven modes are read from
 both sockets and compared at tolerance 0: the families present, the
 served records by key and by tenant, the span and flow counts by path and
 chain label, the decline reasons and link forms, lag 0 at the end, the
@@ -40,6 +44,7 @@ import asyncio
 import json
 import re
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -48,6 +53,7 @@ from fluvio_tpu.resilience import policy as ref_policy
 from fluvio_tpu.spu import SpuConfig as RefSpuConfig
 from fluvio_tpu.spu import SpuServer as RefSpuServer
 from fluvio_tpu.spu import monitoring as ref_monitoring
+from fluvio_tpu.spu import public_service as ref_public_service
 from fluvio_tpu.storage.config import ReplicaConfig as RefReplicaConfig
 from fluvio_tpu_torch.resilience import policy
 from fluvio_tpu_torch.spu import monitoring
@@ -182,10 +188,23 @@ def _trace_counts(doc):
             Counter(e["ph"] for e in events if e.get("cat") == "flow"))
 
 
+def _warm_before_serving(monkeypatch) -> None:
+    """The JAX SPU's tiny warm, run to its end before its stream handler
+    goes on: in a thread with no event loop the reference warms inline."""
+    warm = ref_public_service._schedule_chain_warmup
+
+    def warm_now(chain):
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            pool.submit(warm, chain).result()
+
+    monkeypatch.setattr(ref_public_service, "_schedule_chain_warmup", warm_now)
+
+
 def test_monitoring_modes_equal_reference(tmp_path, monkeypatch, small_chunks):
     monkeypatch.chdir(tmp_path)
     for mod in (ref_policy, policy):
         monkeypatch.setattr(mod, "_BREAKER_SEQ", [0])
+    _warm_before_serving(monkeypatch)
     wires = _stored(SIZES, seed=61)
 
     async def main():
