@@ -206,10 +206,11 @@ Phases (any failure raises and the script exits non-zero):
    north star's two modules pushed by name (namespace form), ``bench``
    consumed by name through SC routing with the bench's ``ConsumerConfig``,
    in turns with phase 14's direct-SPU consume (AdHoc), every pass held to
-   the DSL interpreter; (c) the records produced into ``bench-flu`` through
-   a produce-side ``flu[vV]io`` filter by name (the SPU's
-   ``handle_produce`` on the card), the log equal to the ``re`` truth; (d)
-   ``multi`` (2 partitions) produced keyed and consumed merged through
+   the DSL interpreter; (c) the first 262,144 records produced into
+   ``bench-flu`` through a produce-side ``flu[vV]io`` filter by name (the
+   SPU's ``handle_produce`` on the card), the log equal to the ``re``
+   truth; (d) ``multi`` (2 partitions) produced keyed with the same records
+   and consumed merged through
    ``consumer(PartitionSelectionStrategy.all)`` with ``3_aggregate``'s
    chain by name, each partition's outputs equal to its running sums in
    its order. It prints records/s of each produce and consume, the batches
@@ -290,6 +291,16 @@ Phases (any failure raises and the script exits non-zero):
    at each seam, a migration and its rollback, the SPU's partition gate
    armed and unarmed in turns and its placement-error decline.
    ``--failover-only`` builds the kernels and runs only this phase.
+23. wide records through the chains the JAX package spills to its
+   interpreter (`phase_wide_chains`): ``regex-filter("flu[vV]io")`` ->
+   ``array-map-json`` over JSON arrays of ~71.7 KB (``dfa_compose.cu`` and
+   ``json_array.cu``), ``aggregate-field`` and ``json-map`` -> ``word-count``
+   over `gen_fat_70k`-style records, ``word-count`` over the striped explode
+   cell's log records; 4 x 1,024 records a chain through
+   ``SmartEngine(device="cuda")``, every output against the port's DSL
+   interpreter, a record that is no JSON array planted in one batch, and
+   ``json_array.cu`` against its plain version. ``--wide-chains-only``
+   builds the kernels and runs only this phase.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -2896,8 +2907,11 @@ def phase_server():
 # API, phase 13's records produced through the SC-routed producer
 # the 1 MiB-batch produce takes the first quarter of the records: cut from
 # all of them when phase 20 came, to hold the smoke's time
+# (c) and (d) produce the first ``cut_records`` of the log: Python a record
+# on both ends of a produce, their 1,048,576 records took most of the
+# phase's time, and the smoke's limit is shared with phase 23
 CLUSTER = dict(records=N, turns=3, big_batch=1 << 20, big_records=N // 4, multi_partitions=2,
-               key_space=4096)
+               key_space=4096, cut_records=N // 4)
 
 
 def read_log(consumer, max_bytes: int):
@@ -2958,9 +2972,10 @@ def phase_cluster():
     (b) the north star's two modules pushed by name, ``bench`` consumed by
     name through SC routing in turns with phase 14's direct-SPU consume
     (AdHoc invocations); (c)
-    the records produced into ``bench-flu`` through a produce-side
-    ``flu[vV]io`` filter by name (the SPU's ``handle_produce`` on the card);
-    (d) ``multi`` (2 partitions) produced keyed and consumed merged through
+    the first ``CLUSTER["cut_records"]`` records produced into ``bench-flu``
+    through a produce-side ``flu[vV]io`` filter by name (the SPU's
+    ``handle_produce`` on the card); (d) ``multi`` (2 partitions) produced
+    keyed with the same records and consumed merged through
     `3_aggregate`'s chain by name. Every arm held to host truth. Returns
     (numbers, launches of the main path's runs: (b)'s first SC pass, (c)'s
     produce and (d)'s consume)."""
@@ -3100,10 +3115,11 @@ def phase_cluster():
                 "outputs": int(len(truth[0]))}
 
             # (c) produce through a produce-side flu[vV]io filter by name
+            cut = cfg["cut_records"]
             flu = re_mod.compile(rb"flu[vV]io")
-            kept = [v for v in values if flu.search(v)]
+            kept = [v for v in values[:cut] if flu.search(v)]
             cuda_kernels.reset_launches()
-            await produce(client, "bench-flu", items,
+            await produce(client, "bench-flu", items[:cut],
                           ProducerConfig(smartmodules=pushed["flu_regex_filter"]), "produce_flu")
             numbers["produce_flu"]["launches"] = dict(cuda_kernels.LAUNCHES)
             add_launches(cuda_kernels.LAUNCHES)
@@ -3112,7 +3128,7 @@ def phase_cluster():
             numbers["produce_flu"]["stored"] = len(kept)
 
             # (d) two partitions, produced keyed, consumed merged through 3_aggregate
-            keyed = [(b"key-%d" % (i % cfg["key_space"]), v) for i, v in enumerate(values)]
+            keyed = [(b"key-%d" % (i % cfg["key_space"]), v) for i, v in enumerate(values[:cut])]
             offsets = await produce(client, "multi", keyed, None, "produce_multi")
             part = np.array([zlib.crc32(k) % cfg["multi_partitions"] for k, _ in keyed])
             if [p for p, _ in offsets] != part.tolist():
@@ -3127,10 +3143,10 @@ def phase_cluster():
                 got.setdefault(r.partition, []).append((r.offset, r.value))
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            numbers["merged_aggregate"] = {"records": n, "records_per_s": n / dt, "seconds": dt,
+            numbers["merged_aggregate"] = {"records": cut, "records_per_s": cut / dt, "seconds": dt,
                                            "launches": dict(cuda_kernels.LAUNCHES)}
             add_launches(cuda_kernels.LAUNCHES)
-            nums = cluster_numbers()
+            nums = cluster_numbers()[:cut]
             for p in range(cfg["multi_partitions"]):
                 sums = np.cumsum(nums[part == p])  # n < 100,000: no wrap at 1 M records
                 recs = got.get(p, [])
@@ -5751,6 +5767,245 @@ def phase_failover():
     return numbers, launches
 
 
+# phase 23: wide records through the chains the JAX package spills to its
+# interpreter, at the default stripe geometry (FAT_PARAMS: a row owns 8,064
+# bytes); the plant is a record that is no JSON array, in one batch, at a
+# row the filter keeps
+WIDE_PHASE = dict(records=FAT_RECORDS, batches=4, plant_batch=2, plant_row=700, chunk=16)
+WIDE_CHAINS = {
+    "wide_filter_explode": [("regex-filter", {"regex": "flu[vV]io"}), ("array-map-json", {})],
+    "wide_aggregate_field": [("aggregate-field", {"field": "n"})],
+    "wide_json_map_word_count": [("json-map", {"field": "name"}), ("word-count", {})],
+    "wide_word_count": [("word-count", {})],
+}
+# placed across every seam of an explode record: a string holding , [ ] }
+# and escaped quotes, a whitespace run ahead of an element, nested arrays
+# around a whitespace run
+WIDE_SEAM_ELEMENTS = (
+    b'"' + b'a,[b]}\\"c' * 20 + b'"',
+    b" " * 150 + b'{"name":"ws-run","n":1}',
+    b'[[1,[2,"]"]],' + b"\t" * 140 + b"[3,{}]]",
+)
+WIDE_WORDS = (b"stream", b"fluvio", b"topic", b"partition", b"x", b"replica", b"offset")
+
+
+def gen_wide_arrays(n: int, seed: int, size: int = 71_709):
+    """Phase 23's explode corpus: a JSON array of ~1,400 `gen_json`-style
+    objects a record (record i's names are ``FAT_NAMES[i % 4]``, so
+    ``flu[vV]io`` keeps half), with one of `WIDE_SEAM_ELEMENTS` across
+    every seam of the default geometry."""
+    rng = np.random.default_rng(seed)
+    step = FAT_PARAMS.step
+    names = shared_cases().FAT_NAMES
+    out = []
+    for i in range(n):
+        name = names[i % 4].encode()
+        nums = rng.integers(0, 100_000, size=size // 40)
+        parts, at, seam, k = [], 1, step, 0
+        while at < size - 80:
+            seam_el = WIDE_SEAM_ELEMENTS[k % len(WIDE_SEAM_ELEMENTS)]
+            if seam - at < len(seam_el) - 20:
+                el, k, seam = seam_el, k + 1, seam + step
+            else:
+                j = len(parts)
+                el = b'{"name":"%s-%d","n":%d,"tags":["x","y,z"]}' % (name, j & 7, nums[j])
+            parts.append(el)
+            at += len(el) + 1
+        out.append(b"[" + b",".join(parts) + b"]")
+    return out
+
+
+def gen_wide_fields(n: int, seed: int, size: int = 71_709):
+    """Phase 23's aggregate corpus: `gen_fat_70k`-style records whose
+    "name" (words, some runs of spaces) and "n" fields sit at the record's
+    start, across the first seam or past it, behind a pad."""
+    rng = np.random.default_rng(seed)
+    step = FAT_PARAMS.step
+    nums = rng.integers(-10**9, 10**9, size=n)
+    out = []
+    for i in range(n):
+        pad = (0, step - 60, step - 15, 2 * step + 3)[i % 4] + int(rng.integers(0, 30))
+        words = b" ".join(WIDE_WORDS[int(w)] + (b"  " if w == 4 else b"")
+                          for w in rng.integers(0, len(WIDE_WORDS), size=int(rng.integers(0, 40))))
+        head = b'{"pad":"%s","name":"%s","n":%d,"body":"' % (b"p" * pad, words, nums[i])
+        out.append(head + b"x" * (size - len(head) - 2) + b'"}')
+    return out
+
+
+def _wide_truth_one(task):
+    """The DSL interpreter over one record: (elements or None) for the
+    explode, else the contribution of the chain's aggregate."""
+    name, rec = task
+    if name == "wide_filter_explode":
+        if not re.search(rb"flu[vV]io", rec):
+            return []
+        return dsl.json_array_elements(rec)
+    if name == "wide_aggregate_field":
+        return dsl.parse_int_prefix(dsl.json_get_bytes(rec, "n"))
+    if name == "wide_json_map_word_count":
+        return dsl.count_words(dsl.json_get_bytes(rec, "name"))
+    return dsl.count_words(rec)
+
+
+def wide_truth(name: str, corpus):
+    """Per record of ``corpus``: `_wide_truth_one`, in forked workers."""
+    chunk = WIDE_PHASE["chunk"]
+    parts = fork_map(lambda lo: [_wide_truth_one((name, r)) for r in corpus[lo:lo + chunk]],
+                     list(range(0, len(corpus), chunk)))
+    return [x for part in parts for x in part]
+
+
+def wide_corpus(name: str):
+    if name == "wide_filter_explode":
+        return gen_wide_arrays(WIDE_PHASE["records"], seed=2301)
+    if name == "wide_word_count":
+        return shared_cases().gen_fat_lines(WIDE_PHASE["records"], seed=2302)
+    return gen_wide_fields(WIDE_PHASE["records"], seed=2303)
+
+
+def wide_plant(corpus):
+    """The plant batch's records: ``corpus`` with one record that is no
+    JSON array (and that the filter keeps) at ``WIDE_PHASE["plant_row"]``."""
+    row = WIDE_PHASE["plant_row"]
+    plant = b'{"name":"fluvio-plant","body":"' + b"x" * 71_000 + b'"}'
+    return corpus[:row] + [plant] + corpus[row + 1:], plant
+
+
+def wide_array_check(dev, corpus):
+    """``json_array.cu`` against its plain version: a small-stripe set
+    (seam cases and JSON-alphabet garbage, 64-byte stripes) and one full
+    explode batch at the default geometry. Returns the kernel row."""
+    rng = np.random.default_rng(2304)
+    small = [b"[1,2]", b" [ , 1 ] ", b"[,]", b"[]", b"", b"no", b"[" + b" " * 70 + b"1]",
+             b'["' + b"s" * 45 + b'\\"x",2]', b"[" + b"7," * 23 + b"[1,[2,3],4]," + b"9" * 90 + b"]"]
+    alphabet = np.frombuffer(b'[]{}",\\ \t\x0b1a', dtype=np.uint8)
+    for _ in range(512):
+        body = alphabet[rng.integers(0, len(alphabet), size=int(rng.integers(0, 300)))].tobytes()
+        small.append(b"[" + body + b"]" if rng.random() < 0.8 else body)
+    err = 0
+    for label, docs, params in (("small stripes", small, SMALL_STRIPES),
+                                ("fat", corpus, FAT_PARAMS)):
+        _, plan, sv, _, _ = stage_striped(docs, params, dev)
+        args = (sv, stripes.owned_lengths(plan), plan["first_row"], plan["k"], plan["step"])
+        got = cuda_kernels.json_array_striped(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = stripes.striped_json_array_bounds(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for part, g, w in zip(("flag", "start", "elen", "err"), got, want):
+            err = max(err, require_equal(f"json_array_striped {label} {part}", g, w))
+        del got, want
+    r, s = sv.shape
+    n = plan["k"].shape[0]
+    call = lambda: cuda_kernels.json_array_striped(*args)  # noqa: E731
+    owned_total = float(args[1].to(torch.int64).sum().item())
+    b_ms, b_by = bound(r * s * 10.0 + 4.0 * r + 9.0 * n, owned_total)
+    row = dict(name="json_array_striped", route="cuda",
+               source="fluvio_tpu_torch/smartengine/gpu/csrc/json_array.cu",
+               replaces="fluvio_tpu/smartmodule/dsl.py:131", max_abs_err=err,
+               ms=time_ms(call), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, device_ms=device_ms(call, kernel_names("json_array.cu")),
+               run_ms=run_ms(call, reps=10), records=len(corpus), record_bytes=len(corpus[0]),
+               stripe_rows=r, check_geometry=f"{len(small)} records at 64-byte stripes and "
+               f"{len(corpus)} records of ~{len(corpus[0])} B at {FAT_PARAMS.width}-byte stripes")
+    log(f"kernel json_array_striped: {row['ms']:.4f} ms a call, device {row['device_ms']} ms "
+        f"(plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms by {b_by}) at rows={r} s={s}; exact "
+        f"against its plain version on {row['check_geometry']}")
+    return row
+
+
+def phase_wide_chain(name: str, corpus, truth):
+    """One phase-23 chain over ``WIDE_PHASE["batches"]`` batches of
+    ``corpus`` through ``process_stream``; the explode's plant batch holds
+    `wide_plant`'s record. Every output against the interpreter's
+    ``truth`` (per record), the aggregates' running values continued across
+    batches. Returns the chain's numbers, its launches included."""
+    batches = WIDE_PHASE["batches"]
+    explode = name == "wide_filter_explode"
+    corpora = [corpus] * batches
+    plant = None
+    if explode:
+        planted, plant = wide_plant(corpus)
+        corpora[WIDE_PHASE["plant_batch"]] = planted
+    build_chain(WIDE_CHAINS[name], FAT_PARAMS).process_buffer(RecordBuffer.from_values(corpus[:8]))
+    chain = build_chain(WIDE_CHAINS[name], FAT_PARAMS)
+    bufs = [RecordBuffer.from_values(c) for c in corpora]
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = list(chain.process_stream(bufs))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    if chain._striped is None:
+        raise AssertionError(f"{name}: the chain did not run striped")
+    acc = 0
+    for k, out in enumerate(outs):
+        if explode:
+            stop = WIDE_PHASE["plant_row"] if k == WIDE_PHASE["plant_batch"] else len(corpus)
+            want = [e for es in truth[:stop] for e in es]
+            err = out.error
+            if k == WIDE_PHASE["plant_batch"]:
+                got_err = None if err is None else (err.hint, err.offset, err.kind.value,
+                                                    err.record_key, err.record_value)
+                if got_err != ("input record is not a JSON array", stop, "array_map", None,
+                               plant):
+                    raise AssertionError(f"{name} batch {k}: first error {got_err}")
+            elif err is not None:
+                raise AssertionError(f"{name} batch {k}: unexpected error {err}")
+        else:
+            want = []
+            for x in truth:
+                acc += x
+                want.append(b"%d" % acc)
+        if out.value_list() != want:
+            raise AssertionError(f"{name} batch {k}: {out.count} outputs differ from the "
+                                 f"interpreter's {len(want)}")
+    chain._ensure_host_state()
+    if not explode and chain.carries != [(acc, 0, True)]:
+        raise AssertionError(f"{name}: carries {chain.carries}, host truth {acc}")
+    if explode and (launches["json_array_striped"] < batches or launches["dfa_compose"] < batches):
+        raise AssertionError(f"{name}: a kernel did not launch every batch: {launches}")
+    if name == "wide_aggregate_field" and launches["json_span_striped"] < batches:
+        raise AssertionError(f"{name}: json_span_striped did not launch every batch: {launches}")
+    n_in = batches * len(corpus)
+    n_out = sum(o.count for o in outs)
+    nbytes = sum(len(r) for c in corpora for r in c)
+    numbers = {"records_per_s": n_in / elapsed, "bytes_per_s": nbytes / elapsed,
+               "output_rows_per_s": n_out / elapsed, "output_rows": n_out, "seconds": elapsed,
+               "redispatches": chain.redispatches,
+               "error_redispatches": chain.error_redispatches, "launches": launches}
+    log(f"wide chain {name}: {batches} x {len(corpus)} records of ~{nbytes // n_in} B in "
+        f"{elapsed:.3f} s = {n_in / elapsed:.1f} records/s, {nbytes / elapsed / 1e9:.3f} GB/s, "
+        f"{n_out / elapsed:.0f} output rows/s ({n_out} rows); every output equal to the DSL "
+        f"interpreter; re-dispatches {chain.redispatches}, error re-runs "
+        f"{chain.error_redispatches}; launches {launches}")
+    return numbers
+
+
+def phase_wide_chains(dev):
+    """Phase 23: ``json_array.cu`` against its plain version and its times,
+    then the four wide chains. Returns ({chain: numbers}, the launches
+    of the chains' runs summed, the kernel row)."""
+    t_phase = time.perf_counter()
+    numbers, total = {}, {k: 0 for k in cuda_kernels.LAUNCHES}
+    row = None
+    for name in WIDE_CHAINS:
+        corpus = wide_corpus(name)
+        if name == "wide_filter_explode":
+            row = wide_array_check(dev, corpus)
+        truth = wide_truth(name, corpus)
+        numbers[name] = phase_wide_chain(name, corpus, truth)
+        for k, v in numbers[name]["launches"].items():
+            total[k] += v
+        del corpus, truth
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"wide chains: phase 23 took {numbers['phase_s']:.1f} s, host truth included; "
+        f"json_array_striped device {row['device_ms']} ms a call, launches {total}")
+    return numbers, total, row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -5809,6 +6064,10 @@ def main(argv=None) -> int:
                         help="build the kernels and run only partitioned topics through a "
                              "leader loss: promotion at each seam, a migration and its "
                              "rollback, the SPU's partition gate (phase 22; no ok line)")
+    parser.add_argument("--wide-chains-only", action="store_true",
+                        help="build the kernels and run only wide records through the JSON-array "
+                             "explode and the byte-range aggregates, and json_array.cu's check "
+                             "(phase 23; no ok line)")
     parser.add_argument("--striped-slice-only", action="store_true",
                         help="build the kernels and run only phase 12 (with phase 9's aggregate "
                              "chains and phase 11, whose D2H it reads; no ok line)")
@@ -5923,6 +6182,11 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"failover": numbers, "launches": launches}))
         return 0
+    if args.wide_chains_only:
+        numbers, launches, row = phase_wide_chains(dev)
+        print(smi)
+        print(json.dumps({"wide_chains": numbers, "launches": launches, "kernel": row}))
+        return 0
     if args.striped_slice_only:
         json_corpora = [gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)]
         slice_numbers, _ops = phase_slice(json_corpora, ("3_aggregate", "filter_aggregate"))
@@ -5982,6 +6246,9 @@ def main(argv=None) -> int:
     lap("21 resilience")
     fo_numbers, fo_launches = phase_failover()
     lap("22 failover")
+    wide_numbers, wide_launches, wide_row = phase_wide_chains(dev)
+    rows.append(wide_row)
+    lap("23 wide chains")
     log(f"replication beside the cluster: north star by name through the SC from the promoted "
         f"leader {repl_numbers['north_star_after_failover']['sc_records_per_s']:.0f} records/s, "
         f"phase 15's (b) {cluster_numbers_['consume_by_name']['sc_records_per_s']:.0f}; produce "
@@ -5999,7 +6266,8 @@ def main(argv=None) -> int:
                 "admission": {"launches": admission_launches},
                 "hooks": {"launches": hooks_launches},
                 "resilience": {"launches": res_launches},
-                "failover": {"launches": fo_launches}}
+                "failover": {"launches": fo_launches},
+                "wide_chains": {"launches": wide_launches}}
     for r in rows:
         r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in by_chain.items()}
     chain_launches = [v["launches"] for v in by_chain.values()]
@@ -6033,6 +6301,7 @@ def main(argv=None) -> int:
                     "hooks": hooks_numbers,
                     "resilience": res_numbers,
                     "failover": fo_numbers,
+                    "wide_chains": wide_numbers,
                     "build_seconds": KERNELS.build_seconds}))
     log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
                     "device": smi}))

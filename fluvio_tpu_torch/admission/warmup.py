@@ -147,8 +147,9 @@ def stage_kernels(executor, striped: bool) -> Tuple[str, ...]:
     """The kernels (`cuda_kernels.LAUNCHES` names) the chain's stages can
     launch at a narrow (``striped`` False) or striped width: a JsonGet's
     span and extract, a regex that is no literal's DFA scan (narrow) or
-    column composition (striped), and the glz link's decode / encode when
-    the executor's `LinkParams` turn them on."""
+    column composition (striped), a JSON-array explode's striped grid, and
+    the glz link's decode / encode when the executor's `LinkParams` turn
+    them on."""
     from fluvio_tpu_torch.ops.regex_dfa import literal_of
     from fluvio_tpu_torch.smartmodule import dsl
 
@@ -158,6 +159,9 @@ def stage_kernels(executor, striped: bool) -> Tuple[str, ...]:
             names.update(("json_span_striped",) if striped else ("json_span", "extract"))
         elif isinstance(node, dsl.RegexMatch) and literal_of(node.pattern) is None:
             names.add("dfa_compose" if striped else "dfa_scan")
+        elif (striped and isinstance(node, dsl.ArrayMapProgram)
+              and node.mode == "json_array"):
+            names.add("json_array_striped")
     if executor.link.compress:
         names.add("glz_decode")
     if executor.link.result_compress:

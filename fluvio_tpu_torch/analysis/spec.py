@@ -244,7 +244,8 @@ def analyze_entries(entries, widths: Optional[Sequence[int]] = None, engine=None
             report.hazards.append(Hazard(
                 INFO, "data-dependent-spill",
                 "json_array explode: a record that is no JSON array ends its batch with a "
-                "transform error (the stages up to the explode run again on the card)"))
+                "transform error (the stages up to the explode run again on the card; on a "
+                "striped batch, the explode's fan-out)"))
     for w in widths:
         preds = [predict_path(w, gates, True, ok) for ok in striped_ok]
         pred = next((p for p in preds if p.path == "raise"), None)

@@ -18,7 +18,11 @@ for the Pallas kernels the port runs, and one kernel of its own:
   `glz_encode_match` (``csrc/glz_encode.cu``);
 - `striped_json_span` replaces the XLA scan of the JAX package's
   ``stripes.striped_json_span``, which has no Pallas kernel
-  (``csrc/json_span.cu``, second entry point).
+  (``csrc/json_span.cu``, second entry point);
+- `json_array_striped`, the JSON-array explode over the striped layout,
+  replaces no kernel: the JAX package spills such a batch to its
+  interpreter (``csrc/json_array.cu``; plain version
+  `stripes.striped_json_array_bounds`).
 
 Each wrapper runs the plain torch version (``kernels.py``) for a tensor on
 the CPU — that is what the tests exercise — and for a CUDA tensor launches
@@ -44,7 +48,7 @@ from fluvio_tpu_torch.smartengine.gpu.native import KERNELS, check
 # kernel launches since the last `reset_launches()`
 LAUNCHES: Dict[str, int] = {
     "json_span": 0, "extract": 0, "dfa_scan": 0, "dfa_compose": 0, "json_span_striped": 0,
-    "glz_resolve": 0, "glz_enc_match": 0, "glz_decode": 0,
+    "glz_resolve": 0, "glz_enc_match": 0, "glz_decode": 0, "json_array_striped": 0,
 }
 
 
@@ -310,6 +314,40 @@ def striped_json_span(
     check(rc, "json_span_striped")
     LAUNCHES["json_span_striped"] += 1
     return start, vlen
+
+
+def json_array_striped(
+    sv: torch.Tensor, owned: torch.Tensor, first_row: torch.Tensor, k: torch.Tensor, step: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """JSON-array element grid over stripe rows: sv u8[r, s], owned i32[r],
+    first_row / k i32[n], the stripe step -> (flag bool[r, s], abs_start
+    i32[r, s], elen i32[r, s], err bool[n]), each element at the row and
+    column that own its trimmed start (`stripes.striped_json_array_bounds`
+    says what the grid holds)."""
+    if not _on_cuda("json_array_striped", sv, owned, first_row, k):
+        from fluvio_tpu_torch.smartengine.gpu import stripes  # the layout's module imports this one
+
+        return stripes.striped_json_array_bounds(sv, owned, first_row, k, step)
+    r, s = sv.shape
+    n = first_row.shape[0]
+    _expect("json_array_striped sv", sv, torch.uint8, (r, s))
+    _expect("json_array_striped owned", owned, torch.int32, (r,))
+    _expect("json_array_striped first_row", first_row, torch.int32, (n,))
+    _expect("json_array_striped k", k, torch.int32, (n,))
+    if s % 4 or not 0 < step <= s:
+        raise ValueError(f"json_array_striped: stripe width {s} and step {step}")
+    dev = sv.device
+    flag = torch.zeros((r, s), dtype=torch.bool, device=dev)
+    start = torch.zeros((r, s), dtype=torch.int32, device=dev)
+    elen = torch.zeros((r, s), dtype=torch.int32, device=dev)
+    err = torch.empty((n,), dtype=torch.bool, device=dev)
+    fn = KERNELS.function("fluvio_json_array_striped")
+    with torch.cuda.device(dev):
+        rc = fn(sv.data_ptr(), owned.data_ptr(), first_row.data_ptr(), k.data_ptr(), n, s, step,
+                flag.data_ptr(), start.data_ptr(), elen.data_ptr(), err.data_ptr(), _stream(dev))
+    check(rc, "json_array_striped")
+    LAUNCHES["json_array_striped"] += 1
+    return flag, start, elen, err
 
 
 def glz_resolve(base: torch.Tensor, midx: torch.Tensor, chunk: int) -> torch.Tensor:

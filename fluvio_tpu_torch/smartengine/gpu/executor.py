@@ -41,15 +41,19 @@ before k keep the carries they advanced over the whole batch, and stages
 k and after keep the starting ones. The output buffer's ``error`` is the
 `SmartModuleTransformRuntimeError` at that record, its key and value as
 stage k saw them (one row copied from the card when an earlier stage
-rewrote them).
+rewrote them). A striped explode is its chain's last stage, behind
+filters and case folds only, so its masked elements are the output as
+they stand: the finish runs its fan-out again at the capacity that saw
+the error, and reads the value on the host.
 
 Batches wider than the narrow layout (`StripeParams.threshold`) take the
 striped path (`_dispatch_striped`, the reference's `_chain_fn_striped`):
 the same ragged upload re-padded into stripe rows (`gpu/stripes.py`),
-segment-level verdicts, aggregates over the segment state, and the
-segment survivor mask, (start, length) descriptors, an aggregate's
-byte-mode payload or a split explode's element descriptors down, rebuilt
-by the same host code.
+segment-level verdicts, aggregates over the segment state (or over a
+contribution computed on a byte range of the stripes), and the segment
+survivor mask, (start, length) descriptors, an aggregate's byte-mode
+payload or a split or JSON-array explode's element descriptors down,
+rebuilt by the same host code.
 
 The glz link (`gpu/glz.py`), on only when a `LinkParams` asks for it:
 the up link ships the flat as glz tokens, compressed on the host (a
@@ -93,10 +97,10 @@ the engine's ladder. Nothing gives way to another path: no interpreter,
 no other link form.
 
 What the port does not cover raises :class:`GpuSpill` instead of running
-anywhere else: wide batches of a chain with no striped lowering (a
-JSON-array explode, a word count, a JsonGet contribution, a key rewrite
-among them; ``record-too-wide-unstripeable``), and an explode that
-overflows its capacity again after its retry (``fanout-overflow``).
+anywhere else: wide batches of a chain with no striped lowering (a key
+rewrite, a regex past the striped DFA gate;
+``record-too-wide-unstripeable``), and an explode that overflows its
+capacity again after its retry (``fanout-overflow``).
 """
 
 from __future__ import annotations
@@ -341,7 +345,11 @@ class _AggregateStage:
     segmented scan over ``[carry] + records`` continues it; a record
     starts a new segment where no earlier row was valid or its window
     differs from the last valid row's. The decimal rendering (and the
-    window keys') is deferred until a later stage or the fetch reads it."""
+    window keys') is deferred until a later stage or the fetch reads it.
+
+    A striped chain may hand the contribution in as the state's
+    ``contribution`` column, computed over the stripes where the segment
+    state cannot give it (`stripes._striped_contribution`)."""
 
     op: str  # combine monoid: "add" | "max" | "min"
     window_ms: Optional[int]
@@ -352,7 +360,10 @@ class _AggregateStage:
         carry = carries[self.index]
         valid = state["valid"]
         neutral = _AGG_NEUTRAL[self.op]
-        xm = torch.where(valid, self.contribution_fn(state).to(torch.int64), neutral)
+        state = state.copy()
+        given = state.pop("contribution", None)
+        x = self.contribution_fn(state) if given is None else given
+        xm = torch.where(valid, x.to(torch.int64), neutral)
         n = xm.shape[0]
         dev = xm.device
         if self.window_ms:
@@ -1526,29 +1537,41 @@ class GpuChainExecutor:
         return fetch
 
     def _ship_striped_fan(self, fetch: _Fetch, ctx: dict, valid: torch.Tensor, fan) -> None:
-        """A striped split explode's output: `kernels.fanout_scatter` over
-        the ``[r, s]`` emission grid (no final slot: an element ends at a
-        separator or its record's end, both inside the grid), counting the
-        rows of surviving segments only; the elements ship as int32
-        (start, length) descriptors within their source records, the
+        """A striped explode's output: `kernels.fanout_scatter` over the
+        ``[r, s]`` emission grid (no final slot: an element ends at a
+        separator, a boundary or its record's end, all inside the grid),
+        counting the rows of surviving segments only; the elements ship as
+        int32 (start, length) descriptors within their source records, the
         source records as an explode's source rows, and the header
-        carries the exact element total."""
+        carries the exact element total. A JSON-array explode masks the
+        first surviving record that is no JSON array and every later one,
+        as the narrow explode does, and the header carries that row + 1
+        and the explode's stage index."""
         plan = ctx["plan"]
         r = plan["seg"].shape[0]
         seg = plan["seg"].to(torch.int64)
         contributing = valid[seg] & plan["row_live"]
         zb = torch.zeros((r,), dtype=torch.bool, device=self.device)
         zi = torch.zeros((r,), dtype=torch.int32, device=self.device)
-        flag, st_g, len_g = fan
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        flag, st_g, len_g, err = fan
+        err_row1, err_stage = zero, zero
+        if err is not None:
+            n = valid.shape[0]
+            ridx = torch.arange(n, dtype=torch.int64, device=self.device)
+            first_err = torch.where(err & valid, ridx, n).min()
+            contributing = contributing & (seg < first_err)
+            err_row1 = torch.where(first_err < n, first_err + 1, 0)
+            err_stage = torch.full((), self._striped.fanout_stage, dtype=torch.int64,
+                                   device=self.device)
         total, local_row, rel_start, elen = kernels.fanout_scatter(
             flag, st_g, len_g, zb, zi, zi, contributing, fetch.cap)
         del flag, st_g, len_g, fan
         src_seg = plan["seg"][local_row.clamp(0, r - 1).to(torch.int64)]
         live = torch.arange(fetch.cap, dtype=torch.int32, device=self.device) < total.clamp(
             max=fetch.cap)
-        zero = torch.zeros((), dtype=torch.int64, device=self.device)
         self._ship_views(fetch, live, elen, rel_start, torch.int32, MAX_RECORD_WIDTH,
-                         [zero, total, zero], src_seg)
+                         [err_row1, total, err_stage], src_seg)
 
     # -- host side -------------------------------------------------------------
 
@@ -1742,6 +1765,17 @@ class GpuChainExecutor:
         Returns (output, `SmartModuleTransformRuntimeError` at the failing
         record with its key and value as stage k saw them)."""
         t0 = time.perf_counter()
+        if handle.striped is not None:
+            # the striped explode is the chain's last stage, behind filters
+            # and case folds only: its masked elements are the output, and
+            # the value it saw is the record's, folded
+            fetch = self._rerun(buf, handle, fe.cap)
+            fetch.err_row = fe.row
+            out = self._finish(buf, fetch)
+            value, key = buf.record_bytes(fe.row)
+            value = apply_postops_host(np.frombuffer(value, dtype=np.uint8),
+                                       self._striped.postops).tobytes()
+            return out, self._explode_error(buf, fe.row, key, value, t0)
         k1 = fe.stage + 1
         ship = self._ship_prefix.get(k1)
         if ship is None:
@@ -1762,16 +1796,20 @@ class GpuChainExecutor:
             key = None if klen < 0 else host["err_key"][:klen].tobytes()
         else:  # only filters before the explode: the row is the input's
             value, key = buf.record_bytes(fe.row)
-        error = SmartModuleTransformRuntimeError(
+        return out, self._explode_error(buf, fe.row, key, value, t0)
+
+    def _explode_error(self, buf: RecordBuffer, row: int, key, value: bytes, t0: float):
+        """The first error's `SmartModuleTransformRuntimeError`, counted as
+        one error re-dispatch begun at ``t0``."""
+        self.error_redispatches += 1
+        self.error_redispatch_seconds += time.perf_counter() - t0
+        return SmartModuleTransformRuntimeError(
             hint="input record is not a JSON array",
-            offset=buf.base_offset + int(buf.offset_deltas[fe.row]),
+            offset=buf.base_offset + int(buf.offset_deltas[row]),
             kind=SmartModuleKind.ARRAY_MAP,
             record_key=key,
             record_value=value,
         )
-        self.error_redispatches += 1
-        self.error_redispatch_seconds += time.perf_counter() - t0
-        return out, error
 
     def discard_dispatch(self, handle: _Fetch) -> None:
         """Drop a dispatched batch without finishing it: the carries go

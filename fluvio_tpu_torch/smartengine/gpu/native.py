@@ -56,6 +56,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "fluvio_glz_decode": [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _P, _P, _P],
     },
     "glz_encode.cu": {"fluvio_glz_enc_match": [_P, _P, _P, _I, _I, _P, _P]},
+    "json_array.cu": {
+        "fluvio_json_array_striped": [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P, _P],
+    },
 }
 
 

@@ -24,8 +24,16 @@ ragged flat.
   or (start, length) descriptors, and the host rebuilds the bytes.
 - Aggregates run the executor's narrow stage over the segment state (the
   full record lengths and the first stripe's bytes), so their carries
-  are the narrow path's; a one-byte ``split`` explode emits its elements
-  from the owned bytes of every stripe (`striped_split_bounds`).
+  are the narrow path's. What that state cannot give exactly is a
+  contribution over a per-segment byte range, computed here over the
+  owned bytes of every stripe and handed to the stage: a word count over
+  the whole record or a JsonGet span, an integer parsed from the start
+  of a JsonGet span (`striped_count_words`, `striped_parse_int`).
+- A one-byte ``split`` explode emits its elements from the owned bytes of
+  every stripe (`striped_split_bounds`); a JSON-array explode carries its
+  string, escape and depth state across the stripe seams
+  (`cuda_kernels.json_array_striped`, plain version
+  `striped_json_array_bounds`).
 
 The stripe geometry is an explicit `StripeParams`, never read from the
 environment.
@@ -607,6 +615,294 @@ def _check_contribution(prog) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Contributions over a per-segment byte range
+# ---------------------------------------------------------------------------
+
+
+def _range_grid(sv: torch.Tensor, plan: dict, lo: torch.Tensor, hi: torch.Tensor):
+    """(in range bool[r, s], record-absolute position i64[r, s], segment
+    i64[r]): the owned bytes of each row that fall in its segment's byte
+    range [lo, hi)."""
+    seg = plan["seg"].to(torch.int64)
+    jidx = torch.arange(sv.shape[1], dtype=torch.int64, device=sv.device)[None, :]
+    pos = plan["abs_start"].to(torch.int64)[:, None] + jidx
+    inr = ((jidx < owned_lengths(plan)[:, None]) & (pos >= lo.to(torch.int64)[seg][:, None])
+           & (pos < hi.to(torch.int64)[seg][:, None]))
+    return inr, pos, seg
+
+
+def _seg_reduce(x: torch.Tensor, seg: torch.Tensor, n: int, how: str, init: int) -> torch.Tensor:
+    """Per-segment ``how`` ("amin" | "amax" | "sum") of per-row values."""
+    out = torch.full((n,), init, dtype=x.dtype, device=x.device)
+    return out.scatter_reduce(0, seg, x, how)
+
+
+def _byte_at(sv: torch.Tensor, plan: dict, pos: torch.Tensor) -> torch.Tensor:
+    """The byte at record-absolute ``pos`` i64[n] of each segment, read from
+    the row that owns it (positions outside the record read a clamped
+    byte: callers mask them)."""
+    r, s = sv.shape
+    seg = torch.arange(pos.shape[0], dtype=torch.int64, device=sv.device)
+    return sv.reshape(-1)[_owner_flat(pos, seg, plan["first_row"], plan["k"], plan["step"], r, s)]
+
+
+def _owner_flat(pos, seg, first_row, k, step: int, r: int, s: int) -> torch.Tensor:
+    """Flat index into the ``[r, s]`` stripe grid of the row that OWNS
+    record-absolute byte ``pos`` of segment ``seg`` (row ``pos // step``,
+    the last row past it), clamped into the grid."""
+    pos = pos.to(torch.int64)
+    kk = k.to(torch.int64)[seg]
+    j = torch.minimum(torch.div(pos, step, rounding_mode="floor"), kk - 1).clamp(min=0)
+    flat = (first_row.to(torch.int64)[seg] + j) * s + (pos - j * step)
+    return flat.clamp(0, r * s - 1)
+
+
+def striped_count_words(sv: torch.Tensor, plan: dict, lo: torch.Tensor, hi: torch.Tensor,
+                        n: int) -> torch.Tensor:
+    """``len(bytes.split())`` of each segment's bytes [lo, hi), i64[n]: the
+    token starts among the owned bytes, a token starting where the byte
+    before it in record order is whitespace (``bytes.split()``'s set, VT
+    and FF included) or where the range starts. Column 0's predecessor is
+    the previous row's last owned byte, so a token across a seam counts
+    once."""
+    inr, pos, seg = _range_grid(sv, plan, lo, hi)
+    ws = kernels._is_ws(sv)
+    step = plan["step"]
+    col0_prev = torch.cat([torch.ones((1,), dtype=torch.bool, device=sv.device),
+                           ws[:-1, step - 1]])
+    prev_ws = torch.cat([col0_prev[:, None], ws[:, :-1]], dim=1)
+    starts = inr & ~ws & (prev_ws | (pos == lo.to(torch.int64)[seg][:, None]))
+    return _seg_reduce(starts.sum(dim=1), seg, n, "sum", 0)
+
+
+def striped_parse_int(sv: torch.Tensor, plan: dict, lo: torch.Tensor, hi: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """`dsl.parse_int_prefix` of each segment's bytes [lo, hi), i64[n], on
+    the narrow `kernels.parse_int`'s arithmetic: skip space, tab, CR and LF,
+    an optional sign, then the digit run, wrapping in int64 (only the run's
+    last 64 digits can reach the wrapped value). The skip and the run may
+    cross any number of seams."""
+    inr, pos, seg = _range_grid(sv, plan, lo, hi)
+    big = torch.iinfo(torch.int64).max
+    hi64 = hi.to(torch.int64)
+    ws4 = (sv == 32) | (sv == 9) | (sv == 13) | (sv == 10)
+    first = _seg_reduce(torch.where(inr & ~ws4, pos, big).amin(dim=1), seg, n, "amin", big)
+    first = torch.minimum(first, hi64)
+    c0 = _byte_at(sv, plan, first)
+    sign = (first < hi64) & ((c0 == 0x2B) | (c0 == 0x2D))
+    neg = sign & (c0 == 0x2D)
+    ds = first + sign.to(torch.int64)
+    is_digit = (sv >= 0x30) & (sv <= 0x39)
+    after = inr & (pos >= ds[seg][:, None])
+    end = _seg_reduce(torch.where(after & ~is_digit, pos, big).amin(dim=1), seg, n, "amin", big)
+    end = torch.minimum(end, hi64)
+    end_r = end[seg][:, None]
+    run = after & (pos < end_r) & (pos >= end_r - kernels._PARSE_WINDOW)
+    weights = kernels._pow10_wrapped(kernels._PARSE_WINDOW, sv.device)
+    k = (end_r - 1 - pos).clamp(0, kernels._PARSE_WINDOW - 1)
+    terms = torch.where(run, (sv.to(torch.int64) - 0x30) * weights[k], 0)
+    num = _seg_reduce(terms.sum(dim=1), seg, n, "sum", 0)
+    return torch.where(neg, -num, num)
+
+
+def _whole_record(ctx: dict):
+    lengths = ctx["seg_state"]["lengths"]
+    return torch.zeros_like(lengths), lengths
+
+
+def _span_range(key: str, pre):
+    def fn(ctx):
+        _sv, (vst, vln) = _cached_json_span(ctx, key, pre)
+        return vst, vst + vln
+    return fn
+
+
+def _range_contribution(kind: str, range_fn):
+    """fn(ctx) -> i64[n]: a word count (``kind`` "words") or an integer
+    parse ("int") over each segment's byte range ``range_fn(ctx)``."""
+    op = striped_count_words if kind == "words" else striped_parse_int
+
+    def fn(ctx):
+        lo, hi = range_fn(ctx)
+        return op(ctx["sv"], ctx["plan"], lo, hi, ctx["n"])
+
+    return fn
+
+
+def _striped_contribution(prog, span_src, first_agg: bool) -> Optional[Callable]:
+    """How a striped aggregate gets its contribution: None where the
+    segment state gives it exactly (the stage's own contribution, the JAX
+    package's rule, its first-stripe prefix parse included), else fn(ctx)
+    -> i64[n] over a byte range of the stripes. ``span_src`` is the
+    (key, folds) of the chain's span map, None without one. Only the
+    chain's first aggregate reads the record: a later one reads the
+    decimals its predecessor rendered, whole in the segment state."""
+    if not first_agg:
+        _check_contribution(prog)
+        return None
+    if prog.contribution is not None:
+        if span_src is not None:
+            raise Unlowerable("a custom contribution after a striped span map")
+        try:
+            _check_seg_exact(prog.contribution)
+            return None
+        except Unlowerable:
+            if not isinstance(prog.contribution, dsl.ParseInt):
+                raise
+            src = _jsonget_source(prog.contribution.arg)
+            if src is None:
+                raise
+            # case folds change no digit, sign or whitespace byte
+            return _range_contribution("int", _span_range(src[0], src[1]))
+    if prog.kind == "count":
+        return None
+    if prog.kind == "word_count":
+        rng = _whole_record if span_src is None else _span_range(*span_src)
+        return _range_contribution("words", rng)
+    if span_src is not None:  # sum_int / max_int / min_int of the span's bytes
+        return _range_contribution("int", _span_range(*span_src))
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Striped JSON-array explode
+# ---------------------------------------------------------------------------
+
+# the explode's string state: 0 outside a string, 1 inside, 2 inside after a
+# backslash. A byte acts on the three as a map, coded f(0) + 3 f(1) + 9 f(2)
+_STR_IDENTITY = 0 + 3 * 1 + 9 * 2  # a byte outside the array's body
+_STR_QUOTE = 1 + 3 * 0 + 9 * 1
+_STR_BACKSLASH = 0 + 3 * 2 + 9 * 1
+_STR_OTHER = 0 + 3 * 1 + 9 * 1
+_STR_RESET = 0  # the opening bracket: every state to outside
+
+
+def _str_compose_table() -> np.ndarray:
+    """``table[g * 27 + f]`` = the code of g after f."""
+    out = np.zeros(27 * 27, dtype=np.int32)
+    for g in range(27):
+        gi = (g % 3, g // 3 % 3, g // 9)
+        for f in range(27):
+            fi = (f % 3, f // 3 % 3, f // 9)
+            out[g * 27 + f] = sum(gi[fi[x]] * 3 ** x for x in range(3))
+    return out
+
+
+_STR_COMPOSE = _str_compose_table()
+
+
+def striped_json_array_bounds(sv: torch.Tensor, owned: torch.Tensor, first_row: torch.Tensor,
+                              k: torch.Tensor, step: int):
+    """Element grid of `dsl.json_array_elements` over the stripe rows: the
+    plain torch version of ``csrc/json_array.cu`` (same arguments, same
+    outputs, bit for bit).
+
+    Each segment's bytes are read in record order over the bytes each row
+    OWNS (the overlap tail belongs to the next row). The outer first and
+    last non-whitespace bytes must be ``[`` and ``]`` (``err`` where not);
+    inside, a quote opens or closes a string, a backslash in a string skips
+    the next byte (across a seam too), brackets and braces outside strings
+    move the depth, and a comma at depth 0 outside strings ends an element,
+    as does the closing bracket. Each element is trimmed of
+    ``bytes.strip()``'s whitespace and of its quotes when fully quoted;
+    empty ones are dropped. Returns (flag bool[r, s], abs_start i32[r, s],
+    elen i32[r, s], err bool[n]): an element's flag, record-absolute start
+    and length sit at the row and column that own its trimmed start, so the
+    row-major flag order is record order.
+
+    The walk is computed in scans over the flattened grid: the string
+    state as a prefix composition of the bytes' state maps (reset at each
+    record's ``[``), the depth as a prefix sum, an element's start as the
+    first non-whitespace byte after a comma or the ``[``, and its end as
+    the last non-whitespace byte before the next boundary."""
+    r, s = sv.shape
+    n = first_row.shape[0]
+    dev = sv.device
+    first_row = first_row.to(torch.int64)
+    k = k.to(torch.int64)
+    rr = torch.arange(r, dtype=torch.int64, device=dev)
+    seg_r = torch.searchsorted(first_row + k, rr, right=True).clamp(0, n - 1)
+    jidx = torch.arange(s, dtype=torch.int64, device=dev)[None, :]
+    pos = ((rr - first_row[seg_r]) * step)[:, None] + jidx
+    own = jidx < owned.to(torch.int64)[:, None]
+    flat_sv = sv.reshape(-1)
+    big = torch.iinfo(torch.int64).max
+
+    # outer trim and the brackets
+    nonws = own & ~kernels._is_ws(sv)
+    fa = _seg_reduce(torch.where(nonws, pos, big).amin(dim=1), seg_r, n, "amin", big)
+    fb = _seg_reduce(torch.where(nonws, pos, -1).amax(dim=1), seg_r, n, "amax", -1)
+    segs = torch.arange(n, dtype=torch.int64, device=dev)
+    has = fa < big
+    b_fa = flat_sv[_owner_flat(torch.where(has, fa, 0), segs, first_row, k, step, r, s)]
+    b_fb = flat_sv[_owner_flat(torch.where(has, fb, 0), segs, first_row, k, step, r, s)]
+    live = k > 0
+    ok = live & has & (fb > fa) & (b_fa == 0x5B) & (b_fb == 0x5D)
+    ok_r = ok[seg_r][:, None]
+    fa_r, fb_r = fa[seg_r][:, None], fb[seg_r][:, None]
+    body = own & ok_r & (pos > fa_r) & (pos < fb_r)
+    at_fa = own & ok_r & (pos == fa_r)
+    at_fb = own & ok_r & (pos == fb_r)
+
+    # string state before each byte
+    code = torch.where(sv == 0x22, _STR_QUOTE, torch.where(sv == 0x5C, _STR_BACKSLASH, _STR_OTHER))
+    code = torch.where(body, code, _STR_IDENTITY)
+    code = torch.where(at_fa, _STR_RESET, code).to(torch.int32).reshape(-1)
+    table = torch.from_numpy(_STR_COMPOSE).to(dev)
+    d = 1
+    while d < code.shape[0]:
+        code = torch.cat([code[:d], table[code[d:] * 27 + code[:-d]]])
+        d <<= 1
+    after = code % 3
+    outside = torch.cat([after.new_zeros(1), after[:-1]]).reshape(r, s) == 0
+    del code, after
+
+    # depth before each byte
+    up = body & outside & ((sv == 0x5B) | (sv == 0x7B))
+    dn = body & outside & ((sv == 0x5D) | (sv == 0x7D))
+    delta = up.to(torch.int64) - dn.to(torch.int64)
+    csum = torch.cumsum(delta.reshape(-1), 0)
+    base = csum[(first_row[seg_r] * s).clamp(0, r * s - 1)]
+    depth = csum.reshape(r, s) - delta - base[:, None]
+    del up, dn, delta, csum
+    comma = body & outside & (sv == 0x2C) & (depth == 0)
+    del depth, outside
+    boundary = comma | at_fb
+    opener = comma | at_fa
+
+    # an element starts at the first non-whitespace byte after an opener
+    segcode = seg_r[:, None] * _ENC_BASE + pos
+    last_nw = torch.cummax(torch.where(nonws, segcode * 2 + opener, -1).reshape(-1), 0).values
+    prev_nw = torch.cat([last_nw.new_full((1,), -1), last_nw[:-1]]).reshape(r, s)
+    del last_nw
+    same = (prev_nw >= 0) & (torch.div(prev_nw >> 1, _ENC_BASE, rounding_mode="floor")
+                             == seg_r[:, None])
+    starts = body & nonws & ~comma & same & ((prev_nw & 1) == 1)
+    # ... and ends at the last non-whitespace byte before the next boundary
+    prev_pos = (prev_nw >> 1) % _ENC_BASE
+    del prev_nw
+    nxt = torch.cummin(torch.where(boundary, segcode, _DEAD).reshape(-1).flip(0), 0)
+    nb = (nxt.values.flip(0).reshape(r, s)) % _ENC_BASE
+    del nxt, segcode
+    seg_g = seg_r[:, None].expand(r, s)
+    last = prev_pos.reshape(-1)[_owner_flat(nb, seg_g, first_row, k, step, r, s)]
+    b_last = flat_sv[_owner_flat(last, seg_g, first_row, k, step, r, s)]
+    quoted = (sv == 0x22) & (b_last == 0x22) & (last > pos)
+    st = pos + quoted.to(torch.int64)
+    ln = last - pos + 1 - 2 * quoted.to(torch.int64)
+    emit = starts & (ln > 0)
+    at = torch.where(emit, _owner_flat(st, seg_g, first_row, k, step, r, s), r * s).reshape(-1)
+    flag = torch.zeros((r * s + 1,), dtype=torch.bool, device=dev).scatter_(
+        0, at, emit.reshape(-1))
+    abs_start = torch.zeros((r * s + 1,), dtype=torch.int32, device=dev).scatter_(
+        0, at, torch.where(emit, st, 0).to(torch.int32).reshape(-1))
+    elen = torch.zeros((r * s + 1,), dtype=torch.int32, device=dev).scatter_(
+        0, at, torch.where(emit, ln, 0).to(torch.int32).reshape(-1))
+    return (flag[:-1].reshape(r, s), abs_start[:-1].reshape(r, s), elen[:-1].reshape(r, s),
+            live & ~ok)
+
+
+# ---------------------------------------------------------------------------
 # Striped fan-out (array_map split mode, single-byte separator)
 # ---------------------------------------------------------------------------
 
@@ -681,28 +977,40 @@ class StripedChain:
     """Stripe-capable lowering of a whole chain.
 
     ``ops`` entries: ("filter", fn) | ("postops", folds) | ("span", fn) |
-    ("agg", aggregate stage) | ("fanout", separator byte). ``postops``
-    accumulates every fold the host applies when it rebuilds view outputs
-    (it must equal the narrow build's view postops). A span op (JsonGet
-    map) makes the outputs sub-record views: the executor ships their
-    (start, length) descriptors instead of whole records. An aggregate op
-    runs the executor's own narrow stage on the segment state; a fan-out
-    op (last) gives the split's emission grid."""
+    ("agg", (aggregate stage, contribution fn or None)) | ("fanout",
+    None). ``postops`` accumulates every fold the host applies when it
+    rebuilds view outputs (it must equal the narrow build's view postops).
+    A span op (JsonGet map) makes the outputs sub-record views: the
+    executor ships their (start, length) descriptors instead of whole
+    records. An aggregate op runs the executor's own narrow stage on the
+    segment state, with the contribution column a byte-range op computed
+    where the state cannot give it (`_striped_contribution`); a fan-out op
+    (last, program ``fanout_stage``) gives the explode's emission grid: a
+    one-byte split's (``fanout_sep``) or a JSON array's
+    (``fanout_json``)."""
 
     ops: List = field(default_factory=list)
     postops: Tuple[str, ...] = ()
     has_span: bool = False
     has_agg: bool = False
     fanout_sep: Optional[int] = None
+    fanout_json: bool = False
+    fanout_stage: int = 0
 
     @property
     def fanout(self) -> bool:
-        return self.fanout_sep is not None
+        return self.fanout_sep is not None or self.fanout_json
 
     def fan_grid(self, ctx: dict):
-        """The fan-out's (flag, abs_start, elen) grid over ``ctx``'s stripe
-        bytes, as the chain's last op computes it."""
-        return striped_split_bounds(ctx["sv"], ctx["plan"], self.fanout_sep, ctx["n"])
+        """The fan-out's (flag, abs_start, elen, err) grid over ``ctx``'s
+        stripe bytes, as the chain's last op computes it; ``err`` (bool[n],
+        the records that are no JSON array) is None for a split."""
+        plan = ctx["plan"]
+        if self.fanout_json:
+            return cuda_kernels.json_array_striped(
+                ctx["sv"].contiguous(), owned_lengths(plan).contiguous(),
+                plan["first_row"].contiguous(), plan["k"].contiguous(), plan["step"])
+        return (*striped_split_bounds(ctx["sv"], plan, self.fanout_sep, ctx["n"]), None)
 
     def run(self, ctx: dict, valid: torch.Tensor, carries, base_ts: int, agg_ctx: dict):
         """Returns (valid bool[n], seg_state, carries, fan, vspan): ``fan``
@@ -719,9 +1027,12 @@ class StripedChain:
             elif kind == "span":
                 vspan = arg(ctx)
             elif kind == "agg":
+                stage, contribution = arg
                 st = ctx["seg_state"].copy()
                 st["valid"] = valid
-                st, carries = arg.apply(st, carries, base_ts, agg_ctx)
+                if contribution is not None:
+                    st["contribution"] = contribution(ctx)
+                st, carries = stage.apply(st, carries, base_ts, agg_ctx)
                 ctx["seg_state"] = st
             else:  # fanout (terminal)
                 fan = self.fan_grid(ctx)
@@ -735,14 +1046,21 @@ def try_build_striped(programs, stages, s: int, v: int) -> Optional[StripedChain
     program: an aggregate op reuses its stage, so the striped and narrow
     paths share carry slots and scans.
 
-    - aggregates only as a chain suffix, none after a span map, and only
-      contributions exact on the segment state (`_check_contribution`);
-    - a fan-out only last, only a one-byte ``split``, never after an
-      aggregate or a span map;
-    - no filter after a span map, one span map a chain, no key rewrite."""
+    - aggregates only as a chain suffix; the first one's contribution is
+      exact on the segment state, or a word count or a JsonGet integer
+      over a byte range, or after a span map a canned kind over the span
+      (`_striped_contribution`);
+    - a fan-out only last, a one-byte ``split`` or a JSON-array explode,
+      never after an aggregate or a span map;
+    - no filter after a span map, one span map a chain, no key rewrite.
+
+    Beyond the JAX package's rules it lowers the JSON-array explode, the
+    word count, the JsonGet contribution and an aggregate after a span
+    map, which the JAX package spills to its interpreter."""
     chain = StripedChain()
+    span_src = None
     try:
-        for prog, stage in zip(programs, stages):
+        for index, (prog, stage) in enumerate(zip(programs, stages)):
             if chain.fanout or (chain.has_agg and not isinstance(prog, dsl.AggregateProgram)):
                 raise Unlowerable("stage after a striped terminal stage")
             if isinstance(prog, dsl.FilterProgram):
@@ -772,21 +1090,22 @@ def try_build_striped(programs, stages, s: int, v: int) -> Optional[StripedChain
                     chain.ops.append(("span", _make_span_fn(key, pre)))
                     chain.has_span = True
                     chain.postops += total
+                    span_src = (key, pre)
             elif isinstance(prog, dsl.AggregateProgram):
-                if chain.has_span:
-                    # contributions read the segment state's stripe-0
-                    # prefix, not the extracted view
-                    raise Unlowerable("aggregate after a striped span map")
-                _check_contribution(prog)
-                chain.ops.append(("agg", stage))
+                contribution = _striped_contribution(prog, span_src, not chain.has_agg)
+                chain.ops.append(("agg", (stage, contribution)))
                 chain.has_agg = True
             elif isinstance(prog, dsl.ArrayMapProgram):
-                if prog.mode != "split" or len(prog.sep) != 1:
-                    raise Unlowerable("striped array_map supports a one-byte split only")
+                if prog.mode == "json_array":
+                    chain.fanout_json = True
+                elif prog.mode != "split" or len(prog.sep) != 1:
+                    raise Unlowerable("striped split supports a one-byte separator only")
+                else:
+                    chain.fanout_sep = prog.sep[0]
                 if chain.has_agg or chain.has_span:
                     raise Unlowerable("striped fan-out after an aggregate or a span map")
-                chain.ops.append(("fanout", prog.sep[0]))
-                chain.fanout_sep = prog.sep[0]
+                chain.ops.append(("fanout", None))
+                chain.fanout_stage = index
             else:
                 raise Unlowerable(f"{type(prog).__name__} not stripeable")
     except Unlowerable:

@@ -52,7 +52,9 @@ from fluvio_tpu_torch.models import lookup
 from fluvio_tpu_torch.protocol.record import Record
 from fluvio_tpu_torch.smartengine import SmartEngine, SmartModuleConfig
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
-from fluvio_tpu_torch.smartmodule import SmartModuleInput
+from fluvio_tpu_torch.smartmodule import SmartModuleInput, dsl
+from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
+from fluvio_tpu_torch.smartmodule.types import SmartModuleKind
 from fluvio_tpu_torch.spu import public_service
 from fluvio_tpu_torch.spu import smart_chain as sc
 from tests.test_torch_isolation import gen_json, north_star_invocations
@@ -496,10 +498,16 @@ def test_work_list_lists_buckets_by_the_kernels_their_stages_launch():
     agg.add_smart_module(SmartModuleConfig(params={"field": "n", "combine": "add"}),
                          lookup("aggregate-field"))
     agg_ex = agg.initialize().gpu_chain
-    # past the threshold the aggregate after a JsonGet is unstripeable: skipped
-    assert [e["signature"] for e in admission.work_list(agg_ex, (100, 70_000))] == [
-        "8 x 128 narrow", "8 x 128 narrow"]
-    report = admission.warm_executor(agg_ex, widths=(100, 70_000))
+    # past the threshold the JsonGet contribution runs on the striped span
+    assert [(e["kind"], e["signature"]) for e in admission.work_list(agg_ex, (100, 70_000))] == [
+        ("extract", "8 x 128 narrow"), ("json_span", "8 x 128 narrow"),
+        ("json_span_striped", "8 x 81920 striped")]
+    # a key rewrite is unstripeable: its wide bucket is skipped
+    rekey = SmartModuleDef(name="rekey")
+    rekey.dsl[SmartModuleKind.MAP] = dsl.MapProgram(value=dsl.Value(), key=dsl.Upper(arg=dsl.Key()))
+    rekey_ex = SmartEngine(device="cpu").builder().add_smart_module(
+        SmartModuleConfig(), rekey).initialize().gpu_chain
+    report = admission.warm_executor(rekey_ex, widths=(100, 70_000))
     assert report.errors == [] and report.buckets == (128,)
     assert report.skipped == ["width 70000: record-too-wide-unstripeable"]
     lit = SmartEngine(device="cpu").builder()

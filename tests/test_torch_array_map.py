@@ -21,7 +21,7 @@ import torch
 from fluvio_tpu.smartengine.tpu import kernels as ref_kernels
 from fluvio_tpu.smartengine.tpu.executor import TpuSpill
 from fluvio_tpu_torch.models import lookup
-from fluvio_tpu_torch.smartengine import GpuSpill, LinkParams, SmartEngine, SmartModuleConfig
+from fluvio_tpu_torch.smartengine import LinkParams, SmartEngine, SmartModuleConfig
 from fluvio_tpu_torch.smartengine.gpu import kernels
 from fluvio_tpu_torch.smartmodule import dsl
 from tests.test_torch_aggregate import _chains, _gauges_unchanged, _stage, run_both  # noqa: F401
@@ -233,18 +233,20 @@ def test_array_map_with_the_glz_link():
 
 @pytest.mark.parametrize("name, spills", [("array-map-json", True), ("aggregate-sum", False)])
 def test_wide_explode_batch_spills_at_dispatch(name, spills):
-    """A JSON-array explode has no striped lowering: a batch wider than the
-    narrow layout spills before anything runs and leaves the carries
-    alone. A running sum has one: the same batch runs striped."""
+    """A batch wider than the narrow layout runs striped on the port, for a
+    JSON-array explode (``spills``: the JAX package spills such a batch to
+    its interpreter) and for a running sum alike. The record's three bytes
+    are zeros: no JSON array, so the explode's output is empty and carries
+    its transform error, and the sum's is 0."""
     chain = (SmartEngine(device="cpu").builder()
              .add_smart_module(SmartModuleConfig(), lookup(name)).initialize().gpu_chain)
     wide = _port_buffer(_ref_buffer([b"[1]"]))
     wide.values = np.zeros((8, (1 << 16) + 32), dtype=np.uint8)
     if spills:
-        with pytest.raises(GpuSpill) as e:
-            chain.dispatch_buffer(wide)
-        assert e.value.reason == "record-too-wide-unstripeable"
-        assert chain._device_carries is None
+        out = chain.process_buffer(wide)
+        assert chain._striped_chain() is not None and chain._striped.fanout_json
+        assert out.count == 0 and out.error.hint == "input record is not a JSON array"
+        assert (out.error.offset, out.error.record_value) == (0, b"\0\0\0")
         return
     out = chain.process_buffer(wide)
     assert chain._striped_chain() is not None and chain._striped.has_agg

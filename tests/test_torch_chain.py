@@ -199,19 +199,23 @@ def test_reference_executor_chains():
 
 
 def test_unported_kinds_spill():
-    """What the port still spills or refuses: a batch of a word-count
-    aggregate chain wider than the narrow layout (per-stripe word counts
-    would double-count the overlap, so it has no striped lowering) spills
-    at dispatch, and an expression outside the lowering (``IntToBytes`` of
-    bytes, a comparison of bytes) makes no chain."""
-    agg = ("aggregate", lambda d: d.AggregateProgram(kind="word_count"))
-    _, port_m = _module_pair(*agg)
-    chain = SmartEngine(device="cpu").builder().add_smart_module(SmartModuleConfig(), port_m).initialize().gpu_chain
+    """What the port still spills or refuses: a batch of a key-rewriting
+    map wider than the narrow layout (no striped lowering) spills at
+    dispatch, and an expression outside the lowering (``IntToBytes`` of
+    bytes, a comparison of bytes) makes no chain. A word count's wide batch
+    runs striped (its tokens counted once across the stripes' overlap)."""
     wide = _port_buffer(_ref_buffer([b"1"]))
     wide.values = np.zeros((8, (1 << 16) + 32), dtype=np.uint8)
+    rekey = ("map", lambda d: d.MapProgram(value=d.Value(), key=d.Upper(arg=d.Key())))
+    _, port_m = _module_pair(*rekey)
+    chain = SmartEngine(device="cpu").builder().add_smart_module(SmartModuleConfig(), port_m).initialize().gpu_chain
     with pytest.raises(GpuSpill) as e:
         chain.process_buffer(wide)
     assert e.value.reason == "record-too-wide-unstripeable"
+    agg = ("aggregate", lambda d: d.AggregateProgram(kind="word_count"))
+    _, port_m = _module_pair(*agg)
+    chain = SmartEngine(device="cpu").builder().add_smart_module(SmartModuleConfig(), port_m).initialize().gpu_chain
+    assert chain.process_buffer(wide).value_list() == [b"%d" % len(b"\0".split())]
     for kind, prog in (
         (SmartModuleKind.MAP, dsl.MapProgram(value=dsl.IntToBytes(arg=dsl.Value()))),
         (SmartModuleKind.FILTER, dsl.FilterProgram(

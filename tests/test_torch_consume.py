@@ -36,7 +36,6 @@ from fluvio_tpu_torch.protocol import codec, record
 from fluvio_tpu_torch.protocol.error import ErrorCode
 from fluvio_tpu_torch.schema.smartmodule import SmartModuleInvocation, SmartModuleInvocationWasm
 from fluvio_tpu_torch.smartengine import (
-    GpuSpill,
     SmartEngine,
     SmartModuleChainMetrics,
     SmartModuleConfig,
@@ -252,17 +251,24 @@ def test_staging_guards_decline_and_the_per_batch_path_serves(guard, monkeypatch
 
 
 def test_a_too_wide_slice_declines_and_the_card_path_raises():
-    """A record wider than the narrow layout, for a chain with no striped
-    lowering: the slice declines before any dispatch, and the per-batch
-    path's `process` raises `GpuSpill` (no interpreter reruns it)."""
+    """A record wider than the narrow layout through a JSON-array explode:
+    the JAX package spills the slice to its interpreter, the port serves it
+    on its striped path (the explode's striped lowering); both return the
+    same 40,001 elements and the same next offset, and the port's slice
+    declines nothing."""
     wires = _stored([[b"[" + b"1," * 40_000 + b"1]"]], [0], [0])
-    _, port_chain = _chains(EXPLODE)
-    assert port_chain.gpu_chain.max_stageable_width() == 1 << 16
+    ref_chain, port_chain = _chains(EXPLODE)
+    assert port_chain.gpu_chain.max_stageable_width() == 1 << 20
+    ref_b, port_b = _decode(wires)
     m = SmartModuleChainMetrics()
-    with pytest.raises(GpuSpill) as e:
-        sc.process_batches(port_chain, _decode(wires)[1], 1 << 20, m)
-    assert e.value.reason == "record-too-wide-unstripeable"
-    assert m.fallback_reasons == {"record-too-wide": 1}
+    ref_res = ref_sc.process_batches(ref_chain, ref_b, 1 << 20)
+    port_res = sc.process_batches(port_chain, port_b, 1 << 20, m)
+    assert port_res.error is None and ref_res.error is None
+    assert ref_res.records.total_records() == 40_001
+    assert port_res.next_offset == ref_res.next_offset
+    assert _set_bytes(port_res.records, codec.ByteWriter) == _set_bytes(
+        ref_res.records, ref_codec.ByteWriter)
+    assert m.fallback_reasons == {}
 
 
 def test_transform_error_divergence_is_pinned():

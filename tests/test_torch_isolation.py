@@ -2002,3 +2002,62 @@ def test_secure_cluster_restart_on_the_card(tmp_path):
     assert card[0]["lz4"] == card[0]["snappy"]
     assert card[1] == cpu[1] == ErrorCode.PERMISSION_DENIED
     assert card[2]["json_span"] >= 2
+
+
+@pytest.mark.cuda
+def test_wide_chains_on_the_card():
+    """Phase 23 of the smoke at a small size, on 64-byte stripes:
+    ``json_array.cu`` equals its plain version on JSON arrays and
+    JSON-alphabet garbage, and a filter ahead of the JSON-array explode
+    (a record that is no JSON array planted), ``aggregate-field`` and
+    ``json-map`` -> ``word-count`` over wide records give on the card the
+    outputs and the first error they give on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.models import lookup
+    from fluvio_tpu_torch.smartengine import SmartEngine, SmartModuleConfig, StripeParams
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, stripes
+    from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+
+    params = StripeParams(threshold=64, width=64, overlap=16)
+    rng = np.random.default_rng(23)
+    alphabet = np.frombuffer(b'[]{}",\\ \t\x0b1a', dtype=np.uint8)
+    garbage = [alphabet[rng.integers(0, len(alphabet), size=int(rng.integers(0, 300)))].tobytes()
+               for _ in range(256)]
+    arrays = [b'["fluvio",' + b'"a,[b]}\\"c",' * int(rng.integers(1, 20)) + b" " * 70 + b"1]"
+              for _ in range(64)]
+    docs = [b"[" + g + b"]" for g in garbage] + garbage + arrays
+
+    buf = RecordBuffer.from_values(docs)
+    flat, _ = buf.ragged_values()
+    flat_t = torch.from_numpy(np.ascontiguousarray(flat).view(np.int32)).cuda()
+    lengths = torch.from_numpy(buf.lengths).cuda()
+    srows = 8
+    while srows < stripes.plan_rows(buf.lengths, buf.count, 64, 16):
+        srows <<= 1
+    plan, sv, _ = stripes.stage_rows(flat_t, lengths, buf.lengths, buf.count, params, srows)
+    args = (sv, stripes.owned_lengths(plan), plan["first_row"], plan["k"], plan["step"])
+    cuda_kernels.reset_launches()
+    got = cuda_kernels.json_array_striped(*args)
+    want = stripes.striped_json_array_bounds(*args)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["json_array_striped"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+    def run(device, specs, values):
+        b = SmartEngine(device=device, stripes=params).builder()
+        for name, p in specs:
+            b.add_smart_module(SmartModuleConfig(params=p), lookup(name))
+        out = b.initialize().gpu_chain.process_buffer(RecordBuffer.from_values(values))
+        err = out.error and (out.error.hint, out.error.offset, out.error.record_value)
+        return out.value_list(), err
+
+    fields = [b'{"pad":"%s","name":"a b  c","n":%d}' % (b"p" * (7 * i), i) for i in range(40)]
+    for specs, values in (
+            ([("regex-filter", {"regex": "flu[vV]io"}), ("array-map-json", {})],
+             arrays[:30] + [b'{"fluvio":' + b"1" * 70 + b"}"] + arrays[30:]),
+            ([("aggregate-field", {"field": "n"})], fields),
+            ([("json-map", {"field": "name"}), ("word-count", {})], fields)):
+        card = run("cuda", specs, values)
+        assert card == run("cpu", specs, values) and card[0]

@@ -154,7 +154,48 @@ def test_hard_ceiling_and_unlowerable_predictions():
     json_explode = analyze_named([("array-map-json", None)])
     assert [h.code for h in json_explode.hazards if h.level == "info"] == [
         "data-dependent-spill"]
-    assert json_explode.to_dict()["predictions"][1]["path"] == "raise"
+    # past the stripe threshold the explode runs striped
+    assert json_explode.to_dict()["predictions"][1]["path"] == "striped"
+
+
+NEWLY_STRIPED = {
+    "array-map-json": [("array-map-json", None)],
+    "filter-array-map-json": [("regex-filter", {"regex": "flu[vV]io"}), ("array-map-json", None)],
+    "word-count": [("word-count", None)],
+    "aggregate-field": [("aggregate-field", {"field": "n"})],
+    "json-map-aggregate-sum": [("json-map", {"field": "name"}), ("aggregate-sum", None)],
+    "json-map-word-count": [("json-map", {"field": "name"}), ("word-count", None)],
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEWLY_STRIPED))
+def test_newly_striped_chains_predict_striped_where_the_reference_spills(name):
+    """Past the stripe threshold the port's preflight predicts ``striped``
+    for the chains its striped path took over; the JAX preflight predicts
+    its interpreter spill for the same chains (a pinned difference: the
+    JAX package has no striped lowering for them)."""
+    specs = NEWLY_STRIPED[name]
+    width = (1 << 16) + 1
+    pred = preflight_for_specs(specs, width, engine=SmartEngine(device="cpu"))
+    assert pred["path"] == "striped" and not pred.get("spill_reasons")
+    ref = ref_preflight_for_specs(specs, width)
+    assert ref["path"] == "interpreter"
+    assert ref["spill_reasons"] == ["record-too-wide-unstripeable"]
+
+
+def test_key_rewrite_still_predicts_a_raise():
+    """A key rewrite has no striped lowering: past the threshold the port's
+    preflight predicts the raise its dispatch gives."""
+    from fluvio_tpu_torch.analysis import analyze_entries
+    from tests.test_torch_chain import _module_pair
+    from tests.test_torch_striped_slice import KEY_REWRITE
+
+    (kind, build), params = KEY_REWRITE
+    module = _module_pair(kind, build)[1]
+    report = analyze_entries([(module, SmartModuleConfig(params=params))],
+                             widths=((1 << 16) + 1,))
+    assert report.predictions[0].path == "raise"
+    assert list(report.predictions[0].spill_reasons) == ["record-too-wide-unstripeable"]
 
 
 CUT_RUNS = {
