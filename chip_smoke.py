@@ -296,11 +296,20 @@ Phases (any failure raises and the script exits non-zero):
    ``array-map-json`` over JSON arrays of ~71.7 KB (``dfa_compose.cu`` and
    ``json_array.cu``), ``aggregate-field`` and ``json-map`` -> ``word-count``
    over `gen_fat_70k`-style records, ``word-count`` over the striped explode
-   cell's log records; 4 x 1,024 records a chain through
+   cell's log records; regexes past the JAX package's DFA gate: the log
+   scan ``(ERROR|WARN|FATAL|CRIT).*(timeout|refused|reset|denied|
+   unreachable)`` (73 states) -> ``array-map-lines`` over those log records
+   with a failure line planted in half (across a seam in a quarter), and
+   ``flu[vV]io.{0,16}[0-9]{4}-[0-9]{2}-[0-9]{2}`` (242 states) over
+   `gen_fat_70k` records with a dated name planted across a seam in half;
+   a filter_map re-keying `gen_wide_fields` records by their "name"
+   (value ``<name>``, keys checked); 4 x 1,024 records a chain through
    ``SmartEngine(device="cuda")``, every output against the port's DSL
    interpreter, a record that is no JSON array planted in one batch, and
-   ``json_array.cu`` against its plain version. ``--wide-chains-only``
-   builds the kernels and runs only this phase.
+   ``json_array.cu`` against its plain version; ``dfa_compose.cu`` at 73,
+   130, 242 and 257 states (258 classes) over the fat shape's classes,
+   each against its plain version, as shapes of its row.
+   ``--wide-chains-only`` builds the kernels and runs only this phase.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object describing every kernel, and
@@ -346,6 +355,8 @@ from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
 from fluvio_tpu_torch.smartengine.gpu.executor import _bucket_rows, desc_stream, pad_glz_tokens
 from fluvio_tpu_torch.smartengine.gpu.native import CSRC, KERNELS, SIGNATURES
 from fluvio_tpu_torch.smartmodule import dsl
+from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
+from fluvio_tpu_torch.smartmodule.types import SmartModuleKind
 from fluvio_tpu_torch.windows import (
     HostWindowReference,
     MaterializedView,
@@ -708,11 +719,15 @@ def compose_row(name, cls, dfa, reps_plain: int = 2):
     column."""
     table_t = stripes._dfa_device(dfa, cls.device)[1]
     got = cuda_kernels.dfa_compose_columns(cls, table_t)
-    err = require_equal(f"dfa_compose {name}", got, kernels.dfa_compose_columns(cls, table_t))
+    want = []
+    # the check's own plain call is timed (reps_plain 1), or reps_plain more
+    first_ms = time_ms(lambda: want.append(kernels.dfa_compose_columns(cls, table_t)), reps=1,
+                       warm=False)
+    err = require_equal(f"dfa_compose {name}", got, want.pop())
     call = lambda: cuda_kernels.dfa_compose_columns(cls, table_t)  # noqa: E731
     ms, dev_ms = time_ms(call), device_ms(call, kernel_names("dfa_compose.cu"))
-    plain_ms = time_ms(lambda: kernels.dfa_compose_columns(cls, table_t), reps=reps_plain,
-                       warm=False)
+    plain_ms = first_ms if reps_plain <= 1 else time_ms(
+        lambda: kernels.dfa_compose_columns(cls, table_t), reps=reps_plain, warm=False)
     live = float((cls >= 0).sum().item())
     bytes_moved = cls.numel() * 4.0 + table_t.numel() * 4.0 + got.numel() * 4.0
     b_ms, b_by = bound(bytes_moved, live * dfa.n_states)
@@ -1589,10 +1604,13 @@ def phase_striped_chains():
 
 
 def build_chain(specs, stripe_params=None, link=None):
+    """The card chain of ``specs``: (registry name, or a function making a
+    `SmartModuleDef`, params) pairs."""
     b = SmartEngine(device="cuda", stripes=stripe_params or stripes.StripeParams(),
                     link=link or LinkParams()).builder()
     for name, params in specs:
-        b.add_smart_module(SmartModuleConfig(params=params), lookup(name))
+        b.add_smart_module(SmartModuleConfig(params=params),
+                           lookup(name) if isinstance(name, str) else name())
     return b.initialize().gpu_chain
 
 
@@ -5772,11 +5790,43 @@ def phase_failover():
 # bytes); the plant is a record that is no JSON array, in one batch, at a
 # row the filter keeps
 WIDE_PHASE = dict(records=FAT_RECORDS, batches=4, plant_batch=2, plant_row=700, chunk=16)
+# regexes past the JAX package's TPU gate (more than 64 states, or 16 past 32
+# classes): a log scan (73 states, 30 classes) and a dated name (242, 11)
+LOG_SCAN = "(ERROR|WARN|FATAL|CRIT).*(timeout|refused|reset|denied|unreachable)"
+DATED_FLUVIO = "flu[vV]io.{0,16}[0-9]{4}-[0-9]{2}-[0-9]{2}"
+
+
+def rekey_module() -> SmartModuleDef:
+    """A filter_map re-keying records by their "name" field: keep
+    ``flu[vV]io`` records, the value ``<name>``, the key the name."""
+    name = dsl.JsonGet(arg=dsl.Value(), key="name")
+    m = SmartModuleDef(name="rekey-by-name")
+    m.dsl[SmartModuleKind.FILTER_MAP] = dsl.FilterMapProgram(
+        predicate=dsl.RegexMatch(arg=dsl.Value(), pattern="flu[vV]io"),
+        value=dsl.Concat(args=[dsl.Const(data=b"<"), name, dsl.Const(data=b">")]), key=name)
+    return m
+
+
 WIDE_CHAINS = {
     "wide_filter_explode": [("regex-filter", {"regex": "flu[vV]io"}), ("array-map-json", {})],
     "wide_aggregate_field": [("aggregate-field", {"field": "n"})],
     "wide_json_map_word_count": [("json-map", {"field": "name"}), ("word-count", {})],
     "wide_word_count": [("word-count", {})],
+    "wide_log_scan": [("regex-filter", {"regex": LOG_SCAN}), ("array-map-lines", {})],
+    "wide_dated_fluvio": [("regex-filter", {"regex": DATED_FLUVIO})],
+    "wide_rekey": [(rekey_module, {})],
+}
+# what each chain's outputs are, for the check against the interpreter
+WIDE_KINDS = {"wide_filter_explode": "json_explode", "wide_log_scan": "lines",
+              "wide_dated_fluvio": "filter", "wide_rekey": "rekey"}
+# row 6 (`dfa_compose.cu`) at tables past the JAX package's TPU gate, over
+# the fat shape's record-level classes: (pattern, packed, the arm whose
+# corpus gives the classes)
+LARGE_TABLES = {
+    "log-scan": (LOG_SCAN, True, "wide_log_scan"),
+    "ab-six": ("(a|b)*a(a|b){6}", True, "wide_log_scan"),
+    "dated-fluvio": (DATED_FLUVIO, True, "wide_dated_fluvio"),
+    "largest": ("(a|b)*a(a|b){6}c|x" + "d" * 125, False, "wide_log_scan"),
 }
 # placed across every seam of an explode record: a string holding , [ ] }
 # and escaped quotes, a whitespace run ahead of an element, nested arrays
@@ -5832,14 +5882,28 @@ def gen_wide_fields(n: int, seed: int, size: int = 71_709):
     return out
 
 
+def _matches(pattern: str, rec: bytes) -> bool:
+    return bool(dsl.eval_expr(dsl.RegexMatch(arg=dsl.Value(), pattern=pattern), rec, None))
+
+
 def _wide_truth_one(task):
-    """The DSL interpreter over one record: (elements or None) for the
-    explode, else the contribution of the chain's aggregate."""
+    """The DSL interpreter over one record: (elements or None) for an
+    explode, whether the filter keeps it, (value, key) of the re-key or
+    None, else the contribution of the chain's aggregate."""
     name, rec = task
     if name == "wide_filter_explode":
         if not re.search(rb"flu[vV]io", rec):
             return []
         return dsl.json_array_elements(rec)
+    if name == "wide_log_scan":
+        return [e for e in rec.split(b"\n") if e] if _matches(LOG_SCAN, rec) else []
+    if name == "wide_dated_fluvio":
+        return _matches(DATED_FLUVIO, rec)
+    if name == "wide_rekey":
+        if not _matches("flu[vV]io", rec):
+            return None
+        field = dsl.json_get_bytes(rec, "name")
+        return b"<" + field + b">", field
     if name == "wide_aggregate_field":
         return dsl.parse_int_prefix(dsl.json_get_bytes(rec, "n"))
     if name == "wide_json_map_word_count":
@@ -5855,11 +5919,40 @@ def wide_truth(name: str, corpus):
     return [x for part in parts for x in part]
 
 
+def gen_wide_log(n: int, seed: int):
+    """The striped explode cell's log records with a failure line planted
+    in half of them: across the first seam in a quarter, mid-record in
+    another quarter."""
+    line = b"ERROR upstream connection refused"
+    out = []
+    for i, rec in enumerate(shared_cases().gen_fat_lines(n, seed=seed)):
+        if i % 2 == 0:
+            at = FAT_PARAMS.step - 12 if i % 4 == 0 else 20_000 + 37 * i
+            rec = rec[:at] + line + rec[at + len(line):]
+        out.append(rec)
+    return out
+
+
+def gen_wide_dated(n: int):
+    """`gen_fat_70k` with ``fluvio run 2026-10-18`` planted across a seam
+    (one of the first eight) in half of the records."""
+    stamp = b"fluvio run 2026-10-18"
+    out = gen_fat_70k(n)
+    for i in range(0, n, 2):
+        at = (1 + (i // 2) % 8) * FAT_PARAMS.step - (3 + i % 15)
+        out[i] = out[i][:at] + stamp + out[i][at + len(stamp):]
+    return out
+
+
 def wide_corpus(name: str):
     if name == "wide_filter_explode":
         return gen_wide_arrays(WIDE_PHASE["records"], seed=2301)
     if name == "wide_word_count":
         return shared_cases().gen_fat_lines(WIDE_PHASE["records"], seed=2302)
+    if name == "wide_log_scan":
+        return gen_wide_log(WIDE_PHASE["records"], seed=2305)
+    if name == "wide_dated_fluvio":
+        return gen_wide_dated(WIDE_PHASE["records"])
     return gen_wide_fields(WIDE_PHASE["records"], seed=2303)
 
 
@@ -5915,14 +6008,36 @@ def wide_array_check(dev, corpus):
     return row
 
 
+def large_table_rows(dev, corpora):
+    """Row 6 (`dfa_compose.cu`) at the tables past the JAX package's TPU
+    gate (`LARGE_TABLES`), over the record-level classes of a phase-23 arm's
+    corpus at the fat shape, each against its plain version (exact) with
+    its times and bound."""
+    out = {}
+    for label, (pattern, packed, arm) in LARGE_TABLES.items():
+        _, plan, sv, _, _ = stage_striped(corpora[arm], FAT_PARAMS, dev)
+        dfa = compile_regex(pattern, packed=packed)
+        cls = stripes.stripe_classes(sv, plan, dfa)
+        err, ms, plain_ms, b_ms, b_by, dev_ms = compose_row(
+            f"{label} ({arm}'s records)", cls, dfa, reps_plain=1)
+        out[label] = {"states": dfa.n_states, "classes": dfa.n_classes,
+                      "shape": list(cls.shape), "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "device_ms": dev_ms}
+        del cls, sv, plan
+    return out
+
+
 def phase_wide_chain(name: str, corpus, truth):
     """One phase-23 chain over ``WIDE_PHASE["batches"]`` batches of
     ``corpus`` through ``process_stream``; the explode's plant batch holds
     `wide_plant`'s record. Every output against the interpreter's
-    ``truth`` (per record), the aggregates' running values continued across
-    batches. Returns the chain's numbers, its launches included."""
+    ``truth`` (per record): the elements, the records a filter keeps, the
+    re-key's values and keys, the aggregates' running values continued
+    across batches. Returns the chain's numbers, its launches included."""
     batches = WIDE_PHASE["batches"]
-    explode = name == "wide_filter_explode"
+    kind = WIDE_KINDS.get(name, "aggregate")
+    explode = kind == "json_explode"
     corpora = [corpus] * batches
     plant = None
     if explode:
@@ -5942,7 +6057,15 @@ def phase_wide_chain(name: str, corpus, truth):
         raise AssertionError(f"{name}: the chain did not run striped")
     acc = 0
     for k, out in enumerate(outs):
-        if explode:
+        if kind == "lines":
+            want = [e for es in truth for e in es]
+        elif kind == "filter":
+            want = [rec for rec, keep in zip(corpus, truth) if keep]
+        elif kind == "rekey":
+            want = [t[0] for t in truth if t is not None]
+            if out.key_list() != [t[1] for t in truth if t is not None]:
+                raise AssertionError(f"{name} batch {k}: keys differ from the interpreter's")
+        elif explode:
             stop = WIDE_PHASE["plant_row"] if k == WIDE_PHASE["plant_batch"] else len(corpus)
             want = [e for es in truth[:stop] for e in es]
             err = out.error
@@ -5963,12 +6086,15 @@ def phase_wide_chain(name: str, corpus, truth):
             raise AssertionError(f"{name} batch {k}: {out.count} outputs differ from the "
                                  f"interpreter's {len(want)}")
     chain._ensure_host_state()
-    if not explode and chain.carries != [(acc, 0, True)]:
+    if kind == "aggregate" and chain.carries != [(acc, 0, True)]:
         raise AssertionError(f"{name}: carries {chain.carries}, host truth {acc}")
-    if explode and (launches["json_array_striped"] < batches or launches["dfa_compose"] < batches):
-        raise AssertionError(f"{name}: a kernel did not launch every batch: {launches}")
-    if name == "wide_aggregate_field" and launches["json_span_striped"] < batches:
-        raise AssertionError(f"{name}: json_span_striped did not launch every batch: {launches}")
+    need = {"json_explode": ("json_array_striped", "dfa_compose"), "lines": ("dfa_compose",),
+            "filter": ("dfa_compose",), "rekey": ("dfa_compose", "json_span_striped")}.get(
+                kind, ("json_span_striped",) if name == "wide_aggregate_field" else ())
+    if any(launches[kn] < batches for kn in need):
+        raise AssertionError(f"{name}: {need} did not launch every batch: {launches}")
+    if kind == "rekey" and not chain._striped.computed:
+        raise AssertionError(f"{name}: the re-key did not run as a striped computed map")
     n_in = batches * len(corpus)
     n_out = sum(o.count for o in outs)
     nbytes = sum(len(r) for c in corpora for r in c)
@@ -5986,24 +6112,31 @@ def phase_wide_chain(name: str, corpus, truth):
 
 def phase_wide_chains(dev):
     """Phase 23: ``json_array.cu`` against its plain version and its times,
-    then the four wide chains. Returns ({chain: numbers}, the launches
-    of the chains' runs summed, the kernel row)."""
+    `dfa_compose.cu` at the tables past the JAX package's gate, then the
+    seven wide chains. Returns ({chain: numbers}, the launches of the
+    chains' runs summed, the json_array kernel row, the large tables'
+    dfa_compose shapes)."""
     t_phase = time.perf_counter()
     numbers, total = {}, {k: 0 for k in cuda_kernels.LAUNCHES}
     row = None
+    corpora = {}
     for name in WIDE_CHAINS:
-        corpus = wide_corpus(name)
+        corpus = corpora[name] = wide_corpus(name)
         if name == "wide_filter_explode":
             row = wide_array_check(dev, corpus)
+        if name == "wide_dated_fluvio":
+            large = large_table_rows(dev, corpora)
         truth = wide_truth(name, corpus)
         numbers[name] = phase_wide_chain(name, corpus, truth)
         for k, v in numbers[name]["launches"].items():
             total[k] += v
         del corpus, truth
+        if name != "wide_log_scan":
+            corpora.pop(name)
     numbers["phase_s"] = time.perf_counter() - t_phase
     log(f"wide chains: phase 23 took {numbers['phase_s']:.1f} s, host truth included; "
         f"json_array_striped device {row['device_ms']} ms a call, launches {total}")
-    return numbers, total, row
+    return numbers, total, row, large
 
 
 def main(argv=None) -> int:
@@ -6066,8 +6199,9 @@ def main(argv=None) -> int:
                              "rollback, the SPU's partition gate (phase 22; no ok line)")
     parser.add_argument("--wide-chains-only", action="store_true",
                         help="build the kernels and run only wide records through the JSON-array "
-                             "explode and the byte-range aggregates, and json_array.cu's check "
-                             "(phase 23; no ok line)")
+                             "explode, the byte-range aggregates, regexes past the JAX package's "
+                             "DFA gate and a re-key by a field, json_array.cu's check and "
+                             "dfa_compose.cu at the large tables (phase 23; no ok line)")
     parser.add_argument("--striped-slice-only", action="store_true",
                         help="build the kernels and run only phase 12 (with phase 9's aggregate "
                              "chains and phase 11, whose D2H it reads; no ok line)")
@@ -6183,9 +6317,10 @@ def main(argv=None) -> int:
         print(json.dumps({"failover": numbers, "launches": launches}))
         return 0
     if args.wide_chains_only:
-        numbers, launches, row = phase_wide_chains(dev)
+        numbers, launches, row, large = phase_wide_chains(dev)
         print(smi)
-        print(json.dumps({"wide_chains": numbers, "launches": launches, "kernel": row}))
+        print(json.dumps({"wide_chains": numbers, "launches": launches, "kernel": row,
+                          "dfa_compose_large_tables": large}))
         return 0
     if args.striped_slice_only:
         json_corpora = [gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)]
@@ -6246,8 +6381,12 @@ def main(argv=None) -> int:
     lap("21 resilience")
     fo_numbers, fo_launches = phase_failover()
     lap("22 failover")
-    wide_numbers, wide_launches, wide_row = phase_wide_chains(dev)
+    wide_numbers, wide_launches, wide_row, wide_large = phase_wide_chains(dev)
     rows.append(wide_row)
+    compose = next(r for r in rows if r["name"] == "dfa_compose")
+    compose["large_tables"] = wide_large
+    compose["max_abs_err"] = max([compose["max_abs_err"]]
+                                 + [t["max_abs_err"] for t in wide_large.values()])
     lap("23 wide chains")
     log(f"replication beside the cluster: north star by name through the SC from the promoted "
         f"leader {repl_numbers['north_star_after_failover']['sc_records_per_s']:.0f} records/s, "

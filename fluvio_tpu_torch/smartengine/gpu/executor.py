@@ -50,10 +50,11 @@ Batches wider than the narrow layout (`StripeParams.threshold`) take the
 striped path (`_dispatch_striped`, the reference's `_chain_fn_striped`):
 the same ragged upload re-padded into stripe rows (`gpu/stripes.py`),
 segment-level verdicts, aggregates over the segment state (or over a
-contribution computed on a byte range of the stripes), and the segment
-survivor mask, (start, length) descriptors, an aggregate's byte-mode
-payload or a split or JSON-array explode's element descriptors down,
-rebuilt by the same host code.
+contribution computed on a byte range of the stripes), key rewrites and
+values built from fields as narrow columns of the segment state, and the
+segment survivor mask, (start, length) descriptors, an aggregate's or a
+computed map's byte-mode payload or a split or JSON-array explode's
+element descriptors down, rebuilt by the same host code.
 
 The glz link (`gpu/glz.py`), on only when a `LinkParams` asks for it:
 the up link ships the flat as glz tokens, compressed on the host (a
@@ -97,9 +98,9 @@ the engine's ladder. Nothing gives way to another path: no interpreter,
 no other link form.
 
 What the port does not cover raises :class:`GpuSpill` instead of running
-anywhere else: wide batches of a chain with no striped lowering (a key
-rewrite, a regex past the striped DFA gate;
-``record-too-wide-unstripeable``), and an explode that overflows its
+anywhere else: wide batches of a chain with no striped lowering, or whose
+computed map meets a field wider than a narrow column
+(``record-too-wide-unstripeable``), and an explode that overflows its
 capacity again after its retry (``fanout-overflow``).
 """
 
@@ -1492,9 +1493,11 @@ class GpuChainExecutor:
         axis (the narrow stages, sharing their carry slots). Filter and
         fold chains ship the segment survivor mask, span chains compacted
         int32 (start, length) descriptors (striped spans index records
-        wider than int16) beside it, aggregate chains the byte-mode
-        payload of their rendered outputs, split explodes their elements'
-        int32 descriptors and source records (`_ship_striped_fan`)."""
+        wider than int16) beside it, aggregate and computed-map chains
+        the byte-mode payload of their rendered or computed outputs (and
+        keys), explodes their elements' int32 descriptors and source
+        records (`_ship_striped_fan`). A computed map's field wider than a
+        narrow column raises `GpuSpill`."""
         p = self.stripe_params
         sc = self._striped
         flat_up = self._stage_flat(buf, span)
@@ -1516,13 +1519,18 @@ class GpuChainExecutor:
         fetch = _Fetch(self.device, prev, self._fanout_cap(buf))
         self._dispatch_seams()
         # k > 0: the live records
-        valid, seg_state, carries, fan, vspan = sc.run(
-            ctx, plan["k"] > 0, fetch.prev_carries, buf.base_timestamp, {"fanout_cap": fetch.cap})
+        try:
+            valid, seg_state, carries, fan, vspan = sc.run(
+                ctx, plan["k"] > 0, fetch.prev_carries, buf.base_timestamp,
+                {"fanout_cap": fetch.cap})
+        except stripes.NarrowOverflow as e:
+            TELEMETRY.add_stripe_fallback()
+            raise GpuSpill(str(e), reason="record-too-wide-unstripeable") from e
         if fan is not None:
             fetch.striped = (ctx, valid)
             self._ship_striped_fan(fetch, ctx, valid, fan)
             del fan  # the last reference to the [r, s] grids
-        elif sc.has_agg:
+        elif sc.has_agg or sc.computed:
             self._ship_bytes(fetch, seg_state, ())
         elif vspan is None:
             self._ship_views(fetch, valid, lengths)

@@ -19,6 +19,7 @@ int argument only.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -34,6 +35,17 @@ class Unlowerable(Exception):
 
 
 BytesVal = Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclass
+class Column(dsl.Expr):
+    """A value its caller put in the state under ``name``: a (values,
+    lengths) pair when ``kind`` is "bytes", i64[N] when "int". The
+    striped build binds the record reads of a computed map to such
+    columns (`stripes._bind_record_reads`)."""
+
+    name: str = ""
+    kind: str = "bytes"
 
 
 def _span(v: torch.Tensor, l: torch.Tensor, key: str) -> BytesVal:
@@ -99,6 +111,8 @@ def apply_postops(values: torch.Tensor, postops) -> torch.Tensor:
 
 
 def infer_type(expr: dsl.Expr) -> str:
+    if isinstance(expr, Column):
+        return expr.kind
     if isinstance(expr, (dsl.Value, dsl.Key, dsl.Const, dsl.Upper, dsl.Lower,
                          dsl.Concat, dsl.JsonGet, dsl.IntToBytes)):
         return "bytes"
@@ -121,6 +135,10 @@ def lower_expr(expr: dsl.Expr) -> Callable[[Dict[str, torch.Tensor]], object]:
 
     if isinstance(expr, dsl.Value):
         return lambda s: (s["values"], s["lengths"])
+
+    if isinstance(expr, Column):
+        name = expr.name
+        return lambda s: s[name]
 
     if isinstance(expr, dsl.Key):
         # null key reads as b"" (parity with the interpreter)

@@ -13,15 +13,21 @@ ragged flat.
   in some stripe: a windowed compare per stripe, OR-reduced per segment.
 - Non-literal regexes, and literals past the overlap, chain DFA state
   across stripes: each row's OWNED bytes reduce to one transition
-  function (`cuda_kernels.dfa_compose_columns`), the rows of a segment
-  compose in order, and EOS applies once per segment.
+  function (`cuda_kernels.dfa_compose_columns`, which takes every table
+  the compiler emits), the rows of a segment compose in order, and EOS
+  applies once per segment.
 - A single-level ``JsonGet`` carries the structural machine across the
   stripes (`cuda_kernels.striped_json_span`) and gives record-absolute
   (start, length) views; predicates over the field window-compare or
   chain an in-span DFA inside that span.
 - Maps are the position-wise case folds (upper/lower), which commute with
   striping, or one JsonGet view; outputs ship as the segment survivor mask
-  or (start, length) descriptors, and the host rebuilds the bytes.
+  or (start, length) descriptors, and the host rebuilds the bytes. A map
+  that rewrites the key or builds its value from fields computes narrow
+  columns instead: the narrow lowering over the segment state, each
+  JsonGet field gathered from the stripes into a narrow column
+  (`striped_field_bytes`); its outputs ship as the narrow path's computed
+  values do.
 - Aggregates run the executor's narrow stage over the segment state (the
   full record lengths and the first stripe's bytes), so their carries
   are the narrow path's. What that state cannot give exactly is a
@@ -41,6 +47,7 @@ environment.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
@@ -50,16 +57,13 @@ import torch
 from fluvio_tpu_torch.ops.regex_dfa import UnsupportedRegex, compile_regex_cached, literal_of
 from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, kernels
 from fluvio_tpu_torch.smartengine.gpu.buffer import MAX_WIDTH
-from fluvio_tpu_torch.smartengine.gpu.lower import Unlowerable, apply_postops, lower_expr
+from fluvio_tpu_torch.smartengine.gpu.lower import (
+    Column,
+    Unlowerable,
+    apply_postops,
+    lower_expr,
+)
 from fluvio_tpu_torch.smartmodule import dsl
-
-# state-count gate of the cross-stripe DFA chain (the JAX package's
-# default ``FLUVIO_DFA_ASSOC_MAX_STATES``), and the legacy limit that
-# applies when a packed table has more classes than the gate is sized for
-DFA_STRIPE_MAX_STATES = 64
-DFA_STRIPE_MAX_STATES_WIDE = 16
-DFA_MAX_CLASSES = 32
-
 
 @dataclass(frozen=True)
 class StripeParams:
@@ -476,25 +480,20 @@ def _literal_regex(lit: bytes, kind: str) -> str:
     return pre + body + post
 
 
-def _striped_dfa_gate(pattern: str):
-    """Compile and gate a DFA for the cross-stripe chain: at most 64
-    states, 16 when the packed table has more than 32 classes (the
-    composition's work grows with S x C). Past the gate the chain is
-    unstripeable."""
+def _striped_dfa(pattern: str):
+    """Compile a DFA for the cross-stripe chain. Every table the compiler
+    emits composes on the card (`cuda_kernels.dfa_compose_columns` takes
+    up to 257 states and 258 classes), so the JAX package's TPU cost gate
+    on states and classes has no counterpart here; only a pattern the
+    compiler refuses is unstripeable."""
     try:
-        dfa = compile_regex_cached(pattern)
+        return compile_regex_cached(pattern)
     except UnsupportedRegex as e:
         raise Unlowerable(str(e)) from e
-    limit = DFA_STRIPE_MAX_STATES
-    if dfa.n_classes > DFA_MAX_CLASSES:
-        limit = DFA_STRIPE_MAX_STATES_WIDE
-    if dfa.n_states > limit:
-        raise Unlowerable(f"DFA of {dfa.n_states} states exceeds the striped gate ({limit})")
-    return dfa
 
 
 def _lower_striped_dfa(pattern: str, postops):
-    dfa = _striped_dfa_gate(pattern)
+    dfa = _striped_dfa(pattern)
 
     def fn(ctx):
         sv = apply_postops(ctx["sv"], postops)
@@ -504,7 +503,7 @@ def _lower_striped_dfa(pattern: str, postops):
 
 
 def _lower_striped_dfa_in_span(pattern: str, key: str, pre, outer):
-    dfa = _striped_dfa_gate(pattern)
+    dfa = _striped_dfa(pattern)
 
     def fn(ctx):
         sv_pre, (vst, vln) = _cached_json_span(ctx, key, pre)
@@ -599,6 +598,111 @@ def _striped_view(value):
 def _make_span_fn(key: str, pre: Tuple[str, ...]):
     def fn(ctx):
         return _cached_json_span(ctx, key, pre)[1]
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Computed maps: key rewrites and values built from fields
+# ---------------------------------------------------------------------------
+
+
+class NarrowOverflow(Exception):
+    """A striped computed map met a field wider than a narrow column
+    holds (`buffer.MAX_WIDTH`); the executor raises its `GpuSpill`."""
+
+
+def striped_field_bytes(sv: torch.Tensor, plan: dict, vst: torch.Tensor, vln: torch.Tensor,
+                        width: int) -> torch.Tensor:
+    """u8[n, width]: each segment's bytes [vst, vst + vln), gathered from
+    the rows that own them (any number of seams), zero past the length."""
+    r, s = sv.shape
+    n = vst.shape[0]
+    dev = sv.device
+    j = torch.arange(width, dtype=torch.int64, device=dev)[None, :]
+    seg = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+    flat = _owner_flat(vst.to(torch.int64)[:, None] + j, seg, plan["first_row"], plan["k"],
+                       plan["step"], r, s)
+    return torch.where(j < vln.to(torch.int64)[:, None], sv.reshape(-1)[flat], 0)
+
+
+def _value_folds(arg) -> Optional[Tuple[str, ...]]:
+    """``arg``'s folds when it is a fold chain over the record value, else
+    None (a key or const source, or any other expression)."""
+    try:
+        return _value_postops(arg)
+    except Unlowerable:
+        return None
+
+
+def _bind_record_reads(expr, binds: list):
+    """``expr`` with each read of the wide record's bytes bound to a
+    narrow column (`lower.Column`), the binding appended to ``binds``:
+    a single-level JsonGet over folds of the value to its field's bytes
+    (``("field", name, key, folds)``), an integer parse of the value to
+    the parse over the whole record (``("int", name)``). Key, const and
+    length reads stay: they are exact on the segment state. The value's
+    own bytes, which no narrow column holds, raise."""
+    if isinstance(expr, dsl.JsonGet):
+        pre = _value_postops(expr.arg)  # raises for a nested JsonGet
+        if pre is None:
+            raise Unlowerable("striped JsonGet must read the record value")
+        name = f"_field{len(binds)}"
+        binds.append(("field", name, expr.key, pre))
+        return Column(name=name)
+    if isinstance(expr, dsl.Len) and _value_folds(expr.arg) is not None:
+        return expr  # the segment state's lengths are the records'
+    if isinstance(expr, dsl.ParseInt) and _value_folds(expr.arg) is not None:
+        name = f"_int{len(binds)}"
+        binds.append(("int", name))  # case folds change no digit, sign or space
+        return Column(name=name, kind="int")
+    if isinstance(expr, (dsl.Key, dsl.Const)):
+        return expr
+    if isinstance(expr, (dsl.Upper, dsl.Lower, dsl.Len, dsl.ParseInt, dsl.IntToBytes)):
+        return dataclasses.replace(expr, arg=_bind_record_reads(expr.arg, binds))
+    if isinstance(expr, dsl.Concat):
+        return dataclasses.replace(expr, args=[_bind_record_reads(a, binds) for a in expr.args])
+    if isinstance(expr, dsl.Value):
+        raise Unlowerable("a striped computed map cannot output the whole record")
+    raise Unlowerable(f"{type(expr).__name__} not stripeable in a computed map")
+
+
+def _lower_computed_map(prog, bind: bool) -> Callable:
+    """fn(ctx) rewriting ``ctx["seg_state"]``'s value (and key) by the
+    narrow lowering, as the narrow map stage does: ``bind`` for the
+    chain's first computed map, whose record reads are bound to columns
+    built per batch (fields gathered from the stripes, each at the power
+    of two above its longest); after it the segment state is narrow and
+    whole, so later maps lower on it as they are."""
+    binds: list = []
+    exprs = [prog.value] + ([prog.key] if prog.key is not None else [])
+    if bind:
+        exprs = [_bind_record_reads(e, binds) for e in exprs]
+    fns = [lower_expr(e) for e in exprs]
+
+    def fn(ctx):
+        st = ctx["seg_state"].copy()
+        for b in binds:
+            if b[0] == "int":
+                st[b[1]] = striped_parse_int(ctx["sv"], ctx["plan"],
+                                             torch.zeros_like(st["lengths"]), st["lengths"],
+                                             ctx["n"])
+                continue
+            _, name, key, pre = b
+            sv_pre, (vst, vln) = _cached_json_span(ctx, key, pre)
+            longest = int(vln.max()) if vln.numel() else 0
+            if longest > MAX_WIDTH:
+                raise NarrowOverflow(
+                    f"field {key!r} of {longest} bytes exceeds a narrow column ({MAX_WIDTH})")
+            width = 1 << max(longest - 1, 0).bit_length()
+            st[name] = (striped_field_bytes(sv_pre, ctx["plan"], vst, vln, width),
+                        vln.to(torch.int32))
+        out = ctx["seg_state"]
+        v, ln = fns[0](st)
+        out["values"], out["lengths"] = v, ln.to(torch.int32)
+        if len(fns) > 1:
+            kv, kl = fns[1](st)
+            out["keys"], out["key_lengths"] = kv, kl.to(torch.int32)
 
     return fn
 
@@ -977,12 +1081,15 @@ class StripedChain:
     """Stripe-capable lowering of a whole chain.
 
     ``ops`` entries: ("filter", fn) | ("postops", folds) | ("span", fn) |
-    ("agg", (aggregate stage, contribution fn or None)) | ("fanout",
-    None). ``postops`` accumulates every fold the host applies when it
-    rebuilds view outputs (it must equal the narrow build's view postops).
-    A span op (JsonGet map) makes the outputs sub-record views: the
-    executor ships their (start, length) descriptors instead of whole
-    records. An aggregate op runs the executor's own narrow stage on the
+    ("computed", fn) | ("agg", (aggregate stage, contribution fn or
+    None)) | ("fanout", None). ``postops`` accumulates every fold the host
+    applies when it rebuilds view outputs (it must equal the narrow
+    build's view postops). A span op (JsonGet map) makes the outputs
+    sub-record views: the executor ships their (start, length)
+    descriptors instead of whole records. A computed op (a key rewrite, a
+    value built from fields, ``computed``) rewrites the segment state's
+    narrow value and key columns, which ship in byte mode as the narrow
+    path's do (`_lower_computed_map`). An aggregate op runs the executor's own narrow stage on the
     segment state, with the contribution column a byte-range op computed
     where the state cannot give it (`_striped_contribution`); a fan-out op
     (last, program ``fanout_stage``) gives the explode's emission grid: a
@@ -993,6 +1100,7 @@ class StripedChain:
     postops: Tuple[str, ...] = ()
     has_span: bool = False
     has_agg: bool = False
+    computed: bool = False
     fanout_sep: Optional[int] = None
     fanout_json: bool = False
     fanout_stage: int = 0
@@ -1026,6 +1134,9 @@ class StripedChain:
                 ctx["seg_state"]["values"] = apply_postops(ctx["seg_state"]["values"], arg)
             elif kind == "span":
                 vspan = arg(ctx)
+            elif kind == "computed":
+                arg(ctx)
+                ctx["seg_state"]["valid"] = valid  # what the byte-mode ship reads
             elif kind == "agg":
                 stage, contribution = arg
                 st = ctx["seg_state"].copy()
@@ -1052,17 +1163,27 @@ def try_build_striped(programs, stages, s: int, v: int) -> Optional[StripedChain
       (`_striped_contribution`);
     - a fan-out only last, a one-byte ``split`` or a JSON-array explode,
       never after an aggregate or a span map;
-    - no filter after a span map, one span map a chain, no key rewrite.
+    - no filter after a span map, one span map a chain;
+    - a map that rewrites the key, or whose value is neither a fold chain
+      nor a JsonGet view, computes narrow columns (`_lower_computed_map`):
+      never after a span map, and no filter or fan-out after it; its
+      record reads are JsonGet fields, lengths and integer parses, never
+      the whole value.
 
     Beyond the JAX package's rules it lowers the JSON-array explode, the
-    word count, the JsonGet contribution and an aggregate after a span
-    map, which the JAX package spills to its interpreter."""
+    word count, the JsonGet contribution, an aggregate after a span map
+    and the computed map, which the JAX package spills to its
+    interpreter, and a regex of any DFA the compiler emits, where the JAX
+    package gates the states and classes for its TPU."""
     chain = StripedChain()
     span_src = None
     try:
         for index, (prog, stage) in enumerate(zip(programs, stages)):
             if chain.fanout or (chain.has_agg and not isinstance(prog, dsl.AggregateProgram)):
                 raise Unlowerable("stage after a striped terminal stage")
+            if chain.computed and isinstance(prog, (dsl.FilterProgram, dsl.FilterMapProgram,
+                                                    dsl.ArrayMapProgram)):
+                raise Unlowerable("filter or fan-out after a striped computed map")
             if isinstance(prog, dsl.FilterProgram):
                 if chain.has_span:
                     # a later filter would read the extracted view, not the
@@ -1074,10 +1195,18 @@ def try_build_striped(programs, stages, s: int, v: int) -> Optional[StripedChain
                     if chain.has_span:
                         raise Unlowerable("filter after a striped span map")
                     chain.ops.append(("filter", lower_striped_predicate(prog.predicate, s, v)))
-                if prog.key is not None:
-                    raise Unlowerable("striped map cannot rewrite keys")
-                view = _striped_view(prog.value)
-                if view[0] == "postops":
+                view = None
+                if prog.key is None and not chain.computed:
+                    try:
+                        view = _striped_view(prog.value)
+                    except Unlowerable:
+                        pass  # computed below
+                if view is None:
+                    if chain.has_span:
+                        raise Unlowerable("computed map after a striped span map")
+                    chain.ops.append(("computed", _lower_computed_map(prog, not chain.computed)))
+                    chain.computed = True
+                elif view[0] == "postops":
                     if view[1] and not chain.has_span:
                         # after a span map the stripe bytes are dead; the
                         # fold applies on the host through `postops`
@@ -1092,7 +1221,9 @@ def try_build_striped(programs, stages, s: int, v: int) -> Optional[StripedChain
                     chain.postops += total
                     span_src = (key, pre)
             elif isinstance(prog, dsl.AggregateProgram):
-                contribution = _striped_contribution(prog, span_src, not chain.has_agg)
+                # after a computed map the segment state is narrow and whole
+                contribution = None if chain.computed else _striped_contribution(
+                    prog, span_src, not chain.has_agg)
                 chain.ops.append(("agg", (stage, contribution)))
                 chain.has_agg = True
             elif isinstance(prog, dsl.ArrayMapProgram):

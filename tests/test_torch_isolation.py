@@ -2009,9 +2009,10 @@ def test_wide_chains_on_the_card():
     """Phase 23 of the smoke at a small size, on 64-byte stripes:
     ``json_array.cu`` equals its plain version on JSON arrays and
     JSON-alphabet garbage, and a filter ahead of the JSON-array explode
-    (a record that is no JSON array planted), ``aggregate-field`` and
-    ``json-map`` -> ``word-count`` over wide records give on the card the
-    outputs and the first error they give on the CPU."""
+    (a record that is no JSON array planted), ``aggregate-field``,
+    ``json-map`` -> ``word-count``, regex filters of 73 and 242 states and
+    a re-key by a field over wide records give on the card the outputs,
+    keys and first error they give on the CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels build and run only there")
     from fluvio_tpu_torch.models import lookup
@@ -2045,19 +2046,40 @@ def test_wide_chains_on_the_card():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
+    def rekey():
+        from fluvio_tpu_torch.smartmodule import dsl
+        from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
+        from fluvio_tpu_torch.smartmodule.types import SmartModuleKind
+
+        name = dsl.JsonGet(arg=dsl.Value(), key="name")
+        m = SmartModuleDef(name="rekey")
+        m.dsl[SmartModuleKind.MAP] = dsl.MapProgram(
+            value=dsl.Concat(args=[dsl.Const(data=b"<"), name, dsl.Const(data=b">")]), key=name)
+        return m
+
     def run(device, specs, values):
         b = SmartEngine(device=device, stripes=params).builder()
         for name, p in specs:
-            b.add_smart_module(SmartModuleConfig(params=p), lookup(name))
+            b.add_smart_module(SmartModuleConfig(params=p),
+                               lookup(name) if isinstance(name, str) else name())
         out = b.initialize().gpu_chain.process_buffer(RecordBuffer.from_values(values))
         err = out.error and (out.error.hint, out.error.offset, out.error.record_value)
-        return out.value_list(), err
+        return out.value_list(), out.key_list(), err
 
     fields = [b'{"pad":"%s","name":"a b  c","n":%d}' % (b"p" * (7 * i), i) for i in range(40)]
+    logs = [b"x" * (5 * i) + (b"ERROR: link reset" if i % 2 else b"WARN ok") + b"\n" * 40
+            for i in range(30)]
+    dated = [b"y" * (3 * i) + b"fluVio on 2026-10-18" + b"z" * 60 for i in range(0, 40, 3)]
     for specs, values in (
             ([("regex-filter", {"regex": "flu[vV]io"}), ("array-map-json", {})],
              arrays[:30] + [b'{"fluvio":' + b"1" * 70 + b"}"] + arrays[30:]),
             ([("aggregate-field", {"field": "n"})], fields),
-            ([("json-map", {"field": "name"}), ("word-count", {})], fields)):
+            ([("json-map", {"field": "name"}), ("word-count", {})], fields),
+            # DFAs past the JAX package's gate (73 and 242 states), a re-key
+            ([("regex-filter", {"regex": "(ERROR|WARN|FATAL|CRIT).*(timeout|refused|reset|"
+                                         "denied|unreachable)"})], logs),
+            ([("regex-filter", {"regex": "flu[vV]io.{0,16}[0-9]{4}-[0-9]{2}-[0-9]{2}"})],
+             dated + [d.replace(b"-10-", b"-1-") for d in dated]),
+            ([(rekey, {})], fields)):
         card = run("cuda", specs, values)
         assert card == run("cpu", specs, values) and card[0]

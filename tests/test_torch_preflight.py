@@ -183,9 +183,9 @@ def test_newly_striped_chains_predict_striped_where_the_reference_spills(name):
     assert ref["spill_reasons"] == ["record-too-wide-unstripeable"]
 
 
-def test_key_rewrite_still_predicts_a_raise():
-    """A key rewrite has no striped lowering: past the threshold the port's
-    preflight predicts the raise its dispatch gives."""
+def test_key_rewrite_predicts_the_striped_path():
+    """A key rewrite lowers striped since its computed map: past the
+    threshold the port's preflight predicts ``striped``, with no spill."""
     from fluvio_tpu_torch.analysis import analyze_entries
     from tests.test_torch_chain import _module_pair
     from tests.test_torch_striped_slice import KEY_REWRITE
@@ -194,8 +194,63 @@ def test_key_rewrite_still_predicts_a_raise():
     module = _module_pair(kind, build)[1]
     report = analyze_entries([(module, SmartModuleConfig(params=params))],
                              widths=((1 << 16) + 1,))
-    assert report.predictions[0].path == "raise"
-    assert list(report.predictions[0].spill_reasons) == ["record-too-wide-unstripeable"]
+    assert report.predictions[0].path == "striped"
+    assert not report.predictions[0].spill_reasons and not report.errors()
+
+
+def _rekey(d, value):
+    return d.FilterMapProgram(predicate=d.RegexMatch(arg=d.Value(), pattern="flu[vV]io"),
+                              value=value, key=d.JsonGet(arg=d.Value(), key="name"))
+
+
+WIDE_PATHS = {
+    # the four regexes past the JAX package's TPU gate, over the record
+    "log-scan": ("regex-filter",
+                 {"regex": "(ERROR|WARN|FATAL|CRIT).*(timeout|refused|reset|denied|unreachable)"},
+                 b"ERROR connection refused", "striped"),
+    "access-log": ("regex-filter",
+                   {"regex": '(GET|POST|PUT|DELETE) /api/v[0-9]+/(users|orders|items)/[0-9]+ '
+                             'HTTP/1\\.[01]" (4|5)[0-9][0-9]'},
+                   b'PUT /api/v3/items/7 HTTP/1.0" 500', "striped"),
+    "dated-fluvio": ("regex-filter", {"regex": "flu[vV]io.{0,16}[0-9]{4}-[0-9]{2}-[0-9]{2}"},
+                     b"fluvio 2026-10-18", "striped"),
+    "ab-six": ("regex-filter", {"regex": "(a|b)*a(a|b){6}"}, b"abababa", "striped"),
+    # a re-key by a field: striped; a value holding the whole record: a raise
+    "rekey": (("filter_map", lambda d: _rekey(d, d.Concat(args=[
+        d.Const(data=b"<"), d.JsonGet(arg=d.Value(), key="name"), d.Const(data=b">")]))),
+        {}, b'{"name":"fluvio"}', "striped"),
+    "whole-record-value": (("filter_map", lambda d: _rekey(d, d.Concat(args=[
+        d.Value(), d.Const(data=b"!")]))), {}, b'{"name":"fluvio"}', "raise"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_PATHS))
+def test_wide_batch_predictions_follow_the_striped_lowering(name):
+    """At small stripes, past the threshold: the preflight's path equals
+    the path the chain takes, and the warm-up stages the wide bucket
+    exactly where that path is ``striped`` (it skips it with the raise's
+    reason where not)."""
+    from fluvio_tpu_torch import admission
+    from fluvio_tpu_torch.analysis import analyze_entries
+    from tests.test_torch_chain import _module_pair
+
+    spec, params, hit, want = WIDE_PATHS[name]
+    module = lookup(spec) if isinstance(spec, str) else _module_pair(*spec)[1]
+    engine = SmartEngine(device="cpu", stripes=SMALL)
+    entries = [(module, SmartModuleConfig(params=dict(params)))]
+    pred = analyze_entries(entries, widths=(300,), engine=engine).predictions[0]
+    chain = engine.builder().add_smart_module(entries[0][1], module).initialize()
+    pad = b"_" * (300 - len(hit))
+    values = [pad + hit, hit + pad, pad, b"short"]
+    observed, spilled = _observe(chain, values)
+    assert pred.path == observed == want, (pred.to_dict(), observed)
+    assert list(pred.spill_reasons) == spilled
+    report = admission.warm_executor(chain.gpu_chain, widths=(40, 300), rows=8)
+    assert report.errors == []
+    if want == "striped":
+        assert report.skipped == [] and len(report.buckets) == 2
+    else:
+        assert report.skipped == ["width 300: record-too-wide-unstripeable"]
 
 
 CUT_RUNS = {

@@ -292,22 +292,33 @@ class TestChains:
         out = _run_striped([("regex-filter", {"regex": lit.decode()})], values)
         assert out.count == 20
 
-    def test_dfa_past_the_gate_spills(self, small_stripes):
+    def test_dfa_past_the_gate_runs_striped(self, small_stripes):
+        """A DFA past the JAX package's TPU gate (64 states) composes
+        across the stripes on the port; the JAX engine spills the wide
+        batch to its interpreter, whose records the port's equal."""
         from fluvio_tpu.models import lookup as ref_lookup
+        from fluvio_tpu.protocol.record import Record as RefRecord
         from fluvio_tpu.smartengine import SmartEngine as RefEngine
         from fluvio_tpu.smartengine import SmartModuleConfig as RefConfig
+        from fluvio_tpu.smartmodule.types import SmartModuleInput as RefInput
         from fluvio_tpu_torch.models import lookup
 
         pattern = "(a|b)*a(a|b){6}"
-        assert ref_compile_regex(pattern).n_states > stripes.DFA_STRIPE_MAX_STATES
+        assert ref_compile_regex(pattern).n_states > 64
         params = {"regex": pattern}
-        ref_chain = RefEngine(backend="tpu").builder().add_smart_module(
-            RefConfig(params=params), ref_lookup("regex-filter")).initialize().tpu_chain
-        assert ref_chain._striped_chain() is None
+        ref = RefEngine(backend="tpu").builder().add_smart_module(
+            RefConfig(params=params), ref_lookup("regex-filter")).initialize()
+        assert ref.tpu_chain._striped_chain() is None
         port_chain = SmartEngine(device="cpu", stripes=PARAMS).builder().add_smart_module(
             SmartModuleConfig(params=params), lookup("regex-filter")).initialize().gpu_chain
-        with pytest.raises(GpuSpill) as e:
-            port_chain.process_buffer(RecordBuffer.from_values([b"ab" * 60]))
-        assert e.value.reason == "record-too-wide-unstripeable"
+        assert port_chain._striped_chain() is not None
+        values = [b"ab" * 60, b"x" * 45 + b"abbbbbb" + b"x" * 30, b"b" * 100 + b"abbbbb",
+                  b"x" * 44 + b"abb" + b"x" + b"bbbb" + b"y" * 40, b"a" * 7, b"c" * 90]
+        recs = [RefRecord(value=v) for v in values]
+        for i, r in enumerate(recs):
+            r.offset_delta = i
+        want = [r.value for r in ref.process(RefInput.from_records(recs)).successes]
+        got = port_chain.process_buffer(RecordBuffer.from_values(values))
+        assert got.value_list() == want == [values[0], values[1], values[4]]
         # a narrow batch of the same chain still runs
         assert port_chain.process_buffer(RecordBuffer.from_values([b"aabababa", b"b"])).count == 1

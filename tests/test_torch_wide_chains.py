@@ -21,11 +21,17 @@ modelled in Python below and held to the plain version's grid.
 
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from fluvio_tpu.models import lookup as ref_lookup
+from fluvio_tpu.ops.regex_dfa import compile_regex as ref_compile_regex
+from fluvio_tpu.smartengine.tpu import kernels as jax_kernels
 from fluvio_tpu.protocol import record as ref_record
 from fluvio_tpu.smartengine import SmartEngine as RefEngine
 from fluvio_tpu.smartengine import SmartModuleConfig as RefConfig
@@ -33,8 +39,8 @@ from fluvio_tpu.smartmodule import dsl as ref_dsl
 from fluvio_tpu.smartmodule import types as ref_types
 from fluvio_tpu_torch.models import lookup
 from fluvio_tpu_torch.protocol import record
-from fluvio_tpu_torch.smartengine import GpuSpill, SmartEngine, SmartModuleConfig
-from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, stripes
+from fluvio_tpu_torch.smartengine import GpuSpill, SmartEngine, SmartModuleConfig, StripeParams
+from fluvio_tpu_torch.smartengine.gpu import cuda_kernels, kernels, stripes
 from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer, _next_pow2
 from fluvio_tpu_torch.smartmodule import dsl
 from fluvio_tpu_torch.smartmodule.types import SmartModuleInput
@@ -247,10 +253,65 @@ def _grid_docs():
     return docs + _random_arrays(rng, 200) + [b""]
 
 
-def _kernel_model(sv, owned, first_row, k, step):
-    """``csrc/json_array.cu``'s walk, a thread a segment, in Python."""
+CSRC = Path(stripes.__file__).resolve().parent / "csrc"
+
+
+def _source_constant(name: str) -> int:
+    text = (CSRC / "json_array.cu").read_text(encoding="utf-8")
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def _str_next(st: int, b: int) -> int:
+    if b == 0x22:
+        return 0 if st == 1 else 1
+    if b == 0x5C:
+        return 2 if st == 1 else (1 if st == 2 else 0)
+    return 1 if st == 2 else st
+
+
+def _depth_step(b: int) -> int:
+    return 1 if b in (0x5B, 0x7B) else (-1 if b in (0x5D, 0x7D) else 0)
+
+
+def _compose(a, b):
+    """Walks (exit state and depth change from each entry state 0-2),
+    ``a`` then ``b``."""
+    return (tuple(b[0][x] for x in a[0]), tuple(a[1][e] + b[1][a[0][e]] for e in range(3)))
+
+
+def _combine(a, b):
+    """Marks (boundary seen, first element byte after it, last element
+    byte), ``a`` then ``b``."""
+    return (a[0] | b[0], b[1] if b[0] else (a[1] if a[1] >= 0 else b[1]),
+            b[2] if b[2] >= 0 else a[2])
+
+
+def _warp_scan(items, op, identity, warp: int):
+    """Exclusive prefixes within each warp (a Hillis-Steele shuffle scan)
+    and each warp's total."""
+    ex, totals = [], []
+    for w0 in range(0, len(items), warp):
+        inc = list(items[w0:w0 + warp])
+        off = 1
+        while off < warp:
+            inc = [op(inc[i - off], inc[i]) if i >= off else inc[i] for i in range(len(inc))]
+            off <<= 1
+        ex += [identity] + inc[:-1]
+        totals.append(inc[-1])
+    return ex, totals
+
+
+def _block_model(sv, owned, first_row, k, step, threads: int, chunk: int, warp: int = 32):
+    """``csrc/json_array.cu``'s block walk in Python: a block a segment,
+    tiles of ``threads * chunk`` bytes of a row, ``chunk`` bytes a lane;
+    the outer ends by tile reductions, then per tile the lanes' string
+    maps scanned by warp and folded over the warps from the carry, the
+    boundary and element marks from each lane's exact entry state,
+    scanned the same way, and the elements written at their boundaries."""
     sv, owned, first_row, k = (t.numpy() for t in (sv, owned, first_row, k))
     r, s = sv.shape
+    tile = threads * chunk
+    ident_walk, ident_marks = ((0, 1, 2), (0, 0, 0)), (0, -1, -1)
     flag = np.zeros((r, s), dtype=bool)
     start = np.zeros((r, s), dtype=np.int32)
     elen = np.zeros((r, s), dtype=np.int32)
@@ -260,61 +321,133 @@ def _kernel_model(sv, owned, first_row, k, step):
         j = min(pos // step, k[seg] - 1)
         return first_row[seg] + j, pos - j * step
 
+    def tiles(seg, j):
+        own = int(owned[first_row[seg] + j])
+        return [(t0, own) for t0 in range(0, own, tile)]
+
+    def lanes(seg, j, t0, own):
+        """Each lane's (position, byte) pairs of the tile's owned bytes."""
+        row = sv[first_row[seg] + j]
+        return [[(j * step + c, int(row[c])) for c in range(t0 + i * chunk, t0 + (i + 1) * chunk)
+                 if c < own] for i in range(threads)]
+
     for seg in range(len(k)):
         if k[seg] <= 0:
             continue
-        order = [(j * step + c, sv[first_row[seg] + j, c]) for j in range(k[seg])
-                 for c in range(owned[first_row[seg] + j])]
-        nonws = [p for p, b in order if not (9 <= b <= 13 or b == 32)]
-        fa, fb = (nonws[0], nonws[-1]) if nonws else (-1, -1)
+        fa = fb = -1
+        for j in range(k[seg]):
+            for t0, own in tiles(seg, j):
+                hits = [p for lane in lanes(seg, j, t0, own) for p, b in lane
+                        if not (9 <= b <= 13 or b == 32)]
+                if hits and fa < 0:
+                    fa = min(hits)
+            if fa >= 0:
+                break
+        for j in reversed(range(k[seg]) if fa >= 0 else []):
+            for t0, own in reversed(tiles(seg, j)):
+                hits = [p for lane in lanes(seg, j, t0, own) for p, b in lane
+                        if not (9 <= b <= 13 or b == 32)]
+                if hits and fb < 0:
+                    fb = max(hits)
+            if fb >= 0:
+                break
         ok = fa >= 0 and fb > fa and sv[flat(seg, fa)] == 0x5B and sv[flat(seg, fb)] == 0x5D
         err[seg] = not ok
         if not ok:
             continue
-        in_str = esc = False
-        depth, fnw, lnw, first_b, last_b = 0, -1, -1, 0, 0
-        for p, b in order[fa + 1: fb + 1]:
-            boundary = p == fb
-            if not boundary:
-                if in_str:
-                    if esc:
-                        esc = False
-                    elif b == 0x5C:
-                        esc = True
-                    elif b == 0x22:
-                        in_str = False
-                elif b == 0x22:
-                    in_str = True
-                elif b in (0x5B, 0x7B):
-                    depth += 1
-                elif b in (0x5D, 0x7D):
-                    depth -= 1
-                elif b == 0x2C and depth == 0:
-                    boundary = True
-                if not boundary and not (9 <= b <= 13 or b == 32):
-                    if fnw < 0:
-                        fnw, first_b = p, b
-                    lnw, last_b = p, b
-            if boundary:
-                if fnw >= 0:
-                    q = int(first_b == 0x22 and last_b == 0x22 and lnw > fnw)
-                    st, ln = fnw + q, lnw - 2 * q - fnw + 1
-                    if ln > 0:
-                        row, col = flat(seg, st)
-                        flag[row, col], start[row, col], elen[row, col] = True, st, ln
-                fnw = lnw = -1
+        st_c, dp_c, f_c, l_c = 0, 0, -1, -1
+        for j in range(min((fa + 1) // step, k[seg] - 1), k[seg]):
+            stop = False
+            for t0, own in tiles(seg, j):
+                if j * step + t0 > fb:
+                    stop = True
+                    break
+                body = [[(p, b) for p, b in lane if fa < p <= fb]
+                        for lane in lanes(seg, j, t0, own)]
+                # 1. maps
+                walks = []
+                for lane in body:
+                    m, d = [0, 1, 2], [0, 0, 0]
+                    for p, b in lane:
+                        if p < fb:
+                            for e in range(3):
+                                d[e] += _depth_step(b) if m[e] == 0 else 0
+                                m[e] = _str_next(m[e], b)
+                    walks.append((tuple(m), tuple(d)))
+                w_ex, w_tot = _warp_scan(walks, _compose, ident_walk, warp)
+                entry = []
+                for q, tot in enumerate(w_tot):
+                    entry.append((st_c, dp_c))
+                    st_c, dp_c = tot[0][st_c], dp_c + tot[1][st_c]
+                # 2. marks
+                lane_marks, events = [], []
+                for i, lane in enumerate(body):
+                    st, dp = entry[i // warp]
+                    ex = w_ex[i]
+                    st, dp = ex[0][st], dp + ex[1][st]
+                    mk, ev = ident_marks, []
+                    for p, b in lane:
+                        element = False
+                        boundary = p == fb
+                        if not boundary:
+                            boundary = st == 0 and b == 0x2C and dp == 0
+                            dp += _depth_step(b) if st == 0 else 0
+                            st = _str_next(st, b)
+                            element = not boundary and not (9 <= b <= 13 or b == 32)
+                        if boundary:
+                            mk = (1, -1, mk[2])
+                            ev.append(None)
+                        elif element:
+                            code = (p << 1) | int(b == 0x22)
+                            mk = (mk[0], mk[1] if mk[1] >= 0 else code, code)
+                            ev.append(code)
+                    lane_marks.append(mk)
+                    events.append(ev)
+                # 3. trimming
+                m_ex, m_tot = _warp_scan(lane_marks, _combine, ident_marks, warp)
+                pre, c = [], (1, f_c, l_c)
+                for tot in m_tot:
+                    pre.append(c)
+                    c = _combine(c, tot)
+                f_c, l_c = c[1], c[2]
+                for i, ev in enumerate(events):
+                    _, f, l = _combine(pre[i // warp], m_ex[i])
+                    for code in ev:
+                        if code is not None:
+                            f, l = (code if f < 0 else f), code
+                            continue
+                        if f >= 0:
+                            q = int((f & 1) and (l & 1) and (l >> 1) > (f >> 1))
+                            st0, ln = (f >> 1) + q, (l >> 1) - (f >> 1) + 1 - 2 * q
+                            if ln > 0:
+                                row, col = flat(seg, st0)
+                                flag[row, col], start[row, col], elen[row, col] = True, st0, ln
+                        f = -1
+            if stop:
+                break
     return flag, start, elen, err
 
 
-def test_json_array_bounds_match_the_interpreter_and_the_kernel_walk():
+BLOCK_GEOMETRIES = {
+    "kernel": lambda: (_source_constant("kThreads"), _source_constant("kChunk"), 32),
+    # many tiles a row, lanes and warps a tile at the 64-byte test stripes
+    "small": lambda: (8, 4, 4),
+}
+
+
+@pytest.mark.parametrize("geometry", sorted(BLOCK_GEOMETRIES))
+def test_json_array_bounds_match_the_interpreter_and_the_kernel_walk(geometry):
     """`stripes.striped_json_array_bounds` (through its wrapper, on the
     CPU) against `dsl.json_array_elements` record by record, and cell for
-    cell against the kernel's walk."""
+    cell against the kernel's block walk, at the kernel's own block (its
+    constants read from the source) and at a small one whose tiles, lanes
+    and warps split the 64-byte rows."""
     docs = _grid_docs()
     plan, sv = _stage(docs)
     args = (sv, stripes.owned_lengths(plan), plan["first_row"], plan["k"], plan["step"])
     got = cuda_kernels.json_array_striped(*args)
-    for name, g, w in zip(("flag", "start", "elen", "err"), got, _kernel_model(*args)):
+    model = _block_model(*args, *BLOCK_GEOMETRIES[geometry]())
+    for name, g, w in zip(("flag", "start", "elen", "err"), got, model):
         np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
     flag, st, ln, err = (t.numpy() for t in got)
     seg = plan["seg"].numpy()
@@ -472,30 +605,237 @@ def test_digit_run_past_int64_follows_the_narrow_rule(small_stripes):
 
 
 # ---------------------------------------------------------------------------
-# what still raises
+# what raised until the striped lowering took it: a key rewrite, a regex past
+# the JAX package's DFA gate
 # ---------------------------------------------------------------------------
 
-STILL_RAISES = {
+NOW_STRIPED = {
     "key-rewrite": [KEY_REWRITE],
     "regex-past-the-gate": [("regex-filter", {"regex": "(a|b)*a(a|b){6}"})],
 }
 
 
-@pytest.mark.parametrize("name", sorted(STILL_RAISES))
-def test_key_rewrite_and_regex_past_the_gate_still_raise(small_stripes, name):
-    """Kept divergence: no striped lowering on either side. The JAX engine
-    spills the wide batch to its interpreter; the port raises."""
-    specs = STILL_RAISES[name]
-    pb = SmartEngine(device="cpu", stripes=PARAMS).builder()
-    for spec, params in specs:
-        port_m = lookup(spec) if isinstance(spec, str) else _module_pair(*spec)[1]
-        pb.add_smart_module(SmartModuleConfig(params=dict(params)), port_m)
+@pytest.mark.parametrize("name", sorted(NOW_STRIPED))
+def test_key_rewrite_and_regex_past_the_gate_run_striped(small_stripes, name):
+    """The JAX engine spills these wide batches to its interpreter; the
+    port lowers them striped and gives the same records, keys included."""
+    docs = [b'{"name":"fluvio","pad":"' + b"ab" * 60 + b'"}',
+            _at(LAST0 - 2, b'{"pad":"', b"x") + b'","name":"fliv' + b"ab" * 40 + b'"}',
+            _at(LAST0 - 3, b"b", b"x") + b"abbbbbb" + b"x" * 30, b"a" * 30,
+            b'{"name":"kafka","pad":"' + b"a" * 5 + b"b" * 90 + b'"}']
+    port, _ = _run(NOW_STRIPED[name], [dict(values=docs, keys=_keys(len(docs)), base_offset=4),
+                                        dict(values=[b'{"name":"fl"}', b"abababab"])])
+    assert port.gpu_chain._striped.computed == (name == "key-rewrite")
+
+
+# ---------------------------------------------------------------------------
+# every compiled regex through the striped DFA composition
+# ---------------------------------------------------------------------------
+
+# pattern, its states and classes, a match, and a near miss of it
+LARGE_DFAS = {
+    "log-scan": ("(ERROR|WARN|FATAL|CRIT).*(timeout|refused|reset|denied|unreachable)", 73, 30,
+                 b"ERROR: connection refused", b"ERROR: connection refuse_"),
+    "access-log": ('(GET|POST|PUT|DELETE) /api/v[0-9]+/(users|orders|items)/[0-9]+ '
+                   'HTTP/1\\.[01]" (4|5)[0-9][0-9]', 59, 33,
+                   b'GET /api/v12/orders/42 HTTP/1.1" 404', b'GET /api/v12/orders/42 HTTP/1.1" 304'),
+    "dated-fluvio": ("flu[vV]io.{0,16}[0-9]{4}-[0-9]{2}-[0-9]{2}", 242, 11,
+                     b"fluVio @ 2026-10-18", b"fluvio" + b"." * 17 + b"2026-10-18"),
+    "ab-six": ("(a|b)*a(a|b){6}", 130, 4, b"abbbbbb", b"abbbbb_"),
+}
+
+
+def _placed(match: bytes, at: int, head: bytes, total: int, tail: bytes) -> bytes:
+    """``head``, filler, ``match`` at record byte ``at``, filler to
+    ``total`` bytes, ``tail``."""
+    body = head + b"_" * (at - len(head)) + match
+    return body + b"_" * max(total - len(body), 0) + tail
+
+
+def _dfa_docs(match: bytes, miss: bytes, head: bytes = b"", tail: bytes = b""):
+    """The match and its near miss with their first byte at the record's
+    (or the field's) first byte and on the last owned byte of rows 0 and
+    1, and with their last byte on the first owned byte of rows 1 and 2
+    and at the record's (the field's) end; records of 2-4 stripes."""
+    first = len(head)
+    out = []
+    for m in (match, miss):
+        for at in (first, LAST0, LAST1, STEP - len(m) + 1, 2 * STEP - len(m) + 1):
+            out.append(_placed(m, max(at, first), head, 150, tail))
+        out.append(head + b"_" * (170 - len(m)) + m + tail)  # ends the record or field
+    return out + [head + b"_" * 120 + tail, head + match + tail]
+
+
+@pytest.mark.parametrize("where", ["record", "span"])
+@pytest.mark.parametrize("name", sorted(LARGE_DFAS))
+def test_large_dfa_regexes_run_striped(small_stripes, name, where):
+    """A regex past the JAX package's TPU gate (more than 64 states, or 16
+    past 32 classes) over the whole record and inside a JsonGet field, a
+    match straddling a seam from a row's last owned byte and to a row's
+    first: the port composes it across the stripes and equals the JAX
+    engine's interpreter spill."""
+    pattern, n_states, n_classes, match, miss = LARGE_DFAS[name]
+    dfa = ref_compile_regex(pattern)
+    assert (dfa.n_states, dfa.n_classes) == (n_states, n_classes)
+    assert dfa.n_states > 64 or dfa.n_classes > 32
+    if where == "record":
+        specs = [("regex-filter", {"regex": pattern})]
+        docs = _dfa_docs(match, miss)
+    else:
+        # a raw (unquoted) value to the closing brace: the access-log
+        # pattern holds a quote
+        specs = [("json-regex-filter", {"key": "msg", "regex": pattern})]
+        docs = _dfa_docs(match, miss, b'{"pad":"p","msg":', b"}")
+        docs += [b'{"msg":"' + match + b'","pad":"' + b"q" * 90 + b'"}',
+                 b'{"pad":"' + match + b"q" * 90 + b'"}']
+    port, outs = _run(specs, [dict(values=docs, keys=_keys(len(docs)), base_offset=1)])
+    assert 0 < len(outs[0].successes) < len(docs)
+    assert cuda_kernels.LAUNCHES["dfa_compose"] == 0  # the plain versions count nothing
+
+
+@pytest.mark.parametrize("pattern,packed", [
+    (LARGE_DFAS["log-scan"][0], True), (LARGE_DFAS["ab-six"][0], True),
+    (LARGE_DFAS["dated-fluvio"][0], True), ("(a|b)*a(a|b){6}c|x" + "d" * 125, False)],
+    ids=["73", "130", "242", "257"])
+def test_dfa_compose_at_large_tables_matches_a_serial_walk(pattern, packed):
+    """`cuda_kernels.dfa_compose_columns` (its plain version here) at 73,
+    130, 242 and 257 states (the last with 258 classes, the compiler's
+    largest table) against a walk of each row's columns in Python and the
+    JAX package's XLA composition; its column split (the kernel's S > 32
+    design: segments folded in order) at 32 and 64 columns too."""
+    ref = ref_compile_regex(pattern, packed=packed)
+    table = np.asarray(ref.table)
+    table_t = np.ascontiguousarray(table.T.astype(np.int32))
+    rng = np.random.default_rng(ref.n_states)
+    cls = rng.integers(0, ref.n_classes, size=(7, 150)).astype(np.int32)
+    cls[0] = -1
+    cls[2, 10:90] = -1
+    cls[4:, 32:64] = -1
+    want = np.empty((7, ref.n_states), dtype=np.int32)
+    for i in range(7):
+        f = np.arange(ref.n_states)
+        for c in cls[i]:
+            if c >= 0:
+                f = table[f, c]
+        want[i] = f
+    got = cuda_kernels.dfa_compose_columns(torch.from_numpy(cls), torch.from_numpy(table_t))
+    np.testing.assert_array_equal(got.numpy(), want)
+    xla = jax_kernels.dfa_compose_columns(jnp.asarray(cls), jnp.asarray(table_t), ref.n_states)
+    np.testing.assert_array_equal(np.asarray(xla), want)
+    for seg_len in (32, 64):
+        split = kernels.dfa_compose_columns_split(torch.from_numpy(cls),
+                                                  torch.from_numpy(table_t), seg_len)
+        np.testing.assert_array_equal(split.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# key rewrites and values built from fields
+# ---------------------------------------------------------------------------
+
+
+def _map(value, key=None, predicate=None):
+    """A map (a filter_map with ``predicate``) of DSL builders ``value(d)``
+    and ``key(d)``, as a `_chains` spec."""
+    if predicate is None:
+        return (("map", lambda d: d.MapProgram(
+            value=value(d), key=None if key is None else key(d))), {})
+    return (("filter_map", lambda d: d.FilterMapProgram(
+        predicate=predicate(d), value=value(d), key=None if key is None else key(d))), {})
+
+
+def _name(d):
+    return d.JsonGet(arg=d.Value(), key="name")
+
+
+REKEY = _map(lambda d: d.Concat(args=[d.Const(data=b"<"), _name(d), d.Const(data=b">")]),
+             _name, lambda d: d.RegexMatch(arg=d.Value(), pattern="flu[vV]io"))
+
+
+def _named(name: bytes, at: int, pad_to: int = 160) -> bytes:
+    """A record whose "name" value starts at record byte ``at``."""
+    head = b'{"pad":"'
+    pre = head + b"q" * (at - len(head) - len(b'","name":"')) + b'","name":"'
+    doc = pre + name + b'","z":"'
+    return doc + b"f" * max(pad_to - len(doc), 0) + b'fluvio"}'
+
+
+REKEY_CASES = {
+    # the name on the last owned byte of a row, across a seam, and past a stripe
+    "field_across_seams": [_named(b"fluvio-seam", LAST0), _named(b"kafka-" + b"k" * 70, 20),
+                           _named(b"x", LAST1), _named(b"fluVio" + b" " * 60, STEP)],
+    # a missing field: an empty key and "<>"
+    "missing_field": [b'{"pad":"' + b"f" * 90 + b'fluvio"}', _named(b"", 30),
+                      b'{"name":' + b"7" * 100 + b',"fluvio":1}'],
+    "the_pinned_chain": None,
+}
+
+
+@pytest.mark.parametrize("case", sorted(REKEY_CASES))
+def test_rekey_by_a_field(small_stripes, case):
+    """A filter_map re-keying records by their "name" field and building
+    the value from it: the field crosses seams, sits past the first
+    stripe or is missing (an empty key). Equal to the interpreter's keys,
+    values and offsets."""
+    spec = KEY_REWRITE if case == "the_pinned_chain" else REKEY
+    docs = REKEY_CASES[case] or [_named(b"fliiv-%d" % i, 20 + 9 * i) for i in range(12)]
+    port, outs = _run([spec], [dict(values=docs, keys=_keys(len(docs)), base_offset=2),
+                               dict(values=[b'{"name":"fluvio"}', b"{}"])])
+    assert port.gpu_chain._striped.computed and outs[0].successes
+
+
+COMPUTED_CHAINS = {
+    # the value's length and its leading integer, beside a field and the key
+    "lengths_and_ints": [_map(lambda d: d.Concat(args=[
+        d.IntToBytes(arg=d.Len(arg=d.Value())), d.Const(data=b":"),
+        d.IntToBytes(arg=d.ParseInt(arg=d.Upper(arg=d.Value()))), d.Const(data=b":"),
+        d.Lower(arg=_name(d)), d.Key()]))],
+    # a fold ahead of the computed map, an aggregate after it
+    "fold_then_rekey_then_count": [("regex-filter", {"regex": "flu[vV]io"}),
+                                   _map(lambda d: d.Lower(arg=d.Value())),
+                                   _map(lambda d: _name(d), lambda d: d.Const(data=b"k")),
+                                   _map(lambda d: d.Concat(args=[d.Value(), d.Key()])),
+                                   ("word-count", {})],
+}
+
+
+@pytest.mark.parametrize("name", sorted(COMPUTED_CHAINS))
+def test_computed_maps_on_striped_batches(small_stripes, name):
+    rng = np.random.default_rng(46)
+    docs = [b"%d" % int(rng.integers(-999, 999)) + _named(b"fluvio %d w" % i, 12 + 11 * i)
+            for i in range(10)] + [b"0" * 90 + b"77" + _named(b"Fluvio", 30), b"-" + b"9" * 15]
+    _run(COMPUTED_CHAINS[name], [dict(values=docs, keys=_keys(len(docs)), base_offset=6)])
+
+
+RESIDUAL_RAISES = {
+    # no narrow column holds a field past 64 KiB (buffer.MAX_WIDTH)
+    "field-past-64-KiB": ([REKEY], b'{"name":"fluvio' + b"n" * (1 << 16) + b'"}'),
+    # the whole record in the output: the output would be as wide
+    "whole-record-in-the-value": ([_map(lambda d: d.Concat(args=[d.Value(), d.Const(data=b"!")]),
+                                        lambda d: d.Upper(arg=d.Key()))], b"fluvio" * 30),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RESIDUAL_RAISES))
+def test_what_no_narrow_column_holds_still_raises(small_stripes, name):
+    """Kept divergence: the JAX engine spills the wide batch to its
+    interpreter; the port raises ``record-too-wide-unstripeable``: at
+    build for a computed value that reads the whole record (no striped
+    lowering), at dispatch for a field wider than a narrow column."""
+    specs, doc = RESIDUAL_RAISES[name]
+    params = PARAMS if name != "field-past-64-KiB" else StripeParams(threshold=1 << 16,
+                                                                      width=8192, overlap=128)
+    pb = SmartEngine(device="cpu", stripes=params).builder()
+    for (kind, build), p in specs:
+        pb.add_smart_module(SmartModuleConfig(params=dict(p)), _module_pair(kind, build)[1])
     port = pb.initialize()
-    assert port.gpu_chain._striped_chain() is None
-    _, port_in = _inputs([b'{"name":"fluvio","pad":"' + b"ab" * 60 + b'"}'])
+    assert (port.gpu_chain._striped_chain() is None) == (name != "field-past-64-KiB")
+    _, port_in = _inputs([doc, b'{"name":"fluvio"}'])
     with pytest.raises(GpuSpill) as e:
         port.process(port_in)
     assert e.value.reason == "record-too-wide-unstripeable"
+    # a narrow batch of the same chain still runs
+    _, narrow_in = _inputs([b'{"name":"fluvio"}'])
+    assert port.process(narrow_in).successes
 
 
 def test_wide_slice_with_a_transform_error_through_the_consume_path():
