@@ -6139,6 +6139,332 @@ def phase_wide_chains(dev):
     return numbers, total, row, large
 
 
+# phase 24: wide records through chains whose striped lowering stops at a
+# program (a filter or computed map after a span map, a filter after the
+# re-key): the striped prefix hands its narrow output to the narrow stages
+# of the rest of the chain, a second card pass over the same batch; a span
+# map whose field is itself past the stripe threshold, whose tail runs
+# striped again over the fields; splits on a two-byte and on a
+# self-overlapping four-byte separator over the log corpus (whole
+# striped); then a comparison of bytes and a bytes contribution over the
+# headline's narrow corpus
+TAIL_PHASE = dict(records=FAT_RECORDS, batches=4, chunk=16)
+META_NAME = "flu[vV]io-[0-7]"
+REKEY_TAIL = "<[a-z]+ (stream|topic)"
+BODY_MARK = "flu[vV]io-[0-9]x"
+
+
+def meta_module() -> SmartModuleDef:
+    """A span map to the record's "meta" object."""
+    m = SmartModuleDef(name="meta")
+    m.dsl[SmartModuleKind.MAP] = dsl.MapProgram(value=dsl.JsonGet(arg=dsl.Value(), key="meta"))
+    return m
+
+
+def meta_computed_module() -> SmartModuleDef:
+    """A computed map over a meta object: ``NAME#n`` keyed by the name."""
+    name = dsl.JsonGet(arg=dsl.Value(), key="name")
+    m = SmartModuleDef(name="meta-computed")
+    m.dsl[SmartModuleKind.MAP] = dsl.MapProgram(
+        value=dsl.Concat(args=[dsl.Upper(arg=name), dsl.Const(data=b"#"),
+                               dsl.IntToBytes(arg=dsl.ParseInt(
+                                   arg=dsl.JsonGet(arg=dsl.Value(), key="n")))]),
+        key=name)
+    return m
+
+
+def body_module() -> SmartModuleDef:
+    """A span map to the record's "body" string, ~71.6 KB: past the stripe
+    threshold itself."""
+    m = SmartModuleDef(name="body")
+    m.dsl[SmartModuleKind.MAP] = dsl.MapProgram(value=dsl.JsonGet(arg=dsl.Value(), key="body"))
+    return m
+
+
+def crlf_split_module() -> SmartModuleDef:
+    m = SmartModuleDef(name="split-crlf")
+    m.dsl[SmartModuleKind.ARRAY_MAP] = dsl.ArrayMapProgram(mode="split", sep=b"\r\n")
+    return m
+
+
+def crlf_paragraph_module() -> SmartModuleDef:
+    """A split on a blank line, ``\\r\\n\\r\\n``: a proper prefix of the
+    separator is its suffix, so runs of blank lines overlap its
+    occurrences and the matches are chosen left to right."""
+    m = SmartModuleDef(name="split-paragraphs")
+    m.dsl[SmartModuleKind.ARRAY_MAP] = dsl.ArrayMapProgram(mode="split", sep=b"\r\n\r\n")
+    return m
+
+
+def bytes_cmp_module() -> SmartModuleDef:
+    """Part A on the narrow corpus: keep names past ``kafka-5`` in bytes order."""
+    m = SmartModuleDef(name="name-after-kafka-5")
+    m.dsl[SmartModuleKind.FILTER] = dsl.FilterProgram(predicate=dsl.Cmp(
+        cmp="gt", left=dsl.JsonGet(arg=dsl.Value(), key="name"), right=dsl.Const(data=b"kafka-5")))
+    return m
+
+
+def bytes_sum_module() -> SmartModuleDef:
+    """Part A on the narrow corpus: a running sum of the "n" field's bytes,
+    read as their leading integer."""
+    m = SmartModuleDef(name="sum-n-bytes")
+    m.dsl[SmartModuleKind.AGGREGATE] = dsl.AggregateProgram(
+        contribution=dsl.JsonGet(arg=dsl.Value(), key="n"), combine="add")
+    return m
+
+
+WIDE_TAILS = {
+    "tail_span_regex": [(meta_module, {}), ("regex-filter", {"regex": META_NAME})],
+    "tail_span_computed": [(meta_module, {}), (meta_computed_module, {})],
+    "tail_rekey_filter": [(rekey_module, {}), ("regex-filter", {"regex": REKEY_TAIL})],
+    "tail_wide_field": [(body_module, {}), ("regex-filter", {"regex": BODY_MARK})],
+    "crlf_split": [("regex-filter", {"regex": LOG_SCAN}), (crlf_split_module, {})],
+    "crlf_paragraphs": [("regex-filter", {"regex": LOG_SCAN}), (crlf_paragraph_module, {})],
+}
+# the kernels each tail launches on every batch (narrow, or striped over
+# the fields where `FIELD_TAILS` lists the chain), and the striped
+# prefix's (the splits have no tail)
+TAIL_KERNELS = {"tail_span_regex": ("dfa_scan",), "tail_span_computed": ("json_span", "extract"),
+                "tail_rekey_filter": ("dfa_scan",), "tail_wide_field": ("dfa_compose",),
+                "crlf_split": (), "crlf_paragraphs": ()}
+PREFIX_KERNELS = {"tail_span_regex": ("json_span_striped",),
+                  "tail_span_computed": ("json_span_striped",),
+                  "tail_rekey_filter": ("dfa_compose", "json_span_striped"),
+                  "tail_wide_field": ("json_span_striped",),
+                  "crlf_split": ("dfa_compose",), "crlf_paragraphs": ("dfa_compose",)}
+FIELD_TAILS = ("tail_wide_field",)
+
+
+def gen_meta_records(n: int, seed: int, size: int = 71_709):
+    """Phase 24's span corpus: a "meta" object (name over `FAT_NAMES`, a
+    number, tags) behind a pad that puts it at the record's start, across
+    the first seam or past it, then a body to ~71.7 KB."""
+    rng = np.random.default_rng(seed)
+    step = FAT_PARAMS.step
+    names = shared_cases().FAT_NAMES
+    nums = rng.integers(-10**9, 10**9, size=n)
+    out = []
+    for i in range(n):
+        pad = (0, step - 40, step - 9, 3 * step + 5)[i % 4] + int(rng.integers(0, 30))
+        meta = b'{"name":"%s-%d","n":%d,"tags":["a","b,c"]}' % (
+            names[i % 4].encode(), int(rng.integers(0, 10)), nums[i])
+        head = b'{"pad":"%s","meta":%s,"body":"' % (b"p" * pad, meta)
+        out.append(head + b"x" * (size - len(head) - 2) + b'"}')
+    return out
+
+
+def gen_marked_bodies(n: int, seed: int):
+    """`gen_meta_records` with ``fluvio-<digit>`` planted in the body of
+    every other record, 1-40 bytes before its end (past 64 KiB)."""
+    out = gen_meta_records(n, seed)
+    for i in range(1, n, 2):
+        at = len(out[i]) - 2 - 8 - i % 40
+        out[i] = out[i][:at] + b"fluvio-%d" % (i % 10) + out[i][at + 8:]
+    return out
+
+
+def gen_crlf_log(n: int, seed: int):
+    """The log corpus (`gen_wide_log`) with CRLF line ends."""
+    return [rec.replace(b"\n", b"\r\n") for rec in gen_wide_log(n, seed)]
+
+
+def tail_corpus(name: str):
+    if name in ("crlf_split", "crlf_paragraphs"):
+        return gen_crlf_log(TAIL_PHASE["records"], seed=2402)
+    if name == "tail_wide_field":
+        return gen_marked_bodies(TAIL_PHASE["records"], seed=2404)
+    if name == "tail_rekey_filter":
+        return gen_wide_fields(TAIL_PHASE["records"], seed=2403)
+    return gen_meta_records(TAIL_PHASE["records"], seed=2401)
+
+
+def chain_programs(specs):
+    """The resolved DSL programs of ``specs`` (what the card chain runs)."""
+    out = []
+    for name, params in specs:
+        m = lookup(name) if isinstance(name, str) else name()
+        out.append(dsl.resolve_params(m.dsl_program(m.transform_kind()), params))
+    return out
+
+
+def interpret_chain(programs, value: bytes, key=None):
+    """The port's DSL interpreter over one record: its output rows as
+    (value, key) pairs, for filters, maps, filter_maps and split explodes
+    (empty elements dropped)."""
+    rows = [(value, key)]
+    for prog in programs:
+        out = []
+        for v, k in rows:
+            if isinstance(prog, dsl.FilterProgram):
+                if dsl.eval_expr(prog.predicate, v, k):
+                    out.append((v, k))
+            elif isinstance(prog, (dsl.MapProgram, dsl.FilterMapProgram)):
+                if isinstance(prog, dsl.FilterMapProgram) and not dsl.eval_expr(
+                        prog.predicate, v, k):
+                    continue
+                out.append((dsl.eval_expr(prog.value, v, k),
+                            k if prog.key is None else dsl.eval_expr(prog.key, v, k)))
+            elif isinstance(prog, dsl.ArrayMapProgram) and prog.mode == "split":
+                out.extend((e, k) for e in v.split(prog.sep) if e)
+            else:
+                raise AssertionError(f"no interpreter for {type(prog).__name__}")
+        rows = out
+    return rows
+
+
+def phase_wide_tail(name: str, corpus):
+    """One phase-24 chain over ``TAIL_PHASE["batches"]`` batches of
+    ``corpus`` through ``process_stream``, every output row (value and key)
+    against the interpreter; then a second, synchronized pass that times
+    the tail. Returns the chain's numbers, its launches included."""
+    batches = TAIL_PHASE["batches"]
+    specs = WIDE_TAILS[name]
+    programs = chain_programs(specs)
+    chunk = TAIL_PHASE["chunk"]
+    parts = fork_map(lambda lo: [interpret_chain(programs, r) for r in corpus[lo:lo + chunk]],
+                     list(range(0, len(corpus), chunk)))
+    want = [row for part in parts for rows in part for row in rows]
+    build_chain(specs, FAT_PARAMS).process_buffer(RecordBuffer.from_values(corpus[:8]))
+    chain = build_chain(specs, FAT_PARAMS)
+    bufs = [RecordBuffer.from_values(corpus) for _ in range(batches)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = list(chain.process_stream(bufs))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - held
+    sc = chain._striped
+    tail = TAIL_KERNELS[name]
+    if sc is None or (sc.tail_from is None) == bool(tail):
+        raise AssertionError(f"{name}: striped lowering {sc}, expected a tail: {bool(tail)}")
+    for k, out in enumerate(outs):
+        got = list(zip(out.value_list(), out.key_list()))
+        if got != want:
+            raise AssertionError(f"{name} batch {k}: {len(got)} outputs differ from the "
+                                 f"interpreter's {len(want)}")
+    if chain.tail_batches != (batches if tail else 0):
+        raise AssertionError(f"{name}: {chain.tail_batches} tail passes over {batches} batches")
+    field_passes = chain.field_tail_batches
+    if field_passes != (batches if name in FIELD_TAILS else 0):
+        raise AssertionError(f"{name}: {field_passes} striped tail passes over {batches} batches")
+    if any(launches[kn] < batches for kn in tail + PREFIX_KERNELS[name]):
+        raise AssertionError(f"{name}: a kernel did not launch every batch: {launches}")
+    # the synchronized pass: the tail's own time (the hand-off's gather of
+    # the fields or their cut into stripe rows, then the rest of the
+    # chain), from the end of the prefix's work to its own end
+    spent, depth = [0.0], [0]
+    hand_off = chain._hand_off
+
+    def timed_hand_off(*args):
+        depth[0] += 1
+        if depth[0] == 1:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        try:
+            hand_off(*args)
+        finally:
+            depth[0] -= 1
+        if depth[0] == 0:
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+
+    chain._hand_off = timed_hand_off
+    t1 = time.perf_counter()
+    for out in chain.process_stream(bufs):
+        pass
+    torch.cuda.synchronize()
+    synced = time.perf_counter() - t1
+    chain._hand_off = hand_off
+    n_in = batches * len(corpus)
+    nbytes = sum(len(r) for r in corpus) * batches
+    numbers = {"records_per_s": n_in / elapsed, "bytes_per_s": nbytes / elapsed,
+               "seconds": elapsed, "output_rows": sum(o.count for o in outs),
+               "tail_from": sc.tail_from, "tail_batches": batches if tail else 0,
+               "field_tail_batches": field_passes,
+               "peak_mem_gib": peak / 2**30,
+               "tail_s_synced": spent[0], "synced_pass_s": synced,
+               "tail_share": spent[0] / synced if synced else 0.0,
+               "redispatches": chain.redispatches, "launches": launches}
+    log(f"wide tail {name}: {batches} x {len(corpus)} records of ~{nbytes // n_in} B in "
+        f"{elapsed:.3f} s = {n_in / elapsed:.1f} records/s, {nbytes / elapsed / 1e9:.3f} GB/s "
+        f"({numbers['output_rows']} rows, every one equal to the DSL interpreter); tail "
+        f"from stage {sc.tail_from} ({field_passes} passes striped over fields): "
+        f"{spent[0]:.3f} s of a {synced:.3f} s synchronized pass "
+        f"({100 * numbers['tail_share']:.1f} %); peak memory {peak / 2**30:.2f} GiB above "
+        f"what was held; launches {launches}")
+    return numbers
+
+
+def phase_narrow_bytes(corpus):
+    """Part A at full width: a comparison of bytes and a bytes
+    contribution over the headline's 1,048,576-record narrow corpus, each
+    through ``process_stream`` against the interpreter (a bytes value
+    where an integer is needed read by `dsl.parse_int_prefix`, the native
+    rule the port follows). Returns ({chain: numbers}, launches summed)."""
+    numbers, total = {}, {k: 0 for k in cuda_kernels.LAUNCHES}
+    cmp_prog = chain_programs([(bytes_cmp_module, {})])[0]
+    contrib = chain_programs([(bytes_sum_module, {})])[0].contribution
+    keep = fork_records(lambda r: bool(dsl.eval_expr(cmp_prog.predicate, r, None)), corpus)
+    nums = fork_records(lambda r: dsl.parse_int_prefix(dsl.eval_expr(contrib, r, None)), corpus)
+    for name, module in (("narrow_bytes_cmp", bytes_cmp_module),
+                         ("narrow_bytes_sum", bytes_sum_module)):
+        build_chain([(module, {})]).process_buffer(RecordBuffer.from_values(corpus[:64]))
+        chain = build_chain([(module, {})])
+        buf = RecordBuffer.from_values(corpus)
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = list(chain.process_stream([buf]))[0]
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = dict(cuda_kernels.LAUNCHES)
+        if name == "narrow_bytes_cmp":
+            want = [r for r, k in zip(corpus, keep) if k]
+        else:
+            acc, want = 0, []
+            for x in nums:
+                acc = (acc + x + (1 << 63)) % (1 << 64) - (1 << 63)
+                want.append(b"%d" % acc)
+        if out.value_list() != want:
+            raise AssertionError(f"{name}: {out.count} outputs differ from the interpreter's "
+                                 f"{len(want)}")
+        if launches["json_span"] < 1 or launches["extract"] < 1:
+            raise AssertionError(f"{name}: the JsonGet kernels did not launch: {launches}")
+        for k, v in launches.items():
+            total[k] += v
+        numbers[name] = {"records_per_s": len(corpus) / elapsed, "seconds": elapsed,
+                         "output_rows": out.count, "launches": launches}
+        log(f"narrow {name}: {len(corpus)} records in {elapsed:.3f} s = "
+            f"{len(corpus) / elapsed:.0f} records/s, {out.count} outputs equal to the "
+            f"interpreter; launches {launches}")
+    return numbers, total
+
+
+def phase_wide_tails(corpus=None):
+    """Phase 24: the wide tails (`WIDE_TAILS`), then part A on the narrow
+    corpus (``corpus``, else the headline's first batch is made). Returns
+    ({chain: numbers}, the launches of every run summed)."""
+    t_phase = time.perf_counter()
+    numbers, total = {}, {k: 0 for k in cuda_kernels.LAUNCHES}
+    for name in WIDE_TAILS:
+        numbers[name] = phase_wide_tail(name, tail_corpus(name))
+        for k, v in numbers[name]["launches"].items():
+            total[k] += v
+    narrow, launches = phase_narrow_bytes(corpus if corpus is not None
+                                          else gen_json(N, seed=100))
+    numbers.update(narrow)
+    for k, v in launches.items():
+        total[k] += v
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"wide tails: phase 24 took {numbers['phase_s']:.1f} s, host truth included; "
+        f"launches {total}")
+    return numbers, total
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-only", action="store_true",
@@ -6202,6 +6528,11 @@ def main(argv=None) -> int:
                              "explode, the byte-range aggregates, regexes past the JAX package's "
                              "DFA gate and a re-key by a field, json_array.cu's check and "
                              "dfa_compose.cu at the large tables (phase 23; no ok line)")
+    parser.add_argument("--wide-tails-only", action="store_true",
+                        help="build the kernels and run only wide records through chains whose "
+                             "striped prefix hands its output to a narrow tail, a CRLF split, "
+                             "and a comparison of bytes and a bytes contribution on the narrow "
+                             "corpus (phase 24; no ok line)")
     parser.add_argument("--striped-slice-only", action="store_true",
                         help="build the kernels and run only phase 12 (with phase 9's aggregate "
                              "chains and phase 11, whose D2H it reads; no ok line)")
@@ -6322,6 +6653,11 @@ def main(argv=None) -> int:
         print(json.dumps({"wide_chains": numbers, "launches": launches, "kernel": row,
                           "dfa_compose_large_tables": large}))
         return 0
+    if args.wide_tails_only:
+        numbers, launches = phase_wide_tails()
+        print(smi)
+        print(json.dumps({"wide_tails": numbers, "launches": launches}))
+        return 0
     if args.striped_slice_only:
         json_corpora = [gen_json(N, seed=100 + k) for k in range(SLICE_BATCHES)]
         slice_numbers, _ops = phase_slice(json_corpora, ("3_aggregate", "filter_aggregate"))
@@ -6388,6 +6724,8 @@ def main(argv=None) -> int:
     compose["max_abs_err"] = max([compose["max_abs_err"]]
                                  + [t["max_abs_err"] for t in wide_large.values()])
     lap("23 wide chains")
+    tail_numbers, tail_launches = phase_wide_tails(corpora[0])
+    lap("24 wide tails")
     log(f"replication beside the cluster: north star by name through the SC from the promoted "
         f"leader {repl_numbers['north_star_after_failover']['sc_records_per_s']:.0f} records/s, "
         f"phase 15's (b) {cluster_numbers_['consume_by_name']['sc_records_per_s']:.0f}; produce "
@@ -6406,7 +6744,8 @@ def main(argv=None) -> int:
                 "hooks": {"launches": hooks_launches},
                 "resilience": {"launches": res_launches},
                 "failover": {"launches": fo_launches},
-                "wide_chains": {"launches": wide_launches}}
+                "wide_chains": {"launches": wide_launches},
+                "wide_tails": {"launches": tail_launches}}
     for r in rows:
         r["launches_by_chain"] = {k: v["launches"][r["name"]] for k, v in by_chain.items()}
     chain_launches = [v["launches"] for v in by_chain.values()]
@@ -6441,6 +6780,7 @@ def main(argv=None) -> int:
                     "resilience": res_numbers,
                     "failover": fo_numbers,
                     "wide_chains": wide_numbers,
+                    "wide_tails": tail_numbers,
                     "build_seconds": KERNELS.build_seconds}))
     log(json.dumps({"slice_torch_ops": torch_ops, "windowed_torch_ops": win_ops,
                     "device": smi}))

@@ -42,6 +42,8 @@ def preflight_for_specs(specs: Sequence[Tuple[str, Optional[dict]]], width: int,
     report = analyze_named(specs, widths=(width,), engine=engine)
     pred = report.predictions[0]
     out = {"path": pred.path, "link_variant": pred.link_variant}
+    if pred.tail_from is not None:
+        out["tail_from"] = pred.tail_from
     if pred.spill_reasons:
         out["spill_reasons"] = list(pred.spill_reasons)
     if pred.declines:

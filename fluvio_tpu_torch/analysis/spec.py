@@ -7,7 +7,14 @@ interpreter, so a batch runs one of two paths or raises:
 
 - ``fused``    — the narrow layout (bucket at or below the stripe
                  threshold);
-- ``striped``  — a wider bucket of a chain with a striped lowering;
+- ``striped``  — a wider bucket of a chain with a striped lowering: the
+                 whole chain, or its longest prefix that leaves narrow
+                 values with the rest run on the narrow stages over the
+                 prefix's output (``tail_from``: the first stage of that
+                 narrow tail, the executor's ``tail_batches`` counts its
+                 passes; fields past the stripe threshold run the tail
+                 striped over them, ``field_tail_batches``, which
+                 depends on the data and is not predicted apart);
 - ``raise``    — the dispatch raises `GpuSpill` with the reason in
                  ``spill_reasons``: ``record-too-wide-unstripeable`` (a
                  wider bucket, no striped lowering) or
@@ -80,12 +87,14 @@ class PathPrediction:
     declines: Tuple[str, ...] = ()
     causes: Tuple[str, ...] = ()
     link_variant: str = "raw"  # the configured up-link form (TELEMETRY.link_variants)
+    tail_from: Optional[int] = None  # a striped batch's narrow tail, from this stage
 
     def to_dict(self) -> dict:
         return {
             "width": self.width,
             "width_bucket": self.width_bucket,
             "path": self.path,
+            "tail_from": self.tail_from,
             "spill_reasons": list(self.spill_reasons),
             "declines": list(self.declines),
             "causes": list(self.causes),
@@ -166,8 +175,11 @@ def _bucketed(width: int) -> int:
     return bucket_width(max(width, 1))
 
 
-def predict_path(width: int, gates: dict, lowerable: bool, striped_ok: bool) -> PathPrediction:
-    """The dispatch-time width ladder, as one pure function."""
+def predict_path(width: int, gates: dict, lowerable: bool, striped_ok: bool,
+                 tail_from: Optional[int] = None) -> PathPrediction:
+    """The dispatch-time width ladder, as one pure function. ``tail_from``
+    is the first stage of the narrow tail of a chain whose striped
+    lowering is a prefix."""
     bucket = _bucketed(width)
     if not lowerable:
         return PathPrediction(width, bucket, "raise",
@@ -179,7 +191,10 @@ def predict_path(width: int, gates: dict, lowerable: bool, striped_ok: bool) -> 
                                       f"({gates['max_record_width']})",))
     if bucket > gates["stripe_threshold"]:
         if striped_ok:
-            return PathPrediction(width, bucket, "striped")
+            causes = () if tail_from is None else (
+                f"stages from {tail_from} run over the striped prefix's output: narrow, or "
+                "striped again over fields past the stripe threshold",)
+            return PathPrediction(width, bucket, "striped", tail_from=tail_from, causes=causes)
         return PathPrediction(width, bucket, "raise",
                               spill_reasons=("record-too-wide-unstripeable",),
                               causes=(f"record bucket {bucket} exceeds the narrow layout "
@@ -235,10 +250,10 @@ def analyze_entries(entries, widths: Optional[Sequence[int]] = None, engine=None
             f"the chain does not lower as one fused chain: it runs as {len(sigs)} card "
             f"segments ({', '.join(sigs)}), records handed between them on the host and "
             "each batch served one input at a time"))
-    striped_ok = []
+    striped = []
     for stages, programs, _agg in lowered:
-        striped_ok.append(stripes_mod.try_build_striped(
-            programs, stages, gates["stripe_width"], gates["stripe_overlap"]) is not None)
+        striped.append(stripes_mod.try_build_striped(
+            programs, stages, gates["stripe_width"], gates["stripe_overlap"]))
         if any(isinstance(prog, dsl.ArrayMapProgram) and prog.mode == "json_array"
                for prog in programs):
             report.hazards.append(Hazard(
@@ -247,7 +262,8 @@ def analyze_entries(entries, widths: Optional[Sequence[int]] = None, engine=None
                 "transform error (the stages up to the explode run again on the card; on a "
                 "striped batch, the explode's fan-out)"))
     for w in widths:
-        preds = [predict_path(w, gates, True, ok) for ok in striped_ok]
+        preds = [predict_path(w, gates, True, sc is not None,
+                              None if sc is None else sc.tail_from) for sc in striped]
         pred = next((p for p in preds if p.path == "raise"), None)
         if pred is None:
             pred = next((p for p in preds if p.path == "striped"), preds[0])

@@ -54,7 +54,17 @@ contribution computed on a byte range of the stripes), key rewrites and
 values built from fields as narrow columns of the segment state, and the
 segment survivor mask, (start, length) descriptors, an aggregate's or a
 computed map's byte-mode payload or a split or JSON-array explode's
-element descriptors down, rebuilt by the same host code.
+element descriptors down, rebuilt by the same host code. A chain the
+striped lowering takes only in part runs its longest prefix that leaves
+narrow values striped, then the rest of its stages over that output, one
+row a record, as the narrow path runs them (`_hand_off`, `_run_tail`):
+a second pass over the batch on the card, its views still of the stored
+records, its carries the prefix's; the handle keeps the tail's input, so
+an overflow or a first error runs the tail again alone. The tail has the
+batch's width ladder: where a span map's fields are wider than the narrow
+layout (the stripe threshold) they are cut into stripe rows of their own
+and the rest of the chain runs lowered striped over them (`_striped_from`),
+its views shifted back into the records.
 
 The glz link (`gpu/glz.py`), on only when a `LinkParams` asks for it:
 the up link ships the flat as glz tokens, compressed on the host (a
@@ -98,10 +108,11 @@ the engine's ladder. Nothing gives way to another path: no interpreter,
 no other link form.
 
 What the port does not cover raises :class:`GpuSpill` instead of running
-anywhere else: wide batches of a chain with no striped lowering, or whose
-computed map meets a field wider than a narrow column
-(``record-too-wide-unstripeable``), and an explode that overflows its
-capacity again after its retry (``fanout-overflow``).
+anywhere else: wide batches of a chain with no striped lowering (not even
+a prefix with a narrow tail), or whose computed map or tail meets a field
+wider than a narrow column (``record-too-wide-unstripeable``), and an
+explode that overflows its capacity again after its retry
+(``fanout-overflow``).
 """
 
 from __future__ import annotations
@@ -131,6 +142,7 @@ from fluvio_tpu_torch.smartengine.gpu.buffer import (
 from fluvio_tpu_torch.smartengine.gpu.lower import (
     Unlowerable,
     apply_postops,
+    as_int_expr,
     infer_type,
     lower_expr,
     lower_span,
@@ -501,10 +513,11 @@ class _Fetch:
         # explode chains: the compacted source-row column and its deltas
         # (the header's probe picks the download), and the staged inputs,
         # which an overflow re-runs at a larger capacity: the narrow
-        # path's arrays, or a striped batch's (ctx, segment survivors)
+        # path's arrays, or a striped batch's (lowering, ctx, segment
+        # survivors)
         self.src_col: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self.arrays: Optional[Dict[str, torch.Tensor]] = None
-        self.striped: Optional[Tuple[dict, torch.Tensor]] = None
+        self.striped: Optional[Tuple["stripes.StripedChain", dict, torch.Tensor]] = None
         # down link: the glz tokens of the result stream (descriptors or
         # payload), left on the card until "down_meta" says whether they
         # beat the raw download; a view chain's raw descriptor columns wait
@@ -531,6 +544,11 @@ class _Fetch:
         # finish), ``redo_error`` when its re-run after an earlier batch's
         # retry failed (its finish retries that)
         self.out_carries: Carries = ()
+        # a striped batch whose chain ends in a narrow tail: the tail's
+        # input state, the carries the striped prefix left and the tail's
+        # first stage, which an overflow or a first error runs the tail
+        # again from
+        self.tail: Optional[Tuple[Dict[str, torch.Tensor], Carries, int]] = None
         self.buf: Optional[RecordBuffer] = None
         self.seq = 0
         self.stale = False
@@ -804,8 +822,9 @@ def lower_chain(entries: List[Tuple[SmartModuleDef, SmartModuleConfig]]):
     when a program is missing or outside the lowerable subset (as the
     reference's rules decide: one array_map a chain, in mode
     ``json_array`` or ``split``; no windowed aggregate after an array_map;
-    an aggregate's combine among ``dsl.AGGREGATE_COMBINES`` and its
-    contribution an int). Touches no device and no telemetry, so the
+    an aggregate's combine among ``dsl.AGGREGATE_COMBINES``; a bytes
+    contribution reads as ``ParseInt`` of it, the JAX native backend's
+    rule). Touches no device and no telemetry, so the
     preflight (`analysis.spec`) walks the same rules."""
     if not entries:
         return None
@@ -845,9 +864,8 @@ def lower_chain(entries: List[Tuple[SmartModuleDef, SmartModuleConfig]]):
                 if prog.contribution is not None:
                     if prog.combine not in dsl.AGGREGATE_COMBINES:
                         raise Unlowerable(f"aggregate combine {prog.combine}")
-                    if infer_type(prog.contribution) != "int":
-                        raise Unlowerable("aggregate contribution must be int-typed")
-                    op, contribution_fn = prog.combine, lower_expr(prog.contribution)
+                    # a bytes contribution reads as its leading integer
+                    op, contribution_fn = prog.combine, lower_expr(as_int_expr(prog.contribution))
                 else:
                     if prog.kind not in _AGG_OP:
                         raise Unlowerable(f"aggregate kind {prog.kind}")
@@ -907,6 +925,23 @@ class _Ship:
             fanout=any(isinstance(s, _ArrayMapStage) for s in stages),
         )
 
+    @classmethod
+    def after_prefix(cls, prefix: "stripes.StripedChain", prefix_stages: Sequence,
+                     tail_stages: Sequence) -> "_Ship":
+        """How a narrow tail ships after a striped prefix: views of the
+        record (int32 descriptors, the prefix's folds first) when the
+        prefix ends in a span map and every tail stage keeps views, else
+        the byte-mode payload; never the whole-record mask."""
+        tail = cls.of(tail_stages)
+        view = not (prefix.computed or prefix.has_agg)
+        return cls(
+            identity_view=False,
+            viewable=view and tail.viewable,
+            view_postops=tuple(prefix.postops) + tail.view_postops if view else (),
+            writes_keys=tail.writes_keys or cls.of(prefix_stages).writes_keys,
+            fanout=tail.fanout,
+        )
+
 
 class _FirstError(Exception):
     """A batch's explode met a record that is no JSON array: ``row`` is its
@@ -938,6 +973,15 @@ class GpuChainExecutor:
         self.link_counts = _link_counts()
         self._striped: Optional[stripes.StripedChain] = None
         self._striped_tried = False
+        self._striped_refusal = ""  # why the chain has no striped lowering
+        # wide batches whose striped prefix handed its output to the rest
+        # of the chain (`_hand_off`), the passes of that rest that ran
+        # striped over fields past the stripe threshold (`_striped_from`,
+        # its lowerings by first stage), and how a tail ships
+        self.tail_batches = 0
+        self.field_tail_batches = 0
+        self._field_chains: Dict[int, Tuple[Optional[stripes.StripedChain], str]] = {}
+        self._tail_ship: Optional[_Ship] = None
         # one (combine op, window_ms, initial_data) row per aggregate stage;
         # the carries live on the card from batch to batch
         # (`_device_carries`) and reach the host list `carries` only when a
@@ -972,7 +1016,7 @@ class GpuChainExecutor:
         # how the whole chain ships its result, and how a run of its first
         # k stages does (the first-error re-dispatch's), made on first need
         self._ship = _Ship.of(stages)
-        self._ship_prefix: Dict[int, _Ship] = {}
+        self._ship_prefix: Dict[Tuple[int, bool], _Ship] = {}
         # transient failures retry the same kernels under this policy; an
         # aggregate chain's dispatched, unfinished batches, by dispatch
         # number, so a retry re-runs the later ones from its repaired tip
@@ -1097,18 +1141,26 @@ class GpuChainExecutor:
         return self.stripe_params.threshold
 
     def _striped_chain(self) -> Optional[stripes.StripedChain]:
-        """The chain's striped lowering, built on first need; None when a
-        stage is outside the stripeable subset (`stripes.try_build_striped`
-        keeps the reference's build rules)."""
+        """The chain's striped lowering, built on first need: the whole
+        chain, or its longest prefix that leaves narrow values with the
+        rest run as a narrow tail (``tail_from``); None when not even such
+        a prefix stripes (`stripes.try_build_striped` keeps the
+        reference's build rules and says why in ``_striped_refusal``)."""
         if not self._striped_tried:
             self._striped_tried = True
             p = self.stripe_params
-            sc = stripes.try_build_striped(self._programs, self.stages, p.width, p.overlap)
-            postops = self._ship.view_postops
-            if sc is not None and self._viewable and tuple(sc.postops) != postops:
+            why: List[str] = []
+            sc = stripes.try_build_striped(self._programs, self.stages, p.width, p.overlap,
+                                           why=why)
+            self._striped_refusal = "; ".join(why)
+            views, postops = sc is not None, tuple(sc.postops) if sc is not None else ()
+            if sc is not None and sc.tail_from is not None:
+                self._tail_ship = _Ship.after_prefix(sc, self.stages[:sc.tail_from],
+                                                     self.stages[sc.tail_from:])
+                views, postops = self._tail_ship.viewable, self._tail_ship.view_postops
+            if views and self._viewable and postops != self._ship.view_postops:
                 raise AssertionError(  # both derive from the same programs
-                    f"striped postops {sc.postops} differ from the view's {postops}"
-                )
+                    f"striped postops {postops} differ from the view's {self._ship.view_postops}")
             self._striped = sc
         return self._striped
 
@@ -1117,25 +1169,33 @@ class GpuChainExecutor:
     def _run(self, arrays: Dict[str, torch.Tensor], count: int, base_ts: int,
              fetch: _Fetch) -> None:
         """Chain body: run the stages from the batch's carries, compact the
-        results and start their copies to the host. A first-error
-        re-dispatch (``fetch.err_row`` set) runs stages 0..``fetch.
-        err_stage`` only, ships as ``fetch.ship`` says, and copies the
-        failing row as that stage saw it when an earlier stage rewrote it."""
+        results and start their copies to the host (`_run_stages`)."""
         n = arrays["lengths"].shape[0]
         state = _State(arrays)
         state["valid"] = torch.arange(n, device=self.device) < count
         state["view_start"] = torch.zeros((n,), dtype=torch.int32, device=self.device)
         state["src_row"] = torch.arange(n, dtype=torch.int32, device=self.device)
-        carries = fetch.prev_carries
+        width = arrays["values"].shape[1]
+        self._run_stages(state, fetch.prev_carries, 0, base_ts, fetch,
+                         _narrow_dtype(width), width)
+
+    def _run_stages(self, state: _State, carries: Carries, first: int, base_ts: int,
+                    fetch: _Fetch, desc_dtype: torch.dtype, desc_width: int) -> None:
+        """Run stages ``first``.. over ``state`` from ``carries``, compact
+        the results and start their copies; views ship as ``desc_dtype``
+        descriptors over records up to ``desc_width`` bytes. A first-error
+        re-dispatch (``fetch.err_row`` set) runs through stage ``fetch.
+        err_stage`` only, ships as ``fetch.ship`` says, and copies the
+        failing row as that stage saw it when an earlier stage rewrote it."""
         ctx = {"fanout_cap": fetch.cap}
         ship = fetch.ship or self._ship
         upto = len(self.stages) if fetch.err_row is None else fetch.err_stage + 1
-        for k, stage in enumerate(self.stages[:upto]):
+        for k in range(first, upto):
             if k == fetch.err_stage and k and not all(
                     isinstance(s, _FilterStage) for s in self.stages[:k]):
                 self._ship_err_row(fetch, state)
             ctx["stage"] = k
-            state, carries = stage.apply(state, carries, base_ts, ctx)
+            state, carries = self.stages[k].apply(state, carries, base_ts, ctx)
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         fan = ([state["fan_err"], state["fan_total"], state["fan_err_stage"]] if ship.fanout
                else [zero, zero, zero])
@@ -1143,15 +1203,125 @@ class GpuChainExecutor:
         if ship.identity_view:
             self._ship_views(fetch, valid, state["lengths"])
         elif ship.viewable:
-            width = arrays["values"].shape[1]
-            self._ship_views(fetch, valid, state["lengths"], state["view_start"],
-                             _narrow_dtype(width), width, fan,
-                             state["src_row"] if ship.fanout else None)
+            self._ship_views(fetch, valid, state["lengths"], state["view_start"], desc_dtype,
+                             desc_width, fan, state["src_row"] if ship.fanout else None)
         else:
             self._ship_bytes(fetch, state, fan)
         # the next dispatch continues from here; a failed fetch restores
         # `fetch.prev_carries`
         fetch.out_carries = self._device_carries = carries
+
+    def _striped_from(self, first: int) -> stripes.StripedChain:
+        """The striped lowering of the stages from ``first`` (a tail's own
+        striped rung), built on first need; raises `GpuSpill` where not
+        even a prefix of them stripes."""
+        if first not in self._field_chains:
+            p = self.stripe_params
+            why: List[str] = []
+            self._field_chains[first] = (stripes.try_build_striped(
+                self._programs, self.stages, p.width, p.overlap, first=first, why=why),
+                "; ".join(why))
+        sc, why = self._field_chains[first]
+        if sc is None:
+            TELEMETRY.add_stripe_fallback()
+            raise GpuSpill(f"a field past the stripe threshold ({self.stripe_params.threshold}) "
+                           f"and no striped lowering of the stages from {first}: {why}",
+                           reason="record-too-wide-unstripeable")
+        return sc
+
+    def _run_striped(self, fetch: _Fetch, sc: "stripes.StripedChain", ctx: dict,
+                     valid: torch.Tensor, carries: Carries, base_ts: int) -> None:
+        """Run the striped lowering ``sc`` over ``ctx``'s stripe rows from
+        the survivors ``valid`` and ``carries``, then ship its result:
+        filter and fold chains the segment survivor mask, span chains
+        compacted int32 (start, length) descriptors (striped spans index
+        records wider than int16) beside it, aggregate and computed-map
+        chains the byte-mode payload of their rendered or computed outputs
+        (and keys), explodes their elements' int32 descriptors and source
+        records (`_ship_striped_fan`); a chain with a tail hands its output
+        on (`_hand_off`). Where ``ctx`` holds fields of the records
+        (``ctx["base"]``, their starts), every view ships record-absolute."""
+        valid, seg_state, carries, fan, vspan = sc.run(ctx, valid, carries, base_ts,
+                                                       {"fanout_cap": fetch.cap})
+        if sc.tail_from is not None:
+            self._hand_off(fetch, sc, ctx, valid, seg_state, vspan, carries, base_ts)
+            return
+        base = ctx.get("base")
+        if fan is not None:
+            fetch.striped = (sc, ctx, valid)
+            self._ship_striped_fan(fetch, sc, ctx, valid, fan)
+            del fan  # the last reference to the [r, s] grids
+        elif sc.has_agg or sc.computed:
+            self._ship_bytes(fetch, seg_state, ())
+        elif vspan is None:
+            self._ship_views(fetch, valid, seg_state["lengths"], base)
+        else:
+            # int32 descriptors at the widest field tier: striped spans index
+            # records wider than the u16 tier
+            self._ship_views(fetch, valid, vspan[1],
+                             vspan[0] if base is None else base + vspan[0])
+        fetch.out_carries = self._device_carries = carries
+
+    def _hand_off(self, fetch: _Fetch, sc: "stripes.StripedChain", ctx: dict,
+                  valid: torch.Tensor, seg_state: _State, vspan, carries: Carries,
+                  base_ts: int) -> None:
+        """The rest of the chain from ``sc.tail_from`` over the output of its
+        striped prefix ``sc``, one row a record: after a span map, each
+        record's field gathered from the stripes as a narrow column (with
+        the prefix's folds) and its record-absolute start as the view
+        start; after a computed map or an aggregate, the segment state's
+        narrow columns. The keys, offsets, timestamps and the survivors
+        are the prefix's; a row's source row is its record. The narrow
+        stages run it (`_run_tail`), except where a surviving field is
+        past the stripe threshold, as the batch's own width ladder
+        decides: then the fields are cut into stripe rows of their own
+        (`stripes.restripe_field`) and the stages from ``tail_from`` run
+        striped over them (`_striped_from`). The longest field is read on
+        the host, one wait on the card."""
+        fetch.ship = self._tail_ship
+        n = ctx["n"]
+        base = ctx.get("base")
+        if base is None:
+            self.tail_batches += 1
+        state = {k: seg_state[k] for k in ("values", "lengths", "keys", "key_lengths",
+                                           "offset_deltas", "timestamp_deltas")}
+        state["view_start"] = torch.zeros((n,), dtype=torch.int32, device=self.device)
+        if vspan is not None and not (sc.computed or sc.has_agg):
+            vst, vln = vspan
+            vln = torch.where(valid, vln, 0).to(torch.int32)
+            start = vst if base is None else base + vst
+            longest = int(vln.max()) if n else 0
+            p = self.stripe_params
+            if longest > p.threshold:
+                host = self._download(vln)
+                srows = _bucket_rows(max(stripes.plan_rows(host, n, p.width, p.overlap), 8))
+                plan, sv, kmax = stripes.restripe_field(ctx["sv0"], ctx["plan"], vst, vln, host,
+                                                        p, srows)
+                sv = apply_postops(sv, sc.postops)
+                inner = {"sv": sv, "sv0": sv, "plan": plan, "n": n, "kmax": kmax,
+                         "base": start, "folds": ctx.get("folds", ()) + tuple(sc.postops),
+                         "seg_state": _State(stripes.seg_state_of(plan, sv, vln, state))}
+                self.field_tail_batches += 1
+                self._run_striped(fetch, self._striped_from(sc.tail_from), inner, valid, carries,
+                                  base_ts)
+                return
+            width = 1 << max(longest - 1, 0).bit_length()
+            state["values"] = apply_postops(
+                stripes.striped_field_bytes(ctx["sv0"], ctx["plan"], vst, vln, width), sc.postops)
+            state["lengths"], state["view_start"] = vln, start.to(torch.int32)
+        state["valid"] = valid
+        state["src_row"] = torch.arange(n, dtype=torch.int32, device=self.device)
+        fetch.tail = (state, carries, sc.tail_from)
+        self._run_tail(fetch, base_ts)
+
+    def _run_tail(self, fetch: _Fetch, base_ts: int) -> None:
+        """The narrow tail of a striped batch: the chain's stages from the
+        tail's first over ``fetch.tail``'s input state, from the carries
+        the striped prefix left, shipped as ``fetch.ship`` says (record
+        views as int32 descriptors)."""
+        state, carries, first = fetch.tail
+        self._run_stages(_State(state), carries, first, base_ts, fetch, torch.int32,
+                         MAX_RECORD_WIDTH)
 
     def _ship_err_row(self, fetch: _Fetch, state: _State) -> None:
         """Copy the failing row's value and key as the failing stage sees
@@ -1383,7 +1553,8 @@ class GpuChainExecutor:
             TELEMETRY.add_stripe_fallback()
             raise GpuSpill(
                 f"record width {buf.width} exceeds the narrow layout "
-                f"({self.stripe_params.threshold}) and the chain is not stripeable",
+                f"({self.stripe_params.threshold}) and the chain is not stripeable "
+                f"({self._striped_refusal})",
                 reason="record-too-wide-unstripeable",
             )
         return self._dispatch_striped
@@ -1467,11 +1638,13 @@ class GpuChainExecutor:
         staged and the carries it started from. A striped batch re-runs
         only its fan-out, over the segment survivors its filters left."""
         fetch = _Fetch(self.device, handle.prev_carries, cap)
-        fetch.span = handle.span
+        fetch.span, fetch.ship = handle.span, handle.ship
         if handle.striped is not None:
-            ctx, valid = handle.striped
-            fetch.striped = handle.striped
-            self._ship_striped_fan(fetch, ctx, valid, self._striped.fan_grid(ctx))
+            sc, ctx, valid = fetch.striped = handle.striped
+            self._ship_striped_fan(fetch, sc, ctx, valid, sc.fan_grid(ctx))
+        elif handle.tail is not None:
+            fetch.tail = handle.tail
+            self._run_tail(fetch, buf.base_timestamp)
         else:
             self._run(handle.arrays, buf.count, buf.base_timestamp, fetch)
         fetch.seal()
@@ -1488,18 +1661,14 @@ class GpuChainExecutor:
 
     def _dispatch_striped(self, buf: RecordBuffer, span, prev: Carries) -> _Fetch:
         """Striped phase 1 from the carries ``prev``: the narrow path's
-        ragged upload, re-padded on the card into stripe rows with the segment sidecar derived from the
-        lengths; filters reduce per segment, aggregates run on the segment
-        axis (the narrow stages, sharing their carry slots). Filter and
-        fold chains ship the segment survivor mask, span chains compacted
-        int32 (start, length) descriptors (striped spans index records
-        wider than int16) beside it, aggregate and computed-map chains
-        the byte-mode payload of their rendered or computed outputs (and
-        keys), explodes their elements' int32 descriptors and source
-        records (`_ship_striped_fan`). A computed map's field wider than a
-        narrow column raises `GpuSpill`."""
+        ragged upload, re-padded on the card into stripe rows with the
+        segment sidecar derived from the lengths; filters reduce per
+        segment, aggregates run on the segment axis (the narrow stages,
+        sharing their carry slots), and the result ships as
+        `_run_striped` says. A computed map's field wider than a narrow
+        column, or a tail's field past the threshold that no striped
+        lowering takes, raises `GpuSpill`."""
         p = self.stripe_params
-        sc = self._striped
         flat_up = self._stage_flat(buf, span)
         t = time.perf_counter() if span is not None else 0.0
         lengths_up, has_keys, has_offsets, ts_mode, ts_np = stage_link_columns(buf)
@@ -1513,38 +1682,25 @@ class GpuChainExecutor:
         if span is not None:
             t = span.lap("h2d", t)
         ctx = {
-            "sv": sv, "plan": plan, "n": n, "kmax": kmax,
+            "sv": sv, "sv0": sv, "plan": plan, "n": n, "kmax": kmax,
             "seg_state": _State(stripes.seg_state_of(plan, sv, lengths, arrays)),
         }
         fetch = _Fetch(self.device, prev, self._fanout_cap(buf))
         self._dispatch_seams()
-        # k > 0: the live records
         try:
-            valid, seg_state, carries, fan, vspan = sc.run(
-                ctx, plan["k"] > 0, fetch.prev_carries, buf.base_timestamp,
-                {"fanout_cap": fetch.cap})
+            # k > 0: the live records
+            self._run_striped(fetch, self._striped, ctx, plan["k"] > 0, fetch.prev_carries,
+                              buf.base_timestamp)
         except stripes.NarrowOverflow as e:
             TELEMETRY.add_stripe_fallback()
             raise GpuSpill(str(e), reason="record-too-wide-unstripeable") from e
-        if fan is not None:
-            fetch.striped = (ctx, valid)
-            self._ship_striped_fan(fetch, ctx, valid, fan)
-            del fan  # the last reference to the [r, s] grids
-        elif sc.has_agg or sc.computed:
-            self._ship_bytes(fetch, seg_state, ())
-        elif vspan is None:
-            self._ship_views(fetch, valid, lengths)
-        else:
-            # int32 descriptors at the widest field tier: striped spans index
-            # records wider than the u16 tier
-            self._ship_views(fetch, valid, vspan[1], vspan[0])
-        fetch.out_carries = self._device_carries = carries
         fetch.seal()
         if span is not None:
             span.lap("dispatch", t)
         return fetch
 
-    def _ship_striped_fan(self, fetch: _Fetch, ctx: dict, valid: torch.Tensor, fan) -> None:
+    def _ship_striped_fan(self, fetch: _Fetch, sc: "stripes.StripedChain", ctx: dict,
+                          valid: torch.Tensor, fan) -> None:
         """A striped explode's output: `kernels.fanout_scatter` over the
         ``[r, s]`` emission grid (no final slot: an element ends at a
         separator, a boundary or its record's end, all inside the grid),
@@ -1570,12 +1726,13 @@ class GpuChainExecutor:
             first_err = torch.where(err & valid, ridx, n).min()
             contributing = contributing & (seg < first_err)
             err_row1 = torch.where(first_err < n, first_err + 1, 0)
-            err_stage = torch.full((), self._striped.fanout_stage, dtype=torch.int64,
-                                   device=self.device)
+            err_stage = torch.full((), sc.fanout_stage, dtype=torch.int64, device=self.device)
         total, local_row, rel_start, elen = kernels.fanout_scatter(
             flag, st_g, len_g, zb, zi, zi, contributing, fetch.cap)
         del flag, st_g, len_g, fan
         src_seg = plan["seg"][local_row.clamp(0, r - 1).to(torch.int64)]
+        if ctx.get("base") is not None:  # elements of a field: record-absolute
+            rel_start = rel_start + ctx["base"][src_seg.to(torch.int64)]
         live = torch.arange(fetch.cap, dtype=torch.int32, device=self.device) < total.clamp(
             max=fetch.cap)
         self._ship_views(fetch, live, elen, rel_start, torch.int32, MAX_RECORD_WIDTH,
@@ -1776,22 +1933,37 @@ class GpuChainExecutor:
         if handle.striped is not None:
             # the striped explode is the chain's last stage, behind filters
             # and case folds only: its masked elements are the output, and
-            # the value it saw is the record's, folded
+            # the value it saw is the record's, or the field of it that a
+            # tail's own striped rung read, folded
+            sc, ctx, _valid = handle.striped
             fetch = self._rerun(buf, handle, fe.cap)
             fetch.err_row = fe.row
             out = self._finish(buf, fetch)
             value, key = buf.record_bytes(fe.row)
+            if ctx.get("base") is not None:
+                at = int(ctx["base"][fe.row])
+                value = value[at:at + int(ctx["seg_state"]["lengths"][fe.row])]
             value = apply_postops_host(np.frombuffer(value, dtype=np.uint8),
-                                       self._striped.postops).tobytes()
+                                       ctx.get("folds", ()) + tuple(sc.postops)).tobytes()
             return out, self._explode_error(buf, fe.row, key, value, t0)
         k1 = fe.stage + 1
-        ship = self._ship_prefix.get(k1)
+        tail = handle.tail is not None
+        ship = self._ship_prefix.get((k1, tail))
         if ship is None:
-            ship = self._ship_prefix[k1] = _Ship.of(self.stages[:k1])
+            ship = self._ship_prefix[(k1, tail)] = (
+                _Ship.after_prefix(self._striped, self.stages[:self._striped.tail_from],
+                                   self.stages[self._striped.tail_from:k1]) if tail
+                else _Ship.of(self.stages[:k1]))
         fetch = _Fetch(self.device, handle.prev_carries, fe.cap)
         fetch.span = handle.span
         fetch.ship, fetch.err_row, fetch.err_stage = ship, fe.row, fe.stage
-        self._run(handle.arrays, buf.count, buf.base_timestamp, fetch)
+        if tail:
+            # the prefix's carries advanced over the whole batch, as the
+            # stages before the explode's do
+            fetch.tail = handle.tail
+            self._run_tail(fetch, buf.base_timestamp)
+        else:
+            self._run(handle.arrays, buf.count, buf.base_timestamp, fetch)
         fetch.seal()
         if fetch.span is not None:
             fetch.span.mark_dispatched()  # the re-run restarts the device phase

@@ -544,6 +544,27 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask.any(dim=1), first, mask.shape[1])
 
 
+def bytes_compare(av: torch.Tensor, al: torch.Tensor, bv: torch.Tensor,
+                  bl: torch.Tensor) -> torch.Tensor:
+    """Python ``bytes`` order of two byte columns, i32[N] in {-1, 0, 1}:
+    the first differing byte compared unsigned, else the shorter operand
+    is the smaller (the JAX native backend's ``std::string::compare``).
+    Bytes past each length are not read."""
+    width = max(av.shape[1], bv.shape[1])
+    if av.shape[1] < width:
+        av = torch.nn.functional.pad(av, (0, width - av.shape[1]))
+    if bv.shape[1] < width:
+        bv = torch.nn.functional.pad(bv, (0, width - bv.shape[1]))
+    al, bl = al.to(torch.int32), bl.to(torch.int32)
+    common = torch.minimum(al, bl)
+    j = torch.arange(width, dtype=torch.int32, device=av.device)[None, :]
+    first = _first_true((av != bv) & (j < common[:, None]))
+    at = first.clamp(max=width - 1).to(torch.int64)[:, None]
+    diff = (torch.gather(av, 1, at)[:, 0].to(torch.int32)
+            - torch.gather(bv, 1, at)[:, 0].to(torch.int32))
+    return torch.where(first < common, torch.sign(diff), torch.sign(al - bl)).to(torch.int32)
+
+
 def _pow10_wrapped(count: int, device) -> torch.Tensor:
     """10**k mod 2**64 as int64, k = 0..count-1 (numpy's uint64 products wrap)."""
     p = np.full(count, 10, dtype=np.uint64)
@@ -676,7 +697,8 @@ def split_bounds(values: torch.Tensor, lengths: torch.Tensor, sep: bytes):
     match = torch.ones((n, width), dtype=torch.bool, device=dev)
     for i, b in enumerate(sep):
         shifted = torch.zeros_like(match)
-        shifted[:, : width - i] = values[:, i:] == b
+        if i < width:  # a separator longer than the batch's width matches nowhere
+            shifted[:, : width - i] = values[:, i:] == b
         match &= shifted
     match &= j + sep_len <= lengths[:, None]
     skip = torch.zeros((n,), dtype=torch.int32, device=dev)

@@ -13,8 +13,12 @@ backend and DFA size; on the card that choice collapses into "call the
 wrapper": every JSON span, span extraction and DFA verdict goes through
 ``cuda_kernels``, whose CUDA DFA kernel takes every table the compiler
 emits. ``Len``, ``ParseInt`` and ``IntToBytes`` lower to torch code
-(`kernels.parse_int`, `kernels.int_to_ascii`); ``IntToBytes`` takes an
-int argument only.
+(`kernels.parse_int`, `kernels.int_to_ascii`). A bytes value where an
+integer is needed (``IntToBytes`` of bytes, the bytes side of a ``Cmp``
+against an int, an aggregate's bytes contribution) reads as ``ParseInt``
+of it, the JAX engine's native rule (``as_int``, `as_int_expr`); a
+``Cmp`` of two bytes values is Python ``bytes`` order
+(`kernels.bytes_compare`).
 """
 
 from __future__ import annotations
@@ -130,6 +134,27 @@ _CMP = {
 }
 
 
+def as_int_expr(expr: dsl.Expr) -> dsl.Expr:
+    """``expr`` where an integer is needed: itself when int-typed,
+    ``ParseInt`` of it when bytes-typed (the JAX native backend's
+    ``as_int``: the leading ASCII integer, 0 where there is none)."""
+    kind = infer_type(expr)
+    if kind == "int":
+        return expr
+    if kind == "bytes":
+        return dsl.ParseInt(arg=expr)
+    raise Unlowerable(f"a {kind} value where an integer is needed")
+
+
+def cmp_operands(expr: dsl.Cmp) -> Tuple[dsl.Expr, dsl.Expr, bool]:
+    """(left, right, bytes order) of a comparison: two bytes operands
+    compare in bytes order; otherwise both read as integers
+    (`as_int_expr`), as the native backend's ``val_cmp`` does."""
+    if infer_type(expr.left) == "bytes" and infer_type(expr.right) == "bytes":
+        return expr.left, expr.right, True
+    return as_int_expr(expr.left), as_int_expr(expr.right), False
+
+
 def lower_expr(expr: dsl.Expr) -> Callable[[Dict[str, torch.Tensor]], object]:
     """Lower one expression; returns fn(state) -> typed result."""
 
@@ -227,16 +252,15 @@ def lower_expr(expr: dsl.Expr) -> Callable[[Dict[str, torch.Tensor]], object]:
         return lambda s: kernels.parse_int(*inner(s))
 
     if isinstance(expr, dsl.IntToBytes):
-        if infer_type(expr.arg) != "int":
-            raise Unlowerable("IntToBytes needs an int argument")
-        inner = lower_expr(expr.arg)
+        inner = lower_expr(as_int_expr(expr.arg))
         return lambda s: kernels.int_to_ascii(inner(s))
 
     if isinstance(expr, dsl.Cmp):
-        if infer_type(expr.left) != "int" or infer_type(expr.right) != "int":
-            raise Unlowerable("Cmp lowers only for int operands")
-        lf, rf = lower_expr(expr.left), lower_expr(expr.right)
+        left, right, by_bytes = cmp_operands(expr)
+        lf, rf = lower_expr(left), lower_expr(right)
         op = _CMP[expr.cmp]
+        if by_bytes:
+            return lambda s: op(kernels.bytes_compare(*lf(s), *rf(s)), 0)
         return lambda s: op(lf(s), rf(s))
 
     if isinstance(expr, (dsl.And, dsl.Or)):

@@ -28,6 +28,8 @@ ragged flat.
   JsonGet field gathered from the stripes into a narrow column
   (`striped_field_bytes`); its outputs ship as the narrow path's computed
   values do.
+- A comparison reads the record's first bytes, a JsonGet field or the
+  record's leading integer as narrow columns (`_lower_striped_cmp`).
 - Aggregates run the executor's narrow stage over the segment state (the
   full record lengths and the first stripe's bytes), so their carries
   are the narrow path's. What that state cannot give exactly is a
@@ -35,11 +37,21 @@ ragged flat.
   owned bytes of every stripe and handed to the stage: a word count over
   the whole record or a JsonGet span, an integer parsed from the start
   of a JsonGet span (`striped_count_words`, `striped_parse_int`).
-- A one-byte ``split`` explode emits its elements from the owned bytes of
-  every stripe (`striped_split_bounds`); a JSON-array explode carries its
+- A ``split`` explode emits its elements from the owned bytes of every
+  stripe (`striped_split_bounds`; a separator of several bytes reads past
+  the row where it must, and one whose occurrences can overlap selects
+  its matches left to right across the seams, `striped_separator_matches`);
+  a JSON-array explode carries its
   string, escape and depth state across the stripe seams
   (`cuda_kernels.json_array_striped`, plain version
   `striped_json_array_bounds`).
+
+A chain the striped lowering takes only in part runs as its longest
+prefix that leaves narrow values (a span map, a computed map or an
+aggregate ran) and hands that output to the executor's narrow stages for
+the rest (`try_build_striped`'s ``tail_from``); a span map's field past
+the stripe threshold is cut into stripe rows of its own
+(`restripe_field`) and the rest lowered striped over it.
 
 The stripe geometry is an explicit `StripeParams`, never read from the
 environment.
@@ -61,6 +73,9 @@ from fluvio_tpu_torch.smartengine.gpu.lower import (
     Column,
     Unlowerable,
     apply_postops,
+    as_int_expr,
+    cmp_operands,
+    infer_type,
     lower_expr,
 )
 from fluvio_tpu_torch.smartmodule import dsl
@@ -537,12 +552,14 @@ def _lower_byte_predicate(kind: str, lit: bytes, pattern: Optional[str], arg, s:
     return _lower_striped_dfa(pattern or _literal_regex(lit, kind), postops)
 
 
-def lower_striped_predicate(expr, s: int, v: int) -> Callable:
+def lower_striped_predicate(expr, s: int, v: int, exact: bool = False) -> Callable:
     """Lower a filter predicate to fn(ctx) -> bool[n] (segment level).
     ``ctx`` carries ``sv`` (stripe bytes, upstream folds applied),
-    ``plan``, ``seg_state``, ``n`` and ``kmax``."""
+    ``plan``, ``seg_state``, ``n`` and ``kmax``. With ``exact`` a
+    comparison reads the whole record (the interpreter's answer) where the
+    JAX package's rule reads its first stripe."""
     if isinstance(expr, (dsl.And, dsl.Or)):
-        fns = [lower_striped_predicate(a, s, v) for a in expr.args]
+        fns = [lower_striped_predicate(a, s, v, exact) for a in expr.args]
         is_and = isinstance(expr, dsl.And)
 
         def bool_fn(ctx):
@@ -553,12 +570,19 @@ def lower_striped_predicate(expr, s: int, v: int) -> Callable:
 
         return bool_fn
     if isinstance(expr, dsl.Not):
-        inner = lower_striped_predicate(expr.arg, s, v)
+        inner = lower_striped_predicate(expr.arg, s, v, exact)
         return lambda ctx: ~inner(ctx)
     if isinstance(expr, dsl.Cmp):
-        _check_seg_exact(expr)
-        fn = lower_expr(expr)
-        return lambda ctx: fn(ctx["seg_state"])
+        if not exact and infer_type(expr.left) == "int" and infer_type(expr.right) == "int":
+            try:
+                # the JAX package's rule: exact on the segment state, its
+                # first-stripe prefix parse included
+                _check_seg_exact(expr)
+                fn = lower_expr(expr)
+                return lambda ctx: fn(ctx["seg_state"])
+            except Unlowerable:
+                pass
+        return _lower_striped_cmp(expr)
     if isinstance(expr, (dsl.Contains, dsl.StartsWith, dsl.EndsWith)):
         kind = _KINDS[type(expr)]
         if _jsonget_source(expr.arg) is None and _value_postops(expr.arg) is None:
@@ -626,6 +650,26 @@ def striped_field_bytes(sv: torch.Tensor, plan: dict, vst: torch.Tensor, vln: to
     return torch.where(j < vln.to(torch.int64)[:, None], sv.reshape(-1)[flat], 0)
 
 
+def restripe_field(sv: torch.Tensor, plan: dict, vst: torch.Tensor, vln: torch.Tensor,
+                   host_lengths: np.ndarray, params: StripeParams, srows: int):
+    """(plan, sv u8[srows, s], kmax): each segment's bytes [vst, vst + vln)
+    of ``sv``'s rows, gathered from the rows that own them and cut into
+    stripe rows of their own, as `stage_rows` cuts records (a field past
+    the stripe threshold, which the rest of the chain reads as its
+    record). ``host_lengths`` are ``vln`` on the host."""
+    s, v = params.width, params.overlap
+    n = vln.shape[0]
+    dev = sv.device
+    out = plan_device(vln, torch.ones((n,), dtype=torch.bool, device=dev), srows, s, v)
+    j = torch.arange(s, dtype=torch.int64, device=dev)[None, :]
+    seg = out["seg"].to(torch.int64)[:, None]
+    pos = vst.to(torch.int64)[seg] + out["abs_start"].to(torch.int64)[:, None] + j
+    flat = _owner_flat(pos, seg, plan["first_row"], plan["k"], plan["step"], *sv.shape)
+    keep = (j < out["stripe_len"].to(torch.int64)[:, None]) & out["row_live"][:, None]
+    kmax = int(stripe_counts(host_lengths, s, v).max()) if n else 1
+    return out, torch.where(keep, sv.reshape(-1)[flat], 0), kmax
+
+
 def _value_folds(arg) -> Optional[Tuple[str, ...]]:
     """``arg``'s folds when it is a fold chain over the record value, else
     None (a key or const source, or any other expression)."""
@@ -658,13 +702,100 @@ def _bind_record_reads(expr, binds: list):
         return Column(name=name, kind="int")
     if isinstance(expr, (dsl.Key, dsl.Const)):
         return expr
-    if isinstance(expr, (dsl.Upper, dsl.Lower, dsl.Len, dsl.ParseInt, dsl.IntToBytes)):
+    if isinstance(expr, dsl.IntToBytes):
+        # a bytes argument reads as its leading integer (`lower.as_int_expr`)
+        return dataclasses.replace(expr, arg=_bind_record_reads(as_int_expr(expr.arg), binds))
+    if isinstance(expr, (dsl.Upper, dsl.Lower, dsl.Len, dsl.ParseInt)):
         return dataclasses.replace(expr, arg=_bind_record_reads(expr.arg, binds))
     if isinstance(expr, dsl.Concat):
         return dataclasses.replace(expr, args=[_bind_record_reads(a, binds) for a in expr.args])
     if isinstance(expr, dsl.Value):
         raise Unlowerable("a striped computed map cannot output the whole record")
     raise Unlowerable(f"{type(expr).__name__} not stripeable in a computed map")
+
+
+def narrow_field(sv: torch.Tensor, plan: dict, vst: torch.Tensor, vln: torch.Tensor,
+                 what: str):
+    """(values u8[n, w], lengths i32[n]): each segment's bytes [vst, vst +
+    vln) as a narrow column, ``w`` the power of two above the longest.
+    Raises `NarrowOverflow` past what a narrow column holds
+    (`buffer.MAX_WIDTH`); ``what`` names the value in the message. The
+    longest length is read on the host, one wait on the card."""
+    longest = int(vln.max()) if vln.numel() else 0
+    if longest > MAX_WIDTH:
+        raise NarrowOverflow(f"{what} of {longest} bytes exceeds a narrow column ({MAX_WIDTH})")
+    width = 1 << max(longest - 1, 0).bit_length()
+    return striped_field_bytes(sv, plan, vst, vln, width), vln.to(torch.int32)
+
+
+def _fill_binds(ctx: dict, st: dict, binds: list) -> None:
+    """Put the narrow column of each binding of `_bind_record_reads` (and
+    of `_bind_cmp_operand`'s record prefixes, which go last) in ``st``."""
+    for b in binds:
+        if b[0] == "int":
+            st[b[1]] = striped_parse_int(ctx["sv"], ctx["plan"],
+                                         torch.zeros_like(st["lengths"]), st["lengths"], ctx["n"])
+        elif b[0] == "field":
+            _, name, key, pre = b
+            sv_pre, (vst, vln) = _cached_json_span(ctx, key, pre)
+            st[name] = narrow_field(sv_pre, ctx["plan"], vst, vln, f"field {key!r}")
+        else:  # ("prefix", name, folds, the other operand's fn)
+            _, name, folds, other = b
+            # the record's first w + 1 bytes order it against any operand
+            # of at most w bytes as the whole record does
+            width = other(st)[0].shape[1] + 1
+            keep = torch.clamp(st["lengths"], max=width)
+            st[name] = (striped_field_bytes(apply_postops(ctx["sv"], folds), ctx["plan"],
+                                            torch.zeros_like(keep), keep, width),
+                        keep.to(torch.int32))
+
+
+def _bind_cmp_operand(expr, binds: list, prefixes: list):
+    """A comparison operand with its reads of the wide record bound to
+    narrow columns: a fold chain over the record value (bytes order) to a
+    prefix of the record (`_fill_binds`), queued in ``prefixes`` until the
+    other operand is bound; everything else as `_bind_record_reads` binds
+    it (JsonGet fields, the whole record's leading integer, lengths)."""
+    folds = _value_folds(expr)
+    if folds is not None and infer_type(expr) == "bytes":
+        name = f"_prefix{len(binds) + len(prefixes)}"
+        prefixes.append((name, folds))
+        return Column(name=name)
+    return _bind_record_reads(expr, binds)
+
+
+def _lower_striped_cmp(expr) -> Callable:
+    """fn(ctx) -> bool[n]: a comparison whose operands read the wide
+    record, exact at any record width. Each operand is bound to narrow
+    columns (`_bind_cmp_operand`): a JsonGet field gathered from the
+    stripes, an integer parsed over the whole record, or, for the record
+    value itself in bytes order, its first ``w + 1`` bytes, ``w`` the
+    other operand's width (a narrow key, constant or field); then the
+    narrow comparison runs on the segment state. Two reads of the record
+    value itself have no narrow column to compare against."""
+    left, right, _ = cmp_operands(expr)  # bound, the operands keep their types
+    binds: list = []
+    prefixes: list = []
+    bound = [_bind_cmp_operand(e, binds, prefixes) for e in (left, right)]
+    if len(prefixes) > 1:
+        raise Unlowerable("a comparison of the record value with itself")
+    if prefixes:
+        name, folds = prefixes[0]
+        other = bound[1] if bound[0] == Column(name=name) else bound[0]
+        binds.append(("prefix", name, folds, lower_expr(other)))
+    return _on_bound_state(lower_expr(dataclasses.replace(expr, left=bound[0], right=bound[1])),
+                           binds)
+
+
+def _on_bound_state(fn: Callable, binds: list) -> Callable:
+    """fn(ctx): ``fn`` over a copy of the segment state that holds the
+    narrow columns of ``binds`` (`_fill_binds`)."""
+    def run(ctx):
+        st = ctx["seg_state"].copy()
+        _fill_binds(ctx, st, binds)
+        return fn(st)
+
+    return run
 
 
 def _lower_computed_map(prog, bind: bool) -> Callable:
@@ -682,21 +813,7 @@ def _lower_computed_map(prog, bind: bool) -> Callable:
 
     def fn(ctx):
         st = ctx["seg_state"].copy()
-        for b in binds:
-            if b[0] == "int":
-                st[b[1]] = striped_parse_int(ctx["sv"], ctx["plan"],
-                                             torch.zeros_like(st["lengths"]), st["lengths"],
-                                             ctx["n"])
-                continue
-            _, name, key, pre = b
-            sv_pre, (vst, vln) = _cached_json_span(ctx, key, pre)
-            longest = int(vln.max()) if vln.numel() else 0
-            if longest > MAX_WIDTH:
-                raise NarrowOverflow(
-                    f"field {key!r} of {longest} bytes exceeds a narrow column ({MAX_WIDTH})")
-            width = 1 << max(longest - 1, 0).bit_length()
-            st[name] = (striped_field_bytes(sv_pre, ctx["plan"], vst, vln, width),
-                        vln.to(torch.int32))
+        _fill_binds(ctx, st, binds)
         out = ctx["seg_state"]
         v, ln = fns[0](st)
         out["values"], out["lengths"] = v, ln.to(torch.int32)
@@ -833,20 +950,40 @@ def _range_contribution(kind: str, range_fn):
     return fn
 
 
-def _striped_contribution(prog, span_src, first_agg: bool) -> Optional[Callable]:
+def _bound_contribution(expr) -> Callable:
+    """fn(ctx) -> i64[n]: an integer contribution with its record reads
+    bound to narrow columns (`_bind_record_reads`); the leading integer of
+    a JsonGet field is parsed over the field's bytes in the stripes, at
+    any width."""
+    if isinstance(expr, dsl.ParseInt):
+        src = _jsonget_source(expr.arg)
+        if src is not None:  # case folds change no digit, sign or whitespace byte
+            return _range_contribution("int", _span_range(src[0], src[1]))
+    binds: list = []
+    return _on_bound_state(lower_expr(_bind_record_reads(expr, binds)), binds)
+
+
+def _striped_contribution(prog, span_src, first_agg: bool,
+                          exact: bool = False) -> Optional[Callable]:
     """How a striped aggregate gets its contribution: None where the
     segment state gives it exactly (the stage's own contribution, the JAX
     package's rule, its first-stripe prefix parse included), else fn(ctx)
     -> i64[n] over a byte range of the stripes. ``span_src`` is the
     (key, folds) of the chain's span map, None without one. Only the
     chain's first aggregate reads the record: a later one reads the
-    decimals its predecessor rendered, whole in the segment state."""
+    decimals its predecessor rendered, whole in the segment state. With
+    ``exact`` an integer parse of the record reads the whole record (the
+    interpreter's answer), never only its first stripe."""
     if not first_agg:
         _check_contribution(prog)
         return None
     if prog.contribution is not None:
         if span_src is not None:
             raise Unlowerable("a custom contribution after a striped span map")
+        if exact or infer_type(prog.contribution) != "int":
+            # a bytes contribution reads as its leading integer, over the
+            # whole record or field (the JAX native backend's rule)
+            return _bound_contribution(as_int_expr(prog.contribution))
         try:
             _check_seg_exact(prog.contribution)
             return None
@@ -865,6 +1002,8 @@ def _striped_contribution(prog, span_src, first_agg: bool) -> Optional[Callable]
         return _range_contribution("words", rng)
     if span_src is not None:  # sum_int / max_int / min_int of the span's bytes
         return _range_contribution("int", _span_range(*span_src))
+    if exact:
+        return _range_contribution("int", _whole_record)
     return None
 
 
@@ -1007,7 +1146,7 @@ def striped_json_array_bounds(sv: torch.Tensor, owned: torch.Tensor, first_row: 
 
 
 # ---------------------------------------------------------------------------
-# Striped fan-out (array_map split mode, single-byte separator)
+# Striped fan-out (array_map split mode)
 # ---------------------------------------------------------------------------
 
 # packs (segment, byte position) into one int64 for the segment-fenced
@@ -1016,33 +1155,50 @@ _ENC_BASE = 1 << 22  # > MAX_RECORD_WIDTH
 _DEAD = 2**62
 
 
-def striped_split_bounds(sv: torch.Tensor, plan: dict, sep: int, n: int):
-    """Element emission grid of ``value.split(sep)`` over stripe rows (the
-    JAX package's ``stripes.striped_split_bounds``).
+def striped_split_bounds(sv: torch.Tensor, plan: dict, sep: bytes, n: int, kmax: int = 1):
+    """Element emission grid of ``value.split(sep)``, empty elements
+    dropped, over stripe rows (the JAX package's ``stripes.
+    striped_split_bounds`` for one byte, `striped_separator_matches` for
+    longer separators).
 
     Each byte position is OWNED by exactly one stripe row (the overlap
     tail belongs to the next stripe), so a separator counts once and the
     row-major flag order is record order within a segment. An element
-    that crosses rows ends at the next row's first separator, found by a
-    suffix minimum over the segment's rows (fenced by the segment id in
-    the high bits of the code), or at the record's end. Returns (flag
-    bool[r, s], abs_start i32[r, s], elen i32[r, s]), starts
-    record-absolute."""
+    starts at the record's start or where a separator match ends, and
+    ends at the next match or the record's end: the next match within the
+    row, else the first of a later row of the segment, found by a suffix
+    minimum over the segment's rows (fenced by the segment id in the high
+    bits of the code). Returns (flag bool[r, s], abs_start i32[r, s],
+    elen i32[r, s]), starts record-absolute. ``sep`` is the separator's
+    bytes (an int: one byte, as the JAX function takes it); ``kmax`` (>=
+    every segment's stripe count, from the host) bounds a longer
+    separator's walk."""
+    if isinstance(sep, int):
+        sep = bytes([sep])
     r, s = sv.shape
     dev = sv.device
     step = plan["step"]
     jidx = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
     owned = jidx < owned_lengths(plan)[:, None]
-    m = (sv == sep) & owned
-
-    # column 0's predecessor in record order: the previous row's last
-    # owned byte (a row that is not its record's last owns exactly `step`
-    # bytes), or the record's start
-    prev_last = torch.cat([torch.zeros((1,), dtype=torch.bool, device=dev), m[:-1, step - 1]])
-    col0_boundary = (plan["stripe_idx"] == 0) | prev_last
-    prev_boundary = torch.cat([col0_boundary[:, None], m[:, :-1]], dim=1)
-    starts = owned & ~m & prev_boundary
-    del owned, prev_boundary
+    seg = plan["seg"].to(torch.int64)
+    # each segment's record length: its last row's end, broadcast to the
+    # segment's rows
+    seg_len = torch.zeros((n,), dtype=torch.int32, device=dev).scatter_reduce(
+        0, seg, torch.where(plan["is_last"], plan["abs_start"] + plan["stripe_len"], 0), "amax")
+    abs_pos = plan["abs_start"][:, None] + jidx
+    if len(sep) == 1:
+        m = (sv == sep[0]) & owned
+        # column 0's predecessor in record order: the previous row's last
+        # owned byte (a row that is not its record's last owns exactly
+        # `step` bytes), or the record's start
+        prev_last = torch.cat([torch.zeros((1,), dtype=torch.bool, device=dev), m[:-1, step - 1]])
+        col0_boundary = (plan["stripe_idx"] == 0) | prev_last
+        after_match = torch.cat([col0_boundary[:, None], m[:, :-1]], dim=1)
+    else:
+        m = striped_separator_matches(sv, plan, sep, seg_len, kmax)
+        after_match = _match_ends(m, plan, len(sep), seg_len) | (abs_pos == 0)
+    starts = owned & ~m & after_match
+    del owned, after_match
 
     # the next separator at or after each position: within the row where
     # there is one, else the first separator of a later row of the segment
@@ -1050,7 +1206,6 @@ def striped_split_bounds(sv: torch.Tensor, plan: dict, sep: int, n: int):
     has_sep = m.any(dim=1)
     del m
     first_abs = torch.where(has_sep, plan["abs_start"] + row_next[:, 0], _ENC_BASE - 1)
-    seg = plan["seg"].to(torch.int64)
     enc = torch.where(plan["row_live"], seg * _ENC_BASE + first_abs.to(torch.int64), _DEAD)
     suffix = torch.cummin(enc.flip(0), 0).values.flip(0)
     after = torch.cat([suffix[1:], suffix.new_full((1,), _DEAD)])
@@ -1058,17 +1213,101 @@ def striped_split_bounds(sv: torch.Tensor, plan: dict, sep: int, n: int):
         (after // _ENC_BASE == seg) & (after % _ENC_BASE < _ENC_BASE - 1),
         after % _ENC_BASE, -1,
     ).to(torch.int32)
-    # each segment's record length: its last row's end, broadcast to the
-    # segment's rows
-    seg_len = torch.zeros((n,), dtype=torch.int32, device=dev).scatter_reduce(
-        0, seg, torch.where(plan["is_last"], plan["abs_start"] + plan["stripe_len"], 0), "amax")
     fallback = torch.where(cross_next >= 0, cross_next, seg_len[seg])
-    abs_pos = plan["abs_start"][:, None] + jidx
     next_abs = torch.where(row_next < s, abs_pos - jidx + row_next, fallback[:, None])
     del row_next
     elen = torch.where(starts, next_abs - abs_pos, 0)
     del next_abs
     return starts, torch.where(starts, abs_pos, 0), elen
+
+
+def _has_border(sep: bytes) -> bool:
+    """Whether a proper prefix of ``sep`` is also its suffix: only then can
+    two occurrences overlap (``aa``, ``abab``; not ``\\r\\n``)."""
+    return any(sep[:k] == sep[-k:] for k in range(1, len(sep)))
+
+
+def striped_separator_matches(sv: torch.Tensor, plan: dict, sep: bytes,
+                              seg_len: torch.Tensor, kmax: int) -> torch.Tensor:
+    """bool[r, s]: the owned positions where ``value.split(sep)`` matches
+    its separator, left to right without overlap, for a separator of two
+    or more bytes.
+
+    An occurrence starts at an owned position and reads ``len(sep) - 1``
+    bytes past it: the row's overlap tail holds them up to the overlap,
+    the bytes past it are gathered from the rows that own them. Where no
+    proper prefix of the separator is also its suffix, occurrences cannot
+    overlap and each is a match, as with one byte. Otherwise the matches
+    are the path through the occurrences that starts at a record's first
+    occurrence and steps to the first occurrence at or past each match's
+    end (a match hides the next ``len(sep) - 1`` bytes): its nodes are
+    marked by pointer doubling over that step, on the occurrences alone
+    (their flat indices, in record order within a segment, one wait on
+    the card for their count), so the walk across rows and seams takes
+    log2(the longest path) rounds."""
+    r, s = sv.shape
+    dev = sv.device
+    sep_len = len(sep)
+    step = plan["step"]
+    seg = plan["seg"].to(torch.int64)
+    jidx = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+    # the bytes each position's window reads: the row, then the record's
+    # bytes past the row's end (none within the overlap)
+    extra = max(0, sep_len - 1 - (s - step))
+    ext = sv
+    if extra:
+        t = torch.arange(extra, dtype=torch.int64, device=dev)[None, :]
+        flat = _owner_flat(plan["abs_start"].to(torch.int64)[:, None] + s + t,
+                           seg[:, None], plan["first_row"], plan["k"], step, r, s)
+        ext = torch.cat([sv, sv.reshape(-1)[flat]], dim=1)
+    ext = torch.nn.functional.pad(ext, (0, s + sep_len - 1 - ext.shape[1]))
+    occ = (jidx < owned_lengths(plan)[:, None]) & (
+        plan["abs_start"][:, None] + jidx + sep_len <= seg_len[seg][:, None])
+    for i, b in enumerate(sep):
+        occ &= ext[:, i:i + s] == b
+    del ext
+    if not _has_border(sep):
+        return occ
+    at = occ.reshape(-1).nonzero().squeeze(1)  # ascending
+    m = at.numel()
+    if m == 0:
+        return occ
+    # the step: from an occurrence to the first one at or past its end, in
+    # the same record (the sink, index m, where there is none)
+    oseg = seg[at // s]
+    seg_end = ((plan["first_row"].to(torch.int64) + plan["k"].to(torch.int64)) * s)
+    end = plan["abs_start"].to(torch.int64)[at // s] + at % s + sep_len
+    nxt = torch.searchsorted(at, _owner_flat(end, oseg, plan["first_row"], plan["k"], step,
+                                             r, s))
+    ok = (end < seg_len.to(torch.int64)[oseg]) & (nxt < m)
+    ok &= at[nxt.clamp(max=m - 1)] < seg_end[oseg]
+    jump = torch.cat([torch.where(ok, nxt, m), nxt.new_full((1,), m)])
+    # each record's first occurrence starts the path
+    head = torch.searchsorted(at, plan["first_row"].to(torch.int64) * s)
+    live = (plan["k"] > 0) & (head < m)
+    live &= at[head.clamp(max=m - 1)] < seg_end
+    on_path = torch.zeros((m + 1,), dtype=torch.int32, device=dev)
+    on_path[torch.where(live, head, m)] = 1
+    for _ in range(min(m, max(kmax, 1) * s // sep_len + 1).bit_length()):
+        on_path = on_path.scatter_add(0, jump, on_path).clamp(max=1)
+        jump = jump[jump]
+    out = torch.zeros((r * s,), dtype=torch.bool, device=dev)
+    out[at[on_path[:m] > 0]] = True
+    return out.reshape(r, s)
+
+
+def _match_ends(m: torch.Tensor, plan: dict, sep_len: int, seg_len: torch.Tensor):
+    """bool[r, s]: the positions right after a match (inside its record),
+    marked at the rows that own them."""
+    r, s = m.shape
+    at = m.reshape(-1).nonzero().squeeze(1)
+    seg = plan["seg"].to(torch.int64)[at // s]
+    end = plan["abs_start"].to(torch.int64)[at // s] + at % s + sep_len
+    inside = end < seg_len.to(torch.int64)[seg]
+    out = torch.zeros((r * s,), dtype=torch.bool, device=m.device)
+    out[_owner_flat(end[inside], seg[inside], plan["first_row"], plan["k"], plan["step"],
+                    r, s)] = True
+    return out.reshape(r, s)
 
 
 # ---------------------------------------------------------------------------
@@ -1093,17 +1332,22 @@ class StripedChain:
     segment state, with the contribution column a byte-range op computed
     where the state cannot give it (`_striped_contribution`); a fan-out op
     (last, program ``fanout_stage``) gives the explode's emission grid: a
-    one-byte split's (``fanout_sep``) or a JSON array's
-    (``fanout_json``)."""
+    split's on the separator ``fanout_sep`` or a JSON array's
+    (``fanout_json``). With ``tail_from`` set the ops are a prefix of the
+    chain's programs, whose narrow output the executor hands to its
+    narrow stages from ``tail_from`` on."""
 
     ops: List = field(default_factory=list)
     postops: Tuple[str, ...] = ()
     has_span: bool = False
     has_agg: bool = False
     computed: bool = False
-    fanout_sep: Optional[int] = None
+    fanout_sep: Optional[bytes] = None
     fanout_json: bool = False
     fanout_stage: int = 0
+    # the first program the narrow tail runs (None: the whole chain is
+    # striped)
+    tail_from: Optional[int] = None
 
     @property
     def fanout(self) -> bool:
@@ -1118,7 +1362,8 @@ class StripedChain:
             return cuda_kernels.json_array_striped(
                 ctx["sv"].contiguous(), owned_lengths(plan).contiguous(),
                 plan["first_row"].contiguous(), plan["k"].contiguous(), plan["step"])
-        return (*striped_split_bounds(ctx["sv"], plan, self.fanout_sep, ctx["n"]), None)
+        return (*striped_split_bounds(ctx["sv"], plan, self.fanout_sep, ctx["n"], ctx["kmax"]),
+                None)
 
     def run(self, ctx: dict, valid: torch.Tensor, carries, base_ts: int, agg_ctx: dict):
         """Returns (valid bool[n], seg_state, carries, fan, vspan): ``fan``
@@ -1150,95 +1395,142 @@ class StripedChain:
         return valid, ctx["seg_state"], carries, fan, vspan
 
 
-def try_build_striped(programs, stages, s: int, v: int) -> Optional[StripedChain]:
-    """Striped lowering of the chain's resolved programs (the JAX package's
-    build rules); None when a stage is outside the stripeable subset (wide
-    batches then spill). ``stages`` are the executor's narrow stages, one a
-    program: an aggregate op reuses its stage, so the striped and narrow
-    paths share carry slots and scans.
+def try_build_striped(programs, stages, s: int, v: int, first: int = 0,
+                      why: Optional[list] = None) -> Optional[StripedChain]:
+    """Striped lowering of the chain's resolved programs from ``first`` on
+    (the JAX package's build rules); None when not even a prefix of them
+    stripes (wide batches then spill), the reason appended to ``why``.
+    ``stages`` are the executor's narrow stages, one a program: an
+    aggregate op reuses its stage, so the striped and narrow paths share
+    carry slots and scans.
 
     - aggregates only as a chain suffix; the first one's contribution is
       exact on the segment state, or a word count or a JsonGet integer
-      over a byte range, or after a span map a canned kind over the span
-      (`_striped_contribution`);
-    - a fan-out only last, a one-byte ``split`` or a JSON-array explode,
-      never after an aggregate or a span map;
+      over a byte range, or after a span map a canned kind over the span,
+      or a bytes value's leading integer (`_striped_contribution`);
+    - a fan-out only last, a ``split`` or a JSON-array explode, never
+      after an aggregate or a span map;
     - no filter after a span map, one span map a chain;
     - a map that rewrites the key, or whose value is neither a fold chain
       nor a JsonGet view, computes narrow columns (`_lower_computed_map`):
       never after a span map, and no filter or fan-out after it; its
       record reads are JsonGet fields, lengths and integer parses, never
-      the whole value.
+      the whole value;
+    - a comparison reads the record, a JsonGet field or the record's
+      leading integer as narrow columns (`_lower_striped_cmp`).
 
     Beyond the JAX package's rules it lowers the JSON-array explode, the
-    word count, the JsonGet contribution, an aggregate after a span map
-    and the computed map, which the JAX package spills to its
+    word count, the JsonGet contribution, an aggregate after a span map,
+    the computed map, a split on a separator of several bytes and a
+    comparison of the record's bytes, which the JAX package spills to its
     interpreter, and a regex of any DFA the compiler emits, where the JAX
-    package gates the states and classes for its TPU."""
-    chain = StripedChain()
-    span_src = None
-    try:
-        for index, (prog, stage) in enumerate(zip(programs, stages)):
-            if chain.fanout or (chain.has_agg and not isinstance(prog, dsl.AggregateProgram)):
-                raise Unlowerable("stage after a striped terminal stage")
-            if chain.computed and isinstance(prog, (dsl.FilterProgram, dsl.FilterMapProgram,
-                                                    dsl.ArrayMapProgram)):
-                raise Unlowerable("filter or fan-out after a striped computed map")
-            if isinstance(prog, dsl.FilterProgram):
-                if chain.has_span:
-                    # a later filter would read the extracted view, not the
-                    # stripe bytes the striped predicates scan
-                    raise Unlowerable("filter after a striped span map")
-                chain.ops.append(("filter", lower_striped_predicate(prog.predicate, s, v)))
-            elif isinstance(prog, (dsl.MapProgram, dsl.FilterMapProgram)):
-                if isinstance(prog, dsl.FilterMapProgram):
-                    if chain.has_span:
-                        raise Unlowerable("filter after a striped span map")
-                    chain.ops.append(("filter", lower_striped_predicate(prog.predicate, s, v)))
-                view = None
-                if prog.key is None and not chain.computed:
-                    try:
-                        view = _striped_view(prog.value)
-                    except Unlowerable:
-                        pass  # computed below
-                if view is None:
-                    if chain.has_span:
-                        raise Unlowerable("computed map after a striped span map")
-                    chain.ops.append(("computed", _lower_computed_map(prog, not chain.computed)))
-                    chain.computed = True
-                elif view[0] == "postops":
-                    if view[1] and not chain.has_span:
-                        # after a span map the stripe bytes are dead; the
-                        # fold applies on the host through `postops`
-                        chain.ops.append(("postops", view[1]))
-                    chain.postops += view[1]
-                else:
-                    _, key, pre, total = view
-                    if chain.has_span:
-                        raise Unlowerable("one striped span map per chain")
-                    chain.ops.append(("span", _make_span_fn(key, pre)))
-                    chain.has_span = True
-                    chain.postops += total
-                    span_src = (key, pre)
-            elif isinstance(prog, dsl.AggregateProgram):
-                # after a computed map the segment state is narrow and whole
-                contribution = None if chain.computed else _striped_contribution(
-                    prog, span_src, not chain.has_agg)
-                chain.ops.append(("agg", (stage, contribution)))
-                chain.has_agg = True
-            elif isinstance(prog, dsl.ArrayMapProgram):
-                if prog.mode == "json_array":
-                    chain.fanout_json = True
-                elif prog.mode != "split" or len(prog.sep) != 1:
-                    raise Unlowerable("striped split supports a one-byte separator only")
-                else:
-                    chain.fanout_sep = prog.sep[0]
-                if chain.has_agg or chain.has_span:
-                    raise Unlowerable("striped fan-out after an aggregate or a span map")
-                chain.ops.append(("fanout", None))
-                chain.fanout_stage = index
-            else:
-                raise Unlowerable(f"{type(prog).__name__} not stripeable")
-    except Unlowerable:
-        return None
+    package gates the states and classes for its TPU.
+
+    A chain refused at program ``i`` whose programs before ``i`` leave
+    narrow values (a span map, a computed map or an aggregate ran: every
+    value is a field, a computed column or a rendered integer) lowers as
+    that prefix, ``tail_from`` = i: the executor runs the rest over the
+    prefix's output (`GpuChainExecutor._hand_off`), on its narrow stages,
+    or, over fields past the stripe threshold, through this lowering again
+    from ``first`` = i.
+
+    The JAX package has no striped lowering for a chain with a tail, so
+    its wide batches take its interpreter: such a prefix, and any lowering
+    from ``first`` > 0, is lowered ``exact``, its comparisons and integer
+    contributions reading the whole record where the JAX package's
+    striped rule reads the first stripe."""
+    chain, span_src = StripedChain(), None
+    for index in range(first, len(programs)):
+        narrow = (chain.has_span or chain.computed or chain.has_agg) and not chain.fanout
+        try:
+            span_src = _build_step(chain, index, programs[index], stages[index], span_src,
+                                   s, v, exact=first > 0)
+        except Unlowerable as e:
+            refusal = f"program {index}: {e}"
+            if narrow:
+                try:
+                    return _build_prefix(programs, stages, first, index, s, v)
+                except Unlowerable as e2:
+                    refusal = f"{refusal}; its prefix, exact: {e2}"
+            if why is not None:
+                why.append(refusal)
+            return None
     return chain
+
+
+def _build_prefix(programs, stages, first: int, end: int, s: int, v: int) -> StripedChain:
+    """Programs ``first`` to ``end`` lowered ``exact``, with the narrow
+    tail from ``end``."""
+    chain, span_src = StripedChain(tail_from=end), None
+    for i in range(first, end):
+        span_src = _build_step(chain, i, programs[i], stages[i], span_src, s, v, exact=True)
+    return chain
+
+
+def _build_step(chain: StripedChain, index: int, prog, stage, span_src, s: int, v: int,
+                exact: bool = False):
+    """Append program ``index``'s striped ops to ``chain``; returns the
+    chain's span source. Raises `Unlowerable` where it does not stripe,
+    ``chain`` then perhaps extended in part (the caller rebuilds it,
+    `_build_prefix`)."""
+    if chain.fanout or (chain.has_agg and not isinstance(prog, dsl.AggregateProgram)):
+        raise Unlowerable("stage after a striped terminal stage")
+    if chain.computed and isinstance(prog, (dsl.FilterProgram, dsl.FilterMapProgram,
+                                            dsl.ArrayMapProgram)):
+        raise Unlowerable("filter or fan-out after a striped computed map")
+    if isinstance(prog, dsl.FilterProgram):
+        if chain.has_span:
+            # a later filter would read the extracted view, not the stripe
+            # bytes the striped predicates scan
+            raise Unlowerable("filter after a striped span map")
+        chain.ops.append(("filter", lower_striped_predicate(prog.predicate, s, v, exact)))
+    elif isinstance(prog, (dsl.MapProgram, dsl.FilterMapProgram)):
+        if isinstance(prog, dsl.FilterMapProgram):
+            if chain.has_span:
+                raise Unlowerable("filter after a striped span map")
+            chain.ops.append(("filter", lower_striped_predicate(prog.predicate, s, v, exact)))
+        view = None
+        if prog.key is None and not chain.computed:
+            try:
+                view = _striped_view(prog.value)
+            except Unlowerable:
+                pass  # computed below
+        if view is None:
+            if chain.has_span:
+                raise Unlowerable("computed map after a striped span map")
+            chain.ops.append(("computed", _lower_computed_map(prog, not chain.computed)))
+            chain.computed = True
+        elif view[0] == "postops":
+            if view[1] and not chain.has_span:
+                # after a span map the stripe bytes are dead; the fold
+                # applies on the host through `postops`
+                chain.ops.append(("postops", view[1]))
+            chain.postops += view[1]
+        else:
+            _, key, pre, total = view
+            if chain.has_span:
+                raise Unlowerable("one striped span map per chain")
+            chain.ops.append(("span", _make_span_fn(key, pre)))
+            chain.has_span = True
+            chain.postops += total
+            span_src = (key, pre)
+    elif isinstance(prog, dsl.AggregateProgram):
+        # after a computed map the segment state is narrow and whole
+        contribution = None if chain.computed else _striped_contribution(
+            prog, span_src, not chain.has_agg, exact)
+        chain.ops.append(("agg", (stage, contribution)))
+        chain.has_agg = True
+    elif isinstance(prog, dsl.ArrayMapProgram):
+        if chain.has_agg or chain.has_span:
+            raise Unlowerable("striped fan-out after an aggregate or a span map")
+        if prog.mode == "json_array":
+            chain.fanout_json = True
+        elif prog.mode != "split" or not prog.sep:
+            raise Unlowerable(f"striped array_map mode {prog.mode}")
+        else:
+            chain.fanout_sep = bytes(prog.sep)
+        chain.ops.append(("fanout", None))
+        chain.fanout_stage = index
+    else:
+        raise Unlowerable(f"{type(prog).__name__} not stripeable")
+    return span_src

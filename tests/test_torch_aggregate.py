@@ -20,6 +20,8 @@ from fluvio_tpu.smartengine import SmartModuleConfig as RefConfig
 from fluvio_tpu.models import lookup as ref_lookup
 from fluvio_tpu.smartengine.tpu import kernels as ref_kernels
 from fluvio_tpu.smartengine.tpu.executor import TpuChainExecutor
+from fluvio_tpu.protocol.record import Record
+from fluvio_tpu.smartmodule.types import SmartModuleInput as RefInput
 from fluvio_tpu.telemetry import TELEMETRY
 from fluvio_tpu_torch.models import lookup
 from fluvio_tpu_torch.smartengine import EngineError, SmartEngine, SmartModuleConfig
@@ -30,6 +32,7 @@ from tests.test_torch_chain import (
     _assert_equal,
     _module_pair,
     _port_buffer,
+    _process_both,
     _ref_buffer,
 )
 from tests.test_torch_isolation import gen_json
@@ -320,17 +323,19 @@ def test_delta_tiers_and_the_reference_delta_fault():
 
 def test_try_build_refuses_what_the_reference_refuses():
     """The reference's rules: a windowed aggregate after an array_map, an
-    unknown combine, a contribution that is no int. The port's lowering
-    refuses each as one fused chain; the engine refuses a single module
-    outside it, and cuts the explode and the windowed aggregate into two
-    card segments (`engine.cut_card_runs`)."""
+    unknown combine or kind. The port's lowering refuses each as one fused
+    chain; the engine refuses a single module outside it, and cuts the
+    explode and the windowed aggregate into two card segments
+    (`engine.cut_card_runs`). A bytes contribution, once refused, reads
+    as its leading integer (the JAX native backend's rule): equal to the
+    JAX engine at ``backend="auto"``. For the unknown kind and combine
+    (ROADMAP 3) the JAX native backend gives 0 for every ``median_int``
+    record and raises on ``mul``; its interpreter raises on both."""
     cases = [
         ["array-map-json", ("aggregate", lambda d: d.AggregateProgram(
             kind="count", window_ms=100))],
         [("aggregate", lambda d: d.AggregateProgram(
             contribution=d.Len(arg=d.Value()), combine="mul"))],
-        [("aggregate", lambda d: d.AggregateProgram(
-            contribution=d.Upper(arg=d.Value()), combine="add"))],
         [("aggregate", lambda d: d.AggregateProgram(kind="median_int"))],
     ]
     for case in cases:
@@ -353,3 +358,30 @@ def test_try_build_refuses_what_the_reference_refuses():
             continue
         with pytest.raises(EngineError):
             pb.initialize()
+        # what each JAX backend does with the same module
+        docs = [b"12", b"7", b'{"n":3}']
+        for backend in ("auto", "python"):
+            ref_chain = RefEngine(backend=backend).builder().add_smart_module(
+                RefConfig(), ref_entries[0][0]).initialize()
+            ref_in = RefInput.from_records([Record(value=v, offset_delta=i)
+                                            for i, v in enumerate(docs)])
+            if backend == "auto" and case is cases[2]:
+                assert [r.value for r in ref_chain.process(ref_in).successes] == [b"0"] * 3
+            else:
+                with pytest.raises(ValueError):
+                    ref_chain.process(ref_in)
+    upper = ("aggregate", lambda d: d.AggregateProgram(
+        contribution=d.Upper(arg=d.Value()), combine="add"))
+    ref_m, port_m = _module_pair(*upper)
+    assert TpuChainExecutor.try_build([(ref_m, RefConfig())]) is None
+    assert GpuChainExecutor.try_build([(port_m, SmartModuleConfig())],
+                                      torch.device("cpu")) is not None
+    ref_chain = RefEngine(backend="auto").builder().add_smart_module(
+        RefConfig(), ref_m).initialize()
+    port_chain = SmartEngine(device="cpu").builder().add_smart_module(
+        SmartModuleConfig(), port_m).initialize()
+    docs = [b"12", b" 5", b"1_0", b"+3", b"abc", b"-", b"9" * 20, b"\t4\n", b'{"n":3}']
+    ref_out, port_out = _process_both(ref_chain, port_chain, docs)
+    assert [r.value for r in port_out.successes] == [r.value for r in ref_out.successes]
+
+

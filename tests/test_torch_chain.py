@@ -199,11 +199,13 @@ def test_reference_executor_chains():
 
 
 def test_unported_kinds_spill():
-    """What the port still spills or refuses: a batch of a key-rewriting
-    map wider than the narrow layout (no striped lowering) spills at
-    dispatch, and an expression outside the lowering (``IntToBytes`` of
-    bytes, a comparison of bytes) makes no chain. A word count's wide batch
-    runs striped (its tokens counted once across the stripes' overlap)."""
+    """What the port still spills: a batch of a map that keeps the whole
+    record beside a rewritten key, wider than the narrow layout (no
+    striped lowering), spills at dispatch. A word count's wide batch runs
+    striped (its tokens counted once across the stripes' overlap). An
+    ``IntToBytes`` of bytes and a comparison of bytes, once refused, run:
+    each equal to the JAX engine at ``backend="auto"`` (its native
+    backend; its interpreter raises on some of these inputs, ROADMAP 3)."""
     wide = _port_buffer(_ref_buffer([b"1"]))
     wide.values = np.zeros((8, (1 << 16) + 32), dtype=np.uint8)
     rekey = ("map", lambda d: d.MapProgram(value=d.Value(), key=d.Upper(arg=d.Key())))
@@ -216,15 +218,22 @@ def test_unported_kinds_spill():
     _, port_m = _module_pair(*agg)
     chain = SmartEngine(device="cpu").builder().add_smart_module(SmartModuleConfig(), port_m).initialize().gpu_chain
     assert chain.process_buffer(wide).value_list() == [b"%d" % len(b"\0".split())]
-    for kind, prog in (
-        (SmartModuleKind.MAP, dsl.MapProgram(value=dsl.IntToBytes(arg=dsl.Value()))),
-        (SmartModuleKind.FILTER, dsl.FilterProgram(
-            predicate=dsl.Cmp(cmp="eq", left=dsl.Value(), right=dsl.Key()))),
+    values = [b"12", b"7", b"abc", b" 5", b"1_0", b"-3", b"9" * 20, b"\xff", b"ab"]
+    keys = [b"7", b"7", b"abd", b"5", b"10", b"-3", b"1", b"\x7f", b"abc"]
+    for kind, build, want in (
+        ("map", lambda d: d.MapProgram(value=d.IntToBytes(arg=d.Value())),
+         [b"12", b"7", b"0", b"5", b"1", b"-3", b"%d" % ((int(b"9" * 20) + (1 << 63)) % (1 << 64) - (1 << 63)), b"0", b"0"]),
+        ("filter", lambda d: d.FilterProgram(
+            predicate=d.Cmp(cmp="eq", left=d.Value(), right=d.Key())), [b"7", b"-3"]),
     ):
-        with pytest.raises(EngineError):
-            SmartEngine(device="cpu").builder().add_smart_module(
-                SmartModuleConfig(), SmartModuleDef(dsl={kind: prog})
-            ).initialize()
+        ref_m, port_m = _module_pair(kind, build)
+        ref_chain = RefEngine(backend="auto").builder().add_smart_module(
+            RefConfig(), ref_m).initialize()
+        port_chain = SmartEngine(device="cpu").builder().add_smart_module(
+            SmartModuleConfig(), port_m).initialize()
+        ref_out, port_out = _process_both(ref_chain, port_chain, values, keys=keys)
+        assert [r.value for r in port_out.successes] == [r.value for r in ref_out.successes]
+        assert [r.value for r in port_out.successes] == want
 
 
 def test_stream_delivers_the_batch_before_a_failed_dispatch():
@@ -289,16 +298,18 @@ def _cut_chains(names, backend="auto", params=None):
     return rb.initialize(), pb.initialize()
 
 
-def _process_both(ref_chain, port_chain, values, base_offset=100, base_ts=5000, ts=None):
+def _process_both(ref_chain, port_chain, values, base_offset=100, base_ts=5000, ts=None,
+                  keys=None):
     from fluvio_tpu_torch.protocol.record import Record as PortRecord
     from fluvio_tpu_torch.smartmodule.types import SmartModuleInput
 
     ts = ts or [0] * len(values)
+    keys = keys or [None] * len(values)
     ref_out = ref_chain.process(RefInput.from_records(
-        [Record(value=v, offset_delta=i, timestamp_delta=ts[i]) for i, v in enumerate(values)],
-        base_offset=base_offset, base_timestamp=base_ts))
+        [Record(value=v, key=keys[i], offset_delta=i, timestamp_delta=ts[i])
+         for i, v in enumerate(values)], base_offset=base_offset, base_timestamp=base_ts))
     port_out = port_chain.process(SmartModuleInput.from_records(
-        [PortRecord(value=v, offset_delta=i, timestamp_delta=ts[i])
+        [PortRecord(value=v, key=keys[i], offset_delta=i, timestamp_delta=ts[i])
          for i, v in enumerate(values)], base_offset=base_offset, base_timestamp=base_ts))
     return ref_out, port_out
 

@@ -2083,3 +2083,82 @@ def test_wide_chains_on_the_card():
             ([(rekey, {})], fields)):
         card = run("cuda", specs, values)
         assert card == run("cpu", specs, values) and card[0]
+
+
+@pytest.mark.cuda
+def test_wide_tails_on_the_card():
+    """Phase 24 of the smoke at a small size, on 64-byte stripes: chains
+    whose striped prefix hands its output to a narrow tail (a regex filter
+    and a computed map after a span map, a regex filter after a re-key, a
+    split of an aggregate's decimals) or, over fields past the threshold,
+    runs the tail striped again, splits on separators of several bytes,
+    and a comparison of bytes give on the card the outputs and keys they
+    give on the CPU, each tail pass on the card launching its kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    from fluvio_tpu_torch.models import lookup
+    from fluvio_tpu_torch.smartengine import SmartEngine, SmartModuleConfig, StripeParams
+    from fluvio_tpu_torch.smartengine.gpu import cuda_kernels
+    from fluvio_tpu_torch.smartengine.gpu.buffer import RecordBuffer
+    from fluvio_tpu_torch.smartmodule import dsl
+    from fluvio_tpu_torch.smartmodule.sdk import SmartModuleDef
+    from fluvio_tpu_torch.smartmodule.types import SmartModuleKind
+
+    params = StripeParams(threshold=64, width=64, overlap=16)
+
+    def module(kind, prog):
+        def make():
+            m = SmartModuleDef(name="adhoc")
+            m.dsl[kind] = prog
+            return m
+        return make
+
+    name = dsl.JsonGet(arg=dsl.Value(), key="name")
+    meta = module(SmartModuleKind.MAP, dsl.MapProgram(value=dsl.JsonGet(arg=dsl.Value(),
+                                                                         key="meta")))
+    computed = module(SmartModuleKind.MAP, dsl.MapProgram(
+        value=dsl.Concat(args=[dsl.Upper(arg=name), dsl.Const(data=b"#"),
+                               dsl.IntToBytes(arg=dsl.JsonGet(arg=dsl.Value(), key="n"))]),
+        key=name))
+    rekey = module(SmartModuleKind.MAP, dsl.MapProgram(
+        value=dsl.JsonGet(arg=dsl.Value(), key="meta"), key=dsl.JsonGet(arg=dsl.Value(), key="z")))
+
+    def split(sep):
+        return module(SmartModuleKind.ARRAY_MAP, dsl.ArrayMapProgram(mode="split", sep=sep))
+
+    cmp = module(SmartModuleKind.FILTER, dsl.FilterProgram(predicate=dsl.Cmp(
+        cmp="lt", left=dsl.Value(), right=dsl.Const(data=b"m" + b"\x80" * 70))))
+
+    def run(device, specs, values):
+        b = SmartEngine(device=device, stripes=params).builder()
+        for spec, p in specs:
+            b.add_smart_module(SmartModuleConfig(params=p),
+                               lookup(spec) if isinstance(spec, str) else spec())
+        chain = b.initialize().gpu_chain
+        cuda_kernels.reset_launches()
+        out = chain.process_buffer(RecordBuffer.from_values(values))
+        return ((out.value_list(), out.key_list()), (chain.tail_batches, chain.field_tail_batches),
+                dict(cuda_kernels.LAUNCHES))
+
+    metas = [b'{"pad":"%s","meta":{"name":"%s-%d","n":%d},"z":1}' % (
+        b"p" * (9 * i), (b"fluvio", b"kafka", b"fluVio")[i % 3], i, i * 7 - 50)
+        for i in range(30)]
+    numbers = [b" " * (5 * i) + b"%d2" % i + b"x" * 70 for i in range(20)]
+    lines = [b"ab\r\naa" * i + b"aaa" * (20 - i) + b"\r\n" for i in range(20)]
+    wide_metas = [m.replace(b'"meta":{', b'"meta":{"q":"%s",' % (b"q" * (4 * i + 60)))
+                  for i, m in enumerate(metas)]
+    for specs, values, tail in (
+            ([(meta, {}), ("regex-filter", {"regex": "flu[vV]io-[0-9]"})], metas, ("dfa_scan",)),
+            ([(meta, {}), (computed, {})], metas, ("json_span", "extract")),
+            ([(rekey, {}), ("regex-filter", {"regex": "flu[vV]io-2"})], metas, ("dfa_scan",)),
+            ([("aggregate-sum", {}), (split(b"2"), {})], numbers, ()),
+            ([(meta, {}), ("regex-filter", {"regex": "flu[vV]io-[0-9]"})], wide_metas,
+             ("dfa_compose", "json_span_striped")),
+            ([(split(b"\r\n"), {})], lines, None),
+            ([(split(b"aa"), {})], lines, None),
+            ([(cmp, {})], metas + [b"m" + b"\x80" * 80, b"m" + b"\x7f" * 80], None)):
+        card, passes, launches = run("cuda", specs, values)
+        assert card == run("cpu", specs, values)[0] and card[0]
+        rung = int(values is wide_metas)  # the tail ran striped over the meta objects
+        assert passes == ((0, 0) if tail is None else (1, rung))
+        assert all(launches[k] >= 1 for k in tail or ())

@@ -331,8 +331,12 @@ def test_record_codec_build_failure_raises(monkeypatch, tmp_path):
 
 _DELTAS = st.one_of(st.integers(-70, 70), st.integers(-(1 << 63), (1 << 63) - 1),
                     st.sampled_from([8191, 8192, -8192, 1 << 20]))
-_FIELD = st.one_of(st.binary(max_size=8), st.binary(min_size=60, max_size=70),
-                   st.binary(min_size=8180, max_size=8200))
+# fields of 8,180-8,200 bytes, built from a small draw (a seed string
+# repeated to a drawn length): drawing them whole can overrun hypothesis's
+# draw buffer (``data_too_large``)
+_WIDE_FIELD = st.tuples(st.binary(min_size=1, max_size=16), st.integers(8180, 8200)).map(
+    lambda t: (t[0] * (t[1] // len(t[0]) + 1))[:t[1]])
+_FIELD = st.one_of(st.binary(max_size=8), st.binary(min_size=60, max_size=70), _WIDE_FIELD)
 _RECORDS = st.lists(st.tuples(_FIELD, st.one_of(st.none(), _FIELD), st.integers(-128, 127),
                               _DELTAS, _DELTAS), max_size=5)
 
